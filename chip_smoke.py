@@ -1,5 +1,6 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
-and drive the Z3 bbox+time path end to end on one CUDA card.
+and drive the Z3 bbox+time path and the standing-query stream end to end on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,15 +10,28 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. ``batched_count`` against ``batched_count_plain`` on the card, exact, at
    ragged N, a base/true_n tail, Q in {1, 64, one past the shared-memory
    tile}, (B, T) in {(1, 1), (8, 16)}, sentinel padding and a disjoint query;
+2b. ``batched_count_hits`` against ``batched_count_hits_plain`` on the card,
+   exact (counts and lane positions), at N in {1,000,003, 1,000,064}, a
+   base/true_n tail, Q in {1, 64, one past its tile}, (B, T) in {(1, 1),
+   (2, 2), (8, 16)}, sentinel padding and a disjoint query;
 3. the main path at bench config 2's size: 50M GDELT-shaped points (seed 42),
    ``DataStore()`` → ``create_schema`` → ``write`` → ``compact``, the 64
    city-box 2-7 day queries (seed 7) through ``count_many(loose=True)``
    against an int-domain numpy referee, and 8 of them through
    ``count_many(loose=False)`` and ``query()`` against an f64 numpy brute
-   force (counts and fid sets); then timings.
+   force (counts and fid sets); then timings;
+4. the standing-query stream at bench config 8's width (``bench.py:1280``):
+   64 city boxes (seed 7) packed one slot each, one full-span time window,
+   on a ``SubscriptionMatrix(box_slots=1, time_slots=1, topk=128)``; 17
+   chunks of 60M rows (16 B/row) from config 8's generator, first through
+   an untimed referee (``batched_count_hits_plain`` on the card), then timed
+   through ``DeviceStreamScanner(chunk_rows=60M, max_pending_chunks=2)``
+   fed by a producer thread; every delivered count and position must equal
+   the referee's, with no scan or callback error; then a churn leg
+   (unsubscribe, resubscribe, one more chunk) at unchanged capacity.
 
-The last lines are the kernel record (JSON), the card's name and power limit
-as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernel records (JSON), the card's name and power
+limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -33,6 +48,9 @@ N_ROWS = 50_000_000
 N_QUERIES = 64
 N_EXACT = 8
 ITERS = 10
+STREAM_ROWS = 60_000_000  # bench config 8's chunk on an accelerator
+STREAM_CHUNKS = 17  # 1.02B rows, config 8's accelerator total
+STREAM_TOPK = 128
 DAY_MS = 86_400_000
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # int32 ALU rate: the data sheet's 67 TFLOP/s float32 (non-tensor) counts an
@@ -93,37 +111,45 @@ def random_payload(rng, q: int, nb: int, nt: int, n_bins: int):
             np.ascontiguousarray(np.stack(times)))
 
 
-def check_kernel_shapes(device) -> int:
-    """Phase 2: kernel vs plain version, exact. Returns max |difference|."""
+def check_shapes(device, name: str, ns, slot_pairs, seed: int) -> int:
+    """Phases 2 and 2b: kernel ``name`` vs its plain version, exact, at each
+    N in ``ns``, (B, T) in ``slot_pairs``, Q in {1, 64, one past the
+    kernel's shared-memory tile}, with and without a base/true_n tail.
+    Returns max |difference| over every output."""
     import torch
 
-    from geomesa_tpu_torch.ops.kernels import batched_count, batched_count_plain, q_tile_for
+    from geomesa_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(11)
-    n = 1_000_003  # not a multiple of the block
+    kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    rng = np.random.default_rng(seed)
     n_bins = 40
-    cols = [
-        torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(device),
-        torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(device),
-        torch.from_numpy(rng.integers(0, n_bins, n).astype(np.int32)).to(device),
-        torch.from_numpy(rng.integers(0, DAY_MS, n).astype(np.int32)).to(device),
-    ]
     worst = 0
-    for nb, nt in ((1, 1), (8, 16)):
-        for q in (1, 64, q_tile_for(nb, nt) + 1):
-            for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
-                b, t = random_payload(rng, q, nb, nt, n_bins)
-                boxes = torch.from_numpy(b).to(device)
-                times = torch.from_numpy(t).to(device)
-                got = batched_count(*cols, base, true_n, boxes, times)
-                want = batched_count_plain(*cols, base, true_n, boxes, times)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                worst = max(worst, err)
-                log(f"  shape N={n} Q={q} B={nb} T={nt} base={base} "
-                    f"true_n={true_n}: max_abs_err={err}")
-                if err != 0:
-                    raise AssertionError(f"batched_count disagrees with plain at Q={q} B={nb} T={nt}")
+    for n in ns:
+        cols = [
+            torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(0, n_bins, n).astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(0, DAY_MS, n).astype(np.int32)).to(device),
+        ]
+        for nb, nt in slot_pairs:
+            for q in (1, 64, kernels.q_tile_for(nb, nt, kernel=name) + 1):
+                for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
+                    b, t = random_payload(rng, q, nb, nt, n_bins)
+                    boxes = torch.from_numpy(b).to(device)
+                    times = torch.from_numpy(t).to(device)
+                    got = kernel(*cols, base, true_n, boxes, times)
+                    want = plain(*cols, base, true_n, boxes, times)
+                    torch.cuda.synchronize()
+                    if isinstance(got, torch.Tensor):
+                        got, want = (got,), (want,)
+                    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+                    worst = max(worst, err)
+                    log(f"  {name} N={n} Q={q} B={nb} T={nt} base={base} "
+                        f"true_n={true_n}: max_abs_err={err} "
+                        f"(matches {int(want[0].long().sum())})")
+                    if err != 0:
+                        raise AssertionError(
+                            f"{name} disagrees with plain at N={n} Q={q} B={nb} T={nt}")
     return worst
 
 
@@ -160,6 +186,26 @@ def predicate_floor_ops(x, y, bins, offs, boxes, times):
         in_time_total += ntime
         matches += int((in_box & in_time).sum())
     return ops, in_box_total, in_time_total, matches
+
+
+def hits_floor(x, y, bins, offs, boxes, times):
+    """The least work of ``batched_count_hits`` on these inputs: the
+    predicate's (:func:`predicate_floor_ops`) plus one compare per matched
+    (row, query) for the lane maximum; bytes are the columns, the payload,
+    and the (Q, 128) lane scoreboard read and written once. Returns
+    (ops, bytes, in-box row-queries, matches)."""
+    ops, in_box, _, matches = predicate_floor_ops(x, y, bins, offs, boxes, times)
+    q = boxes.shape[0]
+    nbytes = 16 * x.shape[0] + 4 * (boxes.numel() + times.numel()) + 2 * q * 128 * 4 + 4 * q
+    return ops + matches, nbytes, in_box, matches
+
+
+def bound_fields(ops: int, nbytes: int) -> dict:
+    """``bound_ms``/``bound_by`` of a kernel record from its least work."""
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def day_slabs(bins: np.ndarray):
@@ -204,13 +250,11 @@ def f64_referee(lon, lat, t, box, window, slabs):
     return rows[m]
 
 
-def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
-         n_exact: int = N_EXACT, iters: int = ITERS) -> dict:
-    """Run every phase; returns the kernel record. ``device=None`` is the
-    card; a rehearsal may pass ``"cpu"`` (phases needing the card skip)."""
+def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
+            iters: int) -> dict:
+    """Phase 3: the Z3 bbox+time main path; returns the batched_count record."""
     import torch
 
-    from geomesa_tpu_torch.device import resolve_device
     from geomesa_tpu_torch.filter.bounds import extract
     from geomesa_tpu_torch.filter.cql import parse
     from geomesa_tpu_torch.ops import kernels
@@ -220,22 +264,7 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     from geomesa_tpu_torch.store.datastore import DataStore
     from geomesa_tpu_torch.workload import SPEC, bbox_time_cql, make_queries, synth_gdelt
 
-    dev = resolve_device(device)
     on_card = dev.type == "cuda"
-
-    # -- phase 1: build ---------------------------------------------------------
-    if on_card:
-        t0 = time.perf_counter()
-        built = kernels.build_kernels()
-        log(f"phase build: {time.perf_counter() - t0:.3f} s for {sorted(built)}")
-        log(f"card: {gpu_name_power()}")
-
-    # -- phase 2: kernel vs plain at the listed shapes --------------------------
-    max_err = check_kernel_shapes(dev) if on_card else 0
-    if on_card:
-        log(f"phase kernel-vs-plain: ok, max_abs_err={max_err}")
-
-    # -- phase 3: the main path -------------------------------------------------
     t0 = time.perf_counter()
     lon, lat, t = synth_gdelt(n_rows, seed=42)
     fids = np.arange(n_rows).astype("U9")
@@ -247,7 +276,7 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         torch.cuda.reset_peak_memory_stats()
     for k in kernels.launches:
         kernels.launches[k] = 0
-    ds = DataStore(device=device)
+    ds = DataStore(device=dev)
     sft = ds.create_schema("gdelt", SPEC)
     table = FeatureTable.from_columns(sft, fids, {
         "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)})
@@ -327,13 +356,8 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         if matches != int(plain.long().sum()):
             raise AssertionError("live-slot count of the bound disagrees with the plain version")
         nbytes = 16 * n + 4 * boxes.numel() + 4 * times.numel() + 4 * q
-        ops_ms = ops / INT32_OPS_PER_S * 1e3
-        bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
-        record.update(
-            max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        )
+        record.update(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
+                      **bound_fields(ops, nbytes))
         log(f"phase kernel timing: {kernel_ms:.4f} ms at N={n} Q={q} B={nb} T={nt}; "
             f"plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
             f"({record['bound_by']}: {ops} int32 ops; {in_box} in-box and {in_time} "
@@ -342,14 +366,219 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     return record
 
 
+def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -> dict:
+    """Phase 4: the standing-query stream at bench config 8's width; returns
+    the batched_count_hits record."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import batched_count_hits, batched_count_hits_plain
+    from geomesa_tpu_torch.stream.matrix import SubscriptionMatrix
+    from geomesa_tpu_torch.stream.pipeline import DeviceStreamScanner
+    from geomesa_tpu_torch.workload import (
+        STREAM_MAX_OFF, make_queries, pack_query_boxes, stream_chunk)
+
+    on_card = dev.type == "cuda"
+    qboxes = pack_query_boxes(make_queries(n_queries)[0])
+    full_window = np.array([[0, 0, n_chunks, STREAM_MAX_OFF]], np.int32)
+    matrix = SubscriptionMatrix(device=dev, box_slots=1, time_slots=1, topk=STREAM_TOPK)
+    delivered: dict[int, dict] = {}  # chunk seq → {query: (count, positions)}
+
+    def on_hits(qi):
+        def cb(batch):
+            delivered.setdefault(batch.chunk, {})[qi] = (batch.count, batch.positions)
+        return cb
+
+    sids = [matrix.subscribe_packed(qboxes[i], full_window, on_hits(i))
+            for i in range(n_queries)]
+    snap = matrix.snapshot()
+    slot_of = [snap.sids.index(sid) for sid in sids]
+
+    # -- referee (untimed): the plain version on the card, every chunk ---------
+    t0 = time.perf_counter()
+    expected = []  # per chunk: (counts (Q,), newest-first positions per query)
+    for c in range(n_chunks):
+        cols = [torch.from_numpy(a).to(dev) for a in stream_chunk(c, n_rows)]
+        counts, lane_pos = batched_count_hits_plain(
+            *cols, 0, n_rows, snap.boxes_dev, snap.times_dev)
+        counts, lane_pos = counts.cpu().numpy(), lane_pos.cpu().numpy()
+        expected.append((
+            [int(counts[s]) for s in slot_of],
+            [np.sort(lane_pos[s][lane_pos[s] >= 0])[::-1].astype(np.int64) for s in slot_of],
+        ))
+    del cols
+    log(f"phase stream referee: {time.perf_counter() - t0:.3f} s for {n_chunks} chunks "
+        f"of {n_rows} rows ({sum(sum(e[0]) for e in expected)} matches)")
+
+    def check_chunk(seq: int, c: int) -> int:
+        """Deliveries of chunk ``seq`` (holding generator chunk ``c``) against
+        the referee; a missing delivery counts as 0. Returns max |error|."""
+        got = delivered.get(seq, {})
+        want_counts, want_pos = expected[c]
+        worst = 0
+        for qi in range(n_queries):
+            count, pos = got.get(qi, (0, np.empty(0, np.int64)))
+            worst = max(worst, abs(count - want_counts[qi]))
+            want = np.int64(seq) * n_rows + want_pos[qi]
+            if len(pos) != len(want) or not np.array_equal(pos, want):
+                raise AssertionError(f"stream chunk {seq} query {qi}: positions differ "
+                                     "from the referee's top-k")
+        if worst:
+            raise AssertionError(f"stream chunk {seq}: counts differ from the referee by {worst}")
+        return worst
+
+    # -- the timed pipeline: producer thread → bounded queue → scanner ---------
+    scanner = DeviceStreamScanner(matrix, chunk_rows=n_rows, max_pending_chunks=2,
+                                  keep_tags=False)
+    if scanner.chunk_rows != n_rows:
+        raise AssertionError("stream chunk rows must be a multiple of 128")
+    produced = {"busy_s": 0.0, "error": None}
+
+    def producer():
+        try:
+            for c in range(n_chunks):
+                t = time.perf_counter()
+                cols = stream_chunk(c, n_rows)
+                produced["busy_s"] += time.perf_counter() - t
+                if not scanner.submit_chunk(*cols, block=True):
+                    raise RuntimeError("scanner refused a chunk")
+        except BaseException as e:  # re-raised on the main thread
+            produced["error"] = e
+
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels.launches:
+            kernels.launches[k] = 0
+        prod = threading.Thread(target=producer, name="stream-producer", daemon=True)
+        t_pipe = time.perf_counter()
+        prod.start()
+        prod.join(timeout=600.0)
+        if prod.is_alive():
+            raise AssertionError(f"the producer is still blocked after 600 s: "
+                                 f"{scanner.stats()}\n{scanner.last_error}")
+        drained = scanner.drain(timeout_s=300.0)
+        pipeline_s = time.perf_counter() - t_pipe
+        launched = dict(kernels.launches)
+        stats = scanner.stats()
+        if produced["error"] is not None:
+            raise produced["error"]
+        if not drained:
+            raise AssertionError(f"stream drain timed out: {stats}\n{scanner.last_error}")
+        if stats["scan_errors"] or stats["callback_errors"]:
+            raise AssertionError(f"stream errors {stats}:\n{scanner.last_error}")
+        log(f"phase stream launches: {launched}")
+        if on_card and launched["batched_count_hits"] < n_chunks:
+            raise AssertionError("the scanner did not launch batched_count_hits per chunk")
+        worst = max(check_chunk(c, c) for c in range(n_chunks))
+        total_rows = n_rows * n_chunks
+        wait_s = stats["transfer_wait_s"]
+        log(f"phase stream pipeline: {pipeline_s:.3f} s for {total_rows} rows x {n_queries} "
+            f"queries: {total_rows / pipeline_s:.1f} rows/s, "
+            f"{total_rows * n_queries / pipeline_s:.1f} row-queries/s end to end")
+        log(f"phase stream transfer: transfer_wait_s {wait_s:.6f} "
+            f"({wait_s / pipeline_s:.6f} of wall); h2d {stats['h2d_bytes']} bytes, "
+            f"{stats['h2d_bytes'] / pipeline_s / 1e9:.3f} GB/s effective; scanner scan_s "
+            f"{stats['scan_s']:.3f} over {stats['chunks']} chunks; producer busy "
+            f"{produced['busy_s']:.3f} s; {stats['deliveries']} deliveries")
+        if on_card:
+            log(f"phase stream memory: max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated()} bytes")
+
+        # -- churn (untimed): unsubscribe and resubscribe inside the bucket -----
+        cap = matrix.capacity()
+        matrix.unsubscribe(sids[-1])
+        sids[-1] = matrix.subscribe_packed(qboxes[-1], full_window, on_hits(n_queries - 1))
+        if matrix.capacity() != cap or matrix.snapshot().sids.index(sids[-1]) != slot_of[-1]:
+            raise AssertionError("churn inside the bucket moved the capacity or the slot")
+        cols = stream_chunk(0, n_rows)
+        t0 = time.perf_counter()
+        if not scanner.submit_chunk(*cols) or not scanner.drain(300.0):
+            raise AssertionError("churn chunk was not scanned")
+        churn_s = time.perf_counter() - t0
+        stats = scanner.stats()
+        if stats["scan_errors"] or stats["callback_errors"]:
+            raise AssertionError(f"stream errors in the churn leg {stats}:\n{scanner.last_error}")
+        worst = max(worst, check_chunk(n_chunks, 0))
+        log(f"phase stream churn: ok, capacity {cap}, chunk {n_chunks} equals the referee; "
+            f"submit to drain {churn_s:.3f} s for its {n_rows} rows, generation excluded")
+    finally:
+        scanner.close()
+
+    record = {"name": "batched_count_hits", "route": "cuda",
+              "source": "geomesa_tpu_torch/csrc/batched_count_hits.cu",
+              "replaces": "geomesa_tpu/ops/pallas_kernels.py:217",
+              "launches": launched["batched_count_hits"], "library_ms": None}
+    if on_card:
+        cols = [torch.from_numpy(a).to(dev) for a in stream_chunk(0, n_rows)]
+        args = (*cols, 0, n_rows, snap.boxes_dev, snap.times_dev)
+        got_c, got_p = batched_count_hits(*args)
+        want_c, want_p = batched_count_hits_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((got_c.long() - want_c.long()).abs().max()),
+                  int((got_p.long() - want_p.long()).abs().max()))
+        if err != 0:
+            raise AssertionError("batched_count_hits disagrees with plain at the stream shape")
+        kernel_ms = cuda_ms(lambda: batched_count_hits(*args), 5)
+        plain_ms = cuda_ms(lambda: batched_count_hits_plain(*args), 1)
+        ops, nbytes, in_box, matches = hits_floor(*cols, snap.boxes_dev, snap.times_dev)
+        if matches != int(want_c.long().sum()):
+            raise AssertionError("live-slot count of the bound disagrees with the plain version")
+        record.update(max_abs_err=max(max_err, worst, err), ms=kernel_ms, plain_ms=plain_ms,
+                      **bound_fields(ops, nbytes))
+        log(f"phase stream kernel timing: {kernel_ms:.4f} ms per chunk at N={n_rows} "
+            f"Q={snap.capacity} B=1 T=1; plain {plain_ms:.4f} ms; bound "
+            f"{record['bound_ms']:.4f} ms ({record['bound_by']}: {ops} int32 ops; "
+            f"{in_box} in-box row-queries; {matches} matches; {nbytes} bytes)")
+    return record
+
+
+def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
+         n_exact: int = N_EXACT, iters: int = ITERS, stream_rows: int = STREAM_ROWS,
+         stream_chunks: int = STREAM_CHUNKS) -> list[dict]:
+    """Run every phase; returns the kernel records. ``device=None`` is the
+    card; a rehearsal may pass ``"cpu"`` (phases needing the card skip)."""
+    from geomesa_tpu_torch.device import resolve_device
+    from geomesa_tpu_torch.ops import kernels
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+
+    # -- phase 1: build ---------------------------------------------------------
+    if on_card:
+        t0 = time.perf_counter()
+        built = kernels.build_kernels()
+        log(f"phase build: {time.perf_counter() - t0:.3f} s for {sorted(built)}")
+        log(f"card: {gpu_name_power()}")
+
+    # -- phases 2 and 2b: kernels vs plain at the listed shapes ------------------
+    count_err = hits_err = 0
+    if on_card:
+        t0 = time.perf_counter()
+        count_err = check_shapes(dev, "batched_count", (1_000_003,), ((1, 1), (8, 16)), 11)
+        log(f"phase kernel-vs-plain: ok, max_abs_err={count_err}")
+        hits_err = check_shapes(dev, "batched_count_hits", (1_000_003, 1_000_064),
+                                ((1, 1), (2, 2), (8, 16)), 12)
+        log(f"phase hits-vs-plain: ok, max_abs_err={hits_err} "
+            f"({time.perf_counter() - t0:.3f} s for phases 2 and 2b)")
+
+    # -- phase 3: the Z3 main path; phase 4: the stream --------------------------
+    records = [z3_path(dev, count_err, n_rows, n_queries, n_exact, iters)]
+    t0 = time.perf_counter()
+    records.append(stream_path(dev, hits_err, stream_rows, stream_chunks, n_queries))
+    log(f"phase stream: {time.perf_counter() - t0:.3f} s in all")
+    return records
+
+
 if __name__ == "__main__":
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    kernel_record = main()
-    print(json.dumps({"kernels": [kernel_record]}))
+    kernel_records = main()
+    print(json.dumps({"kernels": kernel_records}))
     print(gpu_name_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

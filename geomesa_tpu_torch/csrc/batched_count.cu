@@ -7,13 +7,8 @@
 // in no order, so each block keeps its partial counts in shared memory and
 // adds them into the (Q,) output with one int32 atomicAdd per (block, query).
 //
-// Row r (local position lpos) matches query q when
-//   ANY box slot k:  xlo <= x <= xhi  AND  ylo <= y <= yhi
-//   AND ANY time slot k:  (bin, off) >= (blo, olo)  AND  (bin, off) <= (bhi, ohi)
-//       (lexicographic, exactly as pallas_kernels.py:88-89)
-//   AND lpos < n  AND  base + lpos < true_n.
-// Every packed slot is evaluated, so the unsatisfiable padding sentinels of
-// ops/refine.py keep their meaning.
+// The row predicate is geomesa::match_rows in count_predicate.cuh, shared
+// with batched_count_hits.cu.
 //
 // Bound on an H100: integer compares, not bytes. The columns are 16 B/row
 // (0.24 ms for 50M rows at 3.35 TB/s), while the predicate needs at least 4
@@ -31,6 +26,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "count_predicate.cuh"
 
 namespace {
 
@@ -76,8 +73,7 @@ batched_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // rows valid for this slice: lpos < n and base + lpos < true_n
-  const int64_t limit = (true_n - base) < n ? (true_n - base) : n;
+  const int64_t limit = geomesa::valid_limit(n, base, true_n);
   const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
 
   for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
@@ -93,42 +89,11 @@ batched_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
       ro[r] = ok[r] ? offs[pos] : 0;
     }
     for (int qi = 0; qi < qt; ++qi) {
-      const int32_t* pb = s_pay + qi * per_q;
-      const int32_t* pt = pb + 4 * nb;
       bool m[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) m[r] = false;
-      for (int k = 0; k < nb; ++k) {
-        const int32_t xlo = pb[4 * k], xhi = pb[4 * k + 1];
-        const int32_t ylo = pb[4 * k + 2], yhi = pb[4 * k + 3];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          m[r] |= (rx[r] >= xlo) & (rx[r] <= xhi) & (ry[r] >= ylo) & (ry[r] <= yhi);
-      }
-      bool any_box = false;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        m[r] = m[r] && ok[r];
-        any_box |= m[r];
-      }
       int cnt = 0;
-      if (__any_sync(0xffffffffu, any_box)) {
-        bool t[ROWS];
+      if (geomesa::match_rows<ROWS>(s_pay + qi * per_q, nb, nt, rx, ry, rb, ro, ok, m)) {
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) t[r] = false;
-        for (int k = 0; k < nt; ++k) {
-          const int32_t blo = pt[4 * k], olo = pt[4 * k + 1];
-          const int32_t bhi = pt[4 * k + 2], ohi = pt[4 * k + 3];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const bool after = (rb[r] > blo) | ((rb[r] == blo) & (ro[r] >= olo));
-            const bool before = (rb[r] < bhi) | ((rb[r] == bhi) & (ro[r] <= ohi));
-            t[r] |= after & before;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          cnt += __popc(__ballot_sync(0xffffffffu, m[r] && t[r]));
+        for (int r = 0; r < ROWS; ++r) cnt += __popc(__ballot_sync(geomesa::FULL_WARP, m[r]));
       }
       if (lane == 0) s_cnt[warp * q_tile + qi] += cnt;
     }

@@ -12,17 +12,22 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda`` (raises when CUDA is unavailable); anything else
-    is taken as given (``"cpu"``, ``"cuda:1"``, a ``torch.device``)."""
+    """``None`` → the current CUDA card (raises when CUDA is unavailable);
+    anything else is taken as given (``"cpu"``, ``"cuda:1"``, a
+    ``torch.device``). A CUDA device always comes back with its index, so
+    it names one card from any thread."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available: pass device='cpu' explicitly to run "
                 "the port's plain PyTorch path on the CPU"
             )
-        return torch.device("cuda")
+        device = "cuda"
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 

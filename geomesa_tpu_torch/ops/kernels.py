@@ -8,11 +8,19 @@ queries over the resident int32 columns in one pass. Its source is
 per row, query and live slot, above the 16 B/row of column reads) and what
 the design does about it.
 
+``batched_count_hits`` replaces ``pallas_kernels.py:217``
+(``batched_count_hits`` → ``_count_hits_kernel`` :118): the same counts plus
+the newest matched global row per 128-row lane, the subscription matrix's
+fused scan. Its source is ``csrc/batched_count_hits.cu``. Both kernels run
+the one row predicate of ``csrc/count_predicate.cuh``.
+
 Build: every ``csrc/*.cu`` is compiled with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` into ``_build/`` (git-ignored) at
 first use, one ``nvcc`` per source, all started together, and loaded with
 ``ctypes`` (a plain C entry point, pointers and the stream as ``c_void_p``).
-Nothing is built at import.
+A library's name carries a digest of its source, every ``csrc/*.cuh`` and
+the flags, so an edit to a shared header rebuilds every kernel. Nothing is
+built at import.
 
 Dispatch: a CUDA tensor launches the kernel or raises (a build failure, a
 refused launch and a non-zero ``cudaGetLastError`` are all errors); the
@@ -38,7 +46,7 @@ BUILD = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"batched_count": 0}
+launches = {"batched_count": 0, "batched_count_hits": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -54,7 +62,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``src``: its name hashes the source, every
+    header under ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        digest.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
@@ -89,16 +102,18 @@ def _lib(stem: str) -> ctypes.CDLL:
         lib = _LIBS.get(stem)
         if lib is None:
             lib = ctypes.CDLL(str(build_kernels()[stem]))
-            if stem == "batched_count":
-                fn = lib.geomesa_batched_count
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
-                    ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-                lib.geomesa_batched_count_q_tile.argtypes = [ctypes.c_int] * 2
-                lib.geomesa_batched_count_q_tile.restype = ctypes.c_int
+            # (columns x4, n, base, true_n, boxes, times, q, nb, nt, sms,
+            #  outputs..., stream)
+            n_out = {"batched_count": 1, "batched_count_hits": 2}[stem]
+            fn = getattr(lib, f"geomesa_{stem}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ] + [ctypes.c_void_p] * (n_out + 1)
+            fn.restype = ctypes.c_int
+            tile = getattr(lib, f"geomesa_{stem}_q_tile")
+            tile.argtypes = [ctypes.c_int] * 2
+            tile.restype = ctypes.c_int
             _LIBS[stem] = lib
         return lib
 
@@ -108,11 +123,11 @@ def _lib(stem: str) -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
-def q_tile_for(box_slots: int, time_slots: int) -> int:
-    """Queries whose payload one block of the kernel stages in shared memory
-    at once (larger batches tile over Q). The launch geometry lives in
-    ``csrc/batched_count.cu`` alone; this asks the built library."""
-    return _lib("batched_count").geomesa_batched_count_q_tile(box_slots, time_slots)
+def q_tile_for(box_slots: int, time_slots: int, kernel: str = "batched_count") -> int:
+    """Queries whose payload one block of ``kernel`` stages in shared memory
+    at once (larger batches tile over Q). The launch geometry lives in the
+    kernel's ``.cu`` alone; this asks the built library."""
+    return getattr(_lib(kernel), f"geomesa_{kernel}_q_tile")(box_slots, time_slots)
 
 
 def _check_count_args(x, y, bins, offs, boxes, times):
@@ -137,6 +152,25 @@ def _check_count_args(x, y, bins, offs, boxes, times):
         raise ValueError("columns of 2^31 rows or more would overflow int32 counts")
 
 
+def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *outs):
+    """Launch ``stem``'s kernel on the current stream of the columns' card,
+    writing into the preallocated ``outs``; raises on a refused launch."""
+    q, nb, nt = boxes.shape[0], boxes.shape[1], times.shape[1]
+    n = x.shape[0]
+    if q == 0 or n == 0:
+        return
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    fn = getattr(_lib(stem), f"geomesa_{stem}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(),
+                n, int(base), int(true_n), boxes.data_ptr(), times.data_ptr(),
+                q, nb, nt, sms, *(o.data_ptr() for o in outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"{stem} launch failed: cudaError {rc}")
+    launches[stem] += 1
+
+
 def batched_count(x, y, bins, offs, base: int, true_n: int, boxes, times) -> torch.Tensor:
     """Q bbox+time count queries over one int32 column slice, one pass.
 
@@ -151,32 +185,17 @@ def batched_count(x, y, bins, offs, base: int, true_n: int, boxes, times) -> tor
         return batched_count_plain(x, y, bins, offs, base, true_n, boxes, times)
     if x.device.type != "cuda":
         raise ValueError(f"batched_count runs on cuda or cpu, not {x.device}")
-    q, nb, nt = boxes.shape[0], boxes.shape[1], times.shape[1]
-    n = x.shape[0]
-    out = torch.zeros(q, dtype=torch.int32, device=x.device)
-    if q == 0 or n == 0:
-        return out
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    fn = _lib("batched_count").geomesa_batched_count
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(),
-                n, int(base), int(true_n), boxes.data_ptr(), times.data_ptr(),
-                q, nb, nt, sms, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"batched_count launch failed: cudaError {rc}")
-    launches["batched_count"] += 1
+    out = torch.zeros(boxes.shape[0], dtype=torch.int32, device=x.device)
+    _launch("batched_count", x, y, bins, offs, base, true_n, boxes, times, out)
     return out
 
 
-def batched_count_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
-                        chunk: int = 1 << 20) -> torch.Tensor:
-    """The plain PyTorch version of :func:`batched_count`: the broadcast
+def _plain_masks(x, y, bins, offs, base: int, true_n: int, boxes, times, chunk: int):
+    """Yield ``(s, e, mask (Q, e - s) bool)`` over row chunks: the broadcast
     form of the reference's ``_batched_masks`` (``parallel/query.py:287``),
-    chunked over rows so the (Q, chunk) masks stay bounded."""
+    chunked so the (Q, chunk) masks stay bounded."""
     q = boxes.shape[0]
     n = x.shape[0]
-    counts = torch.zeros(q, dtype=torch.int64, device=x.device)
     for s in range(0, n, chunk):
         e = min(n, s + chunk)
         xi, yi = x[s:e][None, :], y[s:e][None, :]
@@ -193,5 +212,65 @@ def batched_count_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
             in_time |= after & before
         lpos = torch.arange(s, e, dtype=torch.int64, device=x.device)
         valid = (int(base) + lpos) < int(true_n)
-        counts += (in_box & in_time & valid[None, :]).sum(dim=1)
+        yield s, e, in_box & in_time & valid[None, :]
+
+
+def batched_count_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
+                        chunk: int = 1 << 20) -> torch.Tensor:
+    """The plain PyTorch version of :func:`batched_count`."""
+    counts = torch.zeros(boxes.shape[0], dtype=torch.int64, device=x.device)
+    for _, _, m in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
+        counts += m.sum(dim=1)
     return counts.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# batched_count_hits
+# ---------------------------------------------------------------------------
+
+LANES = 128  # lanes of the hit scoreboard: position residues mod 128
+
+
+def batched_count_hits(x, y, bins, offs, base: int, true_n: int, boxes, times):
+    """:func:`batched_count` plus the newest match per 128-row lane, one pass.
+
+    Same inputs and predicate as :func:`batched_count`. Returns ``(counts
+    (Q,) int32, lane_pos (Q, 128) int32)``: ``lane_pos[q, l]`` is the
+    greatest global position ``base + lpos`` of a row matching query ``q``
+    with ``lpos % 128 == l``, or -1 where that lane never matched.
+    """
+    _check_count_args(x, y, bins, offs, boxes, times)
+    if int(base) + x.shape[0] > 2**31 - 1:
+        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    if x.device.type == "cpu":
+        return batched_count_hits_plain(x, y, bins, offs, base, true_n, boxes, times)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_count_hits runs on cuda or cpu, not {x.device}")
+    q = boxes.shape[0]
+    counts = torch.zeros(q, dtype=torch.int32, device=x.device)
+    lane_pos = torch.full((q, LANES), -1, dtype=torch.int32, device=x.device)
+    _launch("batched_count_hits", x, y, bins, offs, base, true_n, boxes, times,
+            counts, lane_pos)
+    return counts, lane_pos
+
+
+def batched_count_hits_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
+                             chunk: int = 1 << 20):
+    """The plain PyTorch version of :func:`batched_count_hits`: the
+    reference's jnp path (``parallel/query.py:552-557``: mask,
+    ``where(m, gpos, -1)``, reshape ``(Q, n/128, 128)``, max over axis 1),
+    chunked over rows; ``chunk`` must be a multiple of 128."""
+    if chunk % LANES:
+        raise ValueError(f"chunk must be a multiple of {LANES}")
+    q = boxes.shape[0]
+    counts = torch.zeros(q, dtype=torch.int64, device=x.device)
+    lane_pos = torch.full((q, LANES), -1, dtype=torch.int64, device=x.device)
+    for s, e, m in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
+        counts += m.sum(dim=1)
+        gpos = torch.arange(int(base) + s, int(base) + e, dtype=torch.int64, device=x.device)
+        posq = torch.where(m, gpos[None, :], -1)
+        pad = -(e - s) % LANES
+        if pad:
+            posq = torch.nn.functional.pad(posq, (0, pad), value=-1)
+        lane_pos = torch.maximum(lane_pos, posq.reshape(q, -1, LANES).amax(dim=1))
+    return counts.to(torch.int32), lane_pos.to(torch.int32)

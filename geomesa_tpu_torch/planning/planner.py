@@ -6,6 +6,9 @@ index is z3: a temporally bounded filter scans the z3 index's intervals,
 anything else is a full scan of the sorted store. The cost model, stats and
 union plans of the reference stay out. The residual is always the full
 filter, so every plan is sound; the strategy only sizes the candidate set.
+
+:func:`standing_query_payload` decomposes a standing query into one row of
+the subscription matrix (``planner.py:572`` of the reference).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from geomesa_tpu_torch.filter.bounds import Extraction, extract
 from geomesa_tpu_torch.filter.cql import parse as parse_cql
 from geomesa_tpu_torch.index.api import DEFAULT_MAX_RANGES, IndexPlan
 from geomesa_tpu_torch.index.z3 import Z3Index
+from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
 from geomesa_tpu_torch.schema.sft import FeatureType
+from geomesa_tpu_torch.store.backends import int_boxes, time_quads
 
 FULL_SCAN = "full-scan"
 
@@ -81,3 +86,79 @@ class QueryPlanner:
             plan_ms=(time.perf_counter() - t0) * 1e3,
         )
         return plan, f, info
+
+
+def _standing_dimension(f, geom: str | None, dtg: str | None) -> str:
+    """Dimension tag (``space``/``time``/``both``/``all``/``none``) for a
+    filter the subscription matrix evaluates exactly in the int domain.
+
+    The matrix runs no residual filter after the device scan, so any clause
+    that bounds extraction would widen or drop (attribute predicates, NOT,
+    ORs that mix dimensions: the matrix evaluates ``(any box) AND (any
+    window)``) raises instead of over-delivering."""
+    if isinstance(f, ast.Include):
+        return "all"
+    if isinstance(f, ast.Exclude):
+        return "none"
+    if isinstance(f, ast.BBox) and f.prop == geom:
+        return "space"
+    if isinstance(f, (ast.During, ast.TempOp)) and f.prop == dtg:
+        return "time"
+    if isinstance(f, ast.Between) and f.prop == dtg:
+        return "time"
+    if (isinstance(f, ast.Compare) and f.prop == dtg
+            and f.op in ("=", "<", "<=", ">", ">=")):
+        return "time"
+    if isinstance(f, ast.And):
+        tags = [_standing_dimension(c, geom, dtg) for c in f.children]
+        if "none" in tags:
+            return "none"
+        tags = [t for t in tags if t != "all"]
+        if not tags:
+            return "all"
+        if all(t == "space" for t in tags):
+            return "space"
+        if all(t == "time" for t in tags):
+            return "time"
+        return "both"
+    if isinstance(f, ast.Or):
+        tags = [_standing_dimension(c, geom, dtg) for c in f.children]
+        if "all" in tags:
+            return "all"
+        tags = [t for t in tags if t != "none"]
+        if not tags:
+            return "none"
+        if all(t == "space" for t in tags):
+            return "space"
+        if all(t == "time" for t in tags):
+            return "time"
+        raise ValueError(
+            "standing queries cannot OR spatial with temporal clauses — "
+            "the matrix evaluates (any box) AND (any window), a strict "
+            f"superset of such a predicate: {f!r}"
+        )
+    raise ValueError(
+        "standing queries evaluate bbox + time-window predicates only; no "
+        f"residual filter runs after the device scan: unsupported clause {f!r}"
+    )
+
+
+def standing_query_payload(sft: FeatureType, predicate,
+                           box_slots: int = 2, time_slots: int = 2):
+    """Decompose a standing (bbox + time-window) query into one
+    subscription-matrix row: ``(boxes (box_slots, 4) int32, times
+    (time_slots, 4) int32)``, the packed int-domain encoding the count
+    kernels take. ``predicate`` is CQL text, a filter node or a
+    :class:`Query`. A provably disjoint predicate packs to the
+    unsatisfiable sentinel; a clause the matrix cannot evaluate exactly
+    raises ``ValueError``."""
+    q = predicate if isinstance(predicate, Query) else Query(filter=predicate)
+    f = q.resolved_filter()
+    _standing_dimension(f, sft.geom_field, sft.dtg_field)
+    e = extract(f, sft.geom_field, sft.dtg_field)
+    if e.disjoint:
+        return unsat_rows(box_slots, time_slots)
+    return (
+        pack_boxes(int_boxes(e.boxes), slots=box_slots),
+        pack_times(time_quads(sft, e.intervals), slots=time_slots),
+    )

@@ -89,6 +89,24 @@ def time_quads(sft: FeatureType, intervals) -> np.ndarray | None:
     return np.array([[1, 0, 0, -1]], dtype=np.int32)
 
 
+def int_boxes(boxes) -> np.ndarray | None:
+    """Extracted (x1, y1, x2, y2) degree boxes → (B, 4) [xlo, xhi, ylo, yhi]
+    int32 in the device columns' normalized domain; None stays None
+    (spatially unconstrained)."""
+    if boxes is None:
+        return None
+    nlon = norm_lon(REFINE_PRECISION)
+    nlat = norm_lat(REFINE_PRECISION)
+    return np.array(
+        [
+            [int(nlon.normalize(x1)), int(nlon.normalize(x2)),
+             int(nlat.normalize(y1)), int(nlat.normalize(y2))]
+            for x1, y1, x2, y2 in boxes
+        ],
+        dtype=np.int32,
+    )
+
+
 def device_columns(sft: FeatureType, table: FeatureTable, perm: np.ndarray):
     """The normalized int32 ``x/y/bins/offs`` host columns in ``perm`` order."""
     col = table.geom_column()
@@ -123,19 +141,7 @@ class DeviceBackend:
 
     def payload(self, sft: FeatureType, e: Extraction) -> tuple[np.ndarray, np.ndarray]:
         """Packed (MAX_BOXES, 4) boxes and (MAX_TIMES, 4) windows, int32."""
-        nlon = norm_lon(REFINE_PRECISION)
-        nlat = norm_lat(REFINE_PRECISION)
-        boxes = None
-        if e.boxes is not None:
-            boxes = np.array(
-                [
-                    [int(nlon.normalize(x1)), int(nlon.normalize(x2)),
-                     int(nlat.normalize(y1)), int(nlat.normalize(y2))]
-                    for x1, y1, x2, y2 in e.boxes
-                ],
-                dtype=np.int32,
-            )
-        return (np.ascontiguousarray(pack_boxes(boxes)),
+        return (np.ascontiguousarray(pack_boxes(int_boxes(e.boxes))),
                 np.ascontiguousarray(pack_times(time_quads(sft, e.intervals))))
 
     def select_positions(self, dev: IndexState, sft, e: Extraction,

@@ -1,8 +1,10 @@
-"""GDELT-shaped synthetic events and city-box queries (bench config 2's data).
+"""GDELT-shaped synthetic events and city-box queries (bench config 2's
+data), and bench config 8's streamed chunks.
 
-Port copies of ``bench.py``'s ``synth_gdelt`` and ``make_queries`` (a test
-holds them equal), plus :func:`bbox_time_cql`, which writes one query as the
-CQL a user would send.
+Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``,
+``_pack_query_boxes`` and config 8's ``host_chunk`` (tests hold them
+equal), plus :func:`bbox_time_cql`, which writes one query as the CQL a
+user would send.
 """
 
 from __future__ import annotations
@@ -10,6 +12,9 @@ from __future__ import annotations
 import datetime
 
 import numpy as np
+
+from geomesa_tpu_torch.ops.refine import pack_boxes
+from geomesa_tpu_torch.store.backends import int_boxes
 
 T0 = 1_498_867_200_000  # 2017-07-01, GDELT-era
 SPAN_DAYS = 30
@@ -72,3 +77,24 @@ def bbox_time_cql(box, window, geom: str = "geom", dtg: str = "dtg") -> str:
     lo, hi = window
     return (f"BBOX({geom}, {x1!r}, {y1!r}, {x2!r}, {y2!r}) AND "
             f"{dtg} DURING {iso_millis(lo)}/{iso_millis(hi)}")
+
+
+STREAM_MAX_OFF = 86_400_000 - 1  # PERIOD=DAY offsets; one chunk = one time bin
+
+
+def stream_chunk(c: int, n: int):
+    """Bench config 8's host chunk ``c`` of ``n`` rows (``bench.py:1313``):
+    uniform int-domain x/y, random offsets, every row in time bin ``c``.
+    Returns (x, y, bins, offs) int32."""
+    rng = np.random.default_rng(1000 + c)
+    x = rng.integers(0, 2**31 - 1, n, dtype=np.int32)
+    y = rng.integers(0, 2**31 - 1, n, dtype=np.int32)
+    offs = rng.integers(0, STREAM_MAX_OFF, n, dtype=np.int32)
+    bins = np.full(n, c, dtype=np.int32)
+    return x, y, bins, offs
+
+
+def pack_query_boxes(boxes_f64) -> np.ndarray:
+    """f64 boxes → (Q, 1, 4) normalized int32 payloads, one slot per query
+    (``bench.py:273``)."""
+    return np.stack([pack_boxes(int_boxes([b]), slots=1) for b in boxes_f64])

@@ -1,11 +1,15 @@
-"""The port's batched_count and refine against the reference, on the CPU.
+"""The port's batched_count, batched_count_hits and refine against the
+reference, on the CPU.
 
-``batched_count_plain`` (what the port's wrapper runs for CPU tensors) must
-equal the Pallas ``batched_count`` in interpret mode and the jnp
+``batched_count_plain`` and ``batched_count_hits_plain`` (what the port's
+wrappers run for CPU tensors) must equal the Pallas ``batched_count`` and
+``batched_count_hits`` in interpret mode, and the jnp
 ``make_batched_count_step`` on the CPU mesh; ``refine_points`` and the
-two-pass select steps must equal the reference refine. The CUDA kernel
-itself runs only on a card: ``test_kernel_matches_plain_on_card`` is marked
-``cuda`` and skips elsewhere (``chip_smoke.py`` holds it on the H100).
+two-pass select steps must equal the reference refine. The CUDA kernels
+themselves run only on a card: the ``cuda``-marked tests skip elsewhere
+(``chip_smoke.py`` holds both on the H100). The kernel build is checked
+here only for what needs no ``nvcc``: a library's name follows its source
+and every shared header.
 
 Tolerance: none — counts and masks are integers/booleans, compared exactly.
 """
@@ -17,11 +21,18 @@ import torch
 import geomesa_tpu  # noqa: F401  (x64 on)
 import jax.numpy as jnp
 from geomesa_tpu.ops.pallas_kernels import batched_count as ref_batched_count
+from geomesa_tpu.ops.pallas_kernels import batched_count_hits as ref_batched_count_hits
 from geomesa_tpu.ops.refine import refine_points as ref_refine_points
 from geomesa_tpu.parallel.mesh import default_mesh, shard_columns
 from geomesa_tpu.parallel.query import make_batched_count_step
 
-from geomesa_tpu_torch.ops.kernels import batched_count, batched_count_plain
+from geomesa_tpu_torch.ops import kernels
+from geomesa_tpu_torch.ops.kernels import (
+    batched_count,
+    batched_count_hits,
+    batched_count_hits_plain,
+    batched_count_plain,
+)
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points, unsat_rows
 from geomesa_tpu_torch.parallel.query import select_count, select_gather
 
@@ -140,3 +151,84 @@ def test_kernel_matches_plain_on_card():
             want = batched_count_plain(*cols, base, true_n, boxes, times)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+HITS_SHAPES = [(n, q, nb, nt) for n in (777, 12_288) for q in (1, 5, 64)
+               for nb, nt in ((1, 1), (8, 16))]
+
+
+@pytest.mark.parametrize("n,q,nb,nt", HITS_SHAPES)
+def test_hits_plain_equals_pallas_interpret(n, q, nb, nt):
+    """Counts and the (Q, 128) lane scoreboard equal the Pallas kernel's,
+    with and without a base/true_n tail, at a chunking that splits lanes'
+    rows across chunks."""
+    cols = _cols(n, seed=n + 1)
+    boxes, times = _payload(q, nb, nt, seed=q * 100 + nb + 1)
+    for base, true_n in ((0, n), (4096, 4096 + n - 100)):
+        want_c, want_p = ref_batched_count_hits(
+            *(jnp.asarray(c) for c in cols), jnp.int32(base), jnp.int32(true_n),
+            jnp.asarray(boxes), jnp.asarray(times), interpret=True)
+        for got_c, got_p in (
+            batched_count_hits(*(_t(c) for c in cols), base, true_n, _t(boxes), _t(times)),
+            batched_count_hits_plain(*(_t(c) for c in cols), base, true_n, _t(boxes),
+                                     _t(times), chunk=256),
+        ):
+            assert got_c.dtype == torch.int32 and got_p.dtype == torch.int32
+            assert got_p.shape == (q, 128)
+            assert np.array_equal(got_c.numpy(), np.asarray(want_c))
+            assert np.array_equal(got_p.numpy(), np.asarray(want_p))
+        # the counts are batched_count's
+        assert np.array_equal(
+            np.asarray(want_c),
+            batched_count(*(_t(c) for c in cols), base, true_n, _t(boxes), _t(times)).numpy())
+
+
+def test_hits_wrapper_rejects_int32_position_overflow():
+    cols = [torch.zeros(256, dtype=torch.int32) for _ in range(4)]
+    boxes = torch.zeros((2, 1, 4), dtype=torch.int32)
+    times = torch.zeros((2, 1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^31"):
+        batched_count_hits(*cols, 2**31 - 200, 2**31 - 1, boxes, times)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        batched_count_hits_plain(*cols, 0, 256, boxes, times, chunk=100)
+    counts, lane_pos = batched_count_hits(*cols, 2**31 - 257, 2**31 - 1, boxes, times)
+    assert counts.shape == (2,) and lane_pos.shape == (2, 128)
+
+
+def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
+    """Editing a header under csrc/ must change every kernel's library
+    name, or a stale build would be loaded; no nvcc is needed to check."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "b.cu").write_text("// no include\n")
+    (csrc / "shared.cuh").write_text("#define V 1\n")
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "BUILD", tmp_path / "_build")
+    before = {name: kernels._lib_path(csrc / name) for name in ("a.cu", "b.cu")}
+    assert all(p.parent == tmp_path / "_build" for p in before.values())
+    assert before == {name: kernels._lib_path(csrc / name) for name in ("a.cu", "b.cu")}
+    (csrc / "shared.cuh").write_text("#define V 2\n")
+    after = {name: kernels._lib_path(csrc / name) for name in ("a.cu", "b.cu")}
+    assert all(after[k] != before[k] for k in after)
+    (csrc / "other.cuh").write_text("#define W 1\n")
+    assert kernels._lib_path(csrc / "a.cu") != after["a.cu"]
+    a_path, b_path = kernels._lib_path(csrc / "a.cu"), kernels._lib_path(csrc / "b.cu")
+    (csrc / "a.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert kernels._lib_path(csrc / "a.cu") != a_path
+    assert kernels._lib_path(csrc / "b.cu") == b_path
+
+
+@pytest.mark.cuda
+def test_hits_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for n, q, nb, nt in HITS_SHAPES:
+        cols = [_t(c).to(dev) for c in _cols(n, seed=n + 1)]
+        boxes, times = (_t(a).to(dev) for a in _payload(q, nb, nt, seed=q + 1))
+        for base, true_n in ((0, n), (4096, 4096 + n - 100)):
+            got = batched_count_hits(*cols, base, true_n, boxes, times)
+            want = batched_count_hits_plain(*cols, base, true_n, boxes, times)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
