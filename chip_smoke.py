@@ -1,6 +1,7 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
-and drive the Z3 bbox+time path and the standing-query stream end to end on
-one CUDA card.
+and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
+standing-query stream and a date-less point schema end to end on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -14,12 +15,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    exact (counts and lane positions), at N in {1,000,003, 1,000,064}, a
    base/true_n tail, Q in {1, 64, one past its tile}, (B, T) in {(1, 1),
    (2, 2), (8, 16)}, sentinel padding and a disjoint query;
+2c. ``z3_encode`` and ``z2_encode`` against ``z3_encode_plain`` and
+   ``z2_encode_plain`` on the card, exact, at N in {1, 1,000,003, 50M} with
+   the edge values of each width and values above it; then their times
+   (CUDA events, 5 launches) at 50M rows beside the plain versions' and
+   the bound;
 3. the main path at bench config 2's size: 50M GDELT-shaped points (seed 42),
-   ``DataStore()`` → ``create_schema`` → ``write`` → ``compact``, the 64
+   ``DataStore()`` → ``create_schema`` → ``write`` (z3 and z2 keys built by
+   one launch each of ``z3_encode`` and ``z2_encode``) → ``compact``, the 64
    city-box 2-7 day queries (seed 7) through ``count_many(loose=True)``
-   against an int-domain numpy referee, and 8 of them through
+   against an int-domain numpy referee, 8 of them through
    ``count_many(loose=False)`` and ``query()`` against an f64 numpy brute
-   force (counts and fid sets); then timings;
+   force (counts and fid sets), and 8 of the city boxes with no time
+   through ``query()``, planned on z2, against the f64 brute force; then
+   timings;
 4. the standing-query stream at bench config 8's width (``bench.py:1280``):
    64 city boxes (seed 7) packed one slot each, one full-span time window,
    on a ``SubscriptionMatrix(box_slots=1, time_slots=1, topk=128)``; 17
@@ -28,7 +37,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    through ``DeviceStreamScanner(chunk_rows=60M, max_pending_chunks=2)``
    fed by a producer thread; every delivered count and position must equal
    the referee's, with no scan or callback error; then a churn leg
-   (unsubscribe, resubscribe, one more chunk) at unchanged capacity.
+   (unsubscribe, resubscribe, one more chunk) at unchanged capacity;
+5. a date-less point schema (``*geom:Point:srid=4326``, the z2 index only):
+   bench config 1's query shape (64 city boxes, no time) over config 2's
+   50M GDELT-shaped points with the date dropped: ``write`` (one
+   ``z2_encode`` launch) → ``count_many(loose=True)`` against an int-domain
+   referee, then 8 of the boxes through ``count_many(loose=False)`` and
+   ``query()`` against an f64 brute force.
+
+Each store is freed before the next phase.
 
 The last lines are the kernel records (JSON), the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -36,6 +53,7 @@ limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -62,6 +80,20 @@ INT32_OPS_PER_S = 67e12 / 4
 # a 32-bit compare chained into a second one
 OPS_PER_BOX_SLOT = 4
 OPS_PER_TIME_SLOT = 4
+# least int32 instructions per row of the Morton encodes' magic-mask spreads
+# (curve/zorder.py): a spread step is a 64-bit shift (two 32-bit funnel
+# shifts; none for the 32-bit shift, a register move) and an OR-then-AND per
+# 32-bit half (one LOP3 each). z3: per dimension 1 mask + 2 (the 32-bit step)
+# + 4 steps x 4 = 19, x 3, plus the y and t shifts (2 + 2) and one three-way
+# OR per half (2) = 63. z2: per dimension 5 steps x 4 = 20, x 2, plus the y
+# shift (2) and the OR (2) = 44. Bytes: each input read once (4 B per
+# column), the int64 code written once.
+MORTON_OPS_PER_ROW = {"z3_encode": 63, "z2_encode": 44}
+MORTON_BYTES_PER_ROW = {"z3_encode": 3 * 4 + 8, "z2_encode": 2 * 4 + 8}
+MORTON_EDGES = {  # each width's 0, 1, largest, then values above it
+    "z3_encode": [0, 1, 2**21 - 1, 2**21, 2**21 + 5, 2**30, 2**31 - 1, -1, -(2**31)],
+    "z2_encode": [0, 1, 2**31 - 1, 2**30, -1, -(2**31), -12345],
+}
 
 
 def log(msg: str) -> None:
@@ -208,6 +240,102 @@ def bound_fields(ops: int, nbytes: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def morton_inputs(dev, name: str, n: int, seed: int):
+    """Seeded in-width int32 columns for ``name`` made on the card, with the
+    width's edge and out-of-width values spliced in at the front."""
+    import torch
+
+    dims, bits = (3, 21) if name == "z3_encode" else (2, 31)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cols = [torch.randint(0, 2**bits, (n,), generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(dims)]
+    edges = MORTON_EDGES[name]
+    for d, c in enumerate(cols):
+        vals = np.roll(np.array(edges, np.int32), d)[: min(n, len(edges))]
+        c[: len(vals)] = torch.from_numpy(vals).to(dev)
+    return cols
+
+
+def check_morton(dev, big_n: int) -> dict:
+    """Phase 2c: ``z3_encode``/``z2_encode`` against their plain versions,
+    exact, at N in {1, 1,000,003, ``big_n``}; then kernel and plain times at
+    ``big_n`` and the bound. Returns {name: partial kernel record}."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+
+    out = {}
+    for name in ("z3_encode", "z2_encode"):
+        kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        worst = 0
+        for n in (1, 1_000_003, big_n):
+            cols = morton_inputs(dev, name, n, seed=n % 1000 + 5)
+            got, want = kernel(*cols), plain(*cols)
+            torch.cuda.synchronize()
+            err = int((got != want).sum())  # codes differ: count them
+            log(f"  {name} N={n}: {err} codes differ from plain "
+                f"(first {got[:3].tolist()}, max {int(got.max())})")
+            if err or got.dtype != torch.int64 or got.shape != (n,):
+                raise AssertionError(f"{name} disagrees with plain at N={n}")
+            worst = max(worst, int((got - want).abs().max()))
+        kernel_ms = cuda_ms(lambda: kernel(*cols), 5)
+        plain_ms = cuda_ms(lambda: plain(*cols), 1)
+        rec = {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+               **bound_fields(MORTON_OPS_PER_ROW[name] * big_n,
+                              MORTON_BYTES_PER_ROW[name] * big_n)}
+        log(f"phase {name} timing: {kernel_ms:.4f} ms at N={big_n}; plain {plain_ms:.4f} ms; "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+            f"{MORTON_OPS_PER_ROW[name] * big_n} int32 ops; "
+            f"{MORTON_BYTES_PER_ROW[name] * big_n} bytes)")
+        out[name] = rec
+        del cols, got, want
+    return out
+
+
+def free_card() -> None:
+    """Drop the previous phase's objects and cached device blocks."""
+    gc.collect()
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def log_rebuild(rb: dict) -> None:
+    log(f"phase index build: {rb['index_build']:.3f} s "
+        f"({' + '.join(rb['indices'])}: normalize, stage, encode, sort, copy back)")
+    for name, ph in rb["indices"].items():
+        log(f"phase index build {name}: " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in ph.items()))
+    log(f"phase load: {rb['load']:.3f} s (normalize + stage)")
+
+
+def norm31(v, lo: float, hi: float):
+    """Independent 31-bit fixed point of the device columns (int64)."""
+    s = np.floor((np.asarray(v, np.float64) - lo) * (2**31 / (hi - lo)))
+    return np.clip(s, 0, 2**31 - 1).astype(np.int64)
+
+
+def spatial_checks(ds, type_name, lon, lat, fids, boxes_f64, want_index: str) -> list[int]:
+    """``query()`` of each box with no time: planned on ``want_index``, and
+    counts and fid sets equal to an f64 brute force. Returns the counts."""
+    from geomesa_tpu_torch.workload import bbox_cql
+
+    counts = []
+    for i, box in enumerate(boxes_f64):
+        res = ds.query(type_name, bbox_cql(box))
+        if res.plan_info.index_name != want_index:
+            raise AssertionError(f"box {i} planned on {res.plan_info.index_name}, "
+                                 f"not {want_index}")
+        x1, y1, x2, y2 = box
+        rows = np.nonzero((lon >= x1) & (lon <= x2) & (lat >= y1) & (lat <= y2))[0]
+        if res.count != len(rows) or set(res.table.fids.tolist()) != set(fids[rows].tolist()):
+            raise AssertionError(f"spatial query {i}: {res.count} rows, brute force "
+                                 f"{len(rows)}, or the fid sets differ")
+        counts.append(res.count)
+    return counts
+
+
 def day_slabs(bins: np.ndarray):
     """Group row ids by day: (order, starts) with rows of day d at
     order[starts[d]:starts[d+1]]."""
@@ -251,8 +379,9 @@ def f64_referee(lon, lat, t, box, window, slabs):
 
 
 def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
-            iters: int) -> dict:
-    """Phase 3: the Z3 bbox+time main path; returns the batched_count record."""
+            iters: int) -> tuple[dict, dict]:
+    """Phase 3: the point write (z3 + z2) and bbox+time main path; returns
+    the batched_count record and the main path's launches."""
     import torch
 
     from geomesa_tpu_torch.filter.bounds import extract
@@ -284,26 +413,41 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     ds.write("gdelt", table)
     ds.compact("gdelt")
     write_s = time.perf_counter() - t0
+    if on_card:
+        log(f"phase write memory: memory_allocated {torch.cuda.memory_allocated()} bytes "
+            f"resident after the write (two point states), max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes during it")
     t0 = time.perf_counter()
     loose = ds.count_many("gdelt", cqls, loose=True)
     first_batch_s = time.perf_counter() - t0
     exact = ds.count_many("gdelt", cqls[:n_exact], loose=False)
     selected = [ds.query("gdelt", c) for c in cqls[:n_exact]]
+    t0 = time.perf_counter()
+    spatial = spatial_checks(ds, "gdelt", lon, lat, fids, boxes_f64[:n_exact], "z2")
+    spatial_s = time.perf_counter() - t0
     launched = dict(kernels.launches)
     log(f"phase main-path launches: {launched}")
     if on_card and launched["batched_count"] < 1:
         raise AssertionError("count_many did not launch the batched_count kernel")
+    if on_card and (launched["z3_encode"], launched["z2_encode"]) != (1, 1):
+        raise AssertionError("the write did not launch z3_encode and z2_encode once each")
+    log(f"phase spatial queries: {n_exact} city boxes with no time planned on z2, equal to "
+        f"the f64 brute force ({spatial} rows) in {spatial_s:.3f} s with the checks")
 
-    state = ds._state("gdelt").backend_state["z3"]
-    for name, col in state.cols.items():
-        if col.device.type != dev.type or col.dtype != torch.int32:
-            raise AssertionError(f"resident column {name} is {col.dtype} on {col.device}")
-    rb = ds.last_rebuild("gdelt")
+    states = ds._state("gdelt").backend_state
+    if set(states) != {"z3", "z2"}:
+        raise AssertionError(f"resident states {sorted(states)}, not z3 and z2")
+    for st_name, st in states.items():
+        for name, col in st.cols.items():
+            if col.device.type != dev.type or col.dtype != torch.int32:
+                raise AssertionError(f"resident column {st_name}.{name} is {col.dtype} "
+                                     f"on {col.device}")
+    state = states["z3"]
     log(f"phase write: {write_s:.3f} s (write + compact of {n_rows} rows)")
-    log(f"phase index build: {rb['index_build']:.3f} s (z3 encode + (bin, z) sort)")
-    log(f"phase load: {rb['load']:.3f} s (normalize + stage)")
-    log(f"phase h2d staging: {state.h2d_s:.3f} s for {state.h2d_bytes} bytes "
-        f"on {state.cols['x'].device}")
+    log_rebuild(ds.last_rebuild("gdelt"))
+    for st_name, st in states.items():
+        log(f"phase h2d staging {st_name}: {st.h2d_s:.3f} s for {st.h2d_bytes} bytes "
+            f"on {st.cols['x'].device}")
 
     # -- checks against the numpy referees --------------------------------------
     t0 = time.perf_counter()
@@ -362,8 +506,80 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
             f"plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
             f"({record['bound_by']}: {ops} int32 ops; {in_box} in-box and {in_time} "
             f"in-time row-queries; {nbytes} bytes)")
-        log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    return record
+        log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+            f"over the whole phase")
+    return record, launched
+
+
+def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
+    """Phase 5: a date-less point schema (z2 only) at config 2's 50M points
+    and config 1's query shape (city boxes, no time); returns its launches."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.schema.columnar import FeatureTable, point_column
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import bbox_cql, make_queries, synth_gdelt
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    lon, lat, _ = synth_gdelt(n_rows, seed=42)
+    fids = np.arange(n_rows).astype("U9")
+    boxes_f64, _ = make_queries(n_queries, seed=7)
+    cqls = [bbox_cql(b) for b in boxes_f64]
+    log(f"phase 5 synth: {time.perf_counter() - t0:.3f} s ({n_rows} rows, {n_queries} boxes)")
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("points", "*geom:Point:srid=4326")
+    table = FeatureTable.from_columns(sft, fids, {"geom": point_column(lon, lat)})
+    t0 = time.perf_counter()
+    ds.write("points", table)
+    ds.compact("points")
+    write_s = time.perf_counter() - t0
+    if on_card:
+        log(f"phase 5 write memory: memory_allocated {torch.cuda.memory_allocated()} bytes "
+            f"resident after the write (one z2 state), max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes during it")
+    t0 = time.perf_counter()
+    loose = ds.count_many("points", cqls, loose=True)
+    loose_s = time.perf_counter() - t0
+    exact = ds.count_many("points", cqls[:n_exact], loose=False)
+    t0 = time.perf_counter()
+    spatial = spatial_checks(ds, "points", lon, lat, fids, boxes_f64[:n_exact], "z2")
+    spatial_s = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    log(f"phase 5 launches: {launched}")
+    if on_card and (launched["z2_encode"], launched["z3_encode"]) != (1, 0):
+        raise AssertionError("the date-less write did not launch z2_encode exactly once")
+    if on_card and launched["batched_count"] < 1:
+        raise AssertionError("count_many did not launch the batched_count kernel")
+    states = ds._state("points").backend_state
+    if set(states) != {"z2"} or bool(states["z2"].cols["bins"].any()):
+        raise AssertionError("the date-less store must hold one z2 state with zero bins")
+    log(f"phase 5 write: {write_s:.3f} s (write + compact of {n_rows} rows)")
+    log_rebuild(ds.last_rebuild("points"))
+
+    t0 = time.perf_counter()
+    xi, yi = norm31(lon, -180.0, 180.0), norm31(lat, -90.0, 90.0)
+    want_loose = []
+    for x1, y1, x2, y2 in boxes_f64:
+        want_loose.append(int(((xi >= norm31(x1, -180.0, 180.0)) & (xi <= norm31(x2, -180.0, 180.0))
+                               & (yi >= norm31(y1, -90.0, 90.0))
+                               & (yi <= norm31(y2, -90.0, 90.0))).sum()))
+    if loose != want_loose:
+        raise AssertionError(f"date-less count_many(loose) != int referee: {loose} vs {want_loose}")
+    if exact != spatial:
+        raise AssertionError(f"date-less count_many(exact) {exact} != query() {spatial}")
+    log(f"phase 5 checks: ok in {time.perf_counter() - t0:.3f} s (loose counts {sum(loose)} "
+        f"rows over {n_queries} boxes in {loose_s * 1e3:.3f} ms, first call; exact {exact}; "
+        f"query() and its f64 checks {spatial_s:.3f} s)")
+    if on_card:
+        log(f"phase 5 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    return launched
 
 
 def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -> dict:
@@ -563,11 +779,32 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         log(f"phase hits-vs-plain: ok, max_abs_err={hits_err} "
             f"({time.perf_counter() - t0:.3f} s for phases 2 and 2b)")
 
-    # -- phase 3: the Z3 main path; phase 4: the stream --------------------------
-    records = [z3_path(dev, count_err, n_rows, n_queries, n_exact, iters)]
+    # -- phase 2c: the Morton encodes vs plain, and their times ------------------
+    morton = {}
+    if on_card:
+        t0 = time.perf_counter()
+        morton = check_morton(dev, n_rows)
+        log(f"phase morton-vs-plain: ok ({time.perf_counter() - t0:.3f} s for phase 2c)")
+
+    # -- phase 3: the main path; phase 4: the stream; phase 5: date-less ---------
+    t0 = time.perf_counter()
+    count_record, launched = z3_path(dev, count_err, n_rows, n_queries, n_exact, iters)
+    free_card()
+    log(f"phase main path: {time.perf_counter() - t0:.3f} s in all")
+    records = [count_record]
+    for name, line in (("z3_encode", 380), ("z2_encode", 393)):
+        records.append({"name": name, "route": "cuda",
+                        "source": "geomesa_tpu_torch/csrc/morton_encode.cu",
+                        "replaces": f"geomesa_tpu/ops/pallas_kernels.py:{line}",
+                        "launches": launched[name], "library_ms": None, **morton.get(name, {})})
     t0 = time.perf_counter()
     records.append(stream_path(dev, hits_err, stream_rows, stream_chunks, n_queries))
+    free_card()
     log(f"phase stream: {time.perf_counter() - t0:.3f} s in all")
+    t0 = time.perf_counter()
+    dateless_path(dev, n_rows, n_queries, n_exact)
+    free_card()
+    log(f"phase date-less: {time.perf_counter() - t0:.3f} s in all")
     return records
 
 

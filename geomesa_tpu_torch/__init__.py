@@ -1,4 +1,5 @@
-"""geomesa_tpu_torch — the Z3 point bbox+time query path in PyTorch and CUDA.
+"""geomesa_tpu_torch — the point bbox+time path (z3 and z2 indexes) and the
+standing-query stream in PyTorch and CUDA.
 
 A port of :mod:`geomesa_tpu` (the JAX package, kept beside it as the
 reference) for one NVIDIA H100. It imports torch and numpy and never jax or

@@ -1,8 +1,11 @@
-"""The Z3 space-filling curve: points + binned time.
+"""The Z2 and Z3 space-filling curves: points, and points + binned time.
 
-Port copy of the Z3 half of :mod:`geomesa_tpu.curve.sfc`:
-``index(x, y, t_offset) → key`` and ``ranges(boxes, time_offsets)``, host
-numpy, with range planning in :mod:`geomesa_tpu_torch.curve.zranges`.
+Port copy of :mod:`geomesa_tpu.curve.sfc` (``Z2SFC``, ``Z3SFC``):
+``normalized(...)`` gives the int32 fixed-point coordinates the index
+builds hand to the ``z2_encode``/``z3_encode`` kernels; ``index(...)``
+encodes on the host with numpy and is kept as the referee the tests hold the
+kernels to; ``ranges(...)`` plans key ranges with
+:mod:`geomesa_tpu_torch.curve.zranges`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,42 @@ def split_antimeridian(bboxes):
 
 
 @dataclass(frozen=True)
+class Z2SFC:
+    """2-D Morton curve over (lon, lat); 31 bits/dim."""
+
+    precision: int = 31
+
+    @property
+    def lon(self) -> normalize.NormalizedDimension:
+        return normalize.lon(self.precision)
+
+    @property
+    def lat(self) -> normalize.NormalizedDimension:
+        return normalize.lat(self.precision)
+
+    def index(self, x, y) -> np.ndarray:
+        """(lon, lat) f64 arrays → uint64 z2 codes (host referee)."""
+        return zorder.encode2(self.lon.normalize(x), self.lat.normalize(y))
+
+    def normalized(self, x, y) -> tuple[np.ndarray, np.ndarray]:
+        """(lon, lat) → int32 fixed-point coordinates, the kernel's input."""
+        return (self.lon.normalize(x).astype(np.int32),
+                self.lat.normalize(y).astype(np.int32))
+
+    def ranges(self, bboxes, max_ranges: int = 2000) -> np.ndarray:
+        """Cover (xmin, ymin, xmax, ymax) boxes with z2 intervals (uint64 (R, 2))."""
+        bboxes = split_antimeridian(bboxes)
+        out = []
+        budget = max(1, max_ranges // max(1, len(bboxes)))
+        for xmin, ymin, xmax, ymax in bboxes:
+            lo = (int(self.lon.normalize(xmin)), int(self.lat.normalize(ymin)))
+            hi = (int(self.lon.normalize(xmax)), int(self.lat.normalize(ymax)))
+            r = zranges(lo, hi, self.precision, budget)
+            out.extend((int(a), int(b)) for a, b in r)
+        return merge_ranges(out)
+
+
+@dataclass(frozen=True)
 class Z3SFC:
     """3-D Morton curve over (lon, lat, offset-in-bin); 21 bits/dim. The time
     bin itself lives outside the curve, as the leading sort key."""
@@ -53,10 +92,17 @@ class Z3SFC:
         return normalize.time(self.precision, MAX_OFFSET[self.period])
 
     def index(self, x, y, t_offset) -> np.ndarray:
-        """(lon, lat, offset-in-bin) → uint64 z3 codes."""
+        """(lon, lat, offset-in-bin) → uint64 z3 codes (host referee)."""
         return zorder.encode3(
             self.lon.normalize(x), self.lat.normalize(y), self.time.normalize(t_offset)
         )
+
+    def normalized(self, x, y, t_offset) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(lon, lat, offset-in-bin) → int32 fixed-point coordinates, the
+        kernel's input."""
+        return (self.lon.normalize(x).astype(np.int32),
+                self.lat.normalize(y).astype(np.int32),
+                self.time.normalize(t_offset).astype(np.int32))
 
     def ranges(self, bboxes, time_offsets, max_ranges: int = 2000) -> np.ndarray:
         """Cover boxes × one bin's [tmin, tmax] offset window with z3

@@ -8,9 +8,11 @@ IR the device gathers candidate rows from.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 DEFAULT_MAX_RANGES = 2000  # range budget per query (ScanRangesTarget default)
 
@@ -76,3 +78,45 @@ def gather_indices(intervals: np.ndarray):
     )
     return idx.astype(np.int64), total
 
+
+
+class BuildClock:
+    """Seconds per phase of one index build on ``device``.
+
+    :meth:`lap` closes a phase on the host clock, after synchronizing the
+    card so that queued device work is charged to the phase that queued it;
+    :meth:`kernel` times one kernel call with CUDA events on the card (the
+    host clock on the CPU)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.phases: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def lap(self, name: str) -> None:
+        self._sync()
+        now = time.perf_counter()
+        self.phases[name] = now - self._t
+        self._t = now
+
+    def kernel(self, name: str, fn):
+        """Run ``fn()`` as phase ``name``; returns its result."""
+        self._sync()
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            self.phases[name] = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            self.phases[name] = time.perf_counter() - t0
+        self._t = time.perf_counter()
+        return out

@@ -5,9 +5,12 @@ Port of :class:`geomesa_tpu.index.z3.Z3Index` (build and plan) and
 range budget across the bins a query touches and binary-searches each bin's
 sorted z keys.
 
-The build sorts on the store's device: two stable ``torch.sort`` passes
-(by z, then by bin) give the same permutation as the reference's stable
-host ``lexsort`` by (bin, z) — z3 keys are < 2^63, so they sort as int64.
+The build runs on the store's device: the host normalizes lon/lat/offset to
+int32, stages them (12 B/row), the ``z3_encode`` kernel interleaves them
+into int64 keys there, and two stable ``torch.sort`` passes (by z, then by
+bin) give the same permutation as the reference's stable host ``lexsort``
+by (bin, z) — z3 keys are < 2^63, so they sort as int64. Only the
+permutation and the sorted keys come back to the host.
 """
 
 from __future__ import annotations
@@ -20,23 +23,34 @@ from geomesa_tpu_torch.curve.sfc import z3_sfc
 from geomesa_tpu_torch.filter.bounds import Extraction
 from geomesa_tpu_torch.index.api import (
     DEFAULT_MAX_RANGES,
+    BuildClock,
     IndexPlan,
     intervals_from_key_ranges,
     merge_intervals,
 )
+from geomesa_tpu_torch.ops.kernels import z3_encode
 from geomesa_tpu_torch.schema.columnar import FeatureTable
 from geomesa_tpu_torch.schema.sft import FeatureType
 
 WORLD = (-180.0, -90.0, 180.0, 90.0)
 
 
-def sort_bin_z(bins: np.ndarray, z: np.ndarray, device: torch.device) -> np.ndarray:
-    """Stable permutation sorting rows by (bin, z), computed on ``device``."""
-    zt = torch.from_numpy(z.astype(np.int64)).to(device)
-    bt = torch.from_numpy(bins.astype(np.int32)).to(device)
-    _, by_z = torch.sort(zt, stable=True)
-    _, by_bin = torch.sort(bt[by_z], stable=True)
-    return by_z[by_bin].cpu().numpy()
+def refuse_legacy(sft: FeatureType) -> None:
+    """The legacy curves (``geomesa.index.layout=legacy``) are not ported:
+    keying such a schema with the current curves would give other keys than
+    the reference's, so it is refused."""
+    if sft.index_layout == "legacy":
+        raise NotImplementedError(
+            "geomesa.index.layout=legacy needs the legacy curves, which this "
+            "port does not carry yet"
+        )
+
+
+def sort_bin_z(bins: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Stable permutation sorting rows by (bin, z), on the tensors' device."""
+    _, by_z = torch.sort(z, stable=True)
+    _, by_bin = torch.sort(bins[by_z], stable=True)
+    return by_z[by_bin]
 
 
 def time_windows(
@@ -73,8 +87,9 @@ class Z3Index:
     name = "z3"
 
     def __init__(self, sft: FeatureType):
-        if not (sft.geom_is_points and sft.dtg_field is not None):
+        if not self.supports(sft):
             raise ValueError("the z3 index needs a point geometry and a date")
+        refuse_legacy(sft)
         self.sft = sft
         self.binned = BinnedTime(sft.z3_interval)
         self.sfc = z3_sfc(sft.z3_interval)
@@ -84,22 +99,46 @@ class Z3Index:
         self.zs: np.ndarray | None = None  # sorted (n,) uint64
         self.bin_values: np.ndarray | None = None  # unique bins present
         self.bin_starts: np.ndarray | None = None  # row span start per bin
+        self.build_s: dict[str, float] = {}  # last build's phase seconds
 
-    def _keys(self, table: FeatureTable) -> tuple[np.ndarray, np.ndarray]:
+    @staticmethod
+    def supports(sft: FeatureType) -> bool:
+        return sft.geom_is_points and sft.dtg_field is not None
+
+    def _normalized(self, table: FeatureTable):
         col = table.geom_column()
         bins, offs = self.binned.to_bin_and_offset(table.dtg_millis())
-        return bins, self.sfc.index(col.x, col.y, offs)
+        return bins.astype(np.int32), self.sfc.normalized(col.x, col.y, offs)
 
     def build(self, table: FeatureTable, device: torch.device) -> np.ndarray:
-        """Compute the (bin, z) sort permutation on ``device``; keep the
-        sorted host keys planning needs."""
-        bins, z = self._keys(table)
-        return self._install(bins, z, sort_bin_z(bins, z, device))
+        """Encode and sort on ``device``; keep the permutation and the sorted
+        host keys planning needs. ``build_s`` gets the phase seconds."""
+        clock = BuildClock(device)
+        bins, cols = self._normalized(table)
+        clock.lap("normalize")
+        d_cols = [torch.from_numpy(c).to(device) for c in cols]
+        d_bins = torch.from_numpy(bins).to(device)
+        clock.lap("stage")
+        z = clock.kernel("encode", lambda: z3_encode(*d_cols))
+        del d_cols
+        d_perm = sort_bin_z(d_bins, z)
+        d_zs, d_sbins = z[d_perm], d_bins[d_perm]
+        d_values, d_counts = torch.unique_consecutive(d_sbins, return_counts=True)
+        clock.lap("sort")
+        perm = d_perm.cpu().numpy()
+        zs = d_zs.cpu().numpy().view(np.uint64)
+        sorted_bins, values = d_sbins.cpu().numpy(), d_values.cpu().numpy()
+        starts = np.cumsum(d_counts.cpu().numpy()) - d_counts.cpu().numpy()
+        clock.lap("copy_back")
+        self.build_s = clock.phases
+        return self._install(perm, sorted_bins, zs, values, starts)
 
     def install(self, table: FeatureTable, perm: np.ndarray) -> np.ndarray:
         """Adopt a permutation computed elsewhere (the reference store's),
-        without re-sorting; it must order the table by (bin, z)."""
-        bins, z = self._keys(table)
+        without re-sorting; it must order the table by (bin, z). Runs on the
+        host: the keys come from ``z3_encode`` on CPU tensors."""
+        bins, cols = self._normalized(table)
+        z = z3_encode(*(torch.from_numpy(c) for c in cols)).numpy().view(np.uint64)
         perm = np.asarray(perm, dtype=np.int64)
         if len(perm) != len(table):
             raise ValueError(f"perm length {len(perm)} != table rows {len(table)}")
@@ -108,14 +147,15 @@ class Z3Index:
             (sb[:-1] < sb[1:]) | ((sb[:-1] == sb[1:]) & (sz[:-1] <= sz[1:]))
         ):
             raise ValueError("perm does not sort the table by (bin, z)")
-        return self._install(bins, z, perm)
+        self.build_s = {}
+        return self._install(perm, sb, sz, *np.unique(sb, return_index=True))
 
-    def _install(self, bins, z, perm) -> np.ndarray:
+    def _install(self, perm, sorted_bins, sorted_zs, bin_values, bin_starts) -> np.ndarray:
         self.perm = perm
-        self.bins = bins[perm]
-        self.zs = z[perm]
+        self.bins = sorted_bins
+        self.zs = sorted_zs
         self.n = len(perm)
-        self.bin_values, self.bin_starts = np.unique(self.bins, return_index=True)
+        self.bin_values, self.bin_starts = bin_values, bin_starts
         return perm
 
     def _bin_span(self, b: int) -> tuple[int, int]:

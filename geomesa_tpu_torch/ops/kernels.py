@@ -14,6 +14,13 @@ the newest matched global row per 128-row lane, the subscription matrix's
 fused scan. Its source is ``csrc/batched_count_hits.cu``. Both kernels run
 the one row predicate of ``csrc/count_predicate.cuh``.
 
+``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
+``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
+``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
+into int64 curve keys, the index builds' encode. Their source is
+``csrc/morton_encode.cu``; its note gives the bound (bytes: 12 or 8 B read
+and 8 B written per row).
+
 Build: every ``csrc/*.cu`` is compiled with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` into ``_build/`` (git-ignored) at
 first use, one ``nvcc`` per source, all started together, and loaded with
@@ -46,9 +53,25 @@ BUILD = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"batched_count": 0, "batched_count_hits": 0}
+launches = {"batched_count": 0, "batched_count_hits": 0, "z3_encode": 0, "z2_encode": 0}
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# entry point → (source stem, argtypes); every entry point returns a C int
+_COUNT_ARGS = [_P] * 4 + [_LL] * 3 + [_P, _P, _I, _I, _I, _I]
+_ENTRY_POINTS = {
+    # (columns x4, n, base, true_n, boxes, times, q, nb, nt, sms, outputs..., stream)
+    "geomesa_batched_count": ("batched_count", _COUNT_ARGS + [_P] * 2),
+    "geomesa_batched_count_hits": ("batched_count_hits", _COUNT_ARGS + [_P] * 3),
+    # (box slots, time slots) → queries per shared-memory tile
+    "geomesa_batched_count_q_tile": ("batched_count", [_I, _I]),
+    "geomesa_batched_count_hits_q_tile": ("batched_count_hits", [_I, _I]),
+    # (coordinate columns..., n, sms, out, stream)
+    "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
+    "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, object] = {}
 _LOCK = threading.Lock()
 
 def _nvcc() -> str:
@@ -97,25 +120,24 @@ def build_kernels() -> dict[str, Path]:
     return out
 
 
-def _lib(stem: str) -> ctypes.CDLL:
+def _fn(entry: str):
+    """The bound C entry point ``entry``, its library built at first use."""
     with _LOCK:
-        lib = _LIBS.get(stem)
-        if lib is None:
-            lib = ctypes.CDLL(str(build_kernels()[stem]))
-            # (columns x4, n, base, true_n, boxes, times, q, nb, nt, sms,
-            #  outputs..., stream)
-            n_out = {"batched_count": 1, "batched_count_hits": 2}[stem]
-            fn = getattr(lib, f"geomesa_{stem}")
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ] + [ctypes.c_void_p] * (n_out + 1)
+        fn = _FNS.get(entry)
+        if fn is None:
+            stem, argtypes = _ENTRY_POINTS[entry]
+            lib = _LIBS.get(stem)
+            if lib is None:
+                lib = _LIBS[stem] = ctypes.CDLL(str(build_kernels()[stem]))
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            tile = getattr(lib, f"geomesa_{stem}_q_tile")
-            tile.argtypes = [ctypes.c_int] * 2
-            tile.restype = ctypes.c_int
-            _LIBS[stem] = lib
-        return lib
+            _FNS[entry] = fn
+        return fn
+
+
+def _stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +149,7 @@ def q_tile_for(box_slots: int, time_slots: int, kernel: str = "batched_count") -
     """Queries whose payload one block of ``kernel`` stages in shared memory
     at once (larger batches tile over Q). The launch geometry lives in the
     kernel's ``.cu`` alone; this asks the built library."""
-    return getattr(_lib(kernel), f"geomesa_{kernel}_q_tile")(box_slots, time_slots)
+    return _fn(f"geomesa_{kernel}_q_tile")(box_slots, time_slots)
 
 
 def _check_count_args(x, y, bins, offs, boxes, times):
@@ -160,12 +182,11 @@ def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *
     if q == 0 or n == 0:
         return
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    fn = getattr(_lib(stem), f"geomesa_{stem}")
+    fn = _fn(f"geomesa_{stem}")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(),
                 n, int(base), int(true_n), boxes.data_ptr(), times.data_ptr(),
-                q, nb, nt, sms, *(o.data_ptr() for o in outs), stream)
+                q, nb, nt, sms, *(o.data_ptr() for o in outs), _stream_of(x))
     if rc != 0:
         raise RuntimeError(f"{stem} launch failed: cudaError {rc}")
     launches[stem] += 1
@@ -274,3 +295,90 @@ def batched_count_hits_plain(x, y, bins, offs, base: int, true_n: int, boxes, ti
             posq = torch.nn.functional.pad(posq, (0, pad), value=-1)
         lane_pos = torch.maximum(lane_pos, posq.reshape(q, -1, LANES).amax(dim=1))
     return counts.to(torch.int32), lane_pos.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# z3_encode / z2_encode
+# ---------------------------------------------------------------------------
+
+# spread masks (curve/zorder.py _M3/_M2), each below 2^63 so they are int64
+_M3 = (0x00000000001FFFFF, 0x001F00000000FFFF, 0x001F0000FF0000FF,
+       0x100F00F00F00F00F, 0x10C30C30C30C30C3, 0x1249249249249249)
+_M3_SHIFTS = (32, 16, 8, 4, 2)
+_M2 = (0x00000000FFFFFFFF, 0x0000FFFF0000FFFF, 0x00FF00FF00FF00FF,
+       0x0F0F0F0F0F0F0F0F, 0x3333333333333333, 0x5555555555555555)
+_M2_SHIFTS = (16, 8, 4, 2, 1)
+
+
+def _check_morton_args(cols) -> None:
+    x = cols[0]
+    for name, t in zip("xyt", cols):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"{name} must match x in length and device")
+    if x.shape[0] >= 2**31:
+        raise ValueError("columns of 2^31 rows or more are not taken")
+
+
+def _encode(name: str, plain, cols) -> torch.Tensor:
+    """Check, then run ``name``'s kernel on a CUDA tensor or its ``plain``
+    version on a CPU tensor; returns (N,) int64 codes."""
+    _check_morton_args(cols)
+    x = cols[0]
+    if x.device.type == "cpu":
+        return plain(*cols)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    out = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    if x.shape[0] == 0:
+        return out
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    with torch.cuda.device(x.device):
+        rc = _fn(f"geomesa_{name}")(*(c.data_ptr() for c in cols), x.shape[0], sms,
+                                    out.data_ptr(), _stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+    return out
+
+
+def z3_encode(x, y, t) -> torch.Tensor:
+    """Morton-interleave three (N,) int32 columns of ≤21-bit normalized
+    coordinates into (N,) int64 z3 codes (bit 63 always 0), on their device.
+
+    Equals ``curve/zorder.encode3`` and the Pallas ``z3_encode``'s
+    ``hi << 32 | lo``; each input is masked to its low 21 bits first."""
+    return _encode("z3_encode", z3_encode_plain, (x, y, t))
+
+
+def z2_encode(x, y) -> torch.Tensor:
+    """Morton-interleave two (N,) int32 columns of ≤31-bit normalized
+    coordinates into (N,) int64 z2 codes, on their device.
+
+    Equals ``curve/zorder.encode2`` and the Pallas ``z2_encode``'s
+    ``hi << 32 | lo``; like them it keeps all 32 bits of each input, so only
+    a negative input reaches bit 62 or 63."""
+    return _encode("z2_encode", z2_encode_plain, (x, y))
+
+
+def _spread_plain(v: torch.Tensor, masks, shifts) -> torch.Tensor:
+    # int64 throughout: torch on the CPU has no shifts on uint32; the first
+    # mask takes the input's low bits (two's complement for a negative int32)
+    v = v.to(torch.int64) & masks[0]
+    for s, m in zip(shifts, masks[1:]):
+        v = (v | (v << s)) & m
+    return v
+
+
+def z3_encode_plain(x, y, t) -> torch.Tensor:
+    """The plain PyTorch version of :func:`z3_encode`."""
+    return (_spread_plain(x, _M3, _M3_SHIFTS) | (_spread_plain(y, _M3, _M3_SHIFTS) << 1)
+            | (_spread_plain(t, _M3, _M3_SHIFTS) << 2))
+
+
+def z2_encode_plain(x, y) -> torch.Tensor:
+    """The plain PyTorch version of :func:`z2_encode`."""
+    return _spread_plain(x, _M2, _M2_SHIFTS) | (_spread_plain(y, _M2, _M2_SHIFTS) << 1)

@@ -1,11 +1,13 @@
 """Query planner: extract bounds → choose a strategy → plan scan intervals.
 
 Port of :class:`geomesa_tpu.planning.planner.QueryPlanner` reduced to the
-decision :meth:`StrategyDecider._heuristic` makes for a store whose only
-index is z3: a temporally bounded filter scans the z3 index's intervals,
-anything else is a full scan of the sorted store. The cost model, stats and
-union plans of the reference stay out. The residual is always the full
-filter, so every plan is sound; the strategy only sizes the candidate set.
+decision :meth:`StrategyDecider._heuristic` makes over the point indexes
+the port carries, z3 and z2: a temporally bounded filter scans the z3
+index's intervals, a spatially bounded one the z2 index's, anything else is
+a full scan of the store in its preferred index order (z3, then z2). The
+cost model, stats and union plans of the reference stay out. The residual
+is always the full filter, so every plan is sound; the strategy only sizes
+the candidate set.
 
 :func:`standing_query_payload` decomposes a standing query into one row of
 the subscription matrix (``planner.py:572`` of the reference).
@@ -21,10 +23,16 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction, extract
 from geomesa_tpu_torch.filter.cql import parse as parse_cql
 from geomesa_tpu_torch.index.api import DEFAULT_MAX_RANGES, IndexPlan
-from geomesa_tpu_torch.index.z3 import Z3Index
+from geomesa_tpu_torch.index.z2 import Z2Index
+from geomesa_tpu_torch.index.z3 import Z3Index, refuse_legacy
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
 from geomesa_tpu_torch.schema.sft import FeatureType
-from geomesa_tpu_torch.store.backends import int_boxes, time_quads
+from geomesa_tpu_torch.store.backends import (
+    POINT_INDEXES,
+    int_boxes,
+    preferred_point_index,
+    time_quads,
+)
 
 FULL_SCAN = "full-scan"
 
@@ -46,24 +54,57 @@ class Query:
 
 @dataclass
 class QueryPlanInfo:
-    """What was planned: the strategy, the bounds and the candidate volume."""
+    """What was planned: the strategy, the bounds and the candidate volume.
+    ``scan_index`` is the index whose sort order the plan's intervals
+    address (the preferred one for a full scan)."""
 
-    index_name: str  # "z3" or FULL_SCAN
+    index_name: str  # "z3", "z2" or FULL_SCAN
+    scan_index: str
     extraction: Extraction
     n_intervals: int
     n_candidates: int
     plan_ms: float
 
 
-def build_indices(sft: FeatureType) -> dict[str, Z3Index]:
-    """The index set for a schema: z3 for point schemas with a date."""
-    return {"z3": Z3Index(sft)}
+INDEX_TYPES = (Z3Index, Z2Index)  # in POINT_INDEXES' preference order
+
+
+def build_indices(sft: FeatureType) -> dict:
+    """The index set for a schema (the reference's ``build_indices`` over the
+    indexes this port carries): z3 + z2 for points with a date, z2 for
+    points without one, narrowed by the ``geomesa.indices`` setting. A
+    setting that names none of them, the legacy layout and a schema no
+    ported index supports raise ``NotImplementedError``."""
+    refuse_legacy(sft)
+    configured = sft.configured_indices
+    out = {}
+    for cls in INDEX_TYPES:
+        if configured is not None and cls.name not in configured:
+            continue
+        if cls.supports(sft):
+            out[cls.name] = cls(sft)
+    if not out:
+        raise NotImplementedError(
+            f"schema {sft.name!r} needs indexes this port does not carry yet "
+            f"(it has {', '.join(POINT_INDEXES)} for point schemas): "
+            f"geomesa.indices={configured}"
+        )
+    return out
 
 
 class QueryPlanner:
-    def __init__(self, sft: FeatureType, indices: dict[str, Z3Index]):
+    def __init__(self, sft: FeatureType, indices: dict):
         self.sft = sft
         self.indices = indices
+
+    def choose(self, e: Extraction) -> str:
+        """``_heuristic`` over {z3, z2}: temporal → z3, spatial → z2,
+        otherwise a full scan."""
+        if e.temporally_bounded and "z3" in self.indices:
+            return "z3"
+        if e.spatially_bounded and "z2" in self.indices:
+            return "z2"
+        return FULL_SCAN
 
     def plan(
         self, q: Query, max_ranges: int = DEFAULT_MAX_RANGES
@@ -71,15 +112,18 @@ class QueryPlanner:
         t0 = time.perf_counter()
         f = q.resolved_filter()
         e = extract(f, self.sft.geom_field, self.sft.dtg_field)
-        z3 = self.indices["z3"]
+        name = self.choose(e)
+        scan = preferred_point_index(self.indices) if name == FULL_SCAN else name
+        index = self.indices[scan]
         if e.disjoint:
-            name, plan = "z3", IndexPlan.empty()
-        elif e.temporally_bounded:
-            name, plan = "z3", z3.plan(e, max_ranges)
+            plan = IndexPlan.empty()
+        elif name == FULL_SCAN:
+            plan = IndexPlan.full(index.n)
         else:
-            name, plan = FULL_SCAN, IndexPlan.full(z3.n)
+            plan = index.plan(e, max_ranges)
         info = QueryPlanInfo(
             index_name=name,
+            scan_index=scan,
             extraction=e,
             n_intervals=len(plan.intervals),
             n_candidates=plan.n_candidates,

@@ -7,7 +7,7 @@ Port copy of :mod:`geomesa_tpu.schema.sft`, trimmed to point schemas:
 - ``*`` marks the default geometry attribute (a ``Point``).
 - per-attribute options after a second ``:`` (``srid=4326``, ...).
 - schema-level user data after ``;`` (``geomesa.z3.interval``,
-  ``geomesa.index.dtg``).
+  ``geomesa.index.dtg``, ``geomesa.indices``, ``geomesa.index.layout``).
 
 Extended geometry types (lines, polygons) belong to the XZ indexes, which
 this port does not carry yet: their specs raise ``NotImplementedError``.
@@ -105,6 +105,21 @@ class FeatureType:
     @property
     def z3_interval(self) -> TimePeriod:
         return TimePeriod(self.user_data.get("geomesa.z3.interval", "week"))
+
+    @property
+    def index_layout(self) -> str:
+        """Index-layout version (``geomesa.index.layout``): ``current``
+        (default) or ``legacy``, the curve generation keys are built with."""
+        v = str(self.user_data.get("geomesa.index.layout", "current"))
+        return "legacy" if v in ("legacy", "1") else "current"
+
+    @property
+    def configured_indices(self) -> list[str] | None:
+        """The ``geomesa.indices`` override (index names), or None."""
+        v = self.user_data.get("geomesa.indices")
+        if not v:
+            return None
+        return [s.strip() for s in v.split(",") if s.strip()]
 
 
 def parse_spec(name: str, spec: str) -> FeatureType:

@@ -5,8 +5,10 @@ Ports of :mod:`geomesa_tpu.store.backends` for point schemas:
 - :class:`OracleBackend` — evaluates the full filter over every row on the
   host (the parity referee).
 - :class:`DeviceBackend` — the ``TpuBackend`` role on one torch device:
-  ``load`` stages the z3-sorted int32 ``x/y/bins/offs`` columns
-  (``backends.py:267-388``, points branch), ``_payload`` packs a query's
+  ``load`` stages int32 ``x/y/bins/offs`` columns once per point index, each
+  in its own sort order (``backends.py:267-388``, points branch; zero
+  ``bins``/``offs`` for a schema without a date), ``point_state`` picks the
+  state the batched counts run on (z3, then z2), ``_payload`` packs a query's
   int-domain bounds (``:478``), and ``select`` runs the two-pass device
   refine + compaction (``:501``) followed by the exact host residual.
 
@@ -35,6 +37,12 @@ from geomesa_tpu_torch.schema.columnar import FeatureTable
 from geomesa_tpu_torch.schema.sft import FeatureType
 
 REFINE_PRECISION = 31  # device coords are 31-bit fixed point
+POINT_INDEXES = ("z3", "z2")  # resident point layouts, in preference order
+
+
+def preferred_point_index(names) -> str | None:
+    """The first of ``POINT_INDEXES`` among ``names`` (index or state keys)."""
+    return next((name for name in POINT_INDEXES if name in names), None)
 
 
 class OracleBackend:
@@ -107,13 +115,18 @@ def int_boxes(boxes) -> np.ndarray | None:
     )
 
 
-def device_columns(sft: FeatureType, table: FeatureTable, perm: np.ndarray):
-    """The normalized int32 ``x/y/bins/offs`` host columns in ``perm`` order."""
+def device_columns(sft: FeatureType, table: FeatureTable):
+    """The normalized int32 ``x/y/bins/offs`` host columns in table order;
+    ``bins``/``offs`` are zeros for a schema without a date (the
+    unconstrained time window matches them)."""
     col = table.geom_column()
-    bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(table.dtg_millis()[perm])
+    if sft.dtg_field is not None:
+        bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(table.dtg_millis())
+    else:
+        bins = offs = np.zeros(len(table), dtype=np.int32)
     return {
-        "x": norm_lon(REFINE_PRECISION).normalize(col.x[perm]).astype(np.int32),
-        "y": norm_lat(REFINE_PRECISION).normalize(col.y[perm]).astype(np.int32),
+        "x": norm_lon(REFINE_PRECISION).normalize(col.x).astype(np.int32),
+        "y": norm_lat(REFINE_PRECISION).normalize(col.y).astype(np.int32),
         "bins": bins.astype(np.int32),
         "offs": offs.astype(np.int32),
     }
@@ -128,16 +141,32 @@ class DeviceBackend:
         self.device = device
 
     def load(self, sft, table, indices) -> dict[str, IndexState]:
-        host = device_columns(sft, table, indices["z3"].perm)
-        t0 = time.perf_counter()
-        cols, padded = stage_columns(host, self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return {"z3": IndexState(
-            cols=cols, rows_per_shard=padded, n=len(table),
-            h2d_bytes=sum(int(c.nbytes) for c in cols.values()),
-            h2d_s=time.perf_counter() - t0,
-        )}
+        """One resident state per point index, in that index's order: the
+        columns are normalized once, in table order, and gathered per index."""
+        state = {}
+        table_order = device_columns(sft, table)
+        for name in POINT_INDEXES:
+            if name not in indices:
+                continue
+            perm = indices[name].perm
+            host = {k: v[perm] for k, v in table_order.items()}
+            t0 = time.perf_counter()
+            cols, padded = stage_columns(host, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            state[name] = IndexState(
+                cols=cols, rows_per_shard=padded, n=len(table),
+                h2d_bytes=sum(int(c.nbytes) for c in cols.values()),
+                h2d_s=time.perf_counter() - t0,
+            )
+        return state
+
+    @staticmethod
+    def point_state(state) -> tuple[IndexState | None, str | None]:
+        """The preferred point-index state and its name (z3, then z2): the
+        one the batched counts run on (``backends.py:226-238``)."""
+        name = preferred_point_index(state or ())
+        return (None, None) if name is None else (state[name], name)
 
     def payload(self, sft: FeatureType, e: Extraction) -> tuple[np.ndarray, np.ndarray]:
         """Packed (MAX_BOXES, 4) boxes and (MAX_TIMES, 4) windows, int32."""

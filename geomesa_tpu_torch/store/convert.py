@@ -21,7 +21,10 @@ def load_reference_state(store, type_name: str, spec: str, columns: dict,
     ``columns``: attribute name → numpy array in the reference table's row
     order; the point geometry maps to a ``(lon, lat)`` pair of f64 arrays,
     the date to int64 epoch millis. ``fids``: feature ids in that order.
-    ``perm``: the reference z3 index's sorted position → row permutation.
+    ``perm``: the reference indexes' sorted position → row permutations by
+    index name (``{"z3": ..., "z2": ...}``), each installed into that index;
+    a bare array is the z3 permutation. An index of the schema without one
+    is built by the store.
     """
     sft = store.create_schema(type_name, spec)
     cols = {}
@@ -34,4 +37,6 @@ def load_reference_state(store, type_name: str, spec: str, columns: dict,
             cols[a.name] = Column(a.type, np.asarray(v))
     table = FeatureTable.from_columns(sft, fids, cols)
     store._validate(sft, table)
-    store._rebuild(store._state(type_name), table, perm=np.asarray(perm))
+    perms = perm if isinstance(perm, dict) else {"z3": perm}
+    store._rebuild(store._state(type_name), table,
+                   perms={name: np.asarray(p) for name, p in perms.items()})

@@ -1,8 +1,11 @@
 """DataStore: schema, writes, queries and batched counts on one device.
 
-Port of the point bbox+time path of :class:`geomesa_tpu.store.datastore.
-DataStore`: ``create_schema`` → ``write`` → ``compact`` → ``query`` /
-``count_many``. Differences from the reference, all deliberate:
+Port of the point path of :class:`geomesa_tpu.store.datastore.DataStore`,
+for point schemas with or without a date: ``create_schema`` → ``write`` →
+``compact`` → ``query`` / ``count_many``. Every write builds the z3 and z2
+indexes the schema has (keys encoded and sorted on the store's device) and
+stages each index's columns. Differences from the reference, all
+deliberate:
 
 - ``write`` folds the rows straight into the sorted main tier and rebuilds
   (index sort + device residency); there is no delta hot tier yet, so
@@ -97,10 +100,11 @@ class DataStore:
             if spec is None:
                 raise ValueError("create_schema('name', 'spec string') requires a spec")
             sft = parse_spec(sft, spec)
-        if not (sft.geom_is_points and sft.dtg_field is not None):
+        if not sft.geom_is_points:
             raise NotImplementedError(
-                "this port serves point schemas with a date (the z3 index) only"
+                "this port serves point schemas only (the z3 and z2 indexes)"
             )
+        build_indices(sft)  # refuses what the port cannot index
         if sft.name in self._types:
             raise ValueError(f"schema already exists: {sft.name}")
         self._types[sft.name] = _TypeState(sft=sft)
@@ -117,8 +121,8 @@ class DataStore:
     # -- writes ---------------------------------------------------------------
     def write(self, type_name: str, data, fids=None) -> int:
         """Append features (a FeatureTable, or record dicts with ``fids``)
-        and rebuild the main tier. Rows with a null geometry or date are
-        rejected before anything changes."""
+        and rebuild the main tier. Rows with a null geometry, or a null date
+        where the schema has one, are rejected before anything changes."""
         st = self._state(type_name)
         if isinstance(data, list):
             if fids is None:
@@ -135,26 +139,40 @@ class DataStore:
         lands there (no hot tier in this port), so this only checks the name."""
         self._state(type_name)
 
-    def _rebuild(self, st: _TypeState, table: FeatureTable, perm=None) -> None:
+    def _rebuild(self, st: _TypeState, table: FeatureTable, perms=None) -> None:
+        """Build every index of the schema (or install ``perms[name]``, a
+        permutation computed elsewhere) and load the backend."""
         t0 = time.perf_counter()
         indices = build_indices(st.sft)
-        if perm is None:
-            indices["z3"].build(table, self.device)
-        else:
-            indices["z3"].install(table, perm)
+        for name, index in indices.items():
+            if perms is not None and name in perms:
+                index.install(table, perms[name])
+            else:
+                index.build(table, self.device)
         t1 = time.perf_counter()
         state = self.backend.load(st.sft, table, indices)
         st.table, st.indices, st.backend_state = table, indices, state
-        st.rebuild_s = {"index_build": t1 - t0, "load": time.perf_counter() - t1}
+        st.rebuild_s = {
+            "index_build": t1 - t0,
+            "load": time.perf_counter() - t1,
+            "indices": {name: dict(index.build_s) for name, index in indices.items()},
+        }
 
     def last_rebuild(self, type_name: str) -> dict:
-        """Seconds the last rebuild of ``type_name`` spent building the index
-        (encode + sort) and loading the backend (normalize + stage)."""
+        """Seconds the last rebuild of ``type_name`` spent building the
+        indexes (``index_build``) and loading the backend (``load``:
+        normalize + stage), and, under ``indices``, each index build's
+        phases: ``normalize`` and ``stage`` (host → device) of the curve
+        inputs, ``encode`` (the kernel; CUDA events on the card), ``sort``
+        and ``copy_back`` (permutation and sorted keys to the host)."""
         return dict(self._state(type_name).rebuild_s or {})
 
     @staticmethod
     def _validate(sft: FeatureType, table: FeatureTable) -> None:
-        for field, what in ((sft.geom_field, "geometry"), (sft.dtg_field, "date")):
+        checks = [(sft.geom_field, "geometry")]
+        if sft.dtg_field is not None:
+            checks.append((sft.dtg_field, "date"))
+        for field, what in checks:
             col = table.columns[field]
             if not col.is_valid().all():
                 bad = int((~col.is_valid()).sum())
@@ -180,14 +198,15 @@ class DataStore:
         else:
             plan, f, info = QueryPlanner(st.sft, st.indices).plan(q)
             rows = self.backend.select(
-                st.backend_state, st.indices["z3"], plan, info.extraction, f, main
+                st.backend_state, st.indices[info.scan_index], plan, info.extraction, f, main
             )
         rows = np.sort(rows)
         return QueryResult(main.take(rows), rows, info)
 
     def count_many(self, type_name: str, queries, loose: bool = True) -> list[int]:
         """Counts for many queries. Pure bbox+time queries share ONE pass of
-        the ``batched_count`` kernel (``loose=True``: the int-domain count,
+        the ``batched_count`` kernel over the preferred point index's
+        resident columns (``loose=True``: the int-domain count,
         the loose-bbox semantics); a provably disjoint filter counts 0; every
         other query, and every query when ``loose=False``, is answered
         exactly through :meth:`query`."""
@@ -208,7 +227,7 @@ class DataStore:
                 elif loose:
                     live.append((i, self.backend.payload(st.sft, e)))
         if live:
-            dev = st.backend_state["z3"]
+            dev, _ = DeviceBackend.point_state(st.backend_state)
             boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
             times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
             # make_batched_count_step (parallel/query.py:449) on one shard:

@@ -3,8 +3,8 @@ data), and bench config 8's streamed chunks.
 
 Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``,
 ``_pack_query_boxes`` and config 8's ``host_chunk`` (tests hold them
-equal), plus :func:`bbox_time_cql`, which writes one query as the CQL a
-user would send.
+equal), plus :func:`bbox_cql` and :func:`bbox_time_cql`, which write one
+query as the CQL a user would send.
 """
 
 from __future__ import annotations
@@ -71,12 +71,16 @@ def iso_millis(ms: int) -> str:
     return dt.strftime("%Y-%m-%dT%H:%M:%S.") + f"{dt.microsecond // 1000:03d}Z"
 
 
+def bbox_cql(box, geom: str = "geom") -> str:
+    """``BBOX(geom, x1, y1, x2, y2)`` for one box: a spatial-only query."""
+    x1, y1, x2, y2 = (float(v) for v in box)
+    return f"BBOX({geom}, {x1!r}, {y1!r}, {x2!r}, {y2!r})"
+
+
 def bbox_time_cql(box, window, geom: str = "geom", dtg: str = "dtg") -> str:
     """``BBOX(geom, x1, y1, x2, y2) AND dtg DURING lo/hi`` for one query."""
-    x1, y1, x2, y2 = (float(v) for v in box)
     lo, hi = window
-    return (f"BBOX({geom}, {x1!r}, {y1!r}, {x2!r}, {y2!r}) AND "
-            f"{dtg} DURING {iso_millis(lo)}/{iso_millis(hi)}")
+    return f"{bbox_cql(box, geom)} AND {dtg} DURING {iso_millis(lo)}/{iso_millis(hi)}"
 
 
 STREAM_MAX_OFF = 86_400_000 - 1  # PERIOD=DAY offsets; one chunk = one time bin

@@ -1,5 +1,6 @@
 """The port's host copies equal the reference's, exactly: normalize,
-binned_time, zorder encode3/encode2, z3_sfc index and ranges, the payload
+binned_time, zorder encode3/encode2, z3_sfc and Z2SFC index, normalized and
+ranges, the payload
 packers, and the bench workload generators.
 
 Tolerance: none — every comparison is integer or bit-exact f64 equality.
@@ -15,13 +16,14 @@ import geomesa_tpu  # noqa: F401  (x64 on)
 from geomesa_tpu.curve import binned_time as ref_bt
 from geomesa_tpu.curve import normalize as ref_norm
 from geomesa_tpu.curve import zorder as ref_zorder
+from geomesa_tpu.curve.sfc import Z2SFC as RefZ2SFC
 from geomesa_tpu.curve.sfc import z3_sfc as ref_z3_sfc
 from geomesa_tpu.ops import refine as ref_refine
 
 from geomesa_tpu_torch.curve import binned_time as bt
 from geomesa_tpu_torch.curve import normalize as norm
 from geomesa_tpu_torch.curve import zorder
-from geomesa_tpu_torch.curve.sfc import z3_sfc
+from geomesa_tpu_torch.curve.sfc import Z2SFC, z3_sfc
 from geomesa_tpu_torch.ops import refine
 from geomesa_tpu_torch import workload
 
@@ -81,6 +83,44 @@ def test_z3_index(coords, period):
     offs = rng.integers(0, int(bt.MAX_OFFSET[p]), len(lon))
     got = z3_sfc(p).index(lon, lat, offs)
     want = ref_z3_sfc(ref_bt.TimePeriod(period)).index(lon, lat, offs)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("period", ["day", "week"])
+def test_z3_normalized(coords, period):
+    lon, lat = coords
+    p = bt.TimePeriod(period)
+    offs = np.random.default_rng(9).integers(0, int(bt.MAX_OFFSET[p]), len(lon))
+    got = z3_sfc(p).normalized(lon, lat, offs)
+    want = ref_z3_sfc(ref_bt.TimePeriod(period)).normalized(lon, lat, offs)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32 and np.array_equal(g, w)
+    assert np.array_equal(zorder.encode3(*got), z3_sfc(p).index(lon, lat, offs))
+
+
+def test_z2_index_and_normalized(coords):
+    lon, lat = coords
+    got = Z2SFC().index(lon, lat)
+    want = RefZ2SFC().index(lon, lat)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    for g, w in zip(Z2SFC().normalized(lon, lat), RefZ2SFC().normalized(lon, lat)):
+        assert g.dtype == np.int32 and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "boxes,budget",
+    [
+        ([(-10.0, -10.0, 10.0, 10.0)], 2000),
+        ([(170.0, -5.0, -170.0, 5.0)], 300),  # dateline
+        ([(0.0, 0.0, 1.0, 1.0), (30.0, 30.0, 40.0, 35.0)], 64),
+        ([(-180.0, -90.0, 180.0, 90.0)], 2000),
+        ([(2.0, 48.0, 2.5, 49.0)], 8),
+        ([(2.0, 48.0, 2.0, 48.0)], 2000),  # a point
+    ],
+)
+def test_z2_ranges(boxes, budget):
+    got = Z2SFC().ranges(boxes, budget)
+    want = RefZ2SFC().ranges(boxes, budget)
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 

@@ -1,10 +1,13 @@
-"""The port's batched_count, batched_count_hits and refine against the
-reference, on the CPU.
+"""The port's batched_count, batched_count_hits, z3_encode, z2_encode and
+refine against the reference, on the CPU.
 
 ``batched_count_plain`` and ``batched_count_hits_plain`` (what the port's
 wrappers run for CPU tensors) must equal the Pallas ``batched_count`` and
 ``batched_count_hits`` in interpret mode, and the jnp
-``make_batched_count_step`` on the CPU mesh; ``refine_points`` and the
+``make_batched_count_step`` on the CPU mesh; ``z3_encode_plain`` and
+``z2_encode_plain`` must equal the Pallas ``z3_encode``/``z2_encode`` in
+interpret mode (``hi << 32 | lo``) and ``curve/zorder.encode3/encode2``;
+``refine_points`` and the
 two-pass select steps must equal the reference refine. The CUDA kernels
 themselves run only on a card: the ``cuda``-marked tests skip elsewhere
 (``chip_smoke.py`` holds both on the H100). The kernel build is checked
@@ -22,6 +25,9 @@ import geomesa_tpu  # noqa: F401  (x64 on)
 import jax.numpy as jnp
 from geomesa_tpu.ops.pallas_kernels import batched_count as ref_batched_count
 from geomesa_tpu.ops.pallas_kernels import batched_count_hits as ref_batched_count_hits
+from geomesa_tpu.ops.pallas_kernels import z2_encode as ref_z2_encode
+from geomesa_tpu.ops.pallas_kernels import z3_encode as ref_z3_encode
+from geomesa_tpu.curve import zorder as ref_zorder
 from geomesa_tpu.ops.refine import refine_points as ref_refine_points
 from geomesa_tpu.parallel.mesh import default_mesh, shard_columns
 from geomesa_tpu.parallel.query import make_batched_count_step
@@ -32,6 +38,10 @@ from geomesa_tpu_torch.ops.kernels import (
     batched_count_hits,
     batched_count_hits_plain,
     batched_count_plain,
+    z2_encode,
+    z2_encode_plain,
+    z3_encode,
+    z3_encode_plain,
 )
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points, unsat_rows
 from geomesa_tpu_torch.parallel.query import select_count, select_gather
@@ -232,3 +242,91 @@ def test_hits_kernel_matches_plain_on_card():
             want = batched_count_hits_plain(*cols, base, true_n, boxes, times)
             torch.cuda.synchronize()
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- z3_encode / z2_encode -----------------------------------------------------
+
+# edge values of each width: 0, 1, the largest in-width value, then values
+# above the width (which the first mask word must cut), negatives included
+Z3_EDGES = [0, 1, 2**21 - 1, 2**21, 2**21 + 5, 2**30, 2**31 - 1, -1, -(2**31)]
+Z2_EDGES = [0, 1, 2**31 - 1, 2**30, -1, -(2**31), -12345]
+
+
+def _morton_inputs(n, dims, bits, edges, seed):
+    """``dims`` seeded int32 columns of ``bits``-bit values with the edge
+    values spliced in (each column gets them at different rows)."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(0, 2**bits, n, dtype=np.int64).astype(np.int32) for _ in range(dims)]
+    for d, c in enumerate(cols):
+        k = min(n, len(edges))
+        c[(np.arange(k) * 7 + d) % n if n else slice(0)] = np.roll(edges, d)[:k]
+    return cols
+
+
+def _pallas_codes(fn, cols):
+    hi, lo = fn(*(jnp.asarray(c) for c in cols), interpret=True)
+    hi, lo = np.asarray(hi).astype(np.uint64), np.asarray(lo).astype(np.uint64)
+    return ((hi << np.uint64(32)) | lo).view(np.int64)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3000, 32769])
+@pytest.mark.parametrize("kernel", ["z3", "z2"])
+def test_morton_plain_equals_pallas_and_zorder(n, kernel):
+    """Exact, at a ragged N one past the Pallas tile of 256 x 128 rows; the
+    Pallas kernel refuses an empty input, so N = 0 is held to zorder only."""
+    if kernel == "z3":
+        cols = _morton_inputs(n, 3, 21, Z3_EDGES, seed=n + 3)
+        port, plain, pallas, ref = z3_encode, z3_encode_plain, ref_z3_encode, ref_zorder.encode3
+    else:
+        cols = _morton_inputs(n, 2, 31, Z2_EDGES, seed=n + 2)
+        port, plain, pallas, ref = z2_encode, z2_encode_plain, ref_z2_encode, ref_zorder.encode2
+    want = ref(*cols).view(np.int64)
+    for got in (port(*(_t(c) for c in cols)), plain(*(_t(c) for c in cols))):
+        assert got.dtype == torch.int64 and got.shape == (n,)
+        assert np.array_equal(got.numpy(), want)
+    if n:
+        assert np.array_equal(_pallas_codes(pallas, cols), want)
+    if kernel == "z3" or n == 0:
+        assert (want >= 0).all()  # bit 63 is 0: int64 order is the unsigned order
+
+
+def test_morton_in_width_codes_keep_bit_63_clear():
+    """Normalized (31-bit) z2 inputs give 62-bit codes, so torch.sort on the
+    int64 codes orders them as the reference's uint64 sort does."""
+    rng = np.random.default_rng(21)
+    x, y = (rng.integers(0, 2**31, 5000).astype(np.int32) for _ in range(2))
+    x[:2], y[:2] = 2**31 - 1, 2**31 - 1
+    got = z2_encode(_t(x), _t(y)).numpy()
+    assert (got >= 0).all() and got.max() < 2**62
+    assert np.array_equal(np.argsort(got, kind="stable"),
+                          np.argsort(ref_zorder.encode2(x, y), kind="stable"))
+
+
+def test_morton_wrapper_rejects_bad_inputs():
+    a = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        z3_encode(a.long(), a, a)
+    with pytest.raises(TypeError):
+        z2_encode(a, a.reshape(2, 5))
+    with pytest.raises(ValueError, match="contiguous"):
+        z2_encode(torch.zeros(20, dtype=torch.int32)[::2], a)
+    with pytest.raises(ValueError, match="length and device"):
+        z3_encode(a, a, torch.zeros(9, dtype=torch.int32))
+    with pytest.raises(ValueError, match="length and device"):
+        z2_encode(a, torch.zeros(10, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        z2_encode(*(torch.zeros(10, dtype=torch.int32, device="meta") for _ in range(2)))
+
+
+@pytest.mark.cuda
+def test_morton_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for n in (0, 1, 3000, 32769, 1_000_003):
+        cols3 = [_t(c).to(dev) for c in _morton_inputs(n, 3, 21, Z3_EDGES, seed=n)]
+        cols2 = [_t(c).to(dev) for c in _morton_inputs(n, 2, 31, Z2_EDGES, seed=n)]
+        got3, got2 = z3_encode(*cols3), z2_encode(*cols2)
+        torch.cuda.synchronize()
+        assert torch.equal(got3, z3_encode_plain(*cols3))
+        assert torch.equal(got2, z2_encode_plain(*cols2))

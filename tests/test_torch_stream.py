@@ -199,7 +199,7 @@ def _gdelt_cols(sft, lon, lat, t):
     table = FeatureTable.from_columns(sft, [str(i) for i in range(len(lon))], {
         "name": Column(AttributeType.STRING, names),
         "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)})
-    c = device_columns(sft, table, np.arange(len(lon)))
+    c = device_columns(sft, table)
     return c["x"], c["y"], c["bins"], c["offs"]
 
 
