@@ -10,11 +10,17 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build every kernel under ``geomesa_tpu_torch/csrc`` with nvcc (parallel);
 2. ``batched_count`` against ``batched_count_plain`` on the card, exact, at
    ragged N, a base/true_n tail, Q in {1, 64, one past the shared-memory
-   tile}, (B, T) in {(1, 1), (8, 16)}, sentinel padding and a disjoint query;
-2b. ``batched_count_hits`` against ``batched_count_hits_plain`` on the card,
-   exact (counts and lane positions), at N in {1,000,003, 1,000,064}, a
-   base/true_n tail, Q in {1, 64, one past its tile}, (B, T) in {(1, 1),
-   (2, 2), (8, 16)}, sentinel padding and a disjoint query;
+   tile}, (B, T) in {(1, 1), (8, 16)}, and four payload modes: random
+   multi-slot queries with sentinel padding and a disjoint query; one live
+   box and window per query packed as ``DataStore`` packs them; and
+   ``workload.edge_payload``'s single-slot and mixed payloads over
+   ``edge_columns`` (dead slots before live ones, degenerate and int32-extreme
+   boxes, negative offsets, the unconstrained window over bins = offs = 0,
+   all-dead queries, tiles mixing single- and multi-slot queries); both row
+   loops (single-slot and general) must have run;
+2b. ``batched_count_hits`` against ``batched_count_hits_plain`` the same way
+   (counts and lane positions), at N in {1,000,003, 1,000,064} and (B, T) in
+   {(1, 1), (2, 2), (8, 16)};
 2c. ``z3_encode`` and ``z2_encode`` against ``z3_encode_plain`` and
    ``z2_encode_plain`` on the card, exact, at N in {1, 1,000,003, 50M} with
    the edge values of each width and values above it; then their times
@@ -122,15 +128,26 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def random_payload(rng, q: int, nb: int, nt: int, n_bins: int):
-    """Random boxes/windows packed to (q, nb, 4)/(q, nt, 4), with sentinel
-    padding and the last query fully unsatisfiable."""
-    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
+PAYLOAD_MODES = ("random", "packed", "single", "mixed")
 
+
+def random_payload(rng, q: int, nb: int, nt: int, n_bins: int, mode: str = "random",
+                   edge_cols=None):
+    """Boxes/windows as (q, nb, 4)/(q, nt, 4) int32. ``random``: 1..nb boxes
+    and 1..nt windows per query with sentinel padding, the last query fully
+    unsatisfiable; ``packed``: the same with one box and one window each,
+    as ``DataStore`` packs a city-box query; ``single``/``mixed``:
+    ``workload.edge_payload`` around the rows ``edge_cols``."""
+    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
+    from geomesa_tpu_torch.workload import edge_payload
+
+    if mode in ("single", "mixed"):
+        return edge_payload(edge_cols, q, nb, nt, seed=int(rng.integers(2**31)),
+                            single=mode == "single")
     boxes, times = [], []
     for i in range(q):
-        kb = int(rng.integers(1, nb + 1))
-        kt = int(rng.integers(1, nt + 1))
+        kb = 1 if mode == "packed" else int(rng.integers(1, nb + 1))
+        kt = 1 if mode == "packed" else int(rng.integers(1, nt + 1))
         bx = np.sort(rng.integers(0, 2**31 - 1, (kb, 2, 2)), axis=2)
         boxes.append(pack_boxes(bx.reshape(kb, 4).astype(np.int32), slots=nb))
         tb = np.sort(rng.integers(0, n_bins, (kt, 2)), axis=1)
@@ -146,42 +163,54 @@ def random_payload(rng, q: int, nb: int, nt: int, n_bins: int):
 def check_shapes(device, name: str, ns, slot_pairs, seed: int) -> int:
     """Phases 2 and 2b: kernel ``name`` vs its plain version, exact, at each
     N in ``ns``, (B, T) in ``slot_pairs``, Q in {1, 64, one past the
-    kernel's shared-memory tile}, with and without a base/true_n tail.
-    Returns max |difference| over every output."""
+    kernel's shared-memory tile}, each payload mode of
+    :func:`random_payload`, with and without a base/true_n tail; both row
+    loops must have run. Returns max |difference| over every output."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.workload import edge_columns
 
     kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
     rng = np.random.default_rng(seed)
     n_bins = 40
     worst = 0
+    kernels.path_blocks(name)  # zero the row-loop counters
     for n in ns:
-        cols = [
-            torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(device),
-            torch.from_numpy(rng.integers(0, 2**31 - 1, n).astype(np.int32)).to(device),
-            torch.from_numpy(rng.integers(0, n_bins, n).astype(np.int32)).to(device),
-            torch.from_numpy(rng.integers(0, DAY_MS, n).astype(np.int32)).to(device),
+        random_cols = [
+            rng.integers(0, 2**31 - 1, n).astype(np.int32),
+            rng.integers(0, 2**31 - 1, n).astype(np.int32),
+            rng.integers(0, n_bins, n).astype(np.int32),
+            rng.integers(0, DAY_MS, n).astype(np.int32),
         ]
-        for nb, nt in slot_pairs:
-            for q in (1, 64, kernels.q_tile_for(nb, nt, kernel=name) + 1):
-                for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
-                    b, t = random_payload(rng, q, nb, nt, n_bins)
-                    boxes = torch.from_numpy(b).to(device)
-                    times = torch.from_numpy(t).to(device)
-                    got = kernel(*cols, base, true_n, boxes, times)
-                    want = plain(*cols, base, true_n, boxes, times)
-                    torch.cuda.synchronize()
-                    if isinstance(got, torch.Tensor):
-                        got, want = (got,), (want,)
-                    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-                    worst = max(worst, err)
-                    log(f"  {name} N={n} Q={q} B={nb} T={nt} base={base} "
-                        f"true_n={true_n}: max_abs_err={err} "
-                        f"(matches {int(want[0].long().sum())})")
-                    if err != 0:
-                        raise AssertionError(
-                            f"{name} disagrees with plain at N={n} Q={q} B={nb} T={nt}")
+        edge_cols = edge_columns(n, seed=seed + n)
+        for mode in PAYLOAD_MODES:
+            host_cols = edge_cols if mode in ("single", "mixed") else random_cols
+            cols = [torch.from_numpy(c).to(device) for c in host_cols]
+            for nb, nt in slot_pairs:
+                for q in (1, 64, kernels.q_tile_for(nb, nt, kernel=name) + 1):
+                    for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
+                        b, t = random_payload(rng, q, nb, nt, n_bins, mode, edge_cols)
+                        boxes = torch.from_numpy(b).to(device)
+                        times = torch.from_numpy(t).to(device)
+                        got = kernel(*cols, base, true_n, boxes, times)
+                        want = plain(*cols, base, true_n, boxes, times)
+                        torch.cuda.synchronize()
+                        if isinstance(got, torch.Tensor):
+                            got, want = (got,), (want,)
+                        err = max(int((g.long() - w.long()).abs().max())
+                                  for g, w in zip(got, want))
+                        worst = max(worst, err)
+                        log(f"  {name} {mode} N={n} Q={q} B={nb} T={nt} base={base} "
+                            f"true_n={true_n}: max_abs_err={err} "
+                            f"(matches {int(want[0].long().sum())})")
+                        if err != 0:
+                            raise AssertionError(f"{name} disagrees with plain at {mode} "
+                                                 f"N={n} Q={q} B={nb} T={nt}")
+    single, general = kernels.path_blocks(name)
+    log(f"  {name} row loops: {single} blocks single-slot, {general} blocks general")
+    if not (single and general):
+        raise AssertionError(f"{name}: both row loops must run in this phase")
     return worst
 
 
@@ -403,6 +432,7 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+        kernels.path_blocks("batched_count")
     for k in kernels.launches:
         kernels.launches[k] = 0
     ds = DataStore(device=dev)
@@ -427,6 +457,9 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     spatial_s = time.perf_counter() - t0
     launched = dict(kernels.launches)
     log(f"phase main-path launches: {launched}")
+    if on_card:
+        log("phase main-path batched_count row loops (blocks single-slot, general): "
+            f"{kernels.path_blocks('batched_count')}")
     if on_card and launched["batched_count"] < 1:
         raise AssertionError("count_many did not launch the batched_count kernel")
     if on_card and (launched["z3_encode"], launched["z2_encode"]) != (1, 1):
@@ -473,9 +506,12 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         batch.append((time.perf_counter() - s) * 1e3)
     log(f"phase count_many batch: first {first_batch_s * 1e3:.3f} ms, "
         f"p50 {float(np.percentile(batch, 50)):.3f} ms over {iters} "
-        f"({n_queries} queries per batch)")
+        f"(min {min(batch):.3f}, max {max(batch):.3f}; {n_queries} queries per batch)")
 
+    t0 = time.perf_counter()
     payloads = [ds.backend.payload(sft, extract(parse(c), "geom", "dtg")) for c in cqls]
+    log(f"phase count_many host part: {(time.perf_counter() - t0) * 1e3:.3f} ms to parse, "
+        f"extract and pack the {n_queries} queries' payloads (host clock, once)")
     boxes = torch.from_numpy(np.ascontiguousarray(np.stack([p[0] for p in payloads]))).to(dev)
     times = torch.from_numpy(np.ascontiguousarray(np.stack([p[1] for p in payloads]))).to(dev)
     cols = state.spatial_cols()
@@ -665,6 +701,7 @@ def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            kernels.path_blocks("batched_count_hits")
         for k in kernels.launches:
             kernels.launches[k] = 0
         prod = threading.Thread(target=producer, name="stream-producer", daemon=True)
@@ -685,6 +722,9 @@ def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -
         if stats["scan_errors"] or stats["callback_errors"]:
             raise AssertionError(f"stream errors {stats}:\n{scanner.last_error}")
         log(f"phase stream launches: {launched}")
+        if on_card:
+            log("phase stream batched_count_hits row loops (blocks single-slot, general): "
+                f"{kernels.path_blocks('batched_count_hits')}")
         if on_card and launched["batched_count_hits"] < n_chunks:
             raise AssertionError("the scanner did not launch batched_count_hits per chunk")
         worst = max(check_chunk(c, c) for c in range(n_chunks))

@@ -4,25 +4,30 @@
 // (batched_count -> _count_kernel :95, predicate _tile_mask :46). It computes
 // the same function, not the TPU kernel's block schedule: the TPU carries a
 // (Q, 128) accumulator across a sequential grid; here blocks run in parallel
-// in no order, so each block keeps its partial counts in shared memory and
-// adds them into the (Q,) output with one int32 atomicAdd per (block, query).
+// in no order, so each block keeps per-warp partial counts in shared memory
+// and adds them into the (Q,) output with one int32 atomicAdd per
+// (block, query) that matched.
 //
-// The row predicate is geomesa::match_rows in count_predicate.cuh, shared
-// with batched_count_hits.cu.
+// Bound on an H100: integer instructions, not bytes. The columns are
+// 16 B/row (0.24 ms for 50M rows at 3.35 TB/s), while the predicate needs at
+// least one subtract and one compare per bound pair of every (row, live box
+// slot), and two 64-bit compares per (row, live window) for rows inside a
+// box (chip_smoke.py reckons the floor from the run's inputs).
 //
-// Bound on an H100: integer compares, not bytes. The columns are 16 B/row
-// (0.24 ms for 50M rows at 3.35 TB/s), while the predicate needs at least 4
-// int32 compares per (row, live box slot) and 4 per (row, live time slot) of
-// each query (chip_smoke.py reckons it from the run's inputs). Design against
-// that bound: the (Q_tile, 4B + 4T) payload sits in shared memory and is read as
-// warp-wide broadcasts; each thread holds ROWS rows' four values in
-// registers and reuses them for every query of the tile; the time slots are
-// evaluated only when some lane of the warp is inside a box (the box test
-// alone is the floor of the work); matches are counted with
-// __ballot_sync/__popc, so no per-row reduction traffic.
+// Design (count_predicate.cuh): each block stages its query tile once, live
+// slots first, as (xlo, xhi - xlo, ylo, yhi - ylo) boxes and biased 64-bit
+// window keys, and lists the queries with a live box and a live window; the
+// padding slots DataStore packs (B = 8, T = 16 around one live slot each)
+// cost nothing per row. Each thread holds 16 consecutive rows of each column
+// (int4 loads) across all active queries; per query a warp builds its in-box
+// masks, skips the time test when no lane has an in-box row (one vote), and
+// otherwise counts in-box & in-window & valid with one __reduce_add_sync,
+// writing its shared count only when it is non-zero. A tile whose active
+// queries have one live box and one live window each runs the compile-time
+// <1, 1> row loop.
 //
 // Plain C entry point for ctypes; launches on the caller's stream, does not
-// synchronise, returns cudaGetLastError().
+// synchronise, returns a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,22 +36,20 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 4;  // rows per thread per chunk
-constexpr int CHUNK = THREADS * ROWS;
-constexpr int SMEM_BUDGET = 45056;  // bytes of shared memory per block (< 48 KB)
-constexpr int BLOCKS_PER_SM = 8;
+using namespace geomesa;
 
-// Queries whose payload one block stages in shared memory at once; larger
-// batches tile over Q (grid dimension y).
-int q_tile_for(int nb, int nt) {
-  const int per_q_bytes = (int)sizeof(int32_t) * (4 * (nb + nt) + WARPS);
-  const int t = SMEM_BUDGET / per_q_bytes;
-  return t > 1 ? t : 1;
-}
+__device__ unsigned long long g_path_blocks[2];
 
-__global__ void __launch_bounds__(THREADS)
+struct CountEpilogue {
+  int* cnt;  // (WARPS, q_tile)
+  int q_tile;
+  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t) const {
+    const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
+    if ((threadIdx.x & 31) == 0 && c) cnt[(threadIdx.x >> 5) * q_tile + qi] += c;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 2)
 batched_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                      const int32_t* __restrict__ bins, const int32_t* __restrict__ offs,
                      int64_t n, int64_t base, int64_t true_n,
@@ -54,62 +57,43 @@ batched_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
                      const int32_t* __restrict__ times,  // (Q, nt, 4)
                      int q, int nb, int nt, int q_tile,
                      int32_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
-  const int per_q = 4 * (nb + nt);
+  extern __shared__ int4 smem[];
+  __shared__ int meta[2];
   const int q0 = blockIdx.y * q_tile;
   const int qt = min(q_tile, q - q0);
-  int32_t* s_pay = smem;                      // (qt, per_q)
-  int32_t* s_cnt = smem + q_tile * per_q;     // (WARPS, q_tile)
-
-  for (int i = threadIdx.x; i < qt * per_q; i += THREADS) {
-    const int qi = i / per_q;
-    const int j = i - qi * per_q;
-    const int gq = q0 + qi;
-    s_pay[i] = j < 4 * nb ? boxes[(int64_t)gq * 4 * nb + j]
-                          : times[(int64_t)gq * 4 * nt + (j - 4 * nb)];
-  }
-  for (int i = threadIdx.x; i < WARPS * q_tile; i += THREADS) s_cnt[i] = 0;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t limit = geomesa::valid_limit(n, base, true_n);
-  const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
-
-  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    int32_t rx[ROWS], ry[ROWS], rb[ROWS], ro[ROWS];
-    bool ok[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int64_t pos = c * CHUNK + (int64_t)r * THREADS + threadIdx.x;
-      ok[r] = pos < limit;
-      rx[r] = ok[r] ? x[pos] : 0;
-      ry[r] = ok[r] ? y[pos] : 0;
-      rb[r] = ok[r] ? bins[pos] : 0;
-      ro[r] = ok[r] ? offs[pos] : 0;
-    }
-    for (int qi = 0; qi < qt; ++qi) {
-      bool m[ROWS];
-      int cnt = 0;
-      if (geomesa::match_rows<ROWS>(s_pay + qi * per_q, nb, nt, rx, ry, rb, ro, ok, m)) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) cnt += __popc(__ballot_sync(geomesa::FULL_WARP, m[r]));
-      }
-      if (lane == 0) s_cnt[warp * q_tile + qi] += cnt;
-    }
+  const Tile t = carve(smem, q_tile, nb, nt);
+  stage_tile(boxes, times, q0, qt, t, meta);
+  const int n_active = meta[0];
+  const int64_t limit = valid_limit(n, base, true_n);
+  CountEpilogue ep{t.cnt, q_tile};
+  if (n_active > 0) {
+    note_path(g_path_blocks, meta[1]);
+    if (meta[1])
+      scan_rows<true>(x, y, bins, offs, n, limit, t, n_active, ep);
+    else
+      scan_rows<false>(x, y, bins, offs, n, limit, t, n_active, ep);
   }
   __syncthreads();
   for (int qi = threadIdx.x; qi < qt; qi += THREADS) {
     int sum = 0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += s_cnt[w * q_tile + qi];
+    for (int w = 0; w < WARPS; ++w) sum += t.cnt[w * q_tile + qi];
     if (sum) atomicAdd(&out[q0 + qi], sum);
   }
 }
 
 }  // namespace
 
-extern "C" int geomesa_batched_count_q_tile(int nb, int nt) { return q_tile_for(nb, nt); }
+extern "C" int geomesa_batched_count_q_tile(int nb, int nt) { return q_tile_for(nb, nt, 0); }
+
+// Copies the per-path block counts ([0] <1, 1>, [1] general) since the last
+// call into out (host, 2 x uint64) and zeroes them; synchronises the device.
+extern "C" int geomesa_batched_count_path_blocks(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_path_blocks, sizeof(g_path_blocks));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[2] = {0, 0};
+  return (int)cudaMemcpyToSymbol(g_path_blocks, zero, sizeof(zero));
+}
 
 extern "C" int geomesa_batched_count(const void* x, const void* y, const void* bins,
                                      const void* offs, long long n, long long base,
@@ -117,12 +101,16 @@ extern "C" int geomesa_batched_count(const void* x, const void* y, const void* b
                                      const void* times, int q, int nb, int nt,
                                      int sms, void* out, void* stream) {
   if (q <= 0 || n <= 0) return (int)cudaSuccess;
-  const int q_tile = q < q_tile_for(nb, nt) ? q : q_tile_for(nb, nt);
+  const int q_tile = q < q_tile_for(nb, nt, 0) ? q : q_tile_for(nb, nt, 0);
   const int q_tiles = (q + q_tile - 1) / q_tile;
+  const size_t smem = (size_t)q_tile * staged_bytes_per_query(nb, nt, 0);
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batched_count_kernel,
+                                                                THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
   const long long chunks = (n + CHUNK - 1) / CHUNK;
-  const int grid_x = chunks < (long long)sms * BLOCKS_PER_SM ? (int)chunks : sms * BLOCKS_PER_SM;
-  const size_t smem = sizeof(int32_t) * (size_t)q_tile * (4 * (nb + nt) + WARPS);
-  dim3 grid(grid_x, q_tiles);
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  dim3 grid((unsigned)(chunks < resident ? chunks : resident), q_tiles);
   batched_count_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins,
       (const int32_t*)offs, n, base, true_n, (const int32_t*)boxes,

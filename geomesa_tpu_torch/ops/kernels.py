@@ -4,15 +4,29 @@
 ``geomesa_tpu/ops/pallas_kernels.py:150`` (``batched_count`` →
 ``_count_kernel`` :95, predicate ``_tile_mask`` :46): Q bbox+time count
 queries over the resident int32 columns in one pass. Its source is
-``csrc/batched_count.cu``; the note there gives the bound (integer compares
-per row, query and live slot, above the 16 B/row of column reads) and what
-the design does about it.
+``csrc/batched_count.cu``; the note there gives the bound (integer
+instructions per row, query and live slot, above the 16 B/row of column
+reads) and what the design does about it.
 
 ``batched_count_hits`` replaces ``pallas_kernels.py:217``
 (``batched_count_hits`` → ``_count_hits_kernel`` :118): the same counts plus
 the newest matched global row per 128-row lane, the subscription matrix's
-fused scan. Its source is ``csrc/batched_count_hits.cu``. Both kernels run
-the one row predicate of ``csrc/count_predicate.cuh``.
+fused scan. Its source is ``csrc/batched_count_hits.cu``.
+
+Both count kernels run the staged predicate and row scan of
+``csrc/count_predicate.cuh``. Each block stages its query tile once in
+shared memory, keeping only the live slots (a box is live iff ``xlo <= xhi
+and ylo <= yhi``, a window iff ``(blo, olo) <= (bhi, ohi)``; a dead slot
+matches no row, so dropping it is exact for any payload) and only the
+queries with a live box and a live window. A box is staged as ``(xlo, xhi -
+xlo, ylo, yhi - ylo)`` and tested as ``(uint32)(x - xlo) <= (uint32)(xhi -
+xlo)`` per axis; ``(bin, off)`` becomes the 64-bit key ``bin << 32 |
+(uint32)(off ^ 0x80000000)``, whose signed order is the lexicographic order
+of the pairs (negative offsets included), and a window is two compares of
+such keys. A thread holds 16 consecutive rows per column (16-byte loads);
+a tile whose active queries have one live box and one live window each runs
+a compile-time single-slot row loop, any other tile the general one
+(:func:`path_blocks` counts the blocks that took each).
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -30,9 +44,11 @@ the flags, so an edit to a shared header rebuilds every kernel. Nothing is
 built at import.
 
 Dispatch: a CUDA tensor launches the kernel or raises (a build failure, a
-refused launch and a non-zero ``cudaGetLastError`` are all errors); the
-plain PyTorch version runs only for tensors on the CPU. ``launches`` counts
-kernel launches per kernel name, incremented only where a launch happens.
+refused launch, a non-zero ``cudaGetLastError`` and, for the count kernels,
+a column or payload that does not start on a 16-byte boundary are all
+errors); the plain PyTorch version runs only for tensors on the CPU.
+``launches`` counts kernel launches per kernel name, incremented only where
+a launch happens.
 """
 
 from __future__ import annotations
@@ -65,6 +81,9 @@ _ENTRY_POINTS = {
     # (box slots, time slots) → queries per shared-memory tile
     "geomesa_batched_count_q_tile": ("batched_count", [_I, _I]),
     "geomesa_batched_count_hits_q_tile": ("batched_count_hits", [_I, _I]),
+    # (host out: 2 x uint64) → blocks per row-loop path since the last call
+    "geomesa_batched_count_path_blocks": ("batched_count", [_P]),
+    "geomesa_batched_count_hits_path_blocks": ("batched_count_hits", [_P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -146,10 +165,23 @@ def _stream_of(t: torch.Tensor) -> int:
 
 
 def q_tile_for(box_slots: int, time_slots: int, kernel: str = "batched_count") -> int:
-    """Queries whose payload one block of ``kernel`` stages in shared memory
-    at once (larger batches tile over Q). The launch geometry lives in the
-    kernel's ``.cu`` alone; this asks the built library."""
+    """Queries whose staged payload one block of ``kernel`` holds in shared
+    memory at once (larger batches tile over Q). The launch geometry and the
+    staged bytes per query live in the kernel's sources alone; this asks the
+    built library."""
     return _fn(f"geomesa_{kernel}_q_tile")(box_slots, time_slots)
+
+
+def path_blocks(kernel: str = "batched_count") -> tuple[int, int]:
+    """Blocks of ``kernel`` that ran its single-slot row loop and its
+    general row loop since the last call (then zeroed); blocks with no
+    active query ran neither. Reads the card's counters, so it synchronises
+    the device."""
+    out = (ctypes.c_ulonglong * 2)()
+    rc = _fn(f"geomesa_{kernel}_path_blocks")(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} path counters: cudaError {rc}")
+    return int(out[0]), int(out[1])
 
 
 def _check_count_args(x, y, bins, offs, boxes, times):
@@ -181,6 +213,11 @@ def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *
     n = x.shape[0]
     if q == 0 or n == 0:
         return
+    for name, t in zip(("x", "y", "bins", "offs", "boxes", "times"),
+                       (x, y, bins, offs, boxes, times)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{stem}: {name} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     fn = _fn(f"geomesa_{stem}")
     with torch.cuda.device(x.device):
@@ -200,6 +237,15 @@ def batched_count(x, y, bins, offs, base: int, true_n: int, boxes, times) -> tor
     ``base + lpos >= true_n`` never match); ``boxes`` (Q, B, 4) int32
     [xlo, xhi, ylo, yhi]; ``times`` (Q, T, 4) int32 [bin_lo, off_lo,
     bin_hi, off_hi]. Returns (Q,) int32 counts, on the columns' device.
+
+    On the card each block stages its query tile with the live slots first
+    (a box is live iff ``xlo <= xhi and ylo <= yhi``, a window iff
+    ``(bin_lo, off_lo) <= (bin_hi, off_hi)``): boxes as ``(xlo, xhi - xlo,
+    ylo, yhi - ylo)``, tested as ``(uint32)(x - xlo) <= (uint32)(xhi -
+    xlo)``; windows as two biased keys ``bin << 32 | (uint32)(off ^
+    0x80000000)``, compared as signed 64-bit integers. Dead slots and
+    queries with no live box or window cost no row work; the answer is the
+    same for any payload.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     if x.device.type == "cpu":
@@ -255,10 +301,14 @@ LANES = 128  # lanes of the hit scoreboard: position residues mod 128
 def batched_count_hits(x, y, bins, offs, base: int, true_n: int, boxes, times):
     """:func:`batched_count` plus the newest match per 128-row lane, one pass.
 
-    Same inputs and predicate as :func:`batched_count`. Returns ``(counts
-    (Q,) int32, lane_pos (Q, 128) int32)``: ``lane_pos[q, l]`` is the
-    greatest global position ``base + lpos`` of a row matching query ``q``
-    with ``lpos % 128 == l``, or -1 where that lane never matched.
+    Same inputs, predicate and staged layout as :func:`batched_count`.
+    Returns ``(counts (Q,) int32, lane_pos (Q, 128) int32)``:
+    ``lane_pos[q, l]`` is the greatest global position ``base + lpos`` of a
+    row matching query ``q`` with ``lpos % 128 == l``, or -1 where that lane
+    never matched. On the card a thread holds consecutive rows, so its rows
+    fall in the lanes ``(lpos0 + r) % 128``; each matched row folds into its
+    own lane of a shared scoreboard (``atomicMax``), then one global
+    ``atomicMax`` per matched (query, lane) per block.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     if int(base) + x.shape[0] > 2**31 - 1:

@@ -4,7 +4,9 @@ data), and bench config 8's streamed chunks.
 Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``,
 ``_pack_query_boxes`` and config 8's ``host_chunk`` (tests hold them
 equal), plus :func:`bbox_cql` and :func:`bbox_time_cql`, which write one
-query as the CQL a user would send.
+query as the CQL a user would send, and :func:`edge_columns` /
+:func:`edge_payload`, the rows and payloads that hold the count kernels'
+staged predicate to their plain versions at its edges.
 """
 
 from __future__ import annotations
@@ -102,3 +104,113 @@ def pack_query_boxes(boxes_f64) -> np.ndarray:
     """f64 boxes → (Q, 1, 4) normalized int32 payloads, one slot per query
     (``bench.py:273``)."""
     return np.stack([pack_boxes(int_boxes([b]), slots=1) for b in boxes_f64])
+
+
+# -- edge cases of the count kernels' staged predicate -------------------------
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+_I32_EDGES = np.array([I32_MIN, I32_MAX, 0, -1, 1, I32_MIN + 1, I32_MAX - 1], np.int64)
+
+
+def edge_columns(n: int, seed: int):
+    """(x, y, bins, offs) int32 rows over the whole int32 range, with its
+    extremes spliced in at the front, offsets of both signs, bins in
+    [-2, 3], and about a tenth of the rows at ``bins = offs = 0`` (a
+    date-less store's rows)."""
+    rng = np.random.default_rng(seed)
+    x, y, offs = (rng.integers(I32_MIN, I32_MAX, n, endpoint=True) for _ in range(3))
+    bins = rng.integers(-2, 4, n)
+    k = min(n, len(_I32_EDGES))
+    x[:k], y[:k], offs[:k] = _I32_EDGES[:k], _I32_EDGES[::-1][:k], _I32_EDGES[:k]
+    zero = rng.random(n) < 0.1
+    bins[zero] = 0
+    offs[zero] = 0
+    return tuple(a.astype(np.int32) for a in (x, y, bins, offs))
+
+
+def _live_box(rng, x, y, i: int) -> list[int]:
+    xi, yi = int(x[i]), int(y[i])
+    kind = int(rng.integers(5))
+    if kind == 0:  # degenerate: xlo == xhi, ylo == yhi, on a row
+        return [xi, xi, yi, yi]
+    if kind == 1:  # around a row
+        d = int(rng.integers(1, 2**29))
+        return [max(I32_MIN, xi - d), min(I32_MAX, xi + d),
+                max(I32_MIN, yi - d), min(I32_MAX, yi + d)]
+    if kind == 2:  # everything
+        return [I32_MIN, I32_MAX, I32_MIN, I32_MAX]
+    edge = I32_MIN if kind == 3 else I32_MAX  # one extreme column of x
+    return [edge, edge, I32_MIN, I32_MAX]
+
+
+def _dead_box(rng, x, y, i: int) -> list[int]:
+    kind = int(rng.integers(4))
+    if kind == 0:
+        return [1, 0, 1, 0]  # ops/refine.py's padding sentinel
+    if kind == 1:  # x bounds inverted, y everything
+        lo, hi = sorted(int(v) for v in rng.choice(x, 2))
+        return [hi, lo, I32_MIN, I32_MAX] if lo < hi else [1, 0, I32_MIN, I32_MAX]
+    if kind == 2:  # inverted across the whole range: xhi - xlo is 1 modulo 2^32
+        return [I32_MAX, I32_MIN, I32_MIN, I32_MAX]
+    return [I32_MIN, I32_MAX, I32_MAX, I32_MIN]
+
+
+def _live_window(rng, bins, offs, i: int) -> list[int]:
+    bi, oi = int(bins[i]), int(offs[i])
+    kind = int(rng.integers(5))
+    if kind == 0:  # one row's instant
+        return [bi, oi, bi, oi]
+    if kind == 1:  # pack_times' unconstrained window
+        return [0, -1, I32_MAX, I32_MAX]
+    if kind == 2:  # negative offsets of one bin
+        return [bi, I32_MIN, bi, -1]
+    if kind == 3:  # across bins, offsets of either sign
+        lo, hi = (int(v) for v in rng.integers(I32_MIN, I32_MAX, 2, endpoint=True))
+        return [bi - 1, lo, bi + 1, hi]
+    return [I32_MIN, I32_MIN, I32_MAX, I32_MAX]  # everything
+
+
+def _dead_window(rng, bins, offs, i: int) -> list[int]:
+    bi, oi = int(bins[i]), int(offs[i])
+    kind = int(rng.integers(4))
+    if kind == 0:
+        return [1, 0, 0, -1]  # ops/refine.py's padding sentinel
+    if kind == 1:  # one bin, offsets inverted by one
+        return [bi, oi, bi, oi - 1] if oi > I32_MIN else [bi, I32_MIN + 1, bi, I32_MIN]
+    if kind == 2:  # bins inverted
+        return [bi + 1, I32_MIN, bi, I32_MAX]
+    return [0, 0, 0, -1]  # live to a key without the offset bias
+
+
+_EDGE_KINDS = {True: ("one", "dead", "nobox", "notime"),
+               False: ("one", "multi", "dead", "nobox", "notime")}
+
+
+def edge_payload(cols, q: int, nb: int, nt: int, seed: int, single: bool):
+    """(q, nb, 4) boxes and (q, nt, 4) times around the rows of ``cols``, in
+    shapes the packers of ``ops/refine.py`` never make: live slots at random
+    positions behind dead ones (dead in ways other than the padding
+    sentinel), degenerate and whole-range boxes and boxes on the int32
+    extremes, windows with negative offsets and the unconstrained window,
+    and queries with no live box, no live window or neither. With
+    ``single`` every query with a live box and a live window has exactly one
+    of each (the kernels' single-slot row loop); otherwise some queries
+    have several, mixed in one tile with single-slot ones."""
+    rng = np.random.default_rng(seed)
+    x, y, bins, offs = cols
+    boxes = np.empty((q, nb, 4), np.int64)
+    times = np.empty((q, nt, 4), np.int64)
+    kinds = _EDGE_KINDS[single]
+    for qi in range(q):
+        kind = kinds[qi % len(kinds)]
+        kb = kt = 1
+        if kind == "multi":
+            kb, kt = int(rng.integers(1, nb + 1)), int(rng.integers(1, nt + 1))
+        live_b = set(rng.choice(nb, 0 if kind in ("dead", "nobox") else kb, replace=False).tolist())
+        live_t = set(rng.choice(nt, 0 if kind in ("dead", "notime") else kt, replace=False).tolist())
+        i = int(rng.integers(len(x)))  # the row the query's slots are built around
+        for k in range(nb):
+            boxes[qi, k] = (_live_box if k in live_b else _dead_box)(rng, x, y, i)
+        for k in range(nt):
+            times[qi, k] = (_live_window if k in live_t else _dead_window)(rng, bins, offs, i)
+    return boxes.astype(np.int32), times.astype(np.int32)

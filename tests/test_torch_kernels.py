@@ -10,9 +10,14 @@ interpret mode (``hi << 32 | lo``) and ``curve/zorder.encode3/encode2``;
 ``refine_points`` and the
 two-pass select steps must equal the reference refine. The CUDA kernels
 themselves run only on a card: the ``cuda``-marked tests skip elsewhere
-(``chip_smoke.py`` holds both on the H100). The kernel build is checked
-here only for what needs no ``nvcc``: a library's name follows its source
-and every shared header.
+(``chip_smoke.py`` holds both on the H100). What the count kernels compute
+differently is held here through ``_staged_mirror``, a torch model of their
+staged predicate (``csrc/count_predicate.cuh``: live-slot compaction, the
+unsigned-width box test modulo 2^32, the biased 64-bit time key, the
+single-slot row loop per tile), equal to the Pallas kernels and the plain
+versions on random payloads and on ``workload.edge_payload``'s. The kernel
+build is checked here only for what needs no ``nvcc``: a library's name
+follows its source and every shared header.
 
 Tolerance: none — counts and masks are integers/booleans, compared exactly.
 """
@@ -45,6 +50,7 @@ from geomesa_tpu_torch.ops.kernels import (
 )
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points, unsat_rows
 from geomesa_tpu_torch.parallel.query import select_count, select_gather
+from geomesa_tpu_torch.workload import edge_columns, edge_payload
 
 DAY_MS = 86_400_000
 N_BINS = 30
@@ -84,12 +90,82 @@ def _t(a):
 
 SHAPES = [(n, q, nb, nt) for n in (777, 10_001) for q in (1, 5, 64)
           for nb, nt in ((1, 1), (8, 16))]
+# edge payloads: "single" has one live box and window per live query (the
+# single-slot row loop), "mixed" puts multi-slot queries beside them
+EDGE_SHAPES = [(n, q, nb, nt, mode) for n in (777, 10_001) for q in (7, 64)
+               for mode, slots in (("single", ((1, 1), (8, 16))),
+                                   ("mixed", ((1, 1), (2, 3), (8, 16))))
+               for nb, nt in slots]
 
 
-@pytest.mark.parametrize("n,q,nb,nt", SHAPES)
-def test_plain_equals_pallas_interpret(n, q, nb, nt):
-    cols = _cols(n, seed=n)
-    boxes, times = _payload(q, nb, nt, seed=q * 100 + nb)
+def _cases(shapes):
+    """The random-payload cases under their earlier ids, then the edge ones."""
+    return ([pytest.param(*s, "random", id="-".join(map(str, s))) for s in shapes]
+            + [pytest.param(*s, id="-".join(map(str, s))) for s in EDGE_SHAPES])
+
+
+def _inputs(n, q, nb, nt, mode, col_seed, pay_seed):
+    if mode == "random":
+        return _cols(n, seed=col_seed), _payload(q, nb, nt, seed=pay_seed)
+    cols = edge_columns(n, seed=col_seed)
+    return cols, edge_payload(cols, q, nb, nt, seed=pay_seed, single=mode == "single")
+
+
+M32 = 0xFFFFFFFF
+
+
+def _time_key(b, o):
+    """The kernels' biased 64-bit key ``b << 32 | (uint32)(o ^ 0x80000000)``."""
+    return b.long() * 2**32 + ((o.long() ^ 0x80000000) & M32)
+
+
+def _staged_mirror(x, y, bins, offs, base, true_n, boxes, times, q_tile):
+    """Torch model of the count kernels' staged predicate, tile by tile:
+    keep the live slots of each query (live box: xlo <= xhi and ylo <= yhi;
+    live window: lo key <= hi key), stage boxes as (xlo, (xhi - xlo) mod
+    2^32, ylo, (yhi - ylo) mod 2^32) and windows as key pairs, list the
+    queries with a live box and a live window, and run the single-slot loop
+    (slot 0 alone) on a tile whose active queries have one of each.
+    Returns (counts, lane_pos, [single-slot loop? per tile with an active
+    query])."""
+    n, q = x.shape[0], boxes.shape[0]
+    xs, ys, key = x.long(), y.long(), _time_key(bins, offs)
+    lpos = torch.arange(n)
+    valid = int(base) + lpos < int(true_n)
+    counts = torch.zeros(q, dtype=torch.int64)
+    lane_pos = torch.full((q, 128), -1, dtype=torch.int64)
+    paths = []
+    for q0 in range(0, q, q_tile):
+        staged = []
+        for qi in range(q0, min(q, q0 + q_tile)):
+            b, t = boxes[qi].long(), times[qi].long()
+            b = b[(b[:, 0] <= b[:, 1]) & (b[:, 2] <= b[:, 3])]
+            sb = torch.stack([b[:, 0], (b[:, 1] - b[:, 0]) & M32,
+                              b[:, 2], (b[:, 3] - b[:, 2]) & M32], dim=1)
+            lo, hi = _time_key(t[:, 0], t[:, 1]), _time_key(t[:, 2], t[:, 3])
+            sw = torch.stack([lo, hi], dim=1)[lo <= hi]
+            if len(sb) and len(sw):
+                staged.append((qi, sb, sw))
+        if not staged:
+            continue
+        single = all(len(sb) == 1 and len(sw) == 1 for _, sb, sw in staged)
+        paths.append(single)
+        for qi, sb, sw in staged:
+            in_box = torch.zeros(n, dtype=torch.bool)
+            for xlo, xw, ylo, yw in sb[:1].tolist() if single else sb.tolist():
+                in_box |= (((xs - xlo) & M32) <= xw) & (((ys - ylo) & M32) <= yw)
+            in_time = torch.zeros(n, dtype=torch.bool)
+            for klo, khi in sw[:1].tolist() if single else sw.tolist():
+                in_time |= (key >= klo) & (key <= khi)
+            m = in_box & in_time & valid
+            counts[qi] = int(m.sum())
+            lane_pos[qi].scatter_reduce_(0, lpos[m] & 127, int(base) + lpos[m], "amax")
+    return counts.to(torch.int32), lane_pos.to(torch.int32), paths
+
+
+@pytest.mark.parametrize("n,q,nb,nt,mode", _cases(SHAPES))
+def test_plain_equals_pallas_interpret(n, q, nb, nt, mode):
+    cols, (boxes, times) = _inputs(n, q, nb, nt, mode, n, q * 100 + nb)
     for base, true_n in ((0, n), (4096, 4096 + n - 100)):
         want = np.asarray(ref_batched_count(
             *(jnp.asarray(c) for c in cols), jnp.int32(base), jnp.int32(true_n),
@@ -100,6 +176,48 @@ def test_plain_equals_pallas_interpret(n, q, nb, nt):
         assert np.array_equal(
             batched_count_plain(*(_t(c) for c in cols), base, true_n, _t(boxes), _t(times),
                                 chunk=1000).numpy(), want)
+        for q_tile in (3, q):  # tiles that mix the two loops, and one tile
+            mirror, _, _ = _staged_mirror(*(_t(c) for c in cols), base, true_n,
+                                          _t(boxes), _t(times), q_tile)
+            assert np.array_equal(mirror.numpy(), want)
+
+
+def test_staged_mirror_paths_and_edges():
+    """The edge payloads hold what they claim, the mirror picks the
+    single-slot loop exactly for tiles whose active queries have one live
+    box and one live window, and the offset bias is what makes the
+    unconstrained window match a date-less store's rows."""
+    cols = edge_columns(2000, seed=5)
+    tc = [_t(c) for c in cols]
+    b, t = edge_payload(cols, 64, 8, 16, seed=6, single=False)
+    live_b = (b[..., 0] <= b[..., 1]) & (b[..., 2] <= b[..., 3])
+    lo, hi = _time_key(_t(t[..., 0]), _t(t[..., 1])), _time_key(_t(t[..., 2]), _t(t[..., 3]))
+    live_t = (lo <= hi).numpy()
+    first_live = np.argmax(live_b, axis=1)
+    assert (first_live[live_b.any(axis=1)] > 0).any()  # dead slots before live ones
+    assert (~live_b.any(axis=1) & ~live_t.any(axis=1)).any()  # an all-dead query
+    assert ((live_b.sum(axis=1) > 1) | (live_t.sum(axis=1) > 1)).any()
+    assert (b[live_b][:, 0] == b[live_b][:, 1]).any()  # degenerate boxes
+    assert (b[live_b] == -(2**31)).any() and (b[live_b] == 2**31 - 1).any()
+    assert (t[live_t][:, [1, 3]] < 0).any()  # negative offsets
+    assert (t[live_t] == [0, -1, 2**31 - 1, 2**31 - 1]).all(axis=1).any()
+    assert ((cols[2] == 0) & (cols[3] == 0)).any() and (cols[3] < 0).any()
+    args = (*tc, 0, 2000, _t(b), _t(t))
+    assert _staged_mirror(*args, q_tile=64)[2] == [False]
+    assert set(_staged_mirror(*args, q_tile=3)[2]) == {True, False}
+    sb, st = edge_payload(cols, 64, 8, 16, seed=7, single=True)
+    assert _staged_mirror(*tc, 0, 2000, _t(sb), _t(st), q_tile=64)[2] == [True]
+    # the unconstrained window over bins = offs = 0: every such row with the
+    # bias, none with an unbiased key ((0, -1) would sort after (0, 0))
+    zero = torch.zeros(4, dtype=torch.int32)
+    wide = torch.tensor([[[-(2**31), 2**31 - 1, -(2**31), 2**31 - 1]]], dtype=torch.int32)
+    open_t = torch.tensor([[[0, -1, 2**31 - 1, 2**31 - 1]]], dtype=torch.int32)
+    assert _staged_mirror(zero, zero, zero, zero, 0, 4, wide, open_t, 1)[0].tolist() == [4]
+    assert int(batched_count_plain(zero, zero, zero, zero, 0, 4, wide, open_t)[0]) == 4
+    def unbiased(b, o):
+        return b.long() * 2**32 + (o.long() & M32)
+
+    assert (unbiased(zero, zero) < unbiased(open_t[0, 0, 0], open_t[0, 0, 1])).all()
 
 
 @pytest.mark.parametrize("n,q,nb,nt", [(4096 * 3, 64, 8, 16), (10_001, 5, 1, 1)])
@@ -153,27 +271,30 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
     dev = torch.device("cuda")
-    for n, q, nb, nt in SHAPES:
-        cols = [_t(c).to(dev) for c in _cols(n, seed=n)]
-        boxes, times = (_t(a).to(dev) for a in _payload(q, nb, nt, seed=q))
+    kernels.path_blocks("batched_count")
+    for n, q, nb, nt, mode in [(*s, "random") for s in SHAPES] + EDGE_SHAPES:
+        cols, payload = _inputs(n, q, nb, nt, mode, n, q)
+        cols = [_t(c).to(dev) for c in cols]
+        boxes, times = (_t(a).to(dev) for a in payload)
         for base, true_n in ((0, n), (4096, 4096 + n - 100)):
             got = batched_count(*cols, base, true_n, boxes, times)
             want = batched_count_plain(*cols, base, true_n, boxes, times)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+    single, general = kernels.path_blocks("batched_count")
+    assert single > 0 and general > 0
 
 
 HITS_SHAPES = [(n, q, nb, nt) for n in (777, 12_288) for q in (1, 5, 64)
                for nb, nt in ((1, 1), (8, 16))]
 
 
-@pytest.mark.parametrize("n,q,nb,nt", HITS_SHAPES)
-def test_hits_plain_equals_pallas_interpret(n, q, nb, nt):
+@pytest.mark.parametrize("n,q,nb,nt,mode", _cases(HITS_SHAPES))
+def test_hits_plain_equals_pallas_interpret(n, q, nb, nt, mode):
     """Counts and the (Q, 128) lane scoreboard equal the Pallas kernel's,
     with and without a base/true_n tail, at a chunking that splits lanes'
-    rows across chunks."""
-    cols = _cols(n, seed=n + 1)
-    boxes, times = _payload(q, nb, nt, seed=q * 100 + nb + 1)
+    rows across chunks; so do the staged mirror's."""
+    cols, (boxes, times) = _inputs(n, q, nb, nt, mode, n + 1, q * 100 + nb + 1)
     for base, true_n in ((0, n), (4096, 4096 + n - 100)):
         want_c, want_p = ref_batched_count_hits(
             *(jnp.asarray(c) for c in cols), jnp.int32(base), jnp.int32(true_n),
@@ -182,6 +303,7 @@ def test_hits_plain_equals_pallas_interpret(n, q, nb, nt):
             batched_count_hits(*(_t(c) for c in cols), base, true_n, _t(boxes), _t(times)),
             batched_count_hits_plain(*(_t(c) for c in cols), base, true_n, _t(boxes),
                                      _t(times), chunk=256),
+            _staged_mirror(*(_t(c) for c in cols), base, true_n, _t(boxes), _t(times), 3)[:2],
         ):
             assert got_c.dtype == torch.int32 and got_p.dtype == torch.int32
             assert got_p.shape == (q, 128)
@@ -234,14 +356,34 @@ def test_hits_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
     dev = torch.device("cuda")
-    for n, q, nb, nt in HITS_SHAPES:
-        cols = [_t(c).to(dev) for c in _cols(n, seed=n + 1)]
-        boxes, times = (_t(a).to(dev) for a in _payload(q, nb, nt, seed=q + 1))
+    kernels.path_blocks("batched_count_hits")
+    for n, q, nb, nt, mode in [(*s, "random") for s in HITS_SHAPES] + EDGE_SHAPES:
+        cols, payload = _inputs(n, q, nb, nt, mode, n + 1, q + 1)
+        cols = [_t(c).to(dev) for c in cols]
+        boxes, times = (_t(a).to(dev) for a in payload)
         for base, true_n in ((0, n), (4096, 4096 + n - 100)):
             got = batched_count_hits(*cols, base, true_n, boxes, times)
             want = batched_count_hits_plain(*cols, base, true_n, boxes, times)
             torch.cuda.synchronize()
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    single, general = kernels.path_blocks("batched_count_hits")
+    assert single > 0 and general > 0
+
+
+@pytest.mark.cuda
+def test_count_kernels_reject_misaligned_inputs_on_card():
+    """The count kernels load 16-byte vectors: a column or payload that does
+    not start on a 16-byte boundary raises instead of launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    cols = [torch.zeros(1025, dtype=torch.int32, device=dev)[1:] for _ in range(4)]
+    boxes, times = (_t(a).to(dev) for a in _payload(3, 1, 1))
+    before = dict(kernels.launches)
+    for fn in (batched_count, batched_count_hits):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(*cols, 0, 1024, boxes, times)
+    assert kernels.launches == before
 
 
 # -- z3_encode / z2_encode -----------------------------------------------------
