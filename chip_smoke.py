@@ -77,15 +77,23 @@ STREAM_CHUNKS = 17  # 1.02B rows, config 8's accelerator total
 STREAM_TOPK = 128
 DAY_MS = 86_400_000
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# int32 ALU rate: the data sheet's 67 TFLOP/s float32 (non-tensor) counts an
-# FMA as 2 ops over 128 lanes per SM; Hopper issues int32 on 64 lanes per SM
-INT32_OPS_PER_S = 67e12 / 4
-# least int32 instructions per (row, live slot): a box slot is four bound
-# compares, each folding its AND/OR into the predicate (ISETP); a time slot
-# is two 64-bit compares of a bin * 2^32 + off key built once per row, each
-# a 32-bit compare chained into a second one
-OPS_PER_BOX_SLOT = 4
-OPS_PER_TIME_SLOT = 4
+# Integer instruction rates by pipe. The data sheet's 67 TFLOP/s float32
+# (non-tensor) counts an FMA as 2 ops on 128 lanes per SM. An SM issues 4
+# warp-instructions (128 lanes) per clock; compares, logic and shifts run
+# only on the ALU pipe, 64 lanes per SM; an int32 add or subtract may also
+# run on the FMA pipe as IMAD.IADD (64 lanes), where nvcc puts the box
+# test's subtracts. So an instruction mix takes at least the larger of its
+# ALU-only instructions at the ALU rate and all its instructions at the
+# issue rate.
+ALU_OPS_PER_S = 67e12 / 4
+ISSUE_OPS_PER_S = 67e12 / 2
+# least int32 instructions per (row, live slot), as (ALU-only, all): a box
+# slot is two subtracts (either pipe) and two unsigned compares (ISETP,
+# each folding its AND into the predicate); a time slot is two 64-bit
+# compares of the biased key built once per row, each a 32-bit compare
+# chained into a second one (four ISETP)
+BOX_SLOT_OPS = (2, 4)
+TIME_SLOT_OPS = (4, 4)
 # least int32 instructions per row of the Morton encodes' magic-mask spreads
 # (curve/zorder.py): a spread step is a 64-bit shift (two 32-bit funnel
 # shifts; none for the 32-bit shift, a register move) and an OR-then-AND per
@@ -215,19 +223,21 @@ def check_shapes(device, name: str, ns, slot_pairs, seed: int) -> int:
 
 
 def predicate_floor_ops(x, y, bins, offs, boxes, times):
-    """The least int32 instructions ``batched_count`` needs on these inputs.
+    """The least int32 instructions ``batched_count`` needs on these inputs,
+    as (ALU-only, all) counts (:data:`BOX_SLOT_OPS`, :data:`TIME_SLOT_OPS`).
 
     A padding sentinel (lo > hi) matches nothing and is known so per query,
     so only live slots count. Per query, the cheaper order of the two tests:
     every row's box test plus the time test of rows inside a live box, or
-    every row's time test plus the box test of rows inside a live window.
-    Returns (ops, in-box row-queries, in-time row-queries, matches); the
-    caller holds ``matches`` to the kernel's total, which checks that the
-    dropped slots were dead."""
+    every row's time test plus the box test of rows inside a live window;
+    each count takes its own cheaper order, so the pair stays a floor.
+    Returns ((alu, all), in-box row-queries, in-time row-queries, matches);
+    the caller holds ``matches`` to the kernel's total, which checks that
+    the dropped slots were dead."""
     import torch
 
     n = x.shape[0]
-    ops = in_box_total = in_time_total = matches = 0
+    alu = total = in_box_total = in_time_total = matches = 0
     key = bins.long() * 2**32 + offs.long()  # lexicographic (bin, off) order
     for qi in range(boxes.shape[0]):
         live_b = [b for b in boxes[qi].tolist() if b[0] <= b[1] and b[2] <= b[3]]
@@ -241,29 +251,34 @@ def predicate_floor_ops(x, y, bins, offs, boxes, times):
         for lo, hi in live_t:
             in_time |= (key >= lo) & (key <= hi)
         nbox, ntime = int(in_box.sum()), int(in_time.sum())
-        ops += min(n * OPS_PER_BOX_SLOT * len(live_b) + nbox * OPS_PER_TIME_SLOT * len(live_t),
-                   n * OPS_PER_TIME_SLOT * len(live_t) + ntime * OPS_PER_BOX_SLOT * len(live_b))
+        alu_q, total_q = (
+            min(n * BOX_SLOT_OPS[i] * len(live_b) + nbox * TIME_SLOT_OPS[i] * len(live_t),
+                n * TIME_SLOT_OPS[i] * len(live_t) + ntime * BOX_SLOT_OPS[i] * len(live_b))
+            for i in (0, 1))
+        alu += alu_q
+        total += total_q
         in_box_total += nbox
         in_time_total += ntime
         matches += int((in_box & in_time).sum())
-    return ops, in_box_total, in_time_total, matches
+    return (alu, total), in_box_total, in_time_total, matches
 
 
 def hits_floor(x, y, bins, offs, boxes, times):
     """The least work of ``batched_count_hits`` on these inputs: the
-    predicate's (:func:`predicate_floor_ops`) plus one compare per matched
-    (row, query) for the lane maximum; bytes are the columns, the payload,
-    and the (Q, 128) lane scoreboard read and written once. Returns
-    (ops, bytes, in-box row-queries, matches)."""
-    ops, in_box, _, matches = predicate_floor_ops(x, y, bins, offs, boxes, times)
+    predicate's (:func:`predicate_floor_ops`) plus one compare (ALU) per
+    matched (row, query) for the lane maximum; bytes are the columns, the
+    payload, and the (Q, 128) lane scoreboard read and written once. Returns
+    ((alu, all), bytes, in-box row-queries, matches)."""
+    (alu, total), in_box, _, matches = predicate_floor_ops(x, y, bins, offs, boxes, times)
     q = boxes.shape[0]
     nbytes = 16 * x.shape[0] + 4 * (boxes.numel() + times.numel()) + 2 * q * 128 * 4 + 4 * q
-    return ops + matches, nbytes, in_box, matches
+    return (alu + matches, total + matches), nbytes, in_box, matches
 
 
-def bound_fields(ops: int, nbytes: int) -> dict:
-    """``bound_ms``/``bound_by`` of a kernel record from its least work."""
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+def bound_fields(ops: tuple[int, int], nbytes: int) -> dict:
+    """``bound_ms``/``bound_by`` of a kernel record from its least work:
+    ``ops`` = (ALU-only, all) int32 instructions, ``nbytes`` moved."""
+    ops_ms = max(ops[0] / ALU_OPS_PER_S, ops[1] / ISSUE_OPS_PER_S) * 1e3
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -309,12 +324,12 @@ def check_morton(dev, big_n: int) -> dict:
             worst = max(worst, int((got - want).abs().max()))
         kernel_ms = cuda_ms(lambda: kernel(*cols), 5)
         plain_ms = cuda_ms(lambda: plain(*cols), 1)
+        ops = MORTON_OPS_PER_ROW[name] * big_n  # logic and shifts: ALU-only
         rec = {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
-               **bound_fields(MORTON_OPS_PER_ROW[name] * big_n,
-                              MORTON_BYTES_PER_ROW[name] * big_n)}
+               **bound_fields((ops, ops), MORTON_BYTES_PER_ROW[name] * big_n)}
         log(f"phase {name} timing: {kernel_ms:.4f} ms at N={big_n}; plain {plain_ms:.4f} ms; "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-            f"{MORTON_OPS_PER_ROW[name] * big_n} int32 ops; "
+            f"{ops} int32 ops; "
             f"{MORTON_BYTES_PER_ROW[name] * big_n} bytes)")
         out[name] = rec
         del cols, got, want
@@ -540,7 +555,8 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
                       **bound_fields(ops, nbytes))
         log(f"phase kernel timing: {kernel_ms:.4f} ms at N={n} Q={q} B={nb} T={nt}; "
             f"plain {plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms "
-            f"({record['bound_by']}: {ops} int32 ops; {in_box} in-box and {in_time} "
+            f"({record['bound_by']}: {ops[0]} ALU-only of {ops[1]} int32 ops; {in_box} "
+            f"in-box and {in_time} "
             f"in-time row-queries; {nbytes} bytes)")
         log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
             f"over the whole phase")
@@ -785,7 +801,8 @@ def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -
                       **bound_fields(ops, nbytes))
         log(f"phase stream kernel timing: {kernel_ms:.4f} ms per chunk at N={n_rows} "
             f"Q={snap.capacity} B=1 T=1; plain {plain_ms:.4f} ms; bound "
-            f"{record['bound_ms']:.4f} ms ({record['bound_by']}: {ops} int32 ops; "
+            f"{record['bound_ms']:.4f} ms ({record['bound_by']}: {ops[0]} ALU-only of "
+            f"{ops[1]} int32 ops; "
             f"{in_box} in-box row-queries; {matches} matches; {nbytes} bytes)")
     return record
 

@@ -11,8 +11,12 @@
 // Bound on an H100: integer instructions, not bytes. The columns are
 // 16 B/row (0.24 ms for 50M rows at 3.35 TB/s), while the predicate needs at
 // least one subtract and one compare per bound pair of every (row, live box
-// slot), and two 64-bit compares per (row, live window) for rows inside a
-// box (chip_smoke.py reckons the floor from the run's inputs).
+// slot), and two 64-bit compares (four 32-bit ones) per (row, live window)
+// for rows inside a box. Counted by pipe: the compares run only on the ALU
+// pipe (64 lanes per SM per clock), a subtract also on the FMA pipe
+// (IMAD.IADD), and an SM issues 128 lanes per clock, so the floor is the
+// larger of ALU-only instructions at the ALU rate and all instructions at
+// the issue rate (chip_smoke.py reckons it from the run's inputs).
 //
 // Design (count_predicate.cuh): each block stages its query tile once, live
 // slots first, as (xlo, xhi - xlo, ylo, yhi - ylo) boxes and biased 64-bit

@@ -21,18 +21,24 @@
 // the lanes (row0 + r) & 127; CHUNK is a multiple of 128, so a thread sees
 // the same lanes in every chunk. Each matched row folds its global position
 // into its own lane of a (q_tile, 128) shared-memory scoreboard with a shared
-// atomicMax; at the end the block issues one global atomicMax per (query,
-// lane) that it saw matched. Counts are per-warp __reduce_add_sync partials
-// in shared memory, added into the output with one atomicAdd per (block,
-// query), as in batched_count.cu. The staged predicate and the row scan are
+// atomicMax. Where a warp holds more than DENSE matches of a query (more
+// than two per thread), a row that a later thread of the warp beats in the
+// same lane is dropped first (three shuffles of the match masks), so a dense
+// query pays at most one shared atomic per lane per warp instead of up to
+// four conflicting ones; below that the shuffles cost more than the
+// conflicts they save. At the end the block issues one global atomicMax per
+// (query, lane) that it saw matched. Counts are per-warp __reduce_add_sync
+// partials in shared memory, added into the output with one atomicAdd per
+// (block, query), as in batched_count.cu. The staged predicate and the row scan are
 // count_predicate.cuh's, the same ones batched_count.cu runs.
 //
-// Bound on an H100: integer instructions, as for batched_count: 16 B/row of
-// columns, against one subtract and one compare per bound pair of every
-// (row, live box slot), two 64-bit compares per (row, live window) inside a
-// box, plus one compare per matched (row, query) for the lane maximum
-// (chip_smoke.py reckons the floor from the run's inputs). The stream's
-// B = T = 1 matrix takes the compile-time <1, 1> row loop.
+// Bound on an H100: integer instructions counted by pipe, as for
+// batched_count: 16 B/row of columns, against one subtract (ALU or FMA pipe)
+// and one compare (ALU pipe) per bound pair of every (row, live box slot),
+// two 64-bit compares per (row, live window) inside a box, plus one compare
+// per matched (row, query) for the lane maximum (chip_smoke.py reckons the
+// floor from the run's inputs). The stream's B = T = 1 matrix takes the
+// compile-time <1, 1> row loop.
 //
 // Plain C entry point for ctypes; launches on the caller's stream, does not
 // synchronise, returns a cudaError_t.
@@ -47,6 +53,7 @@ namespace {
 using namespace geomesa;
 
 constexpr int LANES = 128;
+constexpr unsigned DENSE = 64;  // matches per warp and query above which the epilogue folds
 static_assert(CHUNK % LANES == 0, "a thread must see the same lanes in every chunk");
 static_assert(ROWS <= LANES, "a thread's rows must fall in distinct lanes");
 
@@ -63,6 +70,20 @@ struct HitsEpilogue {
     // global position of the thread's first row; the wrapper guarantees base + n < 2^31
     const int32_t gpos0 = (int32_t)(base + row0);
     const int lane0 = (int)(row0 & (LANES - 1));
+    if (c > DENSE) {
+      // threads t, t + 8, t + 16, t + 24 of a warp hold the same 16 lanes,
+      // the later thread the newer rows: a row whose bit a later thread of
+      // the group also has is no lane's maximum, so at most one shared
+      // atomic per lane per warp remains
+      const int tl = threadIdx.x & 31;
+      uint32_t later = 0;
+#pragma unroll
+      for (int d = 8; d < 32; d += 8) {
+        const uint32_t v = __shfl_down_sync(FULL_WARP, m, d);
+        if (tl + d < 32) later |= v;
+      }
+      m &= ~later;
+    }
     int* sp = pos + qi * LANES;
     while (m) {
       const int r = __ffs(m) - 1;

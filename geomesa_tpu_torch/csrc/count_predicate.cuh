@@ -270,7 +270,10 @@ __device__ __forceinline__ void scan_rows(const int32_t* __restrict__ x,
 }
 
 // Counts the blocks that took each path: [0] the <1, 1> instance, [1] the
-// general one (blocks with no active query take neither).
+// general one (blocks with no active query take neither). One counter pair
+// per library, summed over every launch on every stream, so a reading
+// (ops.kernels.path_blocks) is one caller's only while no other thread
+// launches the same kernel. One atomicAdd per block.
 __device__ __forceinline__ void note_path(unsigned long long* path_blocks, bool fast) {
   if (threadIdx.x == 0) atomicAdd(path_blocks + (fast ? 0 : 1), 1ull);
 }

@@ -176,7 +176,10 @@ def path_blocks(kernel: str = "batched_count") -> tuple[int, int]:
     """Blocks of ``kernel`` that ran its single-slot row loop and its
     general row loop since the last call (then zeroed); blocks with no
     active query ran neither. Reads the card's counters, so it synchronises
-    the device."""
+    the device. The counters are one pair per kernel library, summed over
+    every launch on every stream and thread: a reading is one caller's only
+    while nothing else launches ``kernel`` (a running stream scanner and a
+    ``count_many`` on the same card would mix their blocks)."""
     out = (ctypes.c_ulonglong * 2)()
     rc = _fn(f"geomesa_{kernel}_path_blocks")(ctypes.addressof(out))
     if rc != 0:

@@ -1,5 +1,5 @@
 """The port stands alone: geomesa_tpu_torch (and chip_smoke.py and
-scripts/torch_count_variants.py) import torch
+scripts/torch_count_ab.py) import torch
 and numpy, never jax and nothing of geomesa_tpu, and its entry points refuse
 to fall back to the CPU when no device is given.
 
@@ -60,7 +60,7 @@ def _imports(path: pathlib.Path) -> list[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_count_variants.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_count_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_reference_imports(path):

@@ -315,6 +315,32 @@ def test_hits_plain_equals_pallas_interpret(n, q, nb, nt, mode):
             batched_count(*(_t(c) for c in cols), base, true_n, _t(boxes), _t(times)).numpy())
 
 
+@pytest.mark.parametrize("density", [0.002, 0.1, 0.5, 1.0])
+def test_hits_warp_fold_keeps_newest_per_lane(density):
+    """The hits kernel's epilogue (``csrc/batched_count_hits.cu``), modelled
+    for one warp: 32 threads hold 16 consecutive rows each, so threads t,
+    t + 8, t + 16, t + 24 share 16 lanes; a matched row is dropped when a
+    later thread of its group matched the same bit. What remains is one row
+    per matched lane, its newest, at any match density."""
+    rng = np.random.default_rng(int(density * 1000))
+    pos = np.arange(32)[:, None] * 16 + np.arange(16)[None, :]  # warp-local rows
+    lane = pos & 127
+    for _ in range(25):
+        m = rng.random((32, 16)) < density  # thread t, bit r
+        later = np.zeros_like(m)
+        for t in range(32):
+            for d in (8, 16, 24):
+                if t + d < 32:
+                    later[t] |= m[t + d]
+        kept = m & ~later
+        assert np.bincount(lane[kept], minlength=128).max() <= 1
+        want = np.full(128, -1)
+        np.maximum.at(want, lane[m], pos[m])
+        got = np.full(128, -1)
+        got[lane[kept]] = pos[kept]
+        assert np.array_equal(got, want)
+
+
 def test_hits_wrapper_rejects_int32_position_overflow():
     cols = [torch.zeros(256, dtype=torch.int32) for _ in range(4)]
     boxes = torch.zeros((2, 1, 4), dtype=torch.int32)
