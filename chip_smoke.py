@@ -26,15 +26,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    the edge values of each width and values above it; then their times
    (CUDA events, 5 launches) at 50M rows beside the plain versions' and
    the bound;
+2d. ``batched_edge_gather`` against ``batched_edge_gather_plain`` on the
+   card, exact, at N = 1,000,003 with and without a base/true_n tail, Q in
+   {1, 64, one past the shared-memory tile}, (B, T) in {(1, 1), (8, 16)},
+   and four payload modes: ``workload.grid_columns``/``grid_payload`` (rows
+   on a few hundred values, boxes and windows on them, so that some
+   queries' candidates overflow the lanes), ``edge_payload``'s single-slot
+   and mixed payloads over ``edge_columns``, and city boxes packed as
+   ``DataStore`` packs them over GDELT-shaped rows: counts equal the plain
+   version's and ``batched_count``'s, hits are equal, lanes are equal where
+   they hold every candidate and a subset of the candidates where they
+   overflow; both row loops must have run;
 3. the main path at bench config 2's size: 50M GDELT-shaped points (seed 42),
    ``DataStore()`` → ``create_schema`` → ``write`` (z3 and z2 keys built by
    one launch each of ``z3_encode`` and ``z2_encode``) → ``compact``, the 64
    city-box 2-7 day queries (seed 7) through ``count_many(loose=True)``
-   against an int-domain numpy referee, 8 of them through
-   ``count_many(loose=False)`` and ``query()`` against an f64 numpy brute
-   force (counts and fid sets), and 8 of the city boxes with no time
-   through ``query()``, planned on z2, against the f64 brute force; then
-   timings;
+   against an int-domain numpy referee, all 64 through
+   ``count_many(loose=False)`` (one ``batched_edge_gather`` launch),
+   ``select_many`` and ``query()`` against an f64 numpy brute force (counts
+   and row ids), and 8 of the city boxes with no time through ``query()``,
+   planned on z2, against the f64 brute force (fid sets); then timings:
+   the loose and exact batches, ``query()`` per query with its plan time,
+   ``select_many`` per query, the planned gather's device time, and the
+   edge gather and ``batched_count`` kernels alone;
 4. the standing-query stream at bench config 8's width (``bench.py:1280``):
    64 city boxes (seed 7) packed one slot each, one full-span time window,
    on a ``SubscriptionMatrix(box_slots=1, time_slots=1, topk=128)``; 17
@@ -48,8 +62,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    bench config 1's query shape (64 city boxes, no time) over config 2's
    50M GDELT-shaped points with the date dropped: ``write`` (one
    ``z2_encode`` launch) → ``count_many(loose=True)`` against an int-domain
-   referee, then 8 of the boxes through ``count_many(loose=False)`` and
-   ``query()`` against an f64 brute force.
+   referee, then 8 of the boxes through ``count_many(loose=False)`` (the
+   edge gather kernel; the unconstrained window's endpoints match no row)
+   and ``query()`` against an f64 brute force.
 
 Each store is freed before the next phase.
 
@@ -94,6 +109,12 @@ ISSUE_OPS_PER_S = 67e12 / 2
 # chained into a second one (four ISETP)
 BOX_SLOT_OPS = (2, 4)
 TIME_SLOT_OPS = (4, 4)
+# the edge gather's extra compares per matched (row, query) and live slot,
+# all on the ALU pipe: a box slot's inside test and its four edge compares
+# folded into predicates, a window's two endpoint compares of 64-bit keys
+EDGE_BOX_SLOT_OPS = 4
+EDGE_TIME_SLOT_OPS = 4
+EDGE_MODES = ("grid", "single", "mixed", "city")
 # least int32 instructions per row of the Morton encodes' magic-mask spreads
 # (curve/zorder.py): a spread step is a 64-bit shift (two 32-bit funnel
 # shifts; none for the 32-bit shift, a register move) and an OR-then-AND per
@@ -336,6 +357,129 @@ def check_morton(dev, big_n: int) -> dict:
     return out
 
 
+def edge_inputs(rng, mode: str, q: int, nb: int, nt: int, cols):
+    """Phase 2d's (boxes, times) for ``mode`` over the host rows ``cols``."""
+    from geomesa_tpu_torch.filter.bounds import extract
+    from geomesa_tpu_torch.filter.cql import parse
+    from geomesa_tpu_torch.schema.sft import parse_spec
+    from geomesa_tpu_torch.store.backends import DeviceBackend
+    from geomesa_tpu_torch.workload import (
+        SPEC, bbox_time_cql, edge_payload, grid_payload, make_queries)
+
+    seed = int(rng.integers(2**31))
+    if mode == "grid":
+        return grid_payload(cols, q, nb, nt, seed)
+    if mode in ("single", "mixed"):
+        return edge_payload(cols, q, nb, nt, seed, single=mode == "single")
+    # city boxes and windows packed as DataStore packs them, live slots first
+    sft = parse_spec("gdelt", SPEC)
+    packed = [DeviceBackend(None).payload(sft, extract(parse(bbox_time_cql(b, w)), "geom", "dtg"))
+              for b, w in zip(*make_queries(q, seed=seed))]
+    return (np.ascontiguousarray(np.stack([p[0][:nb] for p in packed])),
+            np.ascontiguousarray(np.stack([p[1][:nt] for p in packed])))
+
+
+def edge_host_columns(mode: str, n: int, seed: int):
+    """Phase 2d's host rows for ``mode``: grid rows, ``edge_columns``, or
+    GDELT-shaped points normalized as ``DeviceBackend.load`` does."""
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
+    from geomesa_tpu_torch.store.backends import device_columns
+    from geomesa_tpu_torch.workload import SPEC, edge_columns, grid_columns, synth_gdelt
+
+    if mode == "grid":
+        return grid_columns(n, seed)
+    if mode in ("single", "mixed"):
+        return edge_columns(n, seed)
+    lon, lat, t = synth_gdelt(n, seed=seed)
+    sft = parse_spec("gdelt", SPEC)
+    table = FeatureTable.from_columns(sft, np.arange(n).astype("U9"), {
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)})
+    c = device_columns(sft, table)
+    return c["x"], c["y"], c["bins"], c["offs"]
+
+
+def check_edge_gather(dev, n: int, seed: int) -> int:
+    """Phase 2d: ``batched_edge_gather`` against its plain version and
+    ``batched_count`` on the card, exact (see the module docstring). Returns
+    max |difference| over counts, hits and lanes."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        EDGE_CAPACITY, batched_count, batched_edge_gather, batched_edge_gather_plain)
+
+    rng = np.random.default_rng(seed)
+    worst = overflowed = fitted = 0
+    kernels.path_blocks("batched_edge_gather")  # zero the row-loop counters
+    for mode in EDGE_MODES:
+        host_cols = edge_host_columns(mode, n, seed)
+        cols = [torch.from_numpy(c).to(dev) for c in host_cols]
+        for nb, nt in ((1, 1), (8, 16)):
+            for q in (1, 64, kernels.q_tile_for(nb, nt, kernel="batched_edge_gather") + 1):
+                for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
+                    b, t = edge_inputs(rng, mode, q, nb, nt, host_cols)
+                    boxes, times = torch.from_numpy(b).to(dev), torch.from_numpy(t).to(dev)
+                    args = (*cols, base, true_n, boxes, times)
+                    counts, pos, hits = batched_edge_gather(*args)
+                    want_c, want_p, want_h = batched_edge_gather_plain(*args)
+                    plain_count = batched_count(*args)
+                    torch.cuda.synchronize()
+                    err = max(int((counts.long() - want_c.long()).abs().max()),
+                              int((counts.long() - plain_count.long()).abs().max()),
+                              int((hits.long() - want_h.long()).abs().max()))
+                    h = hits[:, 0].cpu().numpy()
+                    fits = h <= EDGE_CAPACITY
+                    lanes = pos[:, 0].cpu().numpy()
+                    err = max(err, int(np.abs(lanes[fits] - want_p[:, 0].cpu().numpy()[fits])
+                                       .max(initial=0)))
+                    if (~fits).any():
+                        # every lane of an overflowed query is one of its candidates
+                        _, all_p, _ = batched_edge_gather_plain(*args, capacity=int(h.max()))
+                        all_p = all_p[:, 0].cpu().numpy()
+                        for k in np.nonzero(~fits)[0]:
+                            cand = all_p[k, : h[k]]
+                            got = lanes[k]
+                            if (got < 0).any() or len(np.unique(got)) != len(got) \
+                                    or not np.isin(got, cand).all():
+                                err = max(err, 1)
+                    overflowed += int((~fits).sum())
+                    fitted += int(fits.sum())
+                    worst = max(worst, err)
+                    log(f"  batched_edge_gather {mode} N={n} Q={q} B={nb} T={nt} base={base} "
+                        f"true_n={true_n}: max_abs_err={err} (matches {int(want_c.long().sum())}, "
+                        f"candidates {int(h.sum())}, {int((~fits).sum())} queries overflowed)")
+                    if err != 0:
+                        raise AssertionError(f"batched_edge_gather disagrees with plain at {mode} "
+                                             f"N={n} Q={q} B={nb} T={nt}")
+    single, general = kernels.path_blocks("batched_edge_gather")
+    log(f"  batched_edge_gather row loops: {single} blocks single-slot, {general} blocks general; "
+        f"{fitted} queries held every candidate, {overflowed} overflowed {EDGE_CAPACITY} lanes")
+    if not (single and general and overflowed and fitted):
+        raise AssertionError("batched_edge_gather: both row loops, and queries that fit and "
+                             "that overflow their lanes, must occur in this phase")
+    return worst
+
+
+def edge_floor(x, y, bins, offs, boxes, times, counts, hits, capacity: int):
+    """The least work of ``batched_edge_gather`` on these inputs:
+    ``batched_count``'s (:func:`predicate_floor_ops`) plus the edge compares
+    per matched (row, query) and live slot (:data:`EDGE_BOX_SLOT_OPS`,
+    :data:`EDGE_TIME_SLOT_OPS`); bytes are the columns and payload read
+    once, the counts and hits written once and 4 B per written candidate.
+    Returns ((alu, all), bytes, matches)."""
+    (alu, total), _, _, matches = predicate_floor_ops(x, y, bins, offs, boxes, times)
+    edge = 0
+    for qi, (b, t) in enumerate(zip(boxes.tolist(), times.tolist())):
+        live_b = sum(1 for xlo, xhi, ylo, yhi in b if xlo <= xhi and ylo <= yhi)
+        live_t = sum(1 for blo, olo, bhi, ohi in t if (blo, olo) <= (bhi, ohi))
+        edge += int(counts[qi]) * (EDGE_BOX_SLOT_OPS * live_b + EDGE_TIME_SLOT_OPS * live_t)
+    written = int(hits.clamp(max=capacity).long().sum())
+    nbytes = (16 * x.shape[0] + 4 * (boxes.numel() + times.numel())
+              + 8 * boxes.shape[0] + 4 * written)
+    return (alu + edge, total + edge), nbytes, matches
+
+
 def free_card() -> None:
     """Drop the previous phase's objects and cached device blocks."""
     gc.collect()
@@ -422,16 +566,26 @@ def f64_referee(lon, lat, t, box, window, slabs):
     return rows[m]
 
 
+def p50(values) -> float:
+    return float(np.percentile(values, 50))
+
+
 def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
-            iters: int) -> tuple[dict, dict]:
+            iters: int) -> tuple[list[dict], dict]:
     """Phase 3: the point write (z3 + z2) and bbox+time main path; returns
-    the batched_count record and the main path's launches."""
+    the batched_count and batched_edge_gather records and the main path's
+    launches."""
     import torch
 
     from geomesa_tpu_torch.filter.bounds import extract
     from geomesa_tpu_torch.filter.cql import parse
     from geomesa_tpu_torch.ops import kernels
-    from geomesa_tpu_torch.ops.kernels import batched_count, batched_count_plain
+    from geomesa_tpu_torch.ops.kernels import (
+        EDGE_CAPACITY, batched_count, batched_count_plain, batched_edge_gather,
+        batched_edge_gather_plain)
+    from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs, planned_gather_step
+    from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
     from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
     from geomesa_tpu_torch.schema.sft import AttributeType
     from geomesa_tpu_torch.store.datastore import DataStore
@@ -448,6 +602,7 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         kernels.path_blocks("batched_count")
+        kernels.path_blocks("batched_edge_gather")
     for k in kernels.launches:
         kernels.launches[k] = 0
     ds = DataStore(device=dev)
@@ -465,18 +620,31 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     t0 = time.perf_counter()
     loose = ds.count_many("gdelt", cqls, loose=True)
     first_batch_s = time.perf_counter() - t0
-    exact = ds.count_many("gdelt", cqls[:n_exact], loose=False)
-    selected = [ds.query("gdelt", c) for c in cqls[:n_exact]]
+    t0 = time.perf_counter()
+    exact = ds.count_many("gdelt", cqls, loose=False)
+    first_exact_s = time.perf_counter() - t0
+    fallbacks = ds.exact_fallbacks
+    t0 = time.perf_counter()
+    many = ds.select_many("gdelt", cqls)
+    first_many_s = time.perf_counter() - t0
+    selected, query_ms = [], []
+    for c in cqls:
+        s = time.perf_counter()
+        selected.append(ds.query("gdelt", c))
+        query_ms.append((time.perf_counter() - s) * 1e3)
     t0 = time.perf_counter()
     spatial = spatial_checks(ds, "gdelt", lon, lat, fids, boxes_f64[:n_exact], "z2")
     spatial_s = time.perf_counter() - t0
     launched = dict(kernels.launches)
     log(f"phase main-path launches: {launched}")
     if on_card:
-        log("phase main-path batched_count row loops (blocks single-slot, general): "
-            f"{kernels.path_blocks('batched_count')}")
+        for name in ("batched_count", "batched_edge_gather"):
+            log(f"phase main-path {name} row loops (blocks single-slot, general): "
+                f"{kernels.path_blocks(name)}")
     if on_card and launched["batched_count"] < 1:
         raise AssertionError("count_many did not launch the batched_count kernel")
+    if on_card and launched["batched_edge_gather"] < 1:
+        raise AssertionError("count_many(loose=False) did not launch batched_edge_gather")
     if on_card and (launched["z3_encode"], launched["z2_encode"]) != (1, 1):
         raise AssertionError("the write did not launch z3_encode and z2_encode once each")
     log(f"phase spatial queries: {n_exact} city boxes with no time planned on z2, equal to "
@@ -503,25 +671,40 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     if loose != want_loose:
         raise AssertionError(f"count_many(loose) != int referee: {loose} vs {want_loose}")
     slabs = day_slabs(t // DAY_MS)
-    for i in range(n_exact):
-        rows = f64_referee(lon, lat, t, boxes_f64[i], windows_ms[i], slabs)
+    for i in range(n_queries):
+        rows = np.sort(f64_referee(lon, lat, t, boxes_f64[i], windows_ms[i], slabs))
         if exact[i] != len(rows):
             raise AssertionError(f"count_many(exact)[{i}] = {exact[i]} != {len(rows)}")
-        got = set(selected[i].table.fids.tolist())
-        if got != set(fids[rows].tolist()):
-            raise AssertionError(f"query() fid set {i} differs from the f64 brute force")
-    log(f"phase checks: ok in {time.perf_counter() - t0:.3f} s "
-        f"(loose counts {sum(loose)} rows over {n_queries}, exact {exact})")
+        for how, res in (("select_many", many[i]), ("query()", selected[i])):
+            if not np.array_equal(res.row_ids, rows) or res.count != len(rows):
+                raise AssertionError(f"{how} row ids {i} differ from the f64 brute force")
+    log(f"phase checks: ok in {time.perf_counter() - t0:.3f} s (loose counts {sum(loose)} "
+        f"rows over {n_queries}; exact counts, select_many and query() row ids of all "
+        f"{n_queries} equal the f64 brute force: {sum(exact)} rows; "
+        f"{fallbacks} exact count(s) fell back to query())")
 
     # -- timings ----------------------------------------------------------------
-    batch = []
-    for _ in range(iters):
+    for what, loose_mode, first_s in (("count_many batch", True, first_batch_s),
+                                      ("count_many exact batch", False, first_exact_s)):
+        batch = []
+        for _ in range(iters):
+            s = time.perf_counter()
+            ds.count_many("gdelt", cqls, loose=loose_mode)
+            batch.append((time.perf_counter() - s) * 1e3)
+        log(f"phase {what}: first {first_s * 1e3:.3f} ms, p50 {p50(batch):.3f} ms over "
+            f"{iters} (min {min(batch):.3f}, max {max(batch):.3f}; {n_queries} queries per "
+            f"batch)")
+    many_ms = []
+    for _ in range(3):
         s = time.perf_counter()
-        ds.count_many("gdelt", cqls, loose=True)
-        batch.append((time.perf_counter() - s) * 1e3)
-    log(f"phase count_many batch: first {first_batch_s * 1e3:.3f} ms, "
-        f"p50 {float(np.percentile(batch, 50)):.3f} ms over {iters} "
-        f"(min {min(batch):.3f}, max {max(batch):.3f}; {n_queries} queries per batch)")
+        ds.select_many("gdelt", cqls)
+        many_ms.append((time.perf_counter() - s) * 1e3 / n_queries)
+    plan_ms = [r.plan_info.plan_ms for r in selected]
+    log(f"phase query(): p50 {p50(query_ms):.3f} ms per query over {n_queries} (mean "
+        f"{np.mean(query_ms):.3f}, min {min(query_ms):.3f}, max {max(query_ms):.3f}), "
+        f"plan_ms p50 {p50(plan_ms):.3f}; {sum(r.count for r in selected)} rows")
+    log(f"phase select_many: p50 {p50(many_ms):.3f} ms per query over 3 calls of "
+        f"{n_queries} queries (first call {first_many_s * 1e3 / n_queries:.3f} ms per query)")
 
     t0 = time.perf_counter()
     payloads = [ds.backend.payload(sft, extract(parse(c), "geom", "dtg")) for c in cqls]
@@ -537,6 +720,10 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
               "source": "geomesa_tpu_torch/csrc/batched_count.cu",
               "replaces": "geomesa_tpu/ops/pallas_kernels.py:150",
               "launches": launched["batched_count"], "library_ms": None}
+    edge_record = {"name": "batched_edge_gather", "route": "cuda",
+                   "source": "geomesa_tpu_torch/csrc/batched_edge_gather.cu",
+                   "replaces": "geomesa_tpu/parallel/query.py:342",
+                   "launches": launched["batched_edge_gather"], "library_ms": None}
     if on_card:
         got = batched_count(*cols, 0, n, boxes, times)
         torch.cuda.synchronize()
@@ -558,9 +745,52 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
             f"({record['bound_by']}: {ops[0]} ALU-only of {ops[1]} int32 ops; {in_box} "
             f"in-box and {in_time} "
             f"in-time row-queries; {nbytes} bytes)")
+
+        # the edge gather kernel alone, at the exact batch's shape
+        args = (*cols, 0, n, boxes, times)
+        got_c, got_p, got_h = batched_edge_gather(*args)
+        want_c, want_p, want_h = batched_edge_gather_plain(*args)
+        torch.cuda.synchronize()
+        fits = (got_h[:, 0] <= EDGE_CAPACITY)[:, None]
+        edge_err = max(int((got_c.long() - want_c.long()).abs().max()),
+                       int((got_c.long() - plain.long()).abs().max()),
+                       int((got_h.long() - want_h.long()).abs().max()),
+                       int(((got_p.long() - want_p.long()) * fits[:, :, None]).abs().max()))
+        if edge_err != 0:
+            raise AssertionError("batched_edge_gather disagrees with plain at the main-path shape")
+        edge_ms = cuda_ms(lambda: batched_edge_gather(*args), 5)
+        edge_plain_ms = cuda_ms(lambda: batched_edge_gather_plain(*args), 1)
+        e_ops, e_bytes, e_matches = edge_floor(cols[0][:n], cols[1][:n], cols[2][:n],
+                                               cols[3][:n], boxes, times, want_c, want_h,
+                                               EDGE_CAPACITY)
+        if e_matches != int(want_c.long().sum()):
+            raise AssertionError("live-slot count of the edge bound disagrees with the plain "
+                                 "version")
+        edge_record.update(max_abs_err=edge_err, ms=edge_ms, plain_ms=edge_plain_ms,
+                           **bound_fields(e_ops, e_bytes))
+        h = got_h[:, 0].cpu().numpy()
+        log(f"phase edge gather timing: {edge_ms:.4f} ms at N={n} Q={q} B={nb} T={nt}; "
+            f"plain {edge_plain_ms:.4f} ms; bound {edge_record['bound_ms']:.4f} ms "
+            f"({edge_record['bound_by']}: {e_ops[0]} ALU-only of {e_ops[1]} int32 ops; "
+            f"{e_bytes} bytes); edge candidates per query max {int(h.max())}, total "
+            f"{int(h.sum())}, {int((h > EDGE_CAPACITY).sum())} over {EDGE_CAPACITY} lanes")
+
+        # the planned gather of select_many alone (all 64 plan on z3)
+        planner = QueryPlanner(sft, ds._state("gdelt").indices)
+        plans = [planner.plan(Query(c)) for c in cqls]
+        if {info.scan_index for _, _, info in plans} != {"z3"}:
+            raise AssertionError("the bbox+time queries must plan on z3")
+        pair_q, pair_blk = intervals_to_block_pairs([pl.intervals for pl, _, _ in plans],
+                                                    JOIN_BLOCK)
+        gather_ms = cuda_ms(lambda: planned_gather_step(cols, n, pair_q, pair_blk, boxes, times),
+                            3)
+        gathered = len(pair_q) * JOIN_BLOCK
+        log(f"phase planned gather: {gather_ms:.4f} ms device time (CUDA events, 3 calls) for "
+            f"{len(pair_q)} (query, block) pairs of {JOIN_BLOCK} rows: {gathered} gathered rows, "
+            f"{gathered / (n * q):.6f} of N x Q; batched_count's full scan {kernel_ms:.4f} ms")
         log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
             f"over the whole phase")
-    return record, launched
+    return [record, edge_record], launched
 
 
 def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
@@ -568,7 +798,10 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
     and config 1's query shape (city boxes, no time); returns its launches."""
     import torch
 
+    from geomesa_tpu_torch.filter.bounds import extract
+    from geomesa_tpu_torch.filter.cql import parse
     from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import batched_edge_gather
     from geomesa_tpu_torch.schema.columnar import FeatureTable, point_column
     from geomesa_tpu_torch.store.datastore import DataStore
     from geomesa_tpu_torch.workload import bbox_cql, make_queries, synth_gdelt
@@ -599,7 +832,9 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
     t0 = time.perf_counter()
     loose = ds.count_many("points", cqls, loose=True)
     loose_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     exact = ds.count_many("points", cqls[:n_exact], loose=False)
+    exact_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     spatial = spatial_checks(ds, "points", lon, lat, fids, boxes_f64[:n_exact], "z2")
     spatial_s = time.perf_counter() - t0
@@ -609,6 +844,10 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
         raise AssertionError("the date-less write did not launch z2_encode exactly once")
     if on_card and launched["batched_count"] < 1:
         raise AssertionError("count_many did not launch the batched_count kernel")
+    if on_card and launched["batched_edge_gather"] < 1:
+        raise AssertionError("count_many(loose=False) did not launch batched_edge_gather")
+    if ds.exact_fallbacks:
+        raise AssertionError(f"{ds.exact_fallbacks} date-less exact counts fell back to query()")
     states = ds._state("points").backend_state
     if set(states) != {"z2"} or bool(states["z2"].cols["bins"].any()):
         raise AssertionError("the date-less store must hold one z2 state with zero bins")
@@ -626,9 +865,26 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
         raise AssertionError(f"date-less count_many(loose) != int referee: {loose} vs {want_loose}")
     if exact != spatial:
         raise AssertionError(f"date-less count_many(exact) {exact} != query() {spatial}")
+    # the unconstrained window's endpoints, (0, -1) and (2^31 - 1, 2^31 - 1),
+    # match no row of bins = offs = 0: every candidate is a box edge's
+    payloads = [ds.backend.payload(sft, extract(parse(c), "geom", None)) for c in cqls[:n_exact]]
+    windows = np.concatenate([p[1] for p in payloads])
+    windows = windows[[(b0, o0) <= (b1, o1) for b0, o0, b1, o1 in windows.tolist()]]
+    z2 = states["z2"]
+    bins, offs = z2.cols["bins"][: z2.n], z2.cols["offs"][: z2.n]
+    time_edges = sum(int(((bins == b) & (offs == o)).sum())
+                     for b0, o0, b1, o1 in windows.tolist() for b, o in ((b0, o0), (b1, o1)))
+    _, _, hits = batched_edge_gather(
+        *z2.spatial_cols(), 0, z2.n,
+        *(torch.from_numpy(np.ascontiguousarray(np.stack([p[k] for p in payloads]))).to(dev)
+          for k in (0, 1)))
+    if time_edges:
+        raise AssertionError(f"{time_edges} date-less rows sit at a window endpoint")
     log(f"phase 5 checks: ok in {time.perf_counter() - t0:.3f} s (loose counts {sum(loose)} "
-        f"rows over {n_queries} boxes in {loose_s * 1e3:.3f} ms, first call; exact {exact}; "
-        f"query() and its f64 checks {spatial_s:.3f} s)")
+        f"rows over {n_queries} boxes in {loose_s * 1e3:.3f} ms, first call; exact {exact} in "
+        f"{exact_s * 1e3:.3f} ms, first call, with {int(hits.sum())} edge candidates, "
+        f"{time_edges} of them at a window endpoint; query() and its f64 checks "
+        f"{spatial_s:.3f} s)")
     if on_card:
         log(f"phase 5 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     return launched
@@ -843,9 +1099,20 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         morton = check_morton(dev, n_rows)
         log(f"phase morton-vs-plain: ok ({time.perf_counter() - t0:.3f} s for phase 2c)")
 
+    # -- phase 2d: the edge gather vs plain ---------------------------------------
+    edge_err = 0
+    if on_card:
+        t0 = time.perf_counter()
+        edge_err = check_edge_gather(dev, 1_000_003, 13)
+        log(f"phase edge-gather-vs-plain: ok, max_abs_err={edge_err} "
+            f"({time.perf_counter() - t0:.3f} s for phase 2d)")
+
     # -- phase 3: the main path; phase 4: the stream; phase 5: date-less ---------
     t0 = time.perf_counter()
-    count_record, launched = z3_path(dev, count_err, n_rows, n_queries, n_exact, iters)
+    (count_record, edge_record), launched = z3_path(dev, count_err, n_rows, n_queries,
+                                                    n_exact, iters)
+    if on_card:
+        edge_record["max_abs_err"] = max(edge_record["max_abs_err"], edge_err)
     free_card()
     log(f"phase main path: {time.perf_counter() - t0:.3f} s in all")
     records = [count_record]
@@ -862,7 +1129,7 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     dateless_path(dev, n_rows, n_queries, n_exact)
     free_card()
     log(f"phase date-less: {time.perf_counter() - t0:.3f} s in all")
-    return records
+    return records + [edge_record]
 
 
 if __name__ == "__main__":

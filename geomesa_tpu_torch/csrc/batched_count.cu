@@ -47,7 +47,8 @@ __device__ unsigned long long g_path_blocks[2];
 struct CountEpilogue {
   int* cnt;  // (WARPS, q_tile)
   int q_tile;
-  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t) const {
+  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t,
+                                             const Rows&) const {
     const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
     if ((threadIdx.x & 31) == 0 && c) cnt[(threadIdx.x >> 5) * q_tile + qi] += c;
   }

@@ -64,7 +64,8 @@ struct HitsEpilogue {
   int* pos;  // (q_tile, LANES)
   int q_tile;
   int64_t base;
-  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t row0) const {
+  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t row0,
+                                             const Rows&) const {
     const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
     if ((threadIdx.x & 31) == 0 && c) cnt[(threadIdx.x >> 5) * q_tile + qi] += c;
     // global position of the thread's first row; the wrapper guarantees base + n < 2^31

@@ -1,6 +1,6 @@
 // count_predicate.cuh: the staged bbox+time row predicate and the row scan
-// shared by batched_count.cu and batched_count_hits.cu, so the two kernels
-// cannot drift.
+// shared by batched_count.cu, batched_count_hits.cu and
+// batched_edge_gather.cu, so the three kernels cannot drift.
 //
 // The device counterpart of _tile_mask (geomesa_tpu/ops/pallas_kernels.py:46).
 // Row r (local position lpos) matches query q when
@@ -37,7 +37,7 @@
 // live box; a warp with no such row (one vote) skips the time test.
 // Otherwise the match mask is in-box & in-window & valid, and the epilogue
 // of the kernel folds it in (a warp count by __reduce_add_sync; the hits
-// kernel's lane maxima). When every active query of the tile has one live
+// kernel's lane maxima; the edge gather's edge tests on the thread's rows). When every active query of the tile has one live
 // box and one live window, the block runs a compile-time <1, 1> instance of
 // the row loop with the slot loops gone; otherwise the general instance
 // loops to each query's live counts.
@@ -244,9 +244,9 @@ __device__ __forceinline__ uint32_t time_mask(const longlong2* __restrict__ win,
 }
 
 // Walks the block's chunks grid-stride and, per active query, hands the
-// warp-uniform epilogue `ep(qi, match mask, row0)` every warp that has an
-// in-box row (all 32 lanes call it together). row0 is the thread's first
-// local row; bit r of the mask is row row0 + r.
+// warp-uniform epilogue `ep(qi, match mask, row0, rows)` every warp that has
+// an in-box row (all 32 lanes call it together). row0 is the thread's first
+// local row; bit r of the mask is row row0 + r, held in rows.
 template <bool FAST, typename Epilogue>
 __device__ __forceinline__ void scan_rows(const int32_t* __restrict__ x,
                                           const int32_t* __restrict__ y,
@@ -264,7 +264,7 @@ __device__ __forceinline__ void scan_rows(const int32_t* __restrict__ x,
       const int lv = FAST ? 0 : t.live[qi];
       const uint32_t inb = box_mask<FAST>(t.box + qi * t.nb, lv & 0xffff, rows) & valid;
       if (!__any_sync(FULL_WARP, inb)) continue;
-      ep(qi, inb & time_mask<FAST>(t.win + qi * t.nt, lv >> 16, rows), row0);
+      ep(qi, inb & time_mask<FAST>(t.win + qi * t.nt, lv >> 16, rows), row0, rows);
     }
   }
 }

@@ -28,6 +28,15 @@ a tile whose active queries have one live box and one live window each runs
 a compile-time single-slot row loop, any other tile the general one
 (:func:`path_blocks` counts the blocks that took each).
 
+``batched_edge_gather`` replaces no TPU kernel: the reference computes it
+in XLA (``geomesa_tpu/parallel/query.py:342``,
+``make_batched_edge_gather_step``). It is written by hand because its eager
+torch form would do at least ``batched_count_plain``'s work. One pass gives
+``batched_count``'s counts and each query's edge candidates, the rows where
+the int-domain count and the f64 predicate can differ: the device half of
+the exact batched ``count_many``. Its source is
+``csrc/batched_edge_gather.cu``, on the same staged predicate and row scan.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -44,9 +53,10 @@ the flags, so an edit to a shared header rebuilds every kernel. Nothing is
 built at import.
 
 Dispatch: a CUDA tensor launches the kernel or raises (a build failure, a
-refused launch, a non-zero ``cudaGetLastError`` and, for the count kernels,
-a column or payload that does not start on a 16-byte boundary are all
-errors); the plain PyTorch version runs only for tensors on the CPU.
+refused launch, a non-zero ``cudaGetLastError`` and, for the count kernels
+and the edge gather, a column or payload that does not start on a 16-byte
+boundary are all errors); the plain PyTorch version runs only for tensors
+on the CPU.
 ``launches`` counts kernel launches per kernel name, incremented only where
 a launch happens.
 """
@@ -69,7 +79,8 @@ BUILD = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"batched_count": 0, "batched_count_hits": 0, "z3_encode": 0, "z2_encode": 0}
+launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
+            "z3_encode": 0, "z2_encode": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -78,12 +89,16 @@ _ENTRY_POINTS = {
     # (columns x4, n, base, true_n, boxes, times, q, nb, nt, sms, outputs..., stream)
     "geomesa_batched_count": ("batched_count", _COUNT_ARGS + [_P] * 2),
     "geomesa_batched_count_hits": ("batched_count_hits", _COUNT_ARGS + [_P] * 3),
+    # (..., counts, hits, positions, capacity, stream)
+    "geomesa_batched_edge_gather": ("batched_edge_gather", _COUNT_ARGS + [_P] * 3 + [_I, _P]),
     # (box slots, time slots) → queries per shared-memory tile
     "geomesa_batched_count_q_tile": ("batched_count", [_I, _I]),
     "geomesa_batched_count_hits_q_tile": ("batched_count_hits", [_I, _I]),
+    "geomesa_batched_edge_gather_q_tile": ("batched_edge_gather", [_I, _I]),
     # (host out: 2 x uint64) → blocks per row-loop path since the last call
     "geomesa_batched_count_path_blocks": ("batched_count", [_P]),
     "geomesa_batched_count_hits_path_blocks": ("batched_count_hits", [_P]),
+    "geomesa_batched_edge_gather_path_blocks": ("batched_edge_gather", [_P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -209,9 +224,11 @@ def _check_count_args(x, y, bins, offs, boxes, times):
         raise ValueError("columns of 2^31 rows or more would overflow int32 counts")
 
 
-def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *outs):
+def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *outs,
+            ints: tuple = ()):
     """Launch ``stem``'s kernel on the current stream of the columns' card,
-    writing into the preallocated ``outs``; raises on a refused launch."""
+    writing into the preallocated ``outs`` (``ints`` follow them); raises on
+    a refused launch."""
     q, nb, nt = boxes.shape[0], boxes.shape[1], times.shape[1]
     n = x.shape[0]
     if q == 0 or n == 0:
@@ -226,7 +243,7 @@ def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(),
                 n, int(base), int(true_n), boxes.data_ptr(), times.data_ptr(),
-                q, nb, nt, sms, *(o.data_ptr() for o in outs), _stream_of(x))
+                q, nb, nt, sms, *(o.data_ptr() for o in outs), *ints, _stream_of(x))
     if rc != 0:
         raise RuntimeError(f"{stem} launch failed: cudaError {rc}")
     launches[stem] += 1
@@ -260,36 +277,59 @@ def batched_count(x, y, bins, offs, base: int, true_n: int, boxes, times) -> tor
     return out
 
 
-def _plain_masks(x, y, bins, offs, base: int, true_n: int, boxes, times, chunk: int):
-    """Yield ``(s, e, mask (Q, e - s) bool)`` over row chunks: the broadcast
-    form of the reference's ``_batched_masks`` (``parallel/query.py:287``),
-    chunked so the (Q, chunk) masks stay bounded."""
-    q = boxes.shape[0]
+def row_masks(xi, yi, bi, oi, boxes, times, edges: bool = False):
+    """The bbox+time predicate of every count kernel, broadcast: rows ``xi,
+    yi, bi, oi`` of shape (G or 1, R) against payloads ``boxes`` (G, B, 4) and
+    ``times`` (G, T, 4) → ``in_box & in_time`` (G, R) bool, the reference's
+    ``_batched_masks`` (``parallel/query.py:287``) without the row-validity
+    term. With ``edges`` also the edge mask of ``make_batched_edge_gather_step``
+    (``:389-418``): the OR over box slots of inside the slot and on one of
+    its four edges (``_slot_point`` :309), or the OR over valid windows of
+    the (bin, offset) pair at one of its endpoints (``_slot_time_edge``
+    :331); otherwise ``None``."""
+    in_box = torch.zeros(torch.broadcast_shapes(xi.shape, boxes.shape[:1] + (1,)),
+                         dtype=torch.bool, device=xi.device)
+    on_edge = torch.zeros_like(in_box) if edges else None
+    for k in range(boxes.shape[1]):
+        b = boxes[:, k, :, None]
+        inside = (xi >= b[:, 0]) & (xi <= b[:, 1]) & (yi >= b[:, 2]) & (yi <= b[:, 3])
+        in_box |= inside
+        if edges:
+            on_edge |= inside & ((xi == b[:, 0]) | (xi == b[:, 1])
+                                 | (yi == b[:, 2]) | (yi == b[:, 3]))
+    in_time = torch.zeros_like(in_box)
+    for k in range(times.shape[1]):
+        t = times[:, k, :, None]
+        after = (bi > t[:, 0]) | ((bi == t[:, 0]) & (oi >= t[:, 1]))
+        before = (bi < t[:, 2]) | ((bi == t[:, 2]) & (oi <= t[:, 3]))
+        in_time |= after & before
+        if edges:
+            valid = (t[:, 0] < t[:, 2]) | ((t[:, 0] == t[:, 2]) & (t[:, 1] <= t[:, 3]))
+            on_edge |= valid & (((bi == t[:, 0]) & (oi == t[:, 1]))
+                                | ((bi == t[:, 2]) & (oi == t[:, 3])))
+    return in_box & in_time, on_edge
+
+
+def _plain_masks(x, y, bins, offs, base: int, true_n: int, boxes, times, chunk: int,
+                 edges: bool = False):
+    """Yield ``(s, e, mask (Q, e - s) bool, edge mask or None)`` over row
+    chunks: :func:`row_masks` with the rows' validity, chunked so the
+    (Q, chunk) masks stay bounded. The edge mask is within the match mask."""
     n = x.shape[0]
     for s in range(0, n, chunk):
         e = min(n, s + chunk)
-        xi, yi = x[s:e][None, :], y[s:e][None, :]
-        bi, oi = bins[s:e][None, :], offs[s:e][None, :]
-        in_box = torch.zeros((q, e - s), dtype=torch.bool, device=x.device)
-        for k in range(boxes.shape[1]):
-            b = boxes[:, k, :, None]
-            in_box |= (xi >= b[:, 0]) & (xi <= b[:, 1]) & (yi >= b[:, 2]) & (yi <= b[:, 3])
-        in_time = torch.zeros_like(in_box)
-        for k in range(times.shape[1]):
-            t = times[:, k, :, None]
-            after = (bi > t[:, 0]) | ((bi == t[:, 0]) & (oi >= t[:, 1]))
-            before = (bi < t[:, 2]) | ((bi == t[:, 2]) & (oi <= t[:, 3]))
-            in_time |= after & before
+        m, edge = row_masks(x[s:e][None, :], y[s:e][None, :], bins[s:e][None, :],
+                            offs[s:e][None, :], boxes, times, edges)
         lpos = torch.arange(s, e, dtype=torch.int64, device=x.device)
-        valid = (int(base) + lpos) < int(true_n)
-        yield s, e, in_box & in_time & valid[None, :]
+        m &= ((int(base) + lpos) < int(true_n))[None, :]
+        yield s, e, m, (edge & m if edges else None)
 
 
 def batched_count_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
                         chunk: int = 1 << 20) -> torch.Tensor:
     """The plain PyTorch version of :func:`batched_count`."""
     counts = torch.zeros(boxes.shape[0], dtype=torch.int64, device=x.device)
-    for _, _, m in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
+    for _, _, m, _ in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
         counts += m.sum(dim=1)
     return counts.to(torch.int32)
 
@@ -339,7 +379,7 @@ def batched_count_hits_plain(x, y, bins, offs, base: int, true_n: int, boxes, ti
     q = boxes.shape[0]
     counts = torch.zeros(q, dtype=torch.int64, device=x.device)
     lane_pos = torch.full((q, LANES), -1, dtype=torch.int64, device=x.device)
-    for s, e, m in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
+    for s, e, m, _ in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
         counts += m.sum(dim=1)
         gpos = torch.arange(int(base) + s, int(base) + e, dtype=torch.int64, device=x.device)
         posq = torch.where(m, gpos[None, :], -1)
@@ -348,6 +388,75 @@ def batched_count_hits_plain(x, y, bins, offs, base: int, true_n: int, boxes, ti
             posq = torch.nn.functional.pad(posq, (0, pad), value=-1)
         lane_pos = torch.maximum(lane_pos, posq.reshape(q, -1, LANES).amax(dim=1))
     return counts.to(torch.int32), lane_pos.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# batched_edge_gather
+# ---------------------------------------------------------------------------
+
+EDGE_CAPACITY = 512  # candidate lanes per query (the reference's ``cap``, datastore.py:2026)
+_I32_MAX = 2**31 - 1
+
+
+def batched_edge_gather(x, y, bins, offs, base: int, true_n: int, boxes, times,
+                        capacity: int = EDGE_CAPACITY):
+    """:func:`batched_count` plus each query's edge candidates, one pass.
+
+    Same inputs, predicate and staged layout as :func:`batched_count`.
+    Returns ``(counts (Q,) int32, positions (Q, 1, capacity) int32, hits
+    (Q, 1) int32)``, the reference's shapes with one shard: ``counts`` are
+    :func:`batched_count`'s; a row is a candidate of query ``q`` when it
+    matches ``q`` and lies inside a live box of ``q`` on one of that box's
+    edges, or at an endpoint of a live window of ``q`` (:func:`row_masks`);
+    ``hits`` is the true number of candidates and may exceed ``capacity``;
+    ``positions`` hold global positions ``base + lpos`` of candidates, -1
+    padded.
+
+    Lane contract: where ``hits <= capacity`` the lanes hold every candidate
+    in row order, as the plain version's do. Where ``hits > capacity`` they
+    hold ``capacity`` of the candidates, which ones undefined (the kernel
+    appends in no particular order): the caller must not use them.
+    """
+    _check_count_args(x, y, bins, offs, boxes, times)
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    if int(base) + x.shape[0] > _I32_MAX:
+        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    if x.device.type == "cpu":
+        return batched_edge_gather_plain(x, y, bins, offs, base, true_n, boxes, times,
+                                         capacity)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_edge_gather runs on cuda or cpu, not {x.device}")
+    q = boxes.shape[0]
+    counts = torch.zeros(q, dtype=torch.int32, device=x.device)
+    hits = torch.zeros(q, dtype=torch.int32, device=x.device)
+    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
+    _launch("batched_edge_gather", x, y, bins, offs, base, true_n, boxes, times,
+            counts, hits, pos, ints=(int(capacity),))
+    # the kernel appends in no order: sort each query's lanes, padding last
+    pos = torch.where(pos < 0, _I32_MAX, pos).sort(dim=1).values
+    pos[pos == _I32_MAX] = -1
+    return counts, pos[:, None, :], hits[:, None]
+
+
+def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
+                              capacity: int = EDGE_CAPACITY, chunk: int = 1 << 20):
+    """The plain PyTorch version of :func:`batched_edge_gather`: the
+    reference's ``one`` (``parallel/query.py:400-428``), chunked over rows.
+    Candidates fill the lanes in row order by a running prefix sum; past
+    ``capacity`` they are counted in ``hits`` and dropped."""
+    q = boxes.shape[0]
+    counts = torch.zeros(q, dtype=torch.int64, device=x.device)
+    hits = torch.zeros(q, dtype=torch.int64, device=x.device)
+    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
+    for s, _, m, edge in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk,
+                                      edges=True):
+        counts += m.sum(dim=1)
+        slot = hits[:, None] + torch.cumsum(edge, dim=1) - 1
+        qi, ri = (edge & (slot < capacity)).nonzero(as_tuple=True)
+        pos[qi, slot[qi, ri]] = (int(base) + s + ri).to(torch.int32)
+        hits += edge.sum(dim=1)
+    return counts.to(torch.int32), pos[:, None, :], hits.to(torch.int32)[:, None]
 
 
 # ---------------------------------------------------------------------------

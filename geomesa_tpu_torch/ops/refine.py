@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from geomesa_tpu_torch.ops.kernels import row_masks
+
 MAX_BOXES = 8  # padded box-slot count
 MAX_TIMES = 16  # padded time-window slot count
 
@@ -63,23 +65,9 @@ def refine_points(x, y, bins, offs, idx, count: int, boxes, times) -> torch.Tens
 
     ``x, y, bins, offs``: (N,) int32 sorted columns; ``idx``: (C,) int64 or
     int32 candidate slot → sorted position; ``count``: real (non-padding)
-    slots; ``boxes`` (B, 4) / ``times`` (T, 4) int32. Returns (C,) bool."""
-    xi = x[idx][:, None]
-    yi = y[idx][:, None]
-    bi = bins[idx][:, None]
-    oi = offs[idx][:, None]
-    in_box = (
-        (xi >= boxes[None, :, 0])
-        & (xi <= boxes[None, :, 1])
-        & (yi >= boxes[None, :, 2])
-        & (yi <= boxes[None, :, 3])
-    ).any(dim=1)
-    after_lo = (bi > times[None, :, 0]) | (
-        (bi == times[None, :, 0]) & (oi >= times[None, :, 1])
-    )
-    before_hi = (bi < times[None, :, 2]) | (
-        (bi == times[None, :, 2]) & (oi <= times[None, :, 3])
-    )
-    in_time = (after_lo & before_hi).any(dim=1)
-    valid = torch.arange(idx.shape[0], device=idx.device) < count
-    return in_box & in_time & valid
+    slots; ``boxes`` (B, 4) / ``times`` (T, 4) int32. Returns (C,) bool. The
+    test is :func:`~geomesa_tpu_torch.ops.kernels.row_masks`, the predicate
+    every count kernel's plain version runs."""
+    m, _ = row_masks(x[idx][None, :], y[idx][None, :], bins[idx][None, :],
+                     offs[idx][None, :], boxes[None], times[None])
+    return m[0] & (torch.arange(idx.shape[0], device=idx.device) < count)

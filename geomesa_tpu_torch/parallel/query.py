@@ -4,42 +4,146 @@ Ports of :mod:`geomesa_tpu.parallel.query` for a single shard. The batched
 count step (``make_batched_count_step`` ``:449``) has no function of its own:
 ``DataStore.count_many`` calls ``ops.kernels.batched_count`` with ``base=0``.
 
-- :func:`select_count` / :func:`select_gather` — the two-pass row select
-  (``_make_count_step`` ``:115`` / ``_make_gather_step`` ``:140``): refine
-  the planned candidate slots, count the hits, then compact the matching
-  sorted positions into ``capacity`` lanes by a prefix sum. The reference
-  computes these in XLA outside any Pallas kernel; here they are torch ops.
+- :func:`select_positions` — the row select of one query: refine the
+  planned candidate slots and keep the matching sorted positions, one pass
+  and one boolean index. The reference splits it into a count step and a
+  gather step (``_make_count_step`` ``:115`` / ``_make_gather_step``
+  ``:140``) only because XLA needs the gather's capacity as a static shape.
+- :func:`batched_edge_gather_step` — the exact batched count's fused scan
+  (``make_batched_edge_gather_step`` ``:342``): one ``batched_edge_gather``
+  launch.
+- :func:`intervals_to_block_pairs` / :func:`planned_gather_step` — batched
+  row retrieval over the planner's candidate blocks
+  (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
+  ``:820``), the ``select_many`` path, in torch.
 - :func:`matrix_scan_step` — the subscription matrix's fused scan
   (``make_matrix_scan_step`` ``:497``): one ``batched_count_hits`` launch,
-  then the top-k of its lane scoreboard. ``cached_matrix_scan_step``
-  (``:567``) has no counterpart: it memoizes a compiled executable per
-  capacity bucket, and eager PyTorch has no compile cache to key.
+  then the top-k of its lane scoreboard.
+
+The ``cached_*`` step factories (``cached_batched_edge_gather_step``
+``:441``, ``cached_matrix_scan_step`` ``:567``) have no counterparts: they
+memoize a compiled executable per shape, and eager PyTorch has no compile
+cache to key.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from geomesa_tpu_torch.ops.kernels import LANES, batched_count_hits
+from geomesa_tpu_torch.ops.kernels import (
+    EDGE_CAPACITY,
+    LANES,
+    batched_count_hits,
+    batched_edge_gather,
+    row_masks,
+)
 from geomesa_tpu_torch.ops.refine import refine_points
+from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
+
+# rows one chunk of planned_gather_step gathers at most (about 32 B each)
+PLANNED_CHUNK_ROWS = 1 << 22
 
 
-def select_count(x, y, bins, offs, idx, count: int, boxes, times) -> torch.Tensor:
-    """Pass 1: number of candidate slots passing the int-domain refine."""
-    return refine_points(x, y, bins, offs, idx, count, boxes, times).sum()
+def select_positions(x, y, bins, offs, idx, count: int, boxes, times) -> torch.Tensor:
+    """The sorted-row positions among the candidate slots ``idx`` that pass
+    the int-domain refine (:func:`refine_points`), in slot order."""
+    return idx[refine_points(x, y, bins, offs, idx, count, boxes, times)]
 
 
-def select_gather(x, y, bins, offs, idx, count: int, boxes, times, capacity: int):
-    """Pass 2: refine + stable stream compaction of matching sorted-row
-    positions into ``capacity`` lanes. Returns (positions (capacity,) int32,
-    -1 past the hits; hits () int64 — may exceed ``capacity``, whose lanes
-    then hold the first ``capacity`` matches)."""
-    mask = refine_points(x, y, bins, offs, idx, count, boxes, times)
-    dest = torch.cumsum(mask.to(torch.int64), dim=0) - 1
-    keep = mask & (dest < capacity)
-    out = torch.full((capacity,), -1, dtype=torch.int32, device=x.device)
-    out[dest[keep]] = idx[keep].to(torch.int32)
-    return out, mask.sum()
+def batched_edge_gather_step(x, y, bins, offs, true_n: int, boxes, times,
+                             capacity: int = EDGE_CAPACITY):
+    """Exact batched counts' fused scan over one shard (``base = 0``, ``D =
+    1``): ``(counts (Q,), positions (Q, 1, capacity), hits (Q, 1))`` as
+    :func:`~geomesa_tpu_torch.ops.kernels.batched_edge_gather` gives them,
+    the kernel on a card and its plain version on the CPU. ``hits >
+    capacity`` means the query's lanes truncated: the caller answers it
+    another way."""
+    return batched_edge_gather(x, y, bins, offs, 0, true_n, boxes, times, capacity)
+
+
+def intervals_to_block_pairs(intervals_per_query, block_rows: int):
+    """Per-query row intervals → flat (query, block) work list.
+
+    ``intervals_per_query``: list over queries of (k, 2) int64 arrays of
+    half-open global row intervals (the planner's candidate spans). Returns
+    unpadded (pair_q, pair_blk) int32 arrays, grouped by query in order with
+    each query's blocks sorted and deduplicated: blocks are global row-space
+    tiles of ``block_rows`` (many small z-ranges in one block collapse to
+    one gather). The reference's ``pad_block_pairs`` (``:702``) has no
+    counterpart: eager shapes need no compile-time budget."""
+    qs, bs = [], []
+    for q, iv in enumerate(intervals_per_query):
+        iv = np.asarray(iv, dtype=np.int64).reshape(-1, 2)
+        spans = [
+            np.arange(a // block_rows, (b - 1) // block_rows + 1)
+            for a, b in iv if b > a
+        ]
+        if not spans:
+            continue
+        blks = np.unique(np.concatenate(spans))
+        qs.append(np.full(len(blks), q, dtype=np.int32))
+        bs.append(blks.astype(np.int32))
+    if not qs:
+        return np.empty(0, np.int32), np.empty(0, np.int32)
+    return np.concatenate(qs), np.concatenate(bs)
+
+
+def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times,
+                        block_rows: int = JOIN_BLOCK, chunk_rows: int = PLANNED_CHUNK_ROWS):
+    """Batched row retrieval over planned (query, block) pairs, one shard.
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns, N a multiple of
+    ``block_rows``; ``pair_q``/``pair_blk``: host int arrays from
+    :func:`intervals_to_block_pairs`; ``boxes`` (Q, B, 4) / ``times`` (Q, T,
+    4) int32 payloads on the columns' device. Each pair's block is gathered
+    (a row of the columns viewed as (N / block_rows, block_rows)) and tested
+    against its one query by :func:`~geomesa_tpu_torch.ops.kernels.row_masks`,
+    the predicate every count kernel's plain version runs, with rows at
+    ``true_n`` or past it masked. Returns ``(positions (H,) int64, pair_hits
+    (P,) int64)``: the matching global positions in pair order, each pair's
+    in row order, and each pair's match count, the reference's buffer order.
+    Pairs grouped by query with sorted blocks give each query's positions
+    sorted.
+
+    Memory: pairs run in chunks of at most ``chunk_rows`` gathered rows
+    (the four columns, the masks of the predicate and the positions: about
+    32 B per row, so about 128 MiB at the default), so a query covering
+    every block, such as ``INCLUDE``, never allocates N x ``block_rows``.
+
+    There is no count pass: the reference's (``make_planned_count_step``
+    ``:716``) sizes a static XLA buffer, and a boolean index needs none.
+    """
+    x = cols[0]
+    n = x.shape[0]
+    if n % block_rows:
+        raise ValueError(f"residency not block-aligned: {n} % {block_rows}")
+    pair_q = np.asarray(pair_q, dtype=np.int64)
+    pair_blk = np.asarray(pair_blk, dtype=np.int64)
+    if pair_q.shape != pair_blk.shape or pair_q.ndim != 1:
+        raise ValueError("pair_q and pair_blk must be 1-D arrays of one length")
+    empty = torch.empty(0, dtype=torch.int64, device=x.device)
+    if len(pair_q) == 0:
+        return empty, empty
+    if pair_blk.min() < 0 or pair_blk.max() >= n // block_rows:
+        raise ValueError(f"pair blocks must lie in [0, {n // block_rows})")
+    if pair_q.min() < 0 or pair_q.max() >= boxes.shape[0]:
+        raise ValueError(f"pair queries must lie in [0, {boxes.shape[0]})")
+    blocks = [c.view(-1, block_rows) for c in cols]
+    pq = torch.from_numpy(pair_q).to(x.device)
+    pb = torch.from_numpy(pair_blk).to(x.device)
+    lrow = torch.arange(block_rows, device=x.device)
+    step = max(1, chunk_rows // block_rows)
+    positions, hits = [], []
+    for s in range(0, len(pair_q), step):
+        q, b = pq[s:s + step], pb[s:s + step]
+        m, _ = row_masks(*(c.index_select(0, b) for c in blocks),
+                         boxes.index_select(0, q), times.index_select(0, q))
+        gpos = b[:, None] * block_rows + lrow[None, :]
+        m &= gpos < int(true_n)
+        hits.append(m.sum(dim=1))
+        positions.append(gpos[m])
+    return torch.cat(positions), torch.cat(hits)
 
 
 def matrix_scan_step(x, y, bins, offs, true_n: int, boxes, times, topk: int):

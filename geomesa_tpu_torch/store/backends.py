@@ -9,12 +9,17 @@ Ports of :mod:`geomesa_tpu.store.backends` for point schemas:
   in its own sort order (``backends.py:267-388``, points branch; zero
   ``bins``/``offs`` for a schema without a date), ``point_state`` picks the
   state the batched counts run on (z3, then z2), ``_payload`` packs a query's
-  int-domain bounds (``:478``), and ``select`` runs the two-pass device
-  refine + compaction (``:501``) followed by the exact host residual.
+  int-domain bounds (``:478``), ``select`` refines the planned candidates
+  on the device with one boolean mask (``:501``; the reference's two
+  passes exist only to size a static XLA buffer) and applies the exact
+  host residual, and ``select_many_positions`` (``:575``) answers a batch
+  of queries over planned (query, block) pairs.
 
-The reference's device fallbacks (the ``dev is None`` host path in
-``select``, the load-failure branch) are deliberately absent: a missing
-residency or a device error raises.
+``select`` always takes the candidate route. The reference's ``sel:planned``
+route inside it (``:539-556``) is chosen by the cost model, which the port
+does not carry yet. The reference's device fallbacks (the ``dev is None``
+host path in ``select``, the load-failure branch) are deliberately absent:
+a missing residency or a device error raises.
 """
 
 from __future__ import annotations
@@ -31,8 +36,12 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction
 from geomesa_tpu_torch.index.api import IndexPlan, gather_indices
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
-from geomesa_tpu_torch.parallel.query import select_count, select_gather
-from geomesa_tpu_torch.parallel.residency import stage_columns
+from geomesa_tpu_torch.parallel.query import (
+    intervals_to_block_pairs,
+    planned_gather_step,
+    select_positions,
+)
+from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK, stage_columns
 from geomesa_tpu_torch.schema.columnar import FeatureTable
 from geomesa_tpu_torch.schema.sft import FeatureType
 
@@ -133,7 +142,7 @@ def device_columns(sft: FeatureType, table: FeatureTable):
 
 
 class DeviceBackend:
-    """Resident int32 columns on one torch device, two-pass row select."""
+    """Resident int32 columns on one torch device, one-mask row select."""
 
     name = "device"
 
@@ -175,19 +184,37 @@ class DeviceBackend:
 
     def select_positions(self, dev: IndexState, sft, e: Extraction,
                          intervals: np.ndarray) -> np.ndarray:
-        """Sorted-order positions passing the int-domain refine, two passes:
-        the hit count sizes the gather's capacity lanes."""
+        """Sorted-order positions passing the int-domain refine: one boolean
+        mask over the candidate slots, one device → host copy."""
         idx, count = gather_indices(intervals)
         boxes, times = self.payload(sft, e)
-        d_idx = torch.from_numpy(idx).to(self.device)
-        d_boxes = torch.from_numpy(boxes).to(self.device)
-        d_times = torch.from_numpy(times).to(self.device)
-        cols = dev.spatial_cols()
-        hits = int(select_count(*cols, d_idx, count, d_boxes, d_times))
-        if hits == 0:
-            return np.empty(0, dtype=np.int64)
-        pos, _ = select_gather(*cols, d_idx, count, d_boxes, d_times, capacity=hits)
-        return pos.cpu().numpy().astype(np.int64)
+        pos = select_positions(
+            *dev.spatial_cols(), torch.from_numpy(idx).to(self.device), count,
+            torch.from_numpy(boxes).to(self.device), torch.from_numpy(times).to(self.device))
+        return pos.cpu().numpy()
+
+    def select_many_positions(self, dev: IndexState, index, extractions,
+                              intervals_list) -> list[np.ndarray]:
+        """Matching sorted-order positions for many queries on one index
+        state (``backends.py:575``): each query's intervals become
+        ``JOIN_BLOCK``-row (query, block) pairs, and one
+        :func:`planned_gather_step` serves them all. Returns one int64 array
+        per query, sorted. Raises on a residency that is not block-aligned."""
+        if dev.rows_per_shard % JOIN_BLOCK:
+            raise ValueError(
+                f"residency not block-aligned: {dev.rows_per_shard} % {JOIN_BLOCK}")
+        nq = len(intervals_list)
+        pair_q, pair_blk = intervals_to_block_pairs(intervals_list, JOIN_BLOCK)
+        if len(pair_q) == 0:
+            return [np.empty(0, dtype=np.int64) for _ in range(nq)]
+        payloads = [self.payload(index.sft, e) for e in extractions]
+        boxes = torch.from_numpy(np.stack([p[0] for p in payloads])).to(self.device)
+        times = torch.from_numpy(np.stack([p[1] for p in payloads])).to(self.device)
+        positions, pair_hits = planned_gather_step(
+            dev.spatial_cols(), dev.n, pair_q, pair_blk, boxes, times, JOIN_BLOCK)
+        # pairs come grouped by query in order: split the buffer per query
+        per_query = np.bincount(pair_q, weights=pair_hits.cpu().numpy(), minlength=nq)
+        return np.split(positions.cpu().numpy(), np.cumsum(per_query.astype(np.int64))[:-1])
 
     def select(self, state, index, plan: IndexPlan, extraction, residual, table):
         if len(plan.intervals) == 0:

@@ -2,9 +2,9 @@
 
 Port of the point path of :class:`geomesa_tpu.store.datastore.DataStore`,
 for point schemas with or without a date: ``create_schema`` → ``write`` →
-``compact`` → ``query`` / ``count_many``. Every write builds the z3 and z2
-indexes the schema has (keys encoded and sorted on the store's device) and
-stages each index's columns. Differences from the reference, all
+``compact`` → ``query`` / ``select_many`` / ``count_many``. Every write
+builds the z3 and z2 indexes the schema has (keys encoded and sorted on the
+store's device) and stages each index's columns. Differences from the reference, all
 deliberate:
 
 - ``write`` folds the rows straight into the sorted main tier and rebuilds
@@ -14,9 +14,9 @@ deliberate:
 - No device fallbacks: no circuit breaker, no failover ``except`` in
   ``count_many``, no load-failure branch that leaves the store on the host.
   A device error propagates to the caller.
-- ``count_many(loose=False)`` answers each batchable query through the
-  exact per-query path (``query``) instead of the reference's batched
-  edge-gather step; the answers are the same.
+- ``select_many`` leaves out what the port does not carry yet: query
+  interceptors, TTL age-off, the audit trail, query hints, the delta tier
+  and ``reduce_result``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,9 @@ import torch
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import extract
-from geomesa_tpu_torch.ops.kernels import batched_count
+from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, batched_count
+from geomesa_tpu_torch.ops.refine import MAX_BOXES, MAX_TIMES
+from geomesa_tpu_torch.parallel.query import batched_edge_gather_step
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indices
 from geomesa_tpu_torch.schema.columnar import FeatureTable
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
@@ -93,6 +95,8 @@ class DataStore:
         else:
             raise ValueError(f"unknown backend {backend!r}: 'device' or 'oracle'")
         self._types: dict[str, _TypeState] = {}
+        # queries count_many answered through query(), the exact per-query path
+        self.exact_fallbacks = 0
 
     # -- schema ---------------------------------------------------------------
     def create_schema(self, sft: FeatureType | str, spec: str | None = None) -> FeatureType:
@@ -203,41 +207,120 @@ class DataStore:
         rows = np.sort(rows)
         return QueryResult(main.take(rows), rows, info)
 
+    def _batch_payloads(self, st: _TypeState, qs) -> list:
+        """The queries a batched count can take (``datastore.py:1707``):
+        pure bbox+time conjunctions on the default geometry/date fields.
+        Returns ``[(query index, payload | None, exactable)]``: the payload
+        is None for a provably disjoint filter; ``exactable`` is False when
+        packing widened the payload (more boxes than ``MAX_BOXES`` or more
+        windows than ``MAX_TIMES`` collapse to an envelope), so the int
+        count is a superset beyond the edge buckets and cannot be corrected
+        to exact."""
+        pending = []
+        for i, q in enumerate(qs):
+            f = q.resolved_filter()
+            if not _pure_bbox_time(f, st.sft):
+                continue
+            e = extract(f, st.sft.geom_field, st.sft.dtg_field)
+            payload = None if e.disjoint else self.backend.payload(st.sft, e)
+            n_boxes = len(e.boxes) if e.boxes is not None else 1
+            n_times = len(e.intervals) if e.intervals is not None else 1
+            pending.append((i, payload, n_boxes <= MAX_BOXES and n_times <= MAX_TIMES))
+        return pending
+
     def count_many(self, type_name: str, queries, loose: bool = True) -> list[int]:
-        """Counts for many queries. Pure bbox+time queries share ONE pass of
-        the ``batched_count`` kernel over the preferred point index's
-        resident columns (``loose=True``: the int-domain count,
-        the loose-bbox semantics); a provably disjoint filter counts 0; every
-        other query, and every query when ``loose=False``, is answered
-        exactly through :meth:`query`."""
+        """Counts for many queries, the pure bbox+time ones in ONE device pass
+        over the preferred point index's resident columns; a provably
+        disjoint filter counts 0.
+
+        ``loose=True``: the int-domain count of the ``batched_count`` kernel
+        (the loose-bbox semantics). ``loose=False``: one ``batched_edge_gather``
+        launch gives the same count plus each query's edge candidates, the
+        only rows where the int count and the f64 filter can differ (in an
+        edge bucket of a box or at a window's quantized endpoint); the host
+        re-tests them against the full filter and subtracts the failures.
+
+        Every other query goes through :meth:`query` and counts in
+        ``exact_fallbacks``: a filter that is not pure bbox+time, a widened
+        payload (``loose=False``), and a query whose edge candidates
+        overflowed their lanes (``hits > EDGE_CAPACITY``). With one shard the
+        port flags that overflow per query where the reference flags it per
+        shard, so it may fall back where the reference did not; the counts
+        are the same either way."""
         st = self._state(type_name)
         qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
         out: list = [None] * len(qs)
         if st.table is None:
             return [0] * len(qs)
+        pending = self._batch_payloads(st, qs) if isinstance(self.backend, DeviceBackend) else []
         live = []
-        if isinstance(self.backend, DeviceBackend):
-            for i, q in enumerate(qs):
-                f = q.resolved_filter()
-                if not _pure_bbox_time(f, st.sft):
-                    continue
-                e = extract(f, st.sft.geom_field, st.sft.dtg_field)
-                if e.disjoint:
-                    out[i] = 0
-                elif loose:
-                    live.append((i, self.backend.payload(st.sft, e)))
+        for i, payload, exactable in pending:
+            if payload is None:
+                out[i] = 0
+            elif loose or exactable:
+                live.append((i, payload))
         if live:
-            dev, _ = DeviceBackend.point_state(st.backend_state)
+            dev, name = DeviceBackend.point_state(st.backend_state)
             boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
             times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
-            # make_batched_count_step (parallel/query.py:449) on one shard:
-            # base 0, the kernel on cuda, its plain version only on the CPU
-            counts = batched_count(
-                *dev.spatial_cols(), 0, dev.n, boxes, times
-            ).cpu().numpy()
-            for k, (i, _) in enumerate(live):
-                out[i] = int(counts[k])
+            # make_batched_count_step / make_batched_edge_gather_step
+            # (parallel/query.py:449, :342) on one shard: base 0, the kernel
+            # on cuda, its plain version only on the CPU
+            if loose:
+                counts = batched_count(*dev.spatial_cols(), 0, dev.n, boxes, times).cpu().numpy()
+                for k, (i, _) in enumerate(live):
+                    out[i] = int(counts[k])
+            else:
+                counts, pos, hits = batched_edge_gather_step(
+                    *dev.spatial_cols(), dev.n, boxes, times, EDGE_CAPACITY)
+                counts, pos, hits = counts.cpu().numpy(), pos.cpu().numpy(), hits.cpu().numpy()
+                perm = st.indices[name].perm
+                for k, (i, _) in enumerate(live):
+                    h = int(hits[k, 0])
+                    if h > pos.shape[2]:
+                        continue  # truncated lanes: the exact per-query path
+                    out[i] = int(counts[k])
+                    if h:  # subtract the candidates the f64 filter rejects
+                        rows = perm[pos[k, 0, :h].astype(np.int64)]
+                        f = qs[i].resolved_filter()
+                        out[i] -= int((~ast.residual_mask(f, st.table, rows)).sum())
         for i, q in enumerate(qs):
             if out[i] is None:
+                self.exact_fallbacks += 1
                 out[i] = self.query(type_name, q).count
         return out
+
+    def select_many(self, type_name: str, queries) -> list[QueryResult]:
+        """Row sets of many queries, equal to ``[self.query(type_name, q) for
+        q in queries]`` (``datastore.py:1762-1941``): every query is planned
+        as :meth:`query` plans it, the queries are grouped by the index
+        whose order their intervals address, and each group's candidate
+        blocks go through one ``select_many_positions``; each query's rows
+        then take the exact host residual and are sorted. A disjoint plan
+        has no blocks and answers empty; the Oracle backend and an empty
+        store answer per query."""
+        st = self._state(type_name)
+        qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
+        main = st.table
+        if main is None or isinstance(self.backend, OracleBackend):
+            return [self.query(type_name, q) for q in qs]
+        planner = QueryPlanner(st.sft, st.indices)
+        planned = [planner.plan(q) for q in qs]  # (plan, residual, info)
+        groups: dict[str, list[int]] = {}
+        for i, (_, _, info) in enumerate(planned):
+            groups.setdefault(info.scan_index, []).append(i)
+        results: list = [None] * len(qs)
+        for name, idxs in groups.items():
+            index = st.indices[name]
+            pos_lists = self.backend.select_many_positions(
+                st.backend_state[name], index,
+                [planned[i][2].extraction for i in idxs],
+                [planned[i][0].intervals for i in idxs])
+            for i, positions in zip(idxs, pos_lists):
+                _, f, info = planned[i]
+                rows = index.perm[positions]
+                if len(rows) and not isinstance(f, ast.Include):
+                    rows = rows[ast.residual_mask(f, main, rows)]
+                rows = np.sort(rows)
+                results[i] = QueryResult(main.take(rows), rows, info)
+        return results

@@ -15,7 +15,7 @@ import datetime
 
 import numpy as np
 
-from geomesa_tpu_torch.ops.refine import pack_boxes
+from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
 from geomesa_tpu_torch.store.backends import int_boxes
 
 T0 = 1_498_867_200_000  # 2017-07-01, GDELT-era
@@ -214,3 +214,51 @@ def edge_payload(cols, q: int, nb: int, nt: int, seed: int, single: bool):
         for k in range(nt):
             times[qi, k] = (_live_window if k in live_t else _dead_window)(rng, bins, offs, i)
     return boxes.astype(np.int32), times.astype(np.int32)
+
+
+# -- edge-heavy rows and payloads for the exact count's edge gather ------------
+
+
+def grid_columns(n: int, seed: int, values: int = 300):
+    """(x, y, bins, offs) int32 rows drawn from ``values`` distinct
+    coordinates per axis, bins in [0, 4) and ``values`` distinct offsets of
+    either sign: many rows share every box edge and window endpoint that
+    :func:`grid_payload` puts on those values."""
+    rng = np.random.default_rng(seed)
+    xs, ys = (np.sort(rng.choice(2**31 - 1, values, replace=False)) for _ in range(2))
+    os_ = np.sort(rng.choice(2**32, values, replace=False) - 2**31)
+    pick = lambda grid: grid[rng.integers(values, size=n)]  # noqa: E731
+    return tuple(a.astype(np.int32)
+                 for a in (pick(xs), pick(ys), rng.integers(0, 4, n), pick(os_)))
+
+
+def grid_payload(cols, q: int, nb: int, nt: int, seed: int):
+    """(q, nb, 4) boxes and (q, nt, 4) times whose bounds are values of the
+    rows ``cols`` (from :func:`grid_columns`), packed as ``ops/refine.py``
+    packs them: 1..nb boxes and 1..nt windows per query, mostly narrow, some
+    wide enough that a query's edge candidates overflow any small
+    capacity."""
+    rng = np.random.default_rng(seed)
+    x, y, bins, offs = cols
+    xs, ys, bs, os_ = (np.unique(c) for c in (x, y, bins, offs))
+
+    def span(grid):
+        lo = int(rng.integers(len(grid)))
+        hi = min(len(grid) - 1, lo + int(len(grid) * rng.random() ** 3))
+        return int(grid[lo]), int(grid[hi])
+
+    boxes, times = [], []
+    for _ in range(q):
+        kb, kt = int(rng.integers(1, nb + 1)), int(rng.integers(1, nt + 1))
+        boxes.append(pack_boxes(np.array([[*span(xs), *span(ys)] for _ in range(kb)],
+                                         np.int32), slots=nb))
+        tq = []
+        for _ in range(kt):
+            blo = int(rng.choice(bs))
+            bhi = blo + int(rng.integers(0, 2))
+            olo, ohi = (int(v) for v in rng.choice(os_, 2))
+            if bhi == blo and olo > ohi:
+                olo, ohi = ohi, olo
+            tq.append([blo, olo, bhi, ohi])
+        times.append(pack_times(np.array(tq, np.int32), slots=nt))
+    return np.ascontiguousarray(np.stack(boxes)), np.ascontiguousarray(np.stack(times))

@@ -44,7 +44,7 @@ EXTRA = [
     f"BBOX(geom, -20, 30, 40, 60) AND (dtg DURING {A} OR dtg DURING {B})",
     f"NOT BBOX(geom, -100, -60, 100, 60) AND dtg DURING {B}",
     f"BBOX(geom, -80, 35, -70, 45) AND dtg DURING {A} AND name = 'n1'",
-    "BBOX(geom, 100, 20, 150, 50)",  # spatial only: the port's full scan
+    "BBOX(geom, 100, 20, 150, 50)",  # spatial only: planned on z2
     f"dtg DURING {B}",
     "BBOX(geom, 0, 0, 10, 10) AND BBOX(geom, 20, 20, 30, 30)",  # disjoint
     f"dtg DURING {A} AND dtg DURING {B}",  # disjoint in time

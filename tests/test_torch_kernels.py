@@ -1,5 +1,5 @@
-"""The port's batched_count, batched_count_hits, z3_encode, z2_encode and
-refine against the reference, on the CPU.
+"""The port's batched_count, batched_count_hits, batched_edge_gather,
+z3_encode, z2_encode and refine against the reference, on the CPU.
 
 ``batched_count_plain`` and ``batched_count_hits_plain`` (what the port's
 wrappers run for CPU tensors) must equal the Pallas ``batched_count`` and
@@ -7,8 +7,10 @@ wrappers run for CPU tensors) must equal the Pallas ``batched_count`` and
 ``make_batched_count_step`` on the CPU mesh; ``z3_encode_plain`` and
 ``z2_encode_plain`` must equal the Pallas ``z3_encode``/``z2_encode`` in
 interpret mode (``hi << 32 | lo``) and ``curve/zorder.encode3/encode2``;
-``refine_points`` and the
-two-pass select steps must equal the reference refine. The CUDA kernels
+``batched_edge_gather_plain`` must equal ``make_batched_edge_gather_step``
+on the CPU mesh (counts, summed hits, and lane sets where nothing
+truncated); ``refine_points`` and the one-mask ``select_positions`` must
+equal the reference refine. The CUDA kernels
 themselves run only on a card: the ``cuda``-marked tests skip elsewhere
 (``chip_smoke.py`` holds both on the H100). What the count kernels compute
 differently is held here through ``_staged_mirror``, a torch model of their
@@ -34,8 +36,8 @@ from geomesa_tpu.ops.pallas_kernels import z2_encode as ref_z2_encode
 from geomesa_tpu.ops.pallas_kernels import z3_encode as ref_z3_encode
 from geomesa_tpu.curve import zorder as ref_zorder
 from geomesa_tpu.ops.refine import refine_points as ref_refine_points
-from geomesa_tpu.parallel.mesh import default_mesh, shard_columns
-from geomesa_tpu.parallel.query import make_batched_count_step
+from geomesa_tpu.parallel.mesh import default_mesh, pad_query_axis, shard_columns
+from geomesa_tpu.parallel.query import make_batched_count_step, make_batched_edge_gather_step
 
 from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops.kernels import (
@@ -43,14 +45,17 @@ from geomesa_tpu_torch.ops.kernels import (
     batched_count_hits,
     batched_count_hits_plain,
     batched_count_plain,
+    batched_edge_gather,
+    batched_edge_gather_plain,
     z2_encode,
     z2_encode_plain,
     z3_encode,
     z3_encode_plain,
 )
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points, unsat_rows
-from geomesa_tpu_torch.parallel.query import select_count, select_gather
-from geomesa_tpu_torch.workload import edge_columns, edge_payload
+from geomesa_tpu_torch.parallel.query import select_positions
+from geomesa_tpu_torch.parallel.residency import stage_columns
+from geomesa_tpu_torch.workload import edge_columns, edge_payload, grid_columns, grid_payload
 
 DAY_MS = 86_400_000
 N_BINS = 30
@@ -107,6 +112,9 @@ def _cases(shapes):
 def _inputs(n, q, nb, nt, mode, col_seed, pay_seed):
     if mode == "random":
         return _cols(n, seed=col_seed), _payload(q, nb, nt, seed=pay_seed)
+    if mode == "grid":
+        cols = grid_columns(n, seed=col_seed)
+        return cols, grid_payload(cols, q, nb, nt, seed=pay_seed)
     cols = edge_columns(n, seed=col_seed)
     return cols, edge_payload(cols, q, nb, nt, seed=pay_seed, single=mode == "single")
 
@@ -225,8 +233,6 @@ def test_plain_equals_jnp_step(n, q, nb, nt):
     """The port's single-shard step against the reference's sharded jnp
     step on the 8-device CPU mesh: the same padded columns, true_n masks
     the tail."""
-    from geomesa_tpu_torch.parallel.residency import stage_columns
-
     cols = dict(zip(("x", "y", "bins", "offs"), _cols(n, seed=3)))
     boxes, times = _payload(q, nb, nt, seed=4)
     mesh = default_mesh()
@@ -256,14 +262,89 @@ def test_refine_points_and_select_steps(nb, nt):
     tcols = [_t(c) for c in cols]
     got = refine_points(*tcols, _t(idx).long(), count, _t(boxes), _t(times))
     assert np.array_equal(got.numpy(), want)
-    # two-pass select: pass 1 counts, pass 2 compacts the same positions in order
-    hits = int(select_count(*tcols, _t(idx).long(), count, _t(boxes), _t(times)))
-    assert hits == int(want.sum())
-    pos, hits2 = select_gather(*tcols, _t(idx).long(), count, _t(boxes), _t(times),
-                               capacity=max(hits, 1) + 7)
-    assert int(hits2) == hits
-    assert np.array_equal(pos[:hits].numpy(), idx[want])
-    assert (pos[hits:] == -1).all()
+    # the one-mask select: the matching slots' positions, in slot order
+    pos = select_positions(*tcols, _t(idx).long(), count, _t(boxes), _t(times))
+    assert pos.dtype == torch.int64
+    assert np.array_equal(pos.numpy(), idx[want])
+
+
+EDGE_CASES = [(nb, nt, mode) for nb, nt in ((1, 1), (8, 16))
+              for mode in ("random", "grid", "single", "mixed")]
+_EDGE_STEPS: dict = {}
+
+
+def _ref_edge_gather(cols, n, boxes, times, capacity):
+    """The reference step on the 8-device CPU mesh (4096-row aligned
+    shards), the query axis padded as its ``count_many`` pads it."""
+    mesh = default_mesh()
+    step = _EDGE_STEPS.get(capacity)
+    if step is None:
+        step = _EDGE_STEPS[capacity] = make_batched_edge_gather_step(mesh, capacity)
+    sharded, _, _ = shard_columns(mesh, dict(zip(("x", "y", "bins", "offs"), cols)),
+                                  multiple=4096)
+    (boxes_p, times_p), q = pad_query_axis(mesh, boxes, times)
+    counts, pos, hits = step(sharded["x"], sharded["y"], sharded["bins"], sharded["offs"],
+                             jnp.int32(n), jnp.asarray(boxes_p), jnp.asarray(times_p))
+    return np.asarray(counts)[:q], np.asarray(pos)[:q], np.asarray(hits)[:q]
+
+
+@pytest.mark.parametrize("nb,nt,mode", EDGE_CASES)
+def test_edge_gather_plain_equals_jnp_step(nb, nt, mode):
+    """Counts equal the reference's and ``batched_count``'s; the port's hits
+    are the sum of the reference's per-shard hits; where no reference shard
+    and not the port truncated, the port's lanes are the union of the
+    reference's. Capacity 16 makes some ``grid`` queries truncate."""
+    n, q = 40_000, 7
+    cols, (boxes, times) = _inputs(n, q, nb, nt, mode, 31 + nb, 33 + nt)
+    staged, _ = stage_columns(dict(zip(("x", "y", "bins", "offs"), cols)), torch.device("cpu"))
+    args = (staged["x"], staged["y"], staged["bins"], staged["offs"], 0, n, _t(boxes), _t(times))
+    truncated = fitted = 0
+    for capacity in (16, 512):
+        want_c, want_p, want_h = _ref_edge_gather(cols, n, boxes, times, capacity)
+        for got_c, got_p, got_h in (batched_edge_gather(*args, capacity=capacity),
+                                    batched_edge_gather_plain(*args, capacity=capacity,
+                                                              chunk=4096)):
+            assert got_c.dtype == got_p.dtype == got_h.dtype == torch.int32
+            assert got_p.shape == (q, 1, capacity) and got_h.shape == (q, 1)
+            assert np.array_equal(got_c.numpy(), want_c)
+            assert np.array_equal(got_h[:, 0].numpy(), want_h.sum(axis=1))
+            for k in range(q):
+                h = int(got_h[k, 0])
+                lanes = got_p[k, 0].numpy()
+                if h > capacity or (want_h[k] > capacity).any():
+                    truncated += 1
+                    assert (lanes >= 0).all()
+                    continue
+                fitted += 1
+                union = np.sort(np.concatenate([want_p[k, d, : want_h[k, d]]
+                                                for d in range(want_p.shape[1])]))
+                assert np.array_equal(lanes[:h], union) and (lanes[h:] == -1).all()
+        assert np.array_equal(want_c, batched_count(*args).numpy())
+    assert fitted
+    if mode == "grid":
+        assert truncated
+
+
+def test_edge_gather_lanes_keep_row_order_under_truncation():
+    """Past the capacity the plain version keeps the first candidates in row
+    order, as the reference's prefix sum does on one shard; a row tail cut by
+    ``true_n`` and a ``base`` shift the global positions."""
+    cols = grid_columns(5000, seed=2)
+    boxes, times = grid_payload(cols, 6, 8, 16, seed=3)
+    tc = [_t(c) for c in cols]
+    full_c, full_p, full_h = batched_edge_gather_plain(*tc, 4096, 4096 + 4000, _t(boxes),
+                                                       _t(times), capacity=5000)
+    c, p, h = batched_edge_gather_plain(*tc, 4096, 4096 + 4000, _t(boxes), _t(times),
+                                        capacity=8, chunk=1000)
+    assert torch.equal(c, full_c) and torch.equal(h, full_h)
+    assert (full_h > 8).any() and (full_p[full_p >= 0] >= 4096).all()
+    assert (full_p < 4096 + 4000).all()
+    for k in range(6):
+        assert torch.equal(p[k, 0], full_p[k, 0, :8])
+    with pytest.raises(ValueError, match="capacity"):
+        batched_edge_gather(*tc, 0, 5000, _t(boxes), _t(times), capacity=-1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        batched_edge_gather(*tc, 2**31 - 4000, 2**31 - 1, _t(boxes), _t(times))
 
 
 @pytest.mark.cuda
@@ -397,6 +478,42 @@ def test_hits_kernel_matches_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_edge_gather_kernel_matches_plain_on_card():
+    """Counts and hits equal; lanes equal where they hold every candidate
+    (the wrapper sorts the kernel's appends); an overflowed query's lanes
+    are distinct candidates of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    kernels.path_blocks("batched_edge_gather")
+    overflowed = 0
+    for nb, nt, mode in EDGE_CASES:
+        for n, q in ((777, 5), (40_000, 64)):
+            cols, payload = _inputs(n, q, nb, nt, mode, n + 2, q + 2)
+            cols = [_t(c).to(dev) for c in cols]
+            boxes, times = (_t(a).to(dev) for a in payload)
+            for base, true_n in ((0, n), (4096, 4096 + n - 100)):
+                args = (*cols, base, true_n, boxes, times)
+                got_c, got_p, got_h = batched_edge_gather(*args, capacity=64)
+                want_c, want_p, want_h = batched_edge_gather_plain(*args, capacity=64)
+                _, all_p, _ = batched_edge_gather_plain(*args, capacity=n)
+                torch.cuda.synchronize()
+                assert torch.equal(got_c, want_c) and torch.equal(got_h, want_h)
+                assert torch.equal(got_c, batched_count(*args))
+                for k in range(q):
+                    h = int(got_h[k, 0])
+                    if h <= 64:
+                        assert torch.equal(got_p[k], want_p[k])
+                    else:
+                        overflowed += 1
+                        lanes = got_p[k, 0].cpu().numpy()
+                        assert len(np.unique(lanes)) == 64
+                        assert np.isin(lanes, all_p[k, 0, :h].cpu().numpy()).all()
+    single, general = kernels.path_blocks("batched_edge_gather")
+    assert single > 0 and general > 0 and overflowed > 0
+
+
+@pytest.mark.cuda
 def test_count_kernels_reject_misaligned_inputs_on_card():
     """The count kernels load 16-byte vectors: a column or payload that does
     not start on a 16-byte boundary raises instead of launching."""
@@ -406,7 +523,7 @@ def test_count_kernels_reject_misaligned_inputs_on_card():
     cols = [torch.zeros(1025, dtype=torch.int32, device=dev)[1:] for _ in range(4)]
     boxes, times = (_t(a).to(dev) for a in _payload(3, 1, 1))
     before = dict(kernels.launches)
-    for fn in (batched_count, batched_count_hits):
+    for fn in (batched_count, batched_count_hits, batched_edge_gather):
         with pytest.raises(ValueError, match="16-byte"):
             fn(*cols, 0, 1024, boxes, times)
     assert kernels.launches == before
