@@ -47,8 +47,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    and row ids), and 8 of the city boxes with no time through ``query()``,
    planned on z2, against the f64 brute force (fid sets); then timings:
    the loose and exact batches, ``query()`` per query with its plan time,
-   ``select_many`` per query, the planned gather's device time, and the
-   edge gather and ``batched_count`` kernels alone;
+   ``select_many`` per query; then 8 queries snapped onto rows they match
+   (``snapped_queries``) through ``count_many(loose=False)``, so that the
+   host re-test corrects every one of them, against both referees, timed
+   beside the same 8 unsnapped; then the planned gather's device time, and
+   the edge gather and ``batched_count`` kernels alone;
 4. the standing-query stream at bench config 8's width (``bench.py:1280``):
    64 city boxes (seed 7) packed one slot each, one full-span time window,
    on a ``SubscriptionMatrix(box_slots=1, time_slots=1, topk=128)``; 17
@@ -536,10 +539,7 @@ def int_referee(lon, lat, t, boxes_f64, windows_ms):
     """Loose counts by an independent numpy int-domain evaluation: 31-bit
     normalized coordinates, (day, ms-of-day) instants, DURING's exclusive
     ends taken as [lo + 1, hi - 1]."""
-    def norm(v, lo, hi):
-        s = np.floor((np.asarray(v, np.float64) - lo) * (2**31 / (hi - lo)))
-        return np.clip(s, 0, 2**31 - 1).astype(np.int64)
-
+    norm = norm31
     xi, yi = norm(lon, -180.0, 180.0), norm(lat, -90.0, 90.0)
     day, off = t // DAY_MS, t % DAY_MS
     order, starts = day_slabs(day)
@@ -564,6 +564,32 @@ def f64_referee(lon, lat, t, box, window, slabs):
     m = ((lon[rows] >= x1) & (lon[rows] <= x2) & (lat[rows] >= y1) & (lat[rows] <= y2)
          & (t[rows] > lo) & (t[rows] < hi))
     return rows[m]
+
+
+def snapped_queries(lon, lat, t, boxes_f64, windows_ms, slabs, seed: int):
+    """The queries moved onto rows they match, so that the exact count's
+    host re-test has work at full size: the north edge onto one matching
+    row's latitude and the window's end one millisecond past its instant
+    (that row is an edge candidate in both, and passes), then the west edge
+    one f64 step past a second matching row's longitude inside the same
+    31-bit bucket (an edge candidate that the f64 filter rejects, so each
+    exact count is at least one below its int count). Returns (boxes,
+    windows)."""
+    rng = np.random.default_rng(seed)
+    boxes, windows = [], []
+    for (x1, y1, x2, y2), (lo, hi) in zip(boxes_f64, windows_ms):
+        rows = f64_referee(lon, lat, t, (x1, y1, x2, y2), (lo, hi), slabs)
+        s = rows[rng.integers(len(rows))]
+        y2, hi = float(lat[s]), int(t[s]) + 1
+        rows = f64_referee(lon, lat, t, (x1, y1, x2, y2), (lo, hi), slabs)
+        west = rows[lon[rows] < lon[s]]
+        nudged = np.nextafter(lon[west], np.inf)
+        same = norm31(nudged, -180.0, 180.0) == norm31(lon[west], -180.0, 180.0)
+        if not same.any():
+            raise AssertionError("no matching row to snap the west edge onto")
+        boxes.append((float(nudged[np.argmax(same)]), y1, x2, y2))
+        windows.append((lo, hi))
+    return boxes, windows
 
 
 def p50(values) -> float:
@@ -705,6 +731,42 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         f"plan_ms p50 {p50(plan_ms):.3f}; {sum(r.count for r in selected)} rows")
     log(f"phase select_many: p50 {p50(many_ms):.3f} ms per query over 3 calls of "
         f"{n_queries} queries (first call {first_many_s * 1e3 / n_queries:.3f} ms per query)")
+
+    # -- the exact correction at full size: n_exact queries snapped onto rows --
+    snap_boxes, snap_windows = snapped_queries(lon, lat, t, boxes_f64[:n_exact],
+                                               windows_ms[:n_exact], slabs, seed=8)
+    snap_cqls = [bbox_time_cql(b, w) for b, w in zip(snap_boxes, snap_windows)]
+    before = ds.exact_fallbacks
+    snap_exact = ds.count_many("gdelt", snap_cqls, loose=False)
+    snap_fallbacks = ds.exact_fallbacks - before
+    snap_int = ds.count_many("gdelt", snap_cqls, loose=True)
+    if snap_int != int_referee(lon, lat, t, snap_boxes, snap_windows):
+        raise AssertionError("snapped count_many(loose) != int referee")
+    for i in range(n_exact):
+        want = len(f64_referee(lon, lat, t, snap_boxes[i], snap_windows[i], slabs))
+        if snap_exact[i] != want or snap_int[i] - want < 1:
+            raise AssertionError(f"snapped query {i}: exact {snap_exact[i]}, int "
+                                 f"{snap_int[i]}, f64 brute force {want}")
+    snap_payloads = [ds.backend.payload(sft, extract(parse(c), "geom", "dtg"))
+                     for c in snap_cqls]
+    _, _, snap_hits = batched_edge_gather(
+        *state.spatial_cols(), 0, state.n,
+        *(torch.from_numpy(np.stack([p[k] for p in snap_payloads])).to(dev) for k in (0, 1)))
+    snap_hits = snap_hits[:, 0].cpu().numpy()
+    timed = {}
+    for what, batch_cqls in (("snapped", snap_cqls), ("unsnapped", cqls[:n_exact])):
+        ms = []
+        for _ in range(iters):
+            s = time.perf_counter()
+            ds.count_many("gdelt", batch_cqls, loose=False)
+            ms.append((time.perf_counter() - s) * 1e3)
+        timed[what] = p50(ms)
+    log(f"phase exact correction: {n_exact} queries snapped onto rows, exact counts equal the "
+        f"f64 brute force ({sum(snap_exact)} rows) and each is below its int count (corrections "
+        f"{[a - b for a, b in zip(snap_int, snap_exact)]}); edge candidates per query "
+        f"{snap_hits.tolist()}; {snap_fallbacks} fell back to query(); count_many(loose=False) "
+        f"p50 {timed['snapped']:.3f} ms for the {n_exact} snapped, {timed['unsnapped']:.3f} ms "
+        f"for the same {n_exact} unsnapped, over {iters} each")
 
     t0 = time.perf_counter()
     payloads = [ds.backend.payload(sft, extract(parse(c), "geom", "dtg")) for c in cqls]

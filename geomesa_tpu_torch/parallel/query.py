@@ -1,17 +1,22 @@
 """Device steps of the bbox+time path on one GPU.
 
-Ports of :mod:`geomesa_tpu.parallel.query` for a single shard. The batched
-count step (``make_batched_count_step`` ``:449``) has no function of its own:
-``DataStore.count_many`` calls ``ops.kernels.batched_count`` with ``base=0``.
+Ports of :mod:`geomesa_tpu.parallel.query` for a single shard. Three steps
+have no function of their own, as each is one call with nothing to hide:
 
-- :func:`select_positions` — the row select of one query: refine the
-  planned candidate slots and keep the matching sorted positions, one pass
-  and one boolean index. The reference splits it into a count step and a
-  gather step (``_make_count_step`` ``:115`` / ``_make_gather_step``
-  ``:140``) only because XLA needs the gather's capacity as a static shape.
-- :func:`batched_edge_gather_step` — the exact batched count's fused scan
-  (``make_batched_edge_gather_step`` ``:342``): one ``batched_edge_gather``
-  launch.
+- the batched count step (``make_batched_count_step`` ``:449``):
+  ``DataStore.count_many`` calls ``ops.kernels.batched_count`` with
+  ``base=0``;
+- the exact batched count's fused scan (``make_batched_edge_gather_step``
+  ``:342``): ``DataStore.count_many(loose=False)`` calls
+  ``ops.kernels.batched_edge_gather`` with ``base=0``;
+- the row select of one query (``_make_count_step`` ``:115`` /
+  ``_make_gather_step`` ``:140``): ``DeviceBackend.select_positions``
+  indexes the candidate slots with ``ops.refine.refine_points``, one pass
+  and one boolean index. The reference splits it in two only because XLA
+  needs the gather's capacity as a static shape.
+
+The module's steps:
+
 - :func:`intervals_to_block_pairs` / :func:`planned_gather_step` — batched
   row retrieval over the planner's candidate blocks
   (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
@@ -31,35 +36,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.ops.kernels import (
-    EDGE_CAPACITY,
-    LANES,
-    batched_count_hits,
-    batched_edge_gather,
-    row_masks,
-)
-from geomesa_tpu_torch.ops.refine import refine_points
+from geomesa_tpu_torch.ops.kernels import LANES, batched_count_hits, row_masks
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 # rows one chunk of planned_gather_step gathers at most (about 32 B each)
 PLANNED_CHUNK_ROWS = 1 << 22
-
-
-def select_positions(x, y, bins, offs, idx, count: int, boxes, times) -> torch.Tensor:
-    """The sorted-row positions among the candidate slots ``idx`` that pass
-    the int-domain refine (:func:`refine_points`), in slot order."""
-    return idx[refine_points(x, y, bins, offs, idx, count, boxes, times)]
-
-
-def batched_edge_gather_step(x, y, bins, offs, true_n: int, boxes, times,
-                             capacity: int = EDGE_CAPACITY):
-    """Exact batched counts' fused scan over one shard (``base = 0``, ``D =
-    1``): ``(counts (Q,), positions (Q, 1, capacity), hits (Q, 1))`` as
-    :func:`~geomesa_tpu_torch.ops.kernels.batched_edge_gather` gives them,
-    the kernel on a card and its plain version on the CPU. ``hits >
-    capacity`` means the query's lanes truncated: the caller answers it
-    another way."""
-    return batched_edge_gather(x, y, bins, offs, 0, true_n, boxes, times, capacity)
 
 
 def intervals_to_block_pairs(intervals_per_query, block_rows: int):
@@ -89,15 +70,15 @@ def intervals_to_block_pairs(intervals_per_query, block_rows: int):
     return np.concatenate(qs), np.concatenate(bs)
 
 
-def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times,
-                        block_rows: int = JOIN_BLOCK, chunk_rows: int = PLANNED_CHUNK_ROWS):
+def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     """Batched row retrieval over planned (query, block) pairs, one shard.
 
     ``cols``: the (N,) int32 ``x, y, bins, offs`` columns, N a multiple of
-    ``block_rows``; ``pair_q``/``pair_blk``: host int arrays from
-    :func:`intervals_to_block_pairs`; ``boxes`` (Q, B, 4) / ``times`` (Q, T,
-    4) int32 payloads on the columns' device. Each pair's block is gathered
-    (a row of the columns viewed as (N / block_rows, block_rows)) and tested
+    ``JOIN_BLOCK`` (else ``ValueError``); ``pair_q``/``pair_blk``: host int
+    arrays from :func:`intervals_to_block_pairs` with ``JOIN_BLOCK``-row
+    blocks; ``boxes`` (Q, B, 4) / ``times`` (Q, T, 4) int32 payloads on the
+    columns' device. Each pair's block is gathered (a row of the columns
+    viewed as (N / JOIN_BLOCK, JOIN_BLOCK)) and tested
     against its one query by :func:`~geomesa_tpu_torch.ops.kernels.row_masks`,
     the predicate every count kernel's plain version runs, with rows at
     ``true_n`` or past it masked. Returns ``(positions (H,) int64, pair_hits
@@ -106,18 +87,18 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times,
     Pairs grouped by query with sorted blocks give each query's positions
     sorted.
 
-    Memory: pairs run in chunks of at most ``chunk_rows`` gathered rows
-    (the four columns, the masks of the predicate and the positions: about
-    32 B per row, so about 128 MiB at the default), so a query covering
-    every block, such as ``INCLUDE``, never allocates N x ``block_rows``.
+    Memory: pairs run in chunks of at most ``PLANNED_CHUNK_ROWS`` gathered
+    rows (the four columns, the masks of the predicate and the positions:
+    about 32 B per row, so about 128 MiB), so a query covering every block,
+    such as ``INCLUDE``, never allocates N x ``JOIN_BLOCK``.
 
     There is no count pass: the reference's (``make_planned_count_step``
     ``:716``) sizes a static XLA buffer, and a boolean index needs none.
     """
     x = cols[0]
     n = x.shape[0]
-    if n % block_rows:
-        raise ValueError(f"residency not block-aligned: {n} % {block_rows}")
+    if n % JOIN_BLOCK:
+        raise ValueError(f"residency not block-aligned: {n} % {JOIN_BLOCK}")
     pair_q = np.asarray(pair_q, dtype=np.int64)
     pair_blk = np.asarray(pair_blk, dtype=np.int64)
     if pair_q.shape != pair_blk.shape or pair_q.ndim != 1:
@@ -125,21 +106,21 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times,
     empty = torch.empty(0, dtype=torch.int64, device=x.device)
     if len(pair_q) == 0:
         return empty, empty
-    if pair_blk.min() < 0 or pair_blk.max() >= n // block_rows:
-        raise ValueError(f"pair blocks must lie in [0, {n // block_rows})")
+    if pair_blk.min() < 0 or pair_blk.max() >= n // JOIN_BLOCK:
+        raise ValueError(f"pair blocks must lie in [0, {n // JOIN_BLOCK})")
     if pair_q.min() < 0 or pair_q.max() >= boxes.shape[0]:
         raise ValueError(f"pair queries must lie in [0, {boxes.shape[0]})")
-    blocks = [c.view(-1, block_rows) for c in cols]
+    blocks = [c.view(-1, JOIN_BLOCK) for c in cols]
     pq = torch.from_numpy(pair_q).to(x.device)
     pb = torch.from_numpy(pair_blk).to(x.device)
-    lrow = torch.arange(block_rows, device=x.device)
-    step = max(1, chunk_rows // block_rows)
+    lrow = torch.arange(JOIN_BLOCK, device=x.device)
+    step = max(1, PLANNED_CHUNK_ROWS // JOIN_BLOCK)
     positions, hits = [], []
     for s in range(0, len(pair_q), step):
         q, b = pq[s:s + step], pb[s:s + step]
         m, _ = row_masks(*(c.index_select(0, b) for c in blocks),
                          boxes.index_select(0, q), times.index_select(0, q))
-        gpos = b[:, None] * block_rows + lrow[None, :]
+        gpos = b[:, None] * JOIN_BLOCK + lrow[None, :]
         m &= gpos < int(true_n)
         hits.append(m.sum(dim=1))
         positions.append(gpos[m])

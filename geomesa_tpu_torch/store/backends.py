@@ -35,12 +35,8 @@ from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction
 from geomesa_tpu_torch.index.api import IndexPlan, gather_indices
-from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
-from geomesa_tpu_torch.parallel.query import (
-    intervals_to_block_pairs,
-    planned_gather_step,
-    select_positions,
-)
+from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points
+from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs, planned_gather_step
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK, stage_columns
 from geomesa_tpu_torch.schema.columnar import FeatureTable
 from geomesa_tpu_torch.schema.sft import FeatureType
@@ -141,6 +137,16 @@ def device_columns(sft: FeatureType, table: FeatureTable):
     }
 
 
+def residual_rows(index, positions: np.ndarray, residual, table: FeatureTable) -> np.ndarray:
+    """Table row ids of an index's sorted-order ``positions`` that pass the
+    exact host ``residual``, in position order: the tail of every device
+    row select (``select`` and ``DataStore.select_many``)."""
+    rows = index.perm[positions]
+    if isinstance(residual, ast.Include):
+        return rows
+    return rows[ast.residual_mask(residual, table, rows)]
+
+
 class DeviceBackend:
     """Resident int32 columns on one torch device, one-mask row select."""
 
@@ -187,11 +193,9 @@ class DeviceBackend:
         """Sorted-order positions passing the int-domain refine: one boolean
         mask over the candidate slots, one device → host copy."""
         idx, count = gather_indices(intervals)
-        boxes, times = self.payload(sft, e)
-        pos = select_positions(
-            *dev.spatial_cols(), torch.from_numpy(idx).to(self.device), count,
-            torch.from_numpy(boxes).to(self.device), torch.from_numpy(times).to(self.device))
-        return pos.cpu().numpy()
+        idx = torch.from_numpy(idx).to(self.device)
+        boxes, times = (torch.from_numpy(a).to(self.device) for a in self.payload(sft, e))
+        return idx[refine_points(*dev.spatial_cols(), idx, count, boxes, times)].cpu().numpy()
 
     def select_many_positions(self, dev: IndexState, index, extractions,
                               intervals_list) -> list[np.ndarray]:
@@ -199,19 +203,15 @@ class DeviceBackend:
         state (``backends.py:575``): each query's intervals become
         ``JOIN_BLOCK``-row (query, block) pairs, and one
         :func:`planned_gather_step` serves them all. Returns one int64 array
-        per query, sorted. Raises on a residency that is not block-aligned."""
-        if dev.rows_per_shard % JOIN_BLOCK:
-            raise ValueError(
-                f"residency not block-aligned: {dev.rows_per_shard} % {JOIN_BLOCK}")
+        per query, sorted. :func:`planned_gather_step` raises on a residency
+        that is not block-aligned."""
         nq = len(intervals_list)
         pair_q, pair_blk = intervals_to_block_pairs(intervals_list, JOIN_BLOCK)
-        if len(pair_q) == 0:
-            return [np.empty(0, dtype=np.int64) for _ in range(nq)]
         payloads = [self.payload(index.sft, e) for e in extractions]
         boxes = torch.from_numpy(np.stack([p[0] for p in payloads])).to(self.device)
         times = torch.from_numpy(np.stack([p[1] for p in payloads])).to(self.device)
         positions, pair_hits = planned_gather_step(
-            dev.spatial_cols(), dev.n, pair_q, pair_blk, boxes, times, JOIN_BLOCK)
+            dev.spatial_cols(), dev.n, pair_q, pair_blk, boxes, times)
         # pairs come grouped by query in order: split the buffer per query
         per_query = np.bincount(pair_q, weights=pair_hits.cpu().numpy(), minlength=nq)
         return np.split(positions.cpu().numpy(), np.cumsum(per_query.astype(np.int64))[:-1])
@@ -219,9 +219,6 @@ class DeviceBackend:
     def select(self, state, index, plan: IndexPlan, extraction, residual, table):
         if len(plan.intervals) == 0:
             return np.empty(0, dtype=np.int64)
-        dev = state[index.name]
-        positions = self.select_positions(dev, index.sft, extraction, plan.intervals)
-        rows = index.perm[positions]
-        if isinstance(residual, ast.Include):
-            return rows
-        return rows[ast.residual_mask(residual, table, rows)]
+        positions = self.select_positions(state[index.name], index.sft, extraction,
+                                          plan.intervals)
+        return residual_rows(index, positions, residual, table)

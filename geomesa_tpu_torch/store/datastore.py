@@ -31,13 +31,12 @@ import torch
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import extract
-from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, batched_count
+from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, batched_count, batched_edge_gather
 from geomesa_tpu_torch.ops.refine import MAX_BOXES, MAX_TIMES
-from geomesa_tpu_torch.parallel.query import batched_edge_gather_step
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indices
 from geomesa_tpu_torch.schema.columnar import FeatureTable
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
-from geomesa_tpu_torch.store.backends import DeviceBackend, OracleBackend
+from geomesa_tpu_torch.store.backends import DeviceBackend, OracleBackend, residual_rows
 
 
 def _pure_bbox_time(f: ast.Filter, sft: FeatureType) -> bool:
@@ -271,8 +270,8 @@ class DataStore:
                 for k, (i, _) in enumerate(live):
                     out[i] = int(counts[k])
             else:
-                counts, pos, hits = batched_edge_gather_step(
-                    *dev.spatial_cols(), dev.n, boxes, times, EDGE_CAPACITY)
+                counts, pos, hits = batched_edge_gather(
+                    *dev.spatial_cols(), 0, dev.n, boxes, times, EDGE_CAPACITY)
                 counts, pos, hits = counts.cpu().numpy(), pos.cpu().numpy(), hits.cpu().numpy()
                 perm = st.indices[name].perm
                 for k, (i, _) in enumerate(live):
@@ -318,9 +317,6 @@ class DataStore:
                 [planned[i][0].intervals for i in idxs])
             for i, positions in zip(idxs, pos_lists):
                 _, f, info = planned[i]
-                rows = index.perm[positions]
-                if len(rows) and not isinstance(f, ast.Include):
-                    rows = rows[ast.residual_mask(f, main, rows)]
-                rows = np.sort(rows)
+                rows = np.sort(residual_rows(index, positions, f, main))
                 results[i] = QueryResult(main.take(rows), rows, info)
         return results

@@ -9,8 +9,8 @@ wrappers run for CPU tensors) must equal the Pallas ``batched_count`` and
 interpret mode (``hi << 32 | lo``) and ``curve/zorder.encode3/encode2``;
 ``batched_edge_gather_plain`` must equal ``make_batched_edge_gather_step``
 on the CPU mesh (counts, summed hits, and lane sets where nothing
-truncated); ``refine_points`` and the one-mask ``select_positions`` must
-equal the reference refine. The CUDA kernels
+truncated); ``refine_points`` and the one-mask select over it must equal
+the reference refine. The CUDA kernels
 themselves run only on a card: the ``cuda``-marked tests skip elsewhere
 (``chip_smoke.py`` holds both on the H100). What the count kernels compute
 differently is held here through ``_staged_mirror``, a torch model of their
@@ -53,7 +53,6 @@ from geomesa_tpu_torch.ops.kernels import (
     z3_encode_plain,
 )
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points, unsat_rows
-from geomesa_tpu_torch.parallel.query import select_positions
 from geomesa_tpu_torch.parallel.residency import stage_columns
 from geomesa_tpu_torch.workload import edge_columns, edge_payload, grid_columns, grid_payload
 
@@ -262,8 +261,9 @@ def test_refine_points_and_select_steps(nb, nt):
     tcols = [_t(c) for c in cols]
     got = refine_points(*tcols, _t(idx).long(), count, _t(boxes), _t(times))
     assert np.array_equal(got.numpy(), want)
-    # the one-mask select: the matching slots' positions, in slot order
-    pos = select_positions(*tcols, _t(idx).long(), count, _t(boxes), _t(times))
+    # the one-mask select (DeviceBackend.select_positions): the matching
+    # slots' positions, in slot order
+    pos = _t(idx).long()[got]
     assert pos.dtype == torch.int64
     assert np.array_equal(pos.numpy(), idx[want])
 

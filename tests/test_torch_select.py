@@ -6,7 +6,8 @@ block-pair gather and the exact batched ``count_many`` against geomesa_tpu
   block-straddling interval lists;
 - ``DeviceBackend.select_many_positions`` == ``TpuBackend.select_many_positions``
   on stores carried across by ``load_reference_state``, for z3 and z2 plans,
-  ``INCLUDE`` and an empty result included;
+  ``INCLUDE`` and an empty result included, with the planned gather in one
+  chunk and in chunks of a few blocks;
 - ``count_many(loose=False)`` == JAX == Oracle, batched (no ``query()`` call
   for pure bbox+time queries that fit their lanes), on GDELT-shaped points
   and on rows planted on box edges; it falls back to ``query()`` with the
@@ -28,6 +29,7 @@ from geomesa_tpu.parallel.query import intervals_to_block_pairs as ref_block_pai
 from geomesa_tpu.schema import columnar as ref_columnar
 from geomesa_tpu.store.datastore import DataStore as RefDataStore
 
+from geomesa_tpu_torch.parallel import query as query_mod
 from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
 from geomesa_tpu_torch.schema import columnar
@@ -114,8 +116,7 @@ def test_intervals_to_block_pairs_equal_reference(intervals):
 # -- DeviceBackend.select_many_positions ----------------------------------------
 
 
-@pytest.mark.parametrize("index_name", ["z3", "z2"])
-def test_select_many_positions_equal_reference(stores, index_name):
+def _select_many_positions_equal_reference(stores, index_name):
     _, ref, _ = stores
     st = ref._types["g"]
     table = st.table
@@ -144,13 +145,40 @@ def test_select_many_positions_equal_reference(stores, index_name):
         assert np.array_equal(g, np.sort(g))
 
 
+@pytest.mark.parametrize("index_name", ["z3", "z2"])
+def test_select_many_positions_equal_reference(stores, index_name):
+    _select_many_positions_equal_reference(stores, index_name)
+
+
+@pytest.mark.parametrize("index_name,blocks", [("z3", 3), ("z2", 1)], ids=["z3", "z2"])
+def test_planned_gather_chunks_equal_reference(stores, index_name, blocks, monkeypatch):
+    """The planned gather in chunks of a few blocks (three for the z3 plans,
+    whose chunks cross query boundaries and split ``INCLUDE``'s five blocks;
+    one for the z2 plans' two pairs): every chunk boundary is held against
+    the reference."""
+    monkeypatch.setattr(query_mod, "PLANNED_CHUNK_ROWS", blocks * query_mod.JOIN_BLOCK)
+    chunks = []
+    real = query_mod.row_masks
+
+    def spy(*args):
+        chunks.append(args[0].shape[0])
+        return real(*args)
+
+    monkeypatch.setattr(query_mod, "row_masks", spy)
+    _select_many_positions_equal_reference(stores, index_name)
+    assert len(chunks) > 1 and max(chunks) == blocks
+
+
 def test_select_many_positions_rejects_unaligned_residency(stores):
     port, _, _ = stores
     pst = port._state("g")
     dev = pst.backend_state["z3"]
-    dev_bad = type(dev)(cols=dev.cols, rows_per_shard=dev.rows_per_shard - 1, n=dev.n)
+    cols = {k: v[:-1] for k, v in dev.cols.items()}
+    dev_bad = type(dev)(cols=cols, rows_per_shard=dev.rows_per_shard - 1, n=dev.n)
+    plan, _, info = QueryPlanner(pst.sft, pst.indices).plan(Query("INCLUDE"))
     with pytest.raises(ValueError, match="block-aligned"):
-        port.backend.select_many_positions(dev_bad, pst.indices["z3"], [None], [[[0, 10]]])
+        port.backend.select_many_positions(dev_bad, pst.indices["z3"], [info.extraction],
+                                           [plan.intervals])
 
 
 # -- count_many(loose=False) ----------------------------------------------------
@@ -246,14 +274,14 @@ def test_exact_count_many_falls_back_on_truncated_lanes(edge_stores, monkeypatch
     port, ref, qs, _ = edge_stores
     want = ref.count_many("edge", qs, loose=False)
     edged = []
-    real = datastore_mod.batched_edge_gather_step
+    real = datastore_mod.batched_edge_gather
 
     def spy(*args, **kwargs):
         out = real(*args, **kwargs)
         edged.append(int((out[2][:, 0] > 0).sum()))
         return out
 
-    monkeypatch.setattr(datastore_mod, "batched_edge_gather_step", spy)
+    monkeypatch.setattr(datastore_mod, "batched_edge_gather", spy)
     monkeypatch.setattr(datastore_mod, "EDGE_CAPACITY", 0)
     seen = _spy_queries(monkeypatch, port)
     before = port.exact_fallbacks
