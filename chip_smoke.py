@@ -36,7 +36,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``DataStore`` packs them over GDELT-shaped rows: counts equal the plain
    version's and ``batched_count``'s, hits are equal, lanes are equal where
    they hold every candidate and a subset of the candidates where they
-   overflow; both row loops must have run;
+   overflow; both row loops must have run; then its per-chunk cull on
+   1,000,003 GDELT-shaped rows in z3 order (``z3_store``) under city boxes
+   packed as ``DataStore`` packs them (most (chunk, query) pairs culled),
+   several city slots and dead slots per query, windows after the data
+   (every pair culled) and the whole world (none), at (B, T) in {(1, 1),
+   (8, 16)}, Q in {64, one past the tile}, with and without a base/true_n
+   tail, and the same rows shuffled (nothing culled; counts, hits and
+   candidates equal the sorted run's), logging the share of pairs kept;
+2e. ``planned_gather`` against ``planned_gather_plain`` on the card, exact,
+   on an empty pair list (no launch), a pair on the last block with
+   ``true_n`` inside it, one block shared by 65 queries, one query over
+   every block, ``edge_payload``'s and ``grid_payload``'s multi-slot and
+   dead-slot payloads with random pairs, and the 64 city queries' planned
+   pairs;
 3. the main path at bench config 2's size: 50M GDELT-shaped points (seed 42),
    ``DataStore()`` → ``create_schema`` → ``write`` (z3 and z2 keys built by
    one launch each of ``z3_encode`` and ``z2_encode``) → ``compact``, the 64
@@ -50,8 +63,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``select_many`` per query; then 8 queries snapped onto rows they match
    (``snapped_queries``) through ``count_many(loose=False)``, so that the
    host re-test corrects every one of them, against both referees, timed
-   beside the same 8 unsnapped; then the planned gather's device time, and
-   the edge gather and ``batched_count`` kernels alone;
+   beside the same 8 unsnapped; then ``batched_count``, the edge gather
+   (its bound over the (chunk, query) pairs its cull keeps, beside the
+   full-scan bound) and ``planned_gather`` (at the 64 queries' planned
+   pairs, beside ``planned_gather_plain``) alone, each against its plain
+   version; then one ``select_many`` and one exact ``count_many`` each under
+   ``torch.profiler`` (the device's busy share, its top five ops, the
+   longest idle gap); ``select_many`` must have launched ``planned_gather``;
 4. the standing-query stream at bench config 8's width (``bench.py:1280``):
    64 city boxes (seed 7) packed one slot each, one full-span time window,
    on a ``SubscriptionMatrix(box_slots=1, time_slots=1, topk=128)``; 17
@@ -118,6 +136,14 @@ TIME_SLOT_OPS = (4, 4)
 EDGE_BOX_SLOT_OPS = 4
 EDGE_TIME_SLOT_OPS = 4
 EDGE_MODES = ("grid", "single", "mixed", "city")
+# the edge gather's cull per loaded row, all on the ALU pipe: min and max of
+# x and of y (four IMNMX) and of the 64-bit time key (a min or a max is at
+# least one 32-bit compare chained into a second: four ISETP)
+EXTENT_OPS_PER_ROW = 8
+# phase 2d's payloads over GDELT-shaped rows in z3 order: DataStore-packed
+# city boxes (most pairs culled), several city slots and dead slots per
+# query, windows after the data (every pair culled), the whole world (none)
+CULL_MODES = ("city", "multi", "late", "world")
 # least int32 instructions per row of the Morton encodes' magic-mask spreads
 # (curve/zorder.py): a spread step is a 64-bit shift (two 32-bit funnel
 # shifts; none for the 32-bit shift, a register move) and an OR-then-AND per
@@ -246,7 +272,7 @@ def check_shapes(device, name: str, ns, slot_pairs, seed: int) -> int:
     return worst
 
 
-def predicate_floor_ops(x, y, bins, offs, boxes, times):
+def predicate_floor_ops(x, y, bins, offs, boxes, times, chunks=None):
     """The least int32 instructions ``batched_count`` needs on these inputs,
     as (ALU-only, all) counts (:data:`BOX_SLOT_OPS`, :data:`TIME_SLOT_OPS`).
 
@@ -255,15 +281,21 @@ def predicate_floor_ops(x, y, bins, offs, boxes, times):
     every row's box test plus the time test of rows inside a live box, or
     every row's time test plus the box test of rows inside a live window;
     each count takes its own cheaper order, so the pair stays a floor.
-    Returns ((alu, all), in-box row-queries, in-time row-queries, matches);
-    the caller holds ``matches`` to the kernel's total, which checks that
-    the dropped slots were dead."""
+    ``chunks``, a (chunks, Q) bool mask of 4096-row chunks
+    (``kernels.chunk_query_pairs``), limits each query's tests to the rows
+    of its chunks. Returns ((alu, all), in-box row-queries, in-time
+    row-queries, matches), matches over those rows; the caller holds
+    ``matches`` to the kernel's total, which checks that the dropped slots
+    (and chunks) held no match."""
     import torch
+
+    from geomesa_tpu_torch.ops.kernels import CULL_CHUNK
 
     n = x.shape[0]
     alu = total = in_box_total = in_time_total = matches = 0
     key = bins.long() * 2**32 + offs.long()  # lexicographic (bin, off) order
     for qi in range(boxes.shape[0]):
+        keep = None if chunks is None else chunks[:, qi].repeat_interleave(CULL_CHUNK)[:n]
         live_b = [b for b in boxes[qi].tolist() if b[0] <= b[1] and b[2] <= b[3]]
         live_t = [(blo * 2**32 + olo, bhi * 2**32 + ohi)
                   for blo, olo, bhi, ohi in times[qi].tolist()
@@ -274,10 +306,15 @@ def predicate_floor_ops(x, y, bins, offs, boxes, times):
         in_time = torch.zeros(n, dtype=torch.bool, device=x.device)
         for lo, hi in live_t:
             in_time |= (key >= lo) & (key <= hi)
+        rows = n
+        if keep is not None:
+            in_box &= keep
+            in_time &= keep
+            rows = int(keep.sum())
         nbox, ntime = int(in_box.sum()), int(in_time.sum())
         alu_q, total_q = (
-            min(n * BOX_SLOT_OPS[i] * len(live_b) + nbox * TIME_SLOT_OPS[i] * len(live_t),
-                n * TIME_SLOT_OPS[i] * len(live_t) + ntime * BOX_SLOT_OPS[i] * len(live_b))
+            min(rows * BOX_SLOT_OPS[i] * len(live_b) + nbox * TIME_SLOT_OPS[i] * len(live_t),
+                rows * TIME_SLOT_OPS[i] * len(live_t) + ntime * BOX_SLOT_OPS[i] * len(live_b))
             for i in (0, 1))
         alu += alu_q
         total += total_q
@@ -464,23 +501,314 @@ def check_edge_gather(dev, n: int, seed: int) -> int:
     return worst
 
 
-def edge_floor(x, y, bins, offs, boxes, times, counts, hits, capacity: int):
-    """The least work of ``batched_edge_gather`` on these inputs:
-    ``batched_count``'s (:func:`predicate_floor_ops`) plus the edge compares
+def z3_store(dev, n: int, seed: int):
+    """A ``DataStore`` of ``n`` GDELT-shaped points (seed ``seed``) on
+    ``dev``; returns (store, schema, resident z3 state): rows in z3 order,
+    padded to a multiple of 4096."""
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import SPEC, synth_gdelt
+
+    lon, lat, t = synth_gdelt(n, seed=seed)
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("gdelt", SPEC)
+    ds.write("gdelt", FeatureTable.from_columns(sft, np.arange(n).astype("U9"), {
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)}))
+    ds.compact("gdelt")
+    return ds, sft, ds._state("gdelt").backend_state["z3"]
+
+
+def city_payloads(ds, sft, q: int, seed: int, late: bool = False):
+    """``q`` city-box 2-7 day queries (``make_queries``) packed as
+    ``DataStore`` packs them, as host (q, 8, 4) / (q, 16, 4) arrays; with
+    ``late`` every window moves 40 days on, past the data's 30."""
+    from geomesa_tpu_torch.filter.bounds import extract
+    from geomesa_tpu_torch.filter.cql import parse
+    from geomesa_tpu_torch.workload import bbox_time_cql, make_queries
+
+    boxes_f64, windows = make_queries(q, seed=seed)
+    if late:
+        windows = [(lo + 40 * DAY_MS, hi + 40 * DAY_MS) for lo, hi in windows]
+    pays = [ds.backend.payload(sft, extract(parse(bbox_time_cql(b, w)), "geom", "dtg"))
+            for b, w in zip(boxes_f64, windows)]
+    return (np.ascontiguousarray(np.stack([p[0] for p in pays])),
+            np.ascontiguousarray(np.stack([p[1] for p in pays])))
+
+
+def cull_payload(ds, sft, mode: str, q: int, nb: int, nt: int, seed: int):
+    """Phase 2d's (boxes, times) for cull ``mode`` (:data:`CULL_MODES`),
+    cut to ``nb`` box and ``nt`` time slots."""
+    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
+
+    rng = np.random.default_rng(seed)
+    if mode == "world":
+        b, t = pack_boxes(None, slots=nb), pack_times(None, slots=nt)
+        return (np.ascontiguousarray(np.repeat(b[None], q, 0)),
+                np.ascontiguousarray(np.repeat(t[None], q, 0)))
+    boxes, times = city_payloads(ds, sft, q, seed, late=mode == "late")
+    boxes, times = boxes[:, :nb].copy(), times[:, :nt].copy()
+    if mode == "multi":
+        # each query takes live slots of several city queries at random
+        # slots; the rest are dead (padding sentinels and inverted bounds)
+        dead_b = np.array([[1, 0, 1, 0], [5, 4, 0, 2**31 - 1]], np.int32)
+        dead_t = np.array([[1, 0, 0, -1], [3, 5, 3, 4]], np.int32)
+        src_b, src_t = boxes[:, 0].copy(), times[:, 0].copy()
+        for qi in range(q):
+            boxes[qi] = dead_b[rng.integers(2, size=nb)]
+            times[qi] = dead_t[rng.integers(2, size=nt)]
+            kb, kt = int(rng.integers(1, nb + 1)), int(rng.integers(1, nt + 1))
+            boxes[qi, rng.choice(nb, kb, replace=False)] = src_b[rng.choice(q, kb)]
+            times[qi, rng.choice(nt, kt, replace=False)] = src_t[rng.choice(q, kt)]
+    return np.ascontiguousarray(boxes), np.ascontiguousarray(times)
+
+
+def check_edge_cull(dev, store, seed: int) -> int:
+    """Phase 2d, the cull: ``batched_edge_gather`` against its plain
+    version and ``batched_count`` on GDELT-shaped rows in z3 order, for
+    each of :data:`CULL_MODES` at (B, T) in {(1, 1), (8, 16)}, Q in {64,
+    one past the tile}, with and without a base/true_n tail; then the same
+    rows in a seeded random order (nothing culled): counts and hits equal
+    the sorted run's and the candidates are the same rows. Logs the share
+    of (chunk, query) pairs the cull keeps. Returns max |difference|."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        EDGE_CAPACITY, batched_count, batched_edge_gather, batched_edge_gather_plain,
+        chunk_query_pairs)
+
+    ds, sft, state = store
+    n, cols = state.n, state.spatial_cols()
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).to(dev)
+    shuffled = [torch.cat([c[:n][perm], c[n:]]) for c in cols]
+    worst = 0
+    for mode in CULL_MODES:
+        for nb, nt in ((1, 1), (8, 16)):
+            for q in (64, kernels.q_tile_for(nb, nt, kernel="batched_edge_gather") + 1):
+                b, t = cull_payload(ds, sft, mode, q, nb, nt, seed + q + nb)
+                boxes, times = torch.from_numpy(b).to(dev), torch.from_numpy(t).to(dev)
+                for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
+                    args = (*cols, base, true_n, boxes, times)
+                    counts, pos, hits = batched_edge_gather(*args)
+                    want_c, want_p, want_h = batched_edge_gather_plain(*args)
+                    full = batched_count(*args)
+                    kept = float(chunk_query_pairs(*args).float().mean())
+                    torch.cuda.synchronize()
+                    fits = want_h[:, 0] <= EDGE_CAPACITY
+                    err = max(int((counts.long() - want_c.long()).abs().max()),
+                              int((counts.long() - full.long()).abs().max()),
+                              int((hits.long() - want_h.long()).abs().max()),
+                              int((pos.long() - want_p.long())[fits].abs().sum()))
+                    note = ""
+                    if base == 0 and true_n == n:  # every row valid: order-free answers
+                        s_counts, s_pos, s_hits = batched_edge_gather(*shuffled, 0, n,
+                                                                      boxes, times)
+                        # the shuffled run's candidates, mapped back to sorted positions
+                        g = s_pos[fits][:, 0].long()
+                        back = torch.where(g >= 0, perm[g.clamp(min=0)], 2**31 - 1)
+                        back = back.sort(dim=1).values
+                        back[back == 2**31 - 1] = -1
+                        if not (torch.equal(s_counts, counts) and torch.equal(s_hits, hits)
+                                and torch.equal(back.int(), pos[fits][:, 0])):
+                            err = max(err, 1)
+                        note = "; the same rows shuffled (nothing culled) agree"
+                    worst = max(worst, err)
+                    log(f"  batched_edge_gather cull {mode} N={n} Q={q} B={nb} T={nt} "
+                        f"base={base} true_n={true_n}: max_abs_err={err} (matches "
+                        f"{int(want_c.long().sum())}, candidates {int(want_h.sum())}; kept "
+                        f"{kept:.6f} of (chunk, query) pairs{note})")
+                    if err != 0:
+                        raise AssertionError(f"batched_edge_gather disagrees at cull {mode} "
+                                             f"Q={q} B={nb} T={nt} base={base}")
+    return worst
+
+
+def check_planned_gather(dev, store, seed: int) -> int:
+    """Phase 2e: ``planned_gather`` against ``planned_gather_plain`` on the
+    card, exact (positions and per-pair counts), on: an empty pair list (no
+    launch); a pair on the last block, whose rows end at ``true_n`` inside
+    it; one block shared by several queries; one query covering every
+    block; ``edge_payload``'s multi-slot and dead-slot payloads and
+    ``grid_payload``'s over their rows with random pairs and a ``true_n``
+    tail; and the 64 city queries' planned pairs. Returns max |difference|."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import planned_gather, planned_gather_plain
+    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
+    from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
+    from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
+    from geomesa_tpu_torch.workload import (
+        bbox_time_cql, edge_columns, edge_payload, grid_columns, grid_payload, make_queries)
+
+    rng = np.random.default_rng(seed)
+    ds, sft, state = store
+    n, cols = state.n, state.spatial_cols()
+    n_blocks = cols[0].shape[0] // JOIN_BLOCK
+    b, t = city_payloads(ds, sft, 64, seed=7)
+    world_b, world_t = pack_boxes(None)[None], pack_times(None)[None]
+    boxes = np.ascontiguousarray(np.concatenate([b, world_b]))  # query 64: everything
+    times = np.ascontiguousarray(np.concatenate([t, world_t]))
+    planner = QueryPlanner(sft, ds._state("gdelt").indices)
+    plans = [planner.plan(Query(bbox_time_cql(bx, w))) for bx, w in zip(*make_queries(64, 7))]
+    plan_q, plan_b = intervals_to_block_pairs([pl.intervals for pl, _, _ in plans], JOIN_BLOCK)
+    shared = int(plan_b[0])
+    cases = [
+        ("empty", cols, n, [], [], boxes, times),
+        ("last block", cols, n, [64, 3], [n_blocks - 1] * 2, boxes, times),
+        ("shared block", cols, n, range(65), [shared] * 65, boxes, times),
+        ("every block", cols, n, [64] * n_blocks, range(n_blocks), boxes, times),
+        ("planned city", cols, n, plan_q, plan_b, boxes, times),
+    ]
+    rows = 64 * JOIN_BLOCK
+    for name, make_cols, make_pay in (
+            ("mixed slots", edge_columns, lambda c: edge_payload(c, 24, 8, 16, seed, single=False)),
+            ("grid slots", grid_columns, lambda c: grid_payload(c, 24, 8, 16, seed))):
+        host = make_cols(rows, seed)
+        pb, pt = make_pay(host)
+        pairs_q, pairs_b = rng.integers(0, 24, 500), rng.integers(0, 64, 500)
+        cases.append((name, [torch.from_numpy(c).to(dev) for c in host], rows - 1000,
+                      pairs_q, pairs_b, pb, pt))
+    worst = 0
+    for name, c, true_n, pq, pbk, bx, tm in cases:
+        pq_t = torch.tensor(np.asarray(list(pq), np.int32), dtype=torch.int32, device=dev)
+        pb_t = torch.tensor(np.asarray(list(pbk), np.int32), dtype=torch.int32, device=dev)
+        bx_t, tm_t = torch.from_numpy(np.ascontiguousarray(bx)).to(dev), \
+            torch.from_numpy(np.ascontiguousarray(tm)).to(dev)
+        before = kernels.launches["planned_gather"]
+        got_p, got_h = planned_gather(*c, true_n, pq_t, pb_t, bx_t, tm_t)
+        want_p, want_h = planned_gather_plain(*c, true_n, pq_t, pb_t, bx_t, tm_t)
+        torch.cuda.synchronize()
+        launched = kernels.launches["planned_gather"] - before
+        same = (got_p.dtype == got_h.dtype == torch.int64 and torch.equal(got_p, want_p)
+                and torch.equal(got_h, want_h))
+        err = 0 if same else 1
+        if same and len(got_p):
+            err = int((got_p - want_p).abs().max())
+        worst = max(worst, err)
+        log(f"  planned_gather {name}: {len(pq_t)} pairs, {int(want_h.sum())} rows, "
+            f"true_n={true_n}, {launched} launch(es): max_abs_err={err}")
+        if not same or launched != (1 if len(pq_t) and dev.type == "cuda" else 0):
+            raise AssertionError(f"planned_gather disagrees with plain at {name}")
+        if name == "last block" and not (0 < int(want_h[0]) < JOIN_BLOCK):
+            raise AssertionError("the last block's pair must hold rows up to true_n")
+    return worst
+
+
+def edge_floor(x, y, bins, offs, boxes, times, counts, hits, capacity: int,
+               chunks=None, loaded_rows: int | None = None):
+    """The least work of ``batched_edge_gather`` on these inputs: the
+    predicate's (:func:`predicate_floor_ops`) on the rows of the (chunk,
+    query) pairs ``chunks`` that the cull keeps (every pair when None: the
+    full-scan count), plus, with ``chunks``, the cull's extent min/max of
+    every loaded row (:data:`EXTENT_OPS_PER_ROW`), plus the edge compares
     per matched (row, query) and live slot (:data:`EDGE_BOX_SLOT_OPS`,
     :data:`EDGE_TIME_SLOT_OPS`); bytes are the columns and payload read
     once, the counts and hits written once and 4 B per written candidate.
-    Returns ((alu, all), bytes, matches)."""
-    (alu, total), _, _, matches = predicate_floor_ops(x, y, bins, offs, boxes, times)
+    ``x, y, bins, offs`` are the valid rows; ``loaded_rows`` (default their
+    count) the rows the kernel reads, resident padding included. Returns
+    ((alu, all), bytes, matches)."""
+    loaded = x.shape[0] if loaded_rows is None else loaded_rows
+    (alu, total), _, _, matches = predicate_floor_ops(x, y, bins, offs, boxes, times, chunks)
     edge = 0
     for qi, (b, t) in enumerate(zip(boxes.tolist(), times.tolist())):
         live_b = sum(1 for xlo, xhi, ylo, yhi in b if xlo <= xhi and ylo <= yhi)
         live_t = sum(1 for blo, olo, bhi, ohi in t if (blo, olo) <= (bhi, ohi))
         edge += int(counts[qi]) * (EDGE_BOX_SLOT_OPS * live_b + EDGE_TIME_SLOT_OPS * live_t)
+    extent = 0 if chunks is None else EXTENT_OPS_PER_ROW * loaded
     written = int(hits.clamp(max=capacity).long().sum())
-    nbytes = (16 * x.shape[0] + 4 * (boxes.numel() + times.numel())
+    nbytes = (16 * loaded + 4 * (boxes.numel() + times.numel())
               + 8 * boxes.shape[0] + 4 * written)
-    return (alu + edge, total + edge), nbytes, matches
+    return (alu + edge + extent, total + edge + extent), nbytes, matches
+
+
+def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits):
+    """The least work of ``planned_gather`` on these pairs: per pair, the
+    predicate of :func:`predicate_floor_ops` on its block's valid rows (the
+    cheaper test order, live slots only); bytes are each distinct block's
+    four columns read once, the pair lists read (4 + 4 B a pair) and the
+    pair counts written (8 B), the payload read once and 8 B per written
+    position. Returns ((alu, all), bytes)."""
+    import torch
+
+    from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
+
+    live = [(sum(1 for xlo, xhi, ylo, yhi in b if xlo <= xhi and ylo <= yhi),
+             sum(1 for blo, olo, bhi, ohi in t if (blo, olo) <= (bhi, ohi)))
+            for b, t in zip(boxes.tolist(), times.tolist())]
+    blocks = [c.view(-1, JOIN_BLOCK) for c in cols]
+    lrow = torch.arange(JOIN_BLOCK, device=cols[0].device)
+    alu = total = 0
+    for s in range(0, len(pair_q), 1024):
+        pq, pb = pair_q[s:s + 1024].long(), pair_blk[s:s + 1024].long()
+        x, y, bins, offs = (c.index_select(0, pb) for c in blocks)
+        valid = (pb[:, None] * JOIN_BLOCK + lrow[None, :]) < int(true_n)
+        bx, tm = boxes.index_select(0, pq), times.index_select(0, pq)
+        in_box = torch.zeros_like(valid)
+        for k in range(bx.shape[1]):  # a dead slot holds no row
+            b = bx[:, k, :, None]
+            in_box |= (x >= b[:, 0]) & (x <= b[:, 1]) & (y >= b[:, 2]) & (y <= b[:, 3])
+        key = bins.long() * 2**32 + offs.long()
+        in_time = torch.zeros_like(valid)
+        for k in range(tm.shape[1]):
+            t = tm[:, k, :, None].long()
+            in_time |= (key >= t[:, 0] * 2**32 + t[:, 1]) & (key <= t[:, 2] * 2**32 + t[:, 3])
+        rows = valid.sum(dim=1).tolist()
+        nbox = (in_box & valid).sum(dim=1).tolist()
+        ntime = (in_time & valid).sum(dim=1).tolist()
+        for qi, r, nb_, nt_ in zip(pq.tolist(), rows, nbox, ntime):
+            lb, lt = live[qi]
+            alu_p, total_p = (min(r * BOX_SLOT_OPS[i] * lb + nb_ * TIME_SLOT_OPS[i] * lt,
+                                  r * TIME_SLOT_OPS[i] * lt + nt_ * BOX_SLOT_OPS[i] * lb)
+                              for i in (0, 1))
+            alu += alu_p
+            total += total_p
+    distinct = int(torch.unique(pair_blk).numel())
+    nbytes = (16 * JOIN_BLOCK * distinct + 16 * len(pair_q)
+              + 4 * (boxes.numel() + times.numel()) + 8 * int(hits.sum()))
+    return (alu, total), nbytes
+
+
+def profile_window(label: str, fn) -> None:
+    """Runs ``fn`` once under ``torch.profiler`` (CPU and CUDA) and logs the
+    device's busy share of the window (the union of its kernels and copies
+    over the span of every recorded event), the five device ops that took
+    the most time, and the longest stretch with nothing on the device.
+    Logs "not measured" where the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.time_range.end > e.time_range.start]
+    if not device:
+        log(f"phase profile {label}: device time not measured (the profiler recorded "
+            f"{len(events)} events, none on the device)")
+        return
+    w0 = min(e.time_range.start for e in events)
+    w1 = max(e.time_range.end for e in events)
+    busy, gap, cursor = 0.0, 0.0, w0
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device):
+        gap = max(gap, start - cursor)
+        busy += max(0.0, end - max(start, cursor))
+        cursor = max(cursor, end)
+    gap = max(gap, w1 - cursor)
+    by_name: dict[str, list] = {}
+    for e in device:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.end - e.time_range.start
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"phase profile {label}: window {(w1 - w0) / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({busy / (w1 - w0):.6f} of the window) over {len(device)} device "
+        f"ops; longest idle gap {gap / 1e3:.3f} ms; top device ops: " + "; ".join(
+            f"{name[:60]} {t / 1e3:.4f} ms x{k}" for name, (t, k) in top))
 
 
 def free_card() -> None:
@@ -608,7 +936,7 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.kernels import (
         EDGE_CAPACITY, batched_count, batched_count_plain, batched_edge_gather,
-        batched_edge_gather_plain)
+        batched_edge_gather_plain, chunk_query_pairs, planned_gather, planned_gather_plain)
     from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs, planned_gather_step
     from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
     from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
@@ -671,6 +999,8 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         raise AssertionError("count_many did not launch the batched_count kernel")
     if on_card and launched["batched_edge_gather"] < 1:
         raise AssertionError("count_many(loose=False) did not launch batched_edge_gather")
+    if on_card and launched["planned_gather"] < 1:
+        raise AssertionError("select_many did not launch the planned_gather kernel")
     if on_card and (launched["z3_encode"], launched["z2_encode"]) != (1, 1):
         raise AssertionError("the write did not launch z3_encode and z2_encode once each")
     log(f"phase spatial queries: {n_exact} city boxes with no time planned on z2, equal to "
@@ -786,6 +1116,10 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
                    "source": "geomesa_tpu_torch/csrc/batched_edge_gather.cu",
                    "replaces": "geomesa_tpu/parallel/query.py:342",
                    "launches": launched["batched_edge_gather"], "library_ms": None}
+    gather_record = {"name": "planned_gather", "route": "cuda",
+                     "source": "geomesa_tpu_torch/csrc/planned_gather.cu",
+                     "replaces": "geomesa_tpu/parallel/query.py:820",
+                     "launches": launched["planned_gather"], "library_ms": None}
     if on_card:
         got = batched_count(*cols, 0, n, boxes, times)
         torch.cuda.synchronize()
@@ -822,20 +1156,33 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
             raise AssertionError("batched_edge_gather disagrees with plain at the main-path shape")
         edge_ms = cuda_ms(lambda: batched_edge_gather(*args), 5)
         edge_plain_ms = cuda_ms(lambda: batched_edge_gather_plain(*args), 1)
-        e_ops, e_bytes, e_matches = edge_floor(cols[0][:n], cols[1][:n], cols[2][:n],
-                                               cols[3][:n], boxes, times, want_c, want_h,
+        kept = chunk_query_pairs(*args)
+        true_rows = (cols[0][:n], cols[1][:n], cols[2][:n], cols[3][:n])
+        e_ops, e_bytes, e_matches = edge_floor(*true_rows, boxes, times, want_c, want_h,
+                                               EDGE_CAPACITY, chunks=kept,
+                                               loaded_rows=cols[0].shape[0])
+        f_ops, f_bytes, f_matches = edge_floor(*true_rows, boxes, times, want_c, want_h,
                                                EDGE_CAPACITY)
-        if e_matches != int(want_c.long().sum()):
-            raise AssertionError("live-slot count of the edge bound disagrees with the plain "
-                                 "version")
+        if e_matches != int(want_c.long().sum()) or f_matches != e_matches:
+            raise AssertionError("the edge bound's live-slot count over the kept chunks "
+                                 "disagrees with the plain version")
         edge_record.update(max_abs_err=edge_err, ms=edge_ms, plain_ms=edge_plain_ms,
                            **bound_fields(e_ops, e_bytes))
+        full = bound_fields(f_ops, f_bytes)
+        share = edge_record["bound_ms"] / edge_ms
         h = got_h[:, 0].cpu().numpy()
         log(f"phase edge gather timing: {edge_ms:.4f} ms at N={n} Q={q} B={nb} T={nt}; "
             f"plain {edge_plain_ms:.4f} ms; bound {edge_record['bound_ms']:.4f} ms "
-            f"({edge_record['bound_by']}: {e_ops[0]} ALU-only of {e_ops[1]} int32 ops; "
-            f"{e_bytes} bytes); edge candidates per query max {int(h.max())}, total "
-            f"{int(h.sum())}, {int((h > EDGE_CAPACITY).sum())} over {EDGE_CAPACITY} lanes")
+            f"({edge_record['bound_by']}: {e_ops[0]} ALU-only of {e_ops[1]} int32 ops over "
+            f"{int(kept.sum())} kept of {kept.numel()} (chunk, query) pairs, "
+            f"{float(kept.float().mean()):.6f}; {e_bytes} bytes), {share:.4f} of it; the "
+            f"full-scan bound {full['bound_ms']:.4f} ms ({full['bound_by']}: {f_ops[0]} "
+            f"ALU-only of {f_ops[1]} int32 ops); edge candidates per query max "
+            f"{int(h.max())}, total {int(h.sum())}, {int((h > EDGE_CAPACITY).sum())} over "
+            f"{EDGE_CAPACITY} lanes")
+        if share > 1:
+            raise AssertionError(f"batched_edge_gather reads {share:.4f} of its bound: the "
+                                 "bound's count is wrong")
 
         # the planned gather of select_many alone (all 64 plan on z3)
         planner = QueryPlanner(sft, ds._state("gdelt").indices)
@@ -844,15 +1191,41 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
             raise AssertionError("the bbox+time queries must plan on z3")
         pair_q, pair_blk = intervals_to_block_pairs([pl.intervals for pl, _, _ in plans],
                                                     JOIN_BLOCK)
-        gather_ms = cuda_ms(lambda: planned_gather_step(cols, n, pair_q, pair_blk, boxes, times),
-                            3)
+        pq = torch.from_numpy(pair_q.astype(np.int32)).to(dev)
+        pb = torch.from_numpy(pair_blk.astype(np.int32)).to(dev)
+        gargs = (*cols, n, pq, pb, boxes, times)
+        got_p, got_h = planned_gather(*gargs)
+        want_p, want_h = planned_gather_plain(*gargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_p, want_p) and torch.equal(got_h, want_h)):
+            raise AssertionError("planned_gather disagrees with plain at the main-path pairs")
+        gather_ms = cuda_ms(lambda: planned_gather(*gargs), 5)
+        gather_plain_ms = cuda_ms(lambda: planned_gather_plain(*gargs), 1)
+        step_ms = cuda_ms(lambda: planned_gather_step(cols, n, pair_q, pair_blk, boxes, times),
+                          3)
+        g_ops, g_bytes = gather_floor(cols, n, pq, pb, boxes, times, want_h)
+        gather_record.update(max_abs_err=0, ms=gather_ms, plain_ms=gather_plain_ms,
+                             **bound_fields(g_ops, g_bytes))
+        g_share = gather_record["bound_ms"] / gather_ms
         gathered = len(pair_q) * JOIN_BLOCK
-        log(f"phase planned gather: {gather_ms:.4f} ms device time (CUDA events, 3 calls) for "
-            f"{len(pair_q)} (query, block) pairs of {JOIN_BLOCK} rows: {gathered} gathered rows, "
-            f"{gathered / (n * q):.6f} of N x Q; batched_count's full scan {kernel_ms:.4f} ms")
+        log(f"phase planned gather: {gather_ms:.4f} ms (CUDA events, 5 calls of planned_gather: "
+            f"count pass, cumsum, one read of the total, write pass) for {len(pair_q)} "
+            f"(query, block) pairs of {JOIN_BLOCK} rows over {int(torch.unique(pb).numel())} "
+            f"distinct blocks: {gathered} gathered rows, {gathered / (n * q):.6f} of N x Q, "
+            f"{int(want_h.sum())} rows out; plain {gather_plain_ms:.4f} ms; bound "
+            f"{gather_record['bound_ms']:.4f} ms ({gather_record['bound_by']}: {g_ops[0]} "
+            f"ALU-only of {g_ops[1]} int32 ops; {g_bytes} bytes), {g_share:.4f} of it; "
+            f"planned_gather_step with the pair lists' upload {step_ms:.4f} ms; "
+            f"batched_count's full scan {kernel_ms:.4f} ms")
+        if g_share > 1:
+            raise AssertionError(f"planned_gather reads {g_share:.4f} of its bound: the "
+                                 "bound's count is wrong")
+        profile_window("select_many", lambda: ds.select_many("gdelt", cqls))
+        profile_window("count_many exact batch", lambda: ds.count_many("gdelt", cqls,
+                                                                        loose=False))
         log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
             f"over the whole phase")
-    return [record, edge_record], launched
+    return [record, edge_record, gather_record], launched
 
 
 def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
@@ -1161,20 +1534,29 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         morton = check_morton(dev, n_rows)
         log(f"phase morton-vs-plain: ok ({time.perf_counter() - t0:.3f} s for phase 2c)")
 
-    # -- phase 2d: the edge gather vs plain ---------------------------------------
-    edge_err = 0
+    # -- phase 2d: the edge gather vs plain; phase 2e: the planned gather ---------
+    edge_err = gather_err = 0
     if on_card:
         t0 = time.perf_counter()
         edge_err = check_edge_gather(dev, 1_000_003, 13)
+        store = z3_store(dev, 1_000_003, seed=21)
+        edge_err = max(edge_err, check_edge_cull(dev, store, 17))
         log(f"phase edge-gather-vs-plain: ok, max_abs_err={edge_err} "
             f"({time.perf_counter() - t0:.3f} s for phase 2d)")
+        t0 = time.perf_counter()
+        gather_err = check_planned_gather(dev, store, 19)
+        del store
+        free_card()
+        log(f"phase planned-gather-vs-plain: ok, max_abs_err={gather_err} "
+            f"({time.perf_counter() - t0:.3f} s for phase 2e)")
 
     # -- phase 3: the main path; phase 4: the stream; phase 5: date-less ---------
     t0 = time.perf_counter()
-    (count_record, edge_record), launched = z3_path(dev, count_err, n_rows, n_queries,
-                                                    n_exact, iters)
+    (count_record, edge_record, gather_record), launched = z3_path(
+        dev, count_err, n_rows, n_queries, n_exact, iters)
     if on_card:
         edge_record["max_abs_err"] = max(edge_record["max_abs_err"], edge_err)
+        gather_record["max_abs_err"] = max(gather_record["max_abs_err"], gather_err)
     free_card()
     log(f"phase main path: {time.perf_counter() - t0:.3f} s in all")
     records = [count_record]
@@ -1191,7 +1573,7 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     dateless_path(dev, n_rows, n_queries, n_exact)
     free_card()
     log(f"phase date-less: {time.perf_counter() - t0:.3f} s in all")
-    return records + [edge_record]
+    return records + [edge_record, gather_record]
 
 
 if __name__ == "__main__":

@@ -23,14 +23,42 @@
 // with -1 and zeroes counts and hits before the launch). When hits[q] > cap
 // the lanes hold some subset of the candidates and the caller falls back.
 //
-// The edge tests on the staged slots of count_predicate.cuh. A live box is
-// staged as (xlo, xhi - xlo, ylo, yhi - ylo): with dx = (uint32)(x - xlo),
-// x == xlo is dx == 0 and x == xhi is dx == (uint32)(xhi - xlo), because the
-// wrapping subtract is a bijection of the 32-bit words. A time endpoint is
-// key == lo key or key == hi key of a live window. Dead slots have no inside
-// rows and no valid window, so live-slot staging drops nothing the edges
-// need. The edge tests run only for rows that matched (in_all), in warps
-// that have one, after the shared row scan.
+// Bound on an H100: bytes. The four columns are read once (16 B a row,
+// 0.2388 ms for 50M rows at 3.35 TB/s), plus 4 B per written candidate. A
+// full scan of every (row, query) pair would be bound by integer
+// instructions instead (batched_count's floor, 0.41 ms at bench config 2),
+// but the rows are resident in z3 order and most (chunk, query) pairs of a
+// batch cannot match, so the operations this kernel needs are only the
+// surviving pairs' row tests plus the per-row extent min/max. chip_smoke.py
+// reckons both floors from the run's inputs and the surviving pairs
+// (ops.kernels.chunk_query_pairs).
+//
+// Design (chunk_cull.cuh, on count_predicate.cuh's staged slots):
+//   - each block stages its query tile once, live slots first (stage_tile);
+//   - it walks 4096-row chunks grid-stride; a chunk's rows arrive in a
+//     64 KB shared buffer by cp.async, issued as soon as the previous chunk
+//     is in registers and reduced to its extent, so loads overlap the
+//     culling and tests;
+//   - per chunk it reduces the extent (warp reductions, one shared step)
+//     and lists the active queries whose live slots meet it (exact: see
+//     chunk_cull.cuh); only those run the in-box, time and edge tests;
+//   - the rows stay in registers (16 per thread) for the tests: on unsorted
+//     rows nothing is culled, and reading them from shared memory once per
+//     surviving query would cost 64 KB of shared loads per query and chunk.
+//     The shared buffer therefore serves as the prefetch stage, and two
+//     blocks of 110 KB fit an SM (16 warps).
+// Two barriers per chunk, both reached by every thread: one after the warps'
+// extents are written (then the survivor list is built), one after the
+// survivor list is complete. The survivor count is double-buffered by chunk
+// parity and reset one chunk ahead, after the first barrier, when no thread
+// can still read it.
+//
+// The edge tests on the staged slots: a live box is staged as (xlo, xhi -
+// xlo, ylo, yhi - ylo); with dx = (uint32)(x - xlo), x == xlo is dx == 0
+// and x == xhi is dx == (uint32)(xhi - xlo), because the wrapping subtract
+// is a bijection of the 32-bit words. A time endpoint is key == lo key or
+// key == hi key of a live window. Dead slots have no inside rows and no
+// valid window, so live-slot staging drops nothing the edges need.
 //
 // Append: each thread collects the bitmask of its candidate rows; the warp
 // takes an inclusive prefix sum of their counts (five shuffles) and one lane
@@ -39,22 +67,20 @@
 // __reduce_add_sync partials in shared memory, added with one atomicAdd per
 // (block, query), as in batched_count.cu.
 //
-// Bound on an H100: batched_count's (integer instructions by pipe, above the
-// 16 B/row of column reads), plus the edge compares per matched (row, query)
-// and live slot and 4 B per written candidate. chip_smoke.py reckons it from
-// the run's inputs.
-//
 // Plain C entry point for ctypes; launches on the caller's stream, does not
 // synchronise, returns a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk_cull.cuh"
 #include "count_predicate.cuh"
 
 namespace {
 
 using namespace geomesa;
+
+constexpr int SURVIVOR_INTS = 1;  // the survivor list: one int per staged query
 
 __device__ unsigned long long g_path_blocks[2];
 
@@ -87,41 +113,81 @@ __device__ __forceinline__ uint32_t edge_mask(const Tile& t, int qi, uint32_t m,
   return e & m;
 }
 
-struct EdgeEpilogue {
-  Tile t;
-  int q0, cap;
-  int64_t base;
-  int32_t* hits;  // (Q,): candidate cursor, the true count at the end
-  int32_t* pos;   // (Q, cap)
-  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t row0,
-                                             const Rows& rows) const {
-    const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
-    if (c == 0) return;  // warp-uniform
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) t.cnt[(threadIdx.x >> 5) * t.q_tile + qi] += c;
-    uint32_t e = m ? edge_mask(t, qi, m, rows) : 0u;
-    const unsigned ne = __popc(e);
-    unsigned incl = ne;
+// Counts the warp's matches m of query qi and appends its edge candidates;
+// all 32 lanes call it together. Bit r of m is chunk row chunk_row(r).
+__device__ __forceinline__ void edge_epilogue(const Tile& t, int qi, uint32_t m, int64_t gchunk0,
+                                              const Rows& rows, int32_t* __restrict__ hits,
+                                              int32_t* __restrict__ pos, int cap) {
+  const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
+  if (c == 0) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) t.cnt[(threadIdx.x >> 5) * t.q_tile + qi] += c;
+  uint32_t e = m ? edge_mask(t, qi, m, rows) : 0u;
+  const unsigned ne = __popc(e);
+  unsigned incl = ne;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const unsigned v = __shfl_up_sync(FULL_WARP, incl, d);
-      if (lane >= d) incl += v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned v = __shfl_up_sync(FULL_WARP, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const unsigned total = __shfl_sync(FULL_WARP, incl, 31);
+  if (total == 0) return;  // warp-uniform
+  int start = 0;
+  if (lane == 31) start = atomicAdd(hits, (int)total);
+  int slot = __shfl_sync(FULL_WARP, start, 31) + (int)(incl - ne);
+  // the wrapper guarantees base + n < 2^31: positions are int32
+  const int32_t gpos0 = (int32_t)gchunk0;
+  while (e && slot < cap) {
+    const int r = __ffs(e) - 1;
+    e &= e - 1;
+    pos[slot++] = gpos0 + chunk_row(r);
+  }
+}
+
+// Walks the block's chunks grid-stride: prefetch, extent, survivors, tests.
+template <bool FAST>
+__device__ __forceinline__ void cull_scan(const int32_t* __restrict__ x,
+                                          const int32_t* __restrict__ y,
+                                          const int32_t* __restrict__ bins,
+                                          const int32_t* __restrict__ offs, int64_t n,
+                                          int64_t base, int64_t limit, const Tile& t,
+                                          int n_active, int4* buf, Extent* warp_ext,
+                                          int* n_surv, int q0, int32_t* __restrict__ hits,
+                                          int32_t* __restrict__ pos, int cap) {
+  const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
+  int* surv = t.extra;  // (q_tile): this chunk's surviving queries
+  int parity = 0;
+  if (blockIdx.x < n_chunks) prefetch_chunk(buf, x, y, bins, offs, n, blockIdx.x);
+  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x, parity ^= 1) {
+    const int64_t chunk0 = c * CHUNK;
+    Rows rows;
+    const uint32_t valid = take_chunk(buf, chunk0, limit, rows);
+    const Extent we = warp_extent(rows);
+    // the extent has consumed every value the thread read from its buffer
+    // slots, so the next chunk's copy into them starts now
+    if (c + gridDim.x < n_chunks) prefetch_chunk(buf, x, y, bins, offs, n, c + gridDim.x);
+    if ((threadIdx.x & 31) == 0) warp_ext[threadIdx.x >> 5] = we;
+    __syncthreads();  // the warps' extents are written
+    if (threadIdx.x == 0) n_surv[parity ^ 1] = 0;  // last read before this barrier
+    if (chunk0 < limit) {  // block-uniform: a chunk with no valid row keeps no query
+      const Extent e = block_extent(warp_ext);
+      for (int i = threadIdx.x; i < n_active; i += THREADS) {
+        const int qi = t.active[i];
+        if (meets(t, qi, e)) surv[atomicAdd(n_surv + parity, 1)] = qi;
+      }
     }
-    const unsigned total = __shfl_sync(FULL_WARP, incl, 31);
-    if (total == 0) return;  // warp-uniform
-    int start = 0;
-    if (lane == 31) start = atomicAdd(hits + q0 + qi, (int)total);
-    int slot = __shfl_sync(FULL_WARP, start, 31) + (int)(incl - ne);
-    int32_t* out = pos + (int64_t)(q0 + qi) * cap;
-    // the wrapper guarantees base + n < 2^31: positions are int32
-    const int32_t gpos0 = (int32_t)(base + row0);
-    while (e && slot < cap) {
-      const int r = __ffs(e) - 1;
-      e &= e - 1;
-      out[slot++] = gpos0 + r;
+    __syncthreads();  // the survivor list is complete
+    const int ns = n_surv[parity];
+    for (int i = 0; i < ns; ++i) {
+      const int qi = surv[i];
+      const int lv = FAST ? 0 : t.live[qi];
+      const uint32_t inb = box_mask<FAST>(t.box + qi * t.nb, lv & 0xffff, rows) & valid;
+      if (!__any_sync(FULL_WARP, inb)) continue;
+      edge_epilogue(t, qi, inb & time_mask<FAST>(t.win + qi * t.nt, lv >> 16, rows),
+                    base + chunk0, rows, hits + q0 + qi, pos + (int64_t)(q0 + qi) * cap, cap);
     }
   }
-};
+}
 
 __global__ void __launch_bounds__(THREADS, 2)
 batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
@@ -134,21 +200,26 @@ batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restr
                            int32_t* __restrict__ hits,         // (Q,)
                            int32_t* __restrict__ pos,          // (Q, cap)
                            int cap) {
-  extern __shared__ int4 smem[];
+  extern __shared__ int4 smem[];  // the row buffer, then the staged tile
   __shared__ int meta[2];
+  __shared__ Extent warp_ext[WARPS];
+  __shared__ int n_surv[2];
   const int q0 = blockIdx.y * q_tile;
   const int qt = min(q_tile, q - q0);
-  const Tile t = carve(smem, q_tile, nb, nt);
+  int4* buf = smem;
+  const Tile t = carve(smem + ROW_BUF_BYTES / 16, q_tile, nb, nt);
+  if (threadIdx.x < 2) n_surv[threadIdx.x] = 0;  // stage_tile's barriers order this
   stage_tile(boxes, times, q0, qt, t, meta);
   const int n_active = meta[0];
   const int64_t limit = valid_limit(n, base, true_n);
-  EdgeEpilogue ep{t, q0, cap, base, hits, pos};
   if (n_active > 0) {
     note_path(g_path_blocks, meta[1]);
     if (meta[1])
-      scan_rows<true>(x, y, bins, offs, n, limit, t, n_active, ep);
+      cull_scan<true>(x, y, bins, offs, n, base, limit, t, n_active, buf, warp_ext, n_surv,
+                      q0, hits, pos, cap);
     else
-      scan_rows<false>(x, y, bins, offs, n, limit, t, n_active, ep);
+      cull_scan<false>(x, y, bins, offs, n, base, limit, t, n_active, buf, warp_ext, n_surv,
+                       q0, hits, pos, cap);
   }
   __syncthreads();
   for (int qi = threadIdx.x; qi < qt; qi += THREADS) {
@@ -162,7 +233,7 @@ batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restr
 }  // namespace
 
 extern "C" int geomesa_batched_edge_gather_q_tile(int nb, int nt) {
-  return q_tile_for(nb, nt, 0);
+  return q_tile_for(nb, nt, SURVIVOR_INTS);
 }
 
 // Copies the per-path block counts ([0] <1, 1>, [1] general) since the last
@@ -181,12 +252,21 @@ extern "C" int geomesa_batched_edge_gather(const void* x, const void* y, const v
                                            int sms, void* counts, void* hits, void* pos,
                                            int cap, void* stream) {
   if (q <= 0 || n <= 0) return (int)cudaSuccess;
-  const int q_tile = q < q_tile_for(nb, nt, 0) ? q : q_tile_for(nb, nt, 0);
+  const int tile_max = q_tile_for(nb, nt, SURVIVOR_INTS);
+  const int q_tile = q < tile_max ? q : tile_max;
   const int q_tiles = (q + q_tile - 1) / q_tile;
-  const size_t smem = (size_t)q_tile * staged_bytes_per_query(nb, nt, 0);
+  const size_t smem =
+      ROW_BUF_BYTES + (size_t)q_tile * staged_bytes_per_query(nb, nt, SURVIVOR_INTS);
+  cudaError_t e = cudaFuncSetAttribute(batched_edge_gather_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(batched_edge_gather_kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, batched_edge_gather_kernel, THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batched_edge_gather_kernel, THREADS,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
   const long long chunks = (n + CHUNK - 1) / CHUNK;
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);

@@ -1,6 +1,8 @@
 // count_predicate.cuh: the staged bbox+time row predicate and the row scan
-// shared by batched_count.cu, batched_count_hits.cu and
-// batched_edge_gather.cu, so the three kernels cannot drift.
+// shared by batched_count.cu and batched_count_hits.cu; the staged slots,
+// the row masks and the row loads also serve batched_edge_gather.cu (whose
+// own chunk scan culls queries per chunk, chunk_cull.cuh) and
+// planned_gather.cu, so the kernels cannot drift.
 //
 // The device counterpart of _tile_mask (geomesa_tpu/ops/pallas_kernels.py:46).
 // Row r (local position lpos) matches query q when
@@ -37,7 +39,7 @@
 // live box; a warp with no such row (one vote) skips the time test.
 // Otherwise the match mask is in-box & in-window & valid, and the epilogue
 // of the kernel folds it in (a warp count by __reduce_add_sync; the hits
-// kernel's lane maxima; the edge gather's edge tests on the thread's rows). When every active query of the tile has one live
+// kernel's lane maxima). When every active query of the tile has one live
 // box and one live window, the block runs a compile-time <1, 1> instance of
 // the row loop with the slot loops gone; otherwise the general instance
 // loops to each query's live counts.

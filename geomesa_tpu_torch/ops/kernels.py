@@ -35,7 +35,17 @@ torch form would do at least ``batched_count_plain``'s work. One pass gives
 ``batched_count``'s counts and each query's edge candidates, the rows where
 the int-domain count and the f64 predicate can differ: the device half of
 the exact batched ``count_many``. Its source is
-``csrc/batched_edge_gather.cu``, on the same staged predicate and row scan.
+``csrc/batched_edge_gather.cu``, on the same staged predicate; it culls
+per 4096-row chunk the queries whose live slots cannot meet the chunk's
+extent (``csrc/chunk_cull.cuh``; :func:`chunk_query_pairs` is the cull's
+plain version).
+
+``planned_gather`` replaces no TPU kernel either: the reference computes it
+in XLA (``geomesa_tpu/parallel/query.py:820``, ``make_planned_gather_step``).
+It is ``select_many``'s batched row retrieval over planned (query, block)
+pairs, one 256-thread block per pair in a count pass and a write pass. Its
+source is ``csrc/planned_gather.cu``; its plain version
+(:func:`planned_gather_plain`) is the eager torch form it replaced.
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -73,6 +83,8 @@ from pathlib import Path
 
 import torch
 
+from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -80,7 +92,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
-            "z3_encode": 0, "z2_encode": 0}
+            "planned_gather": 0, "z3_encode": 0, "z2_encode": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -99,6 +111,10 @@ _ENTRY_POINTS = {
     "geomesa_batched_count_path_blocks": ("batched_count", [_P]),
     "geomesa_batched_count_hits_path_blocks": ("batched_count_hits", [_P]),
     "geomesa_batched_edge_gather_path_blocks": ("batched_edge_gather", [_P]),
+    # (columns x4, n, true_n, pair_q, pair_blk, pairs, boxes, times, q, nb, nt,
+    #  pair_hits, offsets or NULL, positions, stream)
+    "geomesa_planned_gather": ("planned_gather", [_P] * 4 + [_LL, _LL, _P, _P, _LL, _P, _P,
+                                                  _I, _I, _I, _P, _P, _P, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -416,6 +432,10 @@ def batched_edge_gather(x, y, bins, offs, base: int, true_n: int, boxes, times,
     in row order, as the plain version's do. Where ``hits > capacity`` they
     hold ``capacity`` of the candidates, which ones undefined (the kernel
     appends in no particular order): the caller must not use them.
+
+    On the card each block tests a 4096-row chunk only against the queries
+    that :func:`chunk_query_pairs` keeps for it; a culled pair holds no
+    match, so the outputs are those of a full scan.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     if capacity < 0:
@@ -457,6 +477,153 @@ def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, t
         pos[qi, slot[qi, ri]] = (int(base) + s + ri).to(torch.int32)
         hits += edge.sum(dim=1)
     return counts.to(torch.int32), pos[:, None, :], hits.to(torch.int32)[:, None]
+
+
+CULL_CHUNK = 4096  # rows per chunk of the edge gather's cull (csrc/count_predicate.cuh CHUNK)
+_M32 = 0xFFFFFFFF
+
+
+def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times,
+                      chunk: int = CULL_CHUNK) -> torch.Tensor:
+    """The (chunk, query) pairs that :func:`batched_edge_gather`'s cull
+    keeps, as a (ceil(N / chunk), Q) bool tensor: the plain version of
+    ``csrc/chunk_cull.cuh``.
+
+    A pair survives when its chunk holds a valid row (local position below
+    ``min(N, true_n - base)``) and the query has a live box meeting the
+    chunk's x/y extent and a live window meeting its extent of the biased
+    time key ``bin << 32 | (uint32)(off ^ 0x80000000)`` (signed order, the
+    lexicographic order of (bin, off)). The extent runs over every row the
+    kernel loads, valid or not, with the rows past N of the last chunk as
+    zeros, as the kernel's zero-filled copies are. No culled pair holds a
+    match. For tests and bounds: nothing on the card's main path calls it.
+    """
+    _check_count_args(x, y, bins, offs, boxes, times)
+    n = x.shape[0]
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+
+    def extent(col):
+        v = torch.nn.functional.pad(col, (0, pad)).view(n_chunks, chunk)
+        return v.amin(dim=1)[:, None, None], v.amax(dim=1)[:, None, None]
+
+    (xlo, xhi), (ylo, yhi) = extent(x), extent(y)
+    (klo, khi) = extent(bins.long() * 2**32 + ((offs.long() ^ 0x80000000) & _M32))
+    b = boxes.long()[None]  # (1, Q, B, 4)
+    box_meets = ((b[..., 0] <= b[..., 1]) & (b[..., 2] <= b[..., 3])
+                 & (b[..., 0] <= xhi) & (xlo <= b[..., 1])
+                 & (b[..., 2] <= yhi) & (ylo <= b[..., 3])).any(dim=2)
+    t = times.long()[None]
+    lo = t[..., 0] * 2**32 + ((t[..., 1] ^ 0x80000000) & _M32)
+    hi = t[..., 2] * 2**32 + ((t[..., 3] ^ 0x80000000) & _M32)
+    win_meets = ((lo <= hi) & (lo <= khi) & (klo <= hi)).any(dim=2)
+    limit = min(n, int(true_n) - int(base))
+    alive = torch.arange(n_chunks, device=x.device) * chunk < limit
+    return box_meets & win_meets & alive[:, None]
+
+
+# ---------------------------------------------------------------------------
+# planned_gather
+# ---------------------------------------------------------------------------
+
+# rows one chunk of planned_gather_plain gathers at most (about 32 B each)
+PLANNED_CHUNK_ROWS = 1 << 22
+
+
+def _check_pair_args(x, y, bins, offs, pair_q, pair_blk, boxes, times):
+    _check_count_args(x, y, bins, offs, boxes, times)
+    if x.shape[0] % JOIN_BLOCK:
+        raise ValueError(f"residency not block-aligned: {x.shape[0]} % {JOIN_BLOCK}")
+    for name, t in (("pair_q", pair_q), ("pair_blk", pair_blk)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous and on {x.device}")
+    if pair_q.shape != pair_blk.shape:
+        raise ValueError("pair_q and pair_blk must have one length")
+
+
+def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times):
+    """Batched row retrieval over planned (query, block) pairs, one shard.
+
+    ``x, y, bins, offs``: the (N,) int32 resident columns, N a multiple of
+    ``JOIN_BLOCK``; ``true_n``: the true row count (rows at it or past it
+    never match); ``pair_q``/``pair_blk``: (P,) int32 pair lists on the
+    columns' device, each query in ``[0, Q)`` and each block in ``[0, N /
+    JOIN_BLOCK)`` (the caller checks the ranges; the kernel counts a pair
+    out of range as 0); ``boxes`` (Q, B, 4) / ``times`` (Q, T, 4) int32
+    payloads. Returns ``(positions (H,) int64, pair_hits (P,) int64)``: the
+    global positions of each pair's block rows that pass its query, in pair
+    order and each pair's in row order, and each pair's count.
+
+    On the card: a count pass, one ``torch.cumsum`` of the counts into
+    offsets, one device-to-host read of the total, and a write pass
+    (``csrc/planned_gather.cu``); an empty pair list launches nothing. On
+    the CPU: :func:`planned_gather_plain`.
+    """
+    _check_pair_args(x, y, bins, offs, pair_q, pair_blk, boxes, times)
+    if x.device.type == "cpu":
+        return planned_gather_plain(x, y, bins, offs, true_n, pair_q, pair_blk, boxes, times)
+    if x.device.type != "cuda":
+        raise ValueError(f"planned_gather runs on cuda or cpu, not {x.device}")
+    n_pairs = pair_q.shape[0]
+    empty = torch.empty(0, dtype=torch.int64, device=x.device)
+    if n_pairs == 0:
+        return empty, empty
+    for name, t in zip(("x", "y", "bins", "offs", "boxes", "times"),
+                       (x, y, bins, offs, boxes, times)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"planned_gather: {name} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
+    fn = _fn("geomesa_planned_gather")
+    head = (x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(), x.shape[0],
+            int(true_n), pair_q.data_ptr(), pair_blk.data_ptr(), n_pairs, boxes.data_ptr(),
+            times.data_ptr(), boxes.shape[0], boxes.shape[1], times.shape[1])
+    hits = torch.zeros(n_pairs, dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(*head, hits.data_ptr(), None, None, _stream_of(x))
+        if rc != 0:
+            raise RuntimeError(f"planned_gather count pass failed: cudaError {rc}")
+        ends = torch.cumsum(hits, dim=0)
+        total = int(ends[-1])  # the one device-to-host read: the output's size
+        positions = torch.empty(total, dtype=torch.int64, device=x.device)
+        if total:
+            offsets = ends - hits
+            rc = fn(*head, hits.data_ptr(), offsets.data_ptr(), positions.data_ptr(),
+                    _stream_of(x))
+            if rc != 0:
+                raise RuntimeError(f"planned_gather write pass failed: cudaError {rc}")
+    launches["planned_gather"] += 1
+    return positions, hits
+
+
+def planned_gather_plain(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times):
+    """The plain PyTorch version of :func:`planned_gather`: each pair's
+    block is gathered (a row of the columns viewed as (N / JOIN_BLOCK,
+    JOIN_BLOCK)) and tested against its one query by :func:`row_masks`,
+    with rows at ``true_n`` or past it masked.
+
+    Memory: pairs run in chunks of at most ``PLANNED_CHUNK_ROWS`` gathered
+    rows (the four columns, the masks of the predicate and the positions:
+    about 32 B per row, so about 128 MiB), so a query covering every block,
+    such as ``INCLUDE``, never allocates N x ``JOIN_BLOCK``."""
+    empty = torch.empty(0, dtype=torch.int64, device=x.device)
+    if pair_q.shape[0] == 0:
+        return empty, empty
+    blocks = [c.view(-1, JOIN_BLOCK) for c in (x, y, bins, offs)]
+    pq, pb = pair_q.long(), pair_blk.long()
+    lrow = torch.arange(JOIN_BLOCK, device=x.device)
+    step = max(1, PLANNED_CHUNK_ROWS // JOIN_BLOCK)
+    positions, hits = [], []
+    for s in range(0, pq.shape[0], step):
+        q, b = pq[s:s + step], pb[s:s + step]
+        m, _ = row_masks(*(c.index_select(0, b) for c in blocks),
+                         boxes.index_select(0, q), times.index_select(0, q))
+        gpos = b[:, None] * JOIN_BLOCK + lrow[None, :]
+        m &= gpos < int(true_n)
+        hits.append(m.sum(dim=1))
+        positions.append(gpos[m])
+    return torch.cat(positions), torch.cat(hits)
 
 
 # ---------------------------------------------------------------------------

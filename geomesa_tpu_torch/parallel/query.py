@@ -20,7 +20,7 @@ The module's steps:
 - :func:`intervals_to_block_pairs` / :func:`planned_gather_step` — batched
   row retrieval over the planner's candidate blocks
   (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
-  ``:820``), the ``select_many`` path, in torch.
+  ``:820``), the ``select_many`` path: the ``planned_gather`` kernel.
 - :func:`matrix_scan_step` — the subscription matrix's fused scan
   (``make_matrix_scan_step`` ``:497``): one ``batched_count_hits`` launch,
   then the top-k of its lane scoreboard.
@@ -36,11 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.ops.kernels import LANES, batched_count_hits, row_masks
+from geomesa_tpu_torch.ops.kernels import LANES, batched_count_hits, planned_gather
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
-
-# rows one chunk of planned_gather_step gathers at most (about 32 B each)
-PLANNED_CHUNK_ROWS = 1 << 22
 
 
 def intervals_to_block_pairs(intervals_per_query, block_rows: int):
@@ -77,23 +74,18 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     ``JOIN_BLOCK`` (else ``ValueError``); ``pair_q``/``pair_blk``: host int
     arrays from :func:`intervals_to_block_pairs` with ``JOIN_BLOCK``-row
     blocks; ``boxes`` (Q, B, 4) / ``times`` (Q, T, 4) int32 payloads on the
-    columns' device. Each pair's block is gathered (a row of the columns
-    viewed as (N / JOIN_BLOCK, JOIN_BLOCK)) and tested
-    against its one query by :func:`~geomesa_tpu_torch.ops.kernels.row_masks`,
-    the predicate every count kernel's plain version runs, with rows at
-    ``true_n`` or past it masked. Returns ``(positions (H,) int64, pair_hits
-    (P,) int64)``: the matching global positions in pair order, each pair's
-    in row order, and each pair's match count, the reference's buffer order.
-    Pairs grouped by query with sorted blocks give each query's positions
-    sorted.
+    columns' device. Each pair's block is tested against its one query by
+    :func:`~geomesa_tpu_torch.ops.kernels.planned_gather` (the
+    ``planned_gather`` kernel on the card, its plain version on the CPU),
+    with rows at ``true_n`` or past it masked. Returns ``(positions (H,)
+    int64, pair_hits (P,) int64)``: the matching global positions in pair
+    order, each pair's in row order, and each pair's match count, the
+    reference's buffer order. Pairs grouped by query with sorted blocks give
+    each query's positions sorted.
 
-    Memory: pairs run in chunks of at most ``PLANNED_CHUNK_ROWS`` gathered
-    rows (the four columns, the masks of the predicate and the positions:
-    about 32 B per row, so about 128 MiB), so a query covering every block,
-    such as ``INCLUDE``, never allocates N x ``JOIN_BLOCK``.
-
-    There is no count pass: the reference's (``make_planned_count_step``
-    ``:716``) sizes a static XLA buffer, and a boolean index needs none.
+    There is no count step: the reference's (``make_planned_count_step``
+    ``:716``) sizes a static XLA buffer; here the kernel's count pass sizes
+    the output, and the plain version's boolean index needs none.
     """
     x = cols[0]
     n = x.shape[0]
@@ -103,28 +95,12 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     pair_blk = np.asarray(pair_blk, dtype=np.int64)
     if pair_q.shape != pair_blk.shape or pair_q.ndim != 1:
         raise ValueError("pair_q and pair_blk must be 1-D arrays of one length")
-    empty = torch.empty(0, dtype=torch.int64, device=x.device)
-    if len(pair_q) == 0:
-        return empty, empty
-    if pair_blk.min() < 0 or pair_blk.max() >= n // JOIN_BLOCK:
+    if len(pair_q) and (pair_blk.min() < 0 or pair_blk.max() >= n // JOIN_BLOCK):
         raise ValueError(f"pair blocks must lie in [0, {n // JOIN_BLOCK})")
-    if pair_q.min() < 0 or pair_q.max() >= boxes.shape[0]:
+    if len(pair_q) and (pair_q.min() < 0 or pair_q.max() >= boxes.shape[0]):
         raise ValueError(f"pair queries must lie in [0, {boxes.shape[0]})")
-    blocks = [c.view(-1, JOIN_BLOCK) for c in cols]
-    pq = torch.from_numpy(pair_q).to(x.device)
-    pb = torch.from_numpy(pair_blk).to(x.device)
-    lrow = torch.arange(JOIN_BLOCK, device=x.device)
-    step = max(1, PLANNED_CHUNK_ROWS // JOIN_BLOCK)
-    positions, hits = [], []
-    for s in range(0, len(pair_q), step):
-        q, b = pq[s:s + step], pb[s:s + step]
-        m, _ = row_masks(*(c.index_select(0, b) for c in blocks),
-                         boxes.index_select(0, q), times.index_select(0, q))
-        gpos = b[:, None] * JOIN_BLOCK + lrow[None, :]
-        m &= gpos < int(true_n)
-        hits.append(m.sum(dim=1))
-        positions.append(gpos[m])
-    return torch.cat(positions), torch.cat(hits)
+    pq, pb = (torch.from_numpy(a.astype(np.int32)).to(x.device) for a in (pair_q, pair_blk))
+    return planned_gather(*cols, true_n, pq, pb, boxes, times)
 
 
 def matrix_scan_step(x, y, bins, offs, true_n: int, boxes, times, topk: int):

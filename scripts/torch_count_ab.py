@@ -1,5 +1,5 @@
-"""Time the port's two count kernels of several checkouts against each other
-in one run on a CUDA card.
+"""Time the port's two count kernels and its edge gather of several
+checkouts against each other in one run on a CUDA card.
 
     python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR]
 
@@ -15,15 +15,22 @@ prints one line per shape:
 - ``batched_count`` at bench config 2: 50M GDELT-shaped points through
   ``DataStore`` and the 64 city-box 2-7 day queries as ``DataStore`` packs
   them (B = 8, T = 16);
+- ``batched_edge_gather`` at the same shape, first on the resident rows in
+  z3 order, then on the same rows in a seeded random order (``config 2
+  shuffled``: no chunk is culled);
+- ``DataStore.count_many`` of the 64 queries, loose and exact, p50 of 10
+  calls each on the host clock (the end-to-end batch, host work included);
 - ``batched_count_hits`` at one of bench config 8's 60M-row chunks and its 64
   city boxes under one full-span window (B = T = 1, sparse matches);
 - ``batched_count_hits`` at two dense payloads over 60M seeded random rows
   (B = T = 1): ``random``, one random box and window per query, and
   ``world``, a box and a window that hold every row.
 
-Each count kernel's resource usage (``cuobjdump -res-usage``: registers, and
+Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
 written to ``--out`` (default ``chiprun_out/count_ab``), one folder per run.
+At the end the count kernels' SASS of every run is compared with the first
+run's, instruction by instruction.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-STEMS = ("batched_count", "batched_count_hits")
+STEMS = ("batched_count", "batched_count_hits", "batched_edge_gather")
+COUNT_STEMS = STEMS[:2]  # their SASS must not change
 N_ROWS, STREAM_ROWS, N_QUERIES, STREAM_CHUNKS = 50_000_000, 60_000_000, 64, 17
 DAY_MS, N_BINS = 86_400_000, 40
 
@@ -142,6 +150,26 @@ def timed(label: str, shape: str, kernels, stem: str, cols, boxes, times,
         f"{int(want[0].long().sum())} matches")
 
 
+def batch_p50(label: str, ds) -> None:
+    """``count_many`` of config 2's 64 queries, loose and exact: p50 of 10
+    calls each after one warm-up, host clock."""
+    import time
+
+    from geomesa_tpu_torch.workload import bbox_time_cql, make_queries
+
+    cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, seed=7))]
+    for loose in (True, False):
+        ds.count_many("gdelt", cqls, loose=loose)
+        ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            ds.count_many("gdelt", cqls, loose=loose)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"{label} config 2 count_many {'loose' if loose else 'exact'}: p50 "
+            f"{float(np.percentile(ms, 50)):.3f} ms over 10 calls (min {min(ms):.3f}, max "
+            f"{max(ms):.3f}; host clock)")
+
+
 def worker(label: str, out: Path) -> None:
     sys.path.insert(0, os.getcwd())
     from geomesa_tpu_torch.ops import kernels
@@ -149,8 +177,14 @@ def worker(label: str, out: Path) -> None:
     dev = torch.device("cuda")
     dump_builds(kernels, label, out)
     ds, *inputs = config2_inputs(dev)
+    batch_p50(label, ds)
     timed(label, "config 2", kernels, "batched_count", *inputs)
-    del ds, inputs
+    timed(label, "config 2", kernels, "batched_edge_gather", *inputs)
+    cols, boxes, times, n = inputs
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(5)).to(dev)
+    shuffled = [torch.cat([c[:n][perm], c[n:]]) for c in cols]
+    timed(label, "config 2 shuffled", kernels, "batched_edge_gather", shuffled, boxes, times, n)
+    del ds, inputs, cols, shuffled
     torch.cuda.empty_cache()
     for shape, make in (("config 8 chunk", stream_inputs),
                         ("dense random", lambda d: dense_inputs(d, world=False)),
@@ -179,6 +213,20 @@ def main() -> None:
         label = f"run{i + 1}:{Path(root).resolve().name}"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", label,
                         "--out", str(out / f"run{i + 1}")], cwd=root, check=True)
+    for stem in COUNT_STEMS:
+        first = sass_instructions(out / "run1" / f"{stem}.sass")
+        for i in range(2, len(args.roots) + 1):
+            same = sass_instructions(out / f"run{i}" / f"{stem}.sass") == first
+            log(f"{stem} SASS of run{i} vs run1: "
+                f"{'identical' if same else 'DIFFERS'} ({len(first)} instructions)")
+
+
+def sass_instructions(path: Path) -> list[str]:
+    """The instruction lines of a ``cuobjdump -sass`` listing, without the
+    header lines that name the library file."""
+    return [ln.split("*/", 1)[1].strip() for ln in path.read_text().splitlines()
+            if ln.strip().startswith("/*") and "*/" in ln
+            and ln.split("*/", 1)[1].strip()]
 
 
 if __name__ == "__main__":

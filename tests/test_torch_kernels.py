@@ -47,6 +47,7 @@ from geomesa_tpu_torch.ops.kernels import (
     batched_count_plain,
     batched_edge_gather,
     batched_edge_gather_plain,
+    chunk_query_pairs,
     z2_encode,
     z2_encode_plain,
     z3_encode,
@@ -273,9 +274,10 @@ EDGE_CASES = [(nb, nt, mode) for nb, nt in ((1, 1), (8, 16))
 _EDGE_STEPS: dict = {}
 
 
-def _ref_edge_gather(cols, n, boxes, times, capacity):
+def _ref_edge_gather(cols, n, boxes, times, capacity, true_n=None):
     """The reference step on the 8-device CPU mesh (4096-row aligned
-    shards), the query axis padded as its ``count_many`` pads it."""
+    shards), the query axis padded as its ``count_many`` pads it; rows at
+    ``true_n`` (default ``n``) or past it are invalid."""
     mesh = default_mesh()
     step = _EDGE_STEPS.get(capacity)
     if step is None:
@@ -284,7 +286,8 @@ def _ref_edge_gather(cols, n, boxes, times, capacity):
                                   multiple=4096)
     (boxes_p, times_p), q = pad_query_axis(mesh, boxes, times)
     counts, pos, hits = step(sharded["x"], sharded["y"], sharded["bins"], sharded["offs"],
-                             jnp.int32(n), jnp.asarray(boxes_p), jnp.asarray(times_p))
+                             jnp.int32(n if true_n is None else true_n), jnp.asarray(boxes_p),
+                             jnp.asarray(times_p))
     return np.asarray(counts)[:q], np.asarray(pos)[:q], np.asarray(hits)[:q]
 
 
@@ -432,6 +435,140 @@ def test_hits_wrapper_rejects_int32_position_overflow():
         batched_count_hits_plain(*cols, 0, 256, boxes, times, chunk=100)
     counts, lane_pos = batched_count_hits(*cols, 2**31 - 257, 2**31 - 1, boxes, times)
     assert counts.shape == (2,) and lane_pos.shape == (2, 128)
+
+
+# -- the edge gather's per-chunk cull ---------------------------------------------
+
+CULL_N, CULL_Q = 40_000, 7
+CULL_MAKERS = ("gdelt-z3", "grid", "edge", "dateless", "tail")
+
+
+def _store_columns(seed, dated=True):
+    """GDELT-shaped rows through a CPU ``DataStore``: the resident columns
+    of its z3 state (z3 order) or, date-less, of its z2 state (``bins =
+    offs = 0``), cut to the true rows; and the store and its schema."""
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import SPEC, synth_gdelt
+
+    lon, lat, t = synth_gdelt(CULL_N, seed=seed)
+    ds = DataStore(device="cpu")
+    sft = ds.create_schema("g", SPEC if dated else "*geom:Point:srid=4326")
+    attrs = {"geom": point_column(lon, lat)}
+    if dated:
+        attrs["dtg"] = Column(AttributeType.DATE, t)
+    ds.write("g", FeatureTable.from_columns(sft, np.arange(CULL_N).astype("U9"), attrs))
+    ds.compact("g")
+    state = ds._state("g").backend_state["z3" if dated else "z2"]
+    return tuple(c[:CULL_N].numpy() for c in state.spatial_cols()), ds, sft
+
+
+def _city_payload(ds, sft, seed, dated=True):
+    from geomesa_tpu_torch.filter.bounds import extract
+    from geomesa_tpu_torch.filter.cql import parse
+    from geomesa_tpu_torch.workload import bbox_cql, bbox_time_cql, make_queries
+
+    boxes_f64, windows = make_queries(CULL_Q, seed=seed)
+    cqls = ([bbox_time_cql(b, w) for b, w in zip(boxes_f64, windows)] if dated
+            else [bbox_cql(b) for b in boxes_f64])
+    pays = [ds.backend.payload(sft, extract(parse(c), "geom", "dtg" if dated else None))
+            for c in cqls]
+    return tuple(np.ascontiguousarray(np.stack([p[k] for p in pays])) for k in (0, 1))
+
+
+def _cull_inputs(maker, seed):
+    """(host columns, boxes, times, base, true_n) for one column maker."""
+    if maker in ("gdelt-z3", "tail", "dateless"):
+        cols, ds, sft = _store_columns(seed, dated=maker != "dateless")
+        boxes, times = _city_payload(ds, sft, seed, dated=maker != "dateless")
+    elif maker == "grid":
+        cols = grid_columns(CULL_N, seed=seed)
+        boxes, times = grid_payload(cols, CULL_Q, 8, 16, seed=seed + 1)
+    else:
+        cols = edge_columns(CULL_N, seed=seed)
+        boxes, times = edge_payload(cols, CULL_Q, 8, 16, seed=seed + 1, single=False)
+    # the tail ends before the last chunk starts (at 9 x 4096 = 36,864 rows)
+    base, true_n = (3 * 4096, 3 * 4096 + CULL_N - 3500) if maker == "tail" else (0, CULL_N)
+    return cols, boxes, times, base, true_n
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+@pytest.mark.parametrize("maker", CULL_MAKERS)
+def test_chunk_query_pairs_never_culls_a_match(maker, seed):
+    """No (chunk, query) pair that ``chunk_query_pairs`` culls holds a
+    match: per-chunk counts of ``batched_count_plain``'s predicate are zero
+    on every culled pair, and the counts over the kept pairs equal the JAX
+    ``make_batched_edge_gather_step``'s. On GDELT-shaped rows in z3 order
+    the cull keeps a minority of the pairs; a chunk past ``true_n`` keeps
+    none."""
+    cols, boxes, times, base, true_n = _cull_inputs(maker, seed)
+    tc = [_t(c) for c in cols]
+    args = (*tc, base, true_n, _t(boxes), _t(times))
+    kept = chunk_query_pairs(*args)
+    n_chunks = -(-CULL_N // 4096)
+    assert kept.shape == (n_chunks, CULL_Q) and kept.dtype == torch.bool
+    per_chunk = torch.stack([m.sum(dim=1) for _, _, m, _ in
+                             kernels._plain_masks(*args, chunk=4096)])  # (chunks, Q)
+    assert not (per_chunk[~kept] > 0).any()
+    kept_counts = (per_chunk * kept).sum(dim=0)
+    want_c, _, _ = _ref_edge_gather(cols, CULL_N, boxes, times, 16, true_n=true_n - base)
+    assert np.array_equal(kept_counts.numpy(), want_c)
+    assert torch.equal(kept_counts.int(), batched_count_plain(*args))
+    if maker in ("gdelt-z3", "tail"):
+        assert kept.float().mean() < 0.5 and kept_counts.sum() > 0
+    if maker == "tail":
+        assert not kept[-1].any()  # the last chunk starts past true_n - base
+
+
+def test_chunk_query_pairs_extent_is_over_loaded_rows():
+    """The cull's extent runs over every loaded row, invalid ones included,
+    and the rows past N of the last chunk count as zeros, as the kernel's
+    zero-filled copies do: a box that meets only a row past ``true_n`` (or
+    only the zero fill) keeps its pair, one that meets no loaded row does
+    not; dead slots never keep a pair."""
+    n = 4096 + 10
+    x = torch.full((n,), 1000, dtype=torch.int32)
+    y = torch.full((n,), 1000, dtype=torch.int32)
+    x[4096 + 5] = 50_000  # past true_n below, in the second chunk
+    bins = torch.zeros(n, dtype=torch.int32)
+    offs = torch.zeros(n, dtype=torch.int32)
+    world_t = torch.tensor([[[0, -1, 2**31 - 1, 2**31 - 1]]], dtype=torch.int32)
+    boxes = torch.tensor([[[50_000, 50_000, 1000, 1000]],   # the invalid row only
+                          [[0, 0, 0, 0]],                   # the zero fill only
+                          [[70_000, 80_000, 0, 2000]],      # no loaded row
+                          [[1, 0, 1, 0]]], dtype=torch.int32)  # dead
+    kept = chunk_query_pairs(x, y, bins, offs, 0, 4096 + 5, boxes, world_t.expand(4, 1, 4)
+                             .contiguous())
+    assert kept.tolist() == [[False, False, False, False], [True, True, False, False]]
+    # a chunk with no valid row keeps nothing
+    none = chunk_query_pairs(x, y, bins, offs, 0, 4096, boxes, world_t.expand(4, 1, 4)
+                             .contiguous())
+    assert not none[1].any()
+
+
+@pytest.mark.cuda
+def test_edge_gather_cull_matches_plain_on_card():
+    """On GDELT-shaped rows in z3 order (most pairs culled) and the same
+    rows shuffled (none culled): the kernel equals its plain version and
+    ``batched_count``, and both orders give the same counts and hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for maker in CULL_MAKERS:
+        cols, boxes, times, base, true_n = _cull_inputs(maker, 5)
+        tc = [_t(c).to(dev) for c in cols]
+        perm = torch.from_numpy(np.random.default_rng(1).permutation(CULL_N)).to(dev)
+        shuffled = [c[perm].contiguous() for c in tc]
+        for c in (tc, shuffled):
+            args = (*c, base, true_n, _t(boxes).to(dev), _t(times).to(dev))
+            got_c, got_p, got_h = batched_edge_gather(*args)
+            want_c, want_p, want_h = batched_edge_gather_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got_c, want_c) and torch.equal(got_h, want_h)
+            assert torch.equal(got_c, batched_count(*args))
+            fits = want_h[:, 0] <= kernels.EDGE_CAPACITY
+            assert torch.equal(got_p[fits], want_p[fits])
 
 
 def test_library_path_follows_shared_headers(tmp_path, monkeypatch):

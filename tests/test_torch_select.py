@@ -21,6 +21,7 @@ Tolerance: none — counts, positions, row ids and fid sets compare exactly.
 
 import numpy as np
 import pytest
+import torch
 
 import geomesa_tpu  # noqa: F401  (x64 on)
 from geomesa_tpu.filter.bounds import extract as ref_extract
@@ -29,8 +30,10 @@ from geomesa_tpu.parallel.query import intervals_to_block_pairs as ref_block_pai
 from geomesa_tpu.schema import columnar as ref_columnar
 from geomesa_tpu.store.datastore import DataStore as RefDataStore
 
+from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.parallel import query as query_mod
 from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
+from geomesa_tpu_torch.parallel.residency import stage_columns
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
 from geomesa_tpu_torch.schema import columnar
 from geomesa_tpu_torch.store import datastore as datastore_mod
@@ -156,17 +159,152 @@ def test_planned_gather_chunks_equal_reference(stores, index_name, blocks, monke
     whose chunks cross query boundaries and split ``INCLUDE``'s five blocks;
     one for the z2 plans' two pairs): every chunk boundary is held against
     the reference."""
-    monkeypatch.setattr(query_mod, "PLANNED_CHUNK_ROWS", blocks * query_mod.JOIN_BLOCK)
+    monkeypatch.setattr(kernels, "PLANNED_CHUNK_ROWS", blocks * query_mod.JOIN_BLOCK)
     chunks = []
-    real = query_mod.row_masks
+    real = kernels.row_masks
 
     def spy(*args):
         chunks.append(args[0].shape[0])
         return real(*args)
 
-    monkeypatch.setattr(query_mod, "row_masks", spy)
+    monkeypatch.setattr(kernels, "row_masks", spy)
     _select_many_positions_equal_reference(stores, index_name)
     assert len(chunks) > 1 and max(chunks) == blocks
+
+
+_GATHER_STEPS: dict = {}
+GATHER_PAIRS = 64  # the reference step's pair budget (a multiple of its chunk)
+
+
+def _ref_planned_gather(cols, true_n, pair_q, pair_blk, boxes, times):
+    """``make_planned_gather_step`` on a one-device mesh (one shard, as the
+    port's one card): positions in pair order and the per-pair counts."""
+    import jax.numpy as jnp
+
+    from geomesa_tpu.parallel.mesh import make_mesh, shard_columns
+    from geomesa_tpu.parallel.query import make_planned_gather_step, pad_block_pairs
+
+    mesh = make_mesh(1)
+    capacity = GATHER_PAIRS * query_mod.JOIN_BLOCK
+    key = (boxes.shape, times.shape)
+    step = _GATHER_STEPS.get(key)
+    if step is None:
+        step = _GATHER_STEPS[key] = make_planned_gather_step(
+            mesh, query_mod.JOIN_BLOCK, GATHER_PAIRS, capacity)
+    sharded, _, _ = shard_columns(mesh, dict(zip(("x", "y", "bins", "offs"), cols)),
+                                  multiple=query_mod.JOIN_BLOCK)
+    pq, pb = pad_block_pairs(pair_q, pair_blk, GATHER_PAIRS)
+    buf, hits = step(sharded["x"], sharded["y"], sharded["bins"], sharded["offs"],
+                     jnp.int32(true_n), jnp.asarray(pq), jnp.asarray(pb), jnp.asarray(boxes),
+                     jnp.asarray(times))
+    hits = np.asarray(hits)[: len(pair_q)].astype(np.int64)
+    return np.asarray(buf)[0, : hits.sum()].astype(np.int64), hits
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+@pytest.mark.parametrize("maker", ["gdelt-z3", "grid", "edge", "dateless", "tail"])
+def test_planned_gather_plain_equals_jax_step(maker, seed):
+    """``planned_gather_step`` on the CPU (``planned_gather_plain``) equals
+    the JAX ``make_planned_gather_step`` on GDELT-shaped rows in z3 order,
+    grid rows, ``edge_payload``'s multi-slot and dead-slot payloads, a
+    date-less store and a ``true_n`` tail: random pairs with repeated
+    blocks, one block for every query and the last block."""
+    from test_torch_kernels import _cull_inputs
+
+    cols, boxes, times, _, true_n = _cull_inputs(maker, seed)
+    if maker == "tail":
+        true_n -= 3 * 4096  # the same cut, with no base
+    staged, padded = stage_columns(
+        dict(zip(("x", "y", "bins", "offs"), cols)), torch.device("cpu"))
+    n_blocks = padded // query_mod.JOIN_BLOCK
+    rng = np.random.default_rng(seed)
+    q = boxes.shape[0]
+    pair_q = np.concatenate([rng.integers(0, q, 40), np.arange(q), [0, q - 1]])
+    pair_blk = np.concatenate([rng.integers(0, n_blocks, 40), np.full(q, n_blocks // 2),
+                               [n_blocks - 1] * 2])
+    pair_q, pair_blk = pair_q.astype(np.int32), pair_blk.astype(np.int32)
+    got_p, got_h = query_mod.planned_gather_step(
+        [staged[k] for k in ("x", "y", "bins", "offs")], true_n, pair_q, pair_blk,
+        torch.from_numpy(boxes), torch.from_numpy(times))
+    want_p, want_h = _ref_planned_gather(cols, true_n, pair_q, pair_blk, boxes, times)
+    assert got_p.dtype == got_h.dtype == torch.int64
+    assert np.array_equal(got_h.numpy(), want_h) and np.array_equal(got_p.numpy(), want_p)
+    assert want_h.sum() > 0
+
+
+def test_planned_gather_rejects_bad_arguments():
+    """``planned_gather`` raises on anything its kernel does not take:
+    columns that are not int32, 1-D, contiguous, of one length or
+    block-aligned; pair lists that are not 1-D int32 tensors of one length
+    on the columns' device; bad payloads; a device other than cuda or
+    cpu. ``planned_gather_step`` raises on pairs out of range."""
+    n = 2 * query_mod.JOIN_BLOCK
+    cols = [torch.zeros(n, dtype=torch.int32) for _ in range(4)]
+    pq = torch.zeros(3, dtype=torch.int32)
+    boxes = torch.zeros((2, 1, 4), dtype=torch.int32)
+    times = torch.zeros((2, 1, 4), dtype=torch.int32)
+    ok = (*cols, n, pq, pq, boxes, times)
+    assert [t.shape[0] for t in kernels.planned_gather(*ok)] == [3 * query_mod.JOIN_BLOCK, 3]
+    bad = [
+        (TypeError, (cols[0].long(), *cols[1:], n, pq, pq, boxes, times)),
+        (ValueError, (cols[0][:-1], *cols[1:], n, pq, pq, boxes, times)),
+        (ValueError, (*(c[: n - 8] for c in cols), n, pq, pq, boxes, times)),
+        (ValueError, (torch.zeros(2 * n, dtype=torch.int32)[::2], *cols[1:], n, pq, pq, boxes,
+                      times)),
+        (TypeError, (*cols, n, pq.long(), pq, boxes, times)),
+        (TypeError, (*cols, n, pq, pq[None], boxes, times)),
+        (ValueError, (*cols, n, pq, pq[:2], boxes, times)),
+        (ValueError, (*cols, n, torch.zeros(6, dtype=torch.int32)[::2], pq, boxes, times)),
+        (ValueError, (*cols, n, pq.to("meta"), pq, boxes, times)),
+        (TypeError, (*cols, n, pq, pq, boxes.long(), times)),
+        (ValueError, (*cols, n, pq, pq, boxes[:, :, :3].contiguous(), times)),
+        (ValueError, (*cols, n, pq, pq, boxes, times[:1])),
+        (ValueError, (*(c.to("meta") for c in cols), n, pq.to("meta"), pq.to("meta"),
+                      boxes.to("meta"), times.to("meta"))),
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            kernels.planned_gather(*args)
+    host = [np.array([0, 1], np.int32), np.array([0, 2], np.int32)]
+    with pytest.raises(ValueError, match="blocks"):
+        query_mod.planned_gather_step(cols, n, *host, boxes, times)
+    with pytest.raises(ValueError, match="queries"):
+        query_mod.planned_gather_step(cols, n, np.array([2]), np.array([0]), boxes, times)
+
+
+@pytest.mark.cuda
+def test_planned_gather_kernel_matches_plain_on_card():
+    """The kernel equals ``planned_gather_plain`` exactly (positions and
+    per-pair counts) on every column maker, with a whole-world query (every
+    row of a block matches: the write pass's shortcut) beside the maker's
+    payloads; an empty pair list launches nothing, and the launch counter
+    counts one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
+    from test_torch_kernels import CULL_MAKERS, _cull_inputs
+
+    dev = torch.device("cuda")
+    for maker in CULL_MAKERS:
+        cols, boxes, times, _, true_n = _cull_inputs(maker, 5)
+        boxes = np.ascontiguousarray(np.concatenate([boxes, pack_boxes(None, 8)[None]]))
+        times = np.ascontiguousarray(np.concatenate([times, pack_times(None, 16)[None]]))
+        staged, padded = stage_columns(
+            dict(zip(("x", "y", "bins", "offs"), cols)), dev)
+        c = [staged[k] for k in ("x", "y", "bins", "offs")]
+        n_blocks = padded // query_mod.JOIN_BLOCK
+        rng = np.random.default_rng(2)
+        for n_pairs in (0, 1, 300):
+            pq = torch.from_numpy(rng.integers(0, boxes.shape[0], n_pairs).astype(np.int32))
+            pb = torch.from_numpy(rng.integers(0, n_blocks, n_pairs).astype(np.int32))
+            args = (*c, true_n, pq.to(dev), pb.to(dev), torch.from_numpy(boxes).to(dev),
+                    torch.from_numpy(times).to(dev))
+            before = kernels.launches["planned_gather"]
+            got_p, got_h = kernels.planned_gather(*args)
+            want_p, want_h = kernels.planned_gather_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got_p, want_p) and torch.equal(got_h, want_h)
+            assert kernels.launches["planned_gather"] - before == (1 if n_pairs else 0)
 
 
 def test_select_many_positions_rejects_unaligned_residency(stores):
