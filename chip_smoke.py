@@ -289,13 +289,13 @@ def predicate_floor_ops(x, y, bins, offs, boxes, times, chunks=None):
     (and chunks) held no match."""
     import torch
 
-    from geomesa_tpu_torch.ops.kernels import CULL_CHUNK
+    from geomesa_tpu_torch.ops.kernels import JOIN_BLOCK
 
     n = x.shape[0]
     alu = total = in_box_total = in_time_total = matches = 0
     key = bins.long() * 2**32 + offs.long()  # lexicographic (bin, off) order
     for qi in range(boxes.shape[0]):
-        keep = None if chunks is None else chunks[:, qi].repeat_interleave(CULL_CHUNK)[:n]
+        keep = None if chunks is None else chunks[:, qi].repeat_interleave(JOIN_BLOCK)[:n]
         live_b = [b for b in boxes[qi].tolist() if b[0] <= b[1] and b[2] <= b[3]]
         live_t = [(blo * 2**32 + olo, bhi * 2**32 + ohi)
                   for blo, olo, bhi, ohi in times[qi].tolist()
@@ -811,6 +811,16 @@ def profile_window(label: str, fn) -> None:
             f"{name[:60]} {t / 1e3:.4f} ms x{k}" for name, (t, k) in top))
 
 
+def requested_bytes() -> int:
+    """Bytes the live device tensors asked for: ``memory_allocated`` less
+    what the caching allocator adds when it hands a cached block out whole
+    (it does when a split would leave less than 1 MiB)."""
+    import torch
+
+    return sum(b.get("requested_size", b["size"]) for s in torch.cuda.memory_snapshot()
+               for b in s["blocks"] if b["state"] == "active_allocated")
+
+
 def free_card() -> None:
     """Drop the previous phase's objects and cached device blocks."""
     gc.collect()
@@ -969,8 +979,9 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     write_s = time.perf_counter() - t0
     if on_card:
         log(f"phase write memory: memory_allocated {torch.cuda.memory_allocated()} bytes "
-            f"resident after the write (two point states), max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated()} bytes during it")
+            f"resident after the write (two point states; {requested_bytes()} bytes "
+            f"requested), max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+            f"during it")
     t0 = time.perf_counter()
     loose = ds.count_many("gdelt", cqls, loose=True)
     first_batch_s = time.perf_counter() - t0
@@ -1262,8 +1273,8 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
     write_s = time.perf_counter() - t0
     if on_card:
         log(f"phase 5 write memory: memory_allocated {torch.cuda.memory_allocated()} bytes "
-            f"resident after the write (one z2 state), max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated()} bytes during it")
+            f"resident after the write (one z2 state; {requested_bytes()} bytes requested), "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes during it")
     t0 = time.perf_counter()
     loose = ds.count_many("points", cqls, loose=True)
     loose_s = time.perf_counter() - t0

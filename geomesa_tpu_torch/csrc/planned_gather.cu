@@ -51,7 +51,7 @@ namespace {
 
 using namespace geomesa;
 
-constexpr int JOIN_BLOCK = 4096;  // parallel/residency.py JOIN_BLOCK
+constexpr int JOIN_BLOCK = 4096;  // ops/kernels.py JOIN_BLOCK
 static_assert(JOIN_BLOCK == CHUNK, "one pair's block is one chunk of THREADS x ROWS rows");
 
 template <bool WRITE>

@@ -83,7 +83,12 @@ from pathlib import Path
 
 import torch
 
-from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
+# Rows per block of the resident layout and per chunk of every row-scan
+# kernel: csrc/count_predicate.cuh CHUNK (THREADS x ROWS), which
+# csrc/planned_gather.cu ties to its JOIN_BLOCK by a static_assert
+# (reference geomesa_tpu/store/backends.py:36). parallel/residency.py pads
+# to it.
+JOIN_BLOCK = 4096
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -479,14 +484,13 @@ def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, t
     return counts.to(torch.int32), pos[:, None, :], hits.to(torch.int32)[:, None]
 
 
-CULL_CHUNK = 4096  # rows per chunk of the edge gather's cull (csrc/count_predicate.cuh CHUNK)
 _M32 = 0xFFFFFFFF
 
 
-def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times,
-                      chunk: int = CULL_CHUNK) -> torch.Tensor:
+def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times) -> torch.Tensor:
     """The (chunk, query) pairs that :func:`batched_edge_gather`'s cull
-    keeps, as a (ceil(N / chunk), Q) bool tensor: the plain version of
+    keeps, as a (ceil(N / JOIN_BLOCK), Q) bool tensor, a chunk being
+    ``JOIN_BLOCK`` rows as the kernel's is: the plain version of
     ``csrc/chunk_cull.cuh``.
 
     A pair survives when its chunk holds a valid row (local position below
@@ -500,11 +504,11 @@ def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times,
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     n = x.shape[0]
-    n_chunks = -(-n // chunk)
-    pad = n_chunks * chunk - n
+    n_chunks = -(-n // JOIN_BLOCK)
+    pad = n_chunks * JOIN_BLOCK - n
 
     def extent(col):
-        v = torch.nn.functional.pad(col, (0, pad)).view(n_chunks, chunk)
+        v = torch.nn.functional.pad(col, (0, pad)).view(n_chunks, JOIN_BLOCK)
         return v.amin(dim=1)[:, None, None], v.amax(dim=1)[:, None, None]
 
     (xlo, xhi), (ylo, yhi) = extent(x), extent(y)
@@ -518,7 +522,7 @@ def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times,
     hi = t[..., 2] * 2**32 + ((t[..., 3] ^ 0x80000000) & _M32)
     win_meets = ((lo <= hi) & (lo <= khi) & (klo <= hi)).any(dim=2)
     limit = min(n, int(true_n) - int(base))
-    alive = torch.arange(n_chunks, device=x.device) * chunk < limit
+    alive = torch.arange(n_chunks, device=x.device) * JOIN_BLOCK < limit
     return box_meets & win_meets & alive[:, None]
 
 

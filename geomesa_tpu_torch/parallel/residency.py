@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-JOIN_BLOCK = 4096  # row alignment of the resident layout (reference backends.py:36)
+from geomesa_tpu_torch.ops.kernels import JOIN_BLOCK  # row alignment of the resident layout
 
 
 def pad_rows(n: int) -> int:

@@ -60,7 +60,8 @@ def _imports(path: pathlib.Path) -> list[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_count_ab.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_count_ab.py",
+                                 ROOT / "scripts" / "torch_write_memory.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_reference_imports(path):
