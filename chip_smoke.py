@@ -1,7 +1,7 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
 and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
-standing-query stream and a date-less point schema end to end on one CUDA
-card.
+standing-query stream, a date-less point schema and the grouped aggregation
+end to end on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -63,7 +63,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``select_many`` per query; then 8 queries snapped onto rows they match
    (``snapped_queries``) through ``count_many(loose=False)``, so that the
    host re-test corrects every one of them, against both referees, timed
-   beside the same 8 unsnapped; then ``batched_count``, the edge gather
+   beside the same 8 unsnapped; the z-range phase: every ``zranges`` call
+   that planning the 64 queries (z3, 3-D) and the 8 spatial boxes (z2,
+   2-D) makes, at the budgets ``Z3Index.plan`` and ``Z2SFC.ranges`` pass,
+   held equal to ``zranges_plain`` and timed beside it, with the calls per
+   query; the host split of ``query()`` (plan, device select, residual,
+   take) and of ``select_many`` (plan, block pairs, planned gather, tail);
+   then ``batched_count``, the edge gather
    (its bound over the (chunk, query) pairs its cull keeps, beside the
    full-scan bound) and ``planned_gather`` (at the 64 queries' planned
    pairs, beside ``planned_gather_plain``) alone, each against its plain
@@ -86,6 +92,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    referee, then 8 of the boxes through ``count_many(loose=False)`` (the
    edge gather kernel; the unconstrained window's endpoints match no row)
    and ``query()`` against an f64 brute force.
+6. bench config 9 (``bench.py:1588``) at full size: 50M GDELT-shaped points
+   (seed 42) with config 9's group ids (G = 1024) and values, schema
+   ``cat:Integer,val:Double,dtg:Date,*geom:Point``, ``write`` → ``compact``,
+   then ``aggregate_many(group_by=["cat"], value_cols=["val"])`` over the 64
+   city-box 2-7 day queries of seed 7 (the fused step's set) and of seed 301
+   (the product path's), first call and p50 of 5 each: no lane may be
+   ``None``; every answer of seed 7 and 16 of seed 301 equal an f64 numpy
+   fold over the original lon/lat/time (groups in order; counts, value
+   counts, min and max exact; sums within a relative 1e-12); then
+   ``grouped_agg`` against ``grouped_agg_plain`` on the same payloads and on
+   grid rows whose boundary rows overflow some lanes, its time beside the
+   plain version's and its bound, and one ``aggregate_many`` under
+   ``torch.profiler``.
 
 Each store is freed before the next phase.
 
@@ -112,6 +131,10 @@ STREAM_ROWS = 60_000_000  # bench config 8's chunk on an accelerator
 STREAM_CHUNKS = 17  # 1.02B rows, config 8's accelerator total
 STREAM_TOPK = 128
 DAY_MS = 86_400_000
+AGG_GROUPS = 1024  # bench config 9's G
+AGG_SEEDS = (7, 301)  # the fused step's query set, the product path's
+AGG_CHECKED = {7: 64, 301: 16}  # queries of each set held to the f64 fold
+AGG_RTOL = 1e-12  # f64 sums: atomics fold in no fixed order
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Integer instruction rates by pipe. The data sheet's 67 TFLOP/s float32
 # (non-tensor) counts an FMA as 2 ops on 128 lanes per SM. An SM issues 4
@@ -771,22 +794,30 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits):
     return (alu, total), nbytes
 
 
-def profile_window(label: str, fn) -> None:
+def profile_window(label: str, fn, expect: str | None = None) -> None:
     """Runs ``fn`` once under ``torch.profiler`` (CPU and CUDA) and logs the
     device's busy share of the window (the union of its kernels and copies
     over the span of every recorded event), the five device ops that took
     the most time, and the longest stretch with nothing on the device.
-    Logs "not measured" where the profiler saw no device activity."""
+    Logs "not measured" where the profiler saw no device activity. With
+    ``expect``, a kernel name that ``fn`` launches: a trace that holds no
+    record of it is taken once more, and logged as incomplete if the
+    second holds none either (a profiler has dropped a launch's record)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in (1, 2):
         torch.cuda.synchronize()
-    events = list(prof.events())
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.time_range.end > e.time_range.start]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.end > e.time_range.start]
+        if expect is None or any(expect in e.name for e in device):
+            break
+        log(f"phase profile {label}: trace {attempt} holds no record of {expect}"
+            + ("; taking it once more" if attempt == 1 else "; this window is incomplete"))
     if not device:
         log(f"phase profile {label}: device time not measured (the profiler recorded "
             f"{len(events)} events, none on the device)")
@@ -865,12 +896,13 @@ def spatial_checks(ds, type_name, lon, lat, fids, boxes_f64, want_index: str) ->
     return counts
 
 
-def day_slabs(bins: np.ndarray):
-    """Group row ids by day: (order, starts) with rows of day d at
-    order[starts[d]:starts[d+1]]."""
+def day_slabs(bins: np.ndarray, *cols):
+    """Group row ids by day: (order, starts, sorted cols) with rows of day d
+    at order[starts[d]:starts[d+1]] and each of ``cols`` in that order, so
+    that a day range of a column is one slice."""
     order = np.argsort(bins, kind="stable")
     starts = np.searchsorted(bins[order], np.arange(bins.max() + 2))
-    return order, starts
+    return order, starts, [c[order] for c in cols]
 
 
 def int_referee(lon, lat, t, boxes_f64, windows_ms):
@@ -880,14 +912,13 @@ def int_referee(lon, lat, t, boxes_f64, windows_ms):
     norm = norm31
     xi, yi = norm(lon, -180.0, 180.0), norm(lat, -90.0, 90.0)
     day, off = t // DAY_MS, t % DAY_MS
-    order, starts = day_slabs(day)
+    _, starts, by_day = day_slabs(day, xi, yi, day, off)
     out = []
     for (x1, y1, x2, y2), (lo, hi) in zip(boxes_f64, windows_ms):
         (blo, olo), (bhi, ohi) = divmod(lo + 1, DAY_MS), divmod(hi - 1, DAY_MS)
-        rows = order[starts[blo]:starts[bhi + 1]]
-        b, o = day[rows], off[rows]
-        m = ((xi[rows] >= norm(x1, -180.0, 180.0)) & (xi[rows] <= norm(x2, -180.0, 180.0))
-             & (yi[rows] >= norm(y1, -90.0, 90.0)) & (yi[rows] <= norm(y2, -90.0, 90.0))
+        x, y, b, o = (c[starts[blo]:starts[bhi + 1]] for c in by_day)
+        m = ((x >= norm(x1, -180.0, 180.0)) & (x <= norm(x2, -180.0, 180.0))
+             & (y >= norm(y1, -90.0, 90.0)) & (y <= norm(y2, -90.0, 90.0))
              & ((b > blo) | ((b == blo) & (o >= olo)))
              & ((b < bhi) | ((b == bhi) & (o <= ohi))))
         out.append(int(m.sum()))
@@ -895,13 +926,20 @@ def int_referee(lon, lat, t, boxes_f64, windows_ms):
 
 
 def f64_referee(lon, lat, t, box, window, slabs):
-    """Exact rows of ``BBOX AND DURING`` by f64 brute force (row ids)."""
+    """Exact rows of ``BBOX AND DURING`` by f64 brute force (row ids), over
+    the days the window spans; ``slabs`` from :func:`day_slabs` of the days
+    of ``t``, with ``lon, lat, t`` in its day order when it carries them."""
     (x1, y1, x2, y2), (lo, hi) = box, window
-    order, starts = slabs
-    rows = order[starts[lo // DAY_MS]:starts[hi // DAY_MS + 1]]
-    m = ((lon[rows] >= x1) & (lon[rows] <= x2) & (lat[rows] >= y1) & (lat[rows] <= y2)
-         & (t[rows] > lo) & (t[rows] < hi))
-    return rows[m]
+    order, starts, by_day = slabs
+    a, b = starts[lo // DAY_MS], starts[hi // DAY_MS + 1]
+    if by_day:
+        lon_d, lat_d, t_d = (c[a:b] for c in by_day)
+    else:
+        rows = order[a:b]
+        lon_d, lat_d, t_d = lon[rows], lat[rows], t[rows]
+    m = ((lon_d >= x1) & (lon_d <= x2) & (lat_d >= y1) & (lat_d <= y2)
+         & (t_d > lo) & (t_d < hi))
+    return order[a:b][m]
 
 
 def snapped_queries(lon, lat, t, boxes_f64, windows_ms, slabs, seed: int):
@@ -934,6 +972,53 @@ def p50(values) -> float:
     return float(np.percentile(values, 50))
 
 
+def check_zranges(ds, type_name: str, cqls, spatial_cqls) -> None:
+    """The z-range phase: records every ``zranges`` call that planning
+    ``cqls`` (z3: 3-D boxes, the budget split over the day windows) and
+    ``spatial_cqls`` (z2: 2-D) makes, holds each output equal to
+    ``zranges_plain`` on the same arguments, and logs calls per query and
+    ms per call of both (host clock)."""
+    from geomesa_tpu_torch.curve import sfc
+    from geomesa_tpu_torch.curve import zranges as zr
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
+
+    calls = []
+
+    def recording(*args):
+        t0 = time.perf_counter()
+        out = zr.zranges(*args)
+        calls.append((args, time.perf_counter() - t0, out))
+        return out
+
+    st = ds._state(type_name)
+    planner = QueryPlanner(st.sft, st.indices)
+    spans = {}
+    sfc.zranges = recording  # sfc.ranges calls the name it imported
+    try:
+        for label, qs in (("z3", cqls), ("z2", spatial_cqls)):
+            start = len(calls)
+            for c in qs:
+                planner.plan(Query(c))
+            spans[label] = (start, len(calls), len(qs))
+    finally:
+        sfc.zranges = zr.zranges
+    for label, (a, b, nq) in spans.items():
+        if b == a:
+            raise AssertionError(f"planning the {label} queries made no zranges call")
+        native_s = sum(c[1] for c in calls[a:b])
+        t0 = time.perf_counter()
+        for args, _, out in calls[a:b]:
+            want = zr.zranges_plain(*args)
+            if want.dtype != out.dtype or not np.array_equal(want, out):
+                raise AssertionError(f"zranges differs from zranges_plain at {args}")
+        plain_s = time.perf_counter() - t0
+        log(f"phase zranges {label}: {b - a} calls for {nq} queries ({(b - a) / nq:.2f} per "
+            f"query), {len(calls[a][0][0])}-D at budgets "
+            f"{sorted({args[3] for args, _, _ in calls[a:b]})}: native "
+            f"{native_s * 1e3 / (b - a):.4f} ms per call, plain {plain_s * 1e3 / (b - a):.4f} ms "
+            f"per call; {sum(len(o) for _, _, o in calls[a:b])} ranges, every output equal")
+
+
 def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
             iters: int) -> tuple[list[dict], dict]:
     """Phase 3: the point write (z3 + z2) and bbox+time main path; returns
@@ -953,7 +1038,8 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
     from geomesa_tpu_torch.schema.sft import AttributeType
     from geomesa_tpu_torch.store.datastore import DataStore
-    from geomesa_tpu_torch.workload import SPEC, bbox_time_cql, make_queries, synth_gdelt
+    from geomesa_tpu_torch.workload import (
+        SPEC, bbox_cql, bbox_time_cql, make_queries, synth_gdelt)
 
     on_card = dev.type == "cuda"
     t0 = time.perf_counter()
@@ -1037,7 +1123,7 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     want_loose = int_referee(lon, lat, t, boxes_f64, windows_ms)
     if loose != want_loose:
         raise AssertionError(f"count_many(loose) != int referee: {loose} vs {want_loose}")
-    slabs = day_slabs(t // DAY_MS)
+    slabs = day_slabs(t // DAY_MS, lon, lat, t)
     for i in range(n_queries):
         rows = np.sort(f64_referee(lon, lat, t, boxes_f64[i], windows_ms[i], slabs))
         if exact[i] != len(rows):
@@ -1061,17 +1147,25 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         log(f"phase {what}: first {first_s * 1e3:.3f} ms, p50 {p50(batch):.3f} ms over "
             f"{iters} (min {min(batch):.3f}, max {max(batch):.3f}; {n_queries} queries per "
             f"batch)")
-    many_ms = []
+    many_ms, many_split = [], []
     for _ in range(3):
         s = time.perf_counter()
         ds.select_many("gdelt", cqls)
         many_ms.append((time.perf_counter() - s) * 1e3 / n_queries)
+        many_split.append(dict(ds.last_select_many))
     plan_ms = [r.plan_info.plan_ms for r in selected]
     log(f"phase query(): p50 {p50(query_ms):.3f} ms per query over {n_queries} (mean "
         f"{np.mean(query_ms):.3f}, min {min(query_ms):.3f}, max {max(query_ms):.3f}), "
         f"plan_ms p50 {p50(plan_ms):.3f}; {sum(r.count for r in selected)} rows")
+    log("phase query() split: p50 ms per query over " + f"{n_queries} (host clock): " + ", ".join(
+        f"{k} {p50([r.timings[k] for r in selected]):.3f}"
+        for k in ("plan_ms", "select_ms", "residual_ms", "take_ms")))
     log(f"phase select_many: p50 {p50(many_ms):.3f} ms per query over 3 calls of "
         f"{n_queries} queries (first call {first_many_s * 1e3 / n_queries:.3f} ms per query)")
+    log("phase select_many split: p50 over 3 calls, ms per query (host clock): " + ", ".join(
+        f"{k} {p50([sp[k] / n_queries for sp in many_split]):.3f}"
+        for k in ("plan_ms", "pairs_ms", "gather_ms", "tail_ms")))
+    check_zranges(ds, "gdelt", cqls, [bbox_cql(b) for b in boxes_f64[:n_exact]])
 
     # -- the exact correction at full size: n_exact queries snapped onto rows --
     snap_boxes, snap_windows = snapped_queries(lon, lat, t, boxes_f64[:n_exact],
@@ -1231,9 +1325,9 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         if g_share > 1:
             raise AssertionError(f"planned_gather reads {g_share:.4f} of its bound: the "
                                  "bound's count is wrong")
-        profile_window("select_many", lambda: ds.select_many("gdelt", cqls))
-        profile_window("count_many exact batch", lambda: ds.count_many("gdelt", cqls,
-                                                                        loose=False))
+        profile_window("select_many", lambda: ds.select_many("gdelt", cqls), "planned_gather")
+        profile_window("count_many exact batch",
+                       lambda: ds.count_many("gdelt", cqls, loose=False), "batched_edge_gather")
         log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
             f"over the whole phase")
     return [record, edge_record, gather_record], launched
@@ -1334,6 +1428,259 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
     if on_card:
         log(f"phase 5 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     return launched
+
+
+def agg_referee(rows, gid, vals, n_groups: int):
+    """The f64 numpy fold of one query's matching ``rows`` (row ids): group
+    keys in first-occurrence row order, counts, value counts, sums, min and
+    max per group, in that order."""
+    rows = np.sort(rows)
+    g, v = gid[rows], vals[rows]
+    keys, first = np.unique(g, return_index=True)
+    keys = keys[np.argsort(first, kind="stable")]
+    ok = ~np.isnan(v)
+    vmin = np.full(n_groups, np.inf)
+    vmax = np.full(n_groups, -np.inf)
+    np.minimum.at(vmin, g[ok], v[ok])
+    np.maximum.at(vmax, g[ok], v[ok])
+    return (keys, np.bincount(g, minlength=n_groups)[keys],
+            np.bincount(g[ok], minlength=n_groups)[keys],
+            np.bincount(g[ok], weights=v[ok], minlength=n_groups)[keys], vmin[keys], vmax[keys])
+
+
+def check_agg_answer(res, want, label: str) -> None:
+    """One ``aggregate_many`` answer against :func:`agg_referee`'s fold."""
+    keys, cnt, vcnt, vsum, vmin, vmax = want
+    if res is None:
+        raise AssertionError(f"aggregate_many {label}: the device path declined it")
+    col = res["cols"]["val"]
+    if [int(k[0]) for k in res["groups"]] != keys.tolist():
+        raise AssertionError(f"aggregate_many {label}: groups or their order differ")
+    for name, got, w in (("count", res["count"], cnt), ("value count", col["count"], vcnt),
+                         ("min", col["min"], vmin), ("max", col["max"], vmax)):
+        if not np.array_equal(got, w):
+            raise AssertionError(f"aggregate_many {label}: {name} differs from the f64 fold")
+    err = np.abs(col["sum"] - vsum)
+    if not (err <= AGG_RTOL * np.abs(vsum)).all():
+        raise AssertionError(f"aggregate_many {label}: sums differ by up to {err.max()}")
+
+
+def check_grouped_kernel(dev, args: tuple, label: str) -> tuple[int, float]:
+    """``grouped_agg`` against ``grouped_agg_plain`` on the card: integer
+    outputs, min and max exact, lanes exact where they hold every boundary
+    row and a subset of them where they overflow, sums within a relative
+    1e-12. Returns (max |difference| of the exact outputs, the sums' largest
+    relative difference)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import grouped_agg, grouped_agg_plain
+
+    def worst(t) -> float:
+        return float(t.abs().max()) if t.numel() else 0.0
+
+    got = grouped_agg(*args)
+    want = grouped_agg_plain(*args)
+    torch.cuda.synchronize()
+    err = 0
+    for i in (0, 1, 2, 7):
+        err = max(err, int(worst(got[i].long() - want[i].long())))
+    for i in (4, 5):
+        err = max(err, int((got[i] != want[i]).sum()))
+    rel = worst((got[3] - want[3]) / want[3].abs().clamp(min=1e-300))
+    hits = want[7][:, 0]
+    fits = hits <= args[-1]
+    err = max(err, int(worst(got[6][fits].long() - want[6][fits].long())))
+    if (~fits).any():  # every lane of an overflowed query is one of its boundary rows
+        full = grouped_agg_plain(*args[:-1], int(hits.max()))[6][:, 0].cpu().numpy()
+        lanes = got[6][:, 0].cpu().numpy()
+        for k in np.nonzero((~fits).cpu().numpy())[0]:
+            cand = full[k, : int(hits[k])]
+            if (lanes[k] < 0).any() or len(np.unique(lanes[k])) != len(lanes[k]) \
+                    or not np.isin(lanes[k], cand).all():
+                err = max(err, 1)
+    log(f"  grouped_agg {label}: max_abs_err={err}, sums' max relative difference {rel:.3e} "
+        f"({int(want[0].long().sum())} folded rows, boundary rows per query max "
+        f"{int(hits.max())}, total {int(hits.sum())}, {int((~fits).sum())} queries over "
+        f"{args[-1]} lanes)")
+    if err or not rel <= AGG_RTOL:
+        raise AssertionError(f"grouped_agg disagrees with plain at {label}")
+    return err, rel
+
+
+def agg_floor(cols, n: int, loaded: int, boxes, times, n_vals: int, cnt, vcnt, hits,
+              capacity: int, n_groups: int):
+    """The least work of ``grouped_agg`` on these inputs: operations are the
+    edge gather's (:func:`edge_floor`) over the (chunk, query) pairs its
+    cull keeps; bytes are the four columns of every loaded row read once
+    (16 B a row), ``gid``, ``rowid`` and the ``n_vals`` values of each row
+    that folds in some query read once (8 + 8 V B), the payload read once and
+    the outputs written once. Returns ((alu, all), bytes, distinct folded
+    rows, atomics): 2 + 4 V per folded (row, query) and non-NaN value."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+
+    true_rows = tuple(c[:n] for c in cols)
+    args = (*cols, 0, n, boxes, times)
+    kept = kernels.chunk_query_pairs(*args)
+    counts = cnt.long().sum(dim=1) + hits[:, 0].long()
+    ops, _, _ = edge_floor(*true_rows, boxes, times, counts, hits, capacity, chunks=kept,
+                           loaded_rows=loaded)
+    folded = torch.zeros(cols[0].shape[0], dtype=torch.bool, device=cols[0].device)
+    for s, e, m, edge in kernels._plain_masks(*args, 1 << 20, edges=True):
+        folded[s:e] |= (m & ~edge).any(dim=0)
+    distinct = int(folded.sum())
+    q = boxes.shape[0]
+    out_bytes = q * n_groups * 8 + q * n_vals * n_groups * 28 + q * capacity * 4 + q * 4
+    nbytes = (16 * loaded + distinct * (8 + 8 * n_vals)
+              + 4 * (boxes.numel() + times.numel()) + out_bytes)
+    atomics = 2 * int(cnt.long().sum()) + 4 * int(vcnt.long().sum())
+    return ops, nbytes, distinct, atomics
+
+
+def agg_path(dev, n_rows: int, n_queries: int) -> dict:
+    """Phase 6: bench config 9 at full size; returns the grouped_agg record."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, grouped_agg
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import (
+        AGG_SPEC, bbox_time_cql, grid_columns, grid_payload, grouped_columns, make_queries,
+        synth_gdelt)
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    lon, lat, t = synth_gdelt(n_rows, seed=42)
+    gid, vals = grouped_columns(n_rows, AGG_GROUPS)
+    sets = {seed: make_queries(n_queries, seed=seed) for seed in AGG_SEEDS}
+    cqls = {seed: [bbox_time_cql(b, w) for b, w in zip(*q)] for seed, q in sets.items()}
+    log(f"phase 6 synth: {time.perf_counter() - t0:.3f} s ({n_rows} rows, {AGG_GROUPS} groups, "
+        f"{n_queries} queries of each seed {AGG_SEEDS})")
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("gagg", AGG_SPEC)
+    table = FeatureTable.from_columns(sft, np.arange(n_rows).astype("U9"), {
+        "cat": Column(AttributeType.INT, gid.copy()), "val": Column(AttributeType.DOUBLE, vals),
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)})
+    t0 = time.perf_counter()
+    ds.write("gagg", table)
+    ds.compact("gagg")
+    write_s = time.perf_counter() - t0
+    answers, timed = {}, {}
+    for seed in AGG_SEEDS:
+        s = time.perf_counter()
+        answers[seed] = ds.aggregate_many("gagg", cqls[seed], group_by=["cat"],
+                                          value_cols=["val"])
+        first_ms = (time.perf_counter() - s) * 1e3
+        ms = []
+        for _ in range(5):
+            s = time.perf_counter()
+            ds.aggregate_many("gagg", cqls[seed], group_by=["cat"], value_cols=["val"])
+            ms.append((time.perf_counter() - s) * 1e3)
+        timed[seed] = (first_ms, ms)
+    launched = dict(kernels.launches)
+    log(f"phase 6 launches: {launched}")
+    if on_card and launched["grouped_agg"] != 6 * len(AGG_SEEDS):
+        raise AssertionError("each aggregate_many call must launch grouped_agg once")
+    if on_card and (launched["z3_encode"], launched["z2_encode"]) != (1, 1):
+        raise AssertionError("the write did not launch z3_encode and z2_encode once each")
+    log(f"phase 6 write: {write_s:.3f} s (write + compact of {n_rows} rows)")
+    log_rebuild(ds.last_rebuild("gagg"))
+    for seed in AGG_SEEDS:
+        first_ms, ms = timed[seed]
+        declined = sum(a is None for a in answers[seed])
+        staged = " (the group-id, row-id and value staging included)" if seed == AGG_SEEDS[0] \
+            else ""
+        log(f"phase 6 aggregate_many seed {seed}: first call {first_ms:.3f} ms{staged}, p50 "
+            f"{p50(ms):.3f} ms over 5 (min "
+            f"{min(ms):.3f}, max {max(ms):.3f}) for {n_queries} queries, "
+            f"{p50(ms) / n_queries:.3f} ms per query; {declined} lanes None; "
+            f"{sum(int(a['count'].sum()) for a in answers[seed] if a)} rows in "
+            f"{sum(len(a['groups']) for a in answers[seed] if a)} groups")
+        if declined:
+            raise AssertionError(f"aggregate_many seed {seed}: {declined} lanes declined")
+
+    # -- the f64 fold over the original columns --------------------------------
+    t0 = time.perf_counter()
+    slabs = day_slabs(t // DAY_MS, lon, lat, t)
+    for seed in AGG_SEEDS:
+        checked = range(min(AGG_CHECKED[seed], n_queries))
+        for i in checked:
+            box, window = sets[seed][0][i], sets[seed][1][i]
+            want = agg_referee(f64_referee(lon, lat, t, box, window, slabs), gid, vals,
+                               AGG_GROUPS)
+            check_agg_answer(answers[seed][i], want, f"seed {seed} query {i}")
+        log(f"phase 6 checks seed {seed}: queries {checked.start}..{checked.stop - 1} equal the "
+            f"f64 numpy fold (groups in order; counts, value counts, min, max exact; sums "
+            f"within {AGG_RTOL})")
+    log(f"phase 6 checks: ok in {time.perf_counter() - t0:.3f} s")
+
+    record = {"name": "grouped_agg", "route": "cuda",
+              "source": "geomesa_tpu_torch/csrc/grouped_agg.cu",
+              "replaces": "geomesa_tpu/parallel/query.py:1498",
+              "launches": launched["grouped_agg"], "library_ms": None}
+    st = ds._state("gagg")
+    state, name = st.backend_state["z3"], "z3"
+    (dgid, _, keys), drowid, dvals, _ = ds._agg_residency(state, st.table, st.indices[name].perm,
+                                                         ["cat"], ["val"])
+    g_pad = 1 << max(0, (len(keys) - 1).bit_length())
+    pend = ds._batch_payloads(st, [Query(c) for c in cqls[AGG_SEEDS[0]]])
+    boxes = torch.from_numpy(np.stack([p[0] for _, p, _ in pend])).to(dev)
+    times = torch.from_numpy(np.stack([p[1] for _, p, _ in pend])).to(dev)
+    cols = state.spatial_cols()
+    main_args = (*cols, dgid, drowid, dvals, 0, state.n, boxes, times, g_pad, EDGE_CAPACITY)
+    if on_card:
+        err, rel = check_grouped_kernel(dev, main_args, f"config 9 N={state.n} Q={n_queries}")
+        rng = np.random.default_rng(23)
+        grid = [torch.from_numpy(c).to(dev) for c in grid_columns(1_000_003, seed=23)]
+        gb, gt = (torch.from_numpy(a).to(dev)
+                  for a in grid_payload([c.cpu().numpy() for c in grid], 64, 8, 16, seed=24))
+        ggid = torch.from_numpy(rng.integers(0, AGG_GROUPS, 1_000_003).astype(np.int32)).to(dev)
+        grow = torch.randperm(1_000_003, generator=torch.Generator().manual_seed(5)).int().to(dev)
+        gv = rng.normal(50.0, 20.0, (2, 1_000_003))
+        gv[rng.random(gv.shape) < 0.1] = np.nan
+        gv = torch.from_numpy(gv).to(dev)
+        e2, r2 = check_grouped_kernel(dev, (*grid, ggid, grow, gv, 0, 1_000_003, gb, gt,
+                                            AGG_GROUPS, EDGE_CAPACITY), "grid N=1000003 Q=64 V=2")
+        kernel_ms = cuda_ms(lambda: grouped_agg(*main_args), 5)
+        plain_ms = cuda_ms(lambda: kernels.grouped_agg_plain(*main_args), 1)
+        # the same culled scan without the fold: what the atomics add
+        scan_ms = cuda_ms(lambda: kernels.batched_edge_gather(*cols, 0, state.n, boxes, times),
+                          5)
+        out = grouped_agg(*main_args)
+        torch.cuda.synchronize()
+        ops, nbytes, distinct, atomics = agg_floor(
+            cols, state.n, cols[0].shape[0], boxes, times, 1, out[0], out[2], out[7],
+            EDGE_CAPACITY, g_pad)
+        record.update(max_abs_err=max(err, e2), ms=kernel_ms, plain_ms=plain_ms,
+                      **bound_fields(ops, nbytes))
+        regs, spill = kernels.grouped_agg_attrs()
+        share = record["bound_ms"] / kernel_ms
+        hits = out[7][:, 0].cpu().numpy()
+        log(f"phase grouped_agg timing: {kernel_ms:.4f} ms (CUDA events, 5 launches) at "
+            f"N={state.n} Q={n_queries} G={g_pad} V=1; plain {plain_ms:.4f} ms; bound "
+            f"{record['bound_ms']:.4f} ms ({record['bound_by']}: {ops[0]} ALU-only of {ops[1]} "
+            f"int32 ops; {nbytes} bytes, {distinct} distinct folded rows), {share:.4f} of it; "
+            f"{atomics} global atomics ({int(out[0].long().sum())} folded row-queries; the "
+            f"edge gather's scan of the same payloads {scan_ms:.4f} ms); "
+            f"{regs} registers, {spill} bytes local memory a thread; boundary rows per query "
+            f"min {int(hits.min())}, p50 {p50(hits):.1f}, max {int(hits.max())}, total "
+            f"{int(hits.sum())}; sums' max relative difference {max(rel, r2):.3e}")
+        if share > 1:
+            raise AssertionError(f"grouped_agg reads {share:.4f} of its bound: the bound's "
+                                 "count is wrong")
+        profile_window("aggregate_many", lambda: ds.aggregate_many(
+            "gagg", cqls[AGG_SEEDS[0]], group_by=["cat"], value_cols=["val"]), "grouped_agg")
+        log(f"phase 6 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    return record
 
 
 def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -> dict:
@@ -1584,7 +1931,11 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     dateless_path(dev, n_rows, n_queries, n_exact)
     free_card()
     log(f"phase date-less: {time.perf_counter() - t0:.3f} s in all")
-    return records + [edge_record, gather_record]
+    t0 = time.perf_counter()
+    agg_record = agg_path(dev, n_rows, n_queries)
+    free_card()
+    log(f"phase grouped aggregation: {time.perf_counter() - t0:.3f} s in all")
+    return records + [edge_record, gather_record, agg_record]
 
 
 if __name__ == "__main__":

@@ -47,23 +47,11 @@
 //     surviving query would cost 64 KB of shared loads per query and chunk.
 //     The shared buffer therefore serves as the prefetch stage, and two
 //     blocks of 110 KB fit an SM (16 warps).
-// Two barriers per chunk, both reached by every thread: one after the warps'
-// extents are written (then the survivor list is built), one after the
-// survivor list is complete. The survivor count is double-buffered by chunk
-// parity and reset one chunk ahead, after the first barrier, when no thread
-// can still read it.
 //
-// The edge tests on the staged slots: a live box is staged as (xlo, xhi -
-// xlo, ylo, yhi - ylo); with dx = (uint32)(x - xlo), x == xlo is dx == 0
-// and x == xhi is dx == (uint32)(xhi - xlo), because the wrapping subtract
-// is a bijection of the 32-bit words. A time endpoint is key == lo key or
-// key == hi key of a live window. Dead slots have no inside rows and no
-// valid window, so live-slot staging drops nothing the edges need.
-//
-// Append: each thread collects the bitmask of its candidate rows; the warp
-// takes an inclusive prefix sum of their counts (five shuffles) and one lane
-// adds the warp's total to the query's cursor hits[q] with one atomicAdd,
-// which keeps counting past the capacity. Counts are per-warp
+// The scan (cull_scan, two barriers per chunk), the edge tests (edge_mask)
+// and the append of the candidates (append_lanes: a warp prefix sum and one
+// atomicAdd on the query's cursor, which keeps counting past the capacity)
+// live in chunk_cull.cuh, shared with grouped_agg.cu. Counts are per-warp
 // __reduce_add_sync partials in shared memory, added with one atomicAdd per
 // (block, query), as in batched_count.cu.
 //
@@ -84,110 +72,23 @@ constexpr int SURVIVOR_INTS = 1;  // the survivor list: one int per staged query
 
 __device__ unsigned long long g_path_blocks[2];
 
-// Bit r: matched row r (bit r of m) lies on an edge bucket of a live box it
-// is inside, or at an endpoint of a live window.
-__device__ __forceinline__ uint32_t edge_mask(const Tile& t, int qi, uint32_t m,
-                                              const Rows& rows) {
-  const int lv = t.live[qi];
-  uint32_t e = 0;
-  const int4* box = t.box + qi * t.nb;
-  for (int k = 0; k < (lv & 0xffff); ++k) {
-    const int4 b = box[k];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const uint32_t dx = (uint32_t)rows.x[r] - (uint32_t)b.x;
-      const uint32_t dy = (uint32_t)rows.y[r] - (uint32_t)b.z;
-      if (dx <= (uint32_t)b.y && dy <= (uint32_t)b.w &&
-          (dx == 0 || dx == (uint32_t)b.y || dy == 0 || dy == (uint32_t)b.w))
-        e |= 1u << r;
-    }
-  }
-  const longlong2* win = t.win + qi * t.nt;
-  for (int k = 0; k < (lv >> 16); ++k) {
-    const longlong2 w = win[k];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (rows.key[r] == w.x || rows.key[r] == w.y) e |= 1u << r;
-    }
-  }
-  return e & m;
-}
-
 // Counts the warp's matches m of query qi and appends its edge candidates;
 // all 32 lanes call it together. Bit r of m is chunk row chunk_row(r).
-__device__ __forceinline__ void edge_epilogue(const Tile& t, int qi, uint32_t m, int64_t gchunk0,
-                                              const Rows& rows, int32_t* __restrict__ hits,
-                                              int32_t* __restrict__ pos, int cap) {
-  const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
-  if (c == 0) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) t.cnt[(threadIdx.x >> 5) * t.q_tile + qi] += c;
-  uint32_t e = m ? edge_mask(t, qi, m, rows) : 0u;
-  const unsigned ne = __popc(e);
-  unsigned incl = ne;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned v = __shfl_up_sync(FULL_WARP, incl, d);
-    if (lane >= d) incl += v;
+struct EdgeEpilogue {
+  const Tile& t;
+  int64_t base;
+  int32_t* hits;  // the tile's first query's cursor
+  int32_t* pos;   // the tile's first query's lanes
+  int cap;
+  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t chunk0,
+                                             const Rows& rows) const {
+    const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
+    if (c == 0) return;  // warp-uniform
+    if ((threadIdx.x & 31) == 0) t.cnt[(threadIdx.x >> 5) * t.q_tile + qi] += c;
+    append_lanes(m ? edge_mask(t, qi, m, rows) : 0u, base + chunk0, hits + qi,
+                 pos + (int64_t)qi * cap, cap);
   }
-  const unsigned total = __shfl_sync(FULL_WARP, incl, 31);
-  if (total == 0) return;  // warp-uniform
-  int start = 0;
-  if (lane == 31) start = atomicAdd(hits, (int)total);
-  int slot = __shfl_sync(FULL_WARP, start, 31) + (int)(incl - ne);
-  // the wrapper guarantees base + n < 2^31: positions are int32
-  const int32_t gpos0 = (int32_t)gchunk0;
-  while (e && slot < cap) {
-    const int r = __ffs(e) - 1;
-    e &= e - 1;
-    pos[slot++] = gpos0 + chunk_row(r);
-  }
-}
-
-// Walks the block's chunks grid-stride: prefetch, extent, survivors, tests.
-template <bool FAST>
-__device__ __forceinline__ void cull_scan(const int32_t* __restrict__ x,
-                                          const int32_t* __restrict__ y,
-                                          const int32_t* __restrict__ bins,
-                                          const int32_t* __restrict__ offs, int64_t n,
-                                          int64_t base, int64_t limit, const Tile& t,
-                                          int n_active, int4* buf, Extent* warp_ext,
-                                          int* n_surv, int q0, int32_t* __restrict__ hits,
-                                          int32_t* __restrict__ pos, int cap) {
-  const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
-  int* surv = t.extra;  // (q_tile): this chunk's surviving queries
-  int parity = 0;
-  if (blockIdx.x < n_chunks) prefetch_chunk(buf, x, y, bins, offs, n, blockIdx.x);
-  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x, parity ^= 1) {
-    const int64_t chunk0 = c * CHUNK;
-    Rows rows;
-    const uint32_t valid = take_chunk(buf, chunk0, limit, rows);
-    const Extent we = warp_extent(rows);
-    // the extent has consumed every value the thread read from its buffer
-    // slots, so the next chunk's copy into them starts now
-    if (c + gridDim.x < n_chunks) prefetch_chunk(buf, x, y, bins, offs, n, c + gridDim.x);
-    if ((threadIdx.x & 31) == 0) warp_ext[threadIdx.x >> 5] = we;
-    __syncthreads();  // the warps' extents are written
-    if (threadIdx.x == 0) n_surv[parity ^ 1] = 0;  // last read before this barrier
-    if (chunk0 < limit) {  // block-uniform: a chunk with no valid row keeps no query
-      const Extent e = block_extent(warp_ext);
-      for (int i = threadIdx.x; i < n_active; i += THREADS) {
-        const int qi = t.active[i];
-        if (meets(t, qi, e)) surv[atomicAdd(n_surv + parity, 1)] = qi;
-      }
-    }
-    __syncthreads();  // the survivor list is complete
-    const int ns = n_surv[parity];
-    for (int i = 0; i < ns; ++i) {
-      const int qi = surv[i];
-      const int lv = FAST ? 0 : t.live[qi];
-      const uint32_t inb = box_mask<FAST>(t.box + qi * t.nb, lv & 0xffff, rows) & valid;
-      if (!__any_sync(FULL_WARP, inb)) continue;
-      edge_epilogue(t, qi, inb & time_mask<FAST>(t.win + qi * t.nt, lv >> 16, rows),
-                    base + chunk0, rows, hits + q0 + qi, pos + (int64_t)(q0 + qi) * cap, cap);
-    }
-  }
-}
+};
 
 __global__ void __launch_bounds__(THREADS, 2)
 batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
@@ -212,14 +113,13 @@ batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restr
   stage_tile(boxes, times, q0, qt, t, meta);
   const int n_active = meta[0];
   const int64_t limit = valid_limit(n, base, true_n);
+  EdgeEpilogue ep{t, base, hits + q0, pos + (int64_t)q0 * cap, cap};
   if (n_active > 0) {
     note_path(g_path_blocks, meta[1]);
     if (meta[1])
-      cull_scan<true>(x, y, bins, offs, n, base, limit, t, n_active, buf, warp_ext, n_surv,
-                      q0, hits, pos, cap);
+      cull_scan<true>(x, y, bins, offs, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
     else
-      cull_scan<false>(x, y, bins, offs, n, base, limit, t, n_active, buf, warp_ext, n_surv,
-                       q0, hits, pos, cap);
+      cull_scan<false>(x, y, bins, offs, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
   }
   __syncthreads();
   for (int qi = threadIdx.x; qi < qt; qi += THREADS) {

@@ -1,5 +1,6 @@
 // chunk_cull.cuh: per-chunk query culling over rows staged through shared
-// memory, for batched_edge_gather.cu.
+// memory, the culled chunk scan (cull_scan), and the edge split and lane
+// append of the exact paths, for batched_edge_gather.cu and grouped_agg.cu.
 //
 // Resident rows are in z3 order: bin (one day) first, then the Morton key of
 // (x, y, offset). One chunk of CHUNK = 4096 consecutive rows therefore spans
@@ -161,6 +162,129 @@ __device__ __forceinline__ bool meets(const Tile& t, int qi, const Extent& e) {
     if (w.x <= e.khi && e.klo <= w.y) return true;
   }
   return false;
+}
+
+// Bit r: matched row r (bit r of m) lies on an edge bucket of a live box it
+// is inside, or at an endpoint of a live window: the rows where the
+// int-domain predicate and the f64 filter can differ (the reference's
+// _slot_point and _slot_time_edge, geomesa_tpu/parallel/query.py:309, :331).
+//
+// On the staged slots: a live box is (xlo, xhi - xlo, ylo, yhi - ylo); with
+// dx = (uint32)(x - xlo), x == xlo is dx == 0 and x == xhi is dx ==
+// (uint32)(xhi - xlo), because the wrapping subtract is a bijection of the
+// 32-bit words. A time endpoint is key == lo key or key == hi key of a live
+// window. Dead slots have no inside rows and no valid window, so live-slot
+// staging drops nothing the edges need.
+__device__ __forceinline__ uint32_t edge_mask(const Tile& t, int qi, uint32_t m,
+                                              const Rows& rows) {
+  const int lv = t.live[qi];
+  uint32_t e = 0;
+  const int4* box = t.box + qi * t.nb;
+  for (int k = 0; k < (lv & 0xffff); ++k) {
+    const int4 b = box[k];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const uint32_t dx = (uint32_t)rows.x[r] - (uint32_t)b.x;
+      const uint32_t dy = (uint32_t)rows.y[r] - (uint32_t)b.z;
+      if (dx <= (uint32_t)b.y && dy <= (uint32_t)b.w &&
+          (dx == 0 || dx == (uint32_t)b.y || dy == 0 || dy == (uint32_t)b.w))
+        e |= 1u << r;
+    }
+  }
+  const longlong2* win = t.win + qi * t.nt;
+  for (int k = 0; k < (lv >> 16); ++k) {
+    const longlong2 w = win[k];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (rows.key[r] == w.x || rows.key[r] == w.y) e |= 1u << r;
+    }
+  }
+  return e & m;
+}
+
+// Appends the warp's rows e (bit r of a lane's mask is chunk row
+// chunk_row(r)) to one query's lanes: an inclusive prefix sum of the lanes'
+// counts (five shuffles), then one lane adds the warp's total to the
+// query's cursor *hits with one atomicAdd, which keeps counting past the
+// capacity; each lane writes the global positions gchunk0 + chunk_row(r) of
+// its rows that fall below cap. All 32 lanes call it together.
+__device__ __forceinline__ void append_lanes(uint32_t e, int64_t gchunk0,
+                                             int32_t* __restrict__ hits,
+                                             int32_t* __restrict__ pos, int cap) {
+  const int lane = threadIdx.x & 31;
+  const unsigned ne = __popc(e);
+  unsigned incl = ne;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned v = __shfl_up_sync(FULL_WARP, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const unsigned total = __shfl_sync(FULL_WARP, incl, 31);
+  if (total == 0) return;  // warp-uniform
+  int start = 0;
+  if (lane == 31) start = atomicAdd(hits, (int)total);
+  int slot = __shfl_sync(FULL_WARP, start, 31) + (int)(incl - ne);
+  // the wrappers guarantee base + n < 2^31: positions are int32
+  const int32_t gpos0 = (int32_t)gchunk0;
+  while (e && slot < cap) {
+    const int r = __ffs(e) - 1;
+    e &= e - 1;
+    pos[slot++] = gpos0 + chunk_row(r);
+  }
+}
+
+// Walks the block's chunks grid-stride: prefetch, extent, survivors, tests.
+// For each surviving query whose live boxes hold a valid row of a warp, the
+// warp-uniform epilogue ep(qi, match mask, chunk0, rows) runs (all 32 lanes
+// together); bit r of the mask is chunk row chunk0 + chunk_row(r), held in
+// rows. buf is the ROW_BUF_BYTES prefetch buffer, warp_ext one Extent per
+// warp, n_surv two ints (zeroed before the first call), t.extra one int per
+// staged query (the survivor list).
+//
+// Two barriers per chunk, both reached by every thread: one after the warps'
+// extents are written (then the survivor list is built), one after the
+// survivor list is complete. The survivor count is double-buffered by chunk
+// parity and reset one chunk ahead, after the first barrier, when no thread
+// can still read it.
+template <bool FAST, typename Epilogue>
+__device__ __forceinline__ void cull_scan(const int32_t* __restrict__ x,
+                                          const int32_t* __restrict__ y,
+                                          const int32_t* __restrict__ bins,
+                                          const int32_t* __restrict__ offs, int64_t n,
+                                          int64_t limit, const Tile& t, int n_active, int4* buf,
+                                          Extent* warp_ext, int* n_surv, Epilogue& ep) {
+  const int64_t n_chunks = (n + CHUNK - 1) / CHUNK;
+  int* surv = t.extra;  // (q_tile): this chunk's surviving queries
+  int parity = 0;
+  if (blockIdx.x < n_chunks) prefetch_chunk(buf, x, y, bins, offs, n, blockIdx.x);
+  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x, parity ^= 1) {
+    const int64_t chunk0 = c * CHUNK;
+    Rows rows;
+    const uint32_t valid = take_chunk(buf, chunk0, limit, rows);
+    const Extent we = warp_extent(rows);
+    // the extent has consumed every value the thread read from its buffer
+    // slots, so the next chunk's copy into them starts now
+    if (c + gridDim.x < n_chunks) prefetch_chunk(buf, x, y, bins, offs, n, c + gridDim.x);
+    if ((threadIdx.x & 31) == 0) warp_ext[threadIdx.x >> 5] = we;
+    __syncthreads();  // the warps' extents are written
+    if (threadIdx.x == 0) n_surv[parity ^ 1] = 0;  // last read before this barrier
+    if (chunk0 < limit) {  // block-uniform: a chunk with no valid row keeps no query
+      const Extent e = block_extent(warp_ext);
+      for (int i = threadIdx.x; i < n_active; i += THREADS) {
+        const int qi = t.active[i];
+        if (meets(t, qi, e)) surv[atomicAdd(n_surv + parity, 1)] = qi;
+      }
+    }
+    __syncthreads();  // the survivor list is complete
+    const int ns = n_surv[parity];
+    for (int i = 0; i < ns; ++i) {
+      const int qi = surv[i];
+      const int lv = FAST ? 0 : t.live[qi];
+      const uint32_t inb = box_mask<FAST>(t.box + qi * t.nb, lv & 0xffff, rows) & valid;
+      if (!__any_sync(FULL_WARP, inb)) continue;
+      ep(qi, inb & time_mask<FAST>(t.win + qi * t.nt, lv >> 16, rows), chunk0, rows);
+    }
+  }
 }
 
 }  // namespace geomesa

@@ -5,7 +5,8 @@ Port copy of :mod:`geomesa_tpu.curve.sfc` (``Z2SFC``, ``Z3SFC``):
 builds hand to the ``z2_encode``/``z3_encode`` kernels; ``index(...)``
 encodes on the host with numpy and is kept as the referee the tests hold the
 kernels to; ``ranges(...)`` plans key ranges with
-:mod:`geomesa_tpu_torch.curve.zranges`.
+:func:`geomesa_tpu_torch.curve.zranges.zranges` (the native BFS), one call
+per box.
 """
 
 from __future__ import annotations
@@ -33,6 +34,14 @@ def split_antimeridian(bboxes):
         else:
             out.append((xmin, ymin, xmax, ymax))
     return out
+
+
+def _union(ranges: list[np.ndarray]) -> np.ndarray:
+    """The merged union of per-box z ranges: one box's sorted, merged
+    output as it is, else :func:`merge_ranges` of them all."""
+    if len(ranges) == 1:
+        return ranges[0]
+    return merge_ranges([(int(a), int(b)) for r in ranges for a, b in r])
 
 
 @dataclass(frozen=True)
@@ -66,9 +75,8 @@ class Z2SFC:
         for xmin, ymin, xmax, ymax in bboxes:
             lo = (int(self.lon.normalize(xmin)), int(self.lat.normalize(ymin)))
             hi = (int(self.lon.normalize(xmax)), int(self.lat.normalize(ymax)))
-            r = zranges(lo, hi, self.precision, budget)
-            out.extend((int(a), int(b)) for a, b in r)
-        return merge_ranges(out)
+            out.append(zranges(lo, hi, self.precision, budget))
+        return _union(out)
 
 
 @dataclass(frozen=True)
@@ -116,9 +124,8 @@ class Z3SFC:
         for xmin, ymin, xmax, ymax in bboxes:
             lo = (int(self.lon.normalize(xmin)), int(self.lat.normalize(ymin)), tlo)
             hi = (int(self.lon.normalize(xmax)), int(self.lat.normalize(ymax)), thi)
-            r = zranges(lo, hi, self.precision, budget)
-            out.extend((int(a), int(b)) for a, b in r)
-        return merge_ranges(out)
+            out.append(zranges(lo, hi, self.precision, budget))
+        return _union(out)
 
 
 @lru_cache(maxsize=None)

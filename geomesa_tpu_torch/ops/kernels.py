@@ -47,6 +47,17 @@ pairs, one 256-thread block per pair in a count pass and a write pass. Its
 source is ``csrc/planned_gather.cu``; its plain version
 (:func:`planned_gather_plain`) is the eager torch form it replaced.
 
+``grouped_agg`` replaces no TPU kernel either: the reference computes it in
+XLA (``geomesa_tpu/parallel/query.py:1498``, ``make_grouped_agg_step``,
+whose MXU bincount ``_onehot_bincount`` :1464 this card does with
+atomics). It is ``aggregate_many``'s fused GROUP BY: the edge gather's
+culled scan, whose boundary rows go to lanes for the host's exact re-test
+while every other matching row folds into its group (count, first row, and
+per value column count, sum, min and max) with global atomics. Its source is
+``csrc/grouped_agg.cu``; its note gives the bound (bytes, with 2 + 4 V
+atomics per folded row beside them); its plain version
+(:func:`grouped_agg_plain`) is torch ``index_add_`` / ``scatter_reduce_``.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -63,10 +74,10 @@ the flags, so an edit to a shared header rebuilds every kernel. Nothing is
 built at import.
 
 Dispatch: a CUDA tensor launches the kernel or raises (a build failure, a
-refused launch, a non-zero ``cudaGetLastError`` and, for the count kernels
-and the edge gather, a column or payload that does not start on a 16-byte
-boundary are all errors); the plain PyTorch version runs only for tensors
-on the CPU.
+refused launch, a non-zero ``cudaGetLastError`` and, for the kernels that
+load 16-byte vectors (all but the Morton encodes), a column or payload that
+does not start on a 16-byte boundary are all errors); the plain PyTorch
+version runs only for tensors on the CPU.
 ``launches`` counts kernel launches per kernel name, incremented only where
 a launch happens.
 """
@@ -97,7 +108,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
-            "planned_gather": 0, "z3_encode": 0, "z2_encode": 0}
+            "planned_gather": 0, "grouped_agg": 0, "z3_encode": 0, "z2_encode": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -120,6 +131,11 @@ _ENTRY_POINTS = {
     #  pair_hits, offsets or NULL, positions, stream)
     "geomesa_planned_gather": ("planned_gather", [_P] * 4 + [_LL, _LL, _P, _P, _LL, _P, _P,
                                                   _I, _I, _I, _P, _P, _P, _P]),
+    # (..., gid, rowid, vals, cnt, first, vcnt, vsum, vmin, vmax, hits, positions,
+    #  values, groups, capacity, stream)
+    "geomesa_grouped_agg": ("grouped_agg", _COUNT_ARGS + [_P] * 11 + [_I] * 3 + [_P]),
+    # (host out: 2 x int) → registers and local-memory bytes per thread
+    "geomesa_grouped_agg_attrs": ("grouped_agg", [_P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -247,9 +263,10 @@ def _check_count_args(x, y, bins, offs, boxes, times):
 
 def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *outs,
             ints: tuple = ()):
-    """Launch ``stem``'s kernel on the current stream of the columns' card,
-    writing into the preallocated ``outs`` (``ints`` follow them); raises on
-    a refused launch."""
+    """Launch ``stem``'s kernel on the current stream of the columns' card
+    with its further pointer arguments ``outs`` (any inputs past the
+    payloads, then its preallocated outputs) and ``ints`` after them;
+    raises on a refused launch."""
     q, nb, nt = boxes.shape[0], boxes.shape[1], times.shape[1]
     n = x.shape[0]
     if q == 0 or n == 0:
@@ -458,10 +475,15 @@ def batched_edge_gather(x, y, bins, offs, base: int, true_n: int, boxes, times,
     pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
     _launch("batched_edge_gather", x, y, bins, offs, base, true_n, boxes, times,
             counts, hits, pos, ints=(int(capacity),))
-    # the kernel appends in no order: sort each query's lanes, padding last
+    return counts, _sorted_lanes(pos)[:, None, :], hits[:, None]
+
+
+def _sorted_lanes(pos: torch.Tensor) -> torch.Tensor:
+    """(Q, capacity) lanes a kernel appended in no order, sorted per query
+    with the -1 padding last."""
     pos = torch.where(pos < 0, _I32_MAX, pos).sort(dim=1).values
     pos[pos == _I32_MAX] = -1
-    return counts, pos[:, None, :], hits[:, None]
+    return pos
 
 
 def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
@@ -524,6 +546,146 @@ def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times) ->
     limit = min(n, int(true_n) - int(base))
     alive = torch.arange(n_chunks, device=x.device) * JOIN_BLOCK < limit
     return box_meets & win_meets & alive[:, None]
+
+
+# ---------------------------------------------------------------------------
+# grouped_agg
+# ---------------------------------------------------------------------------
+
+_SIGN_FLIP = 0x7FFFFFFFFFFFFFFF
+
+
+def _order_keys(v: torch.Tensor) -> torch.Tensor:
+    """float64 → int64 keys whose signed order is the doubles' order (NaN
+    aside): the bits, with all but the sign flipped for a negative double.
+    Its own inverse on the bits (:func:`_from_order_keys`)."""
+    b = v.view(torch.int64)
+    return torch.where(b >= 0, b, b ^ _SIGN_FLIP)
+
+
+def _from_order_keys(k: torch.Tensor) -> torch.Tensor:
+    return torch.where(k >= 0, k, k ^ _SIGN_FLIP).view(torch.float64)
+
+
+def _check_agg_args(x, gid, rowid, vals, n_groups: int, capacity: int) -> None:
+    for name, t in (("gid", gid), ("rowid", rowid)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if t.shape != x.shape or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and match x in length and device")
+    if not isinstance(vals, torch.Tensor) or vals.dtype != torch.float64 or vals.dim() != 2:
+        raise TypeError("vals must be a (V, N) float64 tensor")
+    if vals.shape[1] != x.shape[0] or vals.device != x.device or not vals.is_contiguous():
+        raise ValueError("vals must be contiguous, (V, N) with N the columns' length, on "
+                         "their device")
+    if n_groups < 1 or capacity < 0:
+        raise ValueError(f"need n_groups >= 1 and capacity >= 0, got {n_groups}, {capacity}")
+
+
+def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxes, times,
+                n_groups: int, capacity: int = EDGE_CAPACITY):
+    """Q bbox+time GROUP BY queries over one column slice, one pass.
+
+    ``x, y, bins, offs`` and the payloads as :func:`batched_count`; ``gid``
+    (N,) int32 group ids in ``[0, n_groups)`` (a row outside folds nowhere);
+    ``rowid`` (N,) int32 each row's original row index; ``vals`` (V, N)
+    float64 value columns, NaN for nulls. Returns the reference's eight
+    outputs with one shard (``make_grouped_agg_step``,
+    ``geomesa_tpu/parallel/query.py:1508-1525``)::
+
+        cnt (Q, G) int32, first (Q, G) int32 (int32 max where empty),
+        vcnt (Q, V, G) int32, vsum, vmin, vmax (Q, V, G) float64
+        (+inf / -inf where empty), positions (Q, 1, capacity) int32,
+        hits (Q, 1) int32
+
+    over each query's fold rows: its matches (:func:`row_masks`) that are
+    not boundary rows, a boundary row being :func:`batched_edge_gather`'s
+    candidate (on an edge bucket of a live box it is inside, or at an
+    endpoint of a live window). The boundary rows' global positions take
+    the lanes as the edge gather's candidates do (the same lane contract:
+    every one in row order where ``hits <= capacity``).
+
+    On the card: the ``grouped_agg`` kernel, whose f64 sums are folded with
+    atomics in no fixed order; on the CPU: :func:`grouped_agg_plain`.
+    """
+    _check_count_args(x, y, bins, offs, boxes, times)
+    _check_agg_args(x, gid, rowid, vals, n_groups, capacity)
+    if int(base) + x.shape[0] > _I32_MAX:
+        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    if x.device.type == "cpu":
+        return grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base, true_n, boxes,
+                                 times, n_groups, capacity)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_agg runs on cuda or cpu, not {x.device}")
+    q, nv, g, dev = boxes.shape[0], vals.shape[0], int(n_groups), x.device
+    cnt = torch.zeros((q, g), dtype=torch.int32, device=dev)
+    first = torch.full((q, g), _I32_MAX, dtype=torch.int32, device=dev)
+    vcnt = torch.zeros((q, nv, g), dtype=torch.int32, device=dev)
+    vsum = torch.zeros((q, nv, g), dtype=torch.float64, device=dev)
+    inf = torch.tensor([float("inf")], dtype=torch.float64, device=dev)
+    vmin = _order_keys(inf).expand(q, nv, g).contiguous()
+    vmax = _order_keys(-inf).expand(q, nv, g).contiguous()
+    hits = torch.zeros(q, dtype=torch.int32, device=dev)
+    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
+    _launch("grouped_agg", x, y, bins, offs, base, true_n, boxes, times, gid, rowid, vals,
+            cnt, first, vcnt, vsum, vmin, vmax, hits, pos, ints=(nv, g, int(capacity)))
+    return (cnt, first, vcnt, vsum, _from_order_keys(vmin), _from_order_keys(vmax),
+            _sorted_lanes(pos)[:, None, :], hits[:, None])
+
+
+def grouped_agg_attrs() -> tuple[int, int]:
+    """The ``grouped_agg`` kernel's registers and local-memory (spill)
+    bytes per thread, as compiled for the card."""
+    out = (ctypes.c_int * 2)()
+    rc = _fn("geomesa_grouped_agg_attrs")(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"grouped_agg attributes: cudaError {rc}")
+    return int(out[0]), int(out[1])
+
+
+def grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxes,
+                      times, n_groups: int, capacity: int = EDGE_CAPACITY,
+                      chunk: int = 1 << 20):
+    """The plain PyTorch version of :func:`grouped_agg`: the reference's
+    ``one`` (``parallel/query.py:1611-1687``) with ``segment_sum`` /
+    ``segment_min`` / ``segment_max`` as ``index_add_`` /
+    ``scatter_reduce_`` over ``query * G + gid``, chunked over rows; the
+    boundary rows fill the lanes in row order by a running prefix sum, as in
+    :func:`batched_edge_gather_plain`."""
+    q, nv, g, dev = boxes.shape[0], vals.shape[0], int(n_groups), x.device
+    cnt = torch.zeros(q * g, dtype=torch.int64, device=dev)
+    first = torch.full((q * g,), _I32_MAX, dtype=torch.int64, device=dev)
+    vcnt = torch.zeros(q * nv * g, dtype=torch.int64, device=dev)
+    vsum = torch.zeros(q * nv * g, dtype=torch.float64, device=dev)
+    vmin = torch.full((q * nv * g,), float("inf"), dtype=torch.float64, device=dev)
+    vmax = torch.full((q * nv * g,), float("-inf"), dtype=torch.float64, device=dev)
+    hits = torch.zeros(q, dtype=torch.int64, device=dev)
+    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
+    for s, e, m, edge in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk,
+                                      edges=True):
+        slot = hits[:, None] + torch.cumsum(edge, dim=1) - 1
+        qi, ri = (edge & (slot < capacity)).nonzero(as_tuple=True)
+        pos[qi, slot[qi, ri]] = (int(base) + s + ri).to(torch.int32)
+        hits += edge.sum(dim=1)
+        qi, ri = (m & ~edge).nonzero(as_tuple=True)
+        grp = gid[s:e][ri].long()
+        keep = (grp >= 0) & (grp < g)
+        qi, ri, grp = qi[keep], ri[keep], grp[keep]
+        at = qi * g + grp
+        cnt.index_add_(0, at, torch.ones_like(at))
+        first.scatter_reduce_(0, at, rowid[s:e][ri].long(), "amin")
+        for k in range(nv):
+            val = vals[k, s:e][ri]
+            ok = ~torch.isnan(val)
+            atk = (qi[ok] * nv + k) * g + grp[ok]
+            val = val[ok]
+            vcnt.index_add_(0, atk, torch.ones_like(atk))
+            vsum.index_add_(0, atk, val)
+            vmin.scatter_reduce_(0, atk, val, "amin")
+            vmax.scatter_reduce_(0, atk, val, "amax")
+    return (cnt.view(q, g).to(torch.int32), first.view(q, g).to(torch.int32),
+            vcnt.view(q, nv, g).to(torch.int32), vsum.view(q, nv, g), vmin.view(q, nv, g),
+            vmax.view(q, nv, g), pos[:, None, :], hits.to(torch.int32)[:, None])
 
 
 # ---------------------------------------------------------------------------

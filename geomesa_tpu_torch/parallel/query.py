@@ -21,12 +21,16 @@ The module's steps:
   row retrieval over the planner's candidate blocks
   (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
   ``:820``), the ``select_many`` path: the ``planned_gather`` kernel.
+- :func:`grouped_agg_step` — the fused GROUP BY of ``aggregate_many``
+  (``make_grouped_agg_step`` ``:1498``, point mode): one ``grouped_agg``
+  launch.
 - :func:`matrix_scan_step` — the subscription matrix's fused scan
   (``make_matrix_scan_step`` ``:497``): one ``batched_count_hits`` launch,
   then the top-k of its lane scoreboard.
 
 The ``cached_*`` step factories (``cached_batched_edge_gather_step``
-``:441``, ``cached_matrix_scan_step`` ``:567``) have no counterparts: they
+``:441``, ``cached_matrix_scan_step`` ``:567``, ``cached_grouped_agg_step``
+``:1716``) have no counterparts: they
 memoize a compiled executable per shape, and eager PyTorch has no compile
 cache to key.
 """
@@ -36,7 +40,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.ops.kernels import LANES, batched_count_hits, planned_gather
+from geomesa_tpu_torch.ops.kernels import (
+    EDGE_CAPACITY, LANES, batched_count_hits, grouped_agg, planned_gather)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -101,6 +106,26 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
         raise ValueError(f"pair queries must lie in [0, {boxes.shape[0]})")
     pq, pb = (torch.from_numpy(a.astype(np.int32)).to(x.device) for a in (pair_q, pair_blk))
     return planned_gather(*cols, true_n, pq, pb, boxes, times)
+
+
+def grouped_agg_step(cols, gid, rowid, vals, true_n: int, boxes, times, n_groups: int,
+                     capacity: int = EDGE_CAPACITY):
+    """Q filtered GROUP BY queries over one shard's resident columns, one
+    fused pass: ``make_grouped_agg_step(mesh, n_groups, V, capacity)`` in
+    point mode with one shard (``base = 0``, ``D = 1``), without TTL
+    (the port has none) and without the overlap mode (no XZ layout yet).
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns; ``gid`` (N,)
+    int32 group ids in ``[0, n_groups)``, ``rowid`` (N,) int32 original row
+    indexes (int32 max on padding) and ``vals`` (V, N) float64 (NaN for
+    nulls), all in the columns' sorted order; ``n_groups`` the padded group
+    count (``1 << ceil(log2 G)``, as ``aggregate_many`` passes it). Returns
+    ``(cnt, first, vcnt, vsum, vmin, vmax, positions, hits)`` as
+    :func:`~geomesa_tpu_torch.ops.kernels.grouped_agg` does: the folds over
+    every matching row but the boundary rows, whose positions take the
+    ``capacity`` lanes (``hits > capacity``: truncated, the caller declines
+    that query). The kernel on the card, its plain version on the CPU."""
+    return grouped_agg(*cols, gid, rowid, vals, 0, true_n, boxes, times, n_groups, capacity)
 
 
 def matrix_scan_step(x, y, bins, offs, true_n: int, boxes, times, topk: int):

@@ -25,7 +25,7 @@ a missing residency or a device error raises.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -65,13 +65,17 @@ class OracleBackend:
 @dataclass
 class IndexState:
     """One index's resident columns, sorted in index order. Rows past ``n``
-    are padding; ``rows_per_shard`` is the padded length (one shard)."""
+    are padding; ``rows_per_shard`` is the padded length (one shard).
+    ``agg_cache`` holds ``aggregate_many``'s staged group ids, row ids and
+    value columns in the same order, so a rebuild, which makes a new state,
+    drops them."""
 
     cols: dict[str, torch.Tensor]
     rows_per_shard: int
     n: int
     h2d_bytes: int = 0  # bytes staged host -> device by the load
     h2d_s: float = 0.0  # seconds the staging took (synchronized)
+    agg_cache: dict = field(default_factory=dict)
 
     def spatial_cols(self) -> tuple:
         c = self.cols
@@ -198,27 +202,48 @@ class DeviceBackend:
         return idx[refine_points(*dev.spatial_cols(), idx, count, boxes, times)].cpu().numpy()
 
     def select_many_positions(self, dev: IndexState, index, extractions,
-                              intervals_list) -> list[np.ndarray]:
+                              intervals_list, timings: dict | None = None) -> list[np.ndarray]:
         """Matching sorted-order positions for many queries on one index
         state (``backends.py:575``): each query's intervals become
         ``JOIN_BLOCK``-row (query, block) pairs, and one
         :func:`planned_gather_step` serves them all. Returns one int64 array
         per query, sorted. :func:`planned_gather_step` raises on a residency
-        that is not block-aligned."""
+        that is not block-aligned. ``timings``, when given, gains host-clock
+        ms: ``pairs_ms`` (the pair lists and the payloads' upload) and
+        ``gather_ms`` (the step, its device-to-host copies and the split)."""
+        t0 = time.perf_counter()
         nq = len(intervals_list)
         pair_q, pair_blk = intervals_to_block_pairs(intervals_list, JOIN_BLOCK)
         payloads = [self.payload(index.sft, e) for e in extractions]
         boxes = torch.from_numpy(np.stack([p[0] for p in payloads])).to(self.device)
         times = torch.from_numpy(np.stack([p[1] for p in payloads])).to(self.device)
+        t1 = time.perf_counter()
         positions, pair_hits = planned_gather_step(
             dev.spatial_cols(), dev.n, pair_q, pair_blk, boxes, times)
         # pairs come grouped by query in order: split the buffer per query
         per_query = np.bincount(pair_q, weights=pair_hits.cpu().numpy(), minlength=nq)
-        return np.split(positions.cpu().numpy(), np.cumsum(per_query.astype(np.int64))[:-1])
+        out = np.split(positions.cpu().numpy(), np.cumsum(per_query.astype(np.int64))[:-1])
+        if timings is not None:
+            timings["pairs_ms"] = timings.get("pairs_ms", 0.0) + (t1 - t0) * 1e3
+            timings["gather_ms"] = (timings.get("gather_ms", 0.0)
+                                    + (time.perf_counter() - t1) * 1e3)
+        return out
 
-    def select(self, state, index, plan: IndexPlan, extraction, residual, table):
-        if len(plan.intervals) == 0:
-            return np.empty(0, dtype=np.int64)
-        positions = self.select_positions(state[index.name], index.sft, extraction,
-                                          plan.intervals)
-        return residual_rows(index, positions, residual, table)
+    def select(self, state, index, plan: IndexPlan, extraction, residual, table,
+               timings: dict | None = None):
+        """Table rows of the plan's candidates that pass the device refine
+        and the exact host ``residual``. ``timings``, when given, gains
+        host-clock ms: ``select_ms`` (the refine, its uploads and its
+        device-to-host copy) and ``residual_ms``."""
+        t0 = time.perf_counter()
+        rows = positions = np.empty(0, dtype=np.int64)
+        if len(plan.intervals):
+            positions = self.select_positions(state[index.name], index.sft, extraction,
+                                              plan.intervals)
+        t1 = time.perf_counter()
+        if len(positions):
+            rows = residual_rows(index, positions, residual, table)
+        if timings is not None:
+            timings["select_ms"] = (t1 - t0) * 1e3
+            timings["residual_ms"] = (time.perf_counter() - t1) * 1e3
+        return rows

@@ -17,6 +17,8 @@ deliberate:
 - ``select_many`` leaves out what the port does not carry yet: query
   interceptors, TTL age-off, the audit trail, query hints, the delta tier
   and ``reduce_result``.
+- ``aggregate_many`` is the reference's fused path (its pyramid and query
+  cache off): see its docstring for what it leaves out.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import extract
 from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, batched_count, batched_edge_gather
 from geomesa_tpu_torch.ops.refine import MAX_BOXES, MAX_TIMES
+from geomesa_tpu_torch.parallel.query import grouped_agg_step
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indices
-from geomesa_tpu_torch.schema.columnar import FeatureTable
+from geomesa_tpu_torch.schema.columnar import FeatureTable, GeometryColumn
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
 from geomesa_tpu_torch.store.backends import DeviceBackend, OracleBackend, residual_rows
 
@@ -54,14 +57,49 @@ def _pure_bbox_time(f: ast.Filter, sft: FeatureType) -> bool:
     return False
 
 
+def _factorize(vals: np.ndarray):
+    """``np.unique(vals, return_inverse=True)`` as (sorted unique values,
+    int64 inverse). An integer column whose values span at most four times
+    its length takes a bincount instead of a sort, with the same output."""
+    if isinstance(vals, np.ndarray) and vals.dtype.kind in "iu" and len(vals):
+        lo, hi = int(vals.min()), int(vals.max())
+        if hi - lo < 4 * len(vals):
+            shifted = vals.astype(np.int64) - lo
+            present = np.bincount(shifted, minlength=hi - lo + 1) > 0
+            uniq = (np.flatnonzero(present) + lo).astype(vals.dtype)
+            return uniq, (np.cumsum(present) - 1)[shifted]
+    uniq, inv = np.unique(vals, return_inverse=True)
+    return uniq, inv.astype(np.int64).reshape(-1)
+
+
+def _first_rows(codes: np.ndarray, k: int, chunk: int = 1 << 16) -> np.ndarray:
+    """The first row holding each of the ``k`` dense codes (every one
+    occurs), as ``np.unique(..., return_index=True)`` gives it: the rows
+    are scanned a chunk at a time until every code has been seen."""
+    first = np.full(k, -1, dtype=np.int64)
+    missing = k
+    for s in range(0, len(codes), chunk):
+        u, idx = np.unique(codes[s:s + chunk], return_index=True)
+        new = first[u] < 0
+        first[u[new]] = s + idx[new]
+        missing -= int(new.sum())
+        if missing == 0:
+            break
+    return first
+
+
 @dataclass
 class QueryResult:
-    """Matching features (``table``), their row ids in the main tier, and
-    the plan that found them."""
+    """Matching features (``table``), their row ids in the main tier, the
+    plan that found them and, from :meth:`DataStore.query`, the host-clock
+    ms of its steps: ``plan_ms``, ``select_ms`` (device refine and copies),
+    ``residual_ms`` and ``take_ms`` (sort and gather of the rows; the
+    Oracle backend's query gives ``take_ms`` alone)."""
 
     table: FeatureTable
     row_ids: np.ndarray
     plan_info: Any = None
+    timings: dict | None = None
 
     @property
     def count(self) -> int:
@@ -96,6 +134,11 @@ class DataStore:
         self._types: dict[str, _TypeState] = {}
         # queries count_many answered through query(), the exact per-query path
         self.exact_fallbacks = 0
+        # host-clock ms of the last select_many: plan_ms (every query's
+        # plan), pairs_ms and gather_ms (summed over its index groups, see
+        # DeviceBackend.select_many_positions) and tail_ms (residual, sort
+        # and take of every query's rows)
+        self.last_select_many: dict = {}
 
     # -- schema ---------------------------------------------------------------
     def create_schema(self, sft: FeatureType | str, spec: str | None = None) -> FeatureType:
@@ -196,15 +239,21 @@ class DataStore:
                                np.empty(0, dtype=np.int64))
         f = q.resolved_filter()
         info = None
+        timings: dict = {}
         if isinstance(self.backend, OracleBackend):
             rows = self.backend.select(None, None, None, None, f, main)
         else:
             plan, f, info = QueryPlanner(st.sft, st.indices).plan(q)
+            timings["plan_ms"] = info.plan_ms
             rows = self.backend.select(
-                st.backend_state, st.indices[info.scan_index], plan, info.extraction, f, main
+                st.backend_state, st.indices[info.scan_index], plan, info.extraction, f, main,
+                timings=timings,
             )
+        t0 = time.perf_counter()
         rows = np.sort(rows)
-        return QueryResult(main.take(rows), rows, info)
+        table = main.take(rows)
+        timings["take_ms"] = (time.perf_counter() - t0) * 1e3
+        return QueryResult(table, rows, info, timings)
 
     def _batch_payloads(self, st: _TypeState, qs) -> list:
         """The queries a batched count can take (``datastore.py:1707``):
@@ -303,8 +352,10 @@ class DataStore:
         main = st.table
         if main is None or isinstance(self.backend, OracleBackend):
             return [self.query(type_name, q) for q in qs]
+        t0 = time.perf_counter()
         planner = QueryPlanner(st.sft, st.indices)
         planned = [planner.plan(q) for q in qs]  # (plan, residual, info)
+        split = {"plan_ms": (time.perf_counter() - t0) * 1e3, "tail_ms": 0.0}
         groups: dict[str, list[int]] = {}
         for i, (_, _, info) in enumerate(planned):
             groups.setdefault(info.scan_index, []).append(i)
@@ -314,9 +365,249 @@ class DataStore:
             pos_lists = self.backend.select_many_positions(
                 st.backend_state[name], index,
                 [planned[i][2].extraction for i in idxs],
-                [planned[i][0].intervals for i in idxs])
+                [planned[i][0].intervals for i in idxs], timings=split)
+            t0 = time.perf_counter()
             for i, positions in zip(idxs, pos_lists):
                 _, f, info = planned[i]
                 rows = np.sort(residual_rows(index, positions, f, main))
                 results[i] = QueryResult(main.take(rows), rows, info)
+            split["tail_ms"] += (time.perf_counter() - t0) * 1e3
+        self.last_select_many = split
         return results
+
+    # -- grouped aggregation (GROUP BY in one device pass) -------------------
+
+    _AGG_MAX_GROUPS = 65536  # beyond this the host fold is the better engine
+
+    def aggregate_many(self, type_name: str, queries, group_by=None, value_cols=()) -> list:
+        """Batched grouped aggregation in ONE device pass: per query,
+        COUNT(*) plus per value column count/sum/min/max for every GROUP BY
+        key (``datastore.py:2500``, ``_aggregate_many_impl`` :2528, its
+        fused section :2672-2794).
+
+        Returns one entry per query: ``None`` when the query cannot ride
+        the device path, for the reference's own reasons (a filter beyond
+        a bbox+time conjunction on the default fields, a widened payload, a
+        column that is missing, truncated boundary lanes (``hits >
+        capacity``), NaN or geometry GROUP BY keys, non-numeric value
+        columns, more than ``_AGG_MAX_GROUPS`` groups, an empty store or
+        the Oracle backend), else ``{"groups": [key tuples], "count": (G,)
+        int64, "cols": {col: {"count": (G,) int64, "sum"/"min"/"max": (G,)
+        f64 (NaN = empty)}}}`` with groups ordered by their first matching
+        row and only groups with a matching row (``group_by=None``: one
+        group, ``()``). A provably disjoint filter gives the empty result.
+
+        Exactness: the ``grouped_agg`` kernel folds every matching row but
+        the boundary rows (in an edge bucket of a box or at a quantized
+        window endpoint, the only rows where the int-domain predicate and
+        the f64 filter can differ); the host re-tests those against the
+        full filter and ADDS the ones that pass. Sums ride f64, folded with
+        atomics in no fixed order on the card.
+
+        Left out, as the port carries none of them yet: query interceptors,
+        the audit hook, the GeoBlocks pyramid and its query cache (the
+        reference's route when ``GEOMESA_TPU_PYRAMID`` is on and the cost
+        table says so), TTL age-off, the delta tier and the XZ overlap
+        mode. A device error propagates."""
+        st = self._state(type_name)
+        qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
+        out: list = [None] * len(qs)
+        group_by = list(group_by) if group_by else None
+        value_cols = list(value_cols)
+        main = st.table
+        if main is None or len(main) == 0 or not isinstance(self.backend, DeviceBackend):
+            return out
+        if any(c not in main.columns for c in (group_by or []) + value_cols):
+            return out
+        dev, name = DeviceBackend.point_state(st.backend_state)
+        perm = st.indices[name].perm
+        try:
+            (dev_gid, gid_orig, keys), dev_rowid, dev_vals, host_vals = self._agg_residency(
+                dev, main, perm, group_by, value_cols)
+        except (TypeError, ValueError):
+            return out
+        pending = self._batch_payloads(st, qs)
+        live = [(i, p) for i, p, ok in pending if p is not None and ok]
+        for i, p, _ in pending:
+            if p is None:  # provably disjoint: zero rows, no groups
+                out[i] = self._assemble_agg_empty(value_cols)
+        if not live:
+            return out
+        n_groups = len(keys)
+        g_pad = 1 << max(0, (n_groups - 1).bit_length())
+        cap = EDGE_CAPACITY  # boundary lanes a query, as the reference's (datastore.py:2713)
+        boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
+        times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
+        res = grouped_agg_step(dev.spatial_cols(), dev_gid, dev_rowid, dev_vals, dev.n,
+                               boxes, times, g_pad, cap)
+        cnt, first, vcnt, vsum, vmin, vmax, epos, ehits = (t.cpu().numpy() for t in res)
+        for k, (i, _) in enumerate(live):
+            h = int(ehits[k, 0])
+            if h > cap:
+                continue  # truncated boundary lanes: the caller's host fold
+            cand = epos[k, 0, :h].astype(np.int64)
+            out[i] = self._assemble_agg(
+                qs[i], main, keys, value_cols,
+                cnt[k, :n_groups].astype(np.int64), first[k, :n_groups].astype(np.int64),
+                vcnt[k, :, :n_groups].astype(np.int64), vsum[k, :, :n_groups].copy(),
+                vmin[k, :, :n_groups].copy(), vmax[k, :, :n_groups].copy(),
+                perm[cand], gid_orig, host_vals, group_by)
+        return out
+
+    def _agg_group_ids(self, main: FeatureTable, group_by):
+        """Factorize the GROUP BY key columns over ``main`` (``datastore.py
+        :2115-2190``) → (int32 group id per row, group keys as tuples in
+        first-occurrence row order); the reference's output, with its two
+        sorts over the rows replaced where :func:`_factorize` and
+        :func:`_first_rows` can. NaN keys raise ``ValueError`` (the
+        host fold keeps every NaN its own group, ``np.unique`` would merge
+        them); geometry keys raise ``TypeError``; a key space beyond 2^62
+        raises ``ValueError``."""
+        n = len(main)
+        if not group_by:
+            return np.zeros(n, dtype=np.int32), [()]
+        ids: list[np.ndarray] = []
+        vocabs: list[list] = []
+        for g in group_by:
+            col = main.columns[g]
+            if isinstance(col, GeometryColumn):
+                raise TypeError("geometry GROUP BY keys take the host fold")
+            vals = col.values
+            if isinstance(vals, np.ndarray) and vals.dtype.kind == "f" and np.isnan(vals).any():
+                raise ValueError("NaN GROUP BY keys take the host fold")
+            try:
+                uniq, inv = _factorize(vals)
+                vocabs.append(list(uniq))
+                ids.append(inv)
+            except TypeError:
+                # object column with None or mixed values: dict factorize
+                seen: dict = {}
+                inv = np.empty(n, dtype=np.int64)
+                vocab: list = []
+                for i, v in enumerate(vals):
+                    j = seen.get(v)
+                    if j is None:
+                        j = seen[v] = len(vocab)
+                        vocab.append(v)
+                    inv[i] = j
+                vocabs.append(vocab)
+                ids.append(inv)
+        code = ids[0]
+        for k in range(1, len(ids)):
+            base = len(vocabs[k]) + 1
+            if int(code.max(initial=0)) > (2**62) // base:
+                raise ValueError("group key space overflows the device path")
+            code = code * base + ids[k]
+        uniq_codes, inv = _factorize(code)
+        order = np.argsort(_first_rows(inv, len(uniq_codes)), kind="stable")
+        rank = np.empty(len(order), dtype=np.int64)
+        rank[order] = np.arange(len(order))
+        gid = rank[inv].astype(np.int32)
+        keys = []
+        for ci in uniq_codes[order]:
+            c = int(ci)
+            parts = []
+            for k in range(len(ids) - 1, 0, -1):
+                base = len(vocabs[k]) + 1
+                parts.append(vocabs[k][c % base])
+                c //= base
+            parts.append(vocabs[0][c])
+            keys.append(tuple(reversed(parts)))
+        return gid, keys
+
+    def _agg_residency(self, dev, main: FeatureTable, perm, group_by, value_cols):
+        """Stage (or fetch from ``dev.agg_cache``) the group-id column, the
+        row-id column and the (V, N) float64 value matrix on the store's
+        device, in ``dev``'s sorted order and padding (``datastore.py
+        :2192``): ``gid`` int32 (0 on padding), ``rowid`` the permutation as
+        int32 (int32 max on padding), each value column float64 with NaN for
+        nulls (0 on padding). Returns ``((gid, gid in table order, keys),
+        rowid, vals, [host values (n,) in table order per value column])``:
+        a call copies nothing on the host, where the reference stacks the
+        host columns anew (400 MB a call at 50M rows). Raises
+        ``ValueError`` for more than ``_AGG_MAX_GROUPS`` groups and for NaN
+        keys, ``TypeError`` (or ``ValueError``) for a column the f64 fold
+        cannot carry: the caller declines every query."""
+        padded, n = dev.rows_per_shard, len(main)
+
+        def stage(host: np.ndarray, pad_value) -> torch.Tensor:
+            out = np.full(padded, pad_value, dtype=host.dtype)
+            out[:n] = host
+            return torch.from_numpy(out).to(self.device)
+
+        gkey = ("gid", tuple(group_by or ()))
+        cached = dev.agg_cache.get(gkey)
+        if cached is None:
+            gid_orig, keys = self._agg_group_ids(main, group_by)
+            if len(keys) > self._AGG_MAX_GROUPS:
+                raise ValueError("group cardinality beyond the device path")
+            cached = dev.agg_cache[gkey] = (stage(gid_orig[perm], 0), gid_orig, keys)
+        rowid = dev.agg_cache.get(("rowid",))
+        if rowid is None:
+            rowid = dev.agg_cache[("rowid",)] = stage(
+                np.asarray(perm, dtype=np.int32), np.iinfo(np.int32).max)
+        per_dev, per_host = [], []
+        for c in value_cols:
+            got = dev.agg_cache.get(("val", c))
+            if got is None:
+                col = main.columns[c]
+                if isinstance(col, GeometryColumn):
+                    raise TypeError(f"value column {c!r} is a geometry")
+                v = np.asarray(col.values, dtype=np.float64).copy()
+                if col.valid is not None:
+                    v[~col.valid] = np.nan
+                got = dev.agg_cache[("val", c)] = (stage(v[perm], 0.0), v)
+            per_dev.append(got[0])
+            per_host.append(got[1])
+        if per_dev:
+            dv = torch.stack(per_dev)
+        else:
+            dv = torch.zeros((0, padded), dtype=torch.float64, device=self.device)
+        return cached, rowid, dv, per_host
+
+    @staticmethod
+    def _assemble_agg_empty(value_cols):
+        """A query with no matching row: no groups (``datastore.py:2796``)."""
+        z64 = np.zeros(0, dtype=np.int64)
+        zf = np.zeros(0, dtype=np.float64)
+        return {"groups": [], "count": z64,
+                "cols": {c: {"count": z64, "sum": zf, "min": zf, "max": zf}
+                         for c in value_cols}}
+
+    @staticmethod
+    def _assemble_agg(q, main, keys, value_cols, cnt, first, vcnt, vsum, vmin, vmax,
+                      cand_rows, gid_orig, host_vals, group_by):
+        """Fold the boundary rows that pass the full f64 filter into the
+        device partials (added, never subtracted, so min and max stay
+        sound), then order the groups by their first matching row and keep
+        those with a row (``datastore.py:2808``, without the delta tier and
+        TTL)."""
+        f = q.resolved_filter()
+        if len(cand_rows):
+            rows = cand_rows[ast.residual_mask(f, main, cand_rows)]
+            for r in rows:
+                g = int(gid_orig[r])
+                cnt[g] += 1
+                first[g] = min(first[g], int(r))
+                for v in range(len(value_cols)):
+                    x = host_vals[v][r]
+                    if not np.isnan(x):
+                        vcnt[v][g] += 1
+                        vsum[v][g] += x
+                        vmin[v][g] = min(vmin[v][g], x)
+                        vmax[v][g] = max(vmax[v][g], x)
+        if group_by:
+            alive = np.nonzero(cnt > 0)[0]
+            alive = alive[np.argsort(first[alive], kind="stable")]
+        else:
+            alive = np.arange(len(cnt))
+        cols = {}
+        for v, c in enumerate(value_cols):
+            mn = vmin[v][alive].astype(np.float64)
+            mx = vmax[v][alive].astype(np.float64)
+            empty = vcnt[v][alive] == 0
+            mn[empty] = np.nan
+            mx[empty] = np.nan
+            cols[c] = {"count": vcnt[v][alive], "sum": vsum[v][alive].astype(np.float64),
+                       "min": mn, "max": mx}
+        return {"groups": [keys[int(i)] for i in alive], "count": cnt[alive], "cols": cols}

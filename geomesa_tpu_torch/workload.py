@@ -1,9 +1,10 @@
 """GDELT-shaped synthetic events and city-box queries (bench config 2's
-data), and bench config 8's streamed chunks.
+data), bench config 9's group keys and values, and bench config 8's
+streamed chunks.
 
 Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``,
-``_pack_query_boxes`` and config 8's ``host_chunk`` (tests hold them
-equal), plus :func:`bbox_cql` and :func:`bbox_time_cql`, which write one
+``_pack_query_boxes``, config 9's group ids and values and config 8's
+``host_chunk`` (tests hold them equal), plus :func:`bbox_cql` and :func:`bbox_time_cql`, which write one
 query as the CQL a user would send, and :func:`edge_columns` /
 :func:`edge_payload`, the rows and payloads that hold the count kernels'
 staged predicate to their plain versions at its edges.
@@ -83,6 +84,20 @@ def bbox_time_cql(box, window, geom: str = "geom", dtg: str = "dtg") -> str:
     """``BBOX(geom, x1, y1, x2, y2) AND dtg DURING lo/hi`` for one query."""
     lo, hi = window
     return f"{bbox_cql(box, geom)} AND {dtg} DURING {iso_millis(lo)}/{iso_millis(hi)}"
+
+
+# bench config 9's store (bench.py:1588): GDELT-shaped points with a group
+# key and a value; the default z3 interval (week)
+AGG_SPEC = "cat:Integer,val:Double,dtg:Date,*geom:Point"
+
+
+def grouped_columns(n: int, n_groups: int = 1024, seed: int = 17):
+    """Bench config 9's group ids and values (``bench.py:1610-1619``): from
+    one generator, ``gid`` (n,) int32 uniform in ``[0, n_groups)``, then
+    ``vals`` (n,) f64 normal(50, 20)."""
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(0, n_groups, n).astype(np.int32)
+    return gid, rng.normal(50.0, 20.0, n)
 
 
 STREAM_MAX_OFF = 86_400_000 - 1  # PERIOD=DAY offsets; one chunk = one time bin

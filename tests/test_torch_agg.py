@@ -1,0 +1,396 @@
+"""Grouped aggregation: the port's ``grouped_agg`` (its plain version on the
+CPU) against geomesa_tpu's ``make_grouped_agg_step`` on a one-device mesh,
+and the port's ``DataStore.aggregate_many`` against the reference
+``DataStore(backend="tpu").aggregate_many`` on its fused path (pyramid off,
+``GEOMESA_TPU_PYRAMID=0``) with one shard, on the same seeded tables.
+
+- the step: V = 0, 1 and 2 value columns, NaN values, empty groups, a group
+  that only boundary rows hold, and lanes that overflow, on GDELT-shaped
+  rows in z3 order, grid rows and the count kernels' edge rows;
+- the store: group order, every field, which lanes are ``None`` (a filter
+  beyond bbox+time, truncated lanes, NaN keys, a string value column, a
+  missing column), GROUP BY on two keys, ``group_by=None``, a disjoint
+  filter, queries snapped onto rows so that the host re-test adds rows;
+- on the card (``cuda`` marker): the kernel against its plain version.
+
+Tolerance: counts, first rows, value counts, min, max, positions and group
+keys compare exactly; f64 sums within a relative 1e-12, because the device
+folds them in another order (segment sums, ``index_add_``, atomics).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import geomesa_tpu  # noqa: F401  (x64 on)
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec
+from geomesa_tpu.parallel.mesh import DATA_AXIS, make_mesh, shard_columns
+from geomesa_tpu.parallel.query import make_grouped_agg_step
+from geomesa_tpu.schema import columnar as ref_columnar
+from geomesa_tpu.schema.sft import parse_spec as ref_parse_spec
+from geomesa_tpu.store.backends import TpuBackend
+from geomesa_tpu.store.datastore import DataStore as RefDataStore
+
+from geomesa_tpu_torch.ops import kernels
+from geomesa_tpu_torch.ops.kernels import grouped_agg, grouped_agg_plain
+from geomesa_tpu_torch.parallel.query import grouped_agg_step
+from geomesa_tpu_torch.schema import columnar
+from geomesa_tpu_torch.store.datastore import DataStore
+from geomesa_tpu_torch.workload import (
+    bbox_time_cql, edge_columns, edge_payload, grid_columns, grid_payload, grouped_columns,
+    make_queries, synth_gdelt)
+
+from test_torch_kernels import _city_payload, _store_columns
+
+RTOL = 1e-12
+N, Q, CAP, GROUPS = 40_000, 7, 512, 50
+G_PAD = 64  # 1 << ceil(log2 GROUPS): groups 50..63 stay empty
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+_STEPS: dict = {}
+
+
+def _ref_step(cols, gid, rowid, vals, true_n, boxes, times):
+    """``make_grouped_agg_step`` on a one-device mesh (one shard, as the
+    port's one card), its columns padded to 4096 rows as the store pads."""
+    mesh = make_mesh(1)
+    key = (vals.shape[0], boxes.shape, times.shape)
+    step = _STEPS.get(key)
+    if step is None:
+        step = _STEPS[key] = make_grouped_agg_step(mesh, G_PAD, vals.shape[0], CAP,
+                                                   impl="segment")
+    sharded, padded, _ = shard_columns(
+        mesh, {**dict(zip(("x", "y", "bins", "offs"), cols)), "gid": gid}, multiple=4096)
+    rid, _, _ = shard_columns(mesh, {"rowid": rowid}, multiple=4096,
+                              pad_value=np.iinfo(np.int32).max)
+    pv = np.zeros((vals.shape[0], padded))
+    pv[:, : vals.shape[1]] = vals
+    dv = jax.device_put(pv, NamedSharding(mesh, PartitionSpec(None, DATA_AXIS)))
+    out = step(sharded["x"], sharded["y"], sharded["bins"], sharded["offs"], sharded["gid"],
+               rid["rowid"], dv, jnp.int32(true_n), jnp.asarray(boxes), jnp.asarray(times))
+    return [np.asarray(o) for o in out], padded
+
+
+def _inputs(maker, n_vals, seed):
+    """Host rows, payloads, group ids, row ids and values for one maker:
+    group ids in [0, GROUPS - 1) but for the boundary rows of the query
+    that has the most of them, which alone hold group GROUPS - 1; about a
+    tenth of the values NaN."""
+    if maker == "gdelt":
+        cols, ds, sft = _store_columns(seed)
+        boxes, times = _city_payload(ds, sft, seed)
+    elif maker == "grid":
+        cols = grid_columns(N, seed=seed)
+        boxes, times = grid_payload(cols, Q, 8, 16, seed=seed + 1)
+    else:
+        cols = edge_columns(N, seed=seed)
+        boxes, times = edge_payload(cols, Q, 8, 16, seed=seed + 1, single=False)
+    rng = np.random.default_rng(seed + 7)
+    gid = rng.integers(0, GROUPS - 1, N).astype(np.int32)
+    _, _, _, edge = next(kernels._plain_masks(*(_t(c) for c in cols), 0, N - 300, _t(boxes),
+                                              _t(times), N, edges=True))
+    gid[edge[int(edge.sum(dim=1).argmax())].numpy()] = GROUPS - 1
+    rowid = rng.permutation(N).astype(np.int32)
+    vals = rng.normal(50.0, 20.0, (n_vals, N))
+    vals[rng.random((n_vals, N)) < 0.1] = np.nan
+    return cols, boxes, times, gid, rowid, vals
+
+
+def _assert_step_equal(got, want, fits=None):
+    """The eight outputs, exact but for the sums; lanes only where
+    ``fits`` (all of them when None)."""
+    names = ("cnt", "first", "vcnt", "vsum", "vmin", "vmax", "positions", "hits")
+    for name, g, w in zip(names, got, want):
+        g = g.cpu().numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if name == "vsum":
+            assert np.allclose(g, w, rtol=RTOL, atol=0), name
+        elif name == "positions" and fits is not None:
+            assert np.array_equal(g[fits], w[fits]), name
+        else:
+            assert np.array_equal(g, w), name
+
+
+@pytest.mark.parametrize("n_vals", [0, 1, 2])
+@pytest.mark.parametrize("maker", ["gdelt", "grid", "edge"])
+def test_plain_equals_jax_step(maker, n_vals):
+    cols, boxes, times, gid, rowid, vals = _inputs(maker, n_vals, seed=11 + n_vals)
+    true_n = N - 300
+    want, padded = _ref_step(cols, gid, rowid, vals, true_n, boxes, times)
+
+    def pad(a, value):
+        out = np.full(a.shape[:-1] + (padded,), value, dtype=a.dtype)
+        out[..., : a.shape[-1]] = a
+        return _t(out)
+
+    tc = [pad(c, 0) for c in cols]
+    args = (pad(gid, 0), pad(rowid, np.iinfo(np.int32).max), pad(vals, 0.0))
+    got = grouped_agg_plain(*tc, *args, 0, true_n, _t(boxes), _t(times), G_PAD, CAP,
+                            chunk=4096 * 3)
+    _assert_step_equal(got, want)  # the plain lanes keep the first CAP in row order too
+    _assert_step_equal(grouped_agg_step(tc, *args, true_n, _t(boxes), _t(times), G_PAD, CAP),
+                       want)
+    cnt, first, vcnt = want[0], want[1], want[2]
+    assert (cnt[:, GROUPS:] == 0).all() and (first[:, GROUPS:] == 2**31 - 1).all()
+    assert cnt.sum() > 0
+    if maker != "gdelt":  # city boxes at this size hold no row in an edge bucket
+        qb = int(want[7][:, 0].argmax())
+        assert want[7][qb, 0] > 0 and cnt[qb, GROUPS - 1] == 0  # boundary rows only
+    if n_vals:
+        assert (vcnt <= cnt[:, None, :]).all() and (vcnt < cnt[:, None, :]).any()  # NaNs
+    if maker == "grid":
+        assert (want[7][:, 0] > CAP).any() and (want[7][:, 0] <= CAP).any()
+
+
+def test_wrapper_rejects_bad_inputs():
+    cols = [torch.zeros(4096, dtype=torch.int32) for _ in range(4)]
+    boxes = torch.zeros((2, 1, 4), dtype=torch.int32)
+    times = torch.zeros((2, 1, 4), dtype=torch.int32)
+    gid = torch.zeros(4096, dtype=torch.int32)
+    vals = torch.zeros((1, 4096), dtype=torch.float64)
+    with pytest.raises(TypeError):
+        grouped_agg(*cols, gid.long(), gid, vals, 0, 4096, boxes, times, 4)
+    with pytest.raises(TypeError):
+        grouped_agg(*cols, gid, gid, vals.float(), 0, 4096, boxes, times, 4)
+    with pytest.raises(ValueError):
+        grouped_agg(*cols, gid, gid, vals[:, :100], 0, 4096, boxes, times, 4)
+    with pytest.raises(ValueError):
+        grouped_agg(*cols, gid, gid, vals, 0, 4096, boxes, times, 0)
+    out = grouped_agg(*cols, gid, gid, vals, 0, 4096, boxes, times, 4)
+    assert [tuple(o.shape) for o in out] == [(2, 4), (2, 4), (2, 1, 4), (2, 1, 4), (2, 1, 4),
+                                             (2, 1, 4), (2, 1, 512), (2, 1)]
+
+
+# -- the store: port aggregate_many == reference fused path ----------------------
+
+SPEC = "cat:Integer,kind:String,val:Double,w:Double,dtg:Date,*geom:Point"
+NS = 30_000
+PLANT = 3000  # rows on one point: about 700 fall in a week's window
+TWINS = 6  # anchor rows of the snapped queries, each with a twin
+A = "2017-07-02T00:00:00.000Z/2017-07-09T00:00:00.000Z"
+
+
+@pytest.fixture(scope="module")
+def agg_data():
+    """Config 9's columns on GDELT-shaped points, plus a string key, a
+    second value column with nulls and NaN, and PLANT rows on one point."""
+    lon, lat, t = synth_gdelt(NS, seed=42)
+    lon[:PLANT], lat[:PLANT] = 2.25, 48.75  # one cell: a query with an edge on it truncates
+    for i in range(TWINS):  # a twin one f64 step west of each anchor row, in its bucket
+        a, b = PLANT + i, PLANT + TWINS + i
+        lon[b], lat[b], t[b] = np.nextafter(lon[a], -np.inf), lat[a], t[a]
+    cat, val = grouped_columns(NS, n_groups=40, seed=17)
+    rng = np.random.default_rng(3)
+    kind = np.array([f"k{i}" for i in rng.integers(0, 3, NS)], dtype=object)
+    w = rng.normal(0.0, 5.0, NS)
+    w[rng.random(NS) < 0.05] = np.nan
+    w_valid = rng.random(NS) > 0.05
+    return lon, lat, t, cat, kind, val, w, w_valid
+
+
+def _agg_table(mod, sft, d):
+    lon, lat, t, cat, kind, val, w, w_valid = d
+    cols = {
+        "cat": mod.Column(sft.attr("cat").type, cat.copy()),
+        "kind": mod.Column(sft.attr("kind").type, kind.copy()),
+        "val": mod.Column(sft.attr("val").type, val.copy()),
+        "w": mod.Column(sft.attr("w").type, w.copy(), w_valid.copy()),
+        "dtg": mod.Column(sft.attr("dtg").type, t.copy()),
+        "geom": mod.point_column(lon.copy(), lat.copy()),
+    }
+    return mod.FeatureTable.from_columns(sft, [f"a.{i}" for i in range(NS)], cols)
+
+
+def _snapped(d, k: int):
+    """Queries whose west edge and window start sit on an anchor row: the
+    anchor is a boundary row that passes the f64 filter, its twin one that
+    does not."""
+    lon, lat, t = d[0], d[1], d[2]
+    out = []
+    for i in range(k):
+        a = PLANT + i
+        box = (lon[a], lat[a] - 3.0, lon[a] + 4.0, lat[a] + 3.0)
+        out.append(bbox_time_cql(box, (int(t[a]) - 1, int(t[a]) + 3 * 86_400_000)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def agg_stores(agg_data):
+    # the TpuBackend on a one-device mesh: one shard, as the port's one card
+    # (its boundary lanes overflow per shard, the port's per query)
+    ref = RefDataStore(backend=TpuBackend(mesh=make_mesh(1)))
+    sft = ref.create_schema("agg", SPEC)
+    ref.write("agg", _agg_table(ref_columnar, sft, agg_data))
+    ref.compact("agg")
+    port = DataStore(device="cpu")
+    sft = port.create_schema("agg", SPEC)
+    port.write("agg", _agg_table(columnar, sft, agg_data))
+    port.compact("agg")
+    boxes, windows = make_queries(16, seed=7)
+    queries = [bbox_time_cql(b, w) for b, w in zip(boxes, windows)] + _snapped(agg_data, TWINS) + [
+        "INCLUDE",
+        f"BBOX(geom, 2.0, 48.5, 2.25, 49.0) AND dtg DURING {A}",  # PLANT rows on its edge
+        "BBOX(geom, 0, 0, 10, 10) AND BBOX(geom, 20, 20, 30, 30)",  # disjoint
+        f"BBOX(geom, -80, 35, -70, 45) AND dtg DURING {A} AND cat = 3",  # not bbox+time
+        f"(BBOX(geom, -80, 35, -70, 45) OR BBOX(geom, 0, 45, 5, 55)) AND dtg DURING {A}",
+    ]
+    return port, ref, queries
+
+
+def _assert_agg_equal(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None), i
+        if g is None:
+            continue
+        assert g["groups"] == w["groups"], i
+        assert g["count"].dtype == np.int64 and np.array_equal(g["count"], w["count"]), i
+        assert g["cols"].keys() == w["cols"].keys()
+        for c, wc in w["cols"].items():
+            gc = g["cols"][c]
+            assert np.array_equal(gc["count"], wc["count"]), (i, c)
+            for f in ("min", "max"):
+                assert np.array_equal(gc[f], wc[f], equal_nan=True), (i, c, f)
+            assert np.allclose(gc["sum"], wc["sum"], rtol=RTOL, atol=0, equal_nan=True), (i, c)
+
+
+@pytest.mark.parametrize("group_by,value_cols", [
+    (["cat"], ["val"]),
+    (["cat", "kind"], ["val", "w"]),
+    (None, ["val", "w"]),
+    (["kind"], []),
+])
+def test_aggregate_many_equals_reference(agg_stores, monkeypatch, group_by, value_cols):
+    monkeypatch.setenv("GEOMESA_TPU_PYRAMID", "0")
+    port, ref, queries = agg_stores
+    got = port.aggregate_many("agg", queries, group_by=group_by, value_cols=value_cols)
+    want = ref.aggregate_many("agg", queries, group_by=group_by, value_cols=value_cols)
+    _assert_agg_equal(got, want)
+    n = len(queries)
+    assert got[n - 3] == {"groups": [], "count": got[n - 3]["count"],
+                          "cols": got[n - 3]["cols"]} and len(got[n - 3]["count"]) == 0
+    assert got[n - 2] is None  # not a bbox+time conjunction
+    assert got[n - 4] is None  # the planted rows overflow the boundary lanes
+    assert all(g is not None for g in got[:16])
+    if group_by:
+        firsts = [len(g["groups"]) for g in got if g is not None]
+        assert max(firsts) > 1
+
+
+def test_host_retest_adds_boundary_rows(agg_stores, agg_data, monkeypatch):
+    """The snapped queries' boundary rows that pass the f64 filter are
+    added to their groups: the port's answer equals an f64 numpy fold,
+    which the device fold alone would miss."""
+    monkeypatch.setenv("GEOMESA_TPU_PYRAMID", "0")
+    port, _, queries = agg_stores
+    snapped = queries[16:16 + TWINS]
+    seen = []
+    assemble = DataStore._assemble_agg
+
+    def spy(q, main, keys, value_cols, cnt, *rest):
+        seen.append((len(rest[5]), int(cnt.sum())))  # boundary rows, device-folded rows
+        return assemble(q, main, keys, value_cols, cnt, *rest)
+
+    monkeypatch.setattr(DataStore, "_assemble_agg", staticmethod(spy))
+    got = port.aggregate_many("agg", snapped, group_by=["cat"], value_cols=["val"])
+    added = [int(g["count"].sum()) - folded for g, (_, folded) in zip(got, seen)]
+    assert all(b > 0 for b, _ in seen) and all(a > 0 for a in added)
+    assert all(a < b for a, (b, _) in zip(added, seen))  # the twins fail the f64 filter
+    lon, lat, t, cat, _, val = agg_data[:6]
+    from geomesa_tpu_torch.filter.cql import parse
+
+    for g, c in zip(got, snapped):
+        mask = parse(c).mask(port._state("agg").table)
+        rows = np.nonzero(mask)[0]
+        keys, first = np.unique(cat[rows], return_index=True)
+        order = np.argsort(first, kind="stable")
+        assert g["groups"] == [(k,) for k in keys[order]]
+        assert np.array_equal(g["count"], np.bincount(cat[rows])[keys[order]])
+    st = port._state("agg").backend_state["z3"]
+    assert ("gid", ("cat",)) in st.agg_cache and ("val", "val") in st.agg_cache
+
+
+def test_aggregate_many_declines(agg_stores, monkeypatch):
+    monkeypatch.setenv("GEOMESA_TPU_PYRAMID", "0")
+    port, ref, queries = agg_stores
+    qs = queries[:3]
+    for group_by, value_cols in ((["w"], ["val"]),      # NaN keys
+                                 (["cat"], ["kind"]),   # a string value column
+                                 (["nope"], ["val"]),   # a missing column
+                                 (["geom"], []),        # a geometry key
+                                 (["cat"], ["geom"])):  # a geometry value
+        got = port.aggregate_many("agg", qs, group_by=group_by, value_cols=value_cols)
+        assert got == [None] * 3, (group_by, value_cols)
+        if "geom" not in group_by + value_cols:
+            assert ref.aggregate_many("agg", qs, group_by=group_by,
+                                      value_cols=value_cols) == [None] * 3
+    oracle = DataStore(backend="oracle", device="cpu")
+    oracle.create_schema("agg", SPEC)
+    assert oracle.aggregate_many("agg", qs, group_by=["cat"]) == [None] * 3
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for maker in ("gdelt", "grid", "edge"):
+        for n_vals in (0, 1, 2):
+            cols, boxes, times, gid, rowid, vals = _inputs(maker, n_vals, seed=3 + n_vals)
+            args = ([_t(c).to(dev) for c in cols], _t(gid).to(dev), _t(rowid).to(dev),
+                    _t(vals).to(dev))
+            for base, true_n in ((0, N), (4096, 4096 + N - 300)):
+                call = (*args[0], *args[1:], base, true_n, _t(boxes).to(dev),
+                        _t(times).to(dev), G_PAD, CAP)
+                before = kernels.launches["grouped_agg"]
+                got = grouped_agg(*call)
+                want = grouped_agg_plain(*call)
+                torch.cuda.synchronize()
+                assert kernels.launches["grouped_agg"] == before + 1
+                fits = (want[7][:, 0] <= CAP).cpu().numpy()
+                _assert_step_equal(got, [w.cpu().numpy() for w in want], fits=fits)
+
+
+def _key_columns(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    late = np.zeros(n, dtype=np.int32)
+    late[-3:] = [7, 9, 7]  # groups that first appear at the end
+    objs = np.array([None if v == 0 else f"s{v}" for v in rng.integers(0, 4, n)], dtype=object)
+    return {
+        "small": rng.integers(-5, 40, n).astype(np.int32),
+        "wide": rng.choice(np.array([-2**40, 3, 2**41, 17], dtype=np.int64), n),  # a sort
+        "late": late,
+        "flag": rng.random(n) < 0.3,
+        "label": np.array([f"k{v}" for v in rng.integers(0, 5, n)], dtype=object),
+        "maybe": objs,  # None among strings: the dict factorize
+    }
+
+
+@pytest.mark.parametrize("group_by", [["small"], ["wide"], ["late"], ["flag"], ["label"],
+                                      ["maybe"], ["small", "label"], ["late", "flag", "wide"]])
+def test_group_ids_equal_reference(group_by):
+    """``_agg_group_ids`` gives the reference's group ids and keys, through
+    the bincount factorization and the chunked first-row scan as well as
+    through ``np.unique`` and the dict factorize."""
+    n = 200_003
+    cols = _key_columns(n, 8)
+    types = {np.dtype(np.int32): "Integer", np.dtype(np.int64): "Long",
+             np.dtype(np.bool_): "Boolean", np.dtype(object): "String"}
+    spec = ",".join(f"{k}:{types[v.dtype]}" for k, v in cols.items()) + ",*geom:Point"
+    got_want = []
+    for mod, parse_fn, store in ((columnar, None, DataStore(device="cpu")),
+                                 (ref_columnar, ref_parse_spec, RefDataStore(backend="oracle"))):
+        sft = store.create_schema("k", spec)
+        table = mod.FeatureTable.from_columns(sft, [f"f{i}" for i in range(n)], {
+            **{k: mod.Column(sft.attr(k).type, v.copy()) for k, v in cols.items()},
+            "geom": mod.point_column(np.zeros(n), np.zeros(n))})
+        got_want.append(store._agg_group_ids(table, group_by))
+    (gid, keys), (ref_gid, ref_keys) = got_want
+    assert gid.dtype == ref_gid.dtype == np.int32 and np.array_equal(gid, ref_gid)
+    assert keys == ref_keys and len(keys) > 1

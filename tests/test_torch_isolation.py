@@ -69,6 +69,36 @@ def test_no_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_native_sources_stand_alone_and_are_bound():
+    """Every C++ and CUDA source of the port includes only its own headers
+    under csrc/ and system headers (nothing of the reference's
+    geomesa_tpu/native), and every ``extern "C"`` entry point it defines is
+    bound by the port: ``ops.kernels._ENTRY_POINTS`` for the kernels,
+    ``curve.zranges`` for the z-range planner."""
+    import re
+
+    from geomesa_tpu_torch.ops import kernels
+
+    csrc = PKG / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cpp"))
+    assert {p.name for p in sources} >= {"grouped_agg.cu", "zranges.cpp"}
+    local = {p.name for p in csrc.glob("*.cuh")}
+    bound = set(kernels._ENTRY_POINTS) | {"geomesa_zranges"}
+    defined = set()
+    zranges_py = (PKG / "curve" / "zranges.py").read_text()
+    for path in sources + sorted(csrc.glob("*.cuh")):
+        text = path.read_text()
+        for inc in re.findall(r'#include\s+"([^"]+)"', text):
+            assert inc in local, f"{path.name} includes {inc}"
+        for name in re.findall(r'^(?:extern "C" )?(?:int|long) (geomesa_\w+)\(', text, re.M):
+            assert name in bound, f"{path.name}: {name} has no binding"
+            stem = kernels._ENTRY_POINTS.get(name, (path.stem,))[0]
+            assert stem == path.stem, f"{name} is bound to {stem}, defined in {path.name}"
+            defined.add(name)
+    assert defined == bound  # and every binding names a defined entry point
+    assert "geomesa_zranges" in zranges_py and "zranges.cpp" in zranges_py
+
+
 def test_datastore_without_cuda_raises(monkeypatch):
     from geomesa_tpu_torch.store.datastore import DataStore
 
