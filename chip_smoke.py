@@ -46,10 +46,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    candidates equal the sorted run's), logging the share of pairs kept;
 2e. ``planned_gather`` against ``planned_gather_plain`` on the card, exact,
    on an empty pair list (no launch), a pair on the last block with
-   ``true_n`` inside it, one block shared by 65 queries, one query over
+   ``true_n`` inside it, one block shared by 65 queries, by 300 pairs
+   (more than one staged tile) and four blocks by 400, one query over
    every block, ``edge_payload``'s and ``grid_payload``'s multi-slot and
    dead-slot payloads with random pairs, and the 64 city queries' planned
-   pairs;
+   pairs, logging the distinct blocks each reads;
 3. the main path at bench config 2's size: 50M GDELT-shaped points (seed 42),
    ``DataStore()`` → ``create_schema`` → ``write`` (z3 and z2 keys built by
    one launch each of ``z3_encode`` and ``z2_encode``) → ``compact``, the 64
@@ -101,9 +102,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``None``; every answer of seed 7 and 16 of seed 301 equal an f64 numpy
    fold over the original lon/lat/time (groups in order; counts, value
    counts, min and max exact; sums within a relative 1e-12); then
-   ``grouped_agg`` against ``grouped_agg_plain`` on the same payloads and on
-   grid rows whose boundary rows overflow some lanes, its time beside the
-   plain version's and its bound, and one ``aggregate_many`` under
+   ``grouped_agg`` against ``grouped_agg_plain`` on the same payloads, on
+   grid rows whose boundary rows overflow some lanes, and on config 9's
+   rows with group ids over G = 8192 (the fold's global mode), its time
+   beside the plain version's and its bound, with its mode, registers,
+   spills and shared and global atomics; ``agg_work_list`` against its
+   plain version with its time and bound; and one ``aggregate_many`` under
    ``torch.profiler``.
 
 Each store is freed before the next phase.
@@ -116,12 +120,19 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
 import time
 
 import numpy as np
+
+# torch.profiler tears CUPTI down after each window and sets it up again at
+# the next; after phase 3's windows, phase 6's lost its kernel records (the
+# parent's full run held them with phase 3's windows skipped). Keeping CUPTI
+# subscribed between windows is what this script needs.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 N_ROWS = 50_000_000
 N_QUERIES = 64
@@ -654,7 +665,9 @@ def check_planned_gather(dev, store, seed: int) -> int:
     it; one block shared by several queries; one query covering every
     block; ``edge_payload``'s multi-slot and dead-slot payloads and
     ``grid_payload``'s over their rows with random pairs and a ``true_n``
-    tail; and the 64 city queries' planned pairs. Returns max |difference|."""
+    tail; one block under 300 pairs (more than the count pass stages at
+    once) and four blocks under 400; and the 64 city queries' planned
+    pairs. Returns max |difference|."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
@@ -682,6 +695,11 @@ def check_planned_gather(dev, store, seed: int) -> int:
         ("empty", cols, n, [], [], boxes, times),
         ("last block", cols, n, [64, 3], [n_blocks - 1] * 2, boxes, times),
         ("shared block", cols, n, range(65), [shared] * 65, boxes, times),
+        # more pairs on one block than the count pass stages at once
+        ("shared block x300", cols, n, [i % 65 for i in range(300)], [shared] * 300, boxes,
+         times),
+        ("shared blocks", cols, n, [i % 65 for i in range(400)],
+         [shared + (i % 4) for i in range(400)], boxes, times),
         ("every block", cols, n, [64] * n_blocks, range(n_blocks), boxes, times),
         ("planned city", cols, n, plan_q, plan_b, boxes, times),
     ]
@@ -705,14 +723,17 @@ def check_planned_gather(dev, store, seed: int) -> int:
         want_p, want_h = planned_gather_plain(*c, true_n, pq_t, pb_t, bx_t, tm_t)
         torch.cuda.synchronize()
         launched = kernels.launches["planned_gather"] - before
-        same = (got_p.dtype == got_h.dtype == torch.int64 and torch.equal(got_p, want_p)
-                and torch.equal(got_h, want_h))
+        same = (got_p.dtype == torch.int32 and got_h.dtype == torch.int64
+                and torch.equal(got_p, want_p) and torch.equal(got_h, want_h))
         err = 0 if same else 1
         if same and len(got_p):
-            err = int((got_p - want_p).abs().max())
+            err = int((got_p.long() - want_p.long()).abs().max())
         worst = max(worst, err)
-        log(f"  planned_gather {name}: {len(pq_t)} pairs, {int(want_h.sum())} rows, "
-            f"true_n={true_n}, {launched} launch(es): max_abs_err={err}")
+        runs = np.unique(pb_t.cpu().numpy(), return_counts=True)[1]
+        log(f"  planned_gather {name}: {len(pq_t)} pairs over {len(runs)} distinct blocks "
+            f"(each read once; longest run {int(runs.max()) if len(runs) else 0} pairs), "
+            f"{int(want_h.sum())} rows, true_n={true_n}, {launched} launch(es): "
+            f"max_abs_err={err}")
         if not same or launched != (1 if len(pq_t) and dev.type == "cuda" else 0):
             raise AssertionError(f"planned_gather disagrees with plain at {name}")
         if name == "last block" and not (0 < int(want_h[0]) < JOIN_BLOCK):
@@ -747,13 +768,14 @@ def edge_floor(x, y, bins, offs, boxes, times, counts, hits, capacity: int,
     return (alu + edge + extent, total + edge + extent), nbytes, matches
 
 
-def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits):
+def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_bytes: int):
     """The least work of ``planned_gather`` on these pairs: per pair, the
     predicate of :func:`predicate_floor_ops` on its block's valid rows (the
     cheaper test order, live slots only); bytes are each distinct block's
     four columns read once, the pair lists read (4 + 4 B a pair) and the
-    pair counts written (8 B), the payload read once and 8 B per written
-    position. Returns ((alu, all), bytes)."""
+    pair counts written (8 B), the payload read once and ``pos_bytes`` per
+    written position (the positions' element size). Returns ((alu, all),
+    bytes)."""
     import torch
 
     from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
@@ -790,7 +812,7 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits):
             total += total_p
     distinct = int(torch.unique(pair_blk).numel())
     nbytes = (16 * JOIN_BLOCK * distinct + 16 * len(pair_q)
-              + 4 * (boxes.numel() + times.numel()) + 8 * int(hits.sum()))
+              + 4 * (boxes.numel() + times.numel()) + pos_bytes * int(hits.sum()))
     return (alu, total), nbytes
 
 
@@ -802,7 +824,9 @@ def profile_window(label: str, fn, expect: str | None = None) -> None:
     Logs "not measured" where the profiler saw no device activity. With
     ``expect``, a kernel name that ``fn`` launches: a trace that holds no
     record of it is taken once more, and logged as incomplete if the
-    second holds none either (a profiler has dropped a launch's record)."""
+    second holds none either; a missing record is logged with where the
+    recorded device events lie against the CPU events. The script keeps
+    CUPTI subscribed across windows (``TEARDOWN_CUPTI=0``, set at import)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -816,6 +840,14 @@ def profile_window(label: str, fn, expect: str | None = None) -> None:
                   and e.time_range.end > e.time_range.start]
         if expect is None or any(expect in e.name for e in device):
             break
+        cpu = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+        if cpu and device:
+            c0 = min(e.time_range.start for e in cpu)
+            log(f"phase profile {label}: trace {attempt}'s {len(device)} device events lie at "
+                f"{(min(e.time_range.start for e in device) - c0) / 1e3:.3f} .. "
+                f"{(max(e.time_range.end for e in device) - c0) / 1e3:.3f} ms from its first "
+                f"CPU event; its CPU events end at "
+                f"{(max(e.time_range.end for e in cpu) - c0) / 1e3:.3f} ms")
         log(f"phase profile {label}: trace {attempt} holds no record of {expect}"
             + ("; taking it once more" if attempt == 1 else "; this window is incomplete"))
     if not device:
@@ -1116,7 +1148,8 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
     log_rebuild(ds.last_rebuild("gdelt"))
     for st_name, st in states.items():
         log(f"phase h2d staging {st_name}: {st.h2d_s:.3f} s for {st.h2d_bytes} bytes "
-            f"on {st.cols['x'].device}")
+            f"on {st.cols['x'].device}; chunk extents {st.extents_s:.6f} s for "
+            f"{st.extents.nbytes} bytes ({st.extents.shape[0]} chunks x 32 B)")
 
     # -- checks against the numpy referees --------------------------------------
     t0 = time.perf_counter()
@@ -1299,24 +1332,30 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         pq = torch.from_numpy(pair_q.astype(np.int32)).to(dev)
         pb = torch.from_numpy(pair_blk.astype(np.int32)).to(dev)
         gargs = (*cols, n, pq, pb, boxes, times)
-        got_p, got_h = planned_gather(*gargs)
+        # the block-major plan as planned_gather_step uploads it with the pair lists
+        gplan = torch.from_numpy(np.concatenate(kernels.block_runs(pair_q, pair_blk))).to(dev)
+        got_p, got_h = planned_gather(*gargs, plan=gplan)
         want_p, want_h = planned_gather_plain(*gargs)
         torch.cuda.synchronize()
         if not (torch.equal(got_p, want_p) and torch.equal(got_h, want_h)):
             raise AssertionError("planned_gather disagrees with plain at the main-path pairs")
-        gather_ms = cuda_ms(lambda: planned_gather(*gargs), 5)
+        gather_ms = cuda_ms(lambda: planned_gather(*gargs, plan=gplan), 5)
         gather_plain_ms = cuda_ms(lambda: planned_gather_plain(*gargs), 1)
         step_ms = cuda_ms(lambda: planned_gather_step(cols, n, pair_q, pair_blk, boxes, times),
                           3)
-        g_ops, g_bytes = gather_floor(cols, n, pq, pb, boxes, times, want_h)
+        g_ops, g_bytes = gather_floor(cols, n, pq, pb, boxes, times, want_h,
+                                      got_p.element_size())
         gather_record.update(max_abs_err=0, ms=gather_ms, plain_ms=gather_plain_ms,
                              **bound_fields(g_ops, g_bytes))
         g_share = gather_record["bound_ms"] / gather_ms
         gathered = len(pair_q) * JOIN_BLOCK
+        runs = np.unique(pair_blk, return_counts=True)[1]
         log(f"phase planned gather: {gather_ms:.4f} ms (CUDA events, 5 calls of planned_gather: "
-            f"count pass, cumsum, one read of the total, write pass) for {len(pair_q)} "
-            f"(query, block) pairs of {JOIN_BLOCK} rows over {int(torch.unique(pb).numel())} "
-            f"distinct blocks: {gathered} gathered rows, {gathered / (n * q):.6f} of N x Q, "
+            f"count pass over the distinct blocks, cumsum, one read of the total, write pass "
+            f"over the masks) for {len(pair_q)} (query, block) pairs of {JOIN_BLOCK} rows over "
+            f"{len(runs)} distinct blocks (each read once: {len(runs) * JOIN_BLOCK * 16} bytes "
+            f"of columns; pairs per block p50 {p50(runs):.1f}, max {int(runs.max())}): "
+            f"{gathered} gathered rows, {gathered / (n * q):.6f} of N x Q, "
             f"{int(want_h.sum())} rows out; plain {gather_plain_ms:.4f} ms; bound "
             f"{gather_record['bound_ms']:.4f} ms ({gather_record['bound_by']}: {g_ops[0]} "
             f"ALU-only of {g_ops[1]} int32 ops; {g_bytes} bytes), {g_share:.4f} of it; "
@@ -1325,7 +1364,8 @@ def z3_path(dev, max_err: int, n_rows: int, n_queries: int, n_exact: int,
         if g_share > 1:
             raise AssertionError(f"planned_gather reads {g_share:.4f} of its bound: the "
                                  "bound's count is wrong")
-        profile_window("select_many", lambda: ds.select_many("gdelt", cqls), "planned_gather")
+        profile_window("select_many", lambda: ds.select_many("gdelt", cqls),
+                       "planned_count_kernel")
         profile_window("count_many exact batch",
                        lambda: ds.count_many("gdelt", cqls, loose=False), "batched_edge_gather")
         log(f"phase memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
@@ -1465,12 +1505,13 @@ def check_agg_answer(res, want, label: str) -> None:
         raise AssertionError(f"aggregate_many {label}: sums differ by up to {err.max()}")
 
 
-def check_grouped_kernel(dev, args: tuple, label: str) -> tuple[int, float]:
-    """``grouped_agg`` against ``grouped_agg_plain`` on the card: integer
-    outputs, min and max exact, lanes exact where they hold every boundary
-    row and a subset of them where they overflow, sums within a relative
-    1e-12. Returns (max |difference| of the exact outputs, the sums' largest
-    relative difference)."""
+def check_grouped_kernel(dev, args: tuple, label: str, extents=None) -> tuple[int, float]:
+    """``grouped_agg`` (given the columns' ``extents``, as the store gives
+    them) against ``grouped_agg_plain`` on the card: integer outputs, min
+    and max exact, lanes exact where they hold every boundary row and a
+    subset of them where they overflow, sums within a relative 1e-12; logs
+    the fold's mode. Returns (max |difference| of the exact outputs, the
+    sums' largest relative difference)."""
     import torch
 
     from geomesa_tpu_torch.ops.kernels import grouped_agg, grouped_agg_plain
@@ -1478,9 +1519,12 @@ def check_grouped_kernel(dev, args: tuple, label: str) -> tuple[int, float]:
     def worst(t) -> float:
         return float(t.abs().max()) if t.numel() else 0.0
 
-    got = grouped_agg(*args)
+    from geomesa_tpu_torch.ops.kernels import grouped_agg_last_work
+
+    got = grouped_agg(*args, extents=extents)
     want = grouped_agg_plain(*args)
     torch.cuda.synchronize()
+    work = grouped_agg_last_work()
     err = 0
     for i in (0, 1, 2, 7):
         err = max(err, int(worst(got[i].long() - want[i].long())))
@@ -1498,7 +1542,9 @@ def check_grouped_kernel(dev, args: tuple, label: str) -> tuple[int, float]:
             if (lanes[k] < 0).any() or len(np.unique(lanes[k])) != len(lanes[k]) \
                     or not np.isin(lanes[k], cand).all():
                 err = max(err, 1)
-    log(f"  grouped_agg {label}: max_abs_err={err}, sums' max relative difference {rel:.3e} "
+    log(f"  grouped_agg {label} ({work['mode']} mode, {work['runs']} runs of up to "
+        f"{work['run_len']} chunks over {work['pairs']} kept (chunk, query) pairs): "
+        f"max_abs_err={err}, sums' max relative difference {rel:.3e} "
         f"({int(want[0].long().sum())} folded rows, boundary rows per query max "
         f"{int(hits.max())}, total {int(hits.sum())}, {int((~fits).sum())} queries over "
         f"{args[-1]} lanes)")
@@ -1538,8 +1584,28 @@ def agg_floor(cols, n: int, loaded: int, boxes, times, n_vals: int, cnt, vcnt, h
     return ops, nbytes, distinct, atomics
 
 
-def agg_path(dev, n_rows: int, n_queries: int) -> dict:
-    """Phase 6: bench config 9 at full size; returns the grouped_agg record."""
+AGG_WIDE_GROUPS = 8192  # G x V above the shared-memory fold's budget: the global mode
+
+
+def work_list_floor(extents, boxes, times, kept, runs: int):
+    """The least work of ``agg_work_list``: per chunk and query with a live
+    box and window, the extent test of the live slots (4 compares a box, 2 a
+    window, until the first hit at best: counted as one of each); bytes are
+    the extents (32 B a chunk) and the payload read once, and the lists (4 B
+    a kept pair), counts and runs (12 B a run) written once. Returns
+    ((alu, all), bytes)."""
+    active = sum(1 for b, t in zip(boxes.tolist(), times.tolist())
+                 if any(xlo <= xhi and ylo <= yhi for xlo, xhi, ylo, yhi in b)
+                 and any((blo, olo) <= (bhi, ohi) for blo, olo, bhi, ohi in t))
+    ops = active * extents.shape[0] * (4 + 2)
+    nbytes = (extents.nbytes + 4 * (boxes.numel() + times.numel()) + 4 * int(kept.sum())
+              + 4 * kept.numel() + 12 * runs)
+    return (ops, ops), nbytes
+
+
+def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
+    """Phase 6: bench config 9 at full size; returns the grouped_agg and
+    agg_work_list records."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
@@ -1590,6 +1656,8 @@ def agg_path(dev, n_rows: int, n_queries: int) -> dict:
     log(f"phase 6 launches: {launched}")
     if on_card and launched["grouped_agg"] != 6 * len(AGG_SEEDS):
         raise AssertionError("each aggregate_many call must launch grouped_agg once")
+    if on_card and launched["agg_work_list"] != launched["grouped_agg"]:
+        raise AssertionError("each grouped_agg launch must follow one agg_work_list launch")
     if on_card and (launched["z3_encode"], launched["z2_encode"]) != (1, 1):
         raise AssertionError("the write did not launch z3_encode and z2_encode once each")
     log(f"phase 6 write: {write_s:.3f} s (write + compact of {n_rows} rows)")
@@ -1627,6 +1695,10 @@ def agg_path(dev, n_rows: int, n_queries: int) -> dict:
               "source": "geomesa_tpu_torch/csrc/grouped_agg.cu",
               "replaces": "geomesa_tpu/parallel/query.py:1498",
               "launches": launched["grouped_agg"], "library_ms": None}
+    wl_record = {"name": "agg_work_list", "route": "cuda",
+                 "source": "geomesa_tpu_torch/csrc/grouped_agg.cu",
+                 "replaces": "geomesa_tpu/parallel/query.py:1498",
+                 "launches": launched["agg_work_list"], "library_ms": None}
     st = ds._state("gagg")
     state, name = st.backend_state["z3"], "z3"
     (dgid, _, keys), drowid, dvals, _ = ds._agg_residency(state, st.table, st.indices[name].perm,
@@ -1637,8 +1709,33 @@ def agg_path(dev, n_rows: int, n_queries: int) -> dict:
     times = torch.from_numpy(np.stack([p[1] for _, p, _ in pend])).to(dev)
     cols = state.spatial_cols()
     main_args = (*cols, dgid, drowid, dvals, 0, state.n, boxes, times, g_pad, EDGE_CAPACITY)
+    ext = state.extents
     if on_card:
-        err, rel = check_grouped_kernel(dev, main_args, f"config 9 N={state.n} Q={n_queries}")
+        nb, nt = boxes.shape[1], times.shape[1]
+        mode = kernels.grouped_agg_mode(nb, nt, 1, g_pad)
+        record["mode"] = mode
+        err, rel = check_grouped_kernel(dev, main_args, f"config 9 N={state.n} Q={n_queries}",
+                                        ext)
+        # the work list alone, against its plain version
+        target = kernels.grouped_agg_target_runs(nb, nt, 1, g_pad, dev)
+        wl_args = (ext, cols[0].shape[0], 0, state.n, boxes, times, target)
+        got_wl = kernels.agg_work_list(*wl_args)
+        want_wl = kernels.agg_work_list_plain(*wl_args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got_wl, want_wl)):
+            raise AssertionError("agg_work_list disagrees with its plain version at config 9")
+        wl_ms = cuda_ms(lambda: kernels.agg_work_list(*wl_args), 5)
+        wl_plain_ms = cuda_ms(lambda: kernels.agg_work_list_plain(*wl_args), 1)
+        n_runs = int(want_wl[3][kernels.W_RUNS])
+        wl_ops, wl_bytes = work_list_floor(ext, boxes, times, want_wl[1], n_runs)
+        wl_record.update(max_abs_err=0, ms=wl_ms, plain_ms=wl_plain_ms,
+                         **bound_fields(wl_ops, wl_bytes))
+        log(f"phase agg_work_list timing: {wl_ms:.4f} ms (CUDA events, 5 launches) over "
+            f"{ext.shape[0]} chunks x {n_queries} queries: {int(want_wl[1].sum())} kept pairs "
+            f"in {n_runs} runs of up to {int(want_wl[3][kernels.W_RUN_LEN])} chunks (target "
+            f"{target}); equal to plain ({wl_plain_ms:.4f} ms); bound "
+            f"{wl_record['bound_ms']:.6f} ms ({wl_record['bound_by']}: {wl_ops[0]} ops; "
+            f"{wl_bytes} bytes), {wl_record['bound_ms'] / wl_ms:.4f} of it")
         rng = np.random.default_rng(23)
         grid = [torch.from_numpy(c).to(dev) for c in grid_columns(1_000_003, seed=23)]
         gb, gt = (torch.from_numpy(a).to(dev)
@@ -1650,37 +1747,56 @@ def agg_path(dev, n_rows: int, n_queries: int) -> dict:
         gv = torch.from_numpy(gv).to(dev)
         e2, r2 = check_grouped_kernel(dev, (*grid, ggid, grow, gv, 0, 1_000_003, gb, gt,
                                             AGG_GROUPS, EDGE_CAPACITY), "grid N=1000003 Q=64 V=2")
-        kernel_ms = cuda_ms(lambda: grouped_agg(*main_args), 5)
+        # the second mode: config 9's rows and payloads with group ids over a G
+        # whose partials do not fit a block's shared memory
+        wide_gid = torch.from_numpy(np.random.default_rng(29).integers(
+            0, AGG_WIDE_GROUPS, cols[0].shape[0]).astype(np.int32)).to(dev)
+        wide_args = (*cols, wide_gid, drowid, dvals, 0, state.n, boxes, times,
+                     AGG_WIDE_GROUPS, EDGE_CAPACITY)
+        wide_mode = kernels.grouped_agg_mode(nb, nt, 1, AGG_WIDE_GROUPS)
+        if wide_mode != "global":
+            raise AssertionError(f"G={AGG_WIDE_GROUPS} V=1 must take the global mode")
+        e3, r3 = check_grouped_kernel(dev, wide_args, f"config 9 N={state.n} Q={n_queries} "
+                                      f"G={AGG_WIDE_GROUPS}", ext)
+        wide_ms = cuda_ms(lambda: grouped_agg(*wide_args, extents=ext), 3)
+        kernel_ms = cuda_ms(lambda: grouped_agg(*main_args, extents=ext), 5)
         plain_ms = cuda_ms(lambda: kernels.grouped_agg_plain(*main_args), 1)
-        # the same culled scan without the fold: what the atomics add
+        # the same culled scan without the fold: what the fold adds
         scan_ms = cuda_ms(lambda: kernels.batched_edge_gather(*cols, 0, state.n, boxes, times),
                           5)
-        out = grouped_agg(*main_args)
+        out = grouped_agg(*main_args, extents=ext)
         torch.cuda.synchronize()
+        work = kernels.grouped_agg_last_work()
         ops, nbytes, distinct, atomics = agg_floor(
             cols, state.n, cols[0].shape[0], boxes, times, 1, out[0], out[2], out[7],
             EDGE_CAPACITY, g_pad)
-        record.update(max_abs_err=max(err, e2), ms=kernel_ms, plain_ms=plain_ms,
+        record.update(max_abs_err=max(err, e2, e3), ms=kernel_ms, plain_ms=plain_ms,
                       **bound_fields(ops, nbytes))
-        regs, spill = kernels.grouped_agg_attrs()
+        attrs = {m: kernels.grouped_agg_attrs(m) for m in ("shared", "global")}
         share = record["bound_ms"] / kernel_ms
         hits = out[7][:, 0].cpu().numpy()
-        log(f"phase grouped_agg timing: {kernel_ms:.4f} ms (CUDA events, 5 launches) at "
-            f"N={state.n} Q={n_queries} G={g_pad} V=1; plain {plain_ms:.4f} ms; bound "
-            f"{record['bound_ms']:.4f} ms ({record['bound_by']}: {ops[0]} ALU-only of {ops[1]} "
-            f"int32 ops; {nbytes} bytes, {distinct} distinct folded rows), {share:.4f} of it; "
-            f"{atomics} global atomics ({int(out[0].long().sum())} folded row-queries; the "
-            f"edge gather's scan of the same payloads {scan_ms:.4f} ms); "
-            f"{regs} registers, {spill} bytes local memory a thread; boundary rows per query "
+        in_shared = atomics if mode == "shared" else 0
+        log(f"phase grouped_agg timing: {kernel_ms:.4f} ms (CUDA events, 5 launches: work "
+            f"list and fold) at N={state.n} Q={n_queries} G={g_pad} V=1, {mode} mode; plain "
+            f"{plain_ms:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']}: "
+            f"{ops[0]} ALU-only of {ops[1]} int32 ops; {nbytes} bytes, {distinct} distinct "
+            f"folded rows), {share:.4f} of it; {in_shared} shared-memory atomics and "
+            f"{work['flush_atomics'] if mode == 'shared' else atomics} global atomics "
+            f"({int(out[0].long().sum())} folded row-queries; {work['runs']} runs of up to "
+            f"{work['run_len']} chunks over {work['pairs']} kept pairs; the edge gather's scan "
+            f"of the same payloads {scan_ms:.4f} ms); registers and local-memory bytes a "
+            f"thread: shared mode {attrs['shared']}, global mode {attrs['global']}; "
+            f"G={AGG_WIDE_GROUPS} ({wide_mode} mode) {wide_ms:.4f} ms; boundary rows per query "
             f"min {int(hits.min())}, p50 {p50(hits):.1f}, max {int(hits.max())}, total "
-            f"{int(hits.sum())}; sums' max relative difference {max(rel, r2):.3e}")
+            f"{int(hits.sum())}; sums' max relative difference {max(rel, r2, r3):.3e}")
         if share > 1:
             raise AssertionError(f"grouped_agg reads {share:.4f} of its bound: the bound's "
                                  "count is wrong")
         profile_window("aggregate_many", lambda: ds.aggregate_many(
-            "gagg", cqls[AGG_SEEDS[0]], group_by=["cat"], value_cols=["val"]), "grouped_agg")
+            "gagg", cqls[AGG_SEEDS[0]], group_by=["cat"], value_cols=["val"]),
+            "grouped_agg_kernel")
         log(f"phase 6 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    return record
+    return record, wl_record
 
 
 def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -> dict:
@@ -1932,10 +2048,10 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     free_card()
     log(f"phase date-less: {time.perf_counter() - t0:.3f} s in all")
     t0 = time.perf_counter()
-    agg_record = agg_path(dev, n_rows, n_queries)
+    agg_record, work_list_record = agg_path(dev, n_rows, n_queries)
     free_card()
     log(f"phase grouped aggregation: {time.perf_counter() - t0:.3f} s in all")
-    return records + [edge_record, gather_record, agg_record]
+    return records + [edge_record, gather_record, agg_record, work_list_record]
 
 
 if __name__ == "__main__":

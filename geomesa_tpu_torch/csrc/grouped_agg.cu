@@ -1,11 +1,12 @@
-// grouped_agg: Q bbox+time GROUP BY queries over the resident point columns
-// in one pass, the device half of DataStore.aggregate_many.
+// grouped_agg: Q bbox+time GROUP BY queries over the resident point columns,
+// the device half of DataStore.aggregate_many. Two kernels: a work list of
+// the kept (chunk, query) pairs, then the fold over it.
 //
 // Replaces the XLA step geomesa_tpu/parallel/query.py:1498
 // (make_grouped_agg_step, point mode, one shard, without with_ttl). It is
 // not a TPU kernel: the reference computes it in XLA, and counts there with
 // _onehot_bincount (:1464), one-hot matmuls on the MXU, a TPU device for
-// the lack of a scatter. This card has atomics, so the fold is atomics.
+// the lack of a scatter. This card has atomics, in shared memory too.
 //
 // What it computes, per query q and row r (local position lpos), with
 // in_all and the boundary split of batched_edge_gather.cu (the reference
@@ -25,33 +26,61 @@
 // them). The host re-tests them against the f64 filter and ADDS the ones
 // that pass, which is sound for min and max too.
 //
-// The wrapper fills cnt, vcnt, vsum and hits with 0, first with INT32_MAX,
-// pos with -1, vmin with the order key of +inf and vmax with that of -inf.
-// An order key is the double's bits as a signed 64-bit integer, with the
-// sign bit's companions flipped for a negative double (b ^ 0x7fff...f):
-// signed order of the keys is the order of the doubles (NaN never folds),
-// so vmin and vmax fold with 64-bit integer atomicMin / atomicMax. The
-// wrapper decodes them with the same involution.
+// The launch first fills cnt, vcnt, vsum and hits with 0, first with
+// INT32_MAX, pos with -1, vmin with the order key of +inf and vmax with
+// that of -inf (agg_init_kernel). An order key is the double's bits as a
+// signed 64-bit integer, with the sign bit's companions flipped for a
+// negative double (b ^ 0x7fff...f): signed order of the keys is the order
+// of the doubles (NaN never folds), so vmin and vmax fold as 64-bit integer
+// min / max. The launch ends by decoding them in place with the same
+// involution and sorting each query's lanes (agg_finish_kernel), so the
+// wrapper reads doubles and sorted lanes.
 //
-// Bound on an H100: bytes, with the atomics beside them. The four columns
-// are read once (16 B a row: 0.2388 ms for 50M rows at 3.35 TB/s), plus gid,
-// rowid and every value of each row that folds in some query, plus the
-// outputs written once. Each folded (row, query) costs 2 + 4 V global
-// atomics (count, first; per value column count, sum, min, max), which
-// chip_smoke.py logs beside the bound.
+// Bound on an H100: bytes. The four columns are read once (16 B a row:
+// 0.2388 ms for 50M rows at 3.35 TB/s), plus gid, rowid and every value of
+// each row that folds in some query, plus the outputs written once.
 //
-// Design: the scan is batched_edge_gather's (chunk_cull.cuh cull_scan on
-// count_predicate.cuh's staged slots: 4096-row chunks staged by cp.async,
-// the (chunk, query) pairs whose extents cannot meet culled, the rows in
-// registers). Its epilogue splits a warp's matches into boundary rows,
-// appended by append_lanes, and fold rows, which each lane folds one by one
-// with global atomics: int atomicAdd for the counts, int atomicMin for
-// first, native f64 atomicAdd for the sums. A simple kernel: the groups are
-// not privatized in shared memory, so the atomics' order is not fixed and
-// sums may differ from a sequential sum in the last bits.
+// What held the first version back: it folded every (row, query) with 2 +
+// 4 V global atomics (116M at bench config 9, ~2.7 of its 3.1 ms), because
+// its grid was chunk-major (one block serves all of its tile's queries on
+// a chunk) and 64 queries x 1024 groups x 36 B of partials fit no block's
+// shared memory.
 //
-// Plain C entry point for ctypes; launches on the caller's stream, does not
-// synchronise, allocates nothing, returns a cudaError_t.
+// Design: query-major runs, one query a block at a time.
+//   1. agg_work_list_kernel, one block per query: the query's live slots
+//      (stage_tile with one query) against every chunk's extent (min and
+//      max of x, y and the biased time key over the chunk's 4096 loaded
+//      rows, valid or not, as chunk_cull.cuh's cull_scan takes them; the
+//      wrapper passes them, computed once when the columns are staged),
+//      with chunk_cull.cuh's exact test (meets); the kept chunks go to the
+//      query's list in chunk order (a block-wide scan). The last block to
+//      finish cuts every list into runs of run_len chunks, run_len =
+//      max(min_run, ceil(kept pairs / target_runs)), so that the fold's
+//      resident blocks each take a few runs: the run table (query, first,
+//      end) in query order, and the number of runs.
+//   2. grouped_agg_kernel, persistent: sms x blocks-per-SM blocks; each
+//      takes the next run (one atomicAdd), stages its query when it
+//      changes, and streams the run's chunks through the cp.async double
+//      buffer (prefetch_chunk / take_chunk). Per chunk: the match mask, the
+//      edge split (edge_mask, append_lanes: bit for bit the edge gather's),
+//      then each lane folds its fold rows: their gid, rowid and values are
+//      loaded together (one latency a chunk), then folded with atomics.
+//      Mode SHARED (G x (8 + 28 V) B of partials fit beside the 64 KB row
+//      buffer): the atomics go to the run's partials in shared memory
+//      (int add and min for counts and first rows; f64 add and 64-bit min
+//      / max on order keys, which shared memory does by compare-and-swap
+//      loops), and at the end of the run one global atomic per touched
+//      (group, field) adds them to the outputs. Mode GLOBAL (larger G x V, up to
+//      aggregate_many's 65536 groups): the fold's atomics go straight to
+//      the outputs, as the first version's did, over the same runs. The
+//      wrapper chooses the mode by shape (geomesa_grouped_agg_mode); a
+//      CUDA tensor always launches one of the two.
+// Sums: atomics fold in no fixed order (neither within a run nor across
+// runs), so sums may differ from a sequential sum in the last bits: the
+// callers state a relative 1e-12. Counts, first, min and max are exact.
+//
+// Plain C entry points for ctypes; they launch on the caller's stream, do
+// not synchronise, allocate nothing and return a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +92,118 @@ namespace {
 
 using namespace geomesa;
 
-constexpr int SURVIVOR_INTS = 1;  // the survivor list: one int per staged query
+// the work ints (the wrapper zeroes them): blocks done with their lists,
+// the next run to take, the runs, run_len, the kept pairs, and the global
+// atomics the SHARED mode's flushes issued
+enum { W_DONE, W_NEXT, W_RUNS, W_RUN_LEN, W_PAIRS, W_FLUSHED, W_INTS };
+constexpr int LIST_CHUNKS = 8;   // chunks a work-list thread tests per step
+constexpr int RUNS_PER_BLOCK = 4;  // target runs per resident fold block
+
+// Exclusive prefix of v over the block's threads, in thread order; total
+// gets the block's sum. All threads call it; it holds two barriers.
+__device__ __forceinline__ int block_exclusive(int v, int* warp_tot, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(FULL_WARP, incl, d);
+    if (lane >= d) incl += u;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int before = incl - v;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int s = warp_tot[w];
+    if (w < warp) before += s;
+    total += s;
+  }
+  __syncthreads();
+  return before;
+}
+
+__global__ void __launch_bounds__(THREADS)
+agg_work_list_kernel(const Extent* __restrict__ ext, int64_t n_chunks, int64_t limit,
+                     const int32_t* __restrict__ boxes,  // (Q, nb, 4)
+                     const int32_t* __restrict__ times,  // (Q, nt, 4)
+                     int q, int nb, int nt, int target_runs, int min_run,
+                     int32_t* __restrict__ list,    // (Q, n_chunks): kept chunks, in order
+                     int32_t* __restrict__ kept,    // (Q,)
+                     int32_t* __restrict__ run_q,   // (max_runs,)
+                     int32_t* __restrict__ run_s,   // (max_runs,)
+                     int32_t* __restrict__ run_e,   // (max_runs,)
+                     int32_t* __restrict__ work) {  // (W_INTS,), zeroed
+  extern __shared__ int4 smem[];
+  __shared__ int meta[2];
+  __shared__ int warp_tot[WARPS];
+  __shared__ int last;
+  const int qi = blockIdx.x;
+  const Tile t = carve(smem, 1, nb, nt);
+  stage_tile(boxes, times, qi, 1, t, meta);
+  int total = 0;  // the query's kept chunks so far (block-uniform)
+  if (meta[0]) {  // block-uniform: the query has a live box and a live window
+    const int64_t step = (int64_t)THREADS * LIST_CHUNKS;
+    for (int64_t c0 = 0; c0 < n_chunks; c0 += step) {
+      const int64_t mine = c0 + (int64_t)threadIdx.x * LIST_CHUNKS;
+      Extent e[LIST_CHUNKS];
+#pragma unroll
+      for (int k = 0; k < LIST_CHUNKS; ++k)
+        if (mine + k < n_chunks) e[k] = ext[mine + k];
+      unsigned keep = 0;
+#pragma unroll
+      for (int k = 0; k < LIST_CHUNKS; ++k) {
+        const int64_t c = mine + k;
+        if (c < n_chunks && c * CHUNK < limit && meets(t, 0, e[k])) keep |= 1u << k;
+      }
+      int step_total;
+      const int before = block_exclusive(__popc(keep), warp_tot, step_total);
+      int32_t* out = list + (int64_t)qi * n_chunks + total + before;
+      while (keep) {
+        const int k = __ffs(keep) - 1;
+        keep &= keep - 1;
+        *out++ = (int32_t)(mine + k);
+      }
+      total += step_total;
+    }
+  }
+  if (threadIdx.x == 0) kept[qi] = total;
+
+  // the last block to finish cuts every query's list into runs
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(work + W_DONE, 1) == q - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int pairs = 0;
+  for (int i0 = 0; i0 < q; i0 += THREADS) {
+    const int i = i0 + threadIdx.x;
+    int step_total;
+    block_exclusive(i < q ? __ldcg(kept + i) : 0, warp_tot, step_total);
+    pairs += step_total;
+  }
+  const int run_len = max(min_run, (pairs + target_runs - 1) / target_runs);
+  int runs = 0;
+  for (int i0 = 0; i0 < q; i0 += THREADS) {
+    const int i = i0 + threadIdx.x;
+    const int k = i < q ? __ldcg(kept + i) : 0;
+    const int nr = (k + run_len - 1) / run_len;
+    int step_total;
+    const int at = runs + block_exclusive(nr, warp_tot, step_total);
+    for (int r = 0; r < nr; ++r) {
+      run_q[at + r] = i;
+      run_s[at + r] = r * run_len;
+      run_e[at + r] = min(k, (r + 1) * run_len);
+    }
+    runs += step_total;
+  }
+  if (threadIdx.x == 0) {
+    work[W_RUNS] = runs;
+    work[W_RUN_LEN] = run_len;
+    work[W_PAIRS] = pairs;
+  }
+}
 
 // The order key of a double: signed 64-bit order == the doubles' order.
 __device__ __forceinline__ long long order_key(double v) {
@@ -71,99 +211,332 @@ __device__ __forceinline__ long long order_key(double v) {
   return b >= 0 ? b : b ^ 0x7fffffffffffffffLL;
 }
 
-// Splits the warp's matches m of query qi into boundary rows (appended to
-// the query's lanes) and fold rows (folded into its groups); all 32 lanes
-// call it together. Bit r of m is chunk row chunk0 + chunk_row(r). Every
-// pointer addresses the tile's first query.
-struct AggEpilogue {
-  const Tile& t;
-  int64_t base;
-  const int32_t* __restrict__ gid;    // (n,)
-  const int32_t* __restrict__ rowid;  // (n,)
-  const double* __restrict__ vals;    // (nv, n)
-  int64_t n;
-  int nv, g, cap;
-  int32_t* __restrict__ cnt;     // (Q, g)
-  int32_t* __restrict__ first;   // (Q, g)
-  int32_t* __restrict__ vcnt;    // (Q, nv, g)
-  double* __restrict__ vsum;     // (Q, nv, g)
-  long long* __restrict__ vmin;  // (Q, nv, g) order keys
-  long long* __restrict__ vmax;  // (Q, nv, g) order keys
-  int32_t* __restrict__ hits;    // (Q,)
-  int32_t* __restrict__ pos;     // (Q, cap)
+constexpr long long KEY_POS_INF = 0x7ff0000000000000LL;           // order key of +inf
+constexpr long long KEY_NEG_INF = (long long)0x800fffffffffffffULL;  // order key of -inf
 
-  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t chunk0,
-                                             const Rows& rows) const {
-    if (!__any_sync(FULL_WARP, m)) return;  // warp-uniform
-    const uint32_t e = m ? edge_mask(t, qi, m, rows) : 0u;
-    append_lanes(e, base + chunk0, hits + qi, pos + (int64_t)qi * cap, cap);
-    uint32_t f = m & ~e;
-    const int64_t at_q = (int64_t)qi * g;
-    while (f) {
-      const int r = __ffs(f) - 1;
-      f &= f - 1;
-      const int64_t row = chunk0 + chunk_row(r);
-      const int grp = __ldg(gid + row);
-      if ((unsigned)grp >= (unsigned)g) continue;
-      atomicAdd(cnt + at_q + grp, 1);
-      atomicMin(first + at_q + grp, __ldg(rowid + row));
-      for (int v = 0; v < nv; ++v) {
-        const double val = __ldg(vals + (int64_t)v * n + row);
-        if (isnan(val)) continue;
-        const int64_t at = at_q * nv + (int64_t)v * g + grp;  // ((qi * nv) + v) * g + grp
-        atomicAdd(vcnt + at, 1);
-        atomicAdd(vsum + at, val);
-        const long long key = order_key(val);
-        atomicMin(vmin + at, key);
-        atomicMax(vmax + at, key);
+// Where one query's folds go: its (G,) and (V, G) slices of the outputs
+// (mode GLOBAL) or the block's shared partials of the same layout (SHARED).
+struct Acc {
+  int32_t* cnt;
+  int32_t* first;
+  int32_t* vcnt;
+  double* vsum;
+  long long* vmin;
+  long long* vmax;
+};
+
+// Folds the lane's fold rows f (bit r is chunk row chunk0 + chunk_row(r))
+// into acc: gid, rowid and the first value column are loaded for all of
+// them first, so a lane waits one latency for the three (and one more per
+// further value column), then folded with atomics
+// (in shared memory, f64 add and 64-bit min / max are compare-and-swap
+// loops: batching a lane's CAS by hand measured 4x slower on the fold).
+__device__ __forceinline__ void fold_rows(uint32_t f, int64_t chunk0,
+                                          const int32_t* __restrict__ gid,
+                                          const int32_t* __restrict__ rowid,
+                                          const double* __restrict__ vals, int64_t n, int nv,
+                                          int g, const Acc& acc) {
+  int gq[ROWS], rq[ROWS];
+  double vq[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    gq[r] = -1;
+    rq[r] = 0;
+    vq[r] = 0.0;
+    if ((f >> r) & 1u) {
+      gq[r] = __ldg(gid + chunk0 + chunk_row(r));
+      rq[r] = __ldg(rowid + chunk0 + chunk_row(r));
+      if (nv) vq[r] = __ldg(vals + chunk0 + chunk_row(r));  // value column 0, in the same wait
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if ((unsigned)gq[r] < (unsigned)g) {  // also false for rows not in f
+      atomicAdd(acc.cnt + gq[r], 1);
+      atomicMin(acc.first + gq[r], rq[r]);
+    }
+  }
+  for (int v = 0; v < nv; ++v) {
+    if (v) {
+      const double* col = vals + (int64_t)v * n + chunk0;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        vq[r] = (unsigned)gq[r] < (unsigned)g ? __ldg(col + chunk_row(r)) : 0.0;
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if ((unsigned)gq[r] < (unsigned)g && !isnan(vq[r])) {
+        const int at = v * g + gq[r];
+        atomicAdd(acc.vcnt + at, 1);
+        atomicAdd(acc.vsum + at, vq[r]);
+        const long long key = order_key(vq[r]);
+        atomicMin(acc.vmin + at, key);
+        atomicMax(acc.vmax + at, key);
       }
     }
   }
-};
+}
 
+// Streams chunks list[s..e) of the staged query (tile slot 0) through the
+// prefetch buffer: match, edge split, lanes, fold. All threads call it.
+template <bool FAST>
+__device__ __forceinline__ void fold_run(const int32_t* __restrict__ x,
+                                         const int32_t* __restrict__ y,
+                                         const int32_t* __restrict__ bins,
+                                         const int32_t* __restrict__ offs, int64_t n,
+                                         int64_t base, int64_t limit, const Tile& t,
+                                         const int32_t* __restrict__ list, int s, int e,
+                                         int4* buf, const int32_t* __restrict__ gid,
+                                         const int32_t* __restrict__ rowid,
+                                         const double* __restrict__ vals, int nv, int g,
+                                         const Acc& acc, int32_t* hits, int32_t* pos, int cap) {
+  const int lv = FAST ? 0 : t.live[0];
+  prefetch_chunk(buf, x, y, bins, offs, n, list[s]);
+  for (int i = s; i < e; ++i) {
+    const int64_t chunk0 = (int64_t)list[i] * CHUNK;
+    Rows rows;
+    const uint32_t valid = take_chunk(buf, chunk0, limit, rows);
+    const uint32_t inb = box_mask<FAST>(t.box, lv & 0xffff, rows) & valid;
+    const uint32_t m = inb & time_mask<FAST>(t.win, lv >> 16, rows);
+    // both masks have consumed every value the thread read from its buffer
+    // slots, so the next chunk's copy into them starts now
+    if (i + 1 < e) prefetch_chunk(buf, x, y, bins, offs, n, list[i + 1]);
+    if (!__any_sync(FULL_WARP, m)) continue;  // warp-uniform
+    const uint32_t ed = m ? edge_mask(t, 0, m, rows) : 0u;
+    append_lanes(ed, base + chunk0, hits, pos, cap);
+    const uint32_t f = m & ~ed;
+    if (f) fold_rows(f, chunk0, gid, rowid, vals, n, nv, g, acc);
+  }
+}
+
+// Bytes of one query's shared partials: vsum, vmin, vmax (8 B each), then
+// cnt, first and vcnt (4 B each).
+__host__ __device__ constexpr long long partial_bytes(int nv, int g) {
+  return (long long)g * (8 + 28LL * nv);
+}
+
+__host__ __device__ constexpr int tile_bytes(int nb, int nt) {
+  return (staged_bytes_per_query(nb, nt, 0) + 15) / 16 * 16;
+}
+
+template <bool SHARED>
 __global__ void __launch_bounds__(THREADS, 2)
 grouped_agg_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                    const int32_t* __restrict__ bins, const int32_t* __restrict__ offs,
                    int64_t n, int64_t base, int64_t true_n,
                    const int32_t* __restrict__ boxes,  // (Q, nb, 4)
                    const int32_t* __restrict__ times,  // (Q, nt, 4)
-                   int q, int nb, int nt, int q_tile,
+                   int nb, int nt,
+                   const int32_t* __restrict__ list, int64_t n_chunks,
+                   const int32_t* __restrict__ run_q, const int32_t* __restrict__ run_s,
+                   const int32_t* __restrict__ run_e, int32_t* __restrict__ work,
                    const int32_t* __restrict__ gid, const int32_t* __restrict__ rowid,
                    const double* __restrict__ vals, int32_t* __restrict__ cnt,
                    int32_t* __restrict__ first, int32_t* __restrict__ vcnt,
                    double* __restrict__ vsum, long long* __restrict__ vmin,
                    long long* __restrict__ vmax, int32_t* __restrict__ hits,
                    int32_t* __restrict__ pos, int nv, int g, int cap) {
-  extern __shared__ int4 smem[];  // the row buffer, then the staged tile
+  extern __shared__ int4 smem[];  // the row buffer, the staged query, the partials
   __shared__ int meta[2];
-  __shared__ Extent warp_ext[WARPS];
-  __shared__ int n_surv[2];
-  const int q0 = blockIdx.y * q_tile;
-  const int qt = min(q_tile, q - q0);
+  __shared__ int run[3];
   int4* buf = smem;
-  const Tile t = carve(smem + ROW_BUF_BYTES / 16, q_tile, nb, nt);
-  if (threadIdx.x < 2) n_surv[threadIdx.x] = 0;  // stage_tile's barriers order this
-  stage_tile(boxes, times, q0, qt, t, meta);
-  const int n_active = meta[0];
-  if (n_active == 0) return;  // block-uniform, after the last barrier
-  const int64_t qg = (int64_t)q0 * g, qvg = (int64_t)q0 * nv * g;
-  AggEpilogue ep{t, base, gid, rowid, vals, n, nv, g, cap,
-                 cnt + qg, first + qg, vcnt + qvg, vsum + qvg, vmin + qvg, vmax + qvg,
-                 hits + q0, pos + (int64_t)q0 * cap};
+  char* tile_at = reinterpret_cast<char*>(smem + ROW_BUF_BYTES / 16);
+  const Tile t = carve(tile_at, 1, nb, nt);
+  const int64_t vg = (int64_t)nv * g;
+  Acc part{};
+  if (SHARED) {
+    double* ps = reinterpret_cast<double*>(tile_at + tile_bytes(nb, nt));
+    part.vsum = ps;
+    part.vmin = reinterpret_cast<long long*>(ps + vg);
+    part.vmax = part.vmin + vg;
+    part.cnt = reinterpret_cast<int32_t*>(part.vmax + vg);
+    part.first = part.cnt + g;
+    part.vcnt = part.first + g;
+    for (int i = threadIdx.x; i < g; i += THREADS) part.cnt[i] = 0, part.first[i] = INT32_MAX;
+    for (int64_t i = threadIdx.x; i < vg; i += THREADS) {
+      part.vcnt[i] = 0;
+      part.vsum[i] = 0.0;
+      part.vmin[i] = KEY_POS_INF;
+      part.vmax[i] = KEY_NEG_INF;
+    }
+  }
   const int64_t limit = valid_limit(n, base, true_n);
-  if (meta[1])
-    cull_scan<true>(x, y, bins, offs, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
-  else
-    cull_scan<false>(x, y, bins, offs, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
+  int flushed = 0;  // global atomics of this thread's flushes
+  int cur = -1;     // the staged query
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int r = atomicAdd(work + W_NEXT, 1);
+      const bool any = r < work[W_RUNS];
+      run[0] = any ? run_q[r] : -1;
+      run[1] = any ? run_s[r] : 0;
+      run[2] = any ? run_e[r] : 0;
+    }
+    __syncthreads();  // the run is read; the previous run's flush is done
+    const int qi = run[0];
+    if (qi < 0) break;  // block-uniform
+    if (qi != cur) {
+      stage_tile(boxes, times, qi, 1, t, meta);  // reads nothing of run[]
+      cur = qi;
+    }
+    const int s = run[1], e = run[2];
+    const int64_t qg = (int64_t)qi * g, qvg = (int64_t)qi * vg;
+    const Acc acc = SHARED ? part
+                           : Acc{cnt + qg, first + qg, vcnt + qvg, vsum + qvg, vmin + qvg,
+                                 vmax + qvg};
+    const int32_t* lq = list + (int64_t)qi * n_chunks;
+    int32_t* hq = hits + qi;
+    int32_t* pq = pos + (int64_t)qi * cap;
+    if (meta[0] && meta[1])
+      fold_run<true>(x, y, bins, offs, n, base, limit, t, lq, s, e, buf, gid, rowid, vals, nv,
+                     g, acc, hq, pq, cap);
+    else if (meta[0])
+      fold_run<false>(x, y, bins, offs, n, base, limit, t, lq, s, e, buf, gid, rowid, vals, nv,
+                      g, acc, hq, pq, cap);
+    __syncthreads();  // the run's partials are complete
+    if (SHARED) {  // one global atomic per touched (group, field); each thread resets its own
+      for (int i = threadIdx.x; i < g; i += THREADS) {
+        const int c = part.cnt[i];
+        if (!c) continue;
+        atomicAdd(cnt + qg + i, c);
+        atomicMin(first + qg + i, part.first[i]);
+        part.cnt[i] = 0;
+        part.first[i] = INT32_MAX;
+        flushed += 2;
+        for (int v = 0; v < nv; ++v) {
+          const int at = v * g + i;
+          const int vc = part.vcnt[at];
+          if (!vc) continue;
+          atomicAdd(vcnt + qvg + at, vc);
+          atomicAdd(vsum + qvg + at, part.vsum[at]);
+          atomicMin(vmin + qvg + at, part.vmin[at]);
+          atomicMax(vmax + qvg + at, part.vmax[at]);
+          part.vcnt[at] = 0;
+          part.vsum[at] = 0.0;
+          part.vmin[at] = KEY_POS_INF;
+          part.vmax[at] = KEY_NEG_INF;
+          flushed += 4;
+        }
+      }
+    }
+  }
+  if (SHARED) {
+    flushed = __reduce_add_sync(FULL_WARP, flushed);
+    if ((threadIdx.x & 31) == 0 && flushed) atomicAdd(work + W_FLUSHED, flushed);
+  }
+}
+
+// The outputs' initial values: 0 counts, sums and hits, INT32_MAX first
+// rows, the order keys of +inf / -inf, -1 lanes.
+__global__ void agg_init_kernel(int32_t* __restrict__ cnt, int32_t* __restrict__ first,
+                                int32_t* __restrict__ vcnt, double* __restrict__ vsum,
+                                long long* __restrict__ vmin, long long* __restrict__ vmax,
+                                int32_t* __restrict__ hits, int32_t* __restrict__ pos,
+                                int64_t qg, int64_t qvg, int64_t q, int64_t qcap) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < qvg; i += step)
+    vcnt[i] = 0, vsum[i] = 0.0, vmin[i] = KEY_POS_INF, vmax[i] = KEY_NEG_INF;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < qg; i += step)
+    cnt[i] = 0, first[i] = INT32_MAX;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < qcap; i += step)
+    pos[i] = -1;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < q; i += step)
+    hits[i] = 0;
+}
+
+constexpr int MAX_LANES = 4096;  // lanes a query's finishing block sorts in shared memory
+
+// One block per query: its order keys back to the doubles' bits, in place
+// (the key is its own inverse on the bits), and its lanes sorted
+// ascending with the -1 padding last (a bitonic sort in shared memory,
+// the lanes padded to a power of two with INT32_MAX).
+__global__ void __launch_bounds__(THREADS)
+agg_finish_kernel(long long* __restrict__ vmin, long long* __restrict__ vmax, int64_t vg,
+                  int32_t* __restrict__ pos, int cap, int cap2) {
+  __shared__ int32_t lanes[MAX_LANES];
+  const int64_t qi = blockIdx.x;
+  for (int64_t i = threadIdx.x; i < vg; i += THREADS) {
+    const long long a = vmin[qi * vg + i], b = vmax[qi * vg + i];
+    vmin[qi * vg + i] = a >= 0 ? a : a ^ 0x7fffffffffffffffLL;
+    vmax[qi * vg + i] = b >= 0 ? b : b ^ 0x7fffffffffffffffLL;
+  }
+  int32_t* lq = pos + qi * cap;
+  for (int i = threadIdx.x; i < cap2; i += THREADS) {
+    const int32_t v = i < cap ? lq[i] : -1;
+    lanes[i] = v < 0 ? INT32_MAX : v;
+  }
+  __syncthreads();
+  for (int k = 2; k <= cap2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < cap2; i += THREADS) {
+        const int o = i ^ j;
+        if (o > i) {
+          const int32_t a = lanes[i], b = lanes[o];
+          if ((a > b) == ((i & k) == 0)) lanes[i] = b, lanes[o] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < cap; i += THREADS) lq[i] = lanes[i] == INT32_MAX ? -1 : lanes[i];
+}
+
+// The dynamic shared memory of a mode's fold block.
+size_t fold_smem(bool shared, int nb, int nt, int nv, int g) {
+  return ROW_BUF_BYTES + tile_bytes(nb, nt) + (shared ? (size_t)partial_bytes(nv, g) : 0);
+}
+
+// 1: the SHARED mode's partials fit a block beside the row buffer; 0: GLOBAL.
+bool shared_fits(int nb, int nt, int nv, int g) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return false;
+  return fold_smem(true, nb, nt, nv, g) <= (size_t)optin;
+}
+
+template <bool SHARED>
+cudaError_t prepare(int nb, int nt, int nv, int g, int sms, int* blocks) {
+  const size_t smem = fold_smem(SHARED, nb, nt, nv, g);
+  cudaError_t e = cudaFuncSetAttribute(grouped_agg_kernel<SHARED>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(grouped_agg_kernel<SHARED>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grouped_agg_kernel<SHARED>, THREADS,
+                                                    smem);
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return e;
 }
 
 }  // namespace
 
-// The kernel as compiled (cudaFuncGetAttributes): out (host, 2 x int) gets
-// its registers per thread and its local memory bytes per thread (spills).
-extern "C" int geomesa_grouped_agg_attrs(void* out) {
+// The fold's mode at this shape: 1 SHARED (partials in shared memory),
+// 0 GLOBAL (the fold's atomics on the outputs).
+extern "C" int geomesa_grouped_agg_mode(int nb, int nt, int nv, int g) {
+  return shared_fits(nb, nt, nv, g) ? 1 : 0;
+}
+
+// The runs the work list aims at for the fold at this shape: RUNS_PER_BLOCK
+// per resident fold block (host out: 1 x int).
+extern "C" int geomesa_grouped_agg_target_runs(int nb, int nt, int nv, int g, int sms,
+                                               void* out) {
+  int blocks = 0;
+  const cudaError_t e = shared_fits(nb, nt, nv, g) ? prepare<true>(nb, nt, nv, g, sms, &blocks)
+                                                   : prepare<false>(nb, nt, nv, g, sms, &blocks);
+  *(int*)out = RUNS_PER_BLOCK * blocks;
+  return (int)e;
+}
+
+// A mode's fold kernel as compiled (cudaFuncGetAttributes): out (host, 2 x
+// int) gets its registers per thread and its local memory bytes per thread
+// (spills).
+extern "C" int geomesa_grouped_agg_attrs(int shared, void* out) {
   cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, grouped_agg_kernel);
+  const cudaError_t e = shared ? cudaFuncGetAttributes(&attr, grouped_agg_kernel<true>)
+                               : cudaFuncGetAttributes(&attr, grouped_agg_kernel<false>);
   if (e == cudaSuccess) {
     ((int*)out)[0] = attr.numRegs;
     ((int*)out)[1] = (int)attr.localSizeBytes;
@@ -171,36 +544,71 @@ extern "C" int geomesa_grouped_agg_attrs(void* out) {
   return (int)e;
 }
 
+extern "C" int geomesa_agg_work_list(const void* ext, long long n, long long base,
+                                     long long true_n, const void* boxes, const void* times,
+                                     int q, int nb, int nt, int target_runs, int min_run,
+                                     void* list, void* kept, void* run_q, void* run_s,
+                                     void* run_e, void* work, void* stream) {
+  if (q <= 0) return (int)cudaSuccess;  // n == 0 launches: every list is empty
+  if (target_runs < 1 || min_run < 1) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (n + CHUNK - 1) / CHUNK;
+  const size_t max_runs = (size_t)q + target_runs;
+  cudaStream_t st = (cudaStream_t)stream;
+  // -1 past each list and past the runs, 0 work ints
+  cudaError_t e = cudaMemsetAsync(list, 0xff, (size_t)q * n_chunks * 4, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(run_q, 0xff, max_runs * 4, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(run_s, 0xff, max_runs * 4, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(run_e, 0xff, max_runs * 4, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(work, 0, W_INTS * 4, st);
+  if (e != cudaSuccess) return (int)e;
+  const long long limit = (true_n - base) < n ? (true_n - base) : n;
+  const size_t smem = (size_t)staged_bytes_per_query(nb, nt, 0);
+  agg_work_list_kernel<<<q, THREADS, smem, st>>>(
+      (const Extent*)ext, n_chunks, limit, (const int32_t*)boxes, (const int32_t*)times, q, nb,
+      nt, target_runs, min_run, (int32_t*)list, (int32_t*)kept, (int32_t*)run_q,
+      (int32_t*)run_s, (int32_t*)run_e, (int32_t*)work);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int geomesa_grouped_agg(const void* x, const void* y, const void* bins,
                                    const void* offs, long long n, long long base,
                                    long long true_n, const void* boxes, const void* times,
-                                   int q, int nb, int nt, int sms, const void* gid,
-                                   const void* rowid, const void* vals, void* cnt, void* first,
-                                   void* vcnt, void* vsum, void* vmin, void* vmax, void* hits,
-                                   void* pos, int nv, int g, int cap, void* stream) {
-  if (q <= 0 || n <= 0) return (int)cudaSuccess;
-  const int tile_max = q_tile_for(nb, nt, SURVIVOR_INTS);
-  const int q_tile = q < tile_max ? q : tile_max;
-  const int q_tiles = (q + q_tile - 1) / q_tile;
-  const size_t smem =
-      ROW_BUF_BYTES + (size_t)q_tile * staged_bytes_per_query(nb, nt, SURVIVOR_INTS);
-  cudaError_t e = cudaFuncSetAttribute(grouped_agg_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                   int q, int nb, int nt, int sms, const void* list,
+                                   const void* run_q, const void* run_s, const void* run_e,
+                                   void* work, const void* gid, const void* rowid,
+                                   const void* vals, void* cnt, void* first, void* vcnt,
+                                   void* vsum, void* vmin, void* vmax, void* hits, void* pos,
+                                   int nv, int g, int cap, void* stream) {
+  if (q <= 0) return (int)cudaSuccess;
+  if (cap > MAX_LANES) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t qg = (int64_t)q * g, qvg = qg * nv;
+  agg_init_kernel<<<264, THREADS, 0, st>>>((int32_t*)cnt, (int32_t*)first, (int32_t*)vcnt,
+                                           (double*)vsum, (long long*)vmin, (long long*)vmax,
+                                           (int32_t*)hits, (int32_t*)pos, qg, qvg, q,
+                                           (int64_t)q * cap);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n <= 0) return (int)e;
+  const long long n_chunks = (n + CHUNK - 1) / CHUNK;
+  const bool shared = shared_fits(nb, nt, nv, g);
+  int blocks = 0;
+  e = shared ? prepare<true>(nb, nt, nv, g, sms, &blocks)
+             : prepare<false>(nb, nt, nv, g, sms, &blocks);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(grouped_agg_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grouped_agg_kernel, THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long chunks = (n + CHUNK - 1) / CHUNK;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  dim3 grid((unsigned)(chunks < resident ? chunks : resident), q_tiles);
-  grouped_agg_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  const size_t smem = fold_smem(shared, nb, nt, nv, g);
+  auto kernel = shared ? grouped_agg_kernel<true> : grouped_agg_kernel<false>;
+  kernel<<<blocks, THREADS, smem, st>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins, (const int32_t*)offs, n, base,
-      true_n, (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, q_tile,
-      (const int32_t*)gid, (const int32_t*)rowid, (const double*)vals, (int32_t*)cnt,
-      (int32_t*)first, (int32_t*)vcnt, (double*)vsum, (long long*)vmin, (long long*)vmax,
-      (int32_t*)hits, (int32_t*)pos, nv, g, cap);
+      true_n, (const int32_t*)boxes, (const int32_t*)times, nb, nt, (const int32_t*)list,
+      n_chunks, (const int32_t*)run_q, (const int32_t*)run_s, (const int32_t*)run_e,
+      (int32_t*)work, (const int32_t*)gid, (const int32_t*)rowid, (const double*)vals,
+      (int32_t*)cnt, (int32_t*)first, (int32_t*)vcnt, (double*)vsum, (long long*)vmin,
+      (long long*)vmax, (int32_t*)hits, (int32_t*)pos, nv, g, cap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  int cap2 = 1;
+  while (cap2 < cap) cap2 <<= 1;
+  agg_finish_kernel<<<q, THREADS, 0, st>>>((long long*)vmin, (long long*)vmax, (int64_t)nv * g,
+                                          (int32_t*)pos, cap, cap2);
   return (int)cudaGetLastError();
 }

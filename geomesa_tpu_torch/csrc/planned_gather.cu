@@ -14,33 +14,50 @@
 // the JOIN_BLOCK rows [blk * JOIN_BLOCK, (blk + 1) * JOIN_BLOCK) of the
 // resident columns; pair_hits[p] is the number of those rows below true_n
 // that pass query pair_q[p]'s boxes and windows (count_predicate.cuh's
-// predicate), and positions[offsets[p] ..] their global positions in row
-// order. offsets is the exclusive prefix sum of pair_hits (the wrapper takes
-// it with one torch.cumsum and sizes positions from its total).
+// predicate), and positions[offsets[p] ..] their global positions (int32,
+// the reference's contract: geomesa_tpu/parallel/query.py:873-876) in row
+// order. offsets[p] = ends[p] - pair_hits[p], ends the inclusive prefix
+// sum of pair_hits (the wrapper takes it with one torch.cumsum and sizes
+// positions from its last element).
 //
-// Bound on an H100: bytes. Each distinct block is read once at least (16 B a
-// row), plus the pair lists in, the pair counts out and 8 B per written
+// Bound on an H100: bytes. Each distinct block is read once at least (16 B
+// a row), plus the pair lists in, the pair counts out and 4 B per written
 // position; the predicate on pairs x 4096 rows is a few integer
-// instructions per row and query. chip_smoke.py reckons both from the run's
-// pairs.
+// instructions per row and query. chip_smoke.py reckons both from the
+// run's pairs.
 //
-// Design: one 256-thread block per pair; a pair's block of JOIN_BLOCK rows
-// is exactly one chunk of 16 consecutive rows a thread, loaded as 16-byte
-// vectors before the block stages its pair's query (stage_tile with one
-// query: live slots only, a dead query writes no row), so the loads are in
-// flight during the staging. The count pass writes pair_hits; the write
-// pass recomputes the mask and places each thread's rows at the pair's
-// offset plus a block-wide exclusive scan of the per-thread popcounts (warp
-// shuffles, then one shared step): rows go out in row order within a pair,
-// with no atomics, so the output is deterministic. The write pass reads no
-// column for a pair that matched no row or every row of its block (then its
-// positions are the block's rows): pairs inside a query's box and window
-// cost a 32 KB store instead of a 64 KB read. A pair whose query or
-// block lies out of range counts 0 and writes nothing (the caller checks
-// the ranges; this keeps every read inside the columns).
+// What held the first version back: a block per pair in both passes, so
+// each pass read a pair's 64 KB block once per pair (11,907 pairs over
+// 6,361 distinct blocks at bench config 2: ~780 MB a pass against the
+// bound's ~417 MB once).
 //
-// Plain C entry point for ctypes; launches on the caller's stream, does not
-// synchronise, allocates nothing, returns a cudaError_t.
+// Design: two passes over a block-major order of the pairs that the host
+// builds (ops.kernels.block_runs: a stable sort of the pairs by block, and
+// where each distinct block's run starts).
+//   - The count pass runs one 256-thread block per DISTINCT block: it loads
+//     the block's JOIN_BLOCK rows once into registers (16 consecutive rows
+//     a thread, 16-byte vectors; one chunk of count_predicate.cuh), and
+//     while the loads are in flight stages the queries of its pairs, up to
+//     a tile of them at a time, live slots only (a query out of range
+//     stages dead). Per pair it runs the predicate on the rows in
+//     registers and writes the pair's 4096-bit match mask (16 bits a
+//     thread, 512 B a pair) to scratch the wrapper allocates, and its count
+//     (per-warp sums, added once per tile).
+//   - The write pass runs one block per pair: it reads the pair's 512 B
+//     mask instead of its columns, places each thread's rows in shared
+//     memory at a block-wide exclusive scan of the per-thread popcounts,
+//     in row order, with no atomics (the output is deterministic), and
+//     stores them at the pair's offset with neighbouring threads on
+//     neighbouring positions (a thread's own rows would stride its
+//     warp's stores across the output). A pair with 0 hits reads nothing;
+//     one with every row of its block writes the block's rows without its
+//     mask.
+// A pair whose query or block lies out of range counts 0 and writes
+// nothing (the caller checks the ranges; this keeps every read inside the
+// columns).
+//
+// Plain C entry points for ctypes; they launch on the caller's stream, do
+// not synchronise, allocate nothing and return a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,53 +70,127 @@ using namespace geomesa;
 
 constexpr int JOIN_BLOCK = 4096;  // ops/kernels.py JOIN_BLOCK
 static_assert(JOIN_BLOCK == CHUNK, "one pair's block is one chunk of THREADS x ROWS rows");
+static_assert(ROWS == 16, "a thread's match mask is 16 bits of a pair's 512 B mask");
+constexpr int PAIR_INTS = 1;  // a staged slot's pair index
 
-template <bool WRITE>
-__global__ void __launch_bounds__(THREADS, 2)
-planned_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                      const int32_t* __restrict__ bins, const int32_t* __restrict__ offs,
-                      int64_t n, int64_t true_n,
-                      const int32_t* __restrict__ pair_q,    // (P,)
-                      const int32_t* __restrict__ pair_blk,  // (P,)
-                      const int32_t* __restrict__ boxes,     // (Q, nb, 4)
-                      const int32_t* __restrict__ times,     // (Q, nt, 4)
-                      int q, int nb, int nt,
-                      int64_t* __restrict__ pair_hits,        // (P,): the count pass's output,
-                                                              // the write pass's input
-                      const int64_t* __restrict__ offsets,    // (P,), the write pass's input
-                      int64_t* __restrict__ positions) {      // (H,)
-  extern __shared__ int4 smem[];
-  __shared__ int meta[2];
-  __shared__ int warp_sum[WARPS];
-  const int64_t p = blockIdx.x;
-  const int qi = pair_q[p];
-  const int64_t blk = pair_blk[p];
-  if (qi < 0 || qi >= q || blk < 0 || blk >= n / JOIN_BLOCK) {  // block-uniform
-    if (!WRITE && threadIdx.x == 0) pair_hits[p] = 0;
-    return;
+// Stages the queries qs[0..k) in tile slots 0..k (live slots first, as
+// stage_tile does; a query out of [0, q) stages with no live slot) and the
+// pair indices ps[0..k) in t.extra; zeroes the per-warp counts. All threads
+// call it; it ends in __syncthreads().
+__device__ __forceinline__ void stage_pairs(const int32_t* __restrict__ boxes,
+                                            const int32_t* __restrict__ times,
+                                            const int32_t* __restrict__ qs,
+                                            const int32_t* __restrict__ ps, int k, int q,
+                                            const Tile& t) {
+  const int nb = t.nb, nt = t.nt;
+  int4* raw_win = reinterpret_cast<int4*>(t.win);
+  for (int i = threadIdx.x; i < k * nb; i += THREADS) {
+    const int qi = qs[i / nb];
+    if (qi >= 0 && qi < q) t.box[i] = reinterpret_cast<const int4*>(boxes)[(int64_t)qi * nb + i % nb];
   }
-  if (WRITE) {  // block-uniform shortcuts that read no column
-    const int64_t hits = pair_hits[p];
-    if (hits == 0) return;
-    if (hits == JOIN_BLOCK) {  // every row matched: the block's rows, in order
-      int64_t* out = positions + offsets[p];
-      for (int i = threadIdx.x; i < JOIN_BLOCK; i += THREADS) out[i] = blk * JOIN_BLOCK + i;
-      return;
+  for (int i = threadIdx.x; i < k * nt; i += THREADS) {
+    const int qi = qs[i / nt];
+    if (qi >= 0 && qi < q) raw_win[i] = reinterpret_cast<const int4*>(times)[(int64_t)qi * nt + i % nt];
+  }
+  for (int i = threadIdx.x; i < k; i += THREADS) t.extra[i] = ps[i];
+  for (int i = threadIdx.x; i < WARPS * t.q_tile; i += THREADS) t.cnt[i] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < k; i += THREADS) {
+    const int qi = qs[i];
+    int kb = 0, kt = 0;
+    if (qi >= 0 && qi < q) {
+      int4* bq = t.box + i * nb;
+      for (int j = 0; j < nb; ++j) {
+        const int4 b = bq[j];  // xlo, xhi, ylo, yhi
+        if (b.x <= b.y && b.z <= b.w)
+          bq[kb++] = make_int4(b.x, (int)((uint32_t)b.y - (uint32_t)b.x), b.z,
+                               (int)((uint32_t)b.w - (uint32_t)b.z));
+      }
+      longlong2* wq = t.win + i * nt;
+      const int4* wr = raw_win + i * nt;
+      for (int j = 0; j < nt; ++j) {
+        const int4 w = wr[j];  // blo, olo, bhi, ohi
+        const long long lo = time_key(w.x, w.y), hi = time_key(w.z, w.w);
+        if (lo <= hi) wq[kt++] = make_longlong2(lo, hi);
+      }
     }
+    t.live[i] = kb | (kt << 16);
   }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+planned_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                     const int32_t* __restrict__ bins, const int32_t* __restrict__ offs,
+                     int64_t n, int64_t true_n,
+                     const int32_t* __restrict__ order,    // (P,): pairs, block-major
+                     const int32_t* __restrict__ order_q,  // (P,): their queries
+                     const int32_t* __restrict__ starts,   // (D + 1,): runs in order
+                     const int32_t* __restrict__ blocks,   // (D,): each run's block
+                     const int32_t* __restrict__ boxes,    // (Q, nb, 4)
+                     const int32_t* __restrict__ times,    // (Q, nt, 4)
+                     int q, int nb, int nt, int tile,
+                     int64_t* __restrict__ pair_hits,      // (P,)
+                     uint16_t* __restrict__ masks) {       // (P, THREADS)
+  extern __shared__ int4 smem[];
+  const int d = blockIdx.x;
+  const int s = starts[d], e = starts[d + 1];
+  const int64_t blk = blocks[d];
+  const bool blk_ok = blk >= 0 && blk < n / JOIN_BLOCK;  // block-uniform
   const int64_t row0 = blk * JOIN_BLOCK + (int64_t)threadIdx.x * ROWS;
   Rows rows;
-  const uint32_t valid = load_rows(x, y, bins, offs, n, valid_limit(n, 0, true_n), row0, rows);
-  const Tile t = carve(smem, 1, nb, nt);
-  stage_tile(boxes, times, qi, 1, t, meta);
-  uint32_t m = 0;
-  if (meta[0]) {  // block-uniform: the query has a live box and a live window
-    const int lv = t.live[0];
-    m = (meta[1] ? box_mask<true>(t.box, 1, rows) : box_mask<false>(t.box, lv & 0xffff, rows)) &
-        valid;
-    if (m)
-      m &= meta[1] ? time_mask<true>(t.win, 1, rows) : time_mask<false>(t.win, lv >> 16, rows);
+  uint32_t valid = 0;
+  if (blk_ok) valid = load_rows(x, y, bins, offs, n, valid_limit(n, 0, true_n), row0, rows);
+  const Tile t = carve(smem, tile, nb, nt);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int p0 = s; p0 < e; p0 += tile) {
+    const int k = min(tile, e - p0);
+    stage_pairs(boxes, times, order_q + p0, order + p0, k, q, t);  // the loads are in flight
+    for (int i = 0; i < k; ++i) {
+      const int lv = t.live[i];
+      uint32_t m = 0;
+      if (blk_ok && (lv & 0xffff) && (lv >> 16)) {  // block-uniform
+        if (lv == (1 | (1 << 16))) {
+          m = box_mask<true>(t.box + i * nb, 1, rows) & valid;
+          if (m) m &= time_mask<true>(t.win + i * nt, 1, rows);
+        } else {
+          m = box_mask<false>(t.box + i * nb, lv & 0xffff, rows) & valid;
+          if (m) m &= time_mask<false>(t.win + i * nt, lv >> 16, rows);
+        }
+      }
+      masks[(int64_t)t.extra[i] * THREADS + threadIdx.x] = (uint16_t)m;
+      const int c = __reduce_add_sync(FULL_WARP, __popc(m));
+      if (lane == 0) t.cnt[warp * tile + i] = c;
+    }
+    __syncthreads();  // the tile's per-warp counts are written
+    for (int i = threadIdx.x; i < k; i += THREADS) {
+      int64_t total = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) total += t.cnt[w * tile + i];
+      pair_hits[t.extra[i]] = total;
+    }
+    __syncthreads();  // the tile is read before the next is staged
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+planned_write_kernel(const int32_t* __restrict__ pair_blk,   // (P,)
+                     const int64_t* __restrict__ pair_hits,  // (P,)
+                     const int64_t* __restrict__ ends,       // (P,): inclusive prefix of hits
+                     const uint16_t* __restrict__ masks,     // (P, THREADS)
+                     int32_t* __restrict__ positions) {      // (H,)
+  __shared__ int32_t rows_out[JOIN_BLOCK];  // the pair's positions, in order
+  __shared__ int warp_sum[WARPS];
+  const int64_t p = blockIdx.x;
+  const int hits = (int)pair_hits[p];
+  if (hits == 0) return;  // block-uniform: also every pair out of range
+  const int32_t blk0 = pair_blk[p] * JOIN_BLOCK;  // global positions are int32 (n < 2^31)
+  int32_t* out = positions + (ends[p] - hits);
+  if (hits == JOIN_BLOCK) {  // every row matched: the block's rows, in order
+    for (int i = threadIdx.x; i < JOIN_BLOCK; i += THREADS) out[i] = blk0 + i;
+    return;
+  }
+  uint32_t m = masks[p * THREADS + threadIdx.x];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = __popc(m);
   int incl = c;
@@ -110,49 +201,50 @@ planned_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__
   }
   if (lane == 31) warp_sum[warp] = incl;
   __syncthreads();
-  if (!WRITE) {
-    if (threadIdx.x == 0) {
-      int64_t total = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) total += warp_sum[w];
-      pair_hits[p] = total;
-    }
-    return;
-  }
-  int before = incl - c;
-  for (int w = 0; w < warp; ++w) before += warp_sum[w];
-  int64_t* out = positions + offsets[p] + before;
+  int at = incl - c;
+  for (int w = 0; w < warp; ++w) at += warp_sum[w];
+  const int32_t row0 = blk0 + threadIdx.x * ROWS;
   while (m) {
     const int r = __ffs(m) - 1;
     m &= m - 1;
-    *out++ = row0 + r;
+    rows_out[at++] = row0 + r;
   }
+  __syncthreads();  // neighbouring threads store neighbouring positions
+  for (int i = threadIdx.x; i < hits; i += THREADS) out[i] = rows_out[i];
 }
 
 }  // namespace
 
-// offsets == nullptr: the count pass (writes pair_hits); otherwise the write
-// pass (reads pair_hits and offsets, writes positions).
-extern "C" int geomesa_planned_gather(const void* x, const void* y, const void* bins,
-                                      const void* offs, long long n, long long true_n,
-                                      const void* pair_q, const void* pair_blk, long long n_pairs,
-                                      const void* boxes, const void* times, int q, int nb,
-                                      int nt, void* pair_hits, const void* offsets,
-                                      void* positions, void* stream) {
-  if (n_pairs <= 0 || q <= 0 || n <= 0) return (int)cudaSuccess;
+// The count pass: plan is the host's block-major order packed as int32
+// [order (P) | order_q (P) | starts (D + 1) | blocks (D)] on the device.
+extern "C" int geomesa_planned_gather_count(const void* x, const void* y, const void* bins,
+                                            const void* offs, long long n, long long true_n,
+                                            const void* plan, long long n_pairs,
+                                            long long n_blocks, const void* boxes,
+                                            const void* times, int q, int nb, int nt,
+                                            void* pair_hits, void* masks, void* stream) {
+  if (n_pairs <= 0 || n_blocks <= 0 || n <= 0) return (int)cudaSuccess;
+  if (n_pairs > 0x7fffffffLL || n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int tile = q_tile_for(nb, nt, PAIR_INTS);
+  const size_t smem = (size_t)tile * staged_bytes_per_query(nb, nt, PAIR_INTS);
+  const int32_t* p = (const int32_t*)plan;
+  planned_count_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins, (const int32_t*)offs, n,
+      true_n, p, p + n_pairs, p + 2 * n_pairs, p + 2 * n_pairs + n_blocks + 1,
+      (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, tile, (int64_t*)pair_hits,
+      (uint16_t*)masks);
+  return (int)cudaGetLastError();
+}
+
+// The write pass: positions from the count pass's masks and counts; ends
+// is the inclusive prefix sum of pair_hits.
+extern "C" int geomesa_planned_gather_write(const void* pair_blk, long long n_pairs,
+                                            const void* pair_hits, const void* ends,
+                                            const void* masks, void* positions, void* stream) {
+  if (n_pairs <= 0) return (int)cudaSuccess;
   if (n_pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)staged_bytes_per_query(nb, nt, 0);
-  const dim3 grid((unsigned)n_pairs);
-  if (offsets == nullptr)
-    planned_gather_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins, (const int32_t*)offs, n,
-        true_n, (const int32_t*)pair_q, (const int32_t*)pair_blk, (const int32_t*)boxes,
-        (const int32_t*)times, q, nb, nt, (int64_t*)pair_hits, nullptr, nullptr);
-  else
-    planned_gather_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins, (const int32_t*)offs, n,
-        true_n, (const int32_t*)pair_q, (const int32_t*)pair_blk, (const int32_t*)boxes,
-        (const int32_t*)times, q, nb, nt, (int64_t*)pair_hits, (const int64_t*)offsets,
-        (int64_t*)positions);
+  planned_write_kernel<<<(unsigned)n_pairs, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)pair_blk, (const int64_t*)pair_hits, (const int64_t*)ends,
+      (const uint16_t*)masks, (int32_t*)positions);
   return (int)cudaGetLastError();
 }

@@ -43,20 +43,29 @@ plain version).
 ``planned_gather`` replaces no TPU kernel either: the reference computes it
 in XLA (``geomesa_tpu/parallel/query.py:820``, ``make_planned_gather_step``).
 It is ``select_many``'s batched row retrieval over planned (query, block)
-pairs, one 256-thread block per pair in a count pass and a write pass. Its
-source is ``csrc/planned_gather.cu``; its plain version
+pairs: a count pass with one 256-thread block per distinct block of the
+pairs (each block's rows read once; each pair's 512 B match mask kept for
+the next pass), and a write pass with one block per pair that reads only
+its mask. Its source is ``csrc/planned_gather.cu``; its plain version
 (:func:`planned_gather_plain`) is the eager torch form it replaced.
 
 ``grouped_agg`` replaces no TPU kernel either: the reference computes it in
 XLA (``geomesa_tpu/parallel/query.py:1498``, ``make_grouped_agg_step``,
 whose MXU bincount ``_onehot_bincount`` :1464 this card does with
 atomics). It is ``aggregate_many``'s fused GROUP BY: the edge gather's
-culled scan, whose boundary rows go to lanes for the host's exact re-test
-while every other matching row folds into its group (count, first row, and
-per value column count, sum, min and max) with global atomics. Its source is
-``csrc/grouped_agg.cu``; its note gives the bound (bytes, with 2 + 4 V
-atomics per folded row beside them); its plain version
-(:func:`grouped_agg_plain`) is torch ``index_add_`` / ``scatter_reduce_``.
+match and edge split, whose boundary rows go to lanes for the host's exact
+re-test while every other matching row folds into its group (count, first
+row, and per value column count, sum, min and max). Its source is
+``csrc/grouped_agg.cu``: a work-list kernel (:func:`agg_work_list`, whose
+plain version builds on :func:`chunk_query_pairs`) lists each query's kept
+4096-row chunks from the columns' cached extents (:func:`chunk_extents`)
+and cuts them into runs; the fold takes one run at a time, one query a
+block, and folds into that query's group partials in shared memory, then
+adds them to the outputs with one global atomic per touched group and
+field (a G x V too large for shared memory folds with global atomics
+instead: :func:`grouped_agg_mode`). Its note gives the bound (bytes); its
+plain version (:func:`grouped_agg_plain`) is torch ``index_add_`` /
+``scatter_reduce_``.
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -85,6 +94,7 @@ a launch happens.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -92,6 +102,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # Rows per block of the resident layout and per chunk of every row-scan
@@ -108,7 +119,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
-            "planned_gather": 0, "grouped_agg": 0, "z3_encode": 0, "z2_encode": 0}
+            "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "z3_encode": 0,
+            "z2_encode": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -127,15 +139,25 @@ _ENTRY_POINTS = {
     "geomesa_batched_count_path_blocks": ("batched_count", [_P]),
     "geomesa_batched_count_hits_path_blocks": ("batched_count_hits", [_P]),
     "geomesa_batched_edge_gather_path_blocks": ("batched_edge_gather", [_P]),
-    # (columns x4, n, true_n, pair_q, pair_blk, pairs, boxes, times, q, nb, nt,
-    #  pair_hits, offsets or NULL, positions, stream)
-    "geomesa_planned_gather": ("planned_gather", [_P] * 4 + [_LL, _LL, _P, _P, _LL, _P, _P,
-                                                  _I, _I, _I, _P, _P, _P, _P]),
-    # (..., gid, rowid, vals, cnt, first, vcnt, vsum, vmin, vmax, hits, positions,
-    #  values, groups, capacity, stream)
-    "geomesa_grouped_agg": ("grouped_agg", _COUNT_ARGS + [_P] * 11 + [_I] * 3 + [_P]),
-    # (host out: 2 x int) → registers and local-memory bytes per thread
-    "geomesa_grouped_agg_attrs": ("grouped_agg", [_P]),
+    # (columns x4, n, true_n, block-major plan, pairs, distinct blocks, boxes, times,
+    #  q, nb, nt, pair_hits, masks, stream)
+    "geomesa_planned_gather_count": ("planned_gather", [_P] * 4 + [_LL, _LL, _P, _LL, _LL, _P,
+                                                        _P, _I, _I, _I, _P, _P, _P]),
+    # (pair_blk, pairs, pair_hits, their inclusive prefix sums, masks, positions, stream)
+    "geomesa_planned_gather_write": ("planned_gather", [_P, _LL] + [_P] * 5),
+    # (extents, n, base, true_n, boxes, times, q, nb, nt, target runs, min run,
+    #  chunks, kept, run_q, run_s, run_e, work, stream)
+    "geomesa_agg_work_list": ("grouped_agg", [_P, _LL, _LL, _LL, _P, _P] + [_I] * 5
+                              + [_P] * 7),
+    # (..., chunks, run_q, run_s, run_e, work, gid, rowid, vals, cnt, first, vcnt, vsum,
+    #  vmin, vmax, hits, positions, values, groups, capacity, stream)
+    "geomesa_grouped_agg": ("grouped_agg", _COUNT_ARGS + [_P] * 16 + [_I] * 3 + [_P]),
+    # (nb, nt, values, groups) → 1 for the shared-memory fold, 0 for the global one
+    "geomesa_grouped_agg_mode": ("grouped_agg", [_I] * 4),
+    # (nb, nt, values, groups, sms, host out: 1 x int) → runs the work list aims at
+    "geomesa_grouped_agg_target_runs": ("grouped_agg", [_I] * 5 + [_P]),
+    # (shared mode?, host out: 2 x int) → registers and local-memory bytes per thread
+    "geomesa_grouped_agg_attrs": ("grouped_agg", [_I, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -509,6 +531,69 @@ def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, t
 _M32 = 0xFFFFFFFF
 
 
+def _time_keys(bins, offs) -> torch.Tensor:
+    """The biased 64-bit time keys ``bin << 32 | (uint32)(off ^
+    0x80000000)`` (signed order == the lexicographic order of (bin, off))."""
+    return bins.long() * 2**32 + ((offs.long() ^ 0x80000000) & _M32)
+
+
+def chunk_extents(x, y, bins, offs, step: int = 1 << 22) -> torch.Tensor:
+    """Each ``JOIN_BLOCK``-row chunk's extent, as the edge gather's cull
+    takes it (``csrc/chunk_cull.cuh``): the min and max of x, of y and of
+    the biased time key over every row of the chunk, valid or not, rows past
+    N of the last chunk as zeros. Returns (ceil(N / JOIN_BLOCK), 4) int64 in
+    the kernels' ``Extent`` layout, 32 B a chunk: column 0 holds xlo and xhi
+    as two int32 (``ext[:, :2].view(torch.int32)`` gives xlo, xhi, ylo,
+    yhi), columns 2 and 3 the key's min and max. Torch reductions over
+    ``step`` rows at a time (a multiple of ``JOIN_BLOCK``), so the keys'
+    int64 temporaries stay bounded; ``DeviceBackend.load`` computes them
+    once per staged state."""
+    if step % JOIN_BLOCK:
+        raise ValueError(f"step must be a multiple of {JOIN_BLOCK}")
+    n = x.shape[0]
+    out = torch.empty((-(-n // JOIN_BLOCK), 4), dtype=torch.int64, device=x.device)
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        c0, c1 = s // JOIN_BLOCK, -(-e // JOIN_BLOCK)
+
+        def span(col):
+            v = torch.nn.functional.pad(col, (0, c1 * JOIN_BLOCK - e)).view(c1 - c0, JOIN_BLOCK)
+            return v.amin(dim=1), v.amax(dim=1)
+
+        (xlo, xhi), (ylo, yhi) = span(x[s:e]), span(y[s:e])
+        out[c0:c1, :2] = torch.stack([xlo, xhi, ylo, yhi], dim=1).view(torch.int64)
+        klo, khi = span(_time_keys(bins[s:e], offs[s:e]))
+        out[c0:c1, 2], out[c0:c1, 3] = klo, khi
+    return out
+
+
+def _check_extents(ext, n: int, device) -> None:
+    if not isinstance(ext, torch.Tensor) or ext.dtype != torch.int64:
+        raise TypeError("extents must be an int64 tensor")
+    if tuple(ext.shape) != (-(-n // JOIN_BLOCK), 4) or not ext.is_contiguous() \
+            or ext.device != device:
+        raise ValueError(f"extents must be contiguous ({-(-n // JOIN_BLOCK)}, 4) on {device} "
+                         "(chunk_extents of the columns)")
+
+
+def _pairs_from_extents(ext, n: int, base: int, true_n: int, boxes, times) -> torch.Tensor:
+    """(chunks, Q) bool: the cull's test of :func:`chunk_query_pairs` on
+    :func:`chunk_extents`' output."""
+    xy = ext[:, :2].contiguous().view(torch.int32).long()
+    xlo, xhi, ylo, yhi = (xy[:, i, None, None] for i in range(4))
+    klo, khi = ext[:, 2, None, None], ext[:, 3, None, None]
+    b = boxes.long()[None]  # (1, Q, B, 4)
+    box_meets = ((b[..., 0] <= b[..., 1]) & (b[..., 2] <= b[..., 3])
+                 & (b[..., 0] <= xhi) & (xlo <= b[..., 1])
+                 & (b[..., 2] <= yhi) & (ylo <= b[..., 3])).any(dim=2)
+    t = times.long()[None]
+    lo, hi = _time_keys(t[..., 0], t[..., 1]), _time_keys(t[..., 2], t[..., 3])
+    win_meets = ((lo <= hi) & (lo <= khi) & (klo <= hi)).any(dim=2)
+    limit = min(n, int(true_n) - int(base))
+    alive = torch.arange(ext.shape[0], device=ext.device) * JOIN_BLOCK < limit
+    return box_meets & win_meets & alive[:, None]
+
+
 def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times) -> torch.Tensor:
     """The (chunk, query) pairs that :func:`batched_edge_gather`'s cull
     keeps, as a (ceil(N / JOIN_BLOCK), Q) bool tensor, a chunk being
@@ -519,53 +604,20 @@ def chunk_query_pairs(x, y, bins, offs, base: int, true_n: int, boxes, times) ->
     ``min(N, true_n - base)``) and the query has a live box meeting the
     chunk's x/y extent and a live window meeting its extent of the biased
     time key ``bin << 32 | (uint32)(off ^ 0x80000000)`` (signed order, the
-    lexicographic order of (bin, off)). The extent runs over every row the
-    kernel loads, valid or not, with the rows past N of the last chunk as
-    zeros, as the kernel's zero-filled copies are. No culled pair holds a
-    match. For tests and bounds: nothing on the card's main path calls it.
+    lexicographic order of (bin, off)). The extent (:func:`chunk_extents`)
+    runs over every row the kernel loads, valid or not, with the rows past
+    N of the last chunk as zeros, as the kernel's zero-filled copies are.
+    No culled pair holds a match. For tests and bounds: nothing on the
+    card's main path calls it.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
-    n = x.shape[0]
-    n_chunks = -(-n // JOIN_BLOCK)
-    pad = n_chunks * JOIN_BLOCK - n
-
-    def extent(col):
-        v = torch.nn.functional.pad(col, (0, pad)).view(n_chunks, JOIN_BLOCK)
-        return v.amin(dim=1)[:, None, None], v.amax(dim=1)[:, None, None]
-
-    (xlo, xhi), (ylo, yhi) = extent(x), extent(y)
-    (klo, khi) = extent(bins.long() * 2**32 + ((offs.long() ^ 0x80000000) & _M32))
-    b = boxes.long()[None]  # (1, Q, B, 4)
-    box_meets = ((b[..., 0] <= b[..., 1]) & (b[..., 2] <= b[..., 3])
-                 & (b[..., 0] <= xhi) & (xlo <= b[..., 1])
-                 & (b[..., 2] <= yhi) & (ylo <= b[..., 3])).any(dim=2)
-    t = times.long()[None]
-    lo = t[..., 0] * 2**32 + ((t[..., 1] ^ 0x80000000) & _M32)
-    hi = t[..., 2] * 2**32 + ((t[..., 3] ^ 0x80000000) & _M32)
-    win_meets = ((lo <= hi) & (lo <= khi) & (klo <= hi)).any(dim=2)
-    limit = min(n, int(true_n) - int(base))
-    alive = torch.arange(n_chunks, device=x.device) * JOIN_BLOCK < limit
-    return box_meets & win_meets & alive[:, None]
+    return _pairs_from_extents(chunk_extents(x, y, bins, offs), x.shape[0], base, true_n,
+                               boxes, times)
 
 
 # ---------------------------------------------------------------------------
 # grouped_agg
 # ---------------------------------------------------------------------------
-
-_SIGN_FLIP = 0x7FFFFFFFFFFFFFFF
-
-
-def _order_keys(v: torch.Tensor) -> torch.Tensor:
-    """float64 → int64 keys whose signed order is the doubles' order (NaN
-    aside): the bits, with all but the sign flipped for a negative double.
-    Its own inverse on the bits (:func:`_from_order_keys`)."""
-    b = v.view(torch.int64)
-    return torch.where(b >= 0, b, b ^ _SIGN_FLIP)
-
-
-def _from_order_keys(k: torch.Tensor) -> torch.Tensor:
-    return torch.where(k >= 0, k, k ^ _SIGN_FLIP).view(torch.float64)
-
 
 def _check_agg_args(x, gid, rowid, vals, n_groups: int, capacity: int) -> None:
     for name, t in (("gid", gid), ("rowid", rowid)):
@@ -582,15 +634,133 @@ def _check_agg_args(x, gid, rowid, vals, n_groups: int, capacity: int) -> None:
         raise ValueError(f"need n_groups >= 1 and capacity >= 0, got {n_groups}, {capacity}")
 
 
+# the work ints of a grouped_agg launch (csrc/grouped_agg.cu W_*)
+W_DONE, W_NEXT, W_RUNS, W_RUN_LEN, W_PAIRS, W_FLUSHED, W_INTS = range(7)
+AGG_MIN_RUN = 8  # chunks a run of the grouped fold holds at least (all of a shorter list)
+AGG_MAX_LANES = 4096  # lanes a query the card's grouped_agg sorts (csrc MAX_LANES)
+
+
+def agg_work_list(extents, n: int, base: int, true_n: int, boxes, times, target_runs: int,
+                  min_run: int = AGG_MIN_RUN):
+    """The kept (chunk, query) pairs of a ``grouped_agg`` launch in query-major
+    order, cut into runs: the fold's work list.
+
+    ``extents``: :func:`chunk_extents` of the (N,) columns; ``n``, ``base``,
+    ``true_n``, ``boxes`` and ``times`` as :func:`batched_count`'s. A pair is
+    kept as :func:`chunk_query_pairs` keeps it. Returns ``(chunks (Q, C)
+    int32, kept (Q,) int32, runs (3, Q + target_runs) int32, work (W_INTS,)
+    int32)``: query q's kept chunks in order in ``chunks[q, :kept[q]]`` (-1
+    after them); the runs, ``run_len = max(min_run, ceil(pairs /
+    target_runs))`` chunks each but for each query's last, in query order
+    as (query, first, end) columns of ``runs`` (-1 after them); ``work``
+    the blocks done (Q), the next run (0), the runs, ``run_len``, the kept
+    pairs and 0.
+
+    On the card the ``agg_work_list`` kernel (``csrc/grouped_agg.cu``: a
+    block per query, its last block cuts the runs); on the CPU
+    :func:`agg_work_list_plain`."""
+    q = boxes.shape[0]
+    _check_extents(extents, n, extents.device)
+    for name, t in (("boxes", boxes), ("times", times)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 3 \
+                or t.shape[2] != 4 or not t.is_contiguous() or t.device != extents.device:
+            raise ValueError(f"{name} must be a contiguous (Q, slots, 4) int32 tensor on "
+                             f"{extents.device}")
+    if target_runs < 1 or min_run < 1:
+        raise ValueError(f"need target_runs >= 1 and min_run >= 1, got {target_runs}, {min_run}")
+    if extents.device.type == "cpu":
+        return agg_work_list_plain(extents, n, base, true_n, boxes, times, target_runs, min_run)
+    if extents.device.type != "cuda":
+        raise ValueError(f"agg_work_list runs on cuda or cpu, not {extents.device}")
+    dev = extents.device
+    if q == 0:
+        return (torch.empty((0, extents.shape[0]), dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev),
+                torch.full((3, target_runs), -1, dtype=torch.int32, device=dev),
+                torch.tensor([0, 0, 0, min_run, 0, 0], dtype=torch.int32, device=dev))
+    # the launch fills the lists' and the runs' tails with -1 and zeroes work
+    chunks = torch.empty((q, extents.shape[0]), dtype=torch.int32, device=dev)
+    kept = torch.empty(q, dtype=torch.int32, device=dev)
+    runs = torch.empty((3, q + target_runs), dtype=torch.int32, device=dev)
+    work = torch.empty(W_INTS, dtype=torch.int32, device=dev)
+    for name, t in (("boxes", boxes), ("times", times)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"agg_work_list: {name} must start on a 16-byte boundary")
+    with torch.cuda.device(dev):
+        rc = _fn("geomesa_agg_work_list")(
+            extents.data_ptr(), int(n), int(base), int(true_n), boxes.data_ptr(),
+            times.data_ptr(), q, boxes.shape[1], times.shape[1], int(target_runs), int(min_run),
+            chunks.data_ptr(), kept.data_ptr(), runs[0].data_ptr(), runs[1].data_ptr(),
+            runs[2].data_ptr(), work.data_ptr(), _stream_of(extents))
+    if rc != 0:
+        raise RuntimeError(f"agg_work_list launch failed: cudaError {rc}")
+    launches["agg_work_list"] += 1
+    return chunks, kept, runs, work
+
+
+def agg_work_list_plain(extents, n: int, base: int, true_n: int, boxes, times,
+                        target_runs: int, min_run: int = AGG_MIN_RUN):
+    """The plain PyTorch version of :func:`agg_work_list`."""
+    keep = _pairs_from_extents(extents, n, base, true_n, boxes, times).T  # (Q, C)
+    q, c = keep.shape
+    dev = extents.device
+    kept = keep.sum(dim=1)
+    idx = torch.where(keep, torch.arange(c, device=dev)[None, :], c).sort(dim=1).values
+    chunks = torch.where(idx < c, idx, -1).to(torch.int32)
+    pairs = int(kept.sum())
+    run_len = max(min_run, -(-pairs // target_runs))
+    per_q = (kept + run_len - 1) // run_len
+    n_runs = int(per_q.sum())
+    run_q = torch.repeat_interleave(torch.arange(q, device=dev), per_q)
+    within = torch.arange(n_runs, device=dev) - torch.repeat_interleave(
+        torch.cumsum(per_q, 0) - per_q, per_q)
+    runs = torch.full((3, q + target_runs), -1, dtype=torch.int32, device=dev)
+    runs[0, :n_runs] = run_q.to(torch.int32)
+    runs[1, :n_runs] = (within * run_len).to(torch.int32)
+    runs[2, :n_runs] = torch.minimum(kept[run_q], (within + 1) * run_len).to(torch.int32)
+    work = torch.tensor([q, 0, n_runs, run_len, pairs, 0], dtype=torch.int32, device=dev)
+    return chunks, kept.to(torch.int32), runs, work
+
+
+def grouped_agg_mode(box_slots: int, time_slots: int, n_vals: int, n_groups: int) -> str:
+    """The fold's mode at this shape, as the card's kernel chooses it:
+    ``"shared"`` (each run's group partials in shared memory, then one
+    global atomic per touched group and field) where G x (8 + 28 V) B fit
+    a block beside its 64 KB row buffer, else ``"global"`` (the fold's
+    atomics on the outputs). Asks the built library."""
+    return ("shared" if _fn("geomesa_grouped_agg_mode")(box_slots, time_slots, n_vals,
+                                                        n_groups) else "global")
+
+
+@functools.lru_cache(maxsize=64)
+def grouped_agg_target_runs(box_slots: int, time_slots: int, n_vals: int, n_groups: int,
+                            device) -> int:
+    """The runs :func:`agg_work_list` aims at for a ``grouped_agg`` launch
+    on ``device`` at this shape: a few per fold block resident on the card
+    in the shape's mode. Asks the built library."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = _fn("geomesa_grouped_agg_target_runs")(box_slots, time_slots, n_vals, n_groups,
+                                                     sms, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"grouped_agg occupancy: cudaError {rc}")
+    return out.value
+
+
+_last_agg: dict = {}  # the last card launch's work ints and shape (grouped_agg_last_work)
+
+
 def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxes, times,
-                n_groups: int, capacity: int = EDGE_CAPACITY):
+                n_groups: int, capacity: int = EDGE_CAPACITY, extents=None):
     """Q bbox+time GROUP BY queries over one column slice, one pass.
 
     ``x, y, bins, offs`` and the payloads as :func:`batched_count`; ``gid``
     (N,) int32 group ids in ``[0, n_groups)`` (a row outside folds nowhere);
     ``rowid`` (N,) int32 each row's original row index; ``vals`` (V, N)
-    float64 value columns, NaN for nulls. Returns the reference's eight
-    outputs with one shard (``make_grouped_agg_step``,
+    float64 value columns, NaN for nulls; ``extents`` the columns'
+    :func:`chunk_extents` (computed here when None). Returns the
+    reference's eight outputs with one shard (``make_grouped_agg_step``,
     ``geomesa_tpu/parallel/query.py:1508-1525``)::
 
         cnt (Q, G) int32, first (Q, G) int32 (int32 max where empty),
@@ -605,39 +775,81 @@ def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxe
     the lanes as the edge gather's candidates do (the same lane contract:
     every one in row order where ``hits <= capacity``).
 
-    On the card: the ``grouped_agg`` kernel, whose f64 sums are folded with
-    atomics in no fixed order; on the CPU: :func:`grouped_agg_plain`.
+    On the card: :func:`agg_work_list` (the kept (chunk, query) pairs in
+    query-major runs), then the ``grouped_agg`` kernel over the runs in
+    the mode :func:`grouped_agg_mode` names, between a kernel that fills
+    the outputs and one that decodes min and max and sorts each query's
+    lanes (``capacity`` at most ``AGG_MAX_LANES``); its f64 sums are folded
+    with atomics in no fixed order. On the CPU: :func:`grouped_agg_plain`.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     _check_agg_args(x, gid, rowid, vals, n_groups, capacity)
     if int(base) + x.shape[0] > _I32_MAX:
         raise ValueError("base + rows must stay below 2^31: positions are int32")
+    if extents is not None:
+        _check_extents(extents, x.shape[0], x.device)
     if x.device.type == "cpu":
         return grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base, true_n, boxes,
                                  times, n_groups, capacity)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_agg runs on cuda or cpu, not {x.device}")
+    if capacity > AGG_MAX_LANES:
+        raise ValueError(f"grouped_agg on the card sorts at most {AGG_MAX_LANES} lanes a query")
     q, nv, g, dev = boxes.shape[0], vals.shape[0], int(n_groups), x.device
-    cnt = torch.zeros((q, g), dtype=torch.int32, device=dev)
-    first = torch.full((q, g), _I32_MAX, dtype=torch.int32, device=dev)
-    vcnt = torch.zeros((q, nv, g), dtype=torch.int32, device=dev)
-    vsum = torch.zeros((q, nv, g), dtype=torch.float64, device=dev)
-    inf = torch.tensor([float("inf")], dtype=torch.float64, device=dev)
-    vmin = _order_keys(inf).expand(q, nv, g).contiguous()
-    vmax = _order_keys(-inf).expand(q, nv, g).contiguous()
-    hits = torch.zeros(q, dtype=torch.int32, device=dev)
-    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
-    _launch("grouped_agg", x, y, bins, offs, base, true_n, boxes, times, gid, rowid, vals,
-            cnt, first, vcnt, vsum, vmin, vmax, hits, pos, ints=(nv, g, int(capacity)))
-    return (cnt, first, vcnt, vsum, _from_order_keys(vmin), _from_order_keys(vmax),
-            _sorted_lanes(pos)[:, None, :], hits[:, None])
+    nb, nt, n = boxes.shape[1], times.shape[1], x.shape[0]
+    if q == 0 or n == 0:  # nothing to fold: the outputs' initial values
+        return _agg_initial(q, nv, g, int(capacity), dev)
+    # the launch fills them first (and decodes vmin / vmax to doubles last)
+    cnt = torch.empty((q, g), dtype=torch.int32, device=dev)
+    first = torch.empty((q, g), dtype=torch.int32, device=dev)
+    vcnt = torch.empty((q, nv, g), dtype=torch.int32, device=dev)
+    vsum = torch.empty((q, nv, g), dtype=torch.float64, device=dev)
+    vmin = torch.empty((q, nv, g), dtype=torch.float64, device=dev)
+    vmax = torch.empty((q, nv, g), dtype=torch.float64, device=dev)
+    hits = torch.empty(q, dtype=torch.int32, device=dev)
+    pos = torch.empty((q, capacity), dtype=torch.int32, device=dev)
+    if extents is None:
+        extents = chunk_extents(x, y, bins, offs)
+    target = grouped_agg_target_runs(nb, nt, nv, g, dev)
+    chunks, _, runs, work = agg_work_list(extents, n, base, true_n, boxes, times, target)
+    _launch("grouped_agg", x, y, bins, offs, base, true_n, boxes, times, chunks, runs[0],
+            runs[1], runs[2], work, gid, rowid, vals, cnt, first, vcnt, vsum, vmin, vmax,
+            hits, pos, ints=(nv, g, int(capacity)))
+    _last_agg.update(work=work, shape=(nb, nt, nv, g), target_runs=target)
+    return (cnt, first, vcnt, vsum, vmin, vmax, pos[:, None, :], hits[:, None])
 
 
-def grouped_agg_attrs() -> tuple[int, int]:
+def _agg_initial(q: int, nv: int, g: int, capacity: int, dev):
+    """:func:`grouped_agg`'s outputs over no row."""
+    return (torch.zeros((q, g), dtype=torch.int32, device=dev),
+            torch.full((q, g), _I32_MAX, dtype=torch.int32, device=dev),
+            torch.zeros((q, nv, g), dtype=torch.int32, device=dev),
+            torch.zeros((q, nv, g), dtype=torch.float64, device=dev),
+            torch.full((q, nv, g), float("inf"), dtype=torch.float64, device=dev),
+            torch.full((q, nv, g), float("-inf"), dtype=torch.float64, device=dev),
+            torch.full((q, 1, capacity), -1, dtype=torch.int32, device=dev),
+            torch.zeros((q, 1), dtype=torch.int32, device=dev))
+
+
+def grouped_agg_last_work() -> dict:
+    """The last card launch of :func:`grouped_agg` (any thread's): its
+    mode, the runs the work list aimed at and made, ``run_len``, the kept
+    (chunk, query) pairs, and the global atomics of the shared mode's
+    flushes. Reads the card's work ints, so it synchronises the device."""
+    w = _last_agg["work"].tolist()
+    return {"mode": grouped_agg_mode(*_last_agg["shape"]), "target_runs": _last_agg["target_runs"],
+            "runs": w[W_RUNS], "run_len": w[W_RUN_LEN], "pairs": w[W_PAIRS],
+            "flush_atomics": w[W_FLUSHED]}
+
+
+def grouped_agg_attrs(mode: str = "shared") -> tuple[int, int]:
     """The ``grouped_agg`` kernel's registers and local-memory (spill)
-    bytes per thread, as compiled for the card."""
+    bytes per thread in ``mode`` (``"shared"`` or ``"global"``), as
+    compiled for the card."""
+    if mode not in ("shared", "global"):
+        raise ValueError(f"mode must be shared or global, not {mode!r}")
     out = (ctypes.c_int * 2)()
-    rc = _fn("geomesa_grouped_agg_attrs")(ctypes.addressof(out))
+    rc = _fn("geomesa_grouped_agg_attrs")(int(mode == "shared"), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"grouped_agg attributes: cudaError {rc}")
     return int(out[0]), int(out[1])
@@ -709,7 +921,24 @@ def _check_pair_args(x, y, bins, offs, pair_q, pair_blk, boxes, times):
         raise ValueError("pair_q and pair_blk must have one length")
 
 
-def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times):
+def block_runs(pair_q, pair_blk):
+    """The block-major order of (query, block) pairs that the planned
+    gather's count pass walks: ``(order, order_q, starts, blocks)`` int32
+    numpy arrays, ``order`` the pair indices stably sorted by block (so a
+    block's pairs keep their pair order), ``order_q`` their queries,
+    ``blocks`` the distinct blocks in ascending order and ``starts`` (D +
+    1,) where each one's run of ``order`` starts (and the end). Their
+    concatenation is :func:`planned_gather`'s ``plan``."""
+    pair_q = np.asarray(pair_q).reshape(-1)
+    pair_blk = np.asarray(pair_blk).reshape(-1)
+    order = np.argsort(pair_blk, kind="stable")
+    blocks, starts = np.unique(pair_blk[order], return_index=True)
+    starts = np.append(starts, len(order))
+    return (order.astype(np.int32), pair_q[order].astype(np.int32), starts.astype(np.int32),
+            blocks.astype(np.int32))
+
+
+def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times, plan=None):
     """Batched row retrieval over planned (query, block) pairs, one shard.
 
     ``x, y, bins, offs``: the (N,) int32 resident columns, N a multiple of
@@ -718,14 +947,19 @@ def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times
     columns' device, each query in ``[0, Q)`` and each block in ``[0, N /
     JOIN_BLOCK)`` (the caller checks the ranges; the kernel counts a pair
     out of range as 0); ``boxes`` (Q, B, 4) / ``times`` (Q, T, 4) int32
-    payloads. Returns ``(positions (H,) int64, pair_hits (P,) int64)``: the
-    global positions of each pair's block rows that pass its query, in pair
-    order and each pair's in row order, and each pair's count.
+    payloads; ``plan``: the concatenated :func:`block_runs` of the same
+    pairs, an int32 tensor on the columns' device (built from the pair
+    lists, with a device-to-host copy, when None). Returns ``(positions
+    (H,) int32, pair_hits (P,) int64)``: the global positions (int32, the
+    reference's contract) of each pair's block rows that pass its query,
+    in pair order and each pair's in row order, and each pair's count.
 
-    On the card: a count pass, one ``torch.cumsum`` of the counts into
-    offsets, one device-to-host read of the total, and a write pass
-    (``csrc/planned_gather.cu``); an empty pair list launches nothing. On
-    the CPU: :func:`planned_gather_plain`.
+    On the card (``csrc/planned_gather.cu``): a count pass with one block
+    per distinct block of the pairs (each block's rows read once, each
+    pair's 512 B match mask to scratch), one ``torch.cumsum`` of the counts,
+    one device-to-host read of the total, and a write pass over the masks;
+    an empty pair list launches nothing. On the CPU:
+    :func:`planned_gather_plain`.
     """
     _check_pair_args(x, y, bins, offs, pair_q, pair_blk, boxes, times)
     if x.device.type == "cpu":
@@ -733,30 +967,41 @@ def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times
     if x.device.type != "cuda":
         raise ValueError(f"planned_gather runs on cuda or cpu, not {x.device}")
     n_pairs = pair_q.shape[0]
-    empty = torch.empty(0, dtype=torch.int64, device=x.device)
     if n_pairs == 0:
-        return empty, empty
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                torch.empty(0, dtype=torch.int64, device=x.device))
     for name, t in zip(("x", "y", "bins", "offs", "boxes", "times"),
                        (x, y, bins, offs, boxes, times)):
         if t.data_ptr() % 16:
             raise ValueError(f"planned_gather: {name} must start on a 16-byte boundary "
                              "(the kernel loads 16-byte vectors)")
-    fn = _fn("geomesa_planned_gather")
-    head = (x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(), x.shape[0],
-            int(true_n), pair_q.data_ptr(), pair_blk.data_ptr(), n_pairs, boxes.data_ptr(),
-            times.data_ptr(), boxes.shape[0], boxes.shape[1], times.shape[1])
-    hits = torch.zeros(n_pairs, dtype=torch.int64, device=x.device)
+    if plan is None:
+        plan = torch.from_numpy(np.concatenate(
+            block_runs(pair_q.cpu().numpy(), pair_blk.cpu().numpy()))).to(x.device)
+    n_blocks = (plan.shape[0] - 2 * n_pairs - 1) // 2
+    if plan.dtype != torch.int32 or plan.dim() != 1 or plan.device != x.device \
+            or not plan.is_contiguous() or n_blocks < 1 \
+            or plan.shape[0] != 2 * n_pairs + 2 * n_blocks + 1:
+        raise ValueError("plan must be the concatenated block_runs of these pairs, a "
+                         f"contiguous int32 tensor on {x.device}")
+    hits = torch.empty(n_pairs, dtype=torch.int64, device=x.device)
+    masks = torch.empty((n_pairs, JOIN_BLOCK // 16), dtype=torch.int16, device=x.device)
+    stream = _stream_of(x)
     with torch.cuda.device(x.device):
-        rc = fn(*head, hits.data_ptr(), None, None, _stream_of(x))
+        rc = _fn("geomesa_planned_gather_count")(
+            x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(), x.shape[0],
+            int(true_n), plan.data_ptr(), n_pairs, n_blocks, boxes.data_ptr(), times.data_ptr(),
+            boxes.shape[0], boxes.shape[1], times.shape[1], hits.data_ptr(), masks.data_ptr(),
+            stream)
         if rc != 0:
             raise RuntimeError(f"planned_gather count pass failed: cudaError {rc}")
         ends = torch.cumsum(hits, dim=0)
         total = int(ends[-1])  # the one device-to-host read: the output's size
-        positions = torch.empty(total, dtype=torch.int64, device=x.device)
+        positions = torch.empty(total, dtype=torch.int32, device=x.device)
         if total:
-            offsets = ends - hits
-            rc = fn(*head, hits.data_ptr(), offsets.data_ptr(), positions.data_ptr(),
-                    _stream_of(x))
+            rc = _fn("geomesa_planned_gather_write")(
+                pair_blk.data_ptr(), n_pairs, hits.data_ptr(), ends.data_ptr(),
+                masks.data_ptr(), positions.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"planned_gather write pass failed: cudaError {rc}")
     launches["planned_gather"] += 1
@@ -773,9 +1018,9 @@ def planned_gather_plain(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes,
     rows (the four columns, the masks of the predicate and the positions:
     about 32 B per row, so about 128 MiB), so a query covering every block,
     such as ``INCLUDE``, never allocates N x ``JOIN_BLOCK``."""
-    empty = torch.empty(0, dtype=torch.int64, device=x.device)
     if pair_q.shape[0] == 0:
-        return empty, empty
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                torch.empty(0, dtype=torch.int64, device=x.device))
     blocks = [c.view(-1, JOIN_BLOCK) for c in (x, y, bins, offs)]
     pq, pb = pair_q.long(), pair_blk.long()
     lrow = torch.arange(JOIN_BLOCK, device=x.device)
@@ -788,7 +1033,7 @@ def planned_gather_plain(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes,
         gpos = b[:, None] * JOIN_BLOCK + lrow[None, :]
         m &= gpos < int(true_n)
         hits.append(m.sum(dim=1))
-        positions.append(gpos[m])
+        positions.append(gpos[m].to(torch.int32))
     return torch.cat(positions), torch.cat(hits)
 
 

@@ -22,8 +22,8 @@ The module's steps:
   (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
   ``:820``), the ``select_many`` path: the ``planned_gather`` kernel.
 - :func:`grouped_agg_step` — the fused GROUP BY of ``aggregate_many``
-  (``make_grouped_agg_step`` ``:1498``, point mode): one ``grouped_agg``
-  launch.
+  (``make_grouped_agg_step`` ``:1498``, point mode): the ``agg_work_list``
+  kernel, then one ``grouped_agg`` launch over its runs.
 - :func:`matrix_scan_step` — the subscription matrix's fused scan
   (``make_matrix_scan_step`` ``:497``): one ``batched_count_hits`` launch,
   then the top-k of its lane scoreboard.
@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.ops.kernels import (
-    EDGE_CAPACITY, LANES, batched_count_hits, grouped_agg, planned_gather)
+    EDGE_CAPACITY, LANES, batched_count_hits, block_runs, grouped_agg, planned_gather)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -82,8 +82,9 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     columns' device. Each pair's block is tested against its one query by
     :func:`~geomesa_tpu_torch.ops.kernels.planned_gather` (the
     ``planned_gather`` kernel on the card, its plain version on the CPU),
-    with rows at ``true_n`` or past it masked. Returns ``(positions (H,)
-    int64, pair_hits (P,) int64)``: the matching global positions in pair
+    with rows at ``true_n`` or past it masked. The host builds the pairs'
+    block-major order here (``ops.kernels.block_runs``), so that the card's
+    count pass reads each distinct block once. Returns ``(positions (H,) int32, pair_hits (P,) int64)``: the matching global positions in pair
     order, each pair's in row order, and each pair's match count, the
     reference's buffer order. Pairs grouped by query with sorted blocks give
     each query's positions sorted.
@@ -104,12 +105,16 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
         raise ValueError(f"pair blocks must lie in [0, {n // JOIN_BLOCK})")
     if len(pair_q) and (pair_q.min() < 0 or pair_q.max() >= boxes.shape[0]):
         raise ValueError(f"pair queries must lie in [0, {boxes.shape[0]})")
-    pq, pb = (torch.from_numpy(a.astype(np.int32)).to(x.device) for a in (pair_q, pair_blk))
-    return planned_gather(*cols, true_n, pq, pb, boxes, times)
+    # one upload: the pair lists and their block-major plan
+    p = len(pair_q)
+    lists = torch.from_numpy(np.concatenate([pair_q.astype(np.int32), pair_blk.astype(np.int32),
+                                             *block_runs(pair_q, pair_blk)])).to(x.device)
+    return planned_gather(*cols, true_n, lists[:p], lists[p:2 * p], boxes, times,
+                          plan=lists[2 * p:])
 
 
 def grouped_agg_step(cols, gid, rowid, vals, true_n: int, boxes, times, n_groups: int,
-                     capacity: int = EDGE_CAPACITY):
+                     capacity: int = EDGE_CAPACITY, extents=None):
     """Q filtered GROUP BY queries over one shard's resident columns, one
     fused pass: ``make_grouped_agg_step(mesh, n_groups, V, capacity)`` in
     point mode with one shard (``base = 0``, ``D = 1``), without TTL
@@ -119,13 +124,18 @@ def grouped_agg_step(cols, gid, rowid, vals, true_n: int, boxes, times, n_groups
     int32 group ids in ``[0, n_groups)``, ``rowid`` (N,) int32 original row
     indexes (int32 max on padding) and ``vals`` (V, N) float64 (NaN for
     nulls), all in the columns' sorted order; ``n_groups`` the padded group
-    count (``1 << ceil(log2 G)``, as ``aggregate_many`` passes it). Returns
+    count (``1 << ceil(log2 G)``, as ``aggregate_many`` passes it);
+    ``extents`` the columns' per-chunk extents (``IndexState.extents``;
+    computed per call when None). Returns
     ``(cnt, first, vcnt, vsum, vmin, vmax, positions, hits)`` as
     :func:`~geomesa_tpu_torch.ops.kernels.grouped_agg` does: the folds over
     every matching row but the boundary rows, whose positions take the
     ``capacity`` lanes (``hits > capacity``: truncated, the caller declines
-    that query). The kernel on the card, its plain version on the CPU."""
-    return grouped_agg(*cols, gid, rowid, vals, 0, true_n, boxes, times, n_groups, capacity)
+    that query). On the card the work list of kept (chunk, query) pairs in
+    query-major runs, then the fold over it; its plain version on the
+    CPU."""
+    return grouped_agg(*cols, gid, rowid, vals, 0, true_n, boxes, times, n_groups, capacity,
+                       extents=extents)
 
 
 def matrix_scan_step(x, y, bins, offs, true_n: int, boxes, times, topk: int):

@@ -35,6 +35,7 @@ from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction
 from geomesa_tpu_torch.index.api import IndexPlan, gather_indices
+from geomesa_tpu_torch.ops.kernels import chunk_extents
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points
 from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs, planned_gather_step
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK, stage_columns
@@ -66,7 +67,10 @@ class OracleBackend:
 class IndexState:
     """One index's resident columns, sorted in index order. Rows past ``n``
     are padding; ``rows_per_shard`` is the padded length (one shard).
-    ``agg_cache`` holds ``aggregate_many``'s staged group ids, row ids and
+    ``extents`` holds each 4096-row chunk's extent
+    (:func:`~geomesa_tpu_torch.ops.kernels.chunk_extents`, 32 B a chunk),
+    taken once after the columns are staged (``extents_s``, synchronized),
+    for the grouped fold's work list. ``agg_cache`` holds ``aggregate_many``'s staged group ids, row ids and
     value columns in the same order, so a rebuild, which makes a new state,
     drops them."""
 
@@ -75,6 +79,8 @@ class IndexState:
     n: int
     h2d_bytes: int = 0  # bytes staged host -> device by the load
     h2d_s: float = 0.0  # seconds the staging took (synchronized)
+    extents: torch.Tensor | None = None
+    extents_s: float = 0.0
     agg_cache: dict = field(default_factory=dict)
 
     def spatial_cols(self) -> tuple:
@@ -171,14 +177,20 @@ class DeviceBackend:
             host = {k: v[perm] for k, v in table_order.items()}
             t0 = time.perf_counter()
             cols, padded = stage_columns(host, self.device)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
+            t1 = time.perf_counter()
+            extents = chunk_extents(cols["x"], cols["y"], cols["bins"], cols["offs"])
+            self._sync()
             state[name] = IndexState(
                 cols=cols, rows_per_shard=padded, n=len(table),
                 h2d_bytes=sum(int(c.nbytes) for c in cols.values()),
-                h2d_s=time.perf_counter() - t0,
+                h2d_s=t1 - t0, extents=extents, extents_s=time.perf_counter() - t1,
             )
         return state
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def point_state(state) -> tuple[IndexState | None, str | None]:
@@ -206,8 +218,9 @@ class DeviceBackend:
         """Matching sorted-order positions for many queries on one index
         state (``backends.py:575``): each query's intervals become
         ``JOIN_BLOCK``-row (query, block) pairs, and one
-        :func:`planned_gather_step` serves them all. Returns one int64 array
-        per query, sorted. :func:`planned_gather_step` raises on a residency
+        :func:`planned_gather_step` serves them all. Returns one int32 array
+        per query (the reference's position contract), sorted: views into
+        the one buffer copied from the device, split without a copy. :func:`planned_gather_step` raises on a residency
         that is not block-aligned. ``timings``, when given, gains host-clock
         ms: ``pairs_ms`` (the pair lists and the payloads' upload) and
         ``gather_ms`` (the step, its device-to-host copies and the split)."""

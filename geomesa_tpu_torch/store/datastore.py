@@ -439,7 +439,7 @@ class DataStore:
         boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
         times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
         res = grouped_agg_step(dev.spatial_cols(), dev_gid, dev_rowid, dev_vals, dev.n,
-                               boxes, times, g_pad, cap)
+                               boxes, times, g_pad, cap, extents=dev.extents)
         cnt, first, vcnt, vsum, vmin, vmax, epos, ehits = (t.cpu().numpy() for t in res)
         for k, (i, _) in enumerate(live):
             h = int(ehits[k, 0])

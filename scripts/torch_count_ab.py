@@ -1,5 +1,6 @@
-"""Time the port's two count kernels and its edge gather of several
-checkouts against each other in one run on a CUDA card.
+"""Time the port's count kernels, its edge gather, its planned gather and
+its grouped aggregation of several checkouts against each other in one run
+on a CUDA card.
 
     python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR]
 
@@ -20,6 +21,15 @@ prints one line per shape:
   shuffled``: no chunk is culled);
 - ``DataStore.count_many`` of the 64 queries, loose and exact, p50 of 10
   calls each on the host clock (the end-to-end batch, host work included);
+- ``planned_gather`` at config 2's planned (query, block) pairs of the 64
+  queries (as ``select_many`` plans them), and ``select_many`` of the 64
+  queries, p50 of 3 calls on the host clock, with its gather split (the
+  step and its device-to-host copy of the positions) per query;
+- ``grouped_agg`` at bench config 9: the same 50M points with config 9's
+  group ids (G = 1024) and values (V = 1) through ``DataStore`` and the 64
+  city-box queries of seed 7, held to its plain version (integer outputs,
+  min, max and the lanes that hold every boundary row exact, sums within a
+  relative 1e-12);
 - ``batched_count_hits`` at one of bench config 8's 60M-row chunks and its 64
   city boxes under one full-span window (B = T = 1, sparse matches);
 - ``batched_count_hits`` at two dense payloads over 60M seeded random rows
@@ -29,13 +39,14 @@ prints one line per shape:
 Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
 written to ``--out`` (default ``chiprun_out/count_ab``), one folder per run.
-At the end the count kernels' SASS of every run is compared with the first
-run's, instruction by instruction.
+At the end the count kernels' and the edge gather's SASS of every run is
+compared with the first run's, instruction by instruction.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import shutil
 import subprocess
@@ -45,9 +56,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-STEMS = ("batched_count", "batched_count_hits", "batched_edge_gather")
-COUNT_STEMS = STEMS[:2]  # their SASS must not change
+STEMS = ("batched_count", "batched_count_hits", "batched_edge_gather", "planned_gather",
+         "grouped_agg")
+SAME_SASS = STEMS[:3]  # the count kernels and the edge gather: their SASS must not change
 N_ROWS, STREAM_ROWS, N_QUERIES, STREAM_CHUNKS = 50_000_000, 60_000_000, 64, 17
+AGG_GROUPS, AGG_RTOL = 1024, 1e-12
 DAY_MS, N_BINS = 86_400_000, 40
 
 
@@ -170,6 +183,127 @@ def batch_p50(label: str, ds) -> None:
             f"{max(ms):.3f}; host clock)")
 
 
+def device_breakdown(fn) -> str:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel or
+    copy name, largest first (the profiler's own clock, not CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][:48]
+            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return "; ".join(f"{name} {t / 1e3:.4f} ms" for name, t in top) or "no device events"
+
+
+def gather_timed(label: str, kernels, ds) -> None:
+    """``planned_gather`` at config 2's planned pairs against its plain
+    version, then ``select_many`` of the same queries with its split."""
+    import time
+
+    from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
+    from geomesa_tpu_torch.workload import bbox_time_cql, make_queries
+
+    cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, seed=7))]
+    st = ds._state("gdelt")
+    planner = QueryPlanner(st.sft, st.indices)
+    plans = [planner.plan(Query(c)) for c in cqls]
+    pair_q, pair_blk = intervals_to_block_pairs([pl.intervals for pl, _, _ in plans],
+                                                kernels.JOIN_BLOCK)
+    state = st.backend_state["z3"]
+    pays = [ds.backend.payload(st.sft, info.extraction) for _, _, info in plans]
+    boxes, times = (torch.from_numpy(np.ascontiguousarray(np.stack([p[k] for p in pays])))
+                    .cuda() for k in (0, 1))
+    pq, pb = (torch.from_numpy(a.astype(np.int32)).cuda() for a in (pair_q, pair_blk))
+    args = (*state.spatial_cols(), state.n, pq, pb, boxes, times)
+    kw = {}
+    if "plan" in inspect.signature(kernels.planned_gather).parameters:
+        # uploaded once, as planned_gather_step uploads it with the pair lists
+        kw["plan"] = torch.from_numpy(np.concatenate(kernels.block_runs(pair_q,
+                                                                         pair_blk))).cuda()
+    got_p, got_h = kernels.planned_gather(*args, **kw)
+    want_p, want_h = kernels.planned_gather_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p.long(), want_p.long()) and torch.equal(got_h, want_h)):
+        raise SystemExit(f"{label} config 2: planned_gather disagrees with its plain version")
+    ms = cuda_ms(lambda: kernels.planned_gather(*args, **kw))
+    blocks = len(np.unique(pair_blk))
+    log(f"{label} config 2 planned_gather: {ms:.4f} ms (CUDA events, 5 calls) for "
+        f"{len(pair_q)} pairs over {blocks} distinct blocks; equal to plain; "
+        f"{int(want_h.sum())} positions of {got_p.element_size()} B; device time by op: "
+        + device_breakdown(lambda: kernels.planned_gather(*args, **kw)))
+    ds.select_many("gdelt", cqls)
+    wall, gather = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ds.select_many("gdelt", cqls)
+        wall.append((time.perf_counter() - t0) * 1e3 / N_QUERIES)
+        gather.append(ds.last_select_many["gather_ms"] / N_QUERIES)
+    log(f"{label} config 2 select_many: p50 {float(np.percentile(wall, 50)):.3f} ms a query "
+        f"over 3 calls (host clock); gather split p50 {float(np.percentile(gather, 50)):.3f} "
+        f"ms a query (the step, its device-to-host copies and the split)")
+
+
+def config9_inputs(dev):
+    """Bench config 9's 50M points through ``DataStore`` and the staged
+    aggregation columns: (grouped_agg arguments, the columns' extents or
+    None)."""
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import (
+        AGG_SPEC, bbox_time_cql, grouped_columns, make_queries, synth_gdelt)
+
+    lon, lat, t = synth_gdelt(N_ROWS, seed=42)
+    gid, vals = grouped_columns(N_ROWS, AGG_GROUPS)
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("gagg", AGG_SPEC)
+    ds.write("gagg", FeatureTable.from_columns(sft, np.arange(N_ROWS).astype("U9"), {
+        "cat": Column(AttributeType.INT, gid), "val": Column(AttributeType.DOUBLE, vals),
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)}))
+    ds.compact("gagg")
+    st = ds._state("gagg")
+    state = st.backend_state["z3"]
+    (dgid, _, keys), drowid, dvals, _ = ds._agg_residency(
+        state, st.table, st.indices["z3"].perm, ["cat"], ["val"])
+    cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, seed=7))]
+    pend = ds._batch_payloads(st, [Query(c) for c in cqls])
+    boxes, times = (torch.from_numpy(np.stack([p[k] for _, p, _ in pend])).to(dev)
+                    for k in (0, 1))
+    g_pad = 1 << max(0, (len(keys) - 1).bit_length())
+    args = (*state.spatial_cols(), dgid, drowid, dvals, 0, state.n, boxes, times, g_pad, 512)
+    return ds, args, getattr(state, "extents", None)
+
+
+def agg_timed(label: str, kernels, args, extents) -> None:
+    """``grouped_agg`` at config 9 against its plain version, then timed."""
+    kw = {"extents": extents} if extents is not None else {}
+    got = kernels.grouped_agg(*args, **kw)
+    want = kernels.grouped_agg_plain(*args)
+    torch.cuda.synchronize()
+    fits = want[7][:, 0] <= args[-1]
+    exact = all(torch.equal(got[i], want[i]) for i in (0, 1, 2, 4, 5, 7))
+    exact = exact and torch.equal(got[6][fits], want[6][fits])
+    rel = float(((got[3] - want[3]).abs() / want[3].abs().clamp(min=1e-300)).max())
+    if not exact or not rel <= AGG_RTOL:
+        raise SystemExit(f"{label} config 9: grouped_agg disagrees with its plain version")
+    ms = cuda_ms(lambda: kernels.grouped_agg(*args, **kw))
+    mode = (f", {kernels.grouped_agg_mode(args[9].shape[1], args[10].shape[1], 1, args[-2])} "
+            "mode" if hasattr(kernels, "grouped_agg_mode") else "")
+    log(f"{label} config 9 grouped_agg: {ms:.4f} ms (CUDA events, 5 launches) at "
+        f"N={args[0].shape[0]} Q={args[9].shape[0]} G={args[-2]} V=1{mode}; equal to plain "
+        f"(sums within {rel:.3e}); {int(want[0].long().sum())} folded row-queries; device "
+        f"time by op: " + device_breakdown(lambda: kernels.grouped_agg(*args, **kw)))
+
+
 def worker(label: str, out: Path) -> None:
     sys.path.insert(0, os.getcwd())
     from geomesa_tpu_torch.ops import kernels
@@ -184,7 +318,12 @@ def worker(label: str, out: Path) -> None:
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(5)).to(dev)
     shuffled = [torch.cat([c[:n][perm], c[n:]]) for c in cols]
     timed(label, "config 2 shuffled", kernels, "batched_edge_gather", shuffled, boxes, times, n)
+    gather_timed(label, kernels, ds)
     del ds, inputs, cols, shuffled
+    torch.cuda.empty_cache()
+    ds, args, extents = config9_inputs(dev)
+    agg_timed(label, kernels, args, extents)
+    del ds, args, extents
     torch.cuda.empty_cache()
     for shape, make in (("config 8 chunk", stream_inputs),
                         ("dense random", lambda d: dense_inputs(d, world=False)),
@@ -213,7 +352,7 @@ def main() -> None:
         label = f"run{i + 1}:{Path(root).resolve().name}"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", label,
                         "--out", str(out / f"run{i + 1}")], cwd=root, check=True)
-    for stem in COUNT_STEMS:
+    for stem in SAME_SASS:
         first = sass_instructions(out / "run1" / f"{stem}.sass")
         for i in range(2, len(args.roots) + 1):
             same = sass_instructions(out / f"run{i}" / f"{stem}.sass") == first

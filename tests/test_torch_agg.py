@@ -11,7 +11,13 @@ and the port's ``DataStore.aggregate_many`` against the reference
   beyond bbox+time, truncated lanes, NaN keys, a string value column, a
   missing column), GROUP BY on two keys, ``group_by=None``, a disjoint
   filter, queries snapped onto rows so that the host re-test adds rows;
-- on the card (``cuda`` marker): the kernel against its plain version.
+- the fold's work list (``agg_work_list``): the kept (chunk, query) pairs
+  of ``chunk_query_pairs`` in query-major order, cut into runs that cover
+  each query's list once, over per-chunk extents equal to a numpy min/max
+  (padding rows included) and cached when a state is staged;
+- on the card (``cuda`` marker): the kernels against their plain versions,
+  in both fold modes (group partials in shared memory, and the global fold
+  of a G x V above the shared budget).
 
 Tolerance: counts, first rows, value counts, min, max, positions and group
 keys compare exactly; f64 sums within a relative 1e-12, because the device
@@ -42,7 +48,7 @@ from geomesa_tpu_torch.workload import (
     bbox_time_cql, edge_columns, edge_payload, grid_columns, grid_payload, grouped_columns,
     make_queries, synth_gdelt)
 
-from test_torch_kernels import _city_payload, _store_columns
+from test_torch_kernels import CULL_MAKERS, _city_payload, _cull_inputs, _store_columns
 
 RTOL = 1e-12
 N, Q, CAP, GROUPS = 40_000, 7, 512, 50
@@ -355,6 +361,190 @@ def test_kernel_matches_plain_on_card():
                 assert kernels.launches["grouped_agg"] == before + 1
                 fits = (want[7][:, 0] <= CAP).cpu().numpy()
                 _assert_step_equal(got, [w.cpu().numpy() for w in want], fits=fits)
+
+
+@pytest.mark.cuda
+def test_kernel_modes_match_plain_on_card():
+    """Both fold modes against the plain version, with the columns'
+    extents passed as the store passes them: G x V within the shared budget
+    (G = 64; G = 2048 with V = 2, one block an SM) and above it (G = 8192
+    and aggregate_many's largest, 65536: the global fold), group ids spread
+    over all G, on each column maker."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for g, n_vals, mode in ((64, 1, "shared"), (2048, 2, "shared"), (8192, 1, "global"),
+                            (65536, 1, "global")):
+        for maker in ("gdelt", "grid", "edge"):
+            cols, boxes, times, _, rowid, vals = _inputs(maker, n_vals, seed=9)
+            gid = np.random.default_rng(g).integers(0, g, N).astype(np.int32)
+            tc = [_t(c).to(dev) for c in cols]
+            call = (*tc, _t(gid).to(dev), _t(rowid).to(dev), _t(vals).to(dev), 0, N - 300,
+                    _t(boxes).to(dev), _t(times).to(dev), g, CAP)
+            assert kernels.grouped_agg_mode(boxes.shape[1], times.shape[1], n_vals, g) == mode
+            got = grouped_agg(*call, extents=kernels.chunk_extents(*tc))
+            want = grouped_agg_plain(*call)
+            torch.cuda.synchronize()
+            assert kernels.grouped_agg_last_work()["mode"] == mode
+            fits = (want[7][:, 0] <= CAP).cpu().numpy()
+            _assert_step_equal(got, [w.cpu().numpy() for w in want], fits=fits)
+            assert int(want[0].long().sum()) > 0
+
+
+# -- the fold's work list ----------------------------------------------------------
+
+
+def _numpy_extents(cols):
+    """Per 4096-row chunk: min and max of x, y and the biased time key over
+    every row, the last chunk padded with zero rows."""
+    n = len(cols[0])
+    c = -(-n // 4096)
+
+    def span(a):
+        v = np.pad(a.astype(np.int64), (0, c * 4096 - n)).reshape(c, 4096)
+        return v.min(axis=1), v.max(axis=1)
+
+    key = cols[2].astype(np.int64) * 2**32 + ((cols[3].astype(np.int64) ^ 0x80000000)
+                                              & 0xFFFFFFFF)
+    return (*span(cols[0]), *span(cols[1]), *span(key))
+
+
+def _extent_columns(ext):
+    xy = ext[:, :2].contiguous().view(torch.int32).long().numpy()
+    return (*(xy[:, i] for i in range(4)), ext[:, 2].numpy(), ext[:, 3].numpy())
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 40_000])
+def test_chunk_extents_equal_numpy(n):
+    """``chunk_extents`` equals a numpy min/max over each 4096-row chunk,
+    the zero padding of the last chunk included, at steps that split the
+    rows; negative offsets and extreme coordinates keep their order."""
+    rng = np.random.default_rng(n)
+    cols = [rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32) for _ in range(2)]
+    cols += [rng.integers(0, 40, n).astype(np.int32),
+             rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)]
+    want = _numpy_extents(cols)
+    for step in (4096, 3 * 4096, 1 << 22):
+        ext = kernels.chunk_extents(*(_t(c) for c in cols), step=step)
+        assert ext.dtype == torch.int64 and tuple(ext.shape) == (-(-n // 4096), 4)
+        for g, w in zip(_extent_columns(ext), want):
+            assert np.array_equal(g, w)
+    with pytest.raises(ValueError):
+        kernels.chunk_extents(*(_t(c) for c in cols), step=1000)
+
+
+def test_staged_state_caches_extents():
+    """``DeviceBackend.load`` keeps each state's extents beside its columns:
+    equal to numpy over the padded columns, padding rows included."""
+    _, ds, _ = _store_columns(5)
+    for name in ("z3", "z2"):
+        state = ds._state("g").backend_state[name]
+        cols = [c.numpy() for c in state.spatial_cols()]
+        assert len(cols[0]) == state.rows_per_shard > state.n  # padded
+        for g, w in zip(_extent_columns(state.extents), _numpy_extents(cols)):
+            assert np.array_equal(g, w)
+        assert state.extents_s >= 0.0
+
+
+def _assert_work_list(chunks, kept, runs, work, keep, target, min_run=kernels.AGG_MIN_RUN):
+    """The work list against ``keep`` (chunks, Q), the cull's pairs."""
+    n_chunks, q = keep.shape
+    pairs = int(keep.sum())
+    run_len = max(min_run, -(-pairs // target))
+    assert work.tolist() == [q, 0, int(work[kernels.W_RUNS]), run_len, pairs, 0]
+    assert tuple(chunks.shape) == (q, n_chunks) and tuple(runs.shape) == (3, q + target)
+    seen = set()
+    n_runs = int(work[kernels.W_RUNS])
+    rq, rs, re = (runs[i, :n_runs].long().numpy() for i in range(3))
+    assert (runs[:, n_runs:] == -1).all()
+    assert np.array_equal(rq, np.sort(rq))  # query-major
+    for qi in range(q):
+        want = np.nonzero(keep[:, qi].numpy())[0]
+        assert kept[qi] == len(want)
+        assert np.array_equal(chunks[qi, : len(want)].numpy(), want)  # chunk order
+        assert (chunks[qi, len(want):] == -1).all()
+        mine = np.nonzero(rq == qi)[0]
+        spans = [np.arange(rs[r], re[r]) for r in mine]
+        got = np.concatenate(spans) if spans else np.empty(0, np.int64)
+        assert np.array_equal(got, np.arange(len(want)))  # each kept chunk once, in order
+        assert all(0 < re[r] - rs[r] <= run_len for r in mine)
+        seen |= {(int(chunks[qi, k]), qi) for k in got}
+    # every kept pair of the chunk-major scan appears exactly once
+    assert seen == {(int(c), int(qi)) for c, qi in zip(*np.nonzero(keep.numpy()))}
+    assert n_runs <= q + target
+
+
+@pytest.mark.parametrize("shuffled", [False, True], ids=["z3", "shuffled"])
+@pytest.mark.parametrize("maker", CULL_MAKERS)
+def test_work_list_equals_chunk_query_pairs(maker, shuffled):
+    """``agg_work_list`` (its plain version here) lists the pairs of
+    ``chunk_query_pairs`` query by query in chunk order and cuts them into
+    runs that cover each query's list once, at several run targets; on rows
+    in z3 order most pairs are culled, on the same rows shuffled none
+    are."""
+    cols, boxes, times, base, true_n = _cull_inputs(maker, 5)
+    if shuffled:
+        perm = np.random.default_rng(3).permutation(len(cols[0]))
+        cols = tuple(c[perm] for c in cols)
+    tc = [_t(c) for c in cols]
+    keep = kernels.chunk_query_pairs(*tc, base, true_n, _t(boxes), _t(times))
+    ext = kernels.chunk_extents(*tc)
+    for target in (1, 7, 1000):
+        out = kernels.agg_work_list(ext, len(cols[0]), base, true_n, _t(boxes), _t(times),
+                                    target)
+        _assert_work_list(*out, keep, target)
+    if maker == "gdelt-z3":
+        assert keep.all() if shuffled else (keep.float().mean() < 0.5 and keep.any())
+
+
+def test_work_list_empty_and_bad_inputs():
+    """No query or no kept pair gives no run; bad extents, payloads and
+    targets raise."""
+    cols, boxes, times, base, true_n = _cull_inputs("gdelt-z3", 6)
+    ext = kernels.chunk_extents(*(_t(c) for c in cols))
+    n = len(cols[0])
+    chunks, kept, runs, work = kernels.agg_work_list(ext, n, 0, 0, _t(boxes), _t(times), 4)
+    assert kept.sum() == 0 and work[kernels.W_RUNS] == 0 and (chunks == -1).all()
+    out = kernels.agg_work_list(ext, n, 0, n, _t(boxes[:0]), _t(times[:0]), 4)
+    assert out[3].tolist() == [0, 0, 0, kernels.AGG_MIN_RUN, 0, 0]
+    for bad, exc in ((ext[:-1], ValueError), (ext.int(), TypeError)):
+        with pytest.raises(exc):
+            kernels.agg_work_list(bad, n, 0, n, _t(boxes), _t(times), 4)
+    with pytest.raises(ValueError):
+        kernels.agg_work_list(ext, n, 0, n, _t(boxes), _t(times), 0)
+    with pytest.raises(ValueError):
+        kernels.agg_work_list(ext, n, 0, n, _t(boxes).long(), _t(times), 4)
+    with pytest.raises(ValueError):
+        grouped_agg(*(_t(c) for c in cols), _t(np.zeros(n, np.int32)),
+                    _t(np.zeros(n, np.int32)), _t(np.zeros((1, n))), 0, n, _t(boxes),
+                    _t(times), 4, extents=ext[:-1])
+
+
+@pytest.mark.cuda
+def test_work_list_matches_plain_on_card():
+    """The ``agg_work_list`` kernel equals its plain version exactly (lists,
+    counts, runs, work ints) on every column maker, sorted and shuffled, at
+    several run targets; it counts one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for maker in CULL_MAKERS:
+        cols, boxes, times, base, true_n = _cull_inputs(maker, 5)
+        for shuffled in (False, True):
+            if shuffled:
+                perm = np.random.default_rng(3).permutation(len(cols[0]))
+                cols = tuple(c[perm] for c in cols)
+            ext = kernels.chunk_extents(*(_t(c).to(dev) for c in cols))
+            for target in (1, 7, 1000):
+                args = (ext, len(cols[0]), base, true_n, _t(boxes).to(dev), _t(times).to(dev),
+                        target)
+                before = kernels.launches["agg_work_list"]
+                got = kernels.agg_work_list(*args)
+                want = kernels.agg_work_list_plain(*args)
+                torch.cuda.synchronize()
+                assert kernels.launches["agg_work_list"] == before + 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
 
 
 def _key_columns(n: int, seed: int):

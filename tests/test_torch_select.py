@@ -144,7 +144,7 @@ def _select_many_positions_equal_reference(stores, index_name):
     assert len(got) == len(want) == len(cqls)
     assert sum(len(w) for w in want) > 0 and any(len(w) == 0 for w in want)
     for c, g, w in zip(cqls, got, want):
-        assert g.dtype == np.int64 and np.array_equal(g, w), c
+        assert g.dtype == np.int32 and np.array_equal(g, w), c  # the device's int32 positions
         assert np.array_equal(g, np.sort(g))
 
 
@@ -227,7 +227,7 @@ def test_planned_gather_plain_equals_jax_step(maker, seed):
         [staged[k] for k in ("x", "y", "bins", "offs")], true_n, pair_q, pair_blk,
         torch.from_numpy(boxes), torch.from_numpy(times))
     want_p, want_h = _ref_planned_gather(cols, true_n, pair_q, pair_blk, boxes, times)
-    assert got_p.dtype == got_h.dtype == torch.int64
+    assert got_p.dtype == torch.int32 and got_h.dtype == torch.int64
     assert np.array_equal(got_h.numpy(), want_h) and np.array_equal(got_p.numpy(), want_p)
     assert want_h.sum() > 0
 
@@ -272,13 +272,36 @@ def test_planned_gather_rejects_bad_arguments():
         query_mod.planned_gather_step(cols, n, np.array([2]), np.array([0]), boxes, times)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_block_runs_cover_every_pair_once(seed):
+    """``block_runs`` (the count pass's block-major order, built on the host
+    by ``planned_gather_step``) holds every pair exactly once, its runs
+    start at each distinct block in ascending order, and a block's pairs
+    keep their pair order."""
+    rng = np.random.default_rng(seed)
+    n_pairs = [0, 1, 500][seed]
+    pair_q = rng.integers(0, 64, n_pairs)
+    pair_blk = rng.integers(0, 40, n_pairs)
+    pair_blk[: n_pairs // 3] = 7  # a block shared by many pairs
+    order, order_q, starts, blocks = kernels.block_runs(pair_q, pair_blk)
+    assert all(a.dtype == np.int32 for a in (order, order_q, starts, blocks))
+    assert np.array_equal(np.sort(order), np.arange(n_pairs))
+    assert np.array_equal(order_q, pair_q[order])
+    assert np.array_equal(blocks, np.unique(pair_blk))
+    assert starts[0] == 0 and starts[-1] == n_pairs and (np.diff(starts) > 0).all()
+    for d, blk in enumerate(blocks):
+        run = order[starts[d]:starts[d + 1]]
+        assert (pair_blk[run] == blk).all() and np.array_equal(run, np.sort(run))
+
+
 @pytest.mark.cuda
 def test_planned_gather_kernel_matches_plain_on_card():
     """The kernel equals ``planned_gather_plain`` exactly (positions and
     per-pair counts) on every column maker, with a whole-world query (every
     row of a block matches: the write pass's shortcut) beside the maker's
-    payloads; an empty pair list launches nothing, and the launch counter
-    counts one per call."""
+    payloads, at random pairs, one block shared by 250 pairs (more than one
+    staged tile) and a full block's one pair; an empty pair list launches
+    nothing, and the launch counter counts one per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
     from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
@@ -294,9 +317,24 @@ def test_planned_gather_kernel_matches_plain_on_card():
         c = [staged[k] for k in ("x", "y", "bins", "offs")]
         n_blocks = padded // query_mod.JOIN_BLOCK
         rng = np.random.default_rng(2)
-        for n_pairs in (0, 1, 300):
-            pq = torch.from_numpy(rng.integers(0, boxes.shape[0], n_pairs).astype(np.int32))
-            pb = torch.from_numpy(rng.integers(0, n_blocks, n_pairs).astype(np.int32))
+        world = boxes.shape[0] - 1
+        cases = [(rng.integers(0, boxes.shape[0], k), rng.integers(0, n_blocks, k))
+                 for k in (0, 1, 300)]
+        # one block shared by more pairs than a staged tile holds, the world
+        # query among them; and the world query alone on a full block
+        every = torch.arange(n_blocks, dtype=torch.int32)
+        _, world_h = kernels.planned_gather_plain(
+            *(t.cpu() for t in c), true_n, torch.full_like(every, world), every,
+            torch.from_numpy(boxes), torch.from_numpy(times))
+        full = np.nonzero(world_h.numpy() == query_mod.JOIN_BLOCK)[0]
+        assert len(full) or maker != "gdelt-z3"
+        cases += [(rng.integers(0, boxes.shape[0], 250), np.full(250, n_blocks // 2)),
+                  (np.array([world]), full[:1])]
+        for pq_np, pb_np in cases:
+            pq_np = pq_np[: len(pb_np)]  # a maker with no full block: an empty list
+            n_pairs = len(pq_np)
+            pq = torch.from_numpy(pq_np.astype(np.int32))
+            pb = torch.from_numpy(pb_np.astype(np.int32))
             args = (*c, true_n, pq.to(dev), pb.to(dev), torch.from_numpy(boxes).to(dev),
                     torch.from_numpy(times).to(dev))
             before = kernels.launches["planned_gather"]
@@ -305,6 +343,8 @@ def test_planned_gather_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             assert torch.equal(got_p, want_p) and torch.equal(got_h, want_h)
             assert kernels.launches["planned_gather"] - before == (1 if n_pairs else 0)
+            if n_pairs == 1 and pq_np[0] == world:
+                assert int(want_h[0]) == query_mod.JOIN_BLOCK  # the write pass's shortcut
 
 
 def test_select_many_positions_rejects_unaligned_residency(stores):
