@@ -109,6 +109,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    spills and shared and global atomics; ``agg_work_list`` against its
    plain version with its time and bound; and one ``aggregate_many`` under
    ``torch.profiler``.
+7. bench config 3 (``bench.py:510``), density heatmaps and batched KNN:
+   7a, ``batched_density`` against ``batched_density_plain`` on the card,
+   exact, at N = 1,000,003 over GDELT-shaped rows in z3 order (city boxes;
+   the cull keeps few pairs) and the same rows shuffled, grid rows and edge
+   rows, (B, T) in {(1, 1), (8, 16)}, Q in {1, 16, 64, one past the tile},
+   256 x 256 and 37 x 100 grids, each query's own box or a degenerate bound
+   (xlo == xhi) as grid bounds, with and without a base/true_n tail; and
+   ``batched_knn`` against ``batched_knn_plain``, distances bit-equal and
+   rows equal, at k in {1, 10, 64}, Q in {1, 64, 65}, over the z3 rows,
+   grid rows with points on them (ties) and 5 rows (N < k). 7b, config 3 at
+   full size: 100M GDELT-shaped points (seed 42) written through
+   ``DataStore`` (both Morton kernels), the 16 city-box queries (seed 7)
+   through ``batched_density_step`` at 256 x 256 with each query's own box
+   as its grid bounds (each grid's mass equals its ``batched_count``, each
+   grid a numpy replica of the f32 cell math on the query's matching
+   rows), ``density_many`` over one shared viewport, loose (equal to the
+   replica over the clipped boxes) and ``loose=False`` (equal to an f64
+   ``histogram2d``), and ``knn_many`` of bench config 3's 64 points at k =
+   10 (4 inside the bench's f64 band, all 64 equal to ``batched_knn_plain``
+   on the card); then ``density_many`` p50 per query and ``knn_many`` p50
+   per point with their host split, and each kernel's time beside its
+   plain version's, its bound and a library call (``torch.bincount`` of the
+   matches' cells; eager distances and ``torch.topk`` per query), timed
+   only; and one ``density_many`` and one ``knn_many`` under
+   ``torch.profiler`` (the KNN kernels' device times in launch order: the
+   sample's select and merge, then the full select and merge).
 
 Each store is freed before the next phase.
 
@@ -146,6 +172,10 @@ AGG_GROUPS = 1024  # bench config 9's G
 AGG_SEEDS = (7, 301)  # the fused step's query set, the product path's
 AGG_CHECKED = {7: 64, 301: 16}  # queries of each set held to the f64 fold
 AGG_RTOL = 1e-12  # f64 sums: atomics fold in no fixed order
+CONFIG3_ROWS = 100_000_000  # bench config 3 (bench.py:510), nothing cut
+CONFIG3_DENSITY_QUERIES = 16  # min(Q, 16) city-box 2-7 day queries, 256 x 256 grids
+CONFIG3_POINTS = 64  # knn_batch_points
+CONFIG3_K = 10  # GEOMESA_BENCH_K's default
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Integer instruction rates by pipe. The data sheet's 67 TFLOP/s float32
 # (non-tensor) counts an FMA as 2 ops on 128 lanes per SM. An SM issues 4
@@ -816,11 +846,13 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_by
     return (alu, total), nbytes
 
 
-def profile_window(label: str, fn, expect: str | None = None) -> None:
+def profile_window(label: str, fn, expect: str | None = None, kernels_in_order: bool = False
+                   ) -> None:
     """Runs ``fn`` once under ``torch.profiler`` (CPU and CUDA) and logs the
     device's busy share of the window (the union of its kernels and copies
     over the span of every recorded event), the five device ops that took
-    the most time, and the longest stretch with nothing on the device.
+    the most time, and the longest stretch with nothing on the device; with
+    ``kernels_in_order``, also every kernel's device time in launch order.
     Logs "not measured" where the profiler saw no device activity. With
     ``expect``, a kernel name that ``fn`` launches: a trace that holds no
     record of it is taken once more, and logged as incomplete if the
@@ -872,6 +904,12 @@ def profile_window(label: str, fn, expect: str | None = None) -> None:
         f"{busy / 1e3:.3f} ms ({busy / (w1 - w0):.6f} of the window) over {len(device)} device "
         f"ops; longest idle gap {gap / 1e3:.3f} ms; top device ops: " + "; ".join(
             f"{name[:60]} {t / 1e3:.4f} ms x{k}" for name, (t, k) in top))
+    if kernels_in_order:
+        launched = sorted((e for e in device if "emcpy" not in e.name and "emset" not in e.name),
+                          key=lambda e: e.time_range.start)
+        log(f"phase profile {label}: kernels in launch order: " + "; ".join(
+            f"{e.name.split('(')[0][-40:]} {(e.time_range.end - e.time_range.start) / 1e3:.4f} ms"
+            for e in launched))
 
 
 def requested_bytes() -> int:
@@ -1799,6 +1837,447 @@ def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
     return record, wl_record
 
 
+# -- phase 7: bench config 3, density heatmaps and batched KNN ---------------------
+
+DENSITY_GRIDS = ((256, 256), (37, 100))  # bench config 3's grid, and one not square
+# the cell of a match: for each axis a convert, a subtract, a multiply, two
+# float clamps, the truncation and two integer clamps; then the flat index
+# (a multiply-add) and the atomic: ~10 per axis, as (ALU-only, all)
+DENSITY_CELL_OPS = (8, 20)
+# the KNN select per (valid row, query): two subtracts, two multiplies, an
+# add (the FMA pipe) and the running minimum (ALU), as (ALU-only, all); and
+# per row the decode, two conversions, two multiplies and two subtracts
+KNN_PAIR_OPS = (1, 6)
+KNN_ROW_OPS = 6
+# phase 7b's shared density_many viewport: London, Paris, Moscow,
+# Johannesburg, Delhi and Cairo inside, New York, Mexico City, Beijing and
+# Tokyo clipped away
+DENSITY_VIEWPORT = (-20.0, -40.0, 90.0, 70.0)
+
+
+def density_gb(boxes: np.ndarray, kind: str) -> np.ndarray:
+    """(Q, 4) grid bounds for phase 7a: each query's first box slot (bench
+    config 3's bounds; a dead slot gives inverted bounds), or a degenerate
+    x range (xlo == xhi) whose products overflow int32 far from it."""
+    if kind == "own":
+        return np.ascontiguousarray(boxes[:, 0, :])
+    q = boxes.shape[0]
+    return np.ascontiguousarray(np.tile(np.array([2**30, 2**30, 0, 2**31 - 1], np.int32), (q, 1)))
+
+
+def check_density_kernel(dev, store, seed: int) -> int:
+    """Phase 7a, density: ``batched_density`` against ``batched_density_plain``
+    on the card, exact, at N = 1,000,003, over GDELT-shaped rows in z3 order
+    under city boxes packed as ``DataStore`` packs them (the cull keeps few
+    pairs), the same rows shuffled (it keeps nearly all), grid rows under
+    ``grid_payload`` and edge rows under ``edge_payload``; at (B, T) in
+    {(1, 1), (8, 16)} and Q in {1, 16, 64, one past the shared tile}; each
+    row set meets every combination of a 256 x 256 or a 37 x 100 grid,
+    each query's own box or a degenerate bound as grid bounds, and a
+    base/true_n tail or none. Returns max |difference| over the grids."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import batched_density, batched_density_plain
+
+    ds, sft, state = store
+    n, cols = state.n, [c[: state.n].contiguous() for c in state.spatial_cols()]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    rows = {"city": cols, "shuffled": [c[perm].contiguous() for c in cols]}
+    for mode in ("grid", "mixed"):
+        rows[mode] = [torch.from_numpy(c).to(dev) for c in edge_host_columns(mode, n, seed)]
+    worst = i = 0
+    for name, rcols in rows.items():
+        host = [c.cpu().numpy() for c in rcols] if name in ("grid", "mixed") else None
+        for nb, nt in ((1, 1), (8, 16)):
+            for q in (1, 16, 64, kernels.q_tile_for(nb, nt, kernel="batched_density") + 1):
+                if host is None:
+                    b, t = cull_payload(ds, sft, "city", q, nb, nt, seed + q + nb)
+                else:
+                    b, t = edge_inputs(rng, name, q, nb, nt, host)
+                width, height = DENSITY_GRIDS[i % 2]
+                kind = ("own", "degenerate")[(i // 2) % 2]
+                base, true_n = ((0, n), (3 * 4096, 3 * 4096 + n - 777))[(i // 4) % 2]
+                i += 1
+                gb = density_gb(b, kind)
+                args = (*rcols, base, true_n, *(torch.from_numpy(a).to(dev) for a in (b, t, gb)),
+                        width, height)
+                got = batched_density(*args)
+                want = batched_density_plain(*args)
+                torch.cuda.synchronize()
+                err = int((got - want).abs().max())
+                worst = max(worst, err)
+                log(f"  batched_density {name} N={n} Q={q} B={nb} T={nt} {width}x{height} "
+                    f"bounds={kind} base={base} true_n={true_n}: max_abs_err={err} (mass "
+                    f"{float(want.double().sum()):.0f})")
+                if err != 0:
+                    raise AssertionError(f"batched_density disagrees with plain at {name} "
+                                         f"Q={q} B={nb} T={nt}")
+    return worst
+
+
+def check_knn_kernel(dev, store, seed: int) -> int:
+    """Phase 7a, KNN: ``batched_knn`` against ``batched_knn_plain`` on the
+    card, distances bit-equal and rows equal, at k in {1, 10, 64} and Q in
+    {1, 64, 65}, over the GDELT-shaped rows in z3 order with a true_n
+    tail (bench config 3's points), grid rows with points on them (full of
+    ties), and 5 rows (N < k: the inf slots). Returns 0 or raises."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import batched_knn, batched_knn_plain, knn_degrees
+    from geomesa_tpu_torch.workload import grid_columns, knn_points
+
+    _, _, state = store
+    n = state.n
+    x, y = state.spatial_cols()[:2]
+    gx, gy, _, _ = (torch.from_numpy(c).to(dev) for c in grid_columns(n, seed, values=40))
+    pts = torch.from_numpy(knn_points(65).astype(np.float32)).to(dev)
+    gxf, gyf = knn_degrees(gx, gy)
+    on_rows = torch.randint(0, n, (65,), generator=torch.Generator().manual_seed(seed)).to(dev)
+    cases = [("z3 rows", x, y, n - 777, pts[:, 0], pts[:, 1]),
+             ("grid rows", gx, gy, n, gxf[on_rows], gyf[on_rows]),
+             ("5 rows", x[:5].contiguous(), y[:5].contiguous(), 5, pts[:, 0], pts[:, 1])]
+    for name, cx, cy, true_n, qx, qy in cases:
+        for k in (1, 10, 64):
+            for q in (1, 64, 65):
+                args = (cx, cy, 0, true_n, qx[:q].contiguous(), qy[:q].contiguous(), k)
+                got_d, got_r = batched_knn(*args)
+                want_d, want_r = batched_knn_plain(*args)
+                torch.cuda.synchronize()
+                same = (torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+                        and torch.equal(got_r, want_r))
+                ties = int((want_d[:, 1:] == want_d[:, :-1]).sum())
+                log(f"  batched_knn {name} N={cx.shape[0]} true_n={true_n} Q={q} k={k}: "
+                    f"{'bit-equal' if same else 'DIFFERENT'} (tied neighbours {ties}, inf slots "
+                    f"{int(torch.isinf(want_d).sum())})")
+                if not same:
+                    raise AssertionError(f"batched_knn disagrees with plain at {name} Q={q} k={k}")
+    return 0
+
+
+def density_replica(xs, ys, gb, width: int, height: int) -> np.ndarray:
+    """numpy f32 replica of the density step's grid of one query: its
+    matching rows' int-domain coordinates ``xs, ys`` under the grid bounds
+    ``gb`` [xlo, xhi, ylo, yhi], the reference's f32 cell math (each step
+    rounded alone, the product clamped into [-1, cells] before the
+    truncation) and a bincount. Returns a (height, width) float64 grid."""
+    f32 = np.float32
+
+    def cells(v, lo, hi, size):
+        lo_f, hi_f = f32(lo), f32(hi)
+        s = f32(size) / (hi_f - lo_f + f32(1.0))
+        f = (v.astype(f32) - lo_f) * s
+        f = np.clip(np.nan_to_num(f, nan=0.0), f32(-1.0), f32(size))
+        return np.clip(f.astype(np.int64), 0, size - 1)
+
+    cx = cells(xs, gb[0], gb[1], width)
+    cy = cells(ys, gb[2], gb[3], height)
+    return (np.bincount(cy * width + cx, minlength=width * height)
+            .reshape(height, width).astype(np.float64))
+
+
+def int_matches(slabs, boxes_f64, windows_ms, viewport=None):
+    """Per query, the int-domain coordinates (xs, ys) of its matching rows
+    in a day-sliced store, the boxes clipped to ``viewport`` first where
+    one is given (None when clipped to nothing)."""
+    _, starts, (x, y, b, o) = slabs
+    out = []
+    for (x1, y1, x2, y2), (lo, hi) in zip(boxes_f64, windows_ms):
+        if viewport is not None:
+            x1, y1 = max(x1, viewport[0]), max(y1, viewport[1])
+            x2, y2 = min(x2, viewport[2]), min(y2, viewport[3])
+            if x1 > x2 or y1 > y2:
+                out.append(None)
+                continue
+        (blo, olo), (bhi, ohi) = divmod(lo + 1, DAY_MS), divmod(hi - 1, DAY_MS)
+        s, e = starts[blo], starts[bhi + 1]
+        xs, ys, bs, os_ = x[s:e], y[s:e], b[s:e], o[s:e]
+        m = ((xs >= norm31(x1, -180.0, 180.0)) & (xs <= norm31(x2, -180.0, 180.0))
+             & (ys >= norm31(y1, -90.0, 90.0)) & (ys <= norm31(y2, -90.0, 90.0))
+             & ((bs > blo) | ((bs == blo) & (os_ >= olo)))
+             & ((bs < bhi) | ((bs == bhi) & (os_ <= ohi))))
+        out.append((xs[m], ys[m]))
+    return out
+
+
+def density_floor(cols, n: int, loaded: int, boxes, times, gb, width: int, height: int,
+                  matches: int, chunks):
+    """The least work of ``batched_density`` on these inputs: the
+    predicate's (:func:`predicate_floor_ops`) on the (chunk, query) pairs
+    the cull keeps, the cull's extent of every loaded row, and a cell per
+    match (:data:`DENSITY_CELL_OPS`); bytes are the columns (16 B a loaded
+    row), the payloads and grid bounds read once and the grids written once.
+    Returns ((alu, all), bytes)."""
+    (alu, total), _, _, m = predicate_floor_ops(*(c[:n] for c in cols), boxes, times, chunks)
+    if m != matches:
+        raise AssertionError("the density bound's match count disagrees with the plain version")
+    extent = EXTENT_OPS_PER_ROW * loaded
+    q = boxes.shape[0]
+    nbytes = (16 * loaded + 4 * (boxes.numel() + times.numel() + gb.numel())
+              + 4 * q * width * height)
+    return ((alu + extent + DENSITY_CELL_OPS[0] * m, total + extent + DENSITY_CELL_OPS[1] * m),
+            nbytes)
+
+
+def knn_floor(n: int, q: int, k: int):
+    """The least work of ``batched_knn`` at ``n`` valid rows and ``q``
+    queries (:data:`KNN_PAIR_OPS`, :data:`KNN_ROW_OPS`); bytes are x and y
+    read once for all queries (8 B a row), the points read and (dist, row)
+    written once. Returns ((alu, all), bytes)."""
+    pairs = n * q
+    return ((KNN_PAIR_OPS[0] * pairs, KNN_PAIR_OPS[1] * pairs + KNN_ROW_OPS * n),
+            8 * n + 8 * q + 8 * q * k)
+
+
+def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: int,
+                 max_err: dict) -> list[dict]:
+    """Phase 7b: bench config 3 (``bench.py:510``) at full size; returns the
+    batched_density and batched_knn records."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        batched_count, batched_density, batched_density_plain, batched_knn, batched_knn_plain,
+        chunk_query_pairs, density_cells, density_scale, knn_degrees)
+    from geomesa_tpu_torch.parallel.query import batched_density_step, batched_knn_step
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.process.knn import knn_many
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, Point, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import (
+        SPEC, bbox_time_cql, knn_points, make_queries, synth_gdelt)
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    lon, lat, t = synth_gdelt(n_rows, seed=42)
+    fids = np.arange(n_rows).astype("U9")
+    boxes_f64, windows_ms = make_queries(n_density, seed=7)
+    cqls = [bbox_time_cql(b, w) for b, w in zip(boxes_f64, windows_ms)]
+    pts = knn_points(n_knn)
+    points = [Point(*p) for p in pts]
+    log(f"phase 7 synth: {time.perf_counter() - t0:.3f} s ({n_rows} rows, {n_density} density "
+        f"queries, {n_knn} KNN points, k={k})")
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for name in kernels.launches:
+        kernels.launches[name] = 0
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("cfg3", SPEC)
+    table = FeatureTable.from_columns(sft, fids, {
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)})
+    t0 = time.perf_counter()
+    ds.write("cfg3", table)
+    ds.compact("cfg3")
+    write_s = time.perf_counter() - t0
+    st = ds._state("cfg3")
+    state = st.backend_state["z3"]
+    cols = state.spatial_cols()
+    # the density step as the bench runs it: each query's own box its grid bounds
+    t0 = time.perf_counter()
+    pend = ds._batch_payloads(st, [Query(c) for c in cqls])
+    payload_ms = (time.perf_counter() - t0) * 1e3
+    boxes = torch.from_numpy(np.stack([p[0] for _, p, _ in pend])).to(dev)
+    times = torch.from_numpy(np.stack([p[1] for _, p, _ in pend])).to(dev)
+    gb = boxes[:, 0, :].contiguous()
+    width, height = DENSITY_GRIDS[0]
+    grids = batched_density_step(cols, state.n, boxes, times, gb, width, height).cpu()
+    counts = batched_count(*cols, 0, state.n, boxes, times).cpu()
+    loose = ds.density_many("cfg3", cqls, DENSITY_VIEWPORT, width, height)
+    t0 = time.perf_counter()
+    exact = ds.density_many("cfg3", cqls, DENSITY_VIEWPORT, width, height, loose=False)
+    exact_s = time.perf_counter() - t0
+    found = knn_many(ds, "cfg3", points, k=k)
+    launched = dict(kernels.launches)
+    log(f"phase 7 launches: {launched}")
+    if on_card:
+        want = {"z3_encode": 1, "z2_encode": 1, "batched_density": 2, "batched_count": 1,
+                "batched_knn": 1}
+        if any(launched[name] != v for name, v in want.items()):
+            raise AssertionError(f"phase 7's main path must launch {want}")
+        log(f"phase 7 write memory: memory_allocated {torch.cuda.memory_allocated()} bytes "
+            f"resident, max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"phase 7 write: {write_s:.3f} s (write + compact of {n_rows} rows)")
+    log_rebuild(ds.last_rebuild("cfg3"))
+
+    # -- checks: masses, the f32 cell replica, the f64 histogram, the referees --
+    t0 = time.perf_counter()
+    xi, yi = norm31(lon, -180.0, 180.0), norm31(lat, -90.0, 90.0)
+    day, off = t // DAY_MS, t % DAY_MS
+    order, starts, by_day = day_slabs(day, xi, yi, day, off)
+    slabs = (order, starts, by_day)
+    mass = grids.double().sum(dim=(1, 2))
+    if not torch.equal(mass, counts.double()):
+        raise AssertionError(f"grid masses {mass.tolist()} differ from batched_count's "
+                             f"{counts.tolist()}")
+    host_gb = gb.cpu().numpy()
+    for qi, (xs, ys) in enumerate(int_matches(slabs, boxes_f64, windows_ms)):
+        want_g = density_replica(xs, ys, host_gb[qi], width, height)
+        if not np.array_equal(grids[qi].numpy().astype(np.float64), want_g):
+            raise AssertionError(f"density query {qi}: the grid differs from the f32 replica")
+    vp = DENSITY_VIEWPORT
+    vgb = np.array([norm31(vp[0], -180.0, 180.0), norm31(vp[2], -180.0, 180.0),
+                    norm31(vp[1], -90.0, 90.0), norm31(vp[3], -90.0, 90.0)])
+    clipped = 0
+    for qi, m in enumerate(int_matches(slabs, boxes_f64, windows_ms, viewport=vp)):
+        if m is None:
+            clipped += 1
+            want_g = np.zeros((height, width))
+        else:
+            want_g = density_replica(*m, vgb, width, height)
+        if not np.array_equal(loose[qi], want_g):
+            raise AssertionError(f"density_many query {qi}: the loose grid differs from the "
+                                 "f32 replica over the viewport")
+    fslabs = day_slabs(day, lon, lat, t)
+    for qi, (box, window) in enumerate(zip(boxes_f64, windows_ms)):
+        rows = f64_referee(lon, lat, t, box, window, fslabs)
+        want_g, _, _ = np.histogram2d(lat[rows], lon[rows], bins=[height, width],
+                                      range=[[vp[1], vp[3]], [vp[0], vp[2]]])
+        if not np.array_equal(exact[qi], want_g):
+            raise AssertionError(f"density_many(loose=False) query {qi} differs from the f64 "
+                                 "histogram")
+    # KNN: 4 points against the bench's f64 brute force and its derived band
+    for qi in range(min(4, n_knn)):
+        d2 = (lon - pts[qi, 0]) ** 2 + (lat - pts[qi, 1]) ** 2
+        kth = np.partition(d2, k - 1)[k - 1]
+        tol = 2.0 * np.sqrt(kth) * 8e-5 + kth * 1e-4 + 1e-8
+        if not (found[qi][1] ** 2 <= kth + tol).all() or len(found[qi][1]) != k:
+            raise AssertionError(f"knn_many point {qi} lies outside the bench's band")
+    # all of them against the plain version on the store's device
+    qx = torch.from_numpy(pts[:, 0].astype(np.float32)).to(dev)
+    qy = torch.from_numpy(pts[:, 1].astype(np.float32)).to(dev)
+    pd, pr = batched_knn_plain(cols[0], cols[1], 0, state.n, qx, qy, k)
+    perm = st.indices["z3"].perm
+    pfids = fids[perm[pr.cpu().numpy().astype(np.int64)]]
+    for qi, (tab, dist) in enumerate(found):
+        if not (np.array_equal(dist.astype(np.float32), pd[qi].cpu().numpy())
+                and np.array_equal(tab.fids, pfids[qi])):
+            raise AssertionError(f"knn_many point {qi} differs from batched_knn_plain")
+    log(f"phase 7 checks: ok in {time.perf_counter() - t0:.3f} s ({n_density} grid masses equal "
+        f"batched_count's ({int(counts.sum())} rows); every grid equals the numpy f32 cell "
+        f"replica; density_many over {DENSITY_VIEWPORT}: {clipped} queries clipped to nothing, "
+        f"loose grids equal the replica, loose=False grids the f64 histogram2d "
+        f"({exact_s:.3f} s for {n_density}); knn_many: {min(4, n_knn)} points inside the "
+        f"bench's band, all {n_knn} equal to batched_knn_plain)")
+    del fslabs, slabs, by_day, order, xi, yi
+
+    # -- timings ---------------------------------------------------------------
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            s = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - s) * 1e3)
+        return out
+
+    dm = host_ms(lambda: ds.density_many("cfg3", cqls, DENSITY_VIEWPORT, width, height), iters)
+    vpend = [(i, p) for i, p, _ in ds._batch_payloads(st, [Query(c) for c in cqls],
+                                                      viewport=DENSITY_VIEWPORT) if p is not None]
+    vboxes = torch.from_numpy(np.stack([p[0] for _, p in vpend])).to(dev)
+    vtimes = torch.from_numpy(np.stack([p[1] for _, p in vpend])).to(dev)
+    vgbs = torch.from_numpy(np.tile(vgb.astype(np.int32), (len(vpend), 1))).to(dev)
+    dstep = host_ms(lambda: batched_density_step(cols, state.n, vboxes, vtimes, vgbs, width,
+                                                 height).cpu(), iters)
+    dpay = host_ms(lambda: ds._batch_payloads(st, [Query(c) for c in cqls],
+                                              viewport=DENSITY_VIEWPORT), iters)
+    log(f"phase 7 density_many: p50 {p50(dm) / n_density:.4f} ms per query over {iters} calls "
+        f"of {n_density} ({p50(dm):.3f} ms a call, min {min(dm):.3f}, max {max(dm):.3f}; host "
+        f"clock); split p50 per call: payloads (parse, extract, clip, pack) {p50(dpay):.3f} ms, "
+        f"the step with its uploads and the grids' copy {p50(dstep):.3f} ms, the rest "
+        f"{p50(dm) - p50(dpay) - p50(dstep):.3f} ms; loose=False {exact_s * 1e3 / n_density:.3f}"
+        f" ms per query once; bench's own-box payloads {payload_ms:.3f} ms once")
+    kn = host_ms(lambda: knn_many(ds, "cfg3", points, k=k), iters)
+    kstep = host_ms(lambda: [v.cpu() for v in batched_knn_step(
+        cols, state.n, pts[:, 0], pts[:, 1], k)], iters)
+    log(f"phase 7 knn_many: p50 {p50(kn) / n_knn:.4f} ms per point over {iters} calls of "
+        f"{n_knn} ({p50(kn):.3f} ms a call, min {min(kn):.3f}, max {max(kn):.3f}; host clock); "
+        f"split p50 per call: the step with its uploads and copies {p50(kstep):.3f} ms, the "
+        f"host tail (permutation, take, order) {p50(kn) - p50(kstep):.3f} ms")
+
+    d_record = {"name": "batched_density", "route": "cuda",
+                "source": "geomesa_tpu_torch/csrc/batched_density.cu",
+                "replaces": "geomesa_tpu/parallel/query.py:1193",
+                "launches": launched["batched_density"], "library_ms": None}
+    k_record = {"name": "batched_knn", "route": "cuda",
+                "source": "geomesa_tpu_torch/csrc/batched_knn.cu",
+                "replaces": "geomesa_tpu/parallel/query.py:1125",
+                "launches": launched["batched_knn"], "library_ms": None}
+    if on_card:
+        dargs = (*cols, 0, state.n, boxes, times, gb, width, height)
+        got = batched_density(*dargs)
+        want = batched_density_plain(*dargs)
+        torch.cuda.synchronize()
+        d_err = int((got - want).abs().max())
+        if d_err:
+            raise AssertionError("batched_density disagrees with plain at config 3")
+        d_ms = cuda_ms(lambda: batched_density(*dargs), 5)
+        d_plain_ms = cuda_ms(lambda: batched_density_plain(*dargs), 1)
+        # the library call: one bincount of the matching rows' flat cells,
+        # gathered outside the timing
+        xlo, xhi, ylo, yhi = (gb.float()[:, i, None] for i in range(4))
+        sx, sy = density_scale(xlo, xhi, width), density_scale(ylo, yhi, height)
+        at = torch.arange(boxes.shape[0], device=dev)[:, None] * (width * height)
+        flat = []
+        for s, e, m, _ in kernels._plain_masks(*cols, 0, state.n, boxes, times, 1 << 20):
+            cx = density_cells(cols[0][s:e].float()[None, :], xlo, sx, width)
+            cy = density_cells(cols[1][s:e].float()[None, :], ylo, sy, height)
+            flat.append((at + cy * width + cx)[m])
+        flat = torch.cat(flat)
+        lib = torch.bincount(flat, minlength=boxes.shape[0] * width * height)
+        if not torch.equal(lib.float().view_as(want), want):
+            raise AssertionError("the bincount yardstick disagrees with the plain version")
+        lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=boxes.shape[0] * width * height),
+                         5)
+        kept = chunk_query_pairs(*cols, 0, state.n, boxes, times)
+        ops, nbytes = density_floor(cols, state.n, cols[0].shape[0], boxes, times, gb, width,
+                                    height, int(flat.shape[0]), kept)
+        d_record.update(max_abs_err=max(d_err, max_err["batched_density"]), ms=d_ms,
+                        plain_ms=d_plain_ms, library_ms=lib_ms, **bound_fields(ops, nbytes))
+        share = d_record["bound_ms"] / d_ms
+        log(f"phase batched_density timing: {d_ms:.4f} ms (CUDA events, 5 launches) at "
+            f"N={state.n} Q={boxes.shape[0]} B={boxes.shape[1]} T={times.shape[1]} "
+            f"{width}x{height}; plain {d_plain_ms:.4f} ms; torch.bincount of the "
+            f"{flat.shape[0]} matches' cells {lib_ms:.4f} ms; bound {d_record['bound_ms']:.4f} "
+            f"ms ({d_record['bound_by']}: {ops[0]} ALU-only of {ops[1]} ops over "
+            f"{int(kept.sum())} kept of {kept.numel()} (chunk, query) pairs; {nbytes} bytes), "
+            f"{share:.4f} of it")
+        if share > 1:
+            raise AssertionError(f"batched_density reads {share:.4f} of its bound: the bound's "
+                                 "count is wrong")
+        del flat, lib, got, want, kept
+        kargs = (cols[0], cols[1], 0, state.n, qx, qy, k)
+        k_ms = cuda_ms(lambda: batched_knn(*kargs), 5)
+        k_plain_ms = cuda_ms(lambda: batched_knn_plain(*kargs), 1)
+        xf, yf = knn_degrees(cols[0][: state.n], cols[1][: state.n])
+
+        def library():  # the eager distance expression and torch.topk, per query
+            for qi in range(n_knn):
+                dx, dy = xf - qx[qi], yf - qy[qi]
+                torch.topk(dx * dx + dy * dy, k, largest=False)
+
+        lib_k_ms = cuda_ms(library, 1)
+        ops, nbytes = knn_floor(state.n, n_knn, k)
+        k_record.update(max_abs_err=max_err["batched_knn"], ms=k_ms, plain_ms=k_plain_ms,
+                        library_ms=lib_k_ms, **bound_fields(ops, nbytes))
+        share = k_record["bound_ms"] / k_ms
+        log(f"phase batched_knn timing: {k_ms:.4f} ms (CUDA events, 5 launches: select and "
+            f"merge) at N={state.n} Q={n_knn} k={k}; plain {k_plain_ms:.4f} ms; eager distances "
+            f"and torch.topk per query {lib_k_ms:.4f} ms; bound {k_record['bound_ms']:.4f} ms "
+            f"({k_record['bound_by']}: {ops[0]} ALU-only of {ops[1]} ops; {nbytes} bytes), "
+            f"{share:.4f} of it")
+        if share > 1:
+            raise AssertionError(f"batched_knn reads {share:.4f} of its bound: the bound's "
+                                 "count is wrong")
+        profile_window("density_many", lambda: ds.density_many(
+            "cfg3", cqls, DENSITY_VIEWPORT, width, height), "batched_density_kernel")
+        profile_window("knn_many", lambda: knn_many(ds, "cfg3", points, k=k), "knn_select_kernel",
+                       kernels_in_order=True)
+        log(f"phase 7 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    return [d_record, k_record]
+
+
 def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -> dict:
     """Phase 4: the standing-query stream at bench config 8's width; returns
     the batched_count_hits record."""
@@ -1974,7 +2453,7 @@ def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -
 
 def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
          n_exact: int = N_EXACT, iters: int = ITERS, stream_rows: int = STREAM_ROWS,
-         stream_chunks: int = STREAM_CHUNKS) -> list[dict]:
+         stream_chunks: int = STREAM_CHUNKS, config3_rows: int = CONFIG3_ROWS) -> list[dict]:
     """Run every phase; returns the kernel records. ``device=None`` is the
     card; a rehearsal may pass ``"cpu"`` (phases needing the card skip)."""
     from geomesa_tpu_torch.device import resolve_device
@@ -2051,7 +2530,24 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     agg_record, work_list_record = agg_path(dev, n_rows, n_queries)
     free_card()
     log(f"phase grouped aggregation: {time.perf_counter() - t0:.3f} s in all")
-    return records + [edge_record, gather_record, agg_record, work_list_record]
+
+    # -- phase 7: bench config 3, density heatmaps and batched KNN ---------------
+    t0 = time.perf_counter()
+    max_err = {"batched_density": 0, "batched_knn": 0}
+    if on_card:
+        store = z3_store(dev, 1_000_003, seed=31)
+        max_err["batched_density"] = check_density_kernel(dev, store, 33)
+        max_err["batched_knn"] = check_knn_kernel(dev, store, 35)
+        del store
+        free_card()
+        log(f"phase density-and-knn-vs-plain: ok, max_abs_err={max_err} "
+            f"({time.perf_counter() - t0:.3f} s for phase 7a)")
+    t0 = time.perf_counter()
+    config3_records = config3_path(dev, config3_rows, CONFIG3_DENSITY_QUERIES, CONFIG3_POINTS,
+                                   CONFIG3_K, max(5, iters // 2), max_err)
+    free_card()
+    log(f"phase density and KNN: {time.perf_counter() - t0:.3f} s in all")
+    return records + [edge_record, gather_record, agg_record, work_list_record] + config3_records
 
 
 if __name__ == "__main__":

@@ -67,6 +67,27 @@ instead: :func:`grouped_agg_mode`). Its note gives the bound (bytes); its
 plain version (:func:`grouped_agg_plain`) is torch ``index_add_`` /
 ``scatter_reduce_``.
 
+``batched_density`` replaces no TPU kernel either: the reference computes it
+in XLA (``geomesa_tpu/parallel/query.py:1193``, ``make_batched_density_step``,
+whose TPU form counts with one-hot matmuls on the MXU). It is the density
+heatmap of ``density_many``: per query, every row matching its live slots
+adds 1.0 to its cell of the query's own grid, the cell computed in f32 as
+the reference computes it (:func:`density_cells`). Its source is
+``csrc/batched_density.cu``, the edge gather's culled chunk scan with one
+global atomic per match; its plain version (:func:`batched_density_plain`)
+is the reference's scatter form in torch.
+
+``batched_knn`` replaces no TPU kernel either: the reference computes it in
+XLA (``geomesa_tpu/parallel/query.py:1125``, ``make_batched_knn_step``, and
+the ring merge of ``make_ring_knn_step`` :1295, which on one card has no
+hop). Per query point, the k rows nearest in f32 degrees, ties to the lower
+row. Its source is ``csrc/batched_knn.cu``: blocks over row segments keep
+per-query sorted lists in shared memory behind a bound that rejects nearly
+every row with one compare, capped from the start by the k-th distance of a
+strided sample of the rows, and a merge launch joins the segments' lists;
+its plain version (:func:`batched_knn_plain`) is the reference's ``map``
+form, one query at a time.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -119,8 +140,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
-            "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "z3_encode": 0,
-            "z2_encode": 0}
+            "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "batched_density": 0,
+            "batched_knn": 0, "z3_encode": 0, "z2_encode": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -158,6 +179,15 @@ _ENTRY_POINTS = {
     "geomesa_grouped_agg_target_runs": ("grouped_agg", [_I] * 5 + [_P]),
     # (shared mode?, host out: 2 x int) → registers and local-memory bytes per thread
     "geomesa_grouped_agg_attrs": ("grouped_agg", [_I, _P]),
+    # (..., grid_bounds, grids, width, height, stream)
+    "geomesa_batched_density": ("batched_density", _COUNT_ARGS + [_P] * 2 + [_I, _I, _P]),
+    "geomesa_batched_density_q_tile": ("batched_density", [_I, _I]),
+    # (n, q, k, sms, host out: 1 x int) → the row segments of a launch
+    "geomesa_batched_knn_segments": ("batched_knn", [_LL, _I, _I, _I, _P]),
+    # (x, y, n, base, true_n, qx, qy, q, k, segments, scratch d, scratch rows, scratch cap,
+    #  dist, rows, stream)
+    "geomesa_batched_knn": ("batched_knn", [_P, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I]
+                            + [_P] * 6),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -1035,6 +1065,212 @@ def planned_gather_plain(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes,
         hits.append(m.sum(dim=1))
         positions.append(gpos[m].to(torch.int32))
     return torch.cat(positions), torch.cat(hits)
+
+
+# ---------------------------------------------------------------------------
+# batched_density
+# ---------------------------------------------------------------------------
+
+
+def density_scale(lo: torch.Tensor, hi: torch.Tensor, cells: int) -> torch.Tensor:
+    """``cells / (hi - lo + 1)`` in f32, each step rounded alone, as the
+    reference computes a grid's scale (``parallel/query.py:1252``): f32
+    bounds, a correctly rounded division (not torch's ``cells / t``, which
+    multiplies by the reciprocal)."""
+    d = (hi - lo) + 1.0
+    return torch.full_like(d, float(cells)) / d
+
+
+def density_cells(v: torch.Tensor, lo: torch.Tensor, scale: torch.Tensor,
+                  cells: int) -> torch.Tensor:
+    """The cell of f32 coordinates ``v`` along an axis of ``cells`` cells
+    from ``lo`` at ``scale`` (:func:`density_scale`): ``clip(int((v - lo) *
+    scale), 0, cells - 1)`` in f32, truncating toward zero
+    (``parallel/query.py:1254``). The product is clamped into [-1, cells]
+    first (a NaN to 0), which gives XLA's saturating conversion's cell for
+    any product, where torch's own conversion of an out-of-range float is
+    undefined. Returns int64 cells."""
+    f = (v - lo) * scale
+    f = torch.where(torch.isnan(f), 0.0, f).clamp(-1.0, float(cells))
+    return f.to(torch.int32).clamp(0, cells - 1).long()
+
+
+def _check_density_args(x, boxes, grid_bounds, width: int, height: int) -> None:
+    if not isinstance(grid_bounds, torch.Tensor) or grid_bounds.dtype != torch.int32:
+        raise TypeError("grid_bounds must be an int32 tensor")
+    if tuple(grid_bounds.shape) != (boxes.shape[0], 4) or not grid_bounds.is_contiguous() \
+            or grid_bounds.device != x.device:
+        raise ValueError(f"grid_bounds must be a contiguous ({boxes.shape[0]}, 4) tensor on "
+                         f"{x.device}")
+    if width < 1 or height < 1 or width * height >= 2**31:
+        raise ValueError(f"need 1 <= width, height and width x height < 2^31, got {width} x "
+                         f"{height}")
+
+
+def batched_density(x, y, bins, offs, base: int, true_n: int, boxes, times, grid_bounds,
+                    width: int, height: int) -> torch.Tensor:
+    """Q bbox+time density grids over one int32 column slice, one pass.
+
+    ``x, y, bins, offs``, ``base``, ``true_n``, ``boxes`` and ``times`` as
+    :func:`batched_count`; ``grid_bounds`` (Q, 4) int32 [xlo, xhi, ylo, yhi]
+    in the columns' normalized domain, each query's own. Returns (Q,
+    height, width) float32 grids: each row matching query q adds 1.0 to its
+    cell (:func:`density_cells` of its x and y against q's bounds); a
+    matching row outside the bounds lands in an edge cell, as in the
+    reference's step. Row 0 is the ylo edge.
+
+    On the card (``csrc/batched_density.cu``) each block culls per 4096-row
+    chunk, as :func:`batched_edge_gather` does, and adds each match with a
+    global atomic; on the CPU :func:`batched_density_plain`."""
+    _check_count_args(x, y, bins, offs, boxes, times)
+    _check_density_args(x, boxes, grid_bounds, width, height)
+    if x.device.type == "cpu":
+        return batched_density_plain(x, y, bins, offs, base, true_n, boxes, times, grid_bounds,
+                                     width, height)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_density runs on cuda or cpu, not {x.device}")
+    grids = torch.zeros((boxes.shape[0], height, width), dtype=torch.float32, device=x.device)
+    _launch("batched_density", x, y, bins, offs, base, true_n, boxes, times, grid_bounds, grids,
+            ints=(int(width), int(height)))
+    return grids
+
+
+def batched_density_plain(x, y, bins, offs, base: int, true_n: int, boxes, times, grid_bounds,
+                          width: int, height: int, chunk: int = 1 << 20) -> torch.Tensor:
+    """The plain PyTorch version of :func:`batched_density`: the reference's
+    scatter form (``parallel/query.py:1215-1261``), every query at once and
+    chunked over rows, ``index_add_`` of the matches into the flat grids."""
+    q = boxes.shape[0]
+    grids = torch.zeros(q * height * width, dtype=torch.float32, device=x.device)
+    gb = grid_bounds.float()
+    xlo, xhi, ylo, yhi = (gb[:, i, None] for i in range(4))
+    sx, sy = density_scale(xlo, xhi, width), density_scale(ylo, yhi, height)
+    at = torch.arange(q, device=x.device)[:, None] * (height * width)
+    for s, e, m, _ in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk):
+        cx = density_cells(x[s:e].float()[None, :], xlo, sx, width)
+        cy = density_cells(y[s:e].float()[None, :], ylo, sy, height)
+        flat = (at + cy * width + cx)[m]
+        grids.index_add_(0, flat, torch.ones(flat.shape[0], dtype=torch.float32,
+                                             device=x.device))
+    return grids.view(q, height, width)
+
+
+# ---------------------------------------------------------------------------
+# batched_knn
+# ---------------------------------------------------------------------------
+
+KNN_MAX_K = 256  # neighbours a query the card's kernel keeps at most (csrc MAX_K)
+_KNN_SX = 360.0 / 2**31  # the decode's scales (parallel/query.py:971-972), exact in f32
+_KNN_SY = 180.0 / 2**31
+
+
+def knn_degrees(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized int32 coordinates → f32 degrees, ``f32(x) * (360 / 2^31) -
+    180`` and ``f32(y) * (180 / 2^31) - 90``, each step rounded alone (the
+    reference's ``_knn_valid_and_degrees``, ``parallel/query.py:968``)."""
+    return x.float() * _KNN_SX - 180.0, y.float() * _KNN_SY - 90.0
+
+
+def _check_knn_args(x, y, qx, qy, k: int) -> None:
+    for name, t in (("x", x), ("y", y)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if not t.is_contiguous() or t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous and match x in length and device")
+    for name, t in (("qx", qx), ("qy", qy)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D float32 tensor")
+        if not t.is_contiguous() or t.shape != qx.shape or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous, as long as qx, and on {x.device}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if x.shape[0] < 1:
+        raise ValueError("batched_knn needs at least one row")
+
+
+def batched_knn(x, y, base: int, true_n: int, qx, qy, k: int):
+    """The ``k`` nearest rows of each query point, one pass over the rows.
+
+    ``x, y``: (N,) int32 normalized columns; ``base`` / ``true_n`` as in
+    :func:`batched_count` (rows at ``base + lpos >= true_n`` are invalid);
+    ``qx, qy``: (Q,) float32 query points in degrees. Distances are planar
+    f32 degrees over :func:`knn_degrees`, ``sqrt((xf - qx)^2 + (yf -
+    qy)^2)``, each step rounded alone. Returns ``(dist (Q, k) float32, rows
+    (Q, k) int32)``: slot j holds the j-th smallest (d2, lpos) over the
+    valid rows whose d2 is not NaN, ties to the lower row, as ``sqrt(d2)``
+    and the global position ``base + lpos``; a slot past them holds ``(inf,
+    base + min(j, N - 1))``, where the reference's ``map`` form puts its inf
+    slots.
+
+    On the card (``csrc/batched_knn.cu``; ``k`` at most ``KNN_MAX_K``) a
+    select and a merge over a strided sample of the rows (from 32,768
+    valid rows up), whose k-th distance caps the lists of a select and a
+    merge over every row; on the CPU :func:`batched_knn_plain`."""
+    _check_knn_args(x, y, qx, qy, k)
+    n = x.shape[0]
+    if int(base) + n > _I32_MAX:
+        raise ValueError("base + rows must stay below 2^31: rows are int32")
+    if x.device.type == "cpu":
+        return batched_knn_plain(x, y, base, true_n, qx, qy, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_knn runs on cuda or cpu, not {x.device}")
+    if k > KNN_MAX_K:
+        raise ValueError(f"batched_knn on the card keeps at most {KNN_MAX_K} neighbours, got {k}")
+    q, dev = qx.shape[0], x.device
+    dist = torch.empty((q, k), dtype=torch.float32, device=dev)
+    rows = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return dist, rows
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    segs = ctypes.c_int()
+    with torch.cuda.device(dev):
+        rc = _fn("geomesa_batched_knn_segments")(n, q, int(k), sms, ctypes.addressof(segs))
+        if rc != 0:
+            raise RuntimeError(f"batched_knn occupancy: cudaError {rc}")
+        cand_d = torch.empty((q, segs.value, k), dtype=torch.float32, device=dev)
+        cand_r = torch.empty((q, segs.value, k), dtype=torch.int32, device=dev)
+        cap = torch.empty(q, dtype=torch.float32, device=dev)
+        rc = _fn("geomesa_batched_knn")(
+            x.data_ptr(), y.data_ptr(), n, int(base), int(true_n), qx.data_ptr(), qy.data_ptr(),
+            q, int(k), segs.value, cand_d.data_ptr(), cand_r.data_ptr(), cap.data_ptr(),
+            dist.data_ptr(), rows.data_ptr(), _stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"batched_knn launch failed: cudaError {rc}")
+    launches["batched_knn"] += 1
+    return dist, rows
+
+
+def batched_knn_plain(x, y, base: int, true_n: int, qx, qy, k: int):
+    """The plain PyTorch version of :func:`batched_knn`: the reference's
+    ``map`` form (``parallel/query.py:1035``), one query at a time, so memory
+    stays O(N). Per query a ``torch.topk`` of the masked d2 (an ineligible
+    row as +inf), then a tie fix-up that takes the rows equal to the k-th
+    value in row order (``topk`` promises no order among ties), then an
+    order by (d2, row)."""
+    n = x.shape[0]
+    q, dev = qx.shape[0], x.device
+    xf, yf = knn_degrees(x, y)
+    limit = max(0, min(n, int(true_n) - int(base)))
+    valid = torch.arange(n, device=dev) < limit
+    kk = min(k, n)
+    dist = torch.full((q, k), float("inf"), dtype=torch.float32, device=dev)
+    rows = (int(base) + torch.arange(k, device=dev).clamp(max=n - 1)).to(torch.int32)
+    rows = rows.repeat(q, 1)
+    for qi in range(q):
+        dx, dy = xf - qx[qi], yf - qy[qi]
+        d2 = dx * dx + dy * dy
+        d2 = torch.where(valid & (d2 == d2), d2, float("inf"))
+        top = torch.topk(d2, kk, largest=False)
+        kth = top.values.max()
+        below = top.indices[top.values < kth]
+        ties = torch.nonzero(d2 == kth).flatten()[: kk - below.shape[0]]
+        idx = torch.cat([below, ties]).sort().values
+        idx = idx[torch.sort(d2[idx], stable=True).indices]
+        # IEEE f32 roots: the f64 root rounded once is the correctly rounded
+        # f32 root (torch's own f32 sqrt on the CPU may be one ulp off)
+        dist[qi, :kk] = torch.sqrt(d2[idx].double()).float()
+        rows[qi, :kk] = (int(base) + idx).to(torch.int32)
+    return dist, rows
 
 
 # ---------------------------------------------------------------------------

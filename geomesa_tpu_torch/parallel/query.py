@@ -27,10 +27,18 @@ The module's steps:
 - :func:`matrix_scan_step` — the subscription matrix's fused scan
   (``make_matrix_scan_step`` ``:497``): one ``batched_count_hits`` launch,
   then the top-k of its lane scoreboard.
+- :func:`batched_density_step` — Q density grids over the resident store
+  (``make_batched_density_step`` ``:1193``), ``density_many``'s path: one
+  ``batched_density`` launch.
+- :func:`batched_knn_step` — the k nearest rows of Q points
+  (``make_batched_knn_step`` ``:1125``; on one card also
+  ``make_ring_knn_step`` ``:1295``), ``knn_many``'s path: one
+  ``batched_knn`` launch.
 
 The ``cached_*`` step factories (``cached_batched_edge_gather_step``
 ``:441``, ``cached_matrix_scan_step`` ``:567``, ``cached_grouped_agg_step``
-``:1716``) have no counterparts: they
+``:1716``, ``cached_batched_knn_step`` ``:1179``, ``cached_ring_knn_step``
+``:1355``, ``cached_batched_density_step`` ``:1363``) have no counterparts: they
 memoize a compiled executable per shape, and eager PyTorch has no compile
 cache to key.
 """
@@ -41,7 +49,8 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.ops.kernels import (
-    EDGE_CAPACITY, LANES, batched_count_hits, block_runs, grouped_agg, planned_gather)
+    EDGE_CAPACITY, LANES, batched_count_hits, batched_density, batched_knn, block_runs,
+    grouped_agg, planned_gather)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -156,3 +165,58 @@ def matrix_scan_step(x, y, bins, offs, true_n: int, boxes, times, topk: int):
     if k < topk:
         top = torch.nn.functional.pad(top, (0, topk - k), value=-1)
     return counts, top[:, None, :]
+
+
+def batched_density_step(cols, true_n: int, boxes, times, grid_bounds, width: int = 256,
+                         height: int = 256):
+    """Q density grids over one shard's resident columns, one pass:
+    ``make_batched_density_step(mesh, width, height)`` with one shard
+    (``base = 0``), its scatter form.
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns; ``boxes`` (Q, B,
+    4) / ``times`` (Q, T, 4) int32 payloads and ``grid_bounds`` (Q, 4) int32
+    [xlo, xhi, ylo, yhi], each query's own, all on the columns' device.
+    For each query the rows inside any live box slot and any live time
+    window (and below ``true_n``) add 1.0 to their cell of that query's
+    grid. Returns (Q, height, width) float32. The reference's MXU one-hot
+    form (``use_mxu``, a TPU's) gives the same grids; this card adds with
+    atomics: :func:`~geomesa_tpu_torch.ops.kernels.batched_density`."""
+    return batched_density(*cols, 0, true_n, boxes, times, grid_bounds, width, height)
+
+
+KNN_IMPLS = ("map", "scan", "blocked")
+
+
+def check_knn_impl(impl) -> None:
+    """``_check_knn_impl`` (``:1119``): ``None`` or one of the reference's
+    three sweep shapes, else ``ValueError``. The shapes return the same
+    answer and the card runs one kernel for all of them, so the name is only
+    validated: a misspelt one must not pass silently."""
+    if impl not in (None, *KNN_IMPLS):
+        raise ValueError(f"unknown KNN impl {impl!r} "
+                         "(expected 'map', 'scan', or 'blocked')")
+
+
+def batched_knn_step(cols, true_n: int, qx, qy, k: int, impl: str | None = None):
+    """The ``k`` nearest rows of Q query points over one shard's resident
+    columns, one pass: ``make_batched_knn_step(mesh, k, impl=impl)`` with
+    one shard (``base = 0``), without TTL (the port has none).
+
+    ``cols``: the (N,) int32 ``x, y`` columns (a state's first two);
+    ``qx, qy``: (Q,) host query points in degrees, taken as float32 and
+    uploaded to the columns' device. Returns ``(dists (Q, k) float32
+    degrees ascending, rows (Q, k) int32 sorted-order positions)``, ties to
+    the lower row (:func:`~geomesa_tpu_torch.ops.kernels.batched_knn`).
+
+    On one card the reference's ring merge (``make_ring_knn_step``) has no
+    hop and equals this gather merge, so ``knn_many(topology="ring")`` takes
+    this step too. ``impl`` names the reference's sweep shape (``map``,
+    ``scan`` or ``blocked``; None is ``map``) and is checked as loudly as
+    the reference checks it (:func:`check_knn_impl`); the card runs one
+    kernel for all three, and the plain version is the ``map`` form. There
+    is no ``GEOMESA_KNN_IMPL`` knob."""
+    check_knn_impl(impl)
+    x, y = cols[0], cols[1]
+    qx, qy = (torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(x.device)
+              for v in (qx, qy))
+    return batched_knn(x, y, 0, true_n, qx, qy, k)

@@ -16,7 +16,7 @@ the subscription matrix (``planner.py:572`` of the reference).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 from geomesa_tpu_torch.filter import ast
@@ -40,9 +40,13 @@ FULL_SCAN = "full-scan"
 @dataclass
 class Query:
     """A query against one feature type: a CQL string, an AST node, or None
-    (everything)."""
+    (everything), and its ``hints`` (``planner.py:50``). The port answers
+    the ``density`` hint (``{"bbox": (x1, y1, x2, y2), "width": w,
+    "height": h, "weight_by": column}``, each optional) and takes
+    ``tenant`` as metadata; ``DataStore.query`` refuses any other hint."""
 
     filter: Any = None
+    hints: dict = field(default_factory=dict)
 
     def resolved_filter(self) -> ast.Filter:
         if self.filter is None:

@@ -15,16 +15,20 @@ deliberate:
   ``count_many``, no load-failure branch that leaves the store on the host.
   A device error propagates to the caller.
 - ``select_many`` leaves out what the port does not carry yet: query
-  interceptors, TTL age-off, the audit trail, query hints, the delta tier
-  and ``reduce_result``.
+  interceptors, TTL age-off, the audit trail, the delta tier and
+  ``reduce_result``; a query with a hint goes through ``query``.
+- ``query`` answers one hint, ``density`` (``reduce_result``'s density
+  branch, points only); any other hint but the ``tenant`` metadata raises
+  ``NotImplementedError``.
 - ``aggregate_many`` is the reference's fused path (its pyramid and query
   cache off): see its docstring for what it leaves out.
+- ``density_many`` has no circuit breaker, failover or audit, as above.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
@@ -35,11 +39,24 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import extract
 from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, batched_count, batched_edge_gather
 from geomesa_tpu_torch.ops.refine import MAX_BOXES, MAX_TIMES
-from geomesa_tpu_torch.parallel.query import grouped_agg_step
+from geomesa_tpu_torch.parallel.query import batched_density_step, grouped_agg_step
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indices
 from geomesa_tpu_torch.schema.columnar import FeatureTable, GeometryColumn
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
-from geomesa_tpu_torch.store.backends import DeviceBackend, OracleBackend, residual_rows
+from geomesa_tpu_torch.store.backends import (
+    DeviceBackend, OracleBackend, int_boxes, residual_rows)
+from geomesa_tpu_torch.store.reduce import density_grid
+
+# hints that are execution metadata, never semantics (datastore.py:51): the
+# batched paths do not decline on them
+_METADATA_HINTS = frozenset({"tenant"})
+_ANSWERED_HINTS = frozenset({"density"})  # the semantic hints query() answers
+
+
+def _semantic_hints(q) -> bool:
+    """True when the query carries hints that can alter results or the
+    execution contract (``datastore.py:57``): every hint but the metadata."""
+    return any(k not in _METADATA_HINTS for k in q.hints)
 
 
 def _pure_bbox_time(f: ast.Filter, sft: FeatureType) -> bool:
@@ -94,12 +111,14 @@ class QueryResult:
     plan that found them and, from :meth:`DataStore.query`, the host-clock
     ms of its steps: ``plan_ms``, ``select_ms`` (device refine and copies),
     ``residual_ms`` and ``take_ms`` (sort and gather of the rows; the
-    Oracle backend's query gives ``take_ms`` alone)."""
+    Oracle backend's query gives ``take_ms`` alone). ``density`` is the
+    (height, width) float64 grid of a query with the ``density`` hint."""
 
     table: FeatureTable
     row_ids: np.ndarray
     plan_info: Any = None
     timings: dict | None = None
+    density: np.ndarray | None = None
 
     @property
     def count(self) -> int:
@@ -229,14 +248,23 @@ class DataStore:
 
     # -- queries --------------------------------------------------------------
     def query(self, type_name: str, q: "Query | str | ast.Filter | None" = None) -> QueryResult:
-        """Exact row set: plan → device superset (or oracle) → host residual."""
+        """Exact row set: plan → device superset (or oracle) → host residual.
+        With the ``density`` hint the result also carries its exact f64
+        heatmap (``reduce.py:208-249``, points only); another hint but the
+        ``tenant`` metadata raises ``NotImplementedError``."""
         st = self._state(type_name)
         if not isinstance(q, Query):
             q = Query(filter=q)
+        unported = sorted(k for k in q.hints
+                          if k not in _METADATA_HINTS and k not in _ANSWERED_HINTS)
+        if unported:
+            raise NotImplementedError(f"query hints {unported} are not supported by this port "
+                                      f"(it answers {sorted(_ANSWERED_HINTS)})")
         main = st.table
         if main is None:
-            return QueryResult(FeatureTable.from_records(st.sft, []),
-                               np.empty(0, dtype=np.int64))
+            table = FeatureTable.from_records(st.sft, [])
+            return QueryResult(table, np.empty(0, dtype=np.int64),
+                               density=self._density_hint(q, table))
         f = q.resolved_filter()
         info = None
         timings: dict = {}
@@ -253,23 +281,46 @@ class DataStore:
         rows = np.sort(rows)
         table = main.take(rows)
         timings["take_ms"] = (time.perf_counter() - t0) * 1e3
-        return QueryResult(table, rows, info, timings)
+        return QueryResult(table, rows, info, timings, self._density_hint(q, table))
 
-    def _batch_payloads(self, st: _TypeState, qs) -> list:
-        """The queries a batched count can take (``datastore.py:1707``):
-        pure bbox+time conjunctions on the default geometry/date fields.
-        Returns ``[(query index, payload | None, exactable)]``: the payload
-        is None for a provably disjoint filter; ``exactable`` is False when
-        packing widened the payload (more boxes than ``MAX_BOXES`` or more
-        windows than ``MAX_TIMES`` collapse to an envelope), so the int
-        count is a superset beyond the edge buckets and cannot be corrected
-        to exact."""
+    @staticmethod
+    def _density_hint(q: Query, table: FeatureTable):
+        """The ``density`` hint's grid over the result, or None without it."""
+        if "density" not in q.hints:
+            return None
+        return density_grid(table, q.hints["density"] or {})
+
+    def _batch_payloads(self, st: _TypeState, qs, viewport=None) -> list:
+        """The queries a batched pass can take (``datastore.py:1707``):
+        pure bbox+time conjunctions on the default geometry/date fields,
+        without a semantic hint. Returns ``[(query index, payload | None,
+        exactable)]``: the payload is None for a provably disjoint filter;
+        ``exactable`` is False when packing widened the payload (more boxes
+        than ``MAX_BOXES`` or more windows than ``MAX_TIMES`` collapse to an
+        envelope), so the int count is a superset beyond the edge buckets
+        and cannot be corrected to exact. ``viewport`` (x1, y1, x2, y2):
+        every query's boxes are clipped to it, so that rows outside it do not
+        match (the density viewport); a query it clips to nothing has no
+        payload."""
         pending = []
         for i, q in enumerate(qs):
             f = q.resolved_filter()
-            if not _pure_bbox_time(f, st.sft):
+            if not _pure_bbox_time(f, st.sft) or _semantic_hints(q):
                 continue
             e = extract(f, st.sft.geom_field, st.sft.dtg_field)
+            if viewport is not None and not e.disjoint:
+                vx1, vy1, vx2, vy2 = viewport
+                boxes = e.boxes if e.boxes is not None else [(-180.0, -90.0, 180.0, 90.0)]
+                clipped = []
+                for x1, y1, x2, y2 in boxes:
+                    nx1, ny1 = max(x1, vx1), max(y1, vy1)
+                    nx2, ny2 = min(x2, vx2), min(y2, vy2)
+                    if nx1 <= nx2 and ny1 <= ny2:
+                        clipped.append((nx1, ny1, nx2, ny2))
+                if not clipped:
+                    pending.append((i, None, True))
+                    continue
+                e = replace(e, boxes=clipped)
             payload = None if e.disjoint else self.backend.payload(st.sft, e)
             n_boxes = len(e.boxes) if e.boxes is not None else 1
             n_times = len(e.intervals) if e.intervals is not None else 1
@@ -352,14 +403,19 @@ class DataStore:
         main = st.table
         if main is None or isinstance(self.backend, OracleBackend):
             return [self.query(type_name, q) for q in qs]
+        results: list = [None] * len(qs)
+        for i, q in enumerate(qs):
+            if _semantic_hints(q):  # the hint's reduce is query()'s
+                results[i] = self.query(type_name, q)
         t0 = time.perf_counter()
         planner = QueryPlanner(st.sft, st.indices)
-        planned = [planner.plan(q) for q in qs]  # (plan, residual, info)
+        planned = [None if results[i] is not None else planner.plan(q)
+                   for i, q in enumerate(qs)]  # (plan, residual, info)
         split = {"plan_ms": (time.perf_counter() - t0) * 1e3, "tail_ms": 0.0}
         groups: dict[str, list[int]] = {}
-        for i, (_, _, info) in enumerate(planned):
-            groups.setdefault(info.scan_index, []).append(i)
-        results: list = [None] * len(qs)
+        for i, p in enumerate(planned):
+            if p is not None:
+                groups.setdefault(p[2].scan_index, []).append(i)
         for name, idxs in groups.items():
             index = st.indices[name]
             pos_lists = self.backend.select_many_positions(
@@ -374,6 +430,57 @@ class DataStore:
             split["tail_ms"] += (time.perf_counter() - t0) * 1e3
         self.last_select_many = split
         return results
+
+    def density_many(self, type_name: str, queries, bbox, width: int = 256, height: int = 256,
+                     loose: bool = True) -> list[np.ndarray]:
+        """Density grids of many queries over one shared viewport ``bbox``
+        (x1, y1, x2, y2) at ``width`` x ``height``, one (height, width)
+        float64 grid per query (``datastore.py:2921``).
+
+        ``loose=True``: the queries a batched pass can take (pure bbox+time
+        conjunctions without a semantic hint, :meth:`_batch_payloads`) go
+        through one ``batched_density_step`` over the preferred point
+        state, their boxes clipped to the viewport and the viewport
+        normalized as their grid bounds (``:2992-2998``): the int-domain
+        (loose-bbox) semantics, so a row in an edge bucket may count where
+        the exact path's f64 test drops it. A query the viewport clips to
+        nothing, or a provably disjoint one, is an empty grid. Every other
+        query, and every query with ``loose=False``, takes the exact path:
+        :meth:`query` with the ``density`` hint, the viewport merged over
+        the caller's density options (``weight_by`` survives). No circuit
+        breaker, failover or audit: a device error propagates."""
+        st = self._state(type_name)
+        qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
+        width, height = int(width), int(height)
+        opts = {"bbox": tuple(bbox), "width": width, "height": height}
+
+        def exact(q: Query) -> np.ndarray:
+            caller = q.hints.get("density")
+            merged = {**(caller if isinstance(caller, dict) else {}), **opts}
+            return self.query(type_name, replace(q, hints={**q.hints, "density": merged})).density
+
+        main = st.table
+        if (not loose or main is None or len(main) == 0
+                or not isinstance(self.backend, DeviceBackend)):
+            return [exact(q) for q in qs]
+        out: list = [None] * len(qs)
+        live = []
+        for i, payload, _ in self._batch_payloads(st, qs, viewport=opts["bbox"]):
+            if payload is None:
+                out[i] = np.zeros((height, width))
+            else:
+                live.append((i, payload))
+        if live:
+            dev, _ = DeviceBackend.point_state(st.backend_state)
+            gb = int_boxes([opts["bbox"]])  # (1, 4) [xlo, xhi, ylo, yhi], as a payload's box
+            boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
+            times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
+            gbs = torch.from_numpy(np.repeat(gb, len(live), axis=0)).to(self.device)
+            grids = batched_density_step(dev.spatial_cols(), dev.n, boxes, times, gbs, width,
+                                         height).cpu().numpy()
+            for k, (i, _) in enumerate(live):
+                out[i] = grids[k].astype(np.float64)
+        return [exact(q) if g is None else g for q, g in zip(qs, out)]
 
     # -- grouped aggregation (GROUP BY in one device pass) -------------------
 

@@ -1,11 +1,11 @@
 """GDELT-shaped synthetic events and city-box queries (bench config 2's
-data), bench config 9's group keys and values, and bench config 8's
-streamed chunks.
+data), bench config 3's KNN points, bench config 9's group keys and values,
+and bench config 8's streamed chunks.
 
-Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``,
-``_pack_query_boxes``, config 9's group ids and values and config 8's
-``host_chunk`` (tests hold them equal), plus :func:`bbox_cql` and :func:`bbox_time_cql`, which write one
-query as the CQL a user would send, and :func:`edge_columns` /
+Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``, config 3's
+KNN points, ``_pack_query_boxes``, config 9's group ids and values and
+config 8's ``host_chunk`` (tests hold them equal), plus :func:`bbox_cql` and
+:func:`bbox_time_cql`, which write one query as the CQL a user would send, and :func:`edge_columns` /
 :func:`edge_payload`, the rows and payloads that hold the count kernels'
 staged predicate to their plain versions at its edges.
 """
@@ -66,6 +66,15 @@ def make_queries(q: int, seed: int = 7):
         boxes_f64.append((x1, y1, x2, y2))
         windows_ms.append((lo, hi))
     return boxes_f64, windows_ms
+
+
+def knn_points(n: int, seed: int = 3) -> np.ndarray:
+    """Bench config 3's KNN query points (``bench.py:560-565``): each a
+    ``CITIES`` row plus ``normal(0, 1, 2)`` degrees, from one generator.
+    Returns (n, 2) float64 (lon, lat)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([CITIES[rng.integers(0, len(CITIES))] + rng.normal(0, 1, 2)
+                     for _ in range(n)]).reshape(n, 2)
 
 
 def iso_millis(ms: int) -> str:

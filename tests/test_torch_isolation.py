@@ -45,6 +45,25 @@ def test_import_loads_torch_and_no_jax():
     assert int(out.stdout.split()[1]) >= 20  # every submodule was imported
 
 
+def test_density_and_knn_modules_stand_alone():
+    """The density and KNN slice's modules are among those the scans above
+    cover, and import cleanly without jax in a fresh interpreter."""
+    mods = ["ops/density.py", "ops/step.py", "store/reduce.py", "process/knn.py",
+            "process/processes.py"]
+    assert all((PKG / m).exists() for m in mods)
+    code = (
+        "import sys\n"
+        + "".join(f"import geomesa_tpu_torch.{m[:-3].replace('/', '.')}\n" for m in mods)
+        + "from geomesa_tpu_torch.parallel.query import batched_density_step, batched_knn_step\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'geomesa_tpu.'))\n"
+        "       or m == 'geomesa_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     mods = []
@@ -81,7 +100,8 @@ def test_native_sources_stand_alone_and_are_bound():
 
     csrc = PKG / "csrc"
     sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cpp"))
-    assert {p.name for p in sources} >= {"grouped_agg.cu", "zranges.cpp"}
+    assert {p.name for p in sources} >= {"grouped_agg.cu", "zranges.cpp", "batched_density.cu",
+                                         "batched_knn.cu"}
     local = {p.name for p in csrc.glob("*.cuh")}
     bound = set(kernels._ENTRY_POINTS) | {"geomesa_zranges"}
     defined = set()
