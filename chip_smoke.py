@@ -1,7 +1,7 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
 and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
-standing-query stream, a date-less point schema and the grouped aggregation
-end to end on one CUDA card.
+standing-query stream, a date-less point schema, the grouped aggregation,
+density and KNN, and the spatial join end to end on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -135,8 +135,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    only; and one ``density_many`` and one ``knn_many`` under
    ``torch.profiler`` (the KNN kernels' device times in launch order: the
    sample's select and merge, then the full select and merge).
+8. bench config 4 (``bench.py:629``, ``bench_join``) at full size over phase
+   7's 100M points: 10,000 polygons (``workload.join_polygons``, seed 5),
+   the points z2-sorted on the card (``z2_encode`` and a sort) and held as
+   f32 x and y in 8192-row blocks, each polygon's candidate blocks planned
+   per vertex bucket (``polygon_block_plan``), then ``block_join_step`` per
+   bucket (one ``polygon_join`` launch each): the first run and the p50 of 5
+   by host clock, the tested and effective Gpairs/s, the plan's tested
+   fraction and prune factor. Checks: (a) ``polygon_join`` equals
+   ``polygon_join_plain`` on the card over the pruned pairs of 256
+   polygons from every bucket; (b) the bench's parity: the first 8
+   polygons' pruned counts equal the unpruned count over every point, plain
+   and kernel; (c) their f32 rows against the f64 ``points_within_geom``
+   near each bbox, every disagreement within 1e-5 degrees of an edge; (d)
+   on phase 7's store, before it is freed, ``join_rows_device`` of 64
+   polygons (row sets equal to an f64 referee; its ``planned_gather``
+   equal to ``planned_gather_plain`` on the same pairs),
+   ``join_within_device`` of 8 (equal to (b)'s plain counts) and
+   ``join_counts_auto``'s route. Then ``polygon_join``'s time beside its
+   plain version's and its bound (``join_floor``), and the join's
+   ``planned_gather`` beside its plain version's and its bound.
 
-Each store is freed before the next phase.
+Each store is freed before the next phase (phase 7's after phase 8).
 
 The last lines are the kernel records (JSON), the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -2031,9 +2051,10 @@ def knn_floor(n: int, q: int, k: int):
 
 
 def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: int,
-                 max_err: dict) -> list[dict]:
+                 max_err: dict):
     """Phase 7b: bench config 3 (``bench.py:510``) at full size; returns the
-    batched_density and batched_knn records."""
+    batched_density and batched_knn records, and the store with its points
+    (lon, lat) for phase 8."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
@@ -2275,7 +2296,326 @@ def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: in
         profile_window("knn_many", lambda: knn_many(ds, "cfg3", points, k=k), "knn_select_kernel",
                        kernels_in_order=True)
         log(f"phase 7 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    return [d_record, k_record]
+    return [d_record, k_record], (ds, lon, lat)
+
+
+# -- phase 8: bench config 4, the spatial join -------------------------------------
+
+JOIN_POLYGONS = 10_000  # bench config 4's K (GEOMESA_BENCH_K's default)
+JOIN_BENCH_BLOCK = 8192  # bench.py:689
+JOIN_CHECKED = 256  # (a): polygons held to the plain version, over every vertex bucket
+JOIN_PARITY = 8  # (b), (c): bench.py:746's n_par
+JOIN_STORE = 64  # (d): polygons through join_rows_device on phase 7's store
+JOIN_EDGE_TOL = 1e-5  # degrees: the f32 kernel's documented edge band (ops/join.py:9-14)
+# least instructions of polygon_join, as (ALU-only, all), from the
+# kernel's SASS (cuobjdump -sass of csrc/polygon_join.cu for sm_90a). An
+# edge that straddles no row of the warp issues 17 instructions a thread
+# for its 4 rows: the vertex's shared load, per row a compare (FSETP) and
+# its bit (SEL), two LOP3 and a shift to join the bits, the XOR with the
+# previous vertex's bits, the test, the vote and its branch: 4 a (row,
+# edge), rounded down. A tested row's bbox test is at least four float
+# compares and the 64-bit row bound's two; the straddling edges' divisions
+# are left out (a floor). No split by pipe is claimed: ALU-only 0.
+JOIN_ROW_OPS = (0, 6)
+JOIN_EDGE_OPS = (0, 4)
+
+
+def join_floor(x, y, true_n: int, buckets, block: int):
+    """The least work of one config-4 run of ``polygon_join`` over
+    ``buckets`` (per bucket its arguments ``(pair_poly, pair_blk, verts,
+    nverts, bbox)`` on the card): per pair
+    its valid rows' bbox tests (:data:`JOIN_ROW_OPS`) and, per row inside
+    the polygon's bbox, one edge test per edge (:data:`JOIN_EDGE_OPS`);
+    bytes are every distinct block's x and y read once (8 B a row), the
+    pair lists (8 B a pair), the rings, bboxes and vertex counts read and
+    the counts written once. Returns ((alu, all), bytes, tested rows, rows
+    in a bbox, (row, edge) tests)."""
+    import torch
+
+    xb, yb = x.view(-1, block), y.view(-1, block)
+    lrow = torch.arange(block, device=x.device)
+    rows = in_rows = edge_rows = 0
+    blocks, nbytes = [], 0
+    for pp, pb, _, nverts, bbox in buckets:
+        for s in range(0, pp.shape[0], 512):
+            p, b = pp[s:s + 512].long(), pb[s:s + 512].long()
+            xs, ys = xb.index_select(0, b), yb.index_select(0, b)
+            bb = bbox.index_select(0, p)
+            valid = (b[:, None] * block + lrow[None, :]) < int(true_n)
+            inside = valid & (xs >= bb[:, 0:1]) & (xs <= bb[:, 2:3]) & (ys >= bb[:, 1:2]) & (
+                ys <= bb[:, 3:4])
+            per = inside.sum(dim=1)
+            rows += int(valid.sum())
+            in_rows += int(per.sum())
+            edge_rows += int((per * (nverts.index_select(0, p).long() - 1).clamp(min=0)).sum())
+        blocks.append(pb)
+        nbytes += 8 * pp.shape[0] + bbox.shape[0] * (16 + 4 + 4) + 8 * int(nverts.sum())
+    distinct = int(torch.unique(torch.cat(blocks)).numel())
+    nbytes += 8 * block * distinct
+    ops = tuple(JOIN_ROW_OPS[i] * rows + JOIN_EDGE_OPS[i] * edge_rows for i in (0, 1))
+    return ops, nbytes, rows, in_rows, edge_rows
+
+
+def edge_distance(xs, ys, ring) -> np.ndarray:
+    """f64 distance from each point to the nearest segment of a closed ring."""
+    x1, y1 = ring[:-1, 0][None, :], ring[:-1, 1][None, :]
+    dx, dy = ring[1:, 0][None, :] - x1, ring[1:, 1][None, :] - y1
+    px, py = xs[:, None], ys[:, None]
+    len2 = dx * dx + dy * dy
+    t = np.clip(np.where(len2 > 0, ((px - x1) * dx + (py - y1) * dy) / np.where(
+        len2 > 0, len2, 1.0), 0.0), 0.0, 1.0)
+    return np.sqrt(((px - x1 - t * dx) ** 2 + (py - y1 - t * dy) ** 2).min(axis=1))
+
+
+def config4_path(dev, lon, lat, ds, store_type: str, n_polys: int, iters: int) -> list[dict]:
+    """Phase 8: bench config 4 (``bench.py:629``) at full size over phase
+    7's points, and the store joins on phase 7's ``DataStore``; returns the
+    polygon_join and the join's planned_gather records."""
+    import torch
+
+    from geomesa_tpu_torch.curve.sfc import Z2SFC
+    from geomesa_tpu_torch.geometry.predicates import points_within_geom
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.join import (
+        membership, pack_polygons, pack_polygons_bucketed, points_in_polygons_count,
+        polygon_block_plan)
+    from geomesa_tpu_torch.ops.kernels import (
+        JOIN_BLOCK, planned_gather, planned_gather_plain, polygon_join, polygon_join_plain,
+        z2_encode)
+    from geomesa_tpu_torch.parallel.query import FULL_WINDOW, block_join_step, join_pairs
+    from geomesa_tpu_torch.process.join import (
+        join_counts_auto, join_rows_device, join_within_device)
+    from geomesa_tpu_torch.store.backends import int_boxes
+    from geomesa_tpu_torch.workload import join_polygons
+
+    on_card = dev.type == "cuda"
+    n, k, block = len(lon), n_polys, JOIN_BENCH_BLOCK
+    t0 = time.perf_counter()
+    polys = join_polygons(k, seed=5)
+    log(f"phase 8 synth: {time.perf_counter() - t0:.3f} s ({k} polygons, seed 5; the {n} points "
+        "are phase 7's)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- build: z2 keys on the card, sort, the f32 columns in z2 order ----------
+    t0 = time.perf_counter()
+    xi, yi = Z2SFC().normalized(lon, lat)
+    z = z2_encode(torch.from_numpy(xi).to(dev), torch.from_numpy(yi).to(dev))
+    del xi, yi
+    zs, perm = torch.sort(z, stable=True)
+    del z
+    pad_n = -(-n // block) * block
+    xs = torch.zeros(pad_n, dtype=torch.float32, device=dev)
+    ys = torch.zeros(pad_n, dtype=torch.float32, device=dev)
+    xs[:n] = torch.from_numpy(lon.astype(np.float32)).to(dev)[perm]
+    ys[:n] = torch.from_numpy(lat.astype(np.float32)).to(dev)[perm]
+    padz = np.concatenate([zs.cpu().numpy().view(np.uint64),
+                           np.full(pad_n - n, 2**63, dtype=np.uint64)])
+    del zs, perm
+    if on_card:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    # -- plan: per bucket, each polygon's candidate blocks ----------------------
+    t0 = time.perf_counter()
+    buckets = pack_polygons_bucketed(polys)
+    plans = []
+    pruned_pairs = 0
+    for ids, verts, bbox, nverts in buckets:
+        offsets, blocks = polygon_block_plan(padz, bbox.astype(np.float64), block, pad_n)
+        plans.append((ids, verts, bbox, nverts, offsets, blocks,
+                      join_pairs(offsets, blocks, dev)))
+        pruned_pairs += len(blocks) * block
+    plan_s = time.perf_counter() - t0
+    log(f"phase 8 build: {build_s:.3f} s (z2 keys by z2_encode, sort, f32 x and y in z2 order "
+        f"on the card: {2 * 4 * pad_n} bytes); plan: {plan_s:.3f} s for {k} polygons in "
+        f"{len(plans)} vertex buckets ({[p[1].shape[1] for p in plans]})")
+
+    def run():
+        counts = np.zeros(k, dtype=np.int64)
+        for ids, verts, bbox, nverts, _, _, pairs in plans:
+            counts[ids] = block_join_step(xs, ys, n, pairs, verts, bbox, nverts,
+                                          block).cpu().numpy()
+        return counts
+
+    for name in kernels.launches:
+        kernels.launches[name] = 0
+    t0 = time.perf_counter()
+    counts = run()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launched = dict(kernels.launches)
+    log(f"phase 8 launches: {launched}")
+    if on_card and launched["polygon_join"] != len(plans):
+        raise AssertionError(f"config 4's run must launch polygon_join once a bucket: {launched}")
+    runs = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        again = run()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(again, counts):
+            raise AssertionError("config 4's counts changed between runs")
+    run_ms = p50(runs)
+    log(f"phase 8 join: {pruned_pairs} tested pairs ({pruned_pairs // block} (polygon, block) "
+        f"pairs of {block} rows), tested fraction {pruned_pairs / (n * k):.6f}, prune factor "
+        f"{n * k / max(pruned_pairs, 1):.2f}; {int(counts.sum())} hits")
+    log(f"phase 8 join run: first {first_ms:.3f} ms, p50 {run_ms:.3f} ms over {iters} runs (min "
+        f"{min(runs):.3f}, max {max(runs):.3f}; host clock, each ending in the counts' copy); "
+        f"tested {pruned_pairs / (run_ms / 1e3) / 1e9:.4f} Gpairs/s (bench config 4's metric), "
+        f"effective {n * k / (run_ms / 1e3) / 1e9:.4f} Gpairs/s")
+
+    # -- checks ---------------------------------------------------------------------
+    t0 = time.perf_counter()
+    # each bucket's polygon_join arguments after (x, y, true_n), before block
+    dev_args = [(*pairs, *(torch.from_numpy(a).to(dev) for a in (verts, nverts, bbox)))
+                for _, verts, bbox, nverts, _, _, pairs in plans]
+    # (a) the kernel against its plain version over >= 256 polygons, every bucket
+    take = [min(-(-JOIN_CHECKED // len(plans)), len(p[0])) for p in plans]
+    for b, p in enumerate(plans):  # the small buckets' shortfall from the others
+        take[b] += min(max(0, JOIN_CHECKED - sum(take)), len(p[0]) - take[b])
+    checked = err = 0
+    for (ids, verts, bbox, nverts, offsets, blocks, _), m in zip(plans, take):
+        sub = join_pairs(offsets[:m + 1], blocks[:offsets[m]], dev)
+        args = (xs, ys, n, *sub, *(torch.from_numpy(a[:m]).to(dev) for a in (verts, nverts,
+                                                                           bbox)), block)
+        want = polygon_join_plain(*args)
+        if on_card:
+            got = polygon_join(*args)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+        if not np.array_equal(want.cpu().numpy(), counts[ids[:m]]):
+            raise AssertionError("polygon_join_plain disagrees with config 4's counts")
+        checked += m
+    if err:
+        raise AssertionError(f"polygon_join disagrees with polygon_join_plain by {err}")
+    # (b) the bench's parity: pruned counts == the unpruned count over every point
+    vb, bb, nvb = pack_polygons(polys[:JOIN_PARITY], max_vertices=128)
+    dvb, dbb, dnvb = (torch.from_numpy(a).to(dev) for a in (vb, bb, nvb))
+    full_plain = polygon_join_plain(xs, ys, n, None, None, dvb, dnvb, dbb, block).cpu().numpy()
+    full_kernel = points_in_polygons_count(xs, ys, vb, bb, nvb, true_n=n).cpu().numpy()
+    if not (np.array_equal(full_plain, counts[:JOIN_PARITY])
+            and np.array_equal(full_kernel, counts[:JOIN_PARITY])):
+        raise AssertionError(f"pruned counts {counts[:JOIN_PARITY]} differ from the unpruned "
+                             f"plain {full_plain} or kernel {full_kernel} counts")
+    # (c) the f32 counts against the f64 predicate over the rows near each bbox
+    disagree = []
+    for i in range(JOIN_PARITY):
+        g = polys[i]
+        x1, y1, x2, y2 = g.bbox
+        near = np.nonzero((lon >= x1 - 1e-4) & (lon <= x2 + 1e-4) & (lat >= y1 - 1e-4)
+                          & (lat <= y2 + 1e-4))[0]
+        f64 = points_within_geom(lon[near], lat[near], g)
+        f32 = membership(*(torch.from_numpy(v[near].astype(np.float32)).to(dev)
+                           for v in (lon, lat)), torch.from_numpy(vb[i]).to(dev),
+                         torch.from_numpy(bb[i]).to(dev)).cpu().numpy()
+        if int(f32.sum()) != counts[i]:
+            raise AssertionError(f"polygon {i}: the f32 rows {int(f32.sum())} are not its "
+                                 f"count {counts[i]}")
+        diff = near[f32 != f64]
+        far = edge_distance(lon[diff], lat[diff], g.shell) if len(diff) else np.zeros(0)
+        if (far > JOIN_EDGE_TOL).any():
+            raise AssertionError(f"polygon {i}: rows {diff[far > JOIN_EDGE_TOL].tolist()} "
+                                 f"differ from the f64 predicate farther than {JOIN_EDGE_TOL} "
+                                 "degrees from an edge")
+        disagree.append((int(len(diff)), float(far.max()) if len(far) else 0.0))
+    log(f"phase 8 checks: ok in {time.perf_counter() - t0:.3f} s ((a) polygon_join equals "
+        f"polygon_join_plain on the pruned pairs of {checked} polygons over {len(plans)} "
+        f"buckets, max_abs_err {err}; (b) the first {JOIN_PARITY} polygons' pruned counts equal "
+        f"the unpruned plain and kernel counts over all {n} points; (c) f32 against the f64 "
+        f"predicate: (disagreements, farthest from an edge in degrees) {disagree})")
+
+    # -- (d) the store's joins on phase 7's 100M-row DataStore -----------------------
+    t0 = time.perf_counter()
+    store_polys = polys[:JOIN_STORE]
+    for name in kernels.launches:
+        kernels.launches[name] = 0
+    t1 = time.perf_counter()
+    _, found = join_rows_device(ds, store_type, store_polys)
+    rows_ms = (time.perf_counter() - t1) * 1e3
+    join_launched = dict(kernels.launches)
+    log(f"phase 8 join_rows_device launches: {join_launched}")
+    if on_card and join_launched["planned_gather"] < 1:
+        raise AssertionError("join_rows_device must launch planned_gather")
+    lon_d, lat_d = (torch.from_numpy(v).to(dev) for v in (lon, lat))
+    found_rows = 0
+    for (i, rows), g in zip(found, store_polys):
+        x1, y1, x2, y2 = g.bbox
+        cand = torch.nonzero((lon_d >= x1) & (lon_d <= x2) & (lat_d >= y1)
+                             & (lat_d <= y2)).flatten().cpu().numpy()
+        want = cand[points_within_geom(lon[cand], lat[cand], g)]
+        if not np.array_equal(np.sort(rows), want):
+            raise AssertionError(f"join_rows_device polygon {i}: {len(rows)} rows, the f64 "
+                                 f"referee {len(want)}")
+        found_rows += len(rows)
+    del lon_d, lat_d
+    st = ds._state(store_type)
+    state, z2 = st.backend_state["z2"], st.indices["z2"]
+    sbb = np.array([g.bbox for g in store_polys])
+    s_off, s_blocks = polygon_block_plan(z2.zs, sbb, JOIN_BLOCK, state.rows_per_shard)
+    pair_q = np.repeat(np.arange(JOIN_STORE, dtype=np.int32), np.diff(s_off))
+    boxes = torch.from_numpy(int_boxes([tuple(b) for b in sbb]).reshape(-1, 1, 4)).to(dev)
+    times = torch.from_numpy(np.tile(FULL_WINDOW, (JOIN_STORE, 1)).reshape(-1, 1, 4)).to(dev)
+    pq, pb = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (pair_q, s_blocks))
+    cols = state.spatial_cols()
+    gargs = (*cols, state.n, pq, pb, boxes, times)
+    g_pos, g_hits = planned_gather(*gargs)
+    w_pos, w_hits = planned_gather_plain(*gargs)
+    if not (torch.equal(g_pos, w_pos) and torch.equal(g_hits, w_hits)):
+        raise AssertionError("planned_gather disagrees with plain on the join's pairs")
+    within = join_within_device(ds, store_type, polys[:JOIN_PARITY], max_vertices=128)
+    if not np.array_equal(within, full_plain):
+        raise AssertionError(f"join_within_device {within} differs from the plain count "
+                             f"{full_plain}")
+    auto, route = join_counts_auto(ds, store_type, store_polys)
+    if not np.array_equal(auto, [len(r) for _, r in found]) and route == "block":
+        raise AssertionError("join_counts_auto's block counts differ from join_rows_device's")
+    log(f"phase 8 store joins: ok in {time.perf_counter() - t0:.3f} s (join_rows_device of "
+        f"{JOIN_STORE} polygons {rows_ms:.3f} ms, {found_rows} rows equal to the f64 referee; "
+        f"{len(pair_q)} (polygon, {JOIN_BLOCK}-row block) pairs, planned_gather equals "
+        f"planned_gather_plain ({int(w_hits.sum())} candidates); join_within_device of "
+        f"{JOIN_PARITY} polygons equals the plain count; join_counts_auto took route "
+        f"{route!r})")
+
+    p_record = {"name": "polygon_join", "route": "cuda",
+                "source": "geomesa_tpu_torch/csrc/polygon_join.cu",
+                "replaces": "geomesa_tpu/ops/join.py:357",
+                "launches": launched["polygon_join"], "library_ms": None}
+    g_record = {"name": "planned_gather_join", "route": "cuda",
+                "source": "geomesa_tpu_torch/csrc/planned_gather.cu",
+                "replaces": "geomesa_tpu/ops/join.py:300",
+                "launches": join_launched["planned_gather"], "library_ms": None}
+    if on_card:
+        k_ms = cuda_ms(lambda: [polygon_join(xs, ys, n, *a, block) for a in dev_args], 5)
+        k_plain_ms = cuda_ms(lambda: [polygon_join_plain(xs, ys, n, *a, block)
+                                      for a in dev_args], 1)
+        ops, nbytes, tested, in_rows, edge_rows = join_floor(xs, ys, n, dev_args, block)
+        if tested > pruned_pairs:
+            raise AssertionError("join_floor counts more rows than the plan tests")
+        p_record.update(max_abs_err=err, ms=k_ms, plain_ms=k_plain_ms,
+                        **bound_fields(ops, nbytes))
+        share = p_record["bound_ms"] / k_ms
+        log(f"phase polygon_join timing: {k_ms:.4f} ms (CUDA events, 5 runs of {len(plans)} "
+            f"launches) at N={n} K={k} block={block}; plain {k_plain_ms:.4f} ms; bound "
+            f"{p_record['bound_ms']:.4f} ms ({p_record['bound_by']}: {ops[1]} instructions over "
+            f"{tested} tested rows, {in_rows} inside a bbox, {edge_rows} (row, edge) tests; "
+            f"{nbytes} bytes), {share:.4f} of it")
+        if share > 1:
+            raise AssertionError(f"polygon_join reads {share:.4f} of its bound: the bound's "
+                                 "count is wrong")
+        g_ms = cuda_ms(lambda: planned_gather(*gargs), 5)
+        g_plain_ms = cuda_ms(lambda: planned_gather_plain(*gargs), 1)
+        g_ops, g_bytes = gather_floor(cols, state.n, pq, pb, boxes, times, w_hits,
+                                      g_pos.element_size())
+        g_record.update(max_abs_err=0, ms=g_ms, plain_ms=g_plain_ms,
+                        **bound_fields(g_ops, g_bytes))
+        g_share = g_record["bound_ms"] / g_ms
+        log(f"phase planned gather (join): {g_ms:.4f} ms (CUDA events, 5 calls) for "
+            f"{len(pair_q)} pairs over {len(np.unique(s_blocks))} distinct blocks, "
+            f"{int(w_hits.sum())} candidates; plain {g_plain_ms:.4f} ms; bound "
+            f"{g_record['bound_ms']:.4f} ms ({g_record['bound_by']}), {g_share:.4f} of it")
+        if g_share > 1:
+            raise AssertionError(f"planned_gather reads {g_share:.4f} of its bound on the join")
+        log(f"phase 8 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    return [p_record, g_record]
 
 
 def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -> dict:
@@ -2453,7 +2793,8 @@ def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -
 
 def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
          n_exact: int = N_EXACT, iters: int = ITERS, stream_rows: int = STREAM_ROWS,
-         stream_chunks: int = STREAM_CHUNKS, config3_rows: int = CONFIG3_ROWS) -> list[dict]:
+         stream_chunks: int = STREAM_CHUNKS, config3_rows: int = CONFIG3_ROWS,
+         join_polygons: int = JOIN_POLYGONS) -> list[dict]:
     """Run every phase; returns the kernel records. ``device=None`` is the
     card; a rehearsal may pass ``"cpu"`` (phases needing the card skip)."""
     from geomesa_tpu_torch.device import resolve_device
@@ -2543,11 +2884,19 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         log(f"phase density-and-knn-vs-plain: ok, max_abs_err={max_err} "
             f"({time.perf_counter() - t0:.3f} s for phase 7a)")
     t0 = time.perf_counter()
-    config3_records = config3_path(dev, config3_rows, CONFIG3_DENSITY_QUERIES, CONFIG3_POINTS,
-                                   CONFIG3_K, max(5, iters // 2), max_err)
-    free_card()
+    config3_records, (ds3, lon3, lat3) = config3_path(
+        dev, config3_rows, CONFIG3_DENSITY_QUERIES, CONFIG3_POINTS, CONFIG3_K, max(5, iters // 2),
+        max_err)
     log(f"phase density and KNN: {time.perf_counter() - t0:.3f} s in all")
-    return records + [edge_record, gather_record, agg_record, work_list_record] + config3_records
+
+    # -- phase 8: bench config 4, the spatial join, over phase 7's points ----------
+    t0 = time.perf_counter()
+    join_records = config4_path(dev, lon3, lat3, ds3, "cfg3", join_polygons, 5)
+    del ds3, lon3, lat3
+    free_card()
+    log(f"phase join: {time.perf_counter() - t0:.3f} s in all")
+    return (records + [edge_record, gather_record, agg_record, work_list_record]
+            + config3_records + join_records)
 
 
 if __name__ == "__main__":

@@ -88,6 +88,16 @@ strided sample of the rows, and a merge launch joins the segments' lists;
 its plain version (:func:`batched_knn_plain`) is the reference's ``map``
 form, one query at a time.
 
+``polygon_join`` replaces no TPU kernel either: the reference computes it
+in XLA (``geomesa_tpu/ops/join.py:357``, ``make_block_join_step``, over the
+f32 crossing number ``_membership`` :56, which ``points_in_polygons_count``
+:77 maps over every point). Per polygon, the resident f32 points strictly
+inside it, over the row blocks its plan names (or every block). Its source
+is ``csrc/polygon_join.cu``: one CTA per (polygon, block) pair at a time,
+the ring staged in shared memory, the division skipped on edges that do
+not straddle a row; its plain version (:func:`polygon_join_plain`) is the
+reference's crossing number in torch, chunked.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -141,7 +151,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
             "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "batched_density": 0,
-            "batched_knn": 0, "z3_encode": 0, "z2_encode": 0}
+            "batched_knn": 0, "polygon_join": 0, "z3_encode": 0, "z2_encode": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -188,6 +198,10 @@ _ENTRY_POINTS = {
     #  dist, rows, stream)
     "geomesa_batched_knn": ("batched_knn", [_P, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I]
                             + [_P] * 6),
+    # (x, y, n, true_n, pair_poly, pair_blk, pairs, verts, V, nverts, bbox, K, block, sms,
+    #  counts, stream)
+    "geomesa_polygon_join": ("polygon_join", [_P, _P, _LL, _LL, _P, _P, _LL, _P, _I, _P, _P, _I,
+                                              _I, _I, _P, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -1271,6 +1285,173 @@ def batched_knn_plain(x, y, base: int, true_n: int, qx, qy, k: int):
         dist[qi, :kk] = torch.sqrt(d2[idx].double()).float()
         rows[qi, :kk] = (int(base) + idx).to(torch.int32)
     return dist, rows
+
+
+# ---------------------------------------------------------------------------
+# polygon_join
+# ---------------------------------------------------------------------------
+
+POLYGON_PASS_ROWS = 1024  # rows a CTA of polygon_join tests per pass (csrc PASS)
+POLYGON_MAX_VERTS = 512  # ring vertices the card's kernel stages (csrc MAX_VERTS)
+POLYGON_PLAIN_CHUNK = 1 << 20  # (edge, row) elements per intermediate of the plain version
+
+
+def _check_polygon_args(x, y, pair_poly, pair_blk, verts, nverts, bbox, block: int) -> None:
+    for name, t in (("x", x), ("y", y)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D float32 tensor")
+        if not t.is_contiguous() or t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous and match x in length and device")
+    if block < 1 or block % POLYGON_PASS_ROWS or x.shape[0] % block:
+        raise ValueError(f"block must be a positive multiple of {POLYGON_PASS_ROWS} that "
+                         f"divides the {x.shape[0]} rows, got {block}")
+    if not isinstance(verts, torch.Tensor) or verts.dtype != torch.float32:
+        raise TypeError("verts must be a float32 tensor")
+    if verts.dim() != 3 or verts.shape[2] != 2 or verts.shape[1] < 1:
+        raise ValueError("verts must have shape (K, V >= 1, 2)")
+    k = verts.shape[0]
+    for name, t, dtype, shape in (("nverts", nverts, torch.int32, (k,)),
+                                  ("bbox", bbox, torch.float32, (k, 4))):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise TypeError(f"{name} must be a {dtype} tensor")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}")
+    if (pair_poly is None) != (pair_blk is None):
+        raise ValueError("pair_poly and pair_blk are both given or both None")
+    pairs = () if pair_poly is None else (("pair_poly", pair_poly), ("pair_blk", pair_blk))
+    for name, t in pairs:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if t.shape != pair_poly.shape:
+            raise ValueError("pair_poly and pair_blk must have one length")
+    for name, t in (("verts", verts), ("nverts", nverts), ("bbox", bbox), *pairs):
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous and on {x.device}")
+
+
+def polygon_join(x, y, true_n: int, pair_poly, pair_blk, verts, nverts, bbox,
+                 block: int) -> torch.Tensor:
+    """Per polygon, the rows strictly inside it by the f32 crossing number,
+    over planned (polygon, block) pairs: the block join's count.
+
+    ``x, y``: (N,) float32 resident columns in degrees, N a multiple of
+    ``block`` (a positive multiple of ``POLYGON_PASS_ROWS``); ``true_n``:
+    rows at it or past it never count; ``pair_poly``/``pair_blk``: (P,)
+    int32 pairs on the columns' device, polygon in ``[0, K)`` and block in
+    ``[0, N / block)`` (a pair out of range counts nothing), any order, or
+    both ``None`` for every block of every polygon; ``verts`` (K, V, 2)
+    float32 closed rings padded by repeating their last vertex, ``nverts``
+    (K,) int32 their real vertex counts (at most V; the padded edges never
+    straddle, so any count from it to V gives the same answer) and
+    ``bbox`` (K, 4) float32 [xmin, ymin, xmax, ymax]. A row counts for p
+    when it lies inside ``bbox[p]`` and an odd number of p's edges cross
+    the rightward ray from it (``_membership``, ``ops/join.py:56``). A
+    pair listed twice counts twice. Returns (K,) int32 counts.
+
+    On the card (``csrc/polygon_join.cu``, V at most ``POLYGON_MAX_VERTS``)
+    one CTA per pair at a time with the ring in shared memory; on the CPU
+    :func:`polygon_join_plain`."""
+    _check_polygon_args(x, y, pair_poly, pair_blk, verts, nverts, bbox, block)
+    if x.device.type == "cpu":
+        return polygon_join_plain(x, y, true_n, pair_poly, pair_blk, verts, nverts, bbox, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"polygon_join runs on cuda or cpu, not {x.device}")
+    k, v = verts.shape[0], verts.shape[1]
+    if v > POLYGON_MAX_VERTS:
+        raise ValueError(f"polygon_join on the card takes at most {POLYGON_MAX_VERTS} vertices "
+                         f"a ring, got {v}")
+    for name, t in (("x", x), ("y", y), ("bbox", bbox)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"polygon_join: {name} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
+    if verts.data_ptr() % 8:
+        raise ValueError("polygon_join: verts must start on an 8-byte boundary")
+    counts = torch.zeros(k, dtype=torch.int32, device=x.device)
+    n = x.shape[0]
+    n_pairs = k * (n // block) if pair_poly is None else pair_poly.shape[0]
+    if n_pairs == 0 or k == 0:
+        return counts
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    with torch.cuda.device(x.device):
+        rc = _fn("geomesa_polygon_join")(
+            x.data_ptr(), y.data_ptr(), n, int(true_n),
+            None if pair_poly is None else pair_poly.data_ptr(),
+            None if pair_blk is None else pair_blk.data_ptr(), n_pairs, verts.data_ptr(), v,
+            nverts.data_ptr(), bbox.data_ptr(), k, int(block), sms, counts.data_ptr(),
+            _stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"polygon_join launch failed: cudaError {rc}")
+    launches["polygon_join"] += 1
+    return counts
+
+
+def crossing_parity(xs, ys, ring, chunk: int = POLYGON_PLAIN_CHUNK) -> torch.Tensor:
+    """(R,) bool: an odd number of the closed ``ring``'s (E + 1, 2) float32
+    edges cross the rightward ray from each f32 point, ``_membership``'s
+    crossing number (``ops/join.py:63-72``) without its bbox term: straddle
+    ``(y1 > y) != (y2 > y)``, ``xint = x1 + (y - y1) * (x2 - x1) / dy``
+    (``dy`` 1 where it is 0), each step rounded alone, and ``x < xint``.
+    Rows run in chunks of at most ``chunk`` (edge, row) elements."""
+    out = torch.zeros(xs.shape[0], dtype=torch.bool, device=xs.device)
+    e = ring.shape[0] - 1
+    if e < 1 or xs.shape[0] == 0:
+        return out
+    x1, y1 = ring[:-1, 0, None], ring[:-1, 1, None]
+    x2, y2 = ring[1:, 0, None], ring[1:, 1, None]
+    dy = y2 - y1
+    safe_dy = torch.where(dy == 0, torch.ones_like(dy), dy)
+    dx = x2 - x1
+    step = max(1, chunk // e)
+    for s in range(0, xs.shape[0], step):
+        xc, yc = xs[None, s:s + step], ys[None, s:s + step]
+        straddle = (y1 > yc) != (y2 > yc)
+        xint = x1 + (yc - y1) * dx / safe_dy
+        out[s:s + step] = ((straddle & (xc < xint)).sum(dim=0) % 2).bool()
+    return out
+
+
+def polygon_join_plain(x, y, true_n: int, pair_poly, pair_blk, verts, nverts, bbox, block: int,
+                       chunk: int = POLYGON_PLAIN_CHUNK) -> torch.Tensor:
+    """The plain PyTorch version of :func:`polygon_join`: per polygon, its
+    pairs' blocks gathered (rows of the columns viewed as (N / block,
+    block)) a chunk at a time, the rows inside its bbox and below
+    ``true_n`` taken by a boolean index, and :func:`crossing_parity` over
+    its first ``nverts`` vertices. No intermediate holds more than about
+    ``chunk`` elements, so every block of 100M rows never allocates (V,
+    N)."""
+    k = verts.shape[0]
+    dev = x.device
+    counts = torch.zeros(k, dtype=torch.int64, device=dev)
+    n_blocks = x.shape[0] // block
+    if k == 0 or n_blocks == 0:
+        return counts.to(torch.int32)
+    xb, yb = x.view(n_blocks, block), y.view(n_blocks, block)
+    if pair_poly is None:
+        order = None
+        offsets = [i * n_blocks for i in range(k + 1)]
+    else:
+        keep = ((pair_poly >= 0) & (pair_poly < k) & (pair_blk >= 0)
+                & (pair_blk < n_blocks))
+        pp, pb = pair_poly[keep].long(), pair_blk[keep].long()
+        order = torch.argsort(pp, stable=True)
+        offsets = [0] + torch.cumsum(torch.bincount(pp, minlength=k), 0).tolist()
+    nv = nverts.clamp(0, verts.shape[1]).tolist()
+    lrow = torch.arange(block, device=dev)
+    per = max(1, chunk // block)  # blocks gathered at a time
+    for p in range(k):
+        s, e = offsets[p], offsets[p + 1]
+        if s == e or nv[p] < 1:
+            continue
+        blks = (torch.arange(n_blocks, device=dev) if order is None else pb[order[s:e]])
+        bb = bbox[p]
+        ring = verts[p, :nv[p]]
+        for c in range(0, blks.shape[0], per):
+            b = blks[c:c + per]
+            xs, ys = xb.index_select(0, b), yb.index_select(0, b)
+            live = ((b[:, None] * block + lrow[None, :]) < int(true_n)) & (
+                (xs >= bb[0]) & (xs <= bb[2]) & (ys >= bb[1]) & (ys <= bb[3]))
+            counts[p] += crossing_parity(xs[live], ys[live], ring, chunk).sum()
+    return counts.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,14 @@ The module's steps:
   (``make_batched_knn_step`` ``:1125``; on one card also
   ``make_ring_knn_step`` ``:1295``), ``knn_many``'s path: one
   ``batched_knn`` launch.
+- :func:`join_pairs` / :func:`block_join_step` — the block-sparse ST_Within
+  count of the spatial join (``geomesa_tpu/ops/join.py:357``,
+  ``make_block_join_step``): one ``polygon_join`` launch over a block
+  plan's (polygon, block) pairs.
+- :func:`block_bbox_gather_step` — the candidate rows of the exact join
+  (``ops/join.py:247`` / ``:300``, ``make_block_bbox_count_step`` and
+  ``make_block_bbox_gather_step``): each polygon's int bbox as a query
+  through the ``planned_gather`` kernel, which computes the same function.
 
 The ``cached_*`` step factories (``cached_batched_edge_gather_step``
 ``:441``, ``cached_matrix_scan_step`` ``:567``, ``cached_grouped_agg_step``
@@ -50,7 +58,7 @@ import torch
 
 from geomesa_tpu_torch.ops.kernels import (
     EDGE_CAPACITY, LANES, batched_count_hits, batched_density, batched_knn, block_runs,
-    grouped_agg, planned_gather)
+    grouped_agg, planned_gather, polygon_join)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -220,3 +228,68 @@ def batched_knn_step(cols, true_n: int, qx, qy, k: int, impl: str | None = None)
     qx, qy = (torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(x.device)
               for v in (qx, qy))
     return batched_knn(x, y, 0, true_n, qx, qy, k)
+
+
+def join_pairs(offsets, blocks, device):
+    """A block plan (``ops.join.polygon_block_plan``'s CSR ``offsets`` (K +
+    1,) and ``blocks``) → ``(pair_poly, pair_blk)`` (P,) int32 tensors on
+    ``device``, one upload: the plan's (polygon, block) pairs ordered by
+    block (stable, so each block's polygons keep their order), so that the
+    card's CTAs in flight together test the same blocks and share their
+    reads in L2. The reference's padded device plan (``blk``, ``nblk``) in
+    the role it plays for ``make_block_join_step``."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    blocks = np.asarray(blocks, dtype=np.int32)
+    poly = np.repeat(np.arange(len(offsets) - 1, dtype=np.int32), np.diff(offsets))
+    order = np.argsort(blocks, kind="stable")
+    p = len(blocks)
+    lists = torch.from_numpy(np.concatenate([poly[order], blocks[order]])).to(device)
+    return lists[:p], lists[p:]
+
+
+def block_join_step(x, y, true_n: int, pairs, verts, bbox, nverts, block: int):
+    """The block-sparse ST_Within count, one shard:
+    ``make_block_join_step(mesh, block)`` with ``D = 1`` (no psum).
+
+    ``x, y``: (N,) float32 resident columns in degrees, z2-sorted, N a
+    multiple of ``block``; ``pairs``: :func:`join_pairs` of the polygons'
+    block plan; ``verts`` (K, V, 2), ``bbox`` (K, 4) and ``nverts`` (K,)
+    host arrays of one vertex bucket (``ops.join.pack_polygons``),
+    uploaded here as the reference uploads its per call. Each polygon
+    tests only its planned blocks (rows below ``true_n``). Returns (K,)
+    int32 counts: :func:`~geomesa_tpu_torch.ops.kernels.polygon_join`."""
+    dev = x.device
+    verts, bbox = (torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+                   for a in (verts, bbox))
+    nverts = torch.from_numpy(np.ascontiguousarray(nverts, dtype=np.int32)).to(dev)
+    return polygon_join(x, y, true_n, pairs[0], pairs[1], verts, nverts, bbox, block)
+
+
+# the full-span time window: every (bin, offset) pair lies inside it, in the
+# kernel's biased 64-bit keys (INT64_MIN to INT64_MAX) and in row_masks
+FULL_WINDOW = np.array([-2**31, -2**31, 2**31 - 1, 2**31 - 1], dtype=np.int32)
+
+
+def block_bbox_gather_step(cols, true_n: int, pair_q, pair_blk, iboxes):
+    """The candidate rows of the exact block join, one shard: per
+    (polygon, block) pair, the block's rows inside the polygon's int bbox,
+    as global sorted positions (``make_block_bbox_count_step`` ``:247``
+    and ``make_block_bbox_gather_step`` ``:300`` with ``D = 1``).
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns, N a multiple of
+    ``JOIN_BLOCK``; ``pair_q``/``pair_blk``: host int arrays of
+    ``JOIN_BLOCK``-row pairs grouped by polygon with each one's blocks
+    ascending; ``iboxes`` (K, 4) int32 [xlo, xhi, ylo, yhi] in the columns'
+    normalized domain. Each polygon is one query of one box and the
+    full-span window (:data:`FULL_WINDOW`), so the test is the reference's
+    inclusive ``xs >= xlo & xs <= xhi & ys >= ylo & ys <= yhi`` on every
+    row below ``true_n``: :func:`planned_gather_step`, the ``planned_gather``
+    kernel. Returns ``(positions (H,) int32, pair_hits (P,) int64)`` in
+    pair order, each polygon's positions ascending. No capacity to size and
+    no overflow to retry: the kernel's count pass sizes the output."""
+    dev = cols[0].device
+    k = len(iboxes)
+    boxes = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(iboxes, dtype=np.int32).reshape(k, 1, 4))).to(dev)
+    times = torch.from_numpy(np.tile(FULL_WINDOW, (k, 1)).reshape(k, 1, 4)).to(dev)
+    return planned_gather_step(cols, true_n, pair_q, pair_blk, boxes, times)

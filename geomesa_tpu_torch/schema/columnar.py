@@ -1,7 +1,7 @@
 """Struct-of-arrays feature table: the host-side columnar store.
 
-Port copy of :mod:`geomesa_tpu.schema.columnar` (with the ``Point`` value of
-:mod:`geomesa_tpu.geometry.types`), trimmed to point schemas: a point column
+Port copy of :mod:`geomesa_tpu.schema.columnar` (its ``Point`` value is
+:mod:`geomesa_tpu_torch.geometry.types`'s), trimmed to point schemas: a point column
 stores its f64 ``x``/``y`` arrays and nothing else — no object array of
 geometries, no bbox array (a point's bbox is the point).
 """
@@ -13,6 +13,7 @@ from typing import Any, Iterable
 
 import numpy as np
 
+from geomesa_tpu_torch.geometry.types import Point  # noqa: F401  (record-style ingest)
 from geomesa_tpu_torch.schema.sft import AttributeType, FeatureType
 
 _NUMERIC_DTYPES = {
@@ -22,14 +23,6 @@ _NUMERIC_DTYPES = {
     AttributeType.DOUBLE: np.float64,
     AttributeType.BOOLEAN: np.bool_,
 }
-
-
-@dataclass(frozen=True)
-class Point:
-    """A point value (lon, lat) for record-style ingest."""
-
-    x: float
-    y: float
 
 
 @dataclass

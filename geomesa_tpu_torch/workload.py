@@ -1,9 +1,9 @@
 """GDELT-shaped synthetic events and city-box queries (bench config 2's
-data), bench config 3's KNN points, bench config 9's group keys and values,
-and bench config 8's streamed chunks.
+data), bench config 3's KNN points, bench config 4's join polygons, bench
+config 9's group keys and values, and bench config 8's streamed chunks.
 
 Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``, config 3's
-KNN points, ``_pack_query_boxes``, config 9's group ids and values and
+KNN points, config 4's polygons, ``_pack_query_boxes``, config 9's group ids and values and
 config 8's ``host_chunk`` (tests hold them equal), plus :func:`bbox_cql` and
 :func:`bbox_time_cql`, which write one query as the CQL a user would send, and :func:`edge_columns` /
 :func:`edge_payload`, the rows and payloads that hold the count kernels'
@@ -16,6 +16,7 @@ import datetime
 
 import numpy as np
 
+from geomesa_tpu_torch.geometry.types import Polygon
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
 from geomesa_tpu_torch.store.backends import int_boxes
 
@@ -75,6 +76,25 @@ def knn_points(n: int, seed: int = 3) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return np.stack([CITIES[rng.integers(0, len(CITIES))] + rng.normal(0, 1, 2)
                      for _ in range(n)]).reshape(n, 2)
+
+
+def join_polygons(k: int, seed: int = 5):
+    """Bench config 4's polygons (``bench.py:660-669``): from one generator,
+    per polygon a ``CITIES`` row plus ``normal(0, 4, 2)`` degrees as its
+    center, width and height ``uniform(0.2, 1.5, 2)``, 8 to 95 vertices at
+    sorted random angles and radii ``uniform(0.3, 1.0)``. Returns k
+    :class:`~geomesa_tpu_torch.geometry.types.Polygon` (closed shells)."""
+    rng = np.random.default_rng(seed)
+    polys = []
+    for _ in range(k):
+        cx, cy = CITIES[rng.integers(0, len(CITIES))] + rng.normal(0, 4, 2)
+        w, h = rng.uniform(0.2, 1.5, 2)
+        nv = int(rng.integers(8, 96))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, nv))
+        rad = rng.uniform(0.3, 1.0, nv)
+        ring = np.stack([cx + w * rad * np.cos(ang), cy + h * rad * np.sin(ang)], 1)
+        polys.append(Polygon(ring))
+    return polys
 
 
 def iso_millis(ms: int) -> str:

@@ -64,6 +64,27 @@ def test_density_and_knn_modules_stand_alone():
     assert out.returncode == 0, out.stderr
 
 
+def test_join_modules_stand_alone():
+    """The join slice's modules (the geometry copies, ops/join.py,
+    process/join.py) are among those the scans above cover, and import
+    cleanly without jax in a fresh interpreter."""
+    mods = ["geometry/types.py", "geometry/predicates.py", "ops/join.py", "process/join.py"]
+    assert all((PKG / m).exists() for m in mods)
+    code = (
+        "import sys\n"
+        + "".join(f"import geomesa_tpu_torch.{m[:-3].replace('/', '.')}\n" for m in mods)
+        + "from geomesa_tpu_torch.parallel.query import block_join_step, block_bbox_gather_step\n"
+        "from geomesa_tpu_torch.ops.kernels import polygon_join, polygon_join_plain\n"
+        "from geomesa_tpu_torch.workload import join_polygons\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'geomesa_tpu.'))\n"
+        "       or m == 'geomesa_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     mods = []
@@ -101,7 +122,7 @@ def test_native_sources_stand_alone_and_are_bound():
     csrc = PKG / "csrc"
     sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cpp"))
     assert {p.name for p in sources} >= {"grouped_agg.cu", "zranges.cpp", "batched_density.cu",
-                                         "batched_knn.cu"}
+                                         "batched_knn.cu", "polygon_join.cu"}
     local = {p.name for p in csrc.glob("*.cuh")}
     bound = set(kernels._ENTRY_POINTS) | {"geomesa_zranges"}
     defined = set()
