@@ -130,9 +130,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    10 (4 inside the bench's f64 band, all 64 equal to ``batched_knn_plain``
    on the card); then ``density_many`` p50 per query and ``knn_many`` p50
    per point with their host split, and each kernel's time beside its
-   plain version's, its bound and a library call (``torch.bincount`` of the
-   matches' cells; eager distances and ``torch.topk`` per query), timed
-   only; and one ``density_many`` and one ``knn_many`` under
+   plain version's, its bound and, for KNN, a library call (eager
+   distances and ``torch.topk`` per query), timed only; no one torch call
+   computes the density grids, so a ``torch.bincount`` of the matches'
+   cells, gathered beforehand, is logged as a part of the work
+   (``bincount_part_ms``); and one ``density_many`` and one ``knn_many`` under
    ``torch.profiler`` (the KNN kernels' device times in launch order: the
    sample's select and merge, then the full select and merge).
 8. bench config 4 (``bench.py:629``, ``bench_join``) at full size over phase
@@ -152,9 +154,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    polygons (row sets equal to an f64 referee; its ``planned_gather``
    equal to ``planned_gather_plain`` on the same pairs),
    ``join_within_device`` of 8 (equal to (b)'s plain counts) and
-   ``join_counts_auto``'s route. Then ``polygon_join``'s time beside its
-   plain version's and its bound (``join_floor``), and the join's
-   ``planned_gather`` beside its plain version's and its bound.
+   ``join_counts_auto``'s route; (e) an adversarial set, ``polygon_join``
+   equal to ``polygon_join_plain`` on the card: rows on the kernel's y-band
+   boundaries, on vertex y's and on horizontal edges, rings of 8, 95 and 512
+   vertices, a zero-height bbox, a vertex count of V, pairs duplicated, out
+   of range and in random order, ``pair_poly = None``, blocks of 4096, 8192
+   and 9216 rows (a tile and a part). Then the kernel's work at config 4
+   (``polygon_join_work``: work items, tiles staged, groups skipped by
+   extent, compacted rows, band candidates and straddling (row, edge)
+   tests, bands per bucket), ``polygon_join``'s time beside its plain
+   version's, its bound (``join_floor``: what the inputs need) and the
+   earlier all-edges floor, and the join's ``planned_gather`` beside its
+   plain version's and its bound.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -2235,7 +2246,7 @@ def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: in
             raise AssertionError("batched_density disagrees with plain at config 3")
         d_ms = cuda_ms(lambda: batched_density(*dargs), 5)
         d_plain_ms = cuda_ms(lambda: batched_density_plain(*dargs), 1)
-        # the library call: one bincount of the matching rows' flat cells,
+        # a part of the work: one bincount of the matching rows' flat cells,
         # gathered outside the timing
         xlo, xhi, ylo, yhi = (gb.float()[:, i, None] for i in range(4))
         sx, sy = density_scale(xlo, xhi, width), density_scale(ylo, yhi, height)
@@ -2254,15 +2265,20 @@ def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: in
         kept = chunk_query_pairs(*cols, 0, state.n, boxes, times)
         ops, nbytes = density_floor(cols, state.n, cols[0].shape[0], boxes, times, gb, width,
                                     height, int(flat.shape[0]), kept)
+        # no one torch call computes the grids: the bincount of cells gathered
+        # beforehand is a part of the work, kept under its own name
         d_record.update(max_abs_err=max(d_err, max_err["batched_density"]), ms=d_ms,
-                        plain_ms=d_plain_ms, library_ms=lib_ms, **bound_fields(ops, nbytes))
+                        plain_ms=d_plain_ms, library_ms=None, bincount_part_ms=lib_ms,
+                        **bound_fields(ops, nbytes))
         share = d_record["bound_ms"] / d_ms
         log(f"phase batched_density timing: {d_ms:.4f} ms (CUDA events, 5 launches) at "
             f"N={state.n} Q={boxes.shape[0]} B={boxes.shape[1]} T={times.shape[1]} "
-            f"{width}x{height}; plain {d_plain_ms:.4f} ms; torch.bincount of the "
-            f"{flat.shape[0]} matches' cells {lib_ms:.4f} ms; bound {d_record['bound_ms']:.4f} "
-            f"ms ({d_record['bound_by']}: {ops[0]} ALU-only of {ops[1]} ops over "
-            f"{int(kept.sum())} kept of {kept.numel()} (chunk, query) pairs; {nbytes} bytes), "
+            f"{width}x{height}; plain {d_plain_ms:.4f} ms; library call none "
+            f"(bincount_part_ms: torch.bincount of the {flat.shape[0]} matches' cells "
+            f"gathered beforehand, a part of the work, {lib_ms:.4f} ms); bound "
+            f"{d_record['bound_ms']:.4f} ms ({d_record['bound_by']}: {ops[0]} ALU-only of "
+            f"{ops[1]} ops over {int(kept.sum())} kept of {kept.numel()} (chunk, query) pairs; "
+            f"{nbytes} bytes), "
             f"{share:.4f} of it")
         if share > 1:
             raise AssertionError(f"batched_density reads {share:.4f} of its bound: the bound's "
@@ -2307,53 +2323,158 @@ JOIN_CHECKED = 256  # (a): polygons held to the plain version, over every vertex
 JOIN_PARITY = 8  # (b), (c): bench.py:746's n_par
 JOIN_STORE = 64  # (d): polygons through join_rows_device on phase 7's store
 JOIN_EDGE_TOL = 1e-5  # degrees: the f32 kernel's documented edge band (ops/join.py:9-14)
-# least instructions of polygon_join, as (ALU-only, all), from the
-# kernel's SASS (cuobjdump -sass of csrc/polygon_join.cu for sm_90a). An
-# edge that straddles no row of the warp issues 17 instructions a thread
-# for its 4 rows: the vertex's shared load, per row a compare (FSETP) and
-# its bit (SEL), two LOP3 and a shift to join the bits, the XOR with the
-# previous vertex's bits, the test, the vote and its branch: 4 a (row,
-# edge), rounded down. A tested row's bbox test is at least four float
-# compares and the 64-bit row bound's two; the straddling edges' divisions
-# are left out (a floor). No split by pipe is claimed: ALU-only 0.
-JOIN_ROW_OPS = (0, 6)
-JOIN_EDGE_OPS = (0, 4)
+# least instructions of polygon_join on what its inputs need, as (ALU-only,
+# all), whatever implements it: each row inside a bbox has its parity taken
+# (one add), and each (in-bbox row, edge) whose edge straddles the row's
+# horizontal line has the reference's xint and compare: y - y1, the
+# product, the division, the sum, the compare and the parity's XOR, six
+# single-rounded operations (an edge's x2 - x1 and y2 - y1 are shared by
+# its rows and left out). The division alone issues several instructions
+# in the kernel's SASS (a reciprocal and its Newton steps), so 6 is a
+# floor. Rows outside every bbox and edges that straddle no row need no
+# work: extents and y-bands skip them. No split by pipe is claimed.
+JOIN_ROW_OPS = (0, 1)
+JOIN_STRADDLE_OPS = (0, 6)
+# the earlier floor, kept beside it as join_floor_all_edges: 6 instructions
+# a tested row (its bbox test and the 64-bit row bound) and 4 a (row
+# inside the bbox, edge) over every edge of the ring, from the SASS of the
+# one-CTA-per-pair kernel (its edge loop's compare and bit per row)
+JOIN_ALL_ROW_OPS = (0, 6)
+JOIN_ALL_EDGE_OPS = (0, 4)
+# (e): the adversarial set's block sizes (9216: a full tile and a part)
+JOIN_ADVERSARIAL_BLOCKS = (4096, 8192, 9216)
 
 
-def join_floor(x, y, true_n: int, buckets, block: int):
-    """The least work of one config-4 run of ``polygon_join`` over
-    ``buckets`` (per bucket its arguments ``(pair_poly, pair_blk, verts,
-    nverts, bbox)`` on the card): per pair
-    its valid rows' bbox tests (:data:`JOIN_ROW_OPS`) and, per row inside
-    the polygon's bbox, one edge test per edge (:data:`JOIN_EDGE_OPS`);
-    bytes are every distinct block's x and y read once (8 B a row), the
-    pair lists (8 B a pair), the rings, bboxes and vertex counts read and
-    the counts written once. Returns ((alu, all), bytes, tested rows, rows
-    in a bbox, (row, edge) tests)."""
+def join_work(x, y, true_n: int, buckets, block: int) -> tuple[dict, int, list]:
+    """The work of one config-4 run of ``polygon_join`` over ``buckets``
+    (per bucket its arguments ``(pair_poly, pair_blk, verts, nverts,
+    bbox)`` on the card), counted from the data: ``polygon_join_work``
+    summed over the buckets; the bytes any implementation moves: every
+    distinct block's x and y read once (8 B a row), the pair lists (8 B a
+    pair), the rings, bboxes and vertex counts read and the counts written
+    once; and per bucket its bands per polygon as {bands: polygons}.
+    Returns (work, bytes, bands)."""
+    import collections
+
     import torch
 
-    xb, yb = x.view(-1, block), y.view(-1, block)
-    lrow = torch.arange(block, device=x.device)
-    rows = in_rows = edge_rows = 0
-    blocks, nbytes = [], 0
-    for pp, pb, _, nverts, bbox in buckets:
-        for s in range(0, pp.shape[0], 512):
-            p, b = pp[s:s + 512].long(), pb[s:s + 512].long()
-            xs, ys = xb.index_select(0, b), yb.index_select(0, b)
-            bb = bbox.index_select(0, p)
-            valid = (b[:, None] * block + lrow[None, :]) < int(true_n)
-            inside = valid & (xs >= bb[:, 0:1]) & (xs <= bb[:, 2:3]) & (ys >= bb[:, 1:2]) & (
-                ys <= bb[:, 3:4])
-            per = inside.sum(dim=1)
-            rows += int(valid.sum())
-            in_rows += int(per.sum())
-            edge_rows += int((per * (nverts.index_select(0, p).long() - 1).clamp(min=0)).sum())
+    from geomesa_tpu_torch.ops.kernels import polygon_band_count, polygon_join_work
+
+    work: dict = {}
+    blocks, nbytes, bands = [], 0, []
+    for pp, pb, verts, nverts, bbox in buckets:
+        w = polygon_join_work(x, y, true_n, pp, pb, verts, nverts, bbox, block, chunk=256)
+        for key, val in w.items():
+            work[key] = work.get(key, 0) + (val[0] if key == "candidates" else val)
         blocks.append(pb)
         nbytes += 8 * pp.shape[0] + bbox.shape[0] * (16 + 4 + 4) + 8 * int(nverts.sum())
+        bands.append((verts.shape[1], dict(sorted(collections.Counter(
+            polygon_band_count(int(c)) for c in nverts.tolist()).items()))))
     distinct = int(torch.unique(torch.cat(blocks)).numel())
     nbytes += 8 * block * distinct
-    ops = tuple(JOIN_ROW_OPS[i] * rows + JOIN_EDGE_OPS[i] * edge_rows for i in (0, 1))
-    return ops, nbytes, rows, in_rows, edge_rows
+    work["distinct_blocks"] = distinct
+    return work, nbytes, bands
+
+
+def join_floor(work: dict) -> tuple[int, int]:
+    """The least instructions of ``polygon_join`` on the counted ``work``
+    (:data:`JOIN_ROW_OPS` a row inside a bbox, :data:`JOIN_STRADDLE_OPS` a
+    straddling (row, edge)), as (ALU-only, all)."""
+    return tuple(JOIN_ROW_OPS[i] * work["in_rows"] + JOIN_STRADDLE_OPS[i] * work["straddles"]
+                 for i in (0, 1))
+
+
+def join_floor_all_edges(work: dict) -> tuple[int, int]:
+    """The earlier floor on the same work: :data:`JOIN_ALL_ROW_OPS` a
+    tested row and :data:`JOIN_ALL_EDGE_OPS` a (row inside the bbox, edge)
+    over every edge."""
+    return tuple(JOIN_ALL_ROW_OPS[i] * work["tested_rows"]
+                 + JOIN_ALL_EDGE_OPS[i] * work["edge_tests"] for i in (0, 1))
+
+
+def check_join_adversarial(dev, seed: int) -> tuple[int, int]:
+    """(e): ``polygon_join`` against ``polygon_join_plain`` on the card over
+    adversarial inputs, for each block size of
+    :data:`JOIN_ADVERSARIAL_BLOCKS`: rings of 8, 95 and 512 vertices (each
+    also with its y snapped to 5 levels: horizontal edges), one with a
+    zero-height bbox, one with a vertex count of V (its padding counted),
+    one of 3 vertices; rows on each ring's y-band boundaries (the f32 of
+    ``ymin + j / inv`` and two ulps either side), on every vertex y, a few
+    NaN, the rest uniform over the rings, in random order; pairs as every
+    (polygon, block) with a tenth duplicated and four out of range, once in
+    random order and once ordered by block, and ``pair_poly = None``.
+    Returns (max abs error, cases)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import (
+        band_grid, polygon_band_count, polygon_join, polygon_join_plain)
+    from geomesa_tpu_torch.workload import star_ring
+
+    rng = np.random.default_rng(seed)
+    v = 512
+    rings = [star_ring(rng, nv, rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2), 1.0, 0.8,
+                       levels) for nv in (8, 95, 512) for levels in (0, 5)]
+    rings += [star_ring(rng, 95, 0.1, -0.1, 0.9, 0.9), star_ring(rng, 40, 0.0, 0.0, 1.1, 0.7),
+              np.array([[-0.5, -0.5], [0.5, 0.2], [-0.5, -0.5]], np.float32)]
+    k = len(rings)
+    verts = np.zeros((k, v, 2), np.float32)
+    nverts = np.zeros(k, np.int32)
+    bbox = np.zeros((k, 4), np.float32)
+    for i, r in enumerate(rings):
+        verts[i, :len(r)], verts[i, len(r):] = r, r[-1]
+        nverts[i] = len(r)
+        bbox[i] = [r[:, 0].min(), r[:, 1].min(), r[:, 0].max(), r[:, 1].max()]
+    nverts[6] = v  # any count from the real one to V gives the same answer
+    bbox[7, 1] = bbox[7, 3] = rings[7][3, 1]  # zero height: one band
+    special_y = [verts[:, :, 1].ravel()]
+    for i in range(k):
+        nb, inv = band_grid(torch.from_numpy(bbox[i]),
+                            torch.tensor(polygon_band_count(int(nverts[i]))))
+        for j in range(1, int(nb)):
+            at = np.float32(np.float32(j) / np.float32(inv) + bbox[i, 1])
+            near = [at]
+            for step in (np.inf, -np.inf):
+                u = at
+                for _ in range(2):
+                    u = np.nextafter(u, np.float32(step))
+                    near.append(u)
+            special_y.append(np.array(near, np.float32))
+    special_y = np.concatenate(special_y).astype(np.float32)
+    err = cases = 0
+    for block in JOIN_ADVERSARIAL_BLOCKS:
+        n = block * 12
+        xs = rng.uniform(-1.3, 1.3, n).astype(np.float32)
+        ys = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+        m = min(len(special_y), n // 2)
+        ys[:m] = special_y[rng.permutation(len(special_y))[:m]]
+        xs[n // 2:n // 2 + 8], ys[n // 2 + 8:n // 2 + 16] = np.nan, np.nan
+        order = rng.permutation(n)
+        x, y = (torch.from_numpy(np.ascontiguousarray(a[order])).to(dev) for a in (xs, ys))
+        n_blocks = n // block
+        pp = np.repeat(np.arange(k), n_blocks)
+        pb = np.tile(np.arange(n_blocks), k)
+        dup = rng.choice(len(pp), len(pp) // 10, replace=False)
+        pp = np.concatenate([pp, pp[dup], [k, -1, 0, 0]])
+        pb = np.concatenate([pb, pb[dup], [0, 0, n_blocks, -1]])
+        shuffle = rng.permutation(len(pp))
+        by_block = np.argsort(pb, kind="stable")
+        dv, dn, db = (torch.from_numpy(a).to(dev) for a in (verts, nverts, bbox))
+        true_n = n - 1000
+        for pairs in ((pp[shuffle], pb[shuffle]), (pp[by_block], pb[by_block]), (None, None)):
+            tp, tb = ((None, None) if pairs[0] is None else
+                      (torch.from_numpy(a.astype(np.int32)).to(dev) for a in pairs))
+            args = (x, y, true_n, tp, tb, dv, dn, db, block)
+            got = polygon_join(*args)
+            want = polygon_join_plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if int(want.sum()) == 0:
+                raise AssertionError("the adversarial set counts no row: it tests nothing")
+            cases += 1
+    if err:
+        raise AssertionError(f"polygon_join disagrees with polygon_join_plain on the "
+                             f"adversarial set by {err}")
+    return err, cases
 
 
 def edge_distance(xs, ys, ring) -> np.ndarray:
@@ -2575,6 +2696,17 @@ def config4_path(dev, lon, lat, ds, store_type: str, n_polys: int, iters: int) -
         f"{JOIN_PARITY} polygons equals the plain count; join_counts_auto took route "
         f"{route!r})")
 
+    # -- (e) the adversarial set, on the card ---------------------------------------
+    if on_card:
+        t0 = time.perf_counter()
+        adv_err, adv_cases = check_join_adversarial(dev, 43)
+        err = max(err, adv_err)
+        log(f"phase 8 adversarial: ok in {time.perf_counter() - t0:.3f} s ((e) polygon_join "
+            f"equals polygon_join_plain in {adv_cases} cases: blocks "
+            f"{JOIN_ADVERSARIAL_BLOCKS}, rings of 3, 8, 40, 95 and 512 vertices with and without "
+            "horizontal edges, a zero-height bbox, nverts = V, rows on band boundaries, vertex "
+            "y's and NaN, pairs duplicated, out of range, shuffled, by block and None)")
+
     p_record = {"name": "polygon_join", "route": "cuda",
                 "source": "geomesa_tpu_torch/csrc/polygon_join.cu",
                 "replaces": "geomesa_tpu/ops/join.py:357",
@@ -2587,17 +2719,37 @@ def config4_path(dev, lon, lat, ds, store_type: str, n_polys: int, iters: int) -
         k_ms = cuda_ms(lambda: [polygon_join(xs, ys, n, *a, block) for a in dev_args], 5)
         k_plain_ms = cuda_ms(lambda: [polygon_join_plain(xs, ys, n, *a, block)
                                       for a in dev_args], 1)
-        ops, nbytes, tested, in_rows, edge_rows = join_floor(xs, ys, n, dev_args, block)
-        if tested > pruned_pairs:
-            raise AssertionError("join_floor counts more rows than the plan tests")
+        t0 = time.perf_counter()
+        work, nbytes, bands = join_work(xs, ys, n, dev_args, block)
+        if work["tested_rows"] > pruned_pairs:
+            raise AssertionError("join_work counts more rows than the plan tests")
+        log(f"phase 8 polygon_join work: {work['items']} work items of at most "
+            f"{kernels.POLYGON_RUN} pairs over {work['pairs']} pairs, {work['stages']} tiles "
+            f"staged ({work['distinct_blocks']} distinct blocks); {work['groups']} "
+            f"{kernels.POLYGON_GROUP_ROWS}-row groups, {work['groups'] - work['groups_met']} "
+            f"skipped by extent, {work['warps_any']} with a row inside the bbox; "
+            f"{work['tested_rows']} tested rows, {work['in_rows']} compacted (inside a bbox); "
+            f"(row, edge) tests: {work['edge_tests']} over every edge, {work['candidates']} band "
+            f"candidates, {work['straddles']} straddling; bands per bucket (V, {{bands: "
+            f"polygons}}) {bands}; counted in {time.perf_counter() - t0:.3f} s")
+        ops = join_floor(work)
+        ops_all = join_floor_all_edges(work)
+        if ops[1] > ops_all[1]:
+            raise AssertionError("join_floor is above the all-edges floor on the same data")
         p_record.update(max_abs_err=err, ms=k_ms, plain_ms=k_plain_ms,
                         **bound_fields(ops, nbytes))
         share = p_record["bound_ms"] / k_ms
+        all_edges = bound_fields(ops_all, nbytes)
+        p_record["bound_all_edges_ms"] = all_edges["bound_ms"]  # the earlier floor, kept beside
         log(f"phase polygon_join timing: {k_ms:.4f} ms (CUDA events, 5 runs of {len(plans)} "
             f"launches) at N={n} K={k} block={block}; plain {k_plain_ms:.4f} ms; bound "
             f"{p_record['bound_ms']:.4f} ms ({p_record['bound_by']}: {ops[1]} instructions over "
-            f"{tested} tested rows, {in_rows} inside a bbox, {edge_rows} (row, edge) tests; "
-            f"{nbytes} bytes), {share:.4f} of it")
+            f"{work['in_rows']} rows inside a bbox and {work['straddles']} straddling (row, "
+            f"edge) tests; {nbytes} bytes), {share:.4f} of it")
+        log(f"phase polygon_join join_floor_all_edges: {all_edges['bound_ms']:.4f} ms "
+            f"({all_edges['bound_by']}: {ops_all[1]} instructions over {work['tested_rows']} "
+            f"tested rows and {work['edge_tests']} (row inside a bbox, edge) tests over every "
+            f"edge), {all_edges['bound_ms'] / k_ms:.4f} of the kernel's time")
         if share > 1:
             raise AssertionError(f"polygon_join reads {share:.4f} of its bound: the bound's "
                                  "count is wrong")

@@ -93,10 +93,13 @@ in XLA (``geomesa_tpu/ops/join.py:357``, ``make_block_join_step``, over the
 f32 crossing number ``_membership`` :56, which ``points_in_polygons_count``
 :77 maps over every point). Per polygon, the resident f32 points strictly
 inside it, over the row blocks its plan names (or every block). Its source
-is ``csrc/polygon_join.cu``: one CTA per (polygon, block) pair at a time,
-the ring staged in shared memory, the division skipped on edges that do
-not straddle a row; its plain version (:func:`polygon_join_plain`) is the
-reference's crossing number in torch, chunked.
+is ``csrc/polygon_join.cu``: a CTA per work item (a run of pairs that
+share a block, whose tile of rows it stages in shared memory once, in y
+order: :func:`staged_tile`), the rows inside each polygon's bbox
+compacted, and each tested only against the edges of its y-band
+(:func:`polygon_bands_plain` builds the same lists); its plain version
+(:func:`polygon_join_plain`) is the reference's crossing number in torch,
+chunked.
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -198,10 +201,10 @@ _ENTRY_POINTS = {
     #  dist, rows, stream)
     "geomesa_batched_knn": ("batched_knn", [_P, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I]
                             + [_P] * 6),
-    # (x, y, n, true_n, pair_poly, pair_blk, pairs, verts, V, nverts, bbox, K, block, sms,
+    # (x, y, n, true_n, pair_poly, pair_blk, pairs, verts, V, nverts, bbox, K, block,
     #  counts, stream)
     "geomesa_polygon_join": ("polygon_join", [_P, _P, _LL, _LL, _P, _P, _LL, _P, _I, _P, _P, _I,
-                                              _I, _I, _P, _P]),
+                                              _I, _P, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -1291,9 +1294,15 @@ def batched_knn_plain(x, y, base: int, true_n: int, qx, qy, k: int):
 # polygon_join
 # ---------------------------------------------------------------------------
 
-POLYGON_PASS_ROWS = 1024  # rows a CTA of polygon_join tests per pass (csrc PASS)
+POLYGON_PASS_ROWS = 1024  # rows a CTA of polygon_join stages per pass (csrc PASS)
 POLYGON_MAX_VERTS = 512  # ring vertices the card's kernel stages (csrc MAX_VERTS)
 POLYGON_PLAIN_CHUNK = 1 << 20  # (edge, row) elements per intermediate of the plain version
+POLYGON_GROUP_ROWS = 128  # rows under one x/y extent in the kernel (csrc GROUP)
+POLYGON_TILE_ROWS = 8192  # rows of a block the kernel stages at once (csrc TILE)
+POLYGON_RUN = 32  # pairs of one work item at most (csrc RUN)
+POLYGON_MAX_BANDS = 64  # y-bands of a ring at most (csrc MAX_BANDS)
+POLYGON_BAND_CAP = 16384  # band-list entries of a ring at most (csrc BAND_CAP)
+POLYGON_BUCKETS = 256  # y-buckets a tile's rows are staged in order of (csrc BUCKETS)
 
 
 def _check_polygon_args(x, y, pair_poly, pair_blk, verts, nverts, bbox, block: int) -> None:
@@ -1349,8 +1358,10 @@ def polygon_join(x, y, true_n: int, pair_poly, pair_blk, verts, nverts, bbox,
     pair listed twice counts twice. Returns (K,) int32 counts.
 
     On the card (``csrc/polygon_join.cu``, V at most ``POLYGON_MAX_VERTS``)
-    one CTA per pair at a time with the ring in shared memory; on the CPU
-    :func:`polygon_join_plain`."""
+    a CTA per work item (a run of at most ``POLYGON_RUN`` pairs and a tile
+    of their block, staged in shared memory once, in y order), the rows
+    inside each bbox compacted and tested against their y-band's edges
+    only; on the CPU :func:`polygon_join_plain`."""
     _check_polygon_args(x, y, pair_poly, pair_blk, verts, nverts, bbox, block)
     if x.device.type == "cpu":
         return polygon_join_plain(x, y, true_n, pair_poly, pair_blk, verts, nverts, bbox, block)
@@ -1371,18 +1382,203 @@ def polygon_join(x, y, true_n: int, pair_poly, pair_blk, verts, nverts, bbox,
     n_pairs = k * (n // block) if pair_poly is None else pair_poly.shape[0]
     if n_pairs == 0 or k == 0:
         return counts
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         rc = _fn("geomesa_polygon_join")(
             x.data_ptr(), y.data_ptr(), n, int(true_n),
             None if pair_poly is None else pair_poly.data_ptr(),
             None if pair_blk is None else pair_blk.data_ptr(), n_pairs, verts.data_ptr(), v,
-            nverts.data_ptr(), bbox.data_ptr(), k, int(block), sms, counts.data_ptr(),
+            nverts.data_ptr(), bbox.data_ptr(), k, int(block), counts.data_ptr(),
             _stream_of(x))
     if rc != 0:
         raise RuntimeError(f"polygon_join launch failed: cudaError {rc}")
     launches["polygon_join"] += 1
     return counts
+
+
+def polygon_band_count(nv: int) -> int:
+    """The y-bands the card's kernel gives a ring of ``nv`` vertices: half
+    of the largest power of two at most ``nv``, at most
+    ``POLYGON_MAX_BANDS``, halved until the bands' lists (room for ``nv -
+    1`` entries each: a band lists an edge once) fit ``POLYGON_BAND_CAP``;
+    at least 1. :func:`band_grid` takes one band for a degenerate bbox."""
+    nb = max(1, min(POLYGON_MAX_BANDS, (1 << (max(nv, 1).bit_length() - 1)) // 2))
+    while nb > 1 and nb * (nv - 1) > POLYGON_BAND_CAP:
+        nb //= 2
+    return nb
+
+
+def band_grid(bbox, nb):
+    """The kernel's band grid over each polygon's bbox height: ``bbox`` (...,
+    4) float32 [xmin, ymin, xmax, ymax] and ``nb`` the bands asked for (an
+    int64 tensor that broadcasts with it) → (bands (...,) int64, inv (...,)
+    float32), ``inv = nb / (ymax - ymin)`` rounded once. A zero-height,
+    negative, NaN or non-finite height, or an infinite ``inv``, takes one
+    band (``inv`` 0)."""
+    h = bbox[..., 3] - bbox[..., 1]
+    inv = nb.to(torch.float32) / h
+    ok = (nb > 1) & (h > 0) & torch.isfinite(h) & torch.isfinite(inv)
+    return torch.where(ok, nb, torch.ones_like(nb)), torch.where(ok, inv, torch.zeros_like(inv))
+
+
+def band_index(ys, ymin, inv, nb):
+    """The kernel's j(y) = clamp(trunc((y - ymin) * inv), 0, nb - 1), each
+    float32 step rounded alone; 0 where ``nb`` is 1. j is monotone in y, so
+    an edge listed in bands j(lo)..j(hi) is in the band of every row whose
+    horizontal line it straddles (lo <= y < hi). A NaN step gives 0, as the
+    kernel's ``fmaxf`` does. Returns int64."""
+    v = (ys - ymin) * inv
+    v = torch.minimum(v.clamp(min=0), (nb - 1).to(torch.float32))
+    return torch.where(nb > 1, torch.nan_to_num(v, nan=0.0).to(torch.int64), 0)
+
+
+def polygon_bands_plain(ring, bbox, nb: int | None = None):
+    """The plain version of the kernel's y-band lists of one polygon:
+    ``ring`` (nv, 2) float32 its first ``nv`` vertices (edges ``(ring[e],
+    ring[e + 1])``), ``bbox`` (4,) float32, ``nb`` the bands asked for.
+    Each edge with ``lo = min(y1, y2) < hi = max(y1, y2)`` goes into bands
+    ``j(lo)..j(hi)``; a horizontal edge or one with a NaN y straddles no
+    row's line and goes into none. By default the kernel's count,
+    :func:`polygon_band_count`. Returns ``(bands, inv, offsets (bands + 1,)
+    int64, edges (M,) int64)``: band j's edges are
+    ``edges[offsets[j]:offsets[j + 1]]``, ascending."""
+    nv = ring.shape[0]
+    want = polygon_band_count(nv) if nb is None else int(nb)
+    y1, y2 = ring[:-1, 1], ring[1:, 1]
+    lo, hi = torch.minimum(y1, y2), torch.maximum(y1, y2)
+    live = lo < hi  # False for a horizontal edge and, minimum propagating NaN, a NaN y
+    bands, inv = band_grid(bbox, torch.tensor(want, dtype=torch.int64, device=ring.device))
+    j0, j1 = (band_index(v, bbox[1], inv, bands) for v in (lo, hi))
+    js = torch.arange(int(bands), device=ring.device)[:, None]
+    member = live[None, :] & (j0[None, :] <= js) & (js <= j1[None, :])  # (bands, E)
+    offsets = torch.zeros(int(bands) + 1, dtype=torch.int64, device=ring.device)
+    offsets[1:] = torch.cumsum(member.sum(dim=1), 0)
+    return int(bands), inv, offsets, torch.nonzero(member)[:, 1]
+
+
+def _band_lengths(verts, nverts, bbox, nb: int | None):
+    """Per polygon of a bucket, its bands' list lengths as the kernel builds
+    them (``nb`` bands asked for each, or :func:`polygon_band_count`):
+    returns (lengths (K, POLYGON_MAX_BANDS) int64, bands (K,), inv (K,))."""
+    k, v = verts.shape[0], verts.shape[1]
+    dev = verts.device
+    nv = nverts.long().clamp(0, v)
+    asked = torch.tensor([polygon_band_count(int(c)) if nb is None else nb for c in nv.tolist()],
+                         dtype=torch.int64, device=dev)
+    bands, inv = band_grid(bbox, asked)
+    y1, y2 = verts[:, :-1, 1], verts[:, 1:, 1]
+    lo, hi = torch.minimum(y1, y2), torch.maximum(y1, y2)
+    live = (lo < hi) & (torch.arange(v - 1, device=dev)[None, :] < (nv - 1)[:, None])
+    j0, j1 = (band_index(t, bbox[:, 1:2], inv[:, None], bands[:, None]) for t in (lo, hi))
+    lengths = torch.zeros((k, POLYGON_MAX_BANDS), dtype=torch.int64, device=dev)
+    for j in range(POLYGON_MAX_BANDS):
+        lengths[:, j] = (live & (j0 <= j) & (j <= j1)).sum(dim=1)
+    return lengths, bands, inv
+
+
+def staged_tile(xs, ys, live):
+    """The kernel's staging of tiles, in plain torch: ``xs``, ``ys`` (P, R)
+    float32 rows of P tiles, ``live`` (P, R) the rows below true_n. The
+    live rows with a y, bucketed by y into ``POLYGON_BUCKETS`` buckets over
+    their y range (in row order within a bucket), then NaN padding: returns
+    the staged (x, y), each (P, R)."""
+    live = live & ~ys.isnan()
+    inf = torch.tensor(float("inf"), dtype=ys.dtype, device=ys.device)
+    lo = torch.where(live, ys, inf).amin(dim=1, keepdim=True)
+    hi = torch.where(live, ys, -inf).amax(dim=1, keepdim=True)
+    scale = POLYGON_BUCKETS / (hi - lo)
+    scale = torch.where((hi > lo) & torch.isfinite(scale), scale, torch.zeros_like(scale))
+    bucket = ((ys - lo) * scale).clamp(0, POLYGON_BUCKETS - 1).nan_to_num(0.0).long()
+    order = torch.sort(torch.where(live, bucket, POLYGON_BUCKETS), dim=1, stable=True).indices
+    keep = live.gather(1, order)
+    nan = torch.full_like(xs, float("nan"))
+    return (torch.where(keep, xs.gather(1, order), nan),
+            torch.where(keep, ys.gather(1, order), nan))
+
+
+def polygon_join_work(x, y, true_n: int, pair_poly, pair_blk, verts, nverts, bbox, block: int,
+                      nbs=(None,), chunk: int = 64) -> dict:
+    """What the card's ``polygon_join`` does on these inputs, counted from
+    the data in plain torch, ``chunk`` pairs at a time (on any device):
+
+    - ``pairs``: the valid pairs; ``items``: work items (runs of at most
+      ``POLYGON_RUN`` pairs, times the tiles of a block); ``stages``: block
+      tiles staged (an item stages again where its block changes);
+    - ``tested_rows``: the pairs' rows below ``true_n``; ``groups`` and
+      ``groups_met``: the ``POLYGON_GROUP_ROWS``-row groups of their tiles
+      as the kernel stages them (:func:`staged_tile`; rows of one y-bucket
+      in row order, where the kernel's order within a bucket varies), and
+      those whose exact x/y extent meets the polygon's bbox (the rest are
+      skipped); ``in_rows``: rows inside the bbox (compacted);
+      ``warps_any``: 128-row groups in row order with a row inside the bbox
+      (a warp of the one-CTA-per-pair kernel ran its edge loop for each);
+    - ``edge_tests``: (in-bbox row, edge) pairs over every edge of the ring;
+      ``straddles``: those whose edge straddles the row's horizontal line;
+      ``candidates``: per entry of ``nbs`` (bands asked for, ``None`` for
+      :func:`polygon_band_count`), the (row, edge) tests of a band walk.
+
+    With ``pair_poly`` None every block is a pair of every polygon."""
+    dev = x.device
+    k, v = verts.shape[0], verts.shape[1]
+    n_blocks = x.shape[0] // block
+    if pair_poly is None:
+        pp = torch.arange(k, device=dev).repeat_interleave(n_blocks)
+        pb = torch.arange(n_blocks, device=dev).repeat(k)
+        runs = -(-k // POLYGON_RUN) * n_blocks
+        stages = runs
+    else:
+        pp, pb = pair_poly.long(), pair_blk.long()
+        runs = -(-pp.shape[0] // POLYGON_RUN)
+        keep = (pp >= 0) & (pp < k) & (pb >= 0) & (pb < n_blocks)
+        item = torch.nonzero(keep).flatten() // POLYGON_RUN
+        pp, pb = pp[keep], pb[keep]
+        # a valid pair stages its block where it starts an item or follows
+        # another block in its item
+        stages = int(pb.shape[0] and 1) + int(((item[1:] != item[:-1])
+                                                | (pb[1:] != pb[:-1])).sum())
+    tiles = -(-block // POLYGON_TILE_ROWS)
+    nv = nverts.long().clamp(0, v)
+    tables = [_band_lengths(verts, nverts, bbox, nb) for nb in nbs]
+    out = dict(pairs=int(pp.shape[0]), items=runs * tiles, stages=stages * tiles, tested_rows=0,
+               groups=0, groups_met=0, in_rows=0, warps_any=0, edge_tests=0, straddles=0,
+               candidates=[0] * len(nbs))
+    xb, yb = x.view(n_blocks, block), y.view(n_blocks, block)
+    lrow = torch.arange(block, device=dev)
+    g = POLYGON_GROUP_ROWS
+    e_at = torch.arange(v - 1, device=dev)
+    for s in range(0, pp.shape[0], chunk):
+        p, b = pp[s:s + chunk], pb[s:s + chunk]
+        xs, ys = xb.index_select(0, b), yb.index_select(0, b)
+        bb = bbox.index_select(0, p)
+        valid = (b[:, None] * block + lrow[None, :]) < int(true_n)
+        inside = valid & (xs >= bb[:, 0:1]) & (xs <= bb[:, 2:3]) & (ys >= bb[:, 1:2]) & (
+            ys <= bb[:, 3:4])
+        for t0 in range(0, block, POLYGON_TILE_ROWS):
+            t1 = min(block, t0 + POLYGON_TILE_ROWS)
+            sx, sy = staged_tile(xs[:, t0:t1], ys[:, t0:t1], valid[:, t0:t1])
+            gx, gy = sx.view(p.shape[0], -1, g), sy.view(p.shape[0], -1, g)
+            lo_x = torch.where(gx.isnan(), float("inf"), gx).amin(dim=2)
+            hi_x = torch.where(gx.isnan(), float("-inf"), gx).amax(dim=2)
+            lo_y = torch.where(gy.isnan(), float("inf"), gy).amin(dim=2)
+            hi_y = torch.where(gy.isnan(), float("-inf"), gy).amax(dim=2)
+            met = ((hi_x >= bb[:, 0:1]) & (lo_x <= bb[:, 2:3]) & (hi_y >= bb[:, 1:2])
+                   & (lo_y <= bb[:, 3:4]))
+            out["groups"] += met.numel()
+            out["groups_met"] += int(met.sum())
+        out["tested_rows"] += int(valid.sum())
+        out["warps_any"] += int(inside.view(p.shape[0], -1, g).any(dim=2).sum())
+        pi, ri = torch.nonzero(inside, as_tuple=True)
+        out["in_rows"] += int(pi.shape[0])
+        rp, ry = p[pi], ys[pi, ri]
+        out["edge_tests"] += int((nv[rp] - 1).clamp(min=0).sum())
+        for r in range(0, rp.shape[0], 1 << 16):
+            q, yy = rp[r:r + (1 << 16)], ry[r:r + (1 << 16), None]
+            ring = verts.index_select(0, q)
+            straddle = (ring[:, :-1, 1] > yy) != (ring[:, 1:, 1] > yy)
+            out["straddles"] += int((straddle & (e_at[None, :] < (nv[q] - 1)[:, None])).sum())
+        for i, (lengths, bands, inv) in enumerate(tables):
+            j = band_index(ry, bbox[rp, 1], inv[rp], bands[rp])
+            out["candidates"][i] += int(lengths[rp, j].sum())
+    return out
 
 
 def crossing_parity(xs, ys, ring, chunk: int = POLYGON_PLAIN_CHUNK) -> torch.Tensor:

@@ -97,6 +97,20 @@ def join_polygons(k: int, seed: int = 5):
     return polys
 
 
+def star_ring(rng, nv: int, cx: float, cy: float, w: float, h: float, levels: int = 0):
+    """A closed star-shaped ring of ``nv`` float32 vertices (the last repeats
+    the first), drawn as :func:`join_polygons` draws a shell: sorted random
+    angles, radii ``uniform(0.3, 1.0)``; with ``levels`` its y snapped to
+    that many values, so that many edges are horizontal. Returns (nv, 2)."""
+    ang = np.sort(rng.uniform(0, 2 * np.pi, nv - 1))
+    rad = rng.uniform(0.3, 1.0, nv - 1)
+    ys = cy + h * rad * np.sin(ang)
+    if levels:
+        ys = cy + h * np.round((ys - cy) / h * levels) / levels
+    ring = np.stack([cx + w * rad * np.cos(ang), ys], 1)
+    return np.concatenate([ring, ring[:1]]).astype(np.float32)
+
+
 def iso_millis(ms: int) -> str:
     """Epoch millis → ``YYYY-MM-DDTHH:MM:SS.mmmZ``."""
     dt = datetime.datetime(1970, 1, 1) + datetime.timedelta(milliseconds=int(ms))

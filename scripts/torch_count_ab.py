@@ -1,8 +1,8 @@
-"""Time the port's count kernels, its edge gather, its planned gather and
-its grouped aggregation of several checkouts against each other in one run
-on a CUDA card.
+"""Time the port's count kernels, its edge gather, its planned gather, its
+grouped aggregation and its spatial join of several checkouts against each
+other in one run on a CUDA card.
 
-    python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR]
+    python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR] [--join-only]
 
 Each ROOT is a checkout of this repo: ``.``, or another commit unpacked with
 ``git archive`` into an ignored directory. The roots run one after another
@@ -34,7 +34,15 @@ prints one line per shape:
   city boxes under one full-span window (B = T = 1, sparse matches);
 - ``batched_count_hits`` at two dense payloads over 60M seeded random rows
   (B = T = 1): ``random``, one random box and window per query, and
-  ``world``, a box and a window that hold every row.
+  ``world``, a box and a window that hold every row;
+- ``polygon_join`` at bench config 4: 100M GDELT-shaped points (seed 42) in
+  z2 order as f32 columns, 10,000 polygons (``workload.join_polygons``,
+  seed 5) planned onto 8192-row blocks, a launch per vertex bucket: held to
+  its plain version on the first 256 polygons' pairs of each bucket, timed
+  with CUDA events (5 runs of every bucket's launch), and a whole count run
+  (``block_join_step`` per bucket and the counts' copies), p50 of 5 on the
+  host clock, with the tested pairs per second. ``--join-only`` runs this
+  shape alone.
 
 Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
@@ -57,10 +65,11 @@ import numpy as np
 import torch
 
 STEMS = ("batched_count", "batched_count_hits", "batched_edge_gather", "planned_gather",
-         "grouped_agg")
+         "grouped_agg", "polygon_join")
 SAME_SASS = STEMS[:3]  # the count kernels and the edge gather: their SASS must not change
 N_ROWS, STREAM_ROWS, N_QUERIES, STREAM_CHUNKS = 50_000_000, 60_000_000, 64, 17
 AGG_GROUPS, AGG_RTOL = 1024, 1e-12
+JOIN_ROWS, JOIN_POLYGONS, JOIN_BLOCK, JOIN_CHECKED = 100_000_000, 10_000, 8192, 256
 DAY_MS, N_BINS = 86_400_000, 40
 
 
@@ -304,12 +313,96 @@ def agg_timed(label: str, kernels, args, extents) -> None:
         f"time by op: " + device_breakdown(lambda: kernels.grouped_agg(*args, **kw)))
 
 
-def worker(label: str, out: Path) -> None:
+def config4_inputs(dev) -> dict:
+    """Bench config 4 as ``chip_smoke.py``'s phase 8 builds it: the points
+    z2-sorted on the card (``z2_encode``) as padded f32 columns, the
+    polygons' vertex buckets and each bucket's block plan as pair lists.
+    Returns {"x", "y", "n", "block", "buckets": [(ids, (pair_poly, pair_blk,
+    verts, nverts, bbox) on the card, (verts, bbox, nverts) host arrays,
+    pairs)], "tested": rows the plan tests}."""
+    from geomesa_tpu_torch.curve.sfc import Z2SFC
+    from geomesa_tpu_torch.ops.join import pack_polygons_bucketed, polygon_block_plan
+    from geomesa_tpu_torch.ops.kernels import z2_encode
+    from geomesa_tpu_torch.parallel.query import join_pairs
+    from geomesa_tpu_torch.workload import join_polygons, synth_gdelt
+
+    lon, lat, _ = synth_gdelt(JOIN_ROWS, seed=42)
+    n, block = JOIN_ROWS, JOIN_BLOCK
+    xi, yi = Z2SFC().normalized(lon, lat)
+    zs, perm = torch.sort(z2_encode(torch.from_numpy(xi).to(dev), torch.from_numpy(yi).to(dev)),
+                          stable=True)
+    del xi, yi
+    pad_n = -(-n // block) * block
+    xs = torch.zeros(pad_n, dtype=torch.float32, device=dev)
+    ys = torch.zeros(pad_n, dtype=torch.float32, device=dev)
+    xs[:n] = torch.from_numpy(lon.astype(np.float32)).to(dev)[perm]
+    ys[:n] = torch.from_numpy(lat.astype(np.float32)).to(dev)[perm]
+    padz = np.concatenate([zs.cpu().numpy().view(np.uint64),
+                           np.full(pad_n - n, 2**63, dtype=np.uint64)])
+    del zs, perm, lon, lat
+    buckets, tested = [], 0
+    for ids, verts, bbox, nverts in pack_polygons_bucketed(join_polygons(JOIN_POLYGONS, seed=5)):
+        offsets, blocks = polygon_block_plan(padz, bbox.astype(np.float64), block, pad_n)
+        pairs = join_pairs(offsets, blocks, dev)
+        args = (*pairs, *(torch.from_numpy(a).to(dev) for a in (verts, nverts, bbox)))
+        buckets.append((ids, args, (verts, bbox, nverts), (offsets, blocks)))
+        tested += len(blocks) * block
+    return {"x": xs, "y": ys, "n": n, "block": block, "buckets": buckets, "tested": tested}
+
+
+def join_timed(label: str, kernels, inp: dict) -> None:
+    """``polygon_join`` at config 4: each bucket's kernel held to its plain
+    version on the first ``JOIN_CHECKED`` polygons' pairs, the four
+    launches timed together, then whole count runs on the host clock."""
+    import time
+
+    from geomesa_tpu_torch.parallel.query import block_join_step, join_pairs
+
+    x, y, n, block = inp["x"], inp["y"], inp["n"], inp["block"]
+    for ids, args, _, (offsets, blocks) in inp["buckets"]:
+        m = min(JOIN_CHECKED, len(ids))
+        sub = (*join_pairs(offsets[:m + 1], blocks[:offsets[m]], x.device),
+               *(a[:m] for a in args[2:]))
+        got = kernels.polygon_join(x, y, n, *sub, block)
+        want = kernels.polygon_join_plain(x, y, n, *sub, block)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"{label} config 4: polygon_join disagrees with its plain version")
+    ms = cuda_ms(lambda: [kernels.polygon_join(x, y, n, *a, block) for _, a, _, _ in
+                          inp["buckets"]])
+    total = sum(int(kernels.polygon_join(x, y, n, *a, block).sum()) for _, a, _, _ in
+                inp["buckets"])
+
+    def run():
+        for _, args, (verts, bbox, nverts), _ in inp["buckets"]:
+            block_join_step(x, y, n, args[:2], verts, bbox, nverts, block).cpu()
+
+    run()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.percentile(runs, 50))
+    log(f"{label} config 4 polygon_join: {ms:.4f} ms (CUDA events, 5 runs of "
+        f"{len(inp['buckets'])} launches) at N={n} K={JOIN_POLYGONS} block={block}, "
+        f"{sum(len(b[3][1]) for b in inp['buckets'])} pairs; equal to plain on "
+        f"{JOIN_CHECKED} polygons' pairs a bucket; {total} hits; count run p50 {p50:.3f} ms "
+        f"over 5 (min {min(runs):.3f}, max {max(runs):.3f}; host clock), tested "
+        f"{inp['tested'] / (p50 / 1e3) / 1e9:.4f} Gpairs/s; device time by op: "
+        + device_breakdown(lambda: [kernels.polygon_join(x, y, n, *a, block)
+                                    for _, a, _, _ in inp["buckets"]]))
+
+
+def worker(label: str, out: Path, join_only: bool = False) -> None:
     sys.path.insert(0, os.getcwd())
     from geomesa_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
     dump_builds(kernels, label, out)
+    if join_only:
+        join_timed(label, kernels, config4_inputs(dev))
+        return
     ds, *inputs = config2_inputs(dev)
     batch_p50(label, ds)
     timed(label, "config 2", kernels, "batched_count", *inputs)
@@ -330,19 +423,22 @@ def worker(label: str, out: Path) -> None:
                         ("dense world", lambda d: dense_inputs(d, world=True))):
         timed(label, shape, kernels, "batched_count_hits", *make(dev))
         torch.cuda.empty_cache()
+    join_timed(label, kernels, config4_inputs(dev))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", help="checkouts of this repo, in the order to run")
     ap.add_argument("--out", default="chiprun_out/count_ab")
+    ap.add_argument("--join-only", action="store_true",
+                    help="time polygon_join at bench config 4 and nothing else")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out = Path(args.out).resolve()
     if args.worker:
-        return worker(args.worker, out)
+        return worker(args.worker, out, args.join_only)
     if not args.roots:
         ap.error("give at least one ROOT")
     log("card: " + subprocess.run(
@@ -351,8 +447,9 @@ def main() -> None:
     for i, root in enumerate(args.roots):
         label = f"run{i + 1}:{Path(root).resolve().name}"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", label,
-                        "--out", str(out / f"run{i + 1}")], cwd=root, check=True)
-    for stem in SAME_SASS:
+                        "--out", str(out / f"run{i + 1}")]
+                       + (["--join-only"] if args.join_only else []), cwd=root, check=True)
+    for stem in () if args.join_only else SAME_SASS:
         first = sass_instructions(out / "run1" / f"{stem}.sass")
         for i in range(2, len(args.roots) + 1):
             same = sass_instructions(out / f"run{i}" / f"{stem}.sass") == first
