@@ -1,7 +1,8 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
 and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
 standing-query stream, a date-less point schema, the grouped aggregation,
-density and KNN, and the spatial join end to end on one CUDA card.
+density and KNN, the spatial join, and bench config 5 with a line store on
+the xz3 and xz2 indexes end to end on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -166,6 +167,36 @@ Phases (any failure exits non-zero, and no result line is printed):
    version's, its bound (``join_floor``: what the inputs need) and the
    earlier all-edges floor, and the join's ``planned_gather`` beside its
    plain version's and its bound.
+
+9. bench config 5 (``bench.py:787``, ``bench_xz2``) and a line store:
+   9a, ``batched_overlap`` (without time, (B, T) in {(1, 0), (8, 0)}, and
+   with time, {(1, 1), (8, 16)}), ``batched_edge_gather_overlap`` (capacity
+   512 and 8, so that some queries' lanes overflow) against their plain
+   versions on the card, exact, at N = 1,000,003 config-5 bboxes (seed 9) in
+   xz2 order and shuffled, with 300 zero-size, 300 whole-world and 300
+   stamped invalid rows, Q in {1, 64, one past the tile}, with and without a
+   base/true_n tail, payloads with city boxes packed with the overlap pad,
+   boxes on rows' opposing edges, zero-size and whole-world boxes, dead
+   slots (both pads and inverted boxes), all-dead queries and live, dead
+   and unconstrained windows; ``planned_gather_overlap`` against its plain
+   version on an empty pair list, the last block with ``true_n`` inside it,
+   a block shared by 65 and by 300 pairs, every block, 3,500 random,
+   duplicated and out-of-order pairs, and pairs out of range (0 rows each).
+   9b, config 5 as the bench runs it: 4M bboxes (seed 9), ``xz2_sfc(12)``
+   codes sorted on the card, 31-bit columns, the 64 city boxes (seed 7)
+   packed one overlap slot each, ``batched_overlap_step`` counts equal to
+   the bench's int referee (f64 boundary rows logged), p50 of 20 batches by
+   host clock as ``xz2_linestring_bbox_query_p50_latency`` (ms per query);
+   the kernel beside its plain version and bound, and at 64M rows (the 4M
+   repeated 16 times, 1 GB of columns). 9c, ``dtg:Date,*geom:LineString``
+   (day bins) with 4M line strings on config 5's boxes
+   (``workload.box_linestrings``) dated as ``synth_gdelt`` dates, written
+   through ``DataStore`` (xz3 + xz2); the 64 city-box 2-7 day queries, 8
+   boxes with no time (planned on xz2) and one box across the antimeridian:
+   ``count_many`` loose against a numpy int referee, exact against an f64
+   referee, ``select_many`` of the 64 and ``query()`` of 17 against the f64
+   referee (rows, fid sets, the index planned); timings with their host
+   split; the three kernels alone at the store's shapes with their bounds.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -830,10 +861,12 @@ def edge_floor(x, y, bins, offs, boxes, times, counts, hits, capacity: int,
 
 
 def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_bytes: int):
-    """The least work of ``planned_gather`` on these pairs: per pair, the
-    predicate of :func:`predicate_floor_ops` on its block's valid rows (the
-    cheaper test order, live slots only); bytes are each distinct block's
-    four columns read once, the pair lists read (4 + 4 B a pair) and the
+    """The least work of ``planned_gather`` (or, over six bbox columns, of
+    ``planned_gather_overlap``) on these pairs: per pair, the predicate of
+    :func:`predicate_floor_ops` (the overlap test's
+    :data:`OVERLAP_SLOT_OPS`) on its block's valid rows (the cheaper test
+    order, live slots only); bytes are each distinct block's four (six)
+    columns read once, the pair lists read (4 + 4 B a pair) and the
     pair counts written (8 B), the payload read once and ``pos_bytes`` per
     written position (the positions' element size). Returns ((alu, all),
     bytes)."""
@@ -841,6 +874,10 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_by
 
     from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
+    from geomesa_tpu_torch.ops.kernels import overlap_masks
+
+    overlap = len(cols) == 6  # a bbox layout: the overlap form
+    box_ops = OVERLAP_SLOT_OPS if overlap else BOX_SLOT_OPS
     live = [(sum(1 for xlo, xhi, ylo, yhi in b if xlo <= xhi and ylo <= yhi),
              sum(1 for blo, olo, bhi, ohi in t if (blo, olo) <= (bhi, ohi)))
             for b, t in zip(boxes.tolist(), times.tolist())]
@@ -849,13 +886,18 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_by
     alu = total = 0
     for s in range(0, len(pair_q), 1024):
         pq, pb = pair_q[s:s + 1024].long(), pair_blk[s:s + 1024].long()
-        x, y, bins, offs = (c.index_select(0, pb) for c in blocks)
+        sel = [c.index_select(0, pb) for c in blocks]
+        bins, offs = sel[-2:]
         valid = (pb[:, None] * JOIN_BLOCK + lrow[None, :]) < int(true_n)
         bx, tm = boxes.index_select(0, pq), times.index_select(0, pq)
-        in_box = torch.zeros_like(valid)
-        for k in range(bx.shape[1]):  # a dead slot holds no row
-            b = bx[:, k, :, None]
-            in_box |= (x >= b[:, 0]) & (x <= b[:, 1]) & (y >= b[:, 2]) & (y <= b[:, 3])
+        if overlap:
+            in_box, _ = overlap_masks(*sel[:4], None, None, bx, None)
+        else:
+            x, y = sel[:2]
+            in_box = torch.zeros_like(valid)
+            for k in range(bx.shape[1]):  # a dead slot holds no row
+                b = bx[:, k, :, None]
+                in_box |= (x >= b[:, 0]) & (x <= b[:, 1]) & (y >= b[:, 2]) & (y <= b[:, 3])
         key = bins.long() * 2**32 + offs.long()
         in_time = torch.zeros_like(valid)
         for k in range(tm.shape[1]):
@@ -866,13 +908,13 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_by
         ntime = (in_time & valid).sum(dim=1).tolist()
         for qi, r, nb_, nt_ in zip(pq.tolist(), rows, nbox, ntime):
             lb, lt = live[qi]
-            alu_p, total_p = (min(r * BOX_SLOT_OPS[i] * lb + nb_ * TIME_SLOT_OPS[i] * lt,
-                                  r * TIME_SLOT_OPS[i] * lt + nt_ * BOX_SLOT_OPS[i] * lb)
+            alu_p, total_p = (min(r * box_ops[i] * lb + nb_ * TIME_SLOT_OPS[i] * lt,
+                                  r * TIME_SLOT_OPS[i] * lt + nt_ * box_ops[i] * lb)
                               for i in (0, 1))
             alu += alu_p
             total += total_p
     distinct = int(torch.unique(pair_blk).numel())
-    nbytes = (16 * JOIN_BLOCK * distinct + 16 * len(pair_q)
+    nbytes = (4 * len(cols) * JOIN_BLOCK * distinct + 16 * len(pair_q)
               + 4 * (boxes.numel() + times.numel()) + pos_bytes * int(hits.sum()))
     return (alu, total), nbytes
 
@@ -2943,10 +2985,716 @@ def stream_path(dev, max_err: int, n_rows: int, n_chunks: int, n_queries: int) -
     return record
 
 
+# -- phase 9: bench config 5, line stores on the XZ indexes ----------------------
+
+XZ_ROWS = 4_000_000  # bench config 5's M on an accelerator (bench.py:797)
+XZ_TILES = 16  # K1 also timed at 16 x XZ_ROWS = 64M rows (1 GB of bbox columns)
+XZ_CHECK_ROWS = 1_000_003  # phase 9a's rows
+XZ_BATCHES = 20  # bench config 5's p50 batches (bench.py ITERS)
+XZ_DATELINE = (130.0, 20.0, -90.0, 60.0)  # wraps the antimeridian: Tokyo and Mexico City
+# least int32 instructions per (row, query, live box slot) of the overlap
+# test: four signed compares (ISETP, each folding its AND into the
+# predicate); the xhi/yhi sums are per slot, not per row
+OVERLAP_SLOT_OPS = (4, 4)
+# the overlap kernels' cull per loaded row: min of xmin and ymin, max of
+# xmax and ymax (four IMNMX), plus with time the 64-bit key's min and max
+# (four ISETP)
+OVERLAP_EXTENT_OPS = {False: 4, True: 8}
+
+
+def xz_int_columns(xmin, ymin, xmax, ymax):
+    """Config 5's bounds normalized at 31 bits as bench.py:819-823 does
+    (int32, by the port's normalizers)."""
+    from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
+
+    nlon, nlat = norm_lon(31), norm_lat(31)
+    return [nlon.normalize(xmin).astype(np.int32), nlat.normalize(ymin).astype(np.int32),
+            nlon.normalize(xmax).astype(np.int32), nlat.normalize(ymax).astype(np.int32)]
+
+
+def xz2_order(dev, xmin, ymin, xmax, ymax):
+    """The xz2_sfc(12) codes of the boxes (host, as curve/xz.py computes
+    them) sorted on the card (a stable torch.sort): the permutation."""
+    import torch
+
+    from geomesa_tpu_torch.curve.xz import xz2_sfc
+
+    codes = xz2_sfc(12).index((xmin, ymin), (xmax, ymax))
+    d = torch.from_numpy(codes.view(np.int64)).to(dev)
+    return torch.sort(d, stable=True).indices.cpu().numpy()
+
+
+def overlap_live(boxes, times):
+    """Per query, its live box slots and live windows (the kernels' rule)."""
+    lb = [sum(1 for xlo, xhi, ylo, yhi in b if xlo <= xhi and ylo <= yhi) for b in boxes.tolist()]
+    if times is None:
+        return [(n, 0) for n in lb]
+    lt = [sum(1 for blo, olo, bhi, ohi in t if (blo, olo) <= (bhi, ohi)) for t in times.tolist()]
+    return list(zip(lb, lt))
+
+
+def overlap_floor(cols, n: int, boxes, times, keep, counts=None, hits=None,
+                  capacity: int = 0):
+    """The least work of the overlap kernels on these inputs: bytes are
+    each row of a chunk that some query keeps (``keep``, the cull's (chunk,
+    query) pairs) read once, 16 or 24 B, the payload read once and the
+    counts written; operations are the kept (row, query) pairs' overlap and
+    window compares (the cheaper order, live slots only), plus the extent
+    pass's min/max over every loaded row (:data:`OVERLAP_EXTENT_OPS`). With
+    ``counts`` and ``hits`` (the edge gather's form), the edge compares per
+    matched (row, query) and live slot and 4 B per written candidate.
+    ``cols`` are the (padded) resident columns, ``n`` the valid rows.
+    Returns ((alu, all), bytes, matches)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import JOIN_BLOCK, overlap_masks
+
+    with_time = times is not None
+    live = overlap_live(boxes, times)
+    pad = -cols[0].shape[0] % JOIN_BLOCK
+    blocks = [torch.nn.functional.pad(c, (0, pad)).view(-1, JOIN_BLOCK) for c in cols]
+    lrow = torch.arange(JOIN_BLOCK, device=cols[0].device)
+    ops = matches = 0
+    for qi in range(boxes.shape[0]):
+        ch = torch.nonzero(keep[:, qi]).flatten()
+        if ch.numel() == 0:
+            continue
+        rows = [b.index_select(0, ch) for b in blocks] + [None] * (6 - len(blocks))
+        valid = (ch[:, None] * JOIN_BLOCK + lrow[None, :]) < n
+        in_box, _ = overlap_masks(*rows[:4], None, None, boxes[qi:qi + 1], None)
+        in_box = in_box.view(valid.shape) & valid
+        r = int(valid.sum())
+        lb, lt = live[qi]
+        if with_time:
+            key = rows[4].long() * 2**32 + rows[5].long()
+            in_time = torch.zeros_like(valid)
+            for t in times[qi].tolist():
+                in_time |= (key >= t[0] * 2**32 + t[1]) & (key <= t[2] * 2**32 + t[3])
+            in_time &= valid
+            ops += min(r * OVERLAP_SLOT_OPS[0] * lb + int(in_box.sum()) * TIME_SLOT_OPS[0] * lt,
+                       r * TIME_SLOT_OPS[0] * lt + int(in_time.sum()) * OVERLAP_SLOT_OPS[0] * lb)
+            matches += int((in_box & in_time).sum())
+        else:
+            ops += r * OVERLAP_SLOT_OPS[0] * lb
+            matches += int(in_box.sum())
+    ops += OVERLAP_EXTENT_OPS[with_time] * cols[0].shape[0]
+    kept_chunks = int(keep.any(dim=1).sum())
+    nbytes = (4 * len(cols) * JOIN_BLOCK * kept_chunks + 4 * boxes.numel()
+              + (0 if times is None else 4 * times.numel()) + 4 * boxes.shape[0])
+    if counts is not None:
+        ops += sum(int(c) * (EDGE_BOX_SLOT_OPS * lb + EDGE_TIME_SLOT_OPS * lt)
+                   for c, (lb, lt) in zip(counts.tolist(), live))
+        nbytes += 4 * boxes.shape[0] + 4 * int(hits.clamp(max=capacity).long().sum())
+    return (ops, ops), nbytes, matches
+
+
+def overlap_payload(rng, q: int, nb: int, nt: int, city_boxes, rows4, bins, offs):
+    """(q, nb, 4) boxes and (q, nt, 4) windows for phase 9a: city boxes
+    packed as a line store packs them (the overlap pad), boxes with an edge
+    on a row's opposing bound (so that rows share an edge bucket with
+    them), zero-size and whole-world boxes, live slots behind dead ones
+    (both pads and inverted boxes), all-dead queries, and windows live,
+    dead and unconstrained."""
+    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
+
+    xmin, ymin, xmax, ymax = rows4
+    top = 2**31 - 1
+    dead = ([1, 0, 1, 0], [top, -1, top, -1], [top, 0, 0, top], [0, top, 5, 4])
+    unconstrained = [0, -1, top, top]
+    boxes = np.empty((q, nb, 4), np.int64)
+    times = np.empty((q, nt, 4), np.int64)
+    for qi in range(q):
+        kind = qi % 7
+        i = int(rng.integers(len(xmin)))
+        x0, y0, x1, y1 = int(xmin[i]), int(ymin[i]), int(xmax[i]), int(ymax[i])
+        if kind == 0:  # packed city boxes, the overlap pad behind them
+            sel = city_boxes[rng.integers(len(city_boxes), size=int(rng.integers(1, nb + 1)))]
+            boxes[qi] = pack_boxes(sel, slots=nb, overlap=True)
+        else:
+            boxes[qi] = [dead[int(rng.integers(len(dead)))] for _ in range(nb)]
+            for s in rng.choice(nb, min(nb, int(rng.integers(1, 3))), replace=False):
+                d = int(rng.integers(1, 2**24))
+                if kind == 1:  # west edge on a row's xmax, south edge on its ymax
+                    boxes[qi, s] = [x1, min(top, x1 + d), y1, min(top, y1 + d)]
+                elif kind == 2:  # east edge on a row's xmin, north edge on its ymin
+                    boxes[qi, s] = [max(0, x0 - d), x0, max(0, y0 - d), y0]
+                elif kind == 3:  # zero-size, on a row's corner
+                    boxes[qi, s] = [x0, x0, y1, y1]
+                elif kind == 4:  # the whole world
+                    boxes[qi, s] = [0, top, 0, top]
+                elif kind == 6:  # zero width on the whole-world rows' xmax: all edge candidates
+                    boxes[qi, s] = [top, top, 0, top]
+                # kind 5: every slot dead
+        ws = []
+        for _ in range(nt):
+            w, b = int(rng.integers(4)), int(bins[i])
+            if w == 0:
+                ws.append([1, 0, 0, -1])  # the pad
+            elif w == 1:
+                ws.append(unconstrained)
+            elif w == 2:  # dead when it ends in its first bin before it starts
+                ws.append([b, int(offs[i]), b + int(rng.integers(0, 3)),
+                           int(rng.integers(0, DAY_MS))])
+            else:
+                ws.append([b - 1, int(rng.integers(0, DAY_MS)), b, int(offs[i])])
+        if kind in (0, 6):  # packed: live windows first, the pad after
+            live = [w for w in ws if (w[0], w[1]) <= (w[2], w[3])] or [unconstrained]
+            times[qi] = pack_times(np.array(live if kind == 0 else [unconstrained], np.int32),
+                                   slots=nt)
+        else:
+            times[qi] = ws
+    return (np.ascontiguousarray(boxes.astype(np.int32)),
+            np.ascontiguousarray(times.astype(np.int32)) if nt else None)
+
+
+def overlap_rows(dev, n: int, seed: int):
+    """Phase 9a's rows: ``n`` config-5 bboxes (seed 9) normalized, in xz2
+    order, with adversarial rows spliced in: zero-size boxes, whole-world
+    boxes and stamped invalid rows (xmin = ymin = INT32_MAX, xmax = ymax =
+    -1); bins over 30 days and ms offsets. Returns (int columns (6,) in xz2
+    order, their f64 city boxes as int boxes)."""
+    from geomesa_tpu_torch.workload import xz_boxes
+
+    rng = np.random.default_rng(seed)
+    b = xz_boxes(n, 9)
+    perm = xz2_order(dev, *b)
+    cols = [c[perm] for c in xz_int_columns(*b)]
+    top = 2**31 - 1
+    spots = rng.choice(n, 3 * 300, replace=False).reshape(3, 300)
+    for c in (0, 1):  # zero size: max = min
+        cols[c + 2][spots[0]] = cols[c][spots[0]]
+    for c in (0, 1):  # the whole world
+        cols[c][spots[1]], cols[c + 2][spots[1]] = 0, top
+    for c in (0, 1):  # stamped invalid
+        cols[c][spots[2]], cols[c + 2][spots[2]] = top, -1
+    bins = rng.integers(0, 30, n).astype(np.int32)
+    offs = rng.integers(0, DAY_MS, n).astype(np.int32)
+    return cols + [bins, offs]
+
+
+def check_overlap_kernels(dev, n: int, seed: int) -> dict:
+    """Phase 9a: ``batched_overlap`` (both forms), ``batched_edge_gather_overlap``
+    and ``planned_gather_overlap`` against their plain versions on the card,
+    exact, on config-5 rows in xz2 order and shuffled (see the module
+    docstring). Returns max |difference| per kernel."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        EDGE_CAPACITY, JOIN_BLOCK, batched_edge_gather_overlap,
+        batched_edge_gather_overlap_plain, batched_overlap, batched_overlap_plain,
+        planned_gather_overlap, planned_gather_overlap_plain)
+    from geomesa_tpu_torch.store.backends import int_boxes
+    from geomesa_tpu_torch.workload import make_queries
+
+    rng = np.random.default_rng(seed)
+    host = overlap_rows(dev, n, seed)
+    city = int_boxes(make_queries(256, 7)[0])
+    worst = {"batched_overlap": 0, "batched_edge_gather_overlap": 0,
+             "planned_gather_overlap": 0}
+    overflowed = fitted = 0
+    for order in ("xz2", "shuffled"):
+        h = host
+        if order == "shuffled":
+            p = rng.permutation(n)
+            h = [c[p] for c in host]
+        cols = [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in h]
+        for nb, nt in ((1, 0), (8, 0), (1, 1), (8, 16)):
+            for q in (1, 64, kernels.q_tile_for(nb, nt, kernel="batched_overlap") + 1):
+                for base, true_n in ((0, n), (3 * 4096, 3 * 4096 + n - 777)):
+                    bx, tm = overlap_payload(rng, q, nb, max(nt, 1), city, h[:4], h[4], h[5])
+                    boxes = torch.from_numpy(bx).to(dev)
+                    times = torch.from_numpy(tm).to(dev) if nt else None
+                    c = cols if nt else cols[:4]
+                    got = batched_overlap(c, base, true_n, boxes, times)
+                    want = batched_overlap_plain(c, base, true_n, boxes, times)
+                    torch.cuda.synchronize()
+                    err = int((got.long() - want.long()).abs().max())
+                    worst["batched_overlap"] = max(worst["batched_overlap"], err)
+                    msg = (f"  batched_overlap {order} N={n} Q={q} B={nb} T={nt} base={base} "
+                           f"true_n={true_n}: max_abs_err={err} (matches "
+                           f"{int(want.long().sum())})")
+                    if nt:
+                        for cap in (EDGE_CAPACITY, 8):
+                            args = (cols, base, true_n, boxes, times, cap)
+                            gc_, gp, gh = batched_edge_gather_overlap(*args)
+                            wc, wp, wh = batched_edge_gather_overlap_plain(*args)
+                            torch.cuda.synchronize()
+                            e = max(int((gc_.long() - wc.long()).abs().max()),
+                                    int((gc_.long() - want.long()).abs().max()),
+                                    int((gh.long() - wh.long()).abs().max()))
+                            hh = gh[:, 0].cpu().numpy()
+                            fits = hh <= cap
+                            lanes = gp[:, 0].cpu().numpy()
+                            e = max(e, int(np.abs(lanes[fits] - wp[:, 0].cpu().numpy()[fits])
+                                           .max(initial=0)))
+                            if (~fits).any():
+                                _, allp, _ = batched_edge_gather_overlap_plain(
+                                    cols, base, true_n, boxes, times, int(hh.max()))
+                                allp = allp[:, 0].cpu().numpy()
+                                for k in np.nonzero(~fits)[0]:
+                                    got_l = lanes[k]
+                                    if (got_l < 0).any() or len(np.unique(got_l)) != cap \
+                                            or not np.isin(got_l, allp[k, :hh[k]]).all():
+                                        e = max(e, 1)
+                            overflowed += int((~fits).sum())
+                            fitted += int(fits.sum())
+                            worst["batched_edge_gather_overlap"] = max(
+                                worst["batched_edge_gather_overlap"], e)
+                            msg += (f"; edge gather cap={cap}: max_abs_err={e} (candidates "
+                                    f"{int(hh.sum())}, {int((~fits).sum())} overflowed)")
+                            err = max(err, e)
+                    log(msg)
+                    if err:
+                        raise AssertionError(f"an overlap kernel disagrees with plain at {order} "
+                                             f"N={n} Q={q} B={nb} T={nt} base={base}")
+        # the planned gather's overlap form, on pair lists as select_many and worse make them
+        padded = -(-n // JOIN_BLOCK) * JOIN_BLOCK
+        pcols = [torch.from_numpy(np.concatenate([c, np.zeros(padded - n, np.int32)])).to(dev)
+                 for c in h]
+        n_blocks = padded // JOIN_BLOCK
+        bx, tm = overlap_payload(rng, 65, 8, 16, city, h[:4], h[4], h[5])
+        boxes, times = torch.from_numpy(bx).to(dev), torch.from_numpy(tm).to(dev)
+        shared = int(rng.integers(n_blocks))
+        rand_q = rng.integers(0, 65, 3000)
+        rand_b = rng.integers(0, n_blocks, 3000)
+        cases = [
+            ("empty", [], [], n),
+            ("last block", [64, 3], [n_blocks - 1] * 2, n - 100),
+            ("shared block", list(range(65)), [shared] * 65, n),
+            ("shared block x300", [i % 65 for i in range(300)], [shared] * 300, n),
+            ("every block", [5] * n_blocks, list(range(n_blocks)), n),
+            ("random, duplicated, out of order", list(rand_q) + list(rand_q[:500]),
+             list(rand_b) + list(rand_b[:500]), n - 5000),
+        ]
+        for name, pq, pbk, true_n in cases:
+            pq_t = torch.tensor(np.asarray(pq, np.int32), dtype=torch.int32, device=dev)
+            pb_t = torch.tensor(np.asarray(pbk, np.int32), dtype=torch.int32, device=dev)
+            before = kernels.launches["planned_gather_overlap"]
+            got_p, got_h = planned_gather_overlap(pcols, true_n, pq_t, pb_t, boxes, times)
+            want_p, want_h = planned_gather_overlap_plain(pcols, true_n, pq_t, pb_t, boxes, times)
+            torch.cuda.synchronize()
+            launched = kernels.launches["planned_gather_overlap"] - before
+            same = torch.equal(got_p, want_p) and torch.equal(got_h, want_h)
+            worst["planned_gather_overlap"] = max(worst["planned_gather_overlap"], 0 if same else 1)
+            log(f"  planned_gather_overlap {order} {name}: {len(pq)} pairs over "
+                f"{len(set(pbk))} distinct blocks, {int(want_h.sum())} rows, true_n={true_n}, "
+                f"{launched} launch(es): {'equal' if same else 'DIFFERENT'}")
+            if not same or launched != (1 if len(pq) else 0):
+                raise AssertionError(f"planned_gather_overlap disagrees with plain at {name}")
+        # pairs out of range count 0 and leave the in-range pairs' rows as they are
+        oq = np.concatenate([rand_q[:200], [-1, 65, 70, 3, 4]]).astype(np.int32)
+        ob = np.concatenate([rand_b[:200], [0, 1, 2, -1, n_blocks + 3]]).astype(np.int32)
+        got_p, got_h = planned_gather_overlap(pcols, n, torch.from_numpy(oq).to(dev),
+                                              torch.from_numpy(ob).to(dev), boxes, times)
+        want_p, want_h = planned_gather_overlap_plain(
+            pcols, n, torch.from_numpy(oq[:200]).to(dev), torch.from_numpy(ob[:200]).to(dev),
+            boxes, times)
+        torch.cuda.synchronize()
+        same = (torch.equal(got_p, want_p) and torch.equal(got_h[:200], want_h)
+                and int(got_h[200:].abs().sum()) == 0)
+        log(f"  planned_gather_overlap {order} out of range: 5 pairs out of range among 205: "
+            f"{'equal, 0 rows each' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("planned_gather_overlap: pairs out of range must count 0")
+    log(f"  overlap edge gather: {fitted} queries held every candidate, {overflowed} "
+        f"overflowed their lanes")
+    if not (overflowed and fitted):
+        raise AssertionError("the overlap edge gather: queries that fit and that overflow "
+                             "their lanes must both occur in phase 9a")
+    return worst
+
+
+def xz_int_referee(ib, boxes_f64, windows_ms=None, bins=None, offs=None):
+    """Loose overlap counts by an independent numpy int-domain evaluation:
+    ``ib`` the bounds normalized by :func:`norm31` (xmin, ymin, xmax, ymax,
+    int64), each query box normalized the same way (a box that wraps the
+    antimeridian as its two halves), and with ``windows_ms`` (day, ms of
+    day) instants ``bins``/``offs`` with DURING's exclusive ends taken as
+    [lo + 1, hi - 1]."""
+    xmin, ymin, xmax, ymax = ib
+    out = []
+    for k, (x1, y1, x2, y2) in enumerate(boxes_f64):
+        halves = [(x1, x2)] if x1 <= x2 else [(x1, 180.0), (-180.0, x2)]
+        qy1, qy2 = norm31(y1, -90.0, 90.0), norm31(y2, -90.0, 90.0)
+        m = np.zeros(len(xmin), bool)
+        for a, b in halves:
+            m |= ((xmin <= norm31(b, -180.0, 180.0)) & (xmax >= norm31(a, -180.0, 180.0))
+                  & (ymin <= qy2) & (ymax >= qy1))
+        if windows_ms is not None:
+            lo, hi = windows_ms[k]
+            (blo, olo), (bhi, ohi) = divmod(lo + 1, DAY_MS), divmod(hi - 1, DAY_MS)
+            m &= (((bins > blo) | ((bins == blo) & (offs >= olo)))
+                  & ((bins < bhi) | ((bins == bhi) & (offs <= ohi))))
+        out.append(int(m.sum()))
+    return out
+
+
+def xz_f64_rows(b, box, window=None, t=None):
+    """Exact rows of ``BBOX`` (its bbox-intersects semantics on each
+    feature's f64 bounds ``b``, the antimeridian form included) ``AND
+    DURING`` by brute force."""
+    xmin, ymin, xmax, ymax = b
+    x1, y1, x2, y2 = box
+    if x1 > x2:
+        mx = (xmax >= x1) | (xmin <= x2)
+    else:
+        mx = (xmax >= x1) & (xmin <= x2)
+    m = mx & (ymax >= y1) & (ymin <= y2)
+    if window is not None:
+        m &= (t > window[0]) & (t < window[1])
+    return np.nonzero(m)[0]
+
+
+def config5_step(dev, m: int, tiles: int) -> tuple[dict, int]:
+    """Phase 9b: bench config 5 as ``bench.py:787-860`` runs it. Returns
+    the ``batched_overlap`` record's timing fields at config 5's shape and
+    the kernel's launches by the bench's batches."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        batched_overlap, batched_overlap_plain, overlap_chunk_pairs)
+    from geomesa_tpu_torch.parallel.query import batched_overlap_step
+    from geomesa_tpu_torch.parallel.residency import stage_columns
+    from geomesa_tpu_torch.workload import make_queries, pack_query_boxes, xz_boxes
+
+    t0 = time.perf_counter()
+    b = xz_boxes(m, 9)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm = xz2_order(dev, *b)
+    host = {k: c[perm] for k, c in zip(("xmin", "ymin", "xmax", "ymax"), xz_int_columns(*b))}
+    build_s = time.perf_counter() - t0
+    cols, padded = stage_columns(host, dev)
+    cols = [cols[k] for k in ("xmin", "ymin", "xmax", "ymax")]
+    boxes_f64, _ = make_queries(N_QUERIES, 7)
+    qboxes = pack_query_boxes(boxes_f64, overlap=True)
+    dev_boxes = torch.from_numpy(qboxes).to(dev)
+    q = len(boxes_f64)
+
+    def run_batch():
+        return batched_overlap_step(cols, m, dev_boxes).cpu().numpy()
+
+    counts = run_batch()
+    lat = []
+    for _ in range(XZ_BATCHES):
+        s = time.perf_counter()
+        run_batch()
+        lat.append((time.perf_counter() - s) * 1e3)
+    launched = kernels.launches["batched_overlap"]
+    per_query = p50(lat) / q
+    # the bench's int-domain referee (bench.py:853-858) and its f64 boundary rows
+    ix = [host[k] for k in ("xmin", "ymin", "xmax", "ymax")]
+    cpu_int = [int(((ix[0] <= bq[1]) & (ix[2] >= bq[0]) & (ix[1] <= bq[3]) & (ix[3] >= bq[2]))
+                   .sum()) for bq in qboxes[:, 0]]
+    if counts.astype(np.int64).tolist() != cpu_int:
+        raise AssertionError("config 5: batched_overlap_step counts != the bench's int referee")
+    xmin, ymin, xmax, ymax = b
+    cpu_f64 = [int(((xmin <= x2) & (xmax >= x1) & (ymin <= y2) & (ymax >= y1)).sum())
+               for x1, y1, x2, y2 in boxes_f64]
+    boundary = int(np.abs(np.array(cpu_int) - np.array(cpu_f64)).sum())
+    log(f"phase 9b config 5: {m} trajectory bboxes (seed 9) in {synth_s:.3f} s, xz2_sfc(12) "
+        f"codes and their sort on the card in {build_s:.3f} s; {q} city boxes (seed 7), one "
+        f"overlap slot each; counts equal the bench's int referee ({sum(cpu_int)} matches), "
+        f"f64 boundary rows {boundary}")
+    log(f"phase 9b xz2_linestring_bbox_query_p50_latency: {per_query:.4f} ms per query "
+        f"(p50 {p50(lat):.3f} ms a batch of {q} over {XZ_BATCHES} batches by host clock, "
+        f"each ending in its counts' copy to the host; min {min(lat):.3f}, max "
+        f"{max(lat):.3f})")
+
+    if dev.type != "cuda":
+        return {}, launched
+
+    # the kernel alone, beside its plain version and its bound
+    args = (cols, 0, m, dev_boxes)
+    got = batched_overlap(*args)
+    want = batched_overlap_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError("batched_overlap disagrees with plain at config 5's shape")
+    ms = cuda_ms(lambda: batched_overlap(*args), 10)
+    plain_ms = cuda_ms(lambda: batched_overlap_plain(*args), 1)
+    keep = overlap_chunk_pairs(*args)
+    ops, nbytes, matches = overlap_floor(cols, m, dev_boxes, None, keep)
+    if matches != int(want.long().sum()):
+        raise AssertionError("the overlap bound's count over the kept chunks disagrees with "
+                             "the plain version")
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_fields(ops, nbytes)}
+    share = rec["bound_ms"] / ms
+    log(f"phase batched_overlap timing: {ms:.4f} ms (CUDA events, 10 launches) at N={m} Q={q} "
+        f"B=1, no time; plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']}: {ops[0]} int32 ops over {int(keep.sum())} kept of "
+        f"{keep.numel()} (chunk, query) pairs; {nbytes} bytes over "
+        f"{int(keep.any(dim=1).sum())} of {keep.shape[0]} chunks), {share:.4f} of it")
+    if share > 1:
+        raise AssertionError(f"batched_overlap reads {share:.4f} of its bound")
+
+    # the same rows repeated to 1 GB of columns
+    big = [c[:m].repeat(tiles) for c in cols]
+    del cols
+    free_card()
+    bn = m * tiles
+    bargs = (big, 0, bn, dev_boxes)
+    got = batched_overlap(*bargs)
+    torch.cuda.synchronize()
+    if got.long().tolist() != [tiles * v for v in cpu_int]:
+        raise AssertionError(f"batched_overlap at {bn} rows != {tiles} x the config-5 counts")
+    big_ms = cuda_ms(lambda: batched_overlap(*bargs), 5)
+    keep = overlap_chunk_pairs(*bargs)
+    b_ops, b_bytes, _ = overlap_floor(big, bn, dev_boxes, None, keep)
+    big_rec = bound_fields(b_ops, b_bytes)
+    log(f"phase batched_overlap timing at {bn} rows (config 5's {m} rows in xz2 order, "
+        f"repeated {tiles} times: {16 * bn} bytes of columns): {big_ms:.4f} ms (CUDA events, "
+        f"5 launches); counts {tiles} x config 5's; bound {big_rec['bound_ms']:.4f} ms "
+        f"({big_rec['bound_by']}: {b_ops[0]} int32 ops over {int(keep.sum())} kept of "
+        f"{keep.numel()} pairs; {b_bytes} bytes), {big_rec['bound_ms'] / big_ms:.4f} of it")
+    if big_rec["bound_ms"] / big_ms > 1:
+        raise AssertionError("batched_overlap at 64M rows reads more than its bound")
+    del big
+    free_card()
+    return rec, launched
+
+
+def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
+    """Phase 9c: a line store at config 5's scale through ``DataStore``.
+    Returns the records' timing fields of ``batched_edge_gather_overlap``
+    and ``planned_gather_overlap``."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        EDGE_CAPACITY, JOIN_BLOCK, batched_edge_gather_overlap,
+        batched_edge_gather_overlap_plain, batched_overlap, batched_overlap_plain,
+        overlap_chunk_pairs, planned_gather_overlap, planned_gather_overlap_plain)
+    from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, linestring_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import (
+        XZ_SPEC, bbox_cql, bbox_time_cql, box_linestrings, make_queries, synth_gdelt, xz_boxes)
+
+    t0 = time.perf_counter()
+    b = xz_boxes(m, 9)
+    coords, offsets = box_linestrings(*b)
+    t = synth_gdelt(m)[2]
+    fids = np.arange(m).astype("U9")
+    boxes_f64, windows_ms = make_queries(N_QUERIES, 7)
+    cqls = [bbox_time_cql(bx, w) for bx, w in zip(boxes_f64, windows_ms)]
+    spatial = [bbox_cql(bx) for bx in boxes_f64[:N_EXACT]] + [bbox_cql(XZ_DATELINE)]
+    log(f"phase 9c synth: {time.perf_counter() - t0:.3f} s ({m} line strings, "
+        f"{len(coords)} vertices)")
+
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("xz", XZ_SPEC)
+    table = FeatureTable.from_columns(sft, fids, {
+        "dtg": Column(AttributeType.DATE, t), "geom": linestring_column(coords, offsets)})
+    t0 = time.perf_counter()
+    ds.write("xz", table)
+    ds.compact("xz")
+    write_s = time.perf_counter() - t0
+    states = ds._state("xz").backend_state
+    if set(states) != {"xz3", "xz2"} or {s.kind for s in states.values()} != {"bboxes"}:
+        raise AssertionError(f"resident states {sorted(states)}, not xz3 and xz2 bbox layouts")
+    log(f"phase 9c write: {write_s:.3f} s (write + compact of {m} line strings); resident "
+        f"{sum(s.h2d_bytes for s in states.values())} bytes in two bbox states "
+        f"(memory_allocated {torch.cuda.memory_allocated() if dev.type == 'cuda' else 0})")
+    log_rebuild(ds.last_rebuild("xz"))
+
+    t0 = time.perf_counter()
+    loose = ds.count_many("xz", cqls + spatial, loose=True)
+    exact = ds.count_many("xz", cqls + spatial, loose=False)
+    fallbacks = ds.exact_fallbacks
+    many = ds.select_many("xz", cqls)
+    singles = [ds.query("xz", c) for c in cqls[:N_EXACT] + spatial]
+    launched = dict(kernels.launches)
+    log(f"phase 9c launches: {launched} ({time.perf_counter() - t0:.3f} s for the first "
+        f"count_many loose and exact, select_many and {len(singles)} query() calls)")
+    for name in ("batched_overlap", "batched_edge_gather_overlap", "planned_gather_overlap"):
+        if dev.type == "cuda" and launched[name] < 1:
+            raise AssertionError(f"the line store's path did not launch {name}")
+
+    # -- the referees ------------------------------------------------------------
+    t0 = time.perf_counter()
+    ib = [norm31(b[0], -180.0, 180.0), norm31(b[1], -90.0, 90.0),
+          norm31(b[2], -180.0, 180.0), norm31(b[3], -90.0, 90.0)]
+    day, off = t // DAY_MS, t % DAY_MS
+    want_loose = (xz_int_referee(ib, boxes_f64, windows_ms, day, off)
+                  + xz_int_referee(ib, boxes_f64[:N_EXACT] + [XZ_DATELINE]))
+    if loose != want_loose:
+        raise AssertionError(f"count_many(loose) on the line store != the int referee: "
+                             f"{loose} vs {want_loose}")
+    rows = ([xz_f64_rows(b, bx, w, t) for bx, w in zip(boxes_f64, windows_ms)]
+            + [xz_f64_rows(b, bx) for bx in boxes_f64[:N_EXACT] + [XZ_DATELINE]])
+    if exact != [len(r) for r in rows]:
+        raise AssertionError(f"count_many(exact) on the line store != the f64 referee: "
+                             f"{exact} vs {[len(r) for r in rows]}")
+    for i, res in enumerate(many):
+        if not np.array_equal(res.row_ids, rows[i]):
+            raise AssertionError(f"select_many rows of query {i} differ from the f64 referee")
+    for res, r in zip(singles, rows[:N_EXACT] + rows[N_QUERIES:]):
+        if set(res.table.fids.tolist()) != set(fids[r].tolist()):
+            raise AssertionError("query() fid sets differ from the f64 referee")
+    plans = [res.plan_info.index_name for res in singles]
+    if plans != ["xz3"] * N_EXACT + ["xz2"] * (N_EXACT + 1):
+        raise AssertionError(f"the line store's queries planned on {plans}")
+    log(f"phase 9c checks: ok in {time.perf_counter() - t0:.3f} s (loose counts equal the "
+        f"int referee: {sum(loose)} matches over {len(loose)} queries, the {N_QUERIES} timed "
+        f"ones on xz3 and {N_EXACT} boxes with no time and one across the antimeridian on "
+        f"xz2; exact counts equal the f64 referee: {sum(exact)} rows, {fallbacks} fallback(s) "
+        f"to query(); select_many rows of all {N_QUERIES} and query() fid sets of "
+        f"{len(singles)} equal it)")
+
+    # -- timings ------------------------------------------------------------------
+    for what, mode in (("count_many batch", True), ("count_many exact batch", False)):
+        lat = []
+        for _ in range(iters):
+            s = time.perf_counter()
+            ds.count_many("xz", cqls, loose=mode)
+            lat.append((time.perf_counter() - s) * 1e3)
+        log(f"phase 9c {what}: p50 {p50(lat):.3f} ms over {iters} (min {min(lat):.3f}, max "
+            f"{max(lat):.3f}; {N_QUERIES} queries per batch)")
+    many_ms, split = [], []
+    for _ in range(2):  # each plans all 64 on xz3 anew: seconds of the Python XZ BFS
+        s = time.perf_counter()
+        ds.select_many("xz", cqls)
+        many_ms.append((time.perf_counter() - s) * 1e3 / N_QUERIES)
+        split.append(dict(ds.last_select_many))
+    q_ms, q_split = [], []
+    for c in cqls[:N_EXACT]:
+        s = time.perf_counter()
+        res = ds.query("xz", c)
+        q_ms.append((time.perf_counter() - s) * 1e3)
+        q_split.append(res.timings)
+    log(f"phase 9c select_many: p50 {p50(many_ms):.3f} ms per query over 2 calls of "
+        f"{N_QUERIES}; split of the last (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split[-1].items()))
+    log(f"phase 9c query(): p50 {p50(q_ms):.3f} ms per query over {N_EXACT}; split p50 (ms): "
+        + ", ".join(f"{k} {p50([s[k] for s in q_split]):.3f}" for k in q_split[0]))
+
+    # -- the kernels alone at the store's shapes ----------------------------------
+    if dev.type != "cuda":
+        return {}, {}, launched
+    dev_state = states["xz3"]
+    cols, n = dev_state.spatial_cols(), dev_state.n
+    planner = QueryPlanner(sft, ds._state("xz").indices)
+    plans = [planner.plan(Query(c)) for c in cqls]
+    payloads = [ds.backend.payload(sft, info.extraction, overlap=True) for _, _, info in plans]
+    boxes = torch.from_numpy(np.stack([p[0] for p in payloads])).to(dev)
+    times = torch.from_numpy(np.stack([p[1] for p in payloads])).to(dev)
+    args = (cols, 0, n, boxes, times)
+    got = batched_overlap(*args)
+    want = batched_overlap_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("batched_overlap (with time) disagrees with plain at the store's "
+                             "payloads")
+    k1_ms = cuda_ms(lambda: batched_overlap(*args), 10)
+    keep = overlap_chunk_pairs(*args)
+    ops, nbytes, _ = overlap_floor(cols, n, boxes, times, keep)
+    k1 = bound_fields(ops, nbytes)
+    log(f"phase batched_overlap timing with time: {k1_ms:.4f} ms (CUDA events) at the line "
+        f"store's N={n} Q={N_QUERIES} B=8 T=16; bound {k1['bound_ms']:.6f} ms "
+        f"({k1['bound_by']}: {int(keep.sum())} kept of {keep.numel()} pairs; {nbytes} bytes), "
+        f"{k1['bound_ms'] / k1_ms:.4f} of it")
+    if k1["bound_ms"] / k1_ms > 1:
+        raise AssertionError("batched_overlap with time reads more than its bound")
+    eargs = args + (EDGE_CAPACITY,)
+    gc_, gp, gh = batched_edge_gather_overlap(*eargs)
+    wc, wp, wh = batched_edge_gather_overlap_plain(*eargs)
+    torch.cuda.synchronize()
+    fits = (gh[:, 0] <= EDGE_CAPACITY)[:, None, None]
+    err = max(int((gc_.long() - wc.long()).abs().max()), int((gc_.long() - want.long()).abs().max()),
+              int((gh.long() - wh.long()).abs().max()),
+              int(((gp.long() - wp.long()) * fits).abs().max()))
+    if err:
+        raise AssertionError("batched_edge_gather_overlap disagrees with plain at the store's "
+                             "payloads")
+    e_ms = cuda_ms(lambda: batched_edge_gather_overlap(*eargs), 10)
+    e_plain = cuda_ms(lambda: batched_edge_gather_overlap_plain(*eargs), 1)
+    e_ops, e_bytes, _ = overlap_floor(cols, n, boxes, times, keep, wc, wh, EDGE_CAPACITY)
+    edge = {"max_abs_err": err, "ms": e_ms, "plain_ms": e_plain, **bound_fields(e_ops, e_bytes)}
+    log(f"phase batched_edge_gather_overlap timing: {e_ms:.4f} ms (CUDA events) at N={n} "
+        f"Q={N_QUERIES} B=8 T=16; plain {e_plain:.4f} ms; bound {edge['bound_ms']:.6f} ms "
+        f"({edge['bound_by']}: {e_ops[0]} int32 ops; {e_bytes} bytes), "
+        f"{edge['bound_ms'] / e_ms:.4f} of it; candidates {int(wh.sum())}, "
+        f"{int((wh > EDGE_CAPACITY).sum())} queries over {EDGE_CAPACITY} lanes")
+    if edge["bound_ms"] / e_ms > 1:
+        raise AssertionError("batched_edge_gather_overlap reads more than its bound")
+
+    pair_q, pair_blk = intervals_to_block_pairs([pl.intervals for pl, _, _ in plans], JOIN_BLOCK)
+    pq = torch.from_numpy(pair_q.astype(np.int32)).to(dev)
+    pb = torch.from_numpy(pair_blk.astype(np.int32)).to(dev)
+    gplan = torch.from_numpy(np.concatenate(kernels.block_runs(pair_q, pair_blk))).to(dev)
+    gargs = (cols, n, pq, pb, boxes, times)
+    got_p, got_h = planned_gather_overlap(*gargs, plan=gplan)
+    want_p, want_h = planned_gather_overlap_plain(*gargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p, want_p) and torch.equal(got_h, want_h)):
+        raise AssertionError("planned_gather_overlap disagrees with plain at the store's pairs")
+    g_ms = cuda_ms(lambda: planned_gather_overlap(*gargs, plan=gplan), 10)
+    g_plain = cuda_ms(lambda: planned_gather_overlap_plain(*gargs), 1)
+    g_ops, g_bytes = gather_floor(cols, n, pq, pb, boxes, times, want_h, got_p.element_size())
+    gather = {"max_abs_err": 0, "ms": g_ms, "plain_ms": g_plain, **bound_fields(g_ops, g_bytes)}
+    distinct = len(np.unique(pair_blk))
+    log(f"phase planned_gather_overlap timing: {g_ms:.4f} ms (CUDA events) for {len(pair_q)} "
+        f"(query, block) pairs over {distinct} distinct blocks, {int(want_h.sum())} rows out; "
+        f"plain {g_plain:.4f} ms; bound {gather['bound_ms']:.6f} ms ({gather['bound_by']}: "
+        f"{g_ops[0]} ALU-only of {g_ops[1]} int32 ops; {g_bytes} bytes), "
+        f"{gather['bound_ms'] / g_ms:.4f} of it")
+    if gather["bound_ms"] / g_ms > 1:
+        raise AssertionError("planned_gather_overlap reads more than its bound")
+    return edge, gather, launched
+
+
+def xz_path(dev, m: int, tiles: int, iters: int) -> list[dict]:
+    """Phase 9: 9a (on the card), 9b and 9c; the three overlap kernels'
+    records."""
+    from geomesa_tpu_torch.ops import kernels
+
+    errs = dict.fromkeys(("batched_overlap", "batched_edge_gather_overlap",
+                          "planned_gather_overlap"), 0)
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        errs = check_overlap_kernels(dev, XZ_CHECK_ROWS, 41)
+        free_card()
+        log(f"phase overlap-kernels-vs-plain: ok, max_abs_err={errs} "
+            f"({time.perf_counter() - t0:.3f} s for phase 9a)")
+    t0 = time.perf_counter()
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    k1, k1_launches = config5_step(dev, m, tiles)
+    log(f"phase 9b: {time.perf_counter() - t0:.3f} s in all")
+    t0 = time.perf_counter()
+    edge, gather, launched = xz_store_path(dev, m, iters)
+    free_card()
+    log(f"phase 9c: {time.perf_counter() - t0:.3f} s in all")
+    src = "geomesa_tpu_torch/csrc/"
+    return [
+        {"name": "batched_overlap", "route": "cuda", "source": src + "batched_overlap.cu",
+         "replaces": "geomesa_tpu/parallel/query.py:914",
+         "launches": k1_launches + launched["batched_overlap"], "library_ms": None,
+         **k1, "max_abs_err": max(k1.get("max_abs_err", 0), errs["batched_overlap"])},
+        {"name": "batched_edge_gather_overlap", "route": "cuda",
+         "source": src + "batched_edge_gather.cu", "replaces": "geomesa_tpu/parallel/query.py:342",
+         "launches": launched["batched_edge_gather_overlap"], "library_ms": None, **edge,
+         "max_abs_err": max(edge.get("max_abs_err", 0), errs["batched_edge_gather_overlap"])},
+        {"name": "planned_gather_overlap", "route": "cuda", "source": src + "planned_gather.cu",
+         "replaces": "geomesa_tpu/parallel/query.py:820",
+         "launches": launched["planned_gather_overlap"], "library_ms": None, **gather,
+         "max_abs_err": max(gather.get("max_abs_err", 0), errs["planned_gather_overlap"])},
+    ]
+
+
 def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
          n_exact: int = N_EXACT, iters: int = ITERS, stream_rows: int = STREAM_ROWS,
          stream_chunks: int = STREAM_CHUNKS, config3_rows: int = CONFIG3_ROWS,
-         join_polygons: int = JOIN_POLYGONS) -> list[dict]:
+         join_polygons: int = JOIN_POLYGONS, xz_rows: int = XZ_ROWS,
+         xz_tiles: int = XZ_TILES) -> list[dict]:
     """Run every phase; returns the kernel records. ``device=None`` is the
     card; a rehearsal may pass ``"cpu"`` (phases needing the card skip)."""
     from geomesa_tpu_torch.device import resolve_device
@@ -3047,8 +3795,13 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     del ds3, lon3, lat3
     free_card()
     log(f"phase join: {time.perf_counter() - t0:.3f} s in all")
+
+    # -- phase 9: bench config 5 and a line store on the XZ indexes ---------------
+    t0 = time.perf_counter()
+    xz_records = xz_path(dev, xz_rows, xz_tiles, iters)
+    log(f"phase xz: {time.perf_counter() - t0:.3f} s in all")
     return (records + [edge_record, gather_record, agg_record, work_list_record]
-            + config3_records + join_records)
+            + config3_records + join_records + xz_records)
 
 
 if __name__ == "__main__":

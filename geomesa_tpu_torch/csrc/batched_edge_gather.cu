@@ -55,14 +55,31 @@
 // __reduce_add_sync partials in shared memory, added with one atomicAdd per
 // (block, query), as in batched_count.cu.
 //
-// Plain C entry point for ctypes; launches on the caller's stream, does not
-// synchronise, returns a cudaError_t.
+// The overlap instance (batched_edge_gather_overlap_kernel) is the exact
+// count_many(loose=False) of an extended-geometry store: it replaces
+// make_batched_edge_gather_step(overlap=True) (query.py:342, per-slot
+// predicate _slot_overlap :316). Its rows are per-feature bounds (xmin,
+// ymin, xmax, ymax, bins, offs: 24 B a row) and its scan is
+// overlap_cull.cuh's box_cull_scan: a row is in_all when it overlaps a
+// live box and lies in a live window; a candidate when it is in_all and
+// shares an opposing edge bucket with a live box it overlaps (xmin ==
+// qxhi, xmax == qxlo, ymin == qyhi or ymax == qylo) or sits at a window's
+// endpoint (overlap_edge_mask). Its counts equal batched_overlap.cu's with
+// time (the reference's invariant, query.py:302-307); lanes, capacity and
+// the append are the point instance's. The epilogue is one template over
+// the two predicates (EdgeEpilogue<PointEdges> and <OverlapEdges>), so the
+// point instance's code is unchanged. Bound: the same terms over 24 B a
+// row and the overlap compares.
+//
+// Plain C entry points for ctypes; they launch on the caller's stream, do
+// not synchronise, return a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chunk_cull.cuh"
 #include "count_predicate.cuh"
+#include "overlap_cull.cuh"
 
 namespace {
 
@@ -72,8 +89,26 @@ constexpr int SURVIVOR_INTS = 1;  // the survivor list: one int per staged query
 
 __device__ unsigned long long g_path_blocks[2];
 
+// The edge tests of the two instances, over their row layouts.
+struct PointEdges {
+  using RowT = Rows;
+  __device__ __forceinline__ static uint32_t edges(const Tile& t, int qi, uint32_t m,
+                                                   const Rows& rows) {
+    return edge_mask(t, qi, m, rows);
+  }
+};
+
+struct OverlapEdges {
+  using RowT = BoxRows;
+  __device__ __forceinline__ static uint32_t edges(const Tile& t, int qi, uint32_t m,
+                                                   const BoxRows& rows) {
+    return overlap_edge_mask(t, qi, m, rows);
+  }
+};
+
 // Counts the warp's matches m of query qi and appends its edge candidates;
 // all 32 lanes call it together. Bit r of m is chunk row chunk_row(r).
+template <class Pred>
 struct EdgeEpilogue {
   const Tile& t;
   int64_t base;
@@ -81,14 +116,26 @@ struct EdgeEpilogue {
   int32_t* pos;   // the tile's first query's lanes
   int cap;
   __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t chunk0,
-                                             const Rows& rows) const {
+                                             const typename Pred::RowT& rows) const {
     const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
     if (c == 0) return;  // warp-uniform
     if ((threadIdx.x & 31) == 0) t.cnt[(threadIdx.x >> 5) * t.q_tile + qi] += c;
-    append_lanes(m ? edge_mask(t, qi, m, rows) : 0u, base + chunk0, hits + qi,
+    append_lanes(m ? Pred::edges(t, qi, m, rows) : 0u, base + chunk0, hits + qi,
                  pos + (int64_t)qi * cap, cap);
   }
 };
+
+// Adds the tile's per-warp counts to the outputs, one atomicAdd per query.
+__device__ __forceinline__ void flush_counts(const Tile& t, int q0, int qt,
+                                             int32_t* __restrict__ counts) {
+  __syncthreads();
+  for (int qi = threadIdx.x; qi < qt; qi += THREADS) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) sum += t.cnt[w * t.q_tile + qi];
+    if (sum) atomicAdd(&counts[q0 + qi], sum);
+  }
+}
 
 __global__ void __launch_bounds__(THREADS, 2)
 batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
@@ -113,7 +160,7 @@ batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restr
   stage_tile(boxes, times, q0, qt, t, meta);
   const int n_active = meta[0];
   const int64_t limit = valid_limit(n, base, true_n);
-  EdgeEpilogue ep{t, base, hits + q0, pos + (int64_t)q0 * cap, cap};
+  EdgeEpilogue<PointEdges> ep{t, base, hits + q0, pos + (int64_t)q0 * cap, cap};
   if (n_active > 0) {
     note_path(g_path_blocks, meta[1]);
     if (meta[1])
@@ -121,13 +168,58 @@ batched_edge_gather_kernel(const int32_t* __restrict__ x, const int32_t* __restr
     else
       cull_scan<false>(x, y, bins, offs, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
   }
-  __syncthreads();
-  for (int qi = threadIdx.x; qi < qt; qi += THREADS) {
-    int sum = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += t.cnt[w * q_tile + qi];
-    if (sum) atomicAdd(&counts[q0 + qi], sum);
+  flush_counts(t, q0, qt, counts);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+batched_edge_gather_overlap_kernel(BoxCols cols, int64_t n, int64_t base, int64_t true_n,
+                                   const int32_t* __restrict__ boxes,  // (Q, nb, 4)
+                                   const int32_t* __restrict__ times,  // (Q, nt, 4)
+                                   int q, int nb, int nt, int q_tile,
+                                   int32_t* __restrict__ counts,       // (Q,)
+                                   int32_t* __restrict__ hits,         // (Q,)
+                                   int32_t* __restrict__ pos,          // (Q, cap)
+                                   int cap) {
+  extern __shared__ int4 smem[];  // the row buffer, then the staged tile
+  __shared__ int meta[2];
+  __shared__ Extent warp_ext[WARPS];
+  __shared__ int n_surv[2];
+  const int q0 = blockIdx.y * q_tile;
+  const int qt = min(q_tile, q - q0);
+  int4* buf = smem;
+  const Tile t = carve(smem + BoxLayout<true>::BUF_BYTES / 16, q_tile, nb, nt);
+  if (threadIdx.x < 2) n_surv[threadIdx.x] = 0;  // stage_tile's barriers order this
+  stage_tile(boxes, times, q0, qt, t, meta);
+  const int n_active = meta[0];
+  const int64_t limit = valid_limit(n, base, true_n);
+  EdgeEpilogue<OverlapEdges> ep{t, base, hits + q0, pos + (int64_t)q0 * cap, cap};
+  if (n_active > 0) {
+    if (meta[1])
+      box_cull_scan<true, true>(cols, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
+    else
+      box_cull_scan<false, true>(cols, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
   }
+  flush_counts(t, q0, qt, counts);
+}
+
+// The launch geometry of both instances: the grid is the card's resident
+// blocks (at most one per chunk) by the query tiles.
+template <typename Kernel>
+int launch_geometry(Kernel kernel, size_t smem, long long n, int q, int q_tile, int sms,
+                    dim3* grid) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long chunks = (n + CHUNK - 1) / CHUNK;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = dim3((unsigned)(chunks < resident ? chunks : resident), (q + q_tile - 1) / q_tile);
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -154,27 +246,38 @@ extern "C" int geomesa_batched_edge_gather(const void* x, const void* y, const v
   if (q <= 0 || n <= 0) return (int)cudaSuccess;
   const int tile_max = q_tile_for(nb, nt, SURVIVOR_INTS);
   const int q_tile = q < tile_max ? q : tile_max;
-  const int q_tiles = (q + q_tile - 1) / q_tile;
   const size_t smem =
       ROW_BUF_BYTES + (size_t)q_tile * staged_bytes_per_query(nb, nt, SURVIVOR_INTS);
-  cudaError_t e = cudaFuncSetAttribute(batched_edge_gather_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(batched_edge_gather_kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batched_edge_gather_kernel, THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long chunks = (n + CHUNK - 1) / CHUNK;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  dim3 grid((unsigned)(chunks < resident ? chunks : resident), q_tiles);
+  dim3 grid;
+  const int e = launch_geometry(batched_edge_gather_kernel, smem, n, q, q_tile, sms, &grid);
+  if (e != (int)cudaSuccess) return e;
   batched_edge_gather_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins,
       (const int32_t*)offs, n, base, true_n, (const int32_t*)boxes,
       (const int32_t*)times, q, nb, nt, q_tile, (int32_t*)counts, (int32_t*)hits,
       (int32_t*)pos, cap);
+  return (int)cudaGetLastError();
+}
+
+// The overlap instance: columns xmin, ymin, xmax, ymax, bins, offs.
+extern "C" int geomesa_batched_edge_gather_overlap(
+    const void* xmin, const void* ymin, const void* xmax, const void* ymax, const void* bins,
+    const void* offs, long long n, long long base, long long true_n, const void* boxes,
+    const void* times, int q, int nb, int nt, int sms, void* counts, void* hits, void* pos,
+    int cap, void* stream) {
+  if (q <= 0 || n <= 0) return (int)cudaSuccess;
+  const int tile_max = q_tile_for(nb, nt, SURVIVOR_INTS);
+  const int q_tile = q < tile_max ? q : tile_max;
+  const size_t smem = BoxLayout<true>::BUF_BYTES +
+                      (size_t)q_tile * staged_bytes_per_query(nb, nt, SURVIVOR_INTS);
+  dim3 grid;
+  const int e =
+      launch_geometry(batched_edge_gather_overlap_kernel, smem, n, q, q_tile, sms, &grid);
+  if (e != (int)cudaSuccess) return e;
+  const BoxCols cols{{(const int32_t*)xmin, (const int32_t*)ymin, (const int32_t*)xmax,
+                      (const int32_t*)ymax, (const int32_t*)bins, (const int32_t*)offs}};
+  batched_edge_gather_overlap_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      cols, n, base, true_n, (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, q_tile,
+      (int32_t*)counts, (int32_t*)hits, (int32_t*)pos, cap);
   return (int)cudaGetLastError();
 }

@@ -113,7 +113,11 @@ __device__ __forceinline__ Tile carve(void* smem, int q_tile, int nb, int nt) {
 // Stages queries [q0, q0 + qt) of (Q, nb, 4) boxes and (Q, nt, 4) times and
 // zeroes the per-warp counts; meta[0] = active queries, meta[1] = 1 when every
 // active query has one live box and one live window. All threads call it; it
-// ends in __syncthreads().
+// ends in __syncthreads(). WINDOWS = false (the no-time overlap count of
+// overlap_cull.cuh) stages no window and counts every query as having one,
+// so activity and the single-slot path follow the boxes alone; its callers
+// never read t.win.
+template <bool WINDOWS = true>
 __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ boxes,
                                            const int32_t* __restrict__ times, int q0, int qt,
                                            const Tile& t, int* meta) {
@@ -122,7 +126,8 @@ __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ boxes,
   const int4* gt = reinterpret_cast<const int4*>(times) + (int64_t)q0 * nt;
   int4* raw_win = reinterpret_cast<int4*>(t.win);
   for (int i = threadIdx.x; i < qt * nb; i += THREADS) t.box[i] = gb[i];
-  for (int i = threadIdx.x; i < qt * nt; i += THREADS) raw_win[i] = gt[i];
+  if constexpr (WINDOWS)
+    for (int i = threadIdx.x; i < qt * nt; i += THREADS) raw_win[i] = gt[i];
   for (int i = threadIdx.x; i < WARPS * t.q_tile; i += THREADS) t.cnt[i] = 0;
   __syncthreads();
 
@@ -136,13 +141,16 @@ __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ boxes,
         bq[kb++] = make_int4(b.x, (int)((uint32_t)b.y - (uint32_t)b.x), b.z,
                              (int)((uint32_t)b.w - (uint32_t)b.z));
     }
-    longlong2* wq = t.win + qi * nt;
-    const int4* wr = raw_win + qi * nt;
-    int kt = 0;
-    for (int k = 0; k < nt; ++k) {
-      const int4 w = wr[k];  // blo, olo, bhi, ohi
-      const long long lo = time_key(w.x, w.y), hi = time_key(w.z, w.w);
-      if (lo <= hi) wq[kt++] = make_longlong2(lo, hi);
+    int kt = 1;
+    if constexpr (WINDOWS) {
+      longlong2* wq = t.win + qi * nt;
+      const int4* wr = raw_win + qi * nt;
+      kt = 0;
+      for (int k = 0; k < nt; ++k) {
+        const int4 w = wr[k];  // blo, olo, bhi, ohi
+        const long long lo = time_key(w.x, w.y), hi = time_key(w.z, w.w);
+        if (lo <= hi) wq[kt++] = make_longlong2(lo, hi);
+      }
     }
     t.live[qi] = kb | (kt << 16);
   }

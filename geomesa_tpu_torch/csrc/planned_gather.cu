@@ -56,6 +56,18 @@
 // nothing (the caller checks the ranges; this keeps every read inside the
 // columns).
 //
+// The overlap form (planned_count_overlap_kernel, counted apart as
+// planned_gather_overlap) is select_many's retrieval on an
+// extended-geometry store: it replaces make_planned_gather_step(...,
+// overlap=True) (query.py:820) over _batched_overlap_masks (:636-658), the
+// count pass playing the role of make_planned_count_step(overlap=True)
+// (:716). Its count pass loads a block's six bbox columns (xmin, ymin,
+// xmax, ymax, bins, offs: 24 B a row) once into registers
+// (overlap_cull.cuh load_box_rows) and tests each pair's query with the
+// overlap predicate (overlap_mask, box_time_mask); masks, counts and the
+// write pass are the point form's, so a pair's positions come out the same
+// way. Bound: the same terms over 24 B a row.
+//
 // Plain C entry points for ctypes; they launch on the caller's stream, do
 // not synchronise, allocate nothing and return a cudaError_t.
 
@@ -63,6 +75,7 @@
 #include <stdint.h>
 
 #include "count_predicate.cuh"
+#include "overlap_cull.cuh"
 
 namespace {
 
@@ -173,6 +186,58 @@ planned_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 1)
+planned_count_overlap_kernel(BoxCols cols, int64_t n, int64_t true_n,
+                             const int32_t* __restrict__ order,    // (P,): pairs, block-major
+                             const int32_t* __restrict__ order_q,  // (P,): their queries
+                             const int32_t* __restrict__ starts,   // (D + 1,): runs in order
+                             const int32_t* __restrict__ blocks,   // (D,): each run's block
+                             const int32_t* __restrict__ boxes,    // (Q, nb, 4)
+                             const int32_t* __restrict__ times,    // (Q, nt, 4)
+                             int q, int nb, int nt, int tile,
+                             int64_t* __restrict__ pair_hits,      // (P,)
+                             uint16_t* __restrict__ masks) {       // (P, THREADS)
+  extern __shared__ int4 smem[];
+  const int d = blockIdx.x;
+  const int s = starts[d], e = starts[d + 1];
+  const int64_t blk = blocks[d];
+  const bool blk_ok = blk >= 0 && blk < n / JOIN_BLOCK;  // block-uniform
+  const int64_t row0 = blk * JOIN_BLOCK + (int64_t)threadIdx.x * ROWS;
+  BoxRows rows;
+  uint32_t valid = 0;
+  if (blk_ok) valid = load_box_rows(cols, n, valid_limit(n, 0, true_n), row0, rows);
+  const Tile t = carve(smem, tile, nb, nt);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int p0 = s; p0 < e; p0 += tile) {
+    const int k = min(tile, e - p0);
+    stage_pairs(boxes, times, order_q + p0, order + p0, k, q, t);  // the loads are in flight
+    for (int i = 0; i < k; ++i) {
+      const int lv = t.live[i];
+      uint32_t m = 0;
+      if (blk_ok && (lv & 0xffff) && (lv >> 16)) {  // block-uniform
+        if (lv == (1 | (1 << 16))) {
+          m = overlap_mask<true>(t.box + i * nb, 1, rows) & valid;
+          if (m) m &= box_time_mask<true>(t.win + i * nt, 1, rows);
+        } else {
+          m = overlap_mask<false>(t.box + i * nb, lv & 0xffff, rows) & valid;
+          if (m) m &= box_time_mask<false>(t.win + i * nt, lv >> 16, rows);
+        }
+      }
+      masks[(int64_t)t.extra[i] * THREADS + threadIdx.x] = (uint16_t)m;
+      const int c = __reduce_add_sync(FULL_WARP, __popc(m));
+      if (lane == 0) t.cnt[warp * tile + i] = c;
+    }
+    __syncthreads();  // the tile's per-warp counts are written
+    for (int i = threadIdx.x; i < k; i += THREADS) {
+      int64_t total = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) total += t.cnt[w * tile + i];
+      pair_hits[t.extra[i]] = total;
+    }
+    __syncthreads();  // the tile is read before the next is staged
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 planned_write_kernel(const int32_t* __restrict__ pair_blk,   // (P,)
                      const int64_t* __restrict__ pair_hits,  // (P,)
@@ -231,6 +296,27 @@ extern "C" int geomesa_planned_gather_count(const void* x, const void* y, const 
   planned_count_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins, (const int32_t*)offs, n,
       true_n, p, p + n_pairs, p + 2 * n_pairs, p + 2 * n_pairs + n_blocks + 1,
+      (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, tile, (int64_t*)pair_hits,
+      (uint16_t*)masks);
+  return (int)cudaGetLastError();
+}
+
+// The overlap form's count pass: columns xmin, ymin, xmax, ymax, bins, offs;
+// its write pass is geomesa_planned_gather_write.
+extern "C" int geomesa_planned_gather_overlap_count(
+    const void* xmin, const void* ymin, const void* xmax, const void* ymax, const void* bins,
+    const void* offs, long long n, long long true_n, const void* plan, long long n_pairs,
+    long long n_blocks, const void* boxes, const void* times, int q, int nb, int nt,
+    void* pair_hits, void* masks, void* stream) {
+  if (n_pairs <= 0 || n_blocks <= 0 || n <= 0) return (int)cudaSuccess;
+  if (n_pairs > 0x7fffffffLL || n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int tile = q_tile_for(nb, nt, PAIR_INTS);
+  const size_t smem = (size_t)tile * staged_bytes_per_query(nb, nt, PAIR_INTS);
+  const int32_t* p = (const int32_t*)plan;
+  const BoxCols cols{{(const int32_t*)xmin, (const int32_t*)ymin, (const int32_t*)xmax,
+                      (const int32_t*)ymax, (const int32_t*)bins, (const int32_t*)offs}};
+  planned_count_overlap_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      cols, n, true_n, p, p + n_pairs, p + 2 * n_pairs, p + 2 * n_pairs + n_blocks + 1,
       (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, tile, (int64_t*)pair_hits,
       (uint16_t*)masks);
   return (int)cudaGetLastError();

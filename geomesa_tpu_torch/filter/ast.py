@@ -1,9 +1,10 @@
 """Filter AST: the predicate language on the bbox+time path.
 
-Port copy of the subset of :mod:`geomesa_tpu.filter.ast` that point queries
-on the Z3 path use: ``INCLUDE``/``EXCLUDE``, ``AND``/``OR``/``NOT``,
-``BBOX`` on a point column, ``DURING``/``BEFORE``/``AFTER``/``TEQUALS`` on a
-date, and attribute comparisons (``= <> < <= > >=``, ``BETWEEN``, ``IN``).
+Port copy of the subset of :mod:`geomesa_tpu.filter.ast` that bbox+time
+queries use: ``INCLUDE``/``EXCLUDE``, ``AND``/``OR``/``NOT``, ``BBOX`` on a
+geometry column (a point, or an extended geometry's bounds),
+``DURING``/``BEFORE``/``AFTER``/``TEQUALS`` on a date, and attribute
+comparisons (``= <> < <= > >=``, ``BETWEEN``, ``IN``).
 Evaluation is vectorized host numpy in f64/int64: every node maps a
 :class:`~geomesa_tpu_torch.schema.columnar.FeatureTable` to a boolean mask.
 These masks are the exact semantics the device's int-domain superset test is
@@ -88,8 +89,9 @@ class Not(Filter):
 
 @dataclass(frozen=True)
 class BBox(Filter):
-    """``BBOX(geom, xmin, ymin, xmax, ymax)`` — point inside the closed box
-    (xmin > xmax wraps the antimeridian)."""
+    """``BBOX(geom, xmin, ymin, xmax, ymax)`` — the geometry's bbox
+    intersects the closed box (xmin > xmax wraps the antimeridian); for a
+    point, the point lies in it."""
 
     prop: str
     xmin: float
@@ -102,13 +104,19 @@ class BBox(Filter):
         return (self.xmin, self.ymin, self.xmax, self.ymax)
 
     def mask(self, table):
+        """The reference's test on the column's bounds (``ast.py:121-129``);
+        a point column's bounds are (x, y, x, y), read from ``x``/``y``."""
         col: GeometryColumn = table.columns[self.prop]  # type: ignore[assignment]
-        x, y = col.x, col.y
-        if self.xmin > self.xmax:
-            mx = (x >= self.xmin) | (x <= self.xmax)
+        if col.x is not None:
+            bxmin = bxmax = col.x
+            bymin = bymax = col.y
         else:
-            mx = (x >= self.xmin) & (x <= self.xmax)
-        return mx & (y >= self.ymin) & (y <= self.ymax) & col.is_valid()
+            bxmin, bymin, bxmax, bymax = col.bounds.T
+        if self.xmin > self.xmax:  # antimeridian wrap: lon > xmin OR lon < xmax
+            mx = (bxmax >= self.xmin) | (bxmin <= self.xmax)
+        else:
+            mx = (bxmax >= self.xmin) & (bxmin <= self.xmax)
+        return mx & (bymax >= self.ymin) & (bymin <= self.ymax) & col.is_valid()
 
 
 @dataclass(frozen=True)

@@ -2,9 +2,9 @@
 
 Port copy of :mod:`geomesa_tpu.geometry.types`: coordinates are ``(N, 2)``
 float64 arrays, rings are closed on construction, and every geometry knows
-its bbox. Left out: WKT rendering and the WKT-based ``__eq__``/``__hash__``
-(the port has no WKT I/O yet); a :class:`Point` compares by value, every
-other geometry by identity.
+its bbox. Left out: the WKT-based ``__eq__``/``__hash__`` (WKT I/O lives in
+:mod:`geomesa_tpu_torch.geometry.wkt`); a :class:`Point` compares by value,
+every other geometry by identity.
 """
 
 from __future__ import annotations

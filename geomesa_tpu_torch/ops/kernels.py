@@ -101,6 +101,25 @@ compacted, and each tested only against the edges of its y-band
 (:func:`polygon_join_plain`) is the reference's crossing number in torch,
 chunked.
 
+``batched_overlap`` replaces no TPU kernel either: the reference computes it
+in XLA (``geomesa_tpu/parallel/query.py:914``, ``make_batched_overlap_step``,
+in both its forms). It is the bbox-overlap count of an extended-geometry
+store over its per-feature int32 bounds (xmin, ymin, xmax, ymax), with or
+without the time columns: bench config 5's step and the loose
+``count_many`` of a line or polygon store. Its source is
+``csrc/batched_overlap.cu``, the edge gather's culled chunk scan over the
+bbox columns (``csrc/overlap_cull.cuh``); its plain version
+(:func:`batched_overlap_plain`) runs :func:`overlap_masks`, and
+:func:`overlap_chunk_pairs` is the plain version of its cull. The overlap
+forms of the edge gather (:func:`batched_edge_gather_overlap`, launches
+counted as ``batched_edge_gather_overlap``; ``make_batched_edge_gather_step
+(overlap=True)``) and of the planned gather
+(:func:`planned_gather_overlap`, counted as ``planned_gather_overlap``;
+``make_planned_gather_step(..., overlap=True)``) are second instances in
+``csrc/batched_edge_gather.cu`` and ``csrc/planned_gather.cu`` over the
+same predicate. A box slot of the overlap predicate is live iff ``xlo <=
+xhi and ylo <= yhi``, in the kernels and in the plain versions alike.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -154,11 +173,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 0,
             "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "batched_density": 0,
-            "batched_knn": 0, "polygon_join": 0, "z3_encode": 0, "z2_encode": 0}
+            "batched_knn": 0, "polygon_join": 0, "z3_encode": 0, "z2_encode": 0,
+            "batched_overlap": 0, "batched_edge_gather_overlap": 0,
+            "planned_gather_overlap": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
 _COUNT_ARGS = [_P] * 4 + [_LL] * 3 + [_P, _P, _I, _I, _I, _I]
+# (bbox columns x6, n, base, true_n, boxes, times, q, nb, nt, sms, counts)
+_BOX_ARGS = [_P] * 6 + [_LL] * 3 + [_P, _P, _I, _I, _I, _I, _P]
 _ENTRY_POINTS = {
     # (columns x4, n, base, true_n, boxes, times, q, nb, nt, sms, outputs..., stream)
     "geomesa_batched_count": ("batched_count", _COUNT_ARGS + [_P] * 2),
@@ -205,6 +228,18 @@ _ENTRY_POINTS = {
     #  counts, stream)
     "geomesa_polygon_join": ("polygon_join", [_P, _P, _LL, _LL, _P, _P, _LL, _P, _I, _P, _P, _I,
                                               _I, _P, _P]),
+    # (xmin, ymin, xmax, ymax, bins, offs, n, base, true_n, boxes, times, q, nb, nt
+    #  (0: no time), sms, counts, stream)
+    "geomesa_batched_overlap": ("batched_overlap", _BOX_ARGS + [_P]),
+    "geomesa_batched_overlap_q_tile": ("batched_overlap", [_I, _I]),
+    # (..., counts, hits, positions, capacity, stream)
+    "geomesa_batched_edge_gather_overlap": ("batched_edge_gather",
+                                            _BOX_ARGS[:-1] + [_P] * 3 + [_I, _P]),
+    # (bbox columns x6, n, true_n, block-major plan, pairs, distinct blocks, boxes, times,
+    #  q, nb, nt, pair_hits, masks, stream)
+    "geomesa_planned_gather_overlap_count": ("planned_gather", [_P] * 6 + [_LL, _LL, _P, _LL,
+                                                                          _LL, _P, _P, _I, _I,
+                                                                          _I, _P, _P, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -404,17 +439,25 @@ def row_masks(xi, yi, bi, oi, boxes, times, edges: bool = False):
         if edges:
             on_edge |= inside & ((xi == b[:, 0]) | (xi == b[:, 1])
                                  | (yi == b[:, 2]) | (yi == b[:, 3]))
-    in_time = torch.zeros_like(in_box)
+    return in_box & _time_masks(bi, oi, times, in_box, on_edge), on_edge
+
+
+def _time_masks(bi, oi, times, like, on_edge=None):
+    """The windows' part of :func:`row_masks` and :func:`overlap_masks`:
+    (G, R) bool rows inside any window of ``times`` (G, T, 4), shaped like
+    ``like``; with ``on_edge`` it also ORs in place the rows at an endpoint
+    of a valid window (``_slot_time_edge``)."""
+    in_time = torch.zeros_like(like)
     for k in range(times.shape[1]):
         t = times[:, k, :, None]
         after = (bi > t[:, 0]) | ((bi == t[:, 0]) & (oi >= t[:, 1]))
         before = (bi < t[:, 2]) | ((bi == t[:, 2]) & (oi <= t[:, 3]))
         in_time |= after & before
-        if edges:
+        if on_edge is not None:
             valid = (t[:, 0] < t[:, 2]) | ((t[:, 0] == t[:, 2]) & (t[:, 1] <= t[:, 3]))
             on_edge |= valid & (((bi == t[:, 0]) & (oi == t[:, 1]))
                                 | ((bi == t[:, 2]) & (oi == t[:, 3])))
-    return in_box & in_time, on_edge
+    return in_time
 
 
 def _plain_masks(x, y, bins, offs, base: int, true_n: int, boxes, times, chunk: int,
@@ -561,12 +604,18 @@ def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, t
     reference's ``one`` (``parallel/query.py:400-428``), chunked over rows.
     Candidates fill the lanes in row order by a running prefix sum; past
     ``capacity`` they are counted in ``hits`` and dropped."""
-    q = boxes.shape[0]
-    counts = torch.zeros(q, dtype=torch.int64, device=x.device)
-    hits = torch.zeros(q, dtype=torch.int64, device=x.device)
-    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
-    for s, _, m, edge in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk,
-                                      edges=True):
+    return _gather_lanes(_plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk,
+                                      edges=True),
+                         boxes.shape[0], base, capacity, x.device)
+
+
+def _gather_lanes(masks, q: int, base: int, capacity: int, device):
+    """Counts, lanes and hits of the plain edge gathers over ``masks``, the
+    ``(s, e, match, edge)`` chunks of :func:`_plain_masks`."""
+    counts = torch.zeros(q, dtype=torch.int64, device=device)
+    hits = torch.zeros(q, dtype=torch.int64, device=device)
+    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=device)
+    for s, _, m, edge in masks:
         counts += m.sum(dim=1)
         slot = hits[:, None] + torch.cumsum(edge, dim=1) - 1
         qi, ri = (edge & (slot < capacity)).nonzero(as_tuple=True)
@@ -595,22 +644,37 @@ def chunk_extents(x, y, bins, offs, step: int = 1 << 22) -> torch.Tensor:
     ``step`` rows at a time (a multiple of ``JOIN_BLOCK``), so the keys'
     int64 temporaries stay bounded; ``DeviceBackend.load`` computes them
     once per staged state."""
+    return _chunk_extents(x, x, y, y, bins, offs, step)
+
+
+def chunk_extents_bbox(xmin, ymin, xmax, ymax, bins=None, offs=None,
+                       step: int = 1 << 22) -> torch.Tensor:
+    """:func:`chunk_extents` over per-feature bounds, as the overlap
+    kernels' cull takes it (``csrc/overlap_cull.cuh``): per chunk the min of
+    xmin, the max of xmax, the min of ymin, the max of ymax and the time
+    key's min and max (zeros without ``bins``/``offs``)."""
+    return _chunk_extents(xmin, xmax, ymin, ymax, bins, offs, step)
+
+
+def _chunk_extents(xlo, xhi, ylo, yhi, bins, offs, step: int) -> torch.Tensor:
     if step % JOIN_BLOCK:
         raise ValueError(f"step must be a multiple of {JOIN_BLOCK}")
-    n = x.shape[0]
-    out = torch.empty((-(-n // JOIN_BLOCK), 4), dtype=torch.int64, device=x.device)
+    n = xlo.shape[0]
+    out = torch.zeros((-(-n // JOIN_BLOCK), 4), dtype=torch.int64, device=xlo.device)
     for s in range(0, n, step):
         e = min(n, s + step)
         c0, c1 = s // JOIN_BLOCK, -(-e // JOIN_BLOCK)
 
-        def span(col):
-            v = torch.nn.functional.pad(col, (0, c1 * JOIN_BLOCK - e)).view(c1 - c0, JOIN_BLOCK)
-            return v.amin(dim=1), v.amax(dim=1)
+        def chunks(col):
+            return torch.nn.functional.pad(col, (0, c1 * JOIN_BLOCK - e)).view(c1 - c0,
+                                                                              JOIN_BLOCK)
 
-        (xlo, xhi), (ylo, yhi) = span(x[s:e]), span(y[s:e])
-        out[c0:c1, :2] = torch.stack([xlo, xhi, ylo, yhi], dim=1).view(torch.int64)
-        klo, khi = span(_time_keys(bins[s:e], offs[s:e]))
-        out[c0:c1, 2], out[c0:c1, 3] = klo, khi
+        bounds = [chunks(xlo[s:e]).amin(dim=1), chunks(xhi[s:e]).amax(dim=1),
+                  chunks(ylo[s:e]).amin(dim=1), chunks(yhi[s:e]).amax(dim=1)]
+        out[c0:c1, :2] = torch.stack(bounds, dim=1).view(torch.int64)
+        if bins is not None:
+            keys = chunks(_time_keys(bins[s:e], offs[s:e]))
+            out[c0:c1, 2], out[c0:c1, 3] = keys.amin(dim=1), keys.amax(dim=1)
     return out
 
 
@@ -625,7 +689,8 @@ def _check_extents(ext, n: int, device) -> None:
 
 def _pairs_from_extents(ext, n: int, base: int, true_n: int, boxes, times) -> torch.Tensor:
     """(chunks, Q) bool: the cull's test of :func:`chunk_query_pairs` on
-    :func:`chunk_extents`' output."""
+    :func:`chunk_extents`' output (or :func:`chunk_extents_bbox`'; no
+    window test when ``times`` is None)."""
     xy = ext[:, :2].contiguous().view(torch.int32).long()
     xlo, xhi, ylo, yhi = (xy[:, i, None, None] for i in range(4))
     klo, khi = ext[:, 2, None, None], ext[:, 3, None, None]
@@ -633,11 +698,13 @@ def _pairs_from_extents(ext, n: int, base: int, true_n: int, boxes, times) -> to
     box_meets = ((b[..., 0] <= b[..., 1]) & (b[..., 2] <= b[..., 3])
                  & (b[..., 0] <= xhi) & (xlo <= b[..., 1])
                  & (b[..., 2] <= yhi) & (ylo <= b[..., 3])).any(dim=2)
+    limit = min(n, int(true_n) - int(base))
+    alive = torch.arange(ext.shape[0], device=ext.device) * JOIN_BLOCK < limit
+    if times is None:  # the no-time overlap count
+        return box_meets & alive[:, None]
     t = times.long()[None]
     lo, hi = _time_keys(t[..., 0], t[..., 1]), _time_keys(t[..., 2], t[..., 3])
     win_meets = ((lo <= hi) & (lo <= khi) & (klo <= hi)).any(dim=2)
-    limit = min(n, int(true_n) - int(base))
-    alive = torch.arange(ext.shape[0], device=ext.device) * JOIN_BLOCK < limit
     return box_meets & win_meets & alive[:, None]
 
 
@@ -955,8 +1022,12 @@ def grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int
 PLANNED_CHUNK_ROWS = 1 << 22
 
 
-def _check_pair_args(x, y, bins, offs, pair_q, pair_blk, boxes, times):
-    _check_count_args(x, y, bins, offs, boxes, times)
+def _check_pair_args(cols, pair_q, pair_blk, boxes, times):
+    if len(cols) == 4:
+        _check_count_args(*cols, boxes, times)
+    else:
+        _check_box_args(cols, boxes, times)
+    x = cols[0]
     if x.shape[0] % JOIN_BLOCK:
         raise ValueError(f"residency not block-aligned: {x.shape[0]} % {JOIN_BLOCK}")
     for name, t in (("pair_q", pair_q), ("pair_blk", pair_blk)):
@@ -1008,19 +1079,28 @@ def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times
     an empty pair list launches nothing. On the CPU:
     :func:`planned_gather_plain`.
     """
-    _check_pair_args(x, y, bins, offs, pair_q, pair_blk, boxes, times)
+    _check_pair_args((x, y, bins, offs), pair_q, pair_blk, boxes, times)
     if x.device.type == "cpu":
         return planned_gather_plain(x, y, bins, offs, true_n, pair_q, pair_blk, boxes, times)
+    return _planned_launch("geomesa_planned_gather_count", "planned_gather", (x, y, bins, offs),
+                           true_n, pair_q, pair_blk, boxes, times, plan)
+
+
+def _planned_launch(count_entry: str, counter: str, cols, true_n: int, pair_q, pair_blk, boxes,
+                    times, plan):
+    """The card's two passes of :func:`planned_gather` and
+    :func:`planned_gather_overlap`: ``count_entry`` over the columns
+    ``cols``, then the shared write pass."""
+    x = cols[0]
     if x.device.type != "cuda":
-        raise ValueError(f"planned_gather runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"{counter} runs on cuda or cpu, not {x.device}")
     n_pairs = pair_q.shape[0]
     if n_pairs == 0:
         return (torch.empty(0, dtype=torch.int32, device=x.device),
                 torch.empty(0, dtype=torch.int64, device=x.device))
-    for name, t in zip(("x", "y", "bins", "offs", "boxes", "times"),
-                       (x, y, bins, offs, boxes, times)):
+    for i, t in enumerate((*cols, boxes, times)):
         if t.data_ptr() % 16:
-            raise ValueError(f"planned_gather: {name} must start on a 16-byte boundary "
+            raise ValueError(f"{counter}: input {i} must start on a 16-byte boundary "
                              "(the kernel loads 16-byte vectors)")
     if plan is None:
         plan = torch.from_numpy(np.concatenate(
@@ -1035,13 +1115,12 @@ def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times
     masks = torch.empty((n_pairs, JOIN_BLOCK // 16), dtype=torch.int16, device=x.device)
     stream = _stream_of(x)
     with torch.cuda.device(x.device):
-        rc = _fn("geomesa_planned_gather_count")(
-            x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(), x.shape[0],
-            int(true_n), plan.data_ptr(), n_pairs, n_blocks, boxes.data_ptr(), times.data_ptr(),
-            boxes.shape[0], boxes.shape[1], times.shape[1], hits.data_ptr(), masks.data_ptr(),
-            stream)
+        rc = _fn(count_entry)(
+            *(c.data_ptr() for c in cols), x.shape[0], int(true_n), plan.data_ptr(), n_pairs,
+            n_blocks, boxes.data_ptr(), times.data_ptr(), boxes.shape[0], boxes.shape[1],
+            times.shape[1], hits.data_ptr(), masks.data_ptr(), stream)
         if rc != 0:
-            raise RuntimeError(f"planned_gather count pass failed: cudaError {rc}")
+            raise RuntimeError(f"{counter} count pass failed: cudaError {rc}")
         ends = torch.cumsum(hits, dim=0)
         total = int(ends[-1])  # the one device-to-host read: the output's size
         positions = torch.empty(total, dtype=torch.int32, device=x.device)
@@ -1050,8 +1129,8 @@ def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times
                 pair_blk.data_ptr(), n_pairs, hits.data_ptr(), ends.data_ptr(),
                 masks.data_ptr(), positions.data_ptr(), stream)
             if rc != 0:
-                raise RuntimeError(f"planned_gather write pass failed: cudaError {rc}")
-    launches["planned_gather"] += 1
+                raise RuntimeError(f"{counter} write pass failed: cudaError {rc}")
+    launches[counter] += 1
     return positions, hits
 
 
@@ -1065,23 +1144,241 @@ def planned_gather_plain(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes,
     rows (the four columns, the masks of the predicate and the positions:
     about 32 B per row, so about 128 MiB), so a query covering every block,
     such as ``INCLUDE``, never allocates N x ``JOIN_BLOCK``."""
+    return _planned_plain((x, y, bins, offs), true_n, pair_q, pair_blk, boxes, times, row_masks)
+
+
+def _planned_plain(cols, true_n: int, pair_q, pair_blk, boxes, times, masks_of):
+    """:func:`planned_gather_plain` over ``cols`` with the predicate
+    ``masks_of(*rows, boxes, times) -> (mask, _)``."""
+    x = cols[0]
     if pair_q.shape[0] == 0:
         return (torch.empty(0, dtype=torch.int32, device=x.device),
                 torch.empty(0, dtype=torch.int64, device=x.device))
-    blocks = [c.view(-1, JOIN_BLOCK) for c in (x, y, bins, offs)]
+    blocks = [c.view(-1, JOIN_BLOCK) for c in cols]
     pq, pb = pair_q.long(), pair_blk.long()
     lrow = torch.arange(JOIN_BLOCK, device=x.device)
     step = max(1, PLANNED_CHUNK_ROWS // JOIN_BLOCK)
     positions, hits = [], []
     for s in range(0, pq.shape[0], step):
         q, b = pq[s:s + step], pb[s:s + step]
-        m, _ = row_masks(*(c.index_select(0, b) for c in blocks),
-                         boxes.index_select(0, q), times.index_select(0, q))
+        m, _ = masks_of(*(c.index_select(0, b) for c in blocks),
+                        boxes.index_select(0, q), times.index_select(0, q))
         gpos = b[:, None] * JOIN_BLOCK + lrow[None, :]
         m &= gpos < int(true_n)
         hits.append(m.sum(dim=1))
         positions.append(gpos[m].to(torch.int32))
     return torch.cat(positions), torch.cat(hits)
+
+
+# ---------------------------------------------------------------------------
+# batched_overlap, and the overlap forms of the edge gather and planned gather
+# ---------------------------------------------------------------------------
+
+def overlap_masks(x0, y0, x1, y1, bi, oi, boxes, times, edges: bool = False):
+    """The bbox-overlap predicate of every overlap kernel, broadcast: rows'
+    bounds ``x0, y0, x1, y1`` (xmin, ymin, xmax, ymax) and time columns
+    ``bi, oi``, each (G or 1, R), against payloads ``boxes`` (G, B, 4) and
+    ``times`` (G, T, 4) or None (the no-time form: ``bi``, ``oi`` unread) →
+    ``in_box & in_time`` (G, R) bool, the reference's
+    ``_batched_overlap_masks`` (``parallel/query.py:636``) without the row
+    validity. A box slot is live iff ``xlo <= xhi and ylo <= yhi``, as the
+    kernels stage it; a dead slot matches no row (on the payloads
+    ``ops.refine.pack_boxes(..., overlap=True)`` packs, the reference's
+    test). With ``edges`` also the edge mask of
+    ``make_batched_edge_gather_step(overlap=True)``: the OR over live slots
+    of overlapping the slot with ``x0 == xhi | x1 == xlo | y0 == yhi | y1 ==
+    ylo`` (``_slot_overlap`` :316), or the (bin, offset) at an endpoint of a
+    valid window; otherwise ``None``."""
+    in_box = torch.zeros(torch.broadcast_shapes(x0.shape, boxes.shape[:1] + (1,)),
+                         dtype=torch.bool, device=x0.device)
+    on_edge = torch.zeros_like(in_box) if edges else None
+    for k in range(boxes.shape[1]):
+        b = boxes[:, k, :, None]
+        inside = ((b[:, 0] <= b[:, 1]) & (b[:, 2] <= b[:, 3])
+                  & (x0 <= b[:, 1]) & (x1 >= b[:, 0]) & (y0 <= b[:, 3]) & (y1 >= b[:, 2]))
+        in_box |= inside
+        if edges:
+            on_edge |= inside & ((x0 == b[:, 1]) | (x1 == b[:, 0])
+                                 | (y0 == b[:, 3]) | (y1 == b[:, 2]))
+    if times is None:
+        return in_box, on_edge
+    return in_box & _time_masks(bi, oi, times, in_box, on_edge), on_edge
+
+
+def _check_box_args(cols, boxes, times):
+    """Four bbox columns and no times (the no-time form) or six columns
+    (with bins, offs) and times."""
+    if len(cols) not in (4, 6) or (times is None) != (len(cols) == 4):
+        raise ValueError("give (xmin, ymin, xmax, ymax) without times or "
+                         "(xmin, ymin, xmax, ymax, bins, offs) with times")
+    x = cols[0]
+    for i, t in enumerate(cols):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"column {i} must be a 1-D int32 tensor")
+        if not t.is_contiguous() or t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"column {i} must be contiguous and match column 0")
+    for name, t in (("boxes", boxes), ("times", times)):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 tensor")
+        if t.dim() != 3 or t.shape[2] != 4 or t.shape[1] < 1:
+            raise ValueError(f"{name} must have shape (Q, slots >= 1, 4)")
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous and on {x.device}")
+    if times is not None and boxes.shape[0] != times.shape[0]:
+        raise ValueError("boxes and times must hold the same number of queries")
+    if x.shape[0] >= 2**31:
+        raise ValueError("columns of 2^31 rows or more would overflow int32 counts")
+
+
+def _overlap_rows(cols, s: int, e: int):
+    """Rows [s, e) of the bbox columns as (1, e - s) tensors, six of them
+    (the time columns None in the no-time form)."""
+    rows = [c[s:e][None, :] for c in cols]
+    return rows + [None] * (6 - len(rows))
+
+
+def _overlap_plain_masks(cols, base: int, true_n: int, boxes, times, chunk: int,
+                         edges: bool = False):
+    """:func:`_plain_masks` for the overlap predicate."""
+    n = cols[0].shape[0]
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        m, edge = overlap_masks(*_overlap_rows(cols, s, e), boxes, times, edges)
+        lpos = torch.arange(s, e, dtype=torch.int64, device=cols[0].device)
+        m &= ((int(base) + lpos) < int(true_n))[None, :]
+        yield s, e, m, (edge & m if edges else None)
+
+
+def _launch_overlap(entry: str, counter: str, cols, base: int, true_n: int, boxes, times, *outs,
+                    ints: tuple = ()):
+    """Launch an overlap kernel (``entry``) on the current stream of the
+    columns' card, its outputs ``outs`` and ``ints`` after the payloads;
+    raises on a refused launch."""
+    q, nb = boxes.shape[0], boxes.shape[1]
+    nt = 0 if times is None else times.shape[1]
+    x = cols[0]
+    if q == 0 or x.shape[0] == 0:
+        return
+    for i, t in enumerate((*cols, boxes) + (() if times is None else (times,))):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{counter}: input {i} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
+    ptrs = [c.data_ptr() for c in cols] + [None] * (6 - len(cols))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    with torch.cuda.device(x.device):
+        rc = _fn(entry)(*ptrs, x.shape[0], int(base), int(true_n), boxes.data_ptr(),
+                        None if times is None else times.data_ptr(), q, nb, nt, sms,
+                        *(o.data_ptr() for o in outs), *ints, _stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"{counter} launch failed: cudaError {rc}")
+    launches[counter] += 1
+
+
+def batched_overlap(cols, base: int, true_n: int, boxes, times=None) -> torch.Tensor:
+    """Q bbox-overlap count queries over one slice of bbox columns, one pass.
+
+    ``cols``: (xmin, ymin, xmax, ymax) (N,) int32, the no-time form, or
+    (xmin, ymin, xmax, ymax, bins, offs) with ``times`` (Q, T, 4) int32;
+    ``base``/``true_n`` as in :func:`batched_count`; ``boxes`` (Q, B, 4)
+    int32 [xlo, xhi, ylo, yhi]. Returns (Q,) int32: per query the rows whose
+    bbox overlaps a live box and, with time, lies in a live window
+    (:func:`overlap_masks`).
+
+    On the card (``csrc/batched_overlap.cu``) each block tests a 4096-row
+    chunk only against the queries :func:`overlap_chunk_pairs` keeps for
+    it; a culled pair holds no match."""
+    _check_box_args(cols, boxes, times)
+    x = cols[0]
+    if x.device.type == "cpu":
+        return batched_overlap_plain(cols, base, true_n, boxes, times)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_overlap runs on cuda or cpu, not {x.device}")
+    out = torch.zeros(boxes.shape[0], dtype=torch.int32, device=x.device)
+    _launch_overlap("geomesa_batched_overlap", "batched_overlap", cols, base, true_n, boxes,
+                    times, out)
+    return out
+
+
+def batched_overlap_plain(cols, base: int, true_n: int, boxes, times=None,
+                          chunk: int = 1 << 20) -> torch.Tensor:
+    """The plain PyTorch version of :func:`batched_overlap`."""
+    counts = torch.zeros(boxes.shape[0], dtype=torch.int64, device=cols[0].device)
+    for _, _, m, _ in _overlap_plain_masks(cols, base, true_n, boxes, times, chunk):
+        counts += m.sum(dim=1)
+    return counts.to(torch.int32)
+
+
+def overlap_chunk_pairs(cols, base: int, true_n: int, boxes, times=None) -> torch.Tensor:
+    """The (chunk, query) pairs the overlap kernels' cull keeps, as a
+    (ceil(N / JOIN_BLOCK), Q) bool tensor: the plain version of
+    ``csrc/overlap_cull.cuh``'s cull, over :func:`chunk_extents_bbox` (rows
+    past N of the last chunk as zeros, as the kernels load them). No culled
+    pair holds a match. For tests and bounds."""
+    _check_box_args(cols, boxes, times)
+    ext = chunk_extents_bbox(*cols[:4], *(cols[4:] if times is not None else ()))
+    return _pairs_from_extents(ext, cols[0].shape[0], base, true_n, boxes, times)
+
+
+def batched_edge_gather_overlap(cols, base: int, true_n: int, boxes, times,
+                                capacity: int = EDGE_CAPACITY):
+    """:func:`batched_overlap` with time plus each query's edge candidates,
+    one pass: the overlap form of :func:`batched_edge_gather`.
+
+    ``cols``: (xmin, ymin, xmax, ymax, bins, offs). Returns ``(counts (Q,)
+    int32, positions (Q, 1, capacity) int32, hits (Q, 1) int32)`` under the
+    point form's lane contract. A row is a candidate of query ``q`` when it
+    matches ``q`` and overlaps a live box of ``q`` with one of ``xmin ==
+    qxhi``, ``xmax == qxlo``, ``ymin == qyhi``, ``ymax == qylo``, or lies at
+    an endpoint of a live window (:func:`overlap_masks`). On the card
+    ``csrc/batched_edge_gather.cu``'s overlap instance."""
+    _check_box_args(cols, boxes, times)
+    if times is None:
+        raise ValueError("the overlap edge gather needs the time columns and windows")
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    x = cols[0]
+    if int(base) + x.shape[0] > _I32_MAX:
+        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    if x.device.type == "cpu":
+        return batched_edge_gather_overlap_plain(cols, base, true_n, boxes, times, capacity)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_edge_gather_overlap runs on cuda or cpu, not {x.device}")
+    q = boxes.shape[0]
+    counts = torch.zeros(q, dtype=torch.int32, device=x.device)
+    hits = torch.zeros(q, dtype=torch.int32, device=x.device)
+    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
+    _launch_overlap("geomesa_batched_edge_gather_overlap", "batched_edge_gather_overlap", cols,
+                    base, true_n, boxes, times, counts, hits, pos, ints=(int(capacity),))
+    return counts, _sorted_lanes(pos)[:, None, :], hits[:, None]
+
+
+def batched_edge_gather_overlap_plain(cols, base: int, true_n: int, boxes, times,
+                                      capacity: int = EDGE_CAPACITY, chunk: int = 1 << 20):
+    """The plain PyTorch version of :func:`batched_edge_gather_overlap`: the
+    reference's ``one`` in overlap mode, chunked over rows."""
+    return _gather_lanes(_overlap_plain_masks(cols, base, true_n, boxes, times, chunk,
+                                              edges=True),
+                         boxes.shape[0], base, capacity, cols[0].device)
+
+
+def planned_gather_overlap(cols, true_n: int, pair_q, pair_blk, boxes, times, plan=None):
+    """:func:`planned_gather` over the bbox columns ``cols`` (xmin, ymin,
+    xmax, ymax, bins, offs) with the overlap predicate: the overlap form of
+    ``select_many``'s retrieval. Same pairs, plan and outputs; on the card
+    ``csrc/planned_gather.cu``'s overlap count pass and the shared write
+    pass."""
+    _check_pair_args(cols, pair_q, pair_blk, boxes, times)
+    if cols[0].device.type == "cpu":
+        return planned_gather_overlap_plain(cols, true_n, pair_q, pair_blk, boxes, times)
+    return _planned_launch("geomesa_planned_gather_overlap_count", "planned_gather_overlap", cols,
+                           true_n, pair_q, pair_blk, boxes, times, plan)
+
+
+def planned_gather_overlap_plain(cols, true_n: int, pair_q, pair_blk, boxes, times):
+    """The plain PyTorch version of :func:`planned_gather_overlap`."""
+    return _planned_plain(cols, true_n, pair_q, pair_blk, boxes, times, overlap_masks)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ have no function of their own, as each is one call with nothing to hide:
   ``base=0``;
 - the exact batched count's fused scan (``make_batched_edge_gather_step``
   ``:342``): ``DataStore.count_many(loose=False)`` calls
-  ``ops.kernels.batched_edge_gather`` with ``base=0``;
+  ``ops.kernels.batched_edge_gather`` with ``base=0`` (on a line or
+  polygon store ``ops.kernels.batched_edge_gather_overlap``, the
+  ``overlap=True`` form);
 - the row select of one query (``_make_count_step`` ``:115`` /
   ``_make_gather_step`` ``:140``): ``DeviceBackend.select_positions``
   indexes the candidate slots with ``ops.refine.refine_points``, one pass
@@ -20,7 +22,11 @@ The module's steps:
 - :func:`intervals_to_block_pairs` / :func:`planned_gather_step` — batched
   row retrieval over the planner's candidate blocks
   (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
-  ``:820``), the ``select_many`` path: the ``planned_gather`` kernel.
+  ``:820``), the ``select_many`` path: the ``planned_gather`` kernel, or
+  over a store's bbox columns its overlap form (``overlap=True``).
+- :func:`batched_overlap_step` — Q bbox-overlap counts over a line or
+  polygon store's per-feature bounds (``make_batched_overlap_step``
+  ``:914``, with or without time): one ``batched_overlap`` launch.
 - :func:`grouped_agg_step` — the fused GROUP BY of ``aggregate_many``
   (``make_grouped_agg_step`` ``:1498``, point mode): the ``agg_work_list``
   kernel, then one ``grouped_agg`` launch over its runs.
@@ -57,8 +63,8 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.ops.kernels import (
-    EDGE_CAPACITY, LANES, batched_count_hits, batched_density, batched_knn, block_runs,
-    grouped_agg, planned_gather, polygon_join)
+    EDGE_CAPACITY, LANES, batched_count_hits, batched_density, batched_knn, batched_overlap,
+    block_runs, grouped_agg, planned_gather, planned_gather_overlap, polygon_join)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -92,8 +98,11 @@ def intervals_to_block_pairs(intervals_per_query, block_rows: int):
 def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     """Batched row retrieval over planned (query, block) pairs, one shard.
 
-    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns, N a multiple of
-    ``JOIN_BLOCK`` (else ``ValueError``); ``pair_q``/``pair_blk``: host int
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns, or a bbox
+    layout's ``xmin, ymin, xmax, ymax, bins, offs`` (the overlap form,
+    ``make_planned_gather_step(..., overlap=True)``: the
+    ``planned_gather_overlap`` kernel), N a multiple of ``JOIN_BLOCK``
+    (else ``ValueError``); ``pair_q``/``pair_blk``: host int
     arrays from :func:`intervals_to_block_pairs` with ``JOIN_BLOCK``-row
     blocks; ``boxes`` (Q, B, 4) / ``times`` (Q, T, 4) int32 payloads on the
     columns' device. Each pair's block is tested against its one query by
@@ -126,8 +135,23 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     p = len(pair_q)
     lists = torch.from_numpy(np.concatenate([pair_q.astype(np.int32), pair_blk.astype(np.int32),
                                              *block_runs(pair_q, pair_blk)])).to(x.device)
+    if len(cols) == 6:
+        return planned_gather_overlap(cols, true_n, lists[:p], lists[p:2 * p], boxes, times,
+                                      plan=lists[2 * p:])
     return planned_gather(*cols, true_n, lists[:p], lists[p:2 * p], boxes, times,
                           plan=lists[2 * p:])
+
+
+def batched_overlap_step(cols, true_n: int, boxes, times=None) -> torch.Tensor:
+    """Q bbox-overlap counts over one shard's bbox columns
+    (``make_batched_overlap_step`` ``:914``): ``cols`` (xmin, ymin, xmax,
+    ymax) with ``times`` None (``with_time=False``, bench config 5's step)
+    or (xmin, ymin, xmax, ymax, bins, offs) with ``times`` (Q, T, 4)
+    (``with_time=True``, the loose ``count_many`` of a line or polygon
+    store); ``boxes`` (Q, B, 4) packed with ``pack_boxes(...,
+    overlap=True)``. Returns (Q,) int32 on the columns' device: one
+    ``batched_overlap`` launch with ``base = 0``."""
+    return batched_overlap(cols, 0, true_n, boxes, times)
 
 
 def grouped_agg_step(cols, gid, rowid, vals, true_n: int, boxes, times, n_groups: int,

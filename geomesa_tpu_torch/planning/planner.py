@@ -1,11 +1,13 @@
 """Query planner: extract bounds → choose a strategy → plan scan intervals.
 
 Port of :class:`geomesa_tpu.planning.planner.QueryPlanner` reduced to the
-decision :meth:`StrategyDecider._heuristic` makes over the point indexes
-the port carries, z3 and z2: a temporally bounded filter scans the z3
-index's intervals, a spatially bounded one the z2 index's, anything else is
-a full scan of the store in its preferred index order (z3, then z2). The
-cost model, stats and union plans of the reference stay out. The residual
+decision :meth:`StrategyDecider._heuristic` makes (``planner.py:317-321``)
+over the indexes the port carries, z3 and z2 for points, xz3 and xz2 for
+extended geometries: a temporally bounded filter scans the z3 (else xz3)
+index's intervals, a spatially bounded one the z2 (else xz2) index's,
+anything else is a full scan of the store in its preferred index order (z3,
+xz3, z2, xz2). The cost model, stats and union plans of the reference stay
+out. The residual
 is always the full filter, so every plan is sound; the strategy only sizes
 the candidate set.
 
@@ -23,14 +25,14 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction, extract
 from geomesa_tpu_torch.filter.cql import parse as parse_cql
 from geomesa_tpu_torch.index.api import DEFAULT_MAX_RANGES, IndexPlan
-from geomesa_tpu_torch.index.z2 import Z2Index
-from geomesa_tpu_torch.index.z3 import Z3Index, refuse_legacy
+from geomesa_tpu_torch.index.z2 import XZ2Index, Z2Index
+from geomesa_tpu_torch.index.z3 import XZ3Index, Z3Index, refuse_legacy
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
 from geomesa_tpu_torch.schema.sft import FeatureType
 from geomesa_tpu_torch.store.backends import (
-    POINT_INDEXES,
+    RESIDENT_INDEXES,
     int_boxes,
-    preferred_point_index,
+    preferred_index,
     time_quads,
 )
 
@@ -62,7 +64,7 @@ class QueryPlanInfo:
     ``scan_index`` is the index whose sort order the plan's intervals
     address (the preferred one for a full scan)."""
 
-    index_name: str  # "z3", "z2" or FULL_SCAN
+    index_name: str  # "z3", "z2", "xz3", "xz2" or FULL_SCAN
     scan_index: str
     extraction: Extraction
     n_intervals: int
@@ -70,15 +72,17 @@ class QueryPlanInfo:
     plan_ms: float
 
 
-INDEX_TYPES = (Z3Index, Z2Index)  # in POINT_INDEXES' preference order
+INDEX_TYPES = (Z3Index, XZ3Index, Z2Index, XZ2Index)  # in RESIDENT_INDEXES' order
 
 
 def build_indices(sft: FeatureType) -> dict:
-    """The index set for a schema (the reference's ``build_indices`` over the
-    indexes this port carries): z3 + z2 for points with a date, z2 for
-    points without one, narrowed by the ``geomesa.indices`` setting. A
-    setting that names none of them, the legacy layout and a schema no
-    ported index supports raise ``NotImplementedError``."""
+    """The index set for a schema (the reference's ``build_indices``,
+    ``planner.py:653``, over the indexes this port carries, without ``id``):
+    z3 + z2 for points with a date, z2 for points without one, xz3 + xz2
+    for extended geometries with a date, xz2 without one, narrowed by the
+    ``geomesa.indices`` setting. A setting that names none of them, the
+    legacy layout and a schema no ported index supports raise
+    ``NotImplementedError``."""
     refuse_legacy(sft)
     configured = sft.configured_indices
     out = {}
@@ -90,7 +94,7 @@ def build_indices(sft: FeatureType) -> dict:
     if not out:
         raise NotImplementedError(
             f"schema {sft.name!r} needs indexes this port does not carry yet "
-            f"(it has {', '.join(POINT_INDEXES)} for point schemas): "
+            f"(it has {', '.join(RESIDENT_INDEXES)}): "
             f"geomesa.indices={configured}"
         )
     return out
@@ -102,12 +106,13 @@ class QueryPlanner:
         self.indices = indices
 
     def choose(self, e: Extraction) -> str:
-        """``_heuristic`` over {z3, z2}: temporal → z3, spatial → z2,
-        otherwise a full scan."""
-        if e.temporally_bounded and "z3" in self.indices:
-            return "z3"
-        if e.spatially_bounded and "z2" in self.indices:
-            return "z2"
+        """``_heuristic`` (``planner.py:317-321``): temporal → z3, else xz3;
+        spatial → z2, else xz2; otherwise a full scan."""
+        for bounded, names in ((e.temporally_bounded, ("z3", "xz3")),
+                               (e.spatially_bounded, ("z2", "xz2"))):
+            for name in names:
+                if bounded and name in self.indices:
+                    return name
         return FULL_SCAN
 
     def plan(
@@ -117,7 +122,7 @@ class QueryPlanner:
         f = q.resolved_filter()
         e = extract(f, self.sft.geom_field, self.sft.dtg_field)
         name = self.choose(e)
-        scan = preferred_point_index(self.indices) if name == FULL_SCAN else name
+        scan = preferred_index(self.indices) if name == FULL_SCAN else name
         index = self.indices[scan]
         if e.disjoint:
             plan = IndexPlan.empty()

@@ -20,7 +20,7 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.parallel.query import batched_knn_step, check_knn_impl
 from geomesa_tpu_torch.planning.planner import Query
 from geomesa_tpu_torch.schema.columnar import Point
-from geomesa_tpu_torch.store.backends import DeviceBackend
+from geomesa_tpu_torch.store.backends import DeviceBackend, refuse_extended
 
 
 def knn(ds, type_name: str, point: Point, k: int = 10, filter=None,
@@ -28,7 +28,10 @@ def knn(ds, type_name: str, point: Point, k: int = 10, filter=None,
     """Returns ``(table, distances_deg)`` of the k nearest features to
     ``point`` (``knn.py:20``), f64 distances ascending, ties in row order.
 
-    ``filter``: an optional extra CQL/AST predicate AND'ed with the window."""
+    ``filter``: an optional extra CQL/AST predicate AND'ed with the window.
+    A line or polygon store raises ``NotImplementedError`` (ROADMAP.md
+    A.2.3)."""
+    refuse_extended(ds.get_schema(type_name), "knn", "A.2.3")
     base = None
     if filter is not None:
         from geomesa_tpu_torch.filter.cql import parse
@@ -73,7 +76,9 @@ def knn_many(ds, type_name: str, points, k: int = 10, topology: str = "gather",
     unused (see ``batched_knn_step``).
 
     Returns a list of ``(table, distances_deg)`` pairs, one per point, each
-    holding that point's k nearest features in distance order."""
+    holding that point's k nearest features in distance order. A line or
+    polygon store raises ``NotImplementedError`` (ROADMAP.md A.2.3)."""
+    refuse_extended(ds.get_schema(type_name), "knn_many", "A.2.3")
     if topology not in ("gather", "ring"):
         raise ValueError(f"topology must be gather|ring: {topology!r}")
     check_knn_impl(impl)  # loud even when the per-point path serves

@@ -1,16 +1,18 @@
 """Feature-type schema DSL: the ``name:Type:opt=...`` spec string.
 
-Port copy of :mod:`geomesa_tpu.schema.sft`, trimmed to point schemas:
+Port copy of :mod:`geomesa_tpu.schema.sft`, trimmed to the types the
+port stores:
 
     "name:String,dtg:Date,*geom:Point:srid=4326;geomesa.z3.interval='day'"
 
-- ``*`` marks the default geometry attribute (a ``Point``).
+- ``*`` marks the default geometry attribute: a ``Point`` (the z3 and z2
+  indexes) or an extended geometry, ``LineString``, ``Polygon``, their
+  ``Multi`` forms, ``MultiPoint`` or ``Geometry`` (the xz3 and xz2
+  indexes).
 - per-attribute options after a second ``:`` (``srid=4326``, ...).
 - schema-level user data after ``;`` (``geomesa.z3.interval``,
-  ``geomesa.index.dtg``, ``geomesa.indices``, ``geomesa.index.layout``).
-
-Extended geometry types (lines, polygons) belong to the XZ indexes, which
-this port does not carry yet: their specs raise ``NotImplementedError``.
+  ``geomesa.index.dtg``, ``geomesa.indices``, ``geomesa.index.layout``,
+  ``geomesa.xz.precision``).
 """
 
 from __future__ import annotations
@@ -30,18 +32,30 @@ class AttributeType(str, Enum):
     BOOLEAN = "Boolean"
     DATE = "Date"
     POINT = "Point"
+    LINESTRING = "LineString"
+    POLYGON = "Polygon"
+    MULTIPOINT = "MultiPoint"
+    MULTILINESTRING = "MultiLineString"
+    MULTIPOLYGON = "MultiPolygon"
+    GEOMETRY = "Geometry"
 
     @property
     def is_geometry(self) -> bool:
-        return self is AttributeType.POINT
+        return self in _GEOM_TYPES
 
+
+_GEOM_TYPES = {
+    AttributeType.POINT,
+    AttributeType.LINESTRING,
+    AttributeType.POLYGON,
+    AttributeType.MULTIPOINT,
+    AttributeType.MULTILINESTRING,
+    AttributeType.MULTIPOLYGON,
+    AttributeType.GEOMETRY,
+}
 
 _TYPE_ALIASES = {t.value.lower(): t for t in AttributeType}
 _TYPE_ALIASES.update({"int": AttributeType.INT, "str": AttributeType.STRING})
-_UNPORTED_GEOMETRY = {
-    "linestring", "polygon", "multipoint", "multilinestring", "multipolygon",
-    "geometry",
-}
 
 
 @dataclass(frozen=True)
@@ -107,6 +121,11 @@ class FeatureType:
         return TimePeriod(self.user_data.get("geomesa.z3.interval", "week"))
 
     @property
+    def xz_precision(self) -> int:
+        """The XZ curves' resolution ``g`` (``geomesa.xz.precision``, 12)."""
+        return int(self.user_data.get("geomesa.xz.precision", 12))
+
+    @property
     def index_layout(self) -> str:
         """Index-layout version (``geomesa.index.layout``): ``current``
         (default) or ``legacy``, the curve generation keys are built with."""
@@ -143,11 +162,6 @@ def parse_spec(name: str, spec: str) -> FeatureType:
         if len(fields) < 2:
             raise ValueError(f"invalid attribute spec: {chunk!r}")
         aname, atype = fields[0].strip(), fields[1].strip()
-        if atype.lower() in _UNPORTED_GEOMETRY:
-            raise NotImplementedError(
-                f"geometry type {atype!r} needs the XZ indexes, which this "
-                "port does not carry yet (point schemas only)"
-            )
         try:
             typ = _TYPE_ALIASES[atype.lower()]
         except KeyError:

@@ -1,19 +1,23 @@
 """Execution backends: brute-force oracle and the device backend.
 
-Ports of :mod:`geomesa_tpu.store.backends` for point schemas:
+Ports of :mod:`geomesa_tpu.store.backends`:
 
 - :class:`OracleBackend` — evaluates the full filter over every row on the
   host (the parity referee).
 - :class:`DeviceBackend` — the ``TpuBackend`` role on one torch device:
   ``load`` stages int32 ``x/y/bins/offs`` columns once per point index, each
   in its own sort order (``backends.py:267-388``, points branch; zero
-  ``bins``/``offs`` for a schema without a date), ``point_state`` picks the
-  state the batched counts run on (z3, then z2), ``_payload`` packs a query's
-  int-domain bounds (``:478``), ``select`` refines the planned candidates
-  on the device with one boolean mask (``:501``; the reference's two
-  passes exist only to size a static XLA buffer) and applies the exact
-  host residual, and ``select_many_positions`` (``:575``) answers a batch
-  of queries over planned (query, block) pairs.
+  ``bins``/``offs`` for a schema without a date), or, for the xz3/xz2
+  indexes of a line or polygon schema, the per-feature bbox columns
+  ``xmin/ymin/xmax/ymax/bins/offs`` (``:389-428``, ``kind == "bboxes"``);
+  ``point_state`` / ``bbox_state`` pick the state the batched counts run on
+  (z3, then z2; xz3, then xz2), ``payload`` packs a query's int-domain
+  bounds (``:478``, with the overlap pad on a bbox state), ``select``
+  refines the planned candidates on the device with one boolean mask
+  (``:501``; the reference's two passes exist only to size a static XLA
+  buffer) and applies the exact host residual, and
+  ``select_many_positions`` (``:575``) answers a batch of queries over
+  planned (query, block) pairs, in overlap mode on a bbox state.
 
 ``select`` always takes the candidate route. The reference's ``sel:planned``
 route inside it (``:539-556``) is chosen by the cost model, which the port
@@ -36,7 +40,7 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction
 from geomesa_tpu_torch.index.api import IndexPlan, gather_indices
 from geomesa_tpu_torch.ops.kernels import chunk_extents
-from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_points
+from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_bboxes, refine_points
 from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs, planned_gather_step
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK, stage_columns
 from geomesa_tpu_torch.schema.columnar import FeatureTable
@@ -44,11 +48,20 @@ from geomesa_tpu_torch.schema.sft import FeatureType
 
 REFINE_PRECISION = 31  # device coords are 31-bit fixed point
 POINT_INDEXES = ("z3", "z2")  # resident point layouts, in preference order
+BBOX_INDEXES = ("xz3", "xz2")  # resident bbox layouts of line/polygon schemas, likewise
+# a full scan's order (planner.py:320); a schema has point or bbox indexes, never both
+RESIDENT_INDEXES = ("z3", "xz3", "z2", "xz2")
+_INVALID_LO, _INVALID_HI = 2**31 - 1, -1  # a bbox no query box overlaps
 
 
 def preferred_point_index(names) -> str | None:
     """The first of ``POINT_INDEXES`` among ``names`` (index or state keys)."""
     return next((name for name in POINT_INDEXES if name in names), None)
+
+
+def preferred_index(names) -> str | None:
+    """The first of ``RESIDENT_INDEXES`` among ``names``."""
+    return next((name for name in RESIDENT_INDEXES if name in names), None)
 
 
 class OracleBackend:
@@ -70,9 +83,11 @@ class IndexState:
     ``extents`` holds each 4096-row chunk's extent
     (:func:`~geomesa_tpu_torch.ops.kernels.chunk_extents`, 32 B a chunk),
     taken once after the columns are staged (``extents_s``, synchronized),
-    for the grouped fold's work list. ``agg_cache`` holds ``aggregate_many``'s staged group ids, row ids and
+    for the grouped fold's work list (None on a bbox state, which has no
+    grouped fold yet). ``agg_cache`` holds ``aggregate_many``'s staged group ids, row ids and
     value columns in the same order, so a rebuild, which makes a new state,
-    drops them."""
+    drops them. ``kind`` is ``"points"`` (``x, y, bins, offs``) or
+    ``"bboxes"`` (``xmin, ymin, xmax, ymax, bins, offs``)."""
 
     cols: dict[str, torch.Tensor]
     rows_per_shard: int
@@ -82,9 +97,14 @@ class IndexState:
     extents: torch.Tensor | None = None
     extents_s: float = 0.0
     agg_cache: dict = field(default_factory=dict)
+    kind: str = "points"
 
     def spatial_cols(self) -> tuple:
+        """The ordered column tuple every kernel of the layout takes
+        (``backends.py:124``)."""
         c = self.cols
+        if self.kind == "bboxes":
+            return (c["xmin"], c["ymin"], c["xmax"], c["ymax"], c["bins"], c["offs"])
         return (c["x"], c["y"], c["bins"], c["offs"])
 
 
@@ -130,21 +150,59 @@ def int_boxes(boxes) -> np.ndarray | None:
     )
 
 
-def device_columns(sft: FeatureType, table: FeatureTable):
-    """The normalized int32 ``x/y/bins/offs`` host columns in table order;
-    ``bins``/``offs`` are zeros for a schema without a date (the
-    unconstrained time window matches them)."""
-    col = table.geom_column()
+def _time_columns(sft: FeatureType, table: FeatureTable) -> dict:
+    """``bins``/``offs`` int32 in table order: zeros for a schema without a
+    date (the unconstrained time window matches them)."""
     if sft.dtg_field is not None:
         bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(table.dtg_millis())
     else:
         bins = offs = np.zeros(len(table), dtype=np.int32)
+    return {"bins": bins.astype(np.int32), "offs": offs.astype(np.int32)}
+
+
+def device_columns(sft: FeatureType, table: FeatureTable):
+    """The normalized int32 ``x/y/bins/offs`` host columns in table order."""
+    col = table.geom_column()
     return {
         "x": norm_lon(REFINE_PRECISION).normalize(col.x).astype(np.int32),
         "y": norm_lat(REFINE_PRECISION).normalize(col.y).astype(np.int32),
-        "bins": bins.astype(np.int32),
-        "offs": offs.astype(np.int32),
+        **_time_columns(sft, table),
     }
+
+
+def bbox_columns(sft: FeatureType, table: FeatureTable):
+    """The int32 ``xmin/ymin/xmax/ymax/bins/offs`` host columns of a line or
+    polygon schema in table order (``backends.py:389-428``): each feature's
+    bounds normalized at 31 bits; a null geometry or a bbox with a
+    non-finite bound is stamped ``xmin = ymin = INT32_MAX``, ``xmax = ymax =
+    -1``, which no query box overlaps."""
+    col = table.geom_column()
+    b = col.bounds
+    invalid = ~col.is_valid() | ~np.isfinite(b).all(axis=1)
+    if invalid.any():
+        b = np.where(invalid[:, None], 0.0, b)
+    nlon, nlat = norm_lon(REFINE_PRECISION), norm_lat(REFINE_PRECISION)
+    out = {
+        "xmin": nlon.normalize(b[:, 0]).astype(np.int32),
+        "ymin": nlat.normalize(b[:, 1]).astype(np.int32),
+        "xmax": nlon.normalize(b[:, 2]).astype(np.int32),
+        "ymax": nlat.normalize(b[:, 3]).astype(np.int32),
+    }
+    if invalid.any():
+        for k in ("xmin", "ymin"):
+            out[k][invalid] = _INVALID_LO
+        for k in ("xmax", "ymax"):
+            out[k][invalid] = _INVALID_HI
+    return {**out, **_time_columns(sft, table)}
+
+
+def refuse_extended(sft: FeatureType, surface: str, item: str) -> None:
+    """Raise ``NotImplementedError`` for ``surface`` on a line or polygon
+    schema: it is queued as ROADMAP.md ``item`` and must not run point code
+    on bbox columns."""
+    if sft.geom_field is not None and not sft.geom_is_points:
+        raise NotImplementedError(
+            f"{surface} on a line or polygon schema is not ported yet (ROADMAP.md {item})")
 
 
 def residual_rows(index, positions: np.ndarray, residual, table: FeatureTable) -> np.ndarray:
@@ -166,25 +224,31 @@ class DeviceBackend:
         self.device = device
 
     def load(self, sft, table, indices) -> dict[str, IndexState]:
-        """One resident state per point index, in that index's order: the
-        columns are normalized once, in table order, and gathered per index."""
+        """One resident state per point or bbox index, in that index's
+        order: the columns are normalized once, in table order, and gathered
+        per index."""
         state = {}
-        table_order = device_columns(sft, table)
-        for name in POINT_INDEXES:
+        table_order = None
+        for name in RESIDENT_INDEXES:
             if name not in indices:
                 continue
+            kind = "bboxes" if name in BBOX_INDEXES else "points"
+            if table_order is None:
+                table_order = (bbox_columns if kind == "bboxes" else device_columns)(sft, table)
             perm = indices[name].perm
             host = {k: v[perm] for k, v in table_order.items()}
             t0 = time.perf_counter()
             cols, padded = stage_columns(host, self.device)
             self._sync()
             t1 = time.perf_counter()
-            extents = chunk_extents(cols["x"], cols["y"], cols["bins"], cols["offs"])
-            self._sync()
+            extents = None  # the grouped fold's work list reads them: points only
+            if kind == "points":
+                extents = chunk_extents(cols["x"], cols["y"], cols["bins"], cols["offs"])
+                self._sync()
             state[name] = IndexState(
                 cols=cols, rows_per_shard=padded, n=len(table),
                 h2d_bytes=sum(int(c.nbytes) for c in cols.values()),
-                h2d_s=t1 - t0, extents=extents, extents_s=time.perf_counter() - t1,
+                h2d_s=t1 - t0, extents=extents, extents_s=time.perf_counter() - t1, kind=kind,
             )
         return state
 
@@ -199,26 +263,42 @@ class DeviceBackend:
         name = preferred_point_index(state or ())
         return (None, None) if name is None else (state[name], name)
 
-    def payload(self, sft: FeatureType, e: Extraction) -> tuple[np.ndarray, np.ndarray]:
-        """Packed (MAX_BOXES, 4) boxes and (MAX_TIMES, 4) windows, int32."""
-        return (np.ascontiguousarray(pack_boxes(int_boxes(e.boxes))),
+    @staticmethod
+    def bbox_state(state) -> tuple[IndexState | None, str | None]:
+        """The preferred bbox-index state and its name (xz3, then xz2): the
+        one a line or polygon store's batched counts run on
+        (``backends.py:241-251``)."""
+        name = next((n for n in BBOX_INDEXES if n in (state or ())), None)
+        return (None, None) if name is None else (state[name], name)
+
+    def payload(self, sft: FeatureType, e: Extraction,
+                overlap: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """Packed (MAX_BOXES, 4) boxes and (MAX_TIMES, 4) windows, int32;
+        ``overlap`` pads the boxes with the overlap sentinel (a bbox state's
+        payloads, ``backends.py:478-498``)."""
+        return (np.ascontiguousarray(pack_boxes(int_boxes(e.boxes), overlap=overlap)),
                 np.ascontiguousarray(pack_times(time_quads(sft, e.intervals))))
 
     def select_positions(self, dev: IndexState, sft, e: Extraction,
                          intervals: np.ndarray) -> np.ndarray:
-        """Sorted-order positions passing the int-domain refine: one boolean
-        mask over the candidate slots, one device → host copy."""
+        """Sorted-order positions passing the int-domain refine (point
+        containment, or bbox overlap on a bbox state): one boolean mask over
+        the candidate slots, one device → host copy."""
         idx, count = gather_indices(intervals)
         idx = torch.from_numpy(idx).to(self.device)
-        boxes, times = (torch.from_numpy(a).to(self.device) for a in self.payload(sft, e))
-        return idx[refine_points(*dev.spatial_cols(), idx, count, boxes, times)].cpu().numpy()
+        overlap = dev.kind == "bboxes"
+        boxes, times = (torch.from_numpy(a).to(self.device)
+                        for a in self.payload(sft, e, overlap=overlap))
+        refine = refine_bboxes if overlap else refine_points
+        return idx[refine(*dev.spatial_cols(), idx, count, boxes, times)].cpu().numpy()
 
     def select_many_positions(self, dev: IndexState, index, extractions,
                               intervals_list, timings: dict | None = None) -> list[np.ndarray]:
         """Matching sorted-order positions for many queries on one index
         state (``backends.py:575``): each query's intervals become
         ``JOIN_BLOCK``-row (query, block) pairs, and one
-        :func:`planned_gather_step` serves them all. Returns one int32 array
+        :func:`planned_gather_step` serves them all (in overlap mode on a
+        bbox state). Returns one int32 array
         per query (the reference's position contract), sorted: views into
         the one buffer copied from the device, split without a copy. :func:`planned_gather_step` raises on a residency
         that is not block-aligned. ``timings``, when given, gains host-clock
@@ -227,7 +307,7 @@ class DeviceBackend:
         t0 = time.perf_counter()
         nq = len(intervals_list)
         pair_q, pair_blk = intervals_to_block_pairs(intervals_list, JOIN_BLOCK)
-        payloads = [self.payload(index.sft, e) for e in extractions]
+        payloads = [self.payload(index.sft, e, overlap=dev.kind == "bboxes") for e in extractions]
         boxes = torch.from_numpy(np.stack([p[0] for p in payloads])).to(self.device)
         times = torch.from_numpy(np.stack([p[1] for p in payloads])).to(self.device)
         t1 = time.perf_counter()

@@ -1,10 +1,14 @@
 """DataStore: schema, writes, queries and batched counts on one device.
 
-Port of the point path of :class:`geomesa_tpu.store.datastore.DataStore`,
-for point schemas with or without a date: ``create_schema`` → ``write`` →
+Port of :class:`geomesa_tpu.store.datastore.DataStore` for point schemas
+and for line and polygon schemas (LineString, Polygon and their Multi
+forms), each with or without a date: ``create_schema`` → ``write`` →
 ``compact`` → ``query`` / ``select_many`` / ``count_many``. Every write
-builds the z3 and z2 indexes the schema has (keys encoded and sorted on the
-store's device) and stages each index's columns. Differences from the reference, all
+builds the indexes the schema has (z3 and z2 keys encoded and sorted on the
+store's device; xz3 and xz2 codes made on the host and sorted on the
+device) and stages each index's columns: int32 points, or each feature's
+int32 bbox for a line or polygon schema, whose batched paths take the
+overlap forms of the kernels. Differences from the reference, all
 deliberate:
 
 - ``write`` folds the rows straight into the sorted main tier and rebuilds
@@ -23,6 +27,10 @@ deliberate:
 - ``aggregate_many`` is the reference's fused path (its pyramid and query
   cache off): see its docstring for what it leaves out.
 - ``density_many`` has no circuit breaker, failover or audit, as above.
+- On a line or polygon store, ``aggregate_many``, ``density_many`` and the
+  ``density`` hint raise ``NotImplementedError`` (ROADMAP.md A.2.1, A.2.2),
+  as do ``process.knn`` and ``process.join`` (A.2.3): none of them runs
+  point code on bbox columns.
 """
 
 from __future__ import annotations
@@ -37,14 +45,16 @@ import torch
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import extract
-from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, batched_count, batched_edge_gather
+from geomesa_tpu_torch.ops.kernels import (
+    EDGE_CAPACITY, batched_count, batched_edge_gather, batched_edge_gather_overlap)
 from geomesa_tpu_torch.ops.refine import MAX_BOXES, MAX_TIMES
-from geomesa_tpu_torch.parallel.query import batched_density_step, grouped_agg_step
+from geomesa_tpu_torch.parallel.query import (
+    batched_density_step, batched_overlap_step, grouped_agg_step)
 from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indices
 from geomesa_tpu_torch.schema.columnar import FeatureTable, GeometryColumn
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
 from geomesa_tpu_torch.store.backends import (
-    DeviceBackend, OracleBackend, int_boxes, residual_rows)
+    DeviceBackend, OracleBackend, int_boxes, refuse_extended, residual_rows)
 from geomesa_tpu_torch.store.reduce import density_grid
 
 # hints that are execution metadata, never semantics (datastore.py:51): the
@@ -165,10 +175,6 @@ class DataStore:
             if spec is None:
                 raise ValueError("create_schema('name', 'spec string') requires a spec")
             sft = parse_spec(sft, spec)
-        if not sft.geom_is_points:
-            raise NotImplementedError(
-                "this port serves point schemas only (the z3 and z2 indexes)"
-            )
         build_indices(sft)  # refuses what the port cannot index
         if sft.name in self._types:
             raise ValueError(f"schema already exists: {sft.name}")
@@ -250,11 +256,14 @@ class DataStore:
     def query(self, type_name: str, q: "Query | str | ast.Filter | None" = None) -> QueryResult:
         """Exact row set: plan → device superset (or oracle) → host residual.
         With the ``density`` hint the result also carries its exact f64
-        heatmap (``reduce.py:208-249``, points only); another hint but the
+        heatmap (``reduce.py:208-249``, points only: on a line or polygon
+        store it raises ``NotImplementedError``); another hint but the
         ``tenant`` metadata raises ``NotImplementedError``."""
         st = self._state(type_name)
         if not isinstance(q, Query):
             q = Query(filter=q)
+        if "density" in q.hints:
+            refuse_extended(st.sft, "the density hint", "A.2.2")
         unported = sorted(k for k in q.hints
                           if k not in _METADATA_HINTS and k not in _ANSWERED_HINTS)
         if unported:
@@ -321,7 +330,8 @@ class DataStore:
                     pending.append((i, None, True))
                     continue
                 e = replace(e, boxes=clipped)
-            payload = None if e.disjoint else self.backend.payload(st.sft, e)
+            payload = None if e.disjoint else self.backend.payload(
+                st.sft, e, overlap=not st.sft.geom_is_points)
             n_boxes = len(e.boxes) if e.boxes is not None else 1
             n_times = len(e.intervals) if e.intervals is not None else 1
             pending.append((i, payload, n_boxes <= MAX_BOXES and n_times <= MAX_TIMES))
@@ -329,15 +339,19 @@ class DataStore:
 
     def count_many(self, type_name: str, queries, loose: bool = True) -> list[int]:
         """Counts for many queries, the pure bbox+time ones in ONE device pass
-        over the preferred point index's resident columns; a provably
-        disjoint filter counts 0.
+        over the preferred point index's resident columns, or on a line or
+        polygon store the preferred bbox index's (``datastore.py:1942-2090``);
+        a provably disjoint filter counts 0.
 
         ``loose=True``: the int-domain count of the ``batched_count`` kernel
-        (the loose-bbox semantics). ``loose=False``: one ``batched_edge_gather``
-        launch gives the same count plus each query's edge candidates, the
-        only rows where the int count and the f64 filter can differ (in an
-        edge bucket of a box or at a window's quantized endpoint); the host
-        re-tests them against the full filter and subtracts the failures.
+        (the loose-bbox semantics), or of ``batched_overlap`` with time on a
+        bbox store (a feature counts when its bbox overlaps a query box).
+        ``loose=False``: one ``batched_edge_gather`` launch (its overlap
+        form on a bbox store) gives the same count plus each query's edge
+        candidates, the only rows where the int count and the f64 filter can
+        differ (in an edge bucket of a box, a bbox sharing an opposing edge
+        bucket, or at a window's quantized endpoint); the host re-tests them
+        against the full filter and subtracts the failures.
 
         Every other query goes through :meth:`query` and counts in
         ``exact_fallbacks``: a filter that is not pure bbox+time, a widened
@@ -360,18 +374,30 @@ class DataStore:
                 live.append((i, payload))
         if live:
             dev, name = DeviceBackend.point_state(st.backend_state)
+            overlap = dev is None  # a line or polygon store (_batch_gate :1676-1705)
+            if overlap:
+                dev, name = DeviceBackend.bbox_state(st.backend_state)
             boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
             times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
-            # make_batched_count_step / make_batched_edge_gather_step
-            # (parallel/query.py:449, :342) on one shard: base 0, the kernel
-            # on cuda, its plain version only on the CPU
+            # make_batched_count_step / make_batched_overlap_step(with_time=True)
+            # / make_batched_edge_gather_step(overlap=) (parallel/query.py:449,
+            # :914, :342) on one shard: base 0, the kernel on cuda, its plain
+            # version only on the CPU
             if loose:
-                counts = batched_count(*dev.spatial_cols(), 0, dev.n, boxes, times).cpu().numpy()
+                if overlap:
+                    counts = batched_overlap_step(dev.spatial_cols(), dev.n, boxes, times)
+                else:
+                    counts = batched_count(*dev.spatial_cols(), 0, dev.n, boxes, times)
+                counts = counts.cpu().numpy()
                 for k, (i, _) in enumerate(live):
                     out[i] = int(counts[k])
             else:
-                counts, pos, hits = batched_edge_gather(
-                    *dev.spatial_cols(), 0, dev.n, boxes, times, EDGE_CAPACITY)
+                if overlap:
+                    counts, pos, hits = batched_edge_gather_overlap(
+                        dev.spatial_cols(), 0, dev.n, boxes, times, EDGE_CAPACITY)
+                else:
+                    counts, pos, hits = batched_edge_gather(
+                        *dev.spatial_cols(), 0, dev.n, boxes, times, EDGE_CAPACITY)
                 counts, pos, hits = counts.cpu().numpy(), pos.cpu().numpy(), hits.cpu().numpy()
                 perm = st.indices[name].perm
                 for k, (i, _) in enumerate(live):
@@ -450,6 +476,7 @@ class DataStore:
         the caller's density options (``weight_by`` survives). No circuit
         breaker, failover or audit: a device error propagates."""
         st = self._state(type_name)
+        refuse_extended(st.sft, "density_many", "A.2.2")
         qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
         width, height = int(width), int(height)
         opts = {"bbox": tuple(bbox), "width": width, "height": height}
@@ -514,9 +541,11 @@ class DataStore:
         Left out, as the port carries none of them yet: query interceptors,
         the audit hook, the GeoBlocks pyramid and its query cache (the
         reference's route when ``GEOMESA_TPU_PYRAMID`` is on and the cost
-        table says so), TTL age-off, the delta tier and the XZ overlap
-        mode. A device error propagates."""
+        table says so), TTL age-off and the delta tier. A line or polygon
+        store raises ``NotImplementedError``: the overlap mode is ROADMAP.md
+        A.2.1. A device error propagates."""
         st = self._state(type_name)
+        refuse_extended(st.sft, "aggregate_many", "A.2.1")
         qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
         out: list = [None] * len(qs)
         group_by = list(group_by) if group_by else None

@@ -1,10 +1,13 @@
 """GDELT-shaped synthetic events and city-box queries (bench config 2's
 data), bench config 3's KNN points, bench config 4's join polygons, bench
-config 9's group keys and values, and bench config 8's streamed chunks.
+config 5's trajectory bboxes, bench config 9's group keys and values, and
+bench config 8's streamed chunks.
 
 Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``, config 3's
-KNN points, config 4's polygons, ``_pack_query_boxes``, config 9's group ids and values and
-config 8's ``host_chunk`` (tests hold them equal), plus :func:`bbox_cql` and
+KNN points, config 4's polygons, config 5's bboxes, ``_pack_query_boxes``,
+config 9's group ids and values and config 8's ``host_chunk`` (tests hold
+them equal), plus :func:`box_linestrings` (line strings whose bboxes are
+given boxes, for a line store), :func:`bbox_cql` and
 :func:`bbox_time_cql`, which write one query as the CQL a user would send, and :func:`edge_columns` /
 :func:`edge_payload`, the rows and payloads that hold the count kernels'
 staged predicate to their plain versions at its edges.
@@ -97,6 +100,44 @@ def join_polygons(k: int, seed: int = 5):
     return polys
 
 
+# bench config 5's store as a line-string schema: config 2's day bins
+XZ_SPEC = "dtg:Date,*geom:LineString:srid=4326;geomesa.z3.interval='day'"
+
+
+def xz_boxes(m: int, seed: int = 9):
+    """Bench config 5's trajectory bboxes (``bench.py:797-808``): short GPS
+    tracks clustered around ``CITIES``, from one generator. Returns (xmin,
+    ymin, xmax, ymax) f64 arrays of length ``m``."""
+    rng = np.random.default_rng(seed)
+    which = rng.integers(0, len(CITIES), m)
+    cx = CITIES[which, 0] + rng.normal(0, 3.0, m)
+    cy = CITIES[which, 1] + rng.normal(0, 2.0, m)
+    w = rng.exponential(0.05, m)
+    h = rng.exponential(0.05, m)
+    return (np.clip(cx - w, -180, 180), np.clip(cy - h, -90, 90),
+            np.clip(cx + w, -180, 180), np.clip(cy + h, -90, 90))
+
+
+def box_linestrings(xmin, ymin, xmax, ymax, seed: int = 11):
+    """A line string on each box: 2 to 5 vertices, the first at (xmin,
+    ymin), the last at (xmax, ymax), the rest inside the box, so that each
+    feature's bbox is its box exactly. Returns ``(coords (M, 2) f64,
+    offsets (n + 1,) int64)``, the input of
+    :func:`~geomesa_tpu_torch.schema.columnar.linestring_column`."""
+    rng = np.random.default_rng(seed)
+    n = len(xmin)
+    k = rng.integers(2, 6, n)
+    offsets = np.concatenate([[0], np.cumsum(k)]).astype(np.int64)
+    feat = np.repeat(np.arange(n), k)
+    u = rng.random((int(offsets[-1]), 2))
+    lo = np.stack([xmin, ymin], 1)[feat]
+    hi = np.stack([xmax, ymax], 1)[feat]
+    coords = np.clip(lo + u * (hi - lo), lo, hi)
+    coords[offsets[:-1]] = np.stack([xmin, ymin], 1)
+    coords[offsets[1:] - 1] = np.stack([xmax, ymax], 1)
+    return coords, offsets
+
+
 def star_ring(rng, nv: int, cx: float, cy: float, w: float, h: float, levels: int = 0):
     """A closed star-shaped ring of ``nv`` float32 vertices (the last repeats
     the first), drawn as :func:`join_polygons` draws a shell: sorted random
@@ -158,10 +199,10 @@ def stream_chunk(c: int, n: int):
     return x, y, bins, offs
 
 
-def pack_query_boxes(boxes_f64) -> np.ndarray:
+def pack_query_boxes(boxes_f64, overlap: bool = False) -> np.ndarray:
     """f64 boxes → (Q, 1, 4) normalized int32 payloads, one slot per query
-    (``bench.py:273``)."""
-    return np.stack([pack_boxes(int_boxes([b]), slots=1) for b in boxes_f64])
+    (``bench.py:273``; ``overlap`` for the bbox-overlap kernels)."""
+    return np.stack([pack_boxes(int_boxes([b]), slots=1, overlap=overlap) for b in boxes_f64])
 
 
 # -- edge cases of the count kernels' staged predicate -------------------------

@@ -25,7 +25,7 @@ from geomesa_tpu.schema import columnar as ref_columnar
 from geomesa_tpu.schema.sft import parse_spec as ref_parse_spec
 from geomesa_tpu.store.datastore import DataStore as RefDataStore
 
-from geomesa_tpu_torch.planning.planner import FULL_SCAN
+from geomesa_tpu_torch.planning.planner import FULL_SCAN, build_indices
 from geomesa_tpu_torch.schema import columnar
 from geomesa_tpu_torch.store import datastore as datastore_mod
 from geomesa_tpu_torch.store.convert import load_reference_state
@@ -175,8 +175,9 @@ def test_oracle_backend_and_record_writes():
     assert port.count_many("p", ["BBOX(geom, 0, 0, 5, 5)", "INCLUDE"]) == [1, 2]
     with pytest.raises(ValueError, match="null geometry"):
         port.write("p", [{"dtg": 1_498_867_200_000, "geom": None}])
-    with pytest.raises(NotImplementedError):
-        port.create_schema("poly", "dtg:Date,*geom:Polygon")
+    poly = port.create_schema("poly", "dtg:Date,*geom:Polygon")
+    assert not poly.geom_is_points
+    assert set(build_indices(poly)) == {"xz3", "xz2"}
 
 
 # -- both point indexes on a point + date store ------------------------------
