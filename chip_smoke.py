@@ -171,7 +171,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 9. bench config 5 (``bench.py:787``, ``bench_xz2``) and a line store:
    9a, ``batched_overlap`` (without time, (B, T) in {(1, 0), (8, 0)}, and
    with time, {(1, 1), (8, 16)}), ``batched_edge_gather_overlap`` (capacity
-   512 and 8, so that some queries' lanes overflow) against their plain
+   512, 8, 1 and 0, so that some queries' lanes overflow; overflowed lanes
+   distinct, sorted and candidates) against their plain
    versions on the card, exact, at N = 1,000,003 config-5 bboxes (seed 9) in
    xz2 order and shuffled, with 300 zero-size, 300 whole-world and 300
    stamped invalid rows, Q in {1, 64, one past the tile}, with and without a
@@ -197,6 +198,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    referee, ``select_many`` of the 64 and ``query()`` of 17 against the f64
    referee (rows, fid sets, the index planned); timings with their host
    split; the three kernels alone at the store's shapes with their bounds.
+   Each overlap kernel's record carries ``device_ms`` beside ``ms``: the
+   device work of a call, CUDA events around 10 calls enqueued behind a
+   spin of the card (``device_ms``), so the host's share does not count.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -310,6 +314,41 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 10) -> float | None:
+    """Device time of one call of ``fn``: CUDA events around ``calls`` calls
+    enqueued behind a spin of the card (``torch.cuda._sleep``), so that the
+    host's share of each call runs while the card spins and the events time
+    the calls' device work back to back (the kernels and any device op of
+    the wrapper, without the host's gaps). ``fn`` must not synchronise. The
+    spin doubles until the host has enqueued every call before the card
+    reaches the first event; None (logged as not measured) if it never
+    does. This replaces ``torch.profiler`` here: late in a full run its
+    traces lose kernel records (phases 6 and 7)."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    spin = 1 << 24
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        hidden = not start.query()  # the card had not reached the first event yet
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / calls
+        spin *= 2
+    return None
+
+
+def fmt_ms(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 PAYLOAD_MODES = ("random", "packed", "single", "mixed")
@@ -600,14 +639,14 @@ def check_edge_gather(dev, n: int, seed: int) -> int:
                     err = max(err, int(np.abs(lanes[fits] - want_p[:, 0].cpu().numpy()[fits])
                                        .max(initial=0)))
                     if (~fits).any():
-                        # every lane of an overflowed query is one of its candidates
+                        # every lane of an overflowed query is one of its candidates, sorted
                         _, all_p, _ = batched_edge_gather_plain(*args, capacity=int(h.max()))
                         all_p = all_p[:, 0].cpu().numpy()
                         for k in np.nonzero(~fits)[0]:
                             cand = all_p[k, : h[k]]
                             got = lanes[k]
                             if (got < 0).any() or len(np.unique(got)) != len(got) \
-                                    or not np.isin(got, cand).all():
+                                    or (np.diff(got) <= 0).any() or not np.isin(got, cand).all():
                                 err = max(err, 1)
                     overflowed += int((~fits).sum())
                     fitted += int(fits.sum())
@@ -3035,32 +3074,44 @@ def overlap_live(boxes, times):
 
 def overlap_floor(cols, n: int, boxes, times, keep, counts=None, hits=None,
                   capacity: int = 0):
-    """The least work of the overlap kernels on these inputs: bytes are
-    each row of a chunk that some query keeps (``keep``, the cull's (chunk,
-    query) pairs) read once, 16 or 24 B, the payload read once and the
-    counts written; operations are the kept (row, query) pairs' overlap and
-    window compares (the cheaper order, live slots only), plus the extent
-    pass's min/max over every loaded row (:data:`OVERLAP_EXTENT_OPS`). With
-    ``counts`` and ``hits`` (the edge gather's form), the edge compares per
-    matched (row, query) and live slot and 4 B per written candidate.
-    ``cols`` are the (padded) resident columns, ``n`` the valid rows.
-    Returns ((alu, all), bytes, matches)."""
+    """The least work of the overlap kernels on these inputs, over the
+    groups of rows their cull decides on: ``keep`` is the cull's kept
+    (group, query) pairs, per 4096-row chunk (``overlap_chunk_pairs``: the
+    floor as it stood before the kernels culled per warp) or per warp's 256
+    rows (``overlap_warp_pairs``: the kernels' own unit). Bytes are each
+    row of a group that some query keeps read once, 16 or 24 B, the payload
+    read once and the counts written; operations are the kept (row, query)
+    pairs' overlap and window compares (the cheaper order, live slots
+    only), plus the extent pass's min/max over every loaded row
+    (:data:`OVERLAP_EXTENT_OPS`). With ``counts`` and ``hits`` (the edge
+    gather's form), the edge compares per matched (row, query) and live
+    slot, per warp only where ``overlap_edge_possible`` lets the kernel run
+    them, and 4 B per written candidate. ``cols`` are the (padded) resident
+    columns, ``n`` the valid rows. Returns ((alu, all), bytes, matches)."""
     import torch
 
-    from geomesa_tpu_torch.ops.kernels import JOIN_BLOCK, overlap_masks
+    from geomesa_tpu_torch.ops.kernels import (
+        JOIN_BLOCK, OVERLAP_WARP_ROWS, overlap_edge_possible, overlap_masks, overlap_warp_rows)
 
     with_time = times is not None
     live = overlap_live(boxes, times)
-    pad = -cols[0].shape[0] % JOIN_BLOCK
-    blocks = [torch.nn.functional.pad(c, (0, pad)).view(-1, JOIN_BLOCK) for c in cols]
-    lrow = torch.arange(JOIN_BLOCK, device=cols[0].device)
+    chunks = -(-cols[0].shape[0] // JOIN_BLOCK)
+    padded = [torch.nn.functional.pad(c, (0, chunks * JOIN_BLOCK - c.shape[0])) for c in cols]
+    dev = cols[0].device
+    if keep.shape[0] == chunks:  # per chunk
+        groups = torch.arange(chunks * JOIN_BLOCK, device=dev).view(chunks, JOIN_BLOCK)
+    else:  # per warp
+        groups = (torch.arange(chunks, device=dev)[:, None, None] * JOIN_BLOCK
+                  + overlap_warp_rows().to(dev)[None]).view(-1, OVERLAP_WARP_ROWS)
+    per_warp = keep.shape[0] != chunks
     ops = matches = 0
     for qi in range(boxes.shape[0]):
-        ch = torch.nonzero(keep[:, qi]).flatten()
-        if ch.numel() == 0:
+        g = torch.nonzero(keep[:, qi]).flatten()
+        if g.numel() == 0:
             continue
-        rows = [b.index_select(0, ch) for b in blocks] + [None] * (6 - len(blocks))
-        valid = (ch[:, None] * JOIN_BLOCK + lrow[None, :]) < n
+        idx = groups.index_select(0, g)
+        rows = [c[idx] for c in padded] + [None] * (6 - len(padded))
+        valid = idx < n
         in_box, _ = overlap_masks(*rows[:4], None, None, boxes[qi:qi + 1], None)
         in_box = in_box.view(valid.shape) & valid
         r = int(valid.sum())
@@ -3073,17 +3124,24 @@ def overlap_floor(cols, n: int, boxes, times, keep, counts=None, hits=None,
             in_time &= valid
             ops += min(r * OVERLAP_SLOT_OPS[0] * lb + int(in_box.sum()) * TIME_SLOT_OPS[0] * lt,
                        r * TIME_SLOT_OPS[0] * lt + int(in_time.sum()) * OVERLAP_SLOT_OPS[0] * lb)
-            matches += int((in_box & in_time).sum())
+            matched = (in_box & in_time).sum(dim=1)
         else:
             ops += r * OVERLAP_SLOT_OPS[0] * lb
-            matches += int(in_box.sum())
+            matched = in_box.sum(dim=1)
+        matches += int(matched.sum())
+        if counts is not None:  # the edge compares of the matched rows
+            if per_warp:
+                from geomesa_tpu_torch.ops.kernels import _time_keys
+
+                possible = overlap_edge_possible(*rows[:4], _time_keys(rows[4], rows[5]),
+                                                 boxes[qi:qi + 1], times[qi:qi + 1])[:, 0]
+                matched = matched[possible]
+            ops += int(matched.sum()) * (EDGE_BOX_SLOT_OPS * lb + EDGE_TIME_SLOT_OPS * lt)
     ops += OVERLAP_EXTENT_OPS[with_time] * cols[0].shape[0]
-    kept_chunks = int(keep.any(dim=1).sum())
-    nbytes = (4 * len(cols) * JOIN_BLOCK * kept_chunks + 4 * boxes.numel()
+    kept_rows = int(keep.any(dim=1).sum()) * groups.shape[1]
+    nbytes = (4 * len(cols) * kept_rows + 4 * boxes.numel()
               + (0 if times is None else 4 * times.numel()) + 4 * boxes.shape[0])
     if counts is not None:
-        ops += sum(int(c) * (EDGE_BOX_SLOT_OPS * lb + EDGE_TIME_SLOT_OPS * lt)
-                   for c, (lb, lt) in zip(counts.tolist(), live))
         nbytes += 4 * boxes.shape[0] + 4 * int(hits.clamp(max=capacity).long().sum())
     return (ops, ops), nbytes, matches
 
@@ -3214,8 +3272,8 @@ def check_overlap_kernels(dev, n: int, seed: int) -> dict:
                     msg = (f"  batched_overlap {order} N={n} Q={q} B={nb} T={nt} base={base} "
                            f"true_n={true_n}: max_abs_err={err} (matches "
                            f"{int(want.long().sum())})")
-                    if nt:
-                        for cap in (EDGE_CAPACITY, 8):
+                    if nt:  # the lanes' sort at several capacities, none at all included
+                        for cap in (EDGE_CAPACITY, 8, 1, 0):
                             args = (cols, base, true_n, boxes, times, cap)
                             gc_, gp, gh = batched_edge_gather_overlap(*args)
                             wc, wp, wh = batched_edge_gather_overlap_plain(*args)
@@ -3235,6 +3293,7 @@ def check_overlap_kernels(dev, n: int, seed: int) -> dict:
                                 for k in np.nonzero(~fits)[0]:
                                     got_l = lanes[k]
                                     if (got_l < 0).any() or len(np.unique(got_l)) != cap \
+                                            or (np.diff(got_l) <= 0).any() \
                                             or not np.isin(got_l, allp[k, :hh[k]]).all():
                                         e = max(e, 1)
                             overflowed += int((~fits).sum())
@@ -3354,7 +3413,7 @@ def config5_step(dev, m: int, tiles: int) -> tuple[dict, int]:
 
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.kernels import (
-        batched_overlap, batched_overlap_plain, overlap_chunk_pairs)
+        batched_overlap, batched_overlap_plain, overlap_chunk_pairs, overlap_warp_pairs)
     from geomesa_tpu_torch.parallel.query import batched_overlap_step
     from geomesa_tpu_torch.parallel.residency import stage_columns
     from geomesa_tpu_torch.workload import make_queries, pack_query_boxes, xz_boxes
@@ -3415,19 +3474,27 @@ def config5_step(dev, m: int, tiles: int) -> tuple[dict, int]:
     if err:
         raise AssertionError("batched_overlap disagrees with plain at config 5's shape")
     ms = cuda_ms(lambda: batched_overlap(*args), 10)
+    dev_ms = device_ms(lambda: batched_overlap(*args))
     plain_ms = cuda_ms(lambda: batched_overlap_plain(*args), 1)
-    keep = overlap_chunk_pairs(*args)
+    keep = overlap_warp_pairs(*args)
     ops, nbytes, matches = overlap_floor(cols, m, dev_boxes, None, keep)
-    if matches != int(want.long().sum()):
-        raise AssertionError("the overlap bound's count over the kept chunks disagrees with "
-                             "the plain version")
-    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_fields(ops, nbytes)}
+    c_ops, c_bytes, c_matches = overlap_floor(cols, m, dev_boxes, None, overlap_chunk_pairs(*args))
+    if matches != int(want.long().sum()) or c_matches != matches:
+        raise AssertionError("the overlap bound's count over the kept warps or chunks disagrees "
+                             "with the plain version")
+    chunk_floor = bound_fields(c_ops, c_bytes)
+    rec = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           **bound_fields(ops, nbytes)}
     share = rec["bound_ms"] / ms
-    log(f"phase batched_overlap timing: {ms:.4f} ms (CUDA events, 10 launches) at N={m} Q={q} "
+    log(f"phase batched_overlap timing: {ms:.4f} ms (CUDA events, 10 launches), device "
+        f"{fmt_ms(dev_ms)} (10 calls behind a spin: the kernel and the counts' zero fill) at "
+        f"N={m} Q={q} "
         f"B=1, no time; plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.6f} ms "
         f"({rec['bound_by']}: {ops[0]} int32 ops over {int(keep.sum())} kept of "
-        f"{keep.numel()} (chunk, query) pairs; {nbytes} bytes over "
-        f"{int(keep.any(dim=1).sum())} of {keep.shape[0]} chunks), {share:.4f} of it")
+        f"{keep.numel()} (warp, query) pairs; {nbytes} bytes over "
+        f"{int(keep.any(dim=1).sum())} of {keep.shape[0]} warps' rows), {share:.4f} of it; the "
+        f"floor per chunk, as it stood before the per-warp cull, {chunk_floor['bound_ms']:.6f} ms "
+        f"({chunk_floor['bound_by']}: {c_ops[0]} int32 ops; {c_bytes} bytes)")
     if share > 1:
         raise AssertionError(f"batched_overlap reads {share:.4f} of its bound")
 
@@ -3442,19 +3509,58 @@ def config5_step(dev, m: int, tiles: int) -> tuple[dict, int]:
     if got.long().tolist() != [tiles * v for v in cpu_int]:
         raise AssertionError(f"batched_overlap at {bn} rows != {tiles} x the config-5 counts")
     big_ms = cuda_ms(lambda: batched_overlap(*bargs), 5)
-    keep = overlap_chunk_pairs(*bargs)
+    big_dev = device_ms(lambda: batched_overlap(*bargs), 5)
+    keep = overlap_warp_pairs(*bargs)
     b_ops, b_bytes, _ = overlap_floor(big, bn, dev_boxes, None, keep)
     big_rec = bound_fields(b_ops, b_bytes)
+    big_chunk = bound_fields(*overlap_floor(big, bn, dev_boxes, None,
+                                            overlap_chunk_pairs(*bargs))[:2])
     log(f"phase batched_overlap timing at {bn} rows (config 5's {m} rows in xz2 order, "
         f"repeated {tiles} times: {16 * bn} bytes of columns): {big_ms:.4f} ms (CUDA events, "
-        f"5 launches); counts {tiles} x config 5's; bound {big_rec['bound_ms']:.4f} ms "
+        f"5 launches), device {fmt_ms(big_dev)} (5 calls behind a spin); counts "
+        f"{tiles} x config 5's; bound {big_rec['bound_ms']:.4f} ms "
         f"({big_rec['bound_by']}: {b_ops[0]} int32 ops over {int(keep.sum())} kept of "
-        f"{keep.numel()} pairs; {b_bytes} bytes), {big_rec['bound_ms'] / big_ms:.4f} of it")
+        f"{keep.numel()} (warp, query) pairs; {b_bytes} bytes), "
+        f"{big_rec['bound_ms'] / big_ms:.4f} of it; per chunk {big_chunk['bound_ms']:.4f} ms")
     if big_rec["bound_ms"] / big_ms > 1:
         raise AssertionError("batched_overlap at 64M rows reads more than its bound")
     del big
     free_card()
     return rec, launched
+
+
+def planned_overlap_passes(cols, true_n: int, pair_q, pair_blk, boxes, times, plan):
+    """``planned_gather_overlap``'s two passes as one call that does not
+    synchronise, for :func:`device_ms`: its count and write entry points
+    launched into outputs allocated here, the positions' size (the
+    wrapper's one read of the device) read once beforehand."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+
+    n_pairs = pair_q.shape[0]
+    n_blocks = (plan.shape[0] - 2 * n_pairs - 1) // 2
+    hits = torch.empty(n_pairs, dtype=torch.int64, device=plan.device)
+    masks = torch.empty((n_pairs, kernels.JOIN_BLOCK // 16), dtype=torch.int16,
+                        device=plan.device)
+    stream = torch.cuda.current_stream(plan.device).cuda_stream
+    count_fn = kernels._fn("geomesa_planned_gather_overlap_count")
+    write_fn = kernels._fn("geomesa_planned_gather_write")
+    count_args = ([c.data_ptr() for c in cols] + [cols[0].shape[0], int(true_n),
+                  plan.data_ptr(), n_pairs, n_blocks, boxes.data_ptr(), times.data_ptr(),
+                  boxes.shape[0], boxes.shape[1], times.shape[1], hits.data_ptr(),
+                  masks.data_ptr(), stream])
+    if count_fn(*count_args):
+        raise RuntimeError("planned_gather_overlap's count pass failed")
+    ends = torch.cumsum(hits, dim=0)
+    positions = torch.empty(int(ends[-1]), dtype=torch.int32, device=plan.device)
+    write_args = (pair_blk.data_ptr(), n_pairs, hits.data_ptr(), ends.data_ptr(),
+                  masks.data_ptr(), positions.data_ptr(), stream)
+
+    def passes():
+        if count_fn(*count_args) or (positions.numel() and write_fn(*write_args)):
+            raise RuntimeError("planned_gather_overlap's passes failed")
+    return passes
 
 
 def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
@@ -3467,7 +3573,8 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
     from geomesa_tpu_torch.ops.kernels import (
         EDGE_CAPACITY, JOIN_BLOCK, batched_edge_gather_overlap,
         batched_edge_gather_overlap_plain, batched_overlap, batched_overlap_plain,
-        overlap_chunk_pairs, planned_gather_overlap, planned_gather_overlap_plain)
+        overlap_chunk_pairs, overlap_warp_pairs, planned_gather_overlap,
+        planned_gather_overlap_plain)
     from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
     from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
     from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, linestring_column
@@ -3594,13 +3701,17 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
         raise AssertionError("batched_overlap (with time) disagrees with plain at the store's "
                              "payloads")
     k1_ms = cuda_ms(lambda: batched_overlap(*args), 10)
-    keep = overlap_chunk_pairs(*args)
+    k1_dev = device_ms(lambda: batched_overlap(*args))
+    keep = overlap_warp_pairs(*args)
+    chunk_keep = overlap_chunk_pairs(*args)
     ops, nbytes, _ = overlap_floor(cols, n, boxes, times, keep)
     k1 = bound_fields(ops, nbytes)
-    log(f"phase batched_overlap timing with time: {k1_ms:.4f} ms (CUDA events) at the line "
-        f"store's N={n} Q={N_QUERIES} B=8 T=16; bound {k1['bound_ms']:.6f} ms "
-        f"({k1['bound_by']}: {int(keep.sum())} kept of {keep.numel()} pairs; {nbytes} bytes), "
-        f"{k1['bound_ms'] / k1_ms:.4f} of it")
+    k1_chunk = bound_fields(*overlap_floor(cols, n, boxes, times, chunk_keep)[:2])
+    log(f"phase batched_overlap timing with time: {k1_ms:.4f} ms (CUDA events), device "
+        f"{fmt_ms(k1_dev)} (10 calls behind a spin) at the line store's N={n} "
+        f"Q={N_QUERIES} B=8 T=16; bound {k1['bound_ms']:.6f} ms ({k1['bound_by']}: "
+        f"{int(keep.sum())} kept of {keep.numel()} (warp, query) pairs; {nbytes} bytes), "
+        f"{k1['bound_ms'] / k1_ms:.4f} of it; per chunk {k1_chunk['bound_ms']:.6f} ms")
     if k1["bound_ms"] / k1_ms > 1:
         raise AssertionError("batched_overlap with time reads more than its bound")
     eargs = args + (EDGE_CAPACITY,)
@@ -3615,14 +3726,23 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
         raise AssertionError("batched_edge_gather_overlap disagrees with plain at the store's "
                              "payloads")
     e_ms = cuda_ms(lambda: batched_edge_gather_overlap(*eargs), 10)
+    e_dev = device_ms(lambda: batched_edge_gather_overlap(*eargs))
     e_plain = cuda_ms(lambda: batched_edge_gather_overlap_plain(*eargs), 1)
     e_ops, e_bytes, _ = overlap_floor(cols, n, boxes, times, keep, wc, wh, EDGE_CAPACITY)
-    edge = {"max_abs_err": err, "ms": e_ms, "plain_ms": e_plain, **bound_fields(e_ops, e_bytes)}
-    log(f"phase batched_edge_gather_overlap timing: {e_ms:.4f} ms (CUDA events) at N={n} "
-        f"Q={N_QUERIES} B=8 T=16; plain {e_plain:.4f} ms; bound {edge['bound_ms']:.6f} ms "
-        f"({edge['bound_by']}: {e_ops[0]} int32 ops; {e_bytes} bytes), "
-        f"{edge['bound_ms'] / e_ms:.4f} of it; candidates {int(wh.sum())}, "
-        f"{int((wh > EDGE_CAPACITY).sum())} queries over {EDGE_CAPACITY} lanes")
+    e_chunk = bound_fields(*overlap_floor(cols, n, boxes, times, chunk_keep, wc, wh,
+                                          EDGE_CAPACITY)[:2])
+    edge = {"max_abs_err": err, "ms": e_ms, "device_ms": e_dev, "plain_ms": e_plain,
+            **bound_fields(e_ops, e_bytes)}
+    log(f"phase batched_edge_gather_overlap timing: {e_ms:.4f} ms (CUDA events), device "
+        f"{fmt_ms(e_dev)} (its entry point's zero fills, scan and lanes' sort, 10 calls behind a "
+        f"spin) at N={n} Q={N_QUERIES} B=8 T=16; plain {e_plain:.4f} ms; "
+        f"bound {edge['bound_ms']:.6f} ms ({edge['bound_by']}: {e_ops[0]} int32 ops; "
+        f"{e_bytes} bytes; per chunk, every matched row's edge compares counted, "
+        f"{e_chunk['bound_ms']:.6f} ms), {edge['bound_ms'] / e_ms:.4f} of it; candidates "
+        f"{int(wh.sum())}, "
+        f"{int((wh > EDGE_CAPACITY).sum())} queries over {EDGE_CAPACITY} lanes; against "
+        f"batched_overlap with time: {e_ms / k1_ms:.3f}x by CUDA events, "
+        + (f"{e_dev / k1_dev:.3f}x by device time" if e_dev and k1_dev else "device not measured"))
     if edge["bound_ms"] / e_ms > 1:
         raise AssertionError("batched_edge_gather_overlap reads more than its bound")
 
@@ -3637,12 +3757,16 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
     if not (torch.equal(got_p, want_p) and torch.equal(got_h, want_h)):
         raise AssertionError("planned_gather_overlap disagrees with plain at the store's pairs")
     g_ms = cuda_ms(lambda: planned_gather_overlap(*gargs, plan=gplan), 10)
+    g_dev = device_ms(planned_overlap_passes(cols, n, pq, pb, boxes, times, gplan))
     g_plain = cuda_ms(lambda: planned_gather_overlap_plain(*gargs), 1)
     g_ops, g_bytes = gather_floor(cols, n, pq, pb, boxes, times, want_h, got_p.element_size())
-    gather = {"max_abs_err": 0, "ms": g_ms, "plain_ms": g_plain, **bound_fields(g_ops, g_bytes)}
+    gather = {"max_abs_err": 0, "ms": g_ms, "device_ms": g_dev, "plain_ms": g_plain,
+              **bound_fields(g_ops, g_bytes)}
     distinct = len(np.unique(pair_blk))
-    log(f"phase planned_gather_overlap timing: {g_ms:.4f} ms (CUDA events) for {len(pair_q)} "
-        f"(query, block) pairs over {distinct} distinct blocks, {int(want_h.sum())} rows out; "
+    log(f"phase planned_gather_overlap timing: {g_ms:.4f} ms (CUDA events), device "
+        f"{fmt_ms(g_dev)} (its count and write passes, 10 calls behind a spin) for "
+        f"{len(pair_q)} (query, block) pairs over {distinct} distinct blocks, "
+        f"{int(want_h.sum())} rows out; "
         f"plain {g_plain:.4f} ms; bound {gather['bound_ms']:.6f} ms ({gather['bound_by']}: "
         f"{g_ops[0]} ALU-only of {g_ops[1]} int32 ops; {g_bytes} bytes), "
         f"{gather['bound_ms'] / g_ms:.4f} of it")

@@ -21,18 +21,19 @@
 // operations are the kept (row, query) pairs' overlap and window compares
 // plus the per-row extent min/max, at the card's integer rates.
 // chip_smoke.py reckons both from the run's inputs and the pairs the cull
-// keeps (ops.kernels.overlap_chunk_pairs). At config 5's size launch and
-// host costs dominate, so the smoke also times the kernel at 64M rows.
+// keeps (ops.kernels.overlap_chunk_pairs). At config 5's size the first
+// loads, the last chunks and the launch path weigh as much as the bytes,
+// so the smoke also times the kernel at 64M rows.
 //
-// Design: batched_edge_gather.cu's culled chunk scan over the bbox columns
-// (overlap_cull.cuh box_cull_scan): each block stages its query tile once,
-// live slots first; walks 4096-row chunks grid-stride, a chunk's columns
-// prefetched into shared memory by cp.async (64 or 96 KB, dynamic shared
-// memory) while the previous one is tested; reduces each chunk's extent and
-// lists the queries whose live slots meet it; only those run the overlap
-// and window tests on the rows held in registers. Counts are per-warp
+// Design: overlap_cull.cuh's box_cull_scan: 512-thread blocks (16 warps an
+// SM), 8 rows a thread of each 4096-row chunk in registers, a cp.async ring
+// of two chunks (128 or 192 KB of dynamic shared memory) whose first chunks
+// are issued before the query tile is staged; each warp culls the tile's
+// queries on its own rows' extent and runs the overlap and window tests of
+// the survivors only, with no barrier between warps. Counts are per-warp
 // __reduce_add_sync partials in shared memory, added with one atomicAdd per
-// (block, query).
+// (block, query). The launch attributes and the occupancy are asked once
+// per shared size (launch_cache.cuh).
 //
 // Plain C entry point for ctypes; launches on the caller's stream, does not
 // synchronise, returns a cudaError_t.
@@ -42,25 +43,27 @@
 
 #include "chunk_cull.cuh"
 #include "count_predicate.cuh"
+#include "launch_cache.cuh"
 #include "overlap_cull.cuh"
 
 namespace {
 
 using namespace geomesa;
 
-constexpr int SURVIVOR_INTS = 1;  // the survivor list: one int per staged query
+LaunchCache g_launch[2];  // [TIME]
 
 // Counts the warp's matches m of query qi; all 32 lanes call it together.
 struct CountEpilogue {
   const Tile& t;
-  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t, const BoxRows&) const {
+  __device__ __forceinline__ void operator()(int qi, uint32_t m, int64_t, const ScanRows&,
+                                             const Extent&, const EdgeSpan&) const {
     const unsigned c = __reduce_add_sync(FULL_WARP, __popc(m));
     if (c && (threadIdx.x & 31) == 0) t.cnt[(threadIdx.x >> 5) * t.q_tile + qi] += c;
   }
 };
 
 template <bool TIME>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(OV_THREADS, 1)
 batched_overlap_kernel(BoxCols cols, int64_t n, int64_t base, int64_t true_n,
                        const int32_t* __restrict__ boxes,  // (Q, nb, 4)
                        const int32_t* __restrict__ times,  // (Q, nt, 4); unread without time
@@ -68,56 +71,43 @@ batched_overlap_kernel(BoxCols cols, int64_t n, int64_t base, int64_t true_n,
                        int32_t* __restrict__ counts) {     // (Q,)
   extern __shared__ int4 smem[];  // the row buffer, then the staged tile
   __shared__ int meta[2];
-  __shared__ Extent warp_ext[WARPS];
-  __shared__ int n_surv[2];
   const int q0 = blockIdx.y * q_tile;
   const int qt = min(q_tile, q - q0);
   int4* buf = smem;
-  const Tile t = carve(smem + BoxLayout<TIME>::BUF_BYTES / 16, q_tile, nb, nt);
-  if (threadIdx.x < 2) n_surv[threadIdx.x] = 0;  // stage_tile's barriers order this
-  stage_tile<TIME>(boxes, times, q0, qt, t, meta);
+  box_scan_prologue<TIME>(buf, cols, n);  // the first chunks load while the tile is staged
+  const Tile t = carve<OV_WARPS>(smem + BoxLayout<TIME>::BUF_BYTES / 16, q_tile, nb, nt);
+  stage_tile<TIME, OV_THREADS>(boxes, times, q0, qt, t, meta);
   const int n_active = meta[0];
   const int64_t limit = valid_limit(n, base, true_n);
   CountEpilogue ep{t};
   if (n_active > 0) {
     if (meta[1])
-      box_cull_scan<true, TIME>(cols, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
+      box_cull_scan<true, TIME, false>(cols, n, limit, t, n_active, buf, ep);
     else
-      box_cull_scan<false, TIME>(cols, n, limit, t, n_active, buf, warp_ext, n_surv, ep);
+      box_cull_scan<false, TIME, false>(cols, n, limit, t, n_active, buf, ep);
+  } else {
+    cp_async_wait_all();
   }
-  __syncthreads();
-  for (int qi = threadIdx.x; qi < qt; qi += THREADS) {
-    int sum = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += t.cnt[w * q_tile + qi];
-    if (sum) atomicAdd(&counts[q0 + qi], sum);
-  }
+  flush_counts<OV_THREADS>(t, q0, qt, counts);
 }
 
 template <bool TIME>
 int launch(const BoxCols& cols, long long n, long long base, long long true_n,
            const void* boxes, const void* times, int q, int nb, int nt, int sms, void* counts,
            void* stream) {
-  const int tile_max = q_tile_for(nb, nt, SURVIVOR_INTS);
+  const int tile_max = box_q_tile<TIME>(nb, nt);
   const int q_tile = q < tile_max ? q : tile_max;
   const int q_tiles = (q + q_tile - 1) / q_tile;
   const size_t smem = BoxLayout<TIME>::BUF_BYTES +
-                      (size_t)q_tile * staged_bytes_per_query(nb, nt, SURVIVOR_INTS);
-  cudaError_t e = cudaFuncSetAttribute(batched_overlap_kernel<TIME>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(batched_overlap_kernel<TIME>,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
+                      (size_t)q_tile * staged_bytes_per_query(nb, nt, 0, OV_WARPS);
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batched_overlap_kernel<TIME>,
-                                                    THREADS, smem);
+  const cudaError_t e =
+      resident_blocks(batched_overlap_kernel<TIME>, OV_THREADS, smem, g_launch[TIME], &per_sm);
   if (e != cudaSuccess) return (int)e;
   const long long chunks = (n + CHUNK - 1) / CHUNK;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long resident = (long long)sms * per_sm;
   dim3 grid((unsigned)(chunks < resident ? chunks : resident), q_tiles);
-  batched_overlap_kernel<TIME><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  batched_overlap_kernel<TIME><<<grid, OV_THREADS, smem, (cudaStream_t)stream>>>(
       cols, n, base, true_n, (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, q_tile,
       (int32_t*)counts);
   return (int)cudaGetLastError();
@@ -127,7 +117,7 @@ int launch(const BoxCols& cols, long long n, long long base, long long true_n,
 
 // Queries one block stages at once: nt = 0 is the no-time form.
 extern "C" int geomesa_batched_overlap_q_tile(int nb, int nt) {
-  return q_tile_for(nb, nt, SURVIVOR_INTS);
+  return nt > 0 ? box_q_tile<true>(nb, nt) : box_q_tile<false>(nb, 0);
 }
 
 // nt = 0 selects the no-time form (bins, offs and times unread, may be

@@ -47,9 +47,11 @@ constexpr int GROUP_ROWS = THREADS * 4;      // rows between a thread's groups
 constexpr int ROW_BUF_BYTES = 4 * CHUNK * 4; // the four int32 columns of one chunk
 static_assert(GROUPS * GROUP_ROWS == CHUNK, "a chunk is GROUPS groups of THREADS x 4 rows");
 
-// The chunk row of bit r of a thread's masks.
+// The chunk row of bit r of a thread's masks (GR: rows between a thread's
+// 16-byte groups, the block's threads x 4).
+template <int GR = GROUP_ROWS>
 __device__ __forceinline__ int chunk_row(int r) {
-  return (r >> 2) * GROUP_ROWS + 4 * (int)threadIdx.x + (r & 3);
+  return (r >> 2) * GR + 4 * (int)threadIdx.x + (r & 3);
 }
 
 __device__ __forceinline__ void cp_async16(int4* dst, const int32_t* src, int bytes) {
@@ -203,11 +205,12 @@ __device__ __forceinline__ uint32_t edge_mask(const Tile& t, int qi, uint32_t m,
 }
 
 // Appends the warp's rows e (bit r of a lane's mask is chunk row
-// chunk_row(r)) to one query's lanes: an inclusive prefix sum of the lanes'
-// counts (five shuffles), then one lane adds the warp's total to the
+// chunk_row<GR>(r)) to one query's lanes: an inclusive prefix sum of the
+// lanes' counts (five shuffles), then one lane adds the warp's total to the
 // query's cursor *hits with one atomicAdd, which keeps counting past the
-// capacity; each lane writes the global positions gchunk0 + chunk_row(r) of
-// its rows that fall below cap. All 32 lanes call it together.
+// capacity; each lane writes the global positions gchunk0 + chunk_row<GR>(r)
+// of its rows that fall below cap. All 32 lanes call it together.
+template <int GR = GROUP_ROWS>
 __device__ __forceinline__ void append_lanes(uint32_t e, int64_t gchunk0,
                                              int32_t* __restrict__ hits,
                                              int32_t* __restrict__ pos, int cap) {
@@ -229,7 +232,7 @@ __device__ __forceinline__ void append_lanes(uint32_t e, int64_t gchunk0,
   while (e && slot < cap) {
     const int r = __ffs(e) - 1;
     e &= e - 1;
-    pos[slot++] = gpos0 + chunk_row(r);
+    pos[slot++] = gpos0 + chunk_row<GR>(r);
   }
 }
 

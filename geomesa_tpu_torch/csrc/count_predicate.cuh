@@ -74,9 +74,11 @@ __device__ __forceinline__ long long time_key(int32_t bin, int32_t off) {
 
 // Shared-memory bytes one query of a tile takes: its staged box and time
 // slots (16 B each), its live counts and active-list entry, one count per
-// warp and `extra_ints` more (the hits kernel's lane scoreboard).
-__host__ __device__ constexpr int staged_bytes_per_query(int nb, int nt, int extra_ints) {
-  return 16 * (nb + nt) + 4 * (2 + WARPS + extra_ints);
+// warp of the block (`warps`) and `extra_ints` more (the hits kernel's lane
+// scoreboard).
+__host__ __device__ constexpr int staged_bytes_per_query(int nb, int nt, int extra_ints,
+                                                         int warps = WARPS) {
+  return 16 * (nb + nt) + 4 * (2 + warps + extra_ints);
 }
 
 // Queries one block stages at once (larger batches tile over Q).
@@ -91,11 +93,12 @@ struct Tile {
   longlong2* win;  // (q_tile, nt): live windows first, as (lo key, hi key)
   int* live;       // (q_tile): live boxes | live windows << 16
   int* active;     // (n_active): queries with a live box and a live window
-  int* cnt;        // (WARPS, q_tile): per-warp match counts
+  int* cnt;        // (warps of the block, q_tile): per-warp match counts
   int* extra;      // (q_tile, extra_ints)
   int nb, nt, q_tile;
 };
 
+template <int NW = WARPS>  // warps of the block
 __device__ __forceinline__ Tile carve(void* smem, int q_tile, int nb, int nt) {
   Tile t;
   t.box = reinterpret_cast<int4*>(smem);
@@ -103,7 +106,7 @@ __device__ __forceinline__ Tile carve(void* smem, int q_tile, int nb, int nt) {
   t.live = reinterpret_cast<int*>(t.win + q_tile * nt);
   t.active = t.live + q_tile;
   t.cnt = t.active + q_tile;
-  t.extra = t.cnt + WARPS * q_tile;
+  t.extra = t.cnt + NW * q_tile;
   t.nb = nb;
   t.nt = nt;
   t.q_tile = q_tile;
@@ -116,8 +119,9 @@ __device__ __forceinline__ Tile carve(void* smem, int q_tile, int nb, int nt) {
 // ends in __syncthreads(). WINDOWS = false (the no-time overlap count of
 // overlap_cull.cuh) stages no window and counts every query as having one,
 // so activity and the single-slot path follow the boxes alone; its callers
-// never read t.win.
-template <bool WINDOWS = true>
+// never read t.win. NT is the block's thread count (a tile carved with
+// carve<NT / 32>).
+template <bool WINDOWS = true, int NT = THREADS>
 __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ boxes,
                                            const int32_t* __restrict__ times, int q0, int qt,
                                            const Tile& t, int* meta) {
@@ -125,14 +129,14 @@ __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ boxes,
   const int4* gb = reinterpret_cast<const int4*>(boxes) + (int64_t)q0 * nb;
   const int4* gt = reinterpret_cast<const int4*>(times) + (int64_t)q0 * nt;
   int4* raw_win = reinterpret_cast<int4*>(t.win);
-  for (int i = threadIdx.x; i < qt * nb; i += THREADS) t.box[i] = gb[i];
+  for (int i = threadIdx.x; i < qt * nb; i += NT) t.box[i] = gb[i];
   if constexpr (WINDOWS)
-    for (int i = threadIdx.x; i < qt * nt; i += THREADS) raw_win[i] = gt[i];
-  for (int i = threadIdx.x; i < WARPS * t.q_tile; i += THREADS) t.cnt[i] = 0;
+    for (int i = threadIdx.x; i < qt * nt; i += NT) raw_win[i] = gt[i];
+  for (int i = threadIdx.x; i < NT / 32 * t.q_tile; i += NT) t.cnt[i] = 0;
   __syncthreads();
 
   // one thread per query compacts its own slots in place (write index <= read index)
-  for (int qi = threadIdx.x; qi < qt; qi += THREADS) {
+  for (int qi = threadIdx.x; qi < qt; qi += NT) {
     int4* bq = t.box + qi * nb;
     int kb = 0;
     for (int k = 0; k < nb; ++k) {
@@ -176,6 +180,20 @@ __device__ __forceinline__ void stage_tile(const int32_t* __restrict__ boxes,
     }
   }
   __syncthreads();
+}
+
+// Adds the tile's per-warp counts to the outputs, one atomicAdd per query
+// (NT: the block's threads); all threads call it, after their last count.
+template <int NT = THREADS>
+__device__ __forceinline__ void flush_counts(const Tile& t, int q0, int qt,
+                                             int32_t* __restrict__ counts) {
+  __syncthreads();
+  for (int qi = threadIdx.x; qi < qt; qi += NT) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) sum += t.cnt[w * t.q_tile + qi];
+    if (sum) atomicAdd(&counts[q0 + qi], sum);
+  }
 }
 
 // The ROWS consecutive rows of one thread: coordinates and time keys.

@@ -107,10 +107,9 @@ in both its forms). It is the bbox-overlap count of an extended-geometry
 store over its per-feature int32 bounds (xmin, ymin, xmax, ymax), with or
 without the time columns: bench config 5's step and the loose
 ``count_many`` of a line or polygon store. Its source is
-``csrc/batched_overlap.cu``, the edge gather's culled chunk scan over the
-bbox columns (``csrc/overlap_cull.cuh``); its plain version
-(:func:`batched_overlap_plain`) runs :func:`overlap_masks`, and
-:func:`overlap_chunk_pairs` is the plain version of its cull. The overlap
+``csrc/batched_overlap.cu``, a culled chunk scan over the bbox columns
+(``csrc/overlap_cull.cuh``); its plain version
+(:func:`batched_overlap_plain`) runs :func:`overlap_masks`. The overlap
 forms of the edge gather (:func:`batched_edge_gather_overlap`, launches
 counted as ``batched_edge_gather_overlap``; ``make_batched_edge_gather_step
 (overlap=True)``) and of the planned gather
@@ -118,7 +117,13 @@ counted as ``batched_edge_gather_overlap``; ``make_batched_edge_gather_step
 ``make_planned_gather_step(..., overlap=True)``) are second instances in
 ``csrc/batched_edge_gather.cu`` and ``csrc/planned_gather.cu`` over the
 same predicate. A box slot of the overlap predicate is live iff ``xlo <=
-xhi and ylo <= yhi``, in the kernels and in the plain versions alike.
+xhi and ylo <= yhi``, in the kernels and in the plain versions alike. The
+scan of ``batched_overlap`` and of the overlap edge gather runs 512-thread
+blocks over a two-chunk ring, each warp culling the queries on its own 256
+rows of a chunk (:func:`overlap_warp_pairs` is the cull's plain version);
+the edge gather tests a warp's rows for edge candidates only where
+:func:`overlap_edge_possible` (its plain version) allows one, and both edge
+gathers sort their lanes on the card.
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -315,6 +320,13 @@ def _stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SMs (asked once per device: the launches size their grids
+    by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # ---------------------------------------------------------------------------
 # batched_count
 # ---------------------------------------------------------------------------
@@ -380,7 +392,7 @@ def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *
         if t.data_ptr() % 16:
             raise ValueError(f"{stem}: {name} must start on a 16-byte boundary "
                              "(the kernel loads 16-byte vectors)")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _sm_count(x.device)
     fn = _fn(f"geomesa_{stem}")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(),
@@ -545,6 +557,7 @@ def batched_count_hits_plain(x, y, bins, offs, base: int, true_n: int, boxes, ti
 # ---------------------------------------------------------------------------
 
 EDGE_CAPACITY = 512  # candidate lanes per query (the reference's ``cap``, datastore.py:2026)
+EDGE_MAX_LANES = 32768  # lanes a query the card's edge gathers sort (csrc MAX_SORT_LANES)
 _I32_MAX = 2**31 - 1
 
 
@@ -569,33 +582,45 @@ def batched_edge_gather(x, y, bins, offs, base: int, true_n: int, boxes, times,
 
     On the card each block tests a 4096-row chunk only against the queries
     that :func:`chunk_query_pairs` keeps for it; a culled pair holds no
-    match, so the outputs are those of a full scan.
+    match, so the outputs are those of a full scan. The kernel appends the
+    candidates in no order; a second kernel of the same launch sorts each
+    query's lanes, so the card takes at most :data:`EDGE_MAX_LANES` of them.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
-    if capacity < 0:
-        raise ValueError(f"capacity must be >= 0, got {capacity}")
-    if int(base) + x.shape[0] > _I32_MAX:
-        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    _check_edge_capacity(capacity, base, x)
     if x.device.type == "cpu":
         return batched_edge_gather_plain(x, y, bins, offs, base, true_n, boxes, times,
                                          capacity)
     if x.device.type != "cuda":
         raise ValueError(f"batched_edge_gather runs on cuda or cpu, not {x.device}")
-    q = boxes.shape[0]
-    counts = torch.zeros(q, dtype=torch.int32, device=x.device)
-    hits = torch.zeros(q, dtype=torch.int32, device=x.device)
-    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
-    _launch("batched_edge_gather", x, y, bins, offs, base, true_n, boxes, times,
-            counts, hits, pos, ints=(int(capacity),))
-    return counts, _sorted_lanes(pos)[:, None, :], hits[:, None]
+    return _edge_outputs(boxes.shape[0], capacity, x, lambda *outs: _launch(
+        "batched_edge_gather", x, y, bins, offs, base, true_n, boxes, times, *outs,
+        ints=(int(capacity),)))
 
 
-def _sorted_lanes(pos: torch.Tensor) -> torch.Tensor:
-    """(Q, capacity) lanes a kernel appended in no order, sorted per query
-    with the -1 padding last."""
-    pos = torch.where(pos < 0, _I32_MAX, pos).sort(dim=1).values
-    pos[pos == _I32_MAX] = -1
-    return pos
+def _check_edge_capacity(capacity: int, base: int, x) -> None:
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    if int(base) + x.shape[0] > _I32_MAX:
+        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    if x.device.type == "cuda" and capacity > EDGE_MAX_LANES:
+        raise ValueError(f"capacity must be <= {EDGE_MAX_LANES} on the card (the lanes' sort "
+                         f"holds a query's lanes in shared memory), got {capacity}")
+
+
+def _edge_outputs(q: int, capacity: int, x, launch):
+    """An edge gather's ``(counts (Q,), positions (Q, 1, capacity), hits (Q,
+    1))`` on the card: allocated here and written whole by ``launch(counts,
+    hits, positions)`` (the entry point zeroes the counts and hits, and sorts
+    and pads the lanes); with no row, no launch and the empty answer."""
+    if q == 0 or x.shape[0] == 0:
+        return (torch.zeros(q, dtype=torch.int32, device=x.device),
+                torch.full((q, 1, capacity), -1, dtype=torch.int32, device=x.device),
+                torch.zeros((q, 1), dtype=torch.int32, device=x.device))
+    out = torch.empty((2, q), dtype=torch.int32, device=x.device)
+    pos = torch.empty((q, capacity), dtype=torch.int32, device=x.device)
+    launch(out[0], out[1], pos)
+    return out[0], pos[:, None, :], out[1][:, None]
 
 
 def batched_edge_gather_plain(x, y, bins, offs, base: int, true_n: int, boxes, times,
@@ -687,10 +712,13 @@ def _check_extents(ext, n: int, device) -> None:
                          "(chunk_extents of the columns)")
 
 
-def _pairs_from_extents(ext, n: int, base: int, true_n: int, boxes, times) -> torch.Tensor:
+def _pairs_from_extents(ext, n: int, base: int, true_n: int, boxes, times,
+                        first_rows=None) -> torch.Tensor:
     """(chunks, Q) bool: the cull's test of :func:`chunk_query_pairs` on
     :func:`chunk_extents`' output (or :func:`chunk_extents_bbox`'; no
-    window test when ``times`` is None)."""
+    window test when ``times`` is None). ``first_rows``: each group's first
+    local row where the groups are not whole chunks (the overlap scan's
+    warps); a group from it on keeps no query past the valid rows."""
     xy = ext[:, :2].contiguous().view(torch.int32).long()
     xlo, xhi, ylo, yhi = (xy[:, i, None, None] for i in range(4))
     klo, khi = ext[:, 2, None, None], ext[:, 3, None, None]
@@ -699,7 +727,9 @@ def _pairs_from_extents(ext, n: int, base: int, true_n: int, boxes, times) -> to
                  & (b[..., 0] <= xhi) & (xlo <= b[..., 1])
                  & (b[..., 2] <= yhi) & (ylo <= b[..., 3])).any(dim=2)
     limit = min(n, int(true_n) - int(base))
-    alive = torch.arange(ext.shape[0], device=ext.device) * JOIN_BLOCK < limit
+    if first_rows is None:
+        first_rows = torch.arange(ext.shape[0], device=ext.device) * JOIN_BLOCK
+    alive = first_rows < limit
     if times is None:  # the no-time overlap count
         return box_meets & alive[:, None]
     t = times.long()[None]
@@ -1266,7 +1296,7 @@ def _launch_overlap(entry: str, counter: str, cols, base: int, true_n: int, boxe
             raise ValueError(f"{counter}: input {i} must start on a 16-byte boundary "
                              "(the kernel loads 16-byte vectors)")
     ptrs = [c.data_ptr() for c in cols] + [None] * (6 - len(cols))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _sm_count(x.device)
     with torch.cuda.device(x.device):
         rc = _fn(entry)(*ptrs, x.shape[0], int(base), int(true_n), boxes.data_ptr(),
                         None if times is None else times.data_ptr(), q, nb, nt, sms,
@@ -1286,9 +1316,9 @@ def batched_overlap(cols, base: int, true_n: int, boxes, times=None) -> torch.Te
     bbox overlaps a live box and, with time, lies in a live window
     (:func:`overlap_masks`).
 
-    On the card (``csrc/batched_overlap.cu``) each block tests a 4096-row
-    chunk only against the queries :func:`overlap_chunk_pairs` keeps for
-    it; a culled pair holds no match."""
+    On the card (``csrc/batched_overlap.cu``) each warp tests its 256 rows
+    of a 4096-row chunk only against the queries :func:`overlap_warp_pairs`
+    keeps for it; a culled pair holds no match."""
     _check_box_args(cols, boxes, times)
     x = cols[0]
     if x.device.type == "cpu":
@@ -1311,14 +1341,91 @@ def batched_overlap_plain(cols, base: int, true_n: int, boxes, times=None,
 
 
 def overlap_chunk_pairs(cols, base: int, true_n: int, boxes, times=None) -> torch.Tensor:
-    """The (chunk, query) pairs the overlap kernels' cull keeps, as a
-    (ceil(N / JOIN_BLOCK), Q) bool tensor: the plain version of
-    ``csrc/overlap_cull.cuh``'s cull, over :func:`chunk_extents_bbox` (rows
-    past N of the last chunk as zeros, as the kernels load them). No culled
-    pair holds a match. For tests and bounds."""
+    """The (chunk, query) pairs whose chunk extent (:func:`chunk_extents_bbox`,
+    rows past N of the last chunk as zeros, as the kernels load them) a live
+    slot of the query meets, as a (ceil(N / JOIN_BLOCK), Q) bool tensor. No
+    culled pair holds a match; the kernels' own cull is finer
+    (:func:`overlap_warp_pairs`) and keeps a warp of a chunk only where
+    this keeps the chunk. For tests and bounds."""
     _check_box_args(cols, boxes, times)
     ext = chunk_extents_bbox(*cols[:4], *(cols[4:] if times is not None else ()))
     return _pairs_from_extents(ext, cols[0].shape[0], base, true_n, boxes, times)
+
+
+OVERLAP_THREADS = 512  # threads of a block of the overlap scan (csrc OV_THREADS)
+OVERLAP_WARP_ROWS = JOIN_BLOCK * 32 // OVERLAP_THREADS  # rows of a chunk one warp holds: 256
+
+
+def overlap_warp_pairs(cols, base: int, true_n: int, boxes, times=None) -> torch.Tensor:
+    """The (warp, query) pairs the overlap kernels' cull keeps: the plain
+    version of ``csrc/overlap_cull.cuh``'s cull. Row ``g`` of the
+    (ceil(N / JOIN_BLOCK) x 16, Q) bool result is warp ``g % 16`` of chunk
+    ``g // 16``, which holds the chunk's rows :func:`overlap_warp_rows`
+    names; its extent is taken over those rows, valid or not (rows past N as
+    zeros), a warp from whose first row on no row is valid keeps no query,
+    and the test is :func:`overlap_chunk_pairs`'. No culled pair holds a
+    match. For tests and bounds."""
+    _check_box_args(cols, boxes, times)
+    n = cols[0].shape[0]
+    chunks, warps = -(-n // JOIN_BLOCK), OVERLAP_THREADS // 32
+    runs = JOIN_BLOCK // OVERLAP_THREADS // 4  # a warp's runs of 128 rows in a chunk
+
+    def by_warp(col):  # (chunks x 16, 256): the rows of each warp
+        v = torch.nn.functional.pad(col, (0, chunks * JOIN_BLOCK - n))
+        return v.view(chunks, runs, warps, -1).transpose(1, 2).reshape(chunks * warps, -1)
+
+    xmin, ymin, xmax, ymax = (by_warp(c) for c in cols[:4])
+    bounds = [xmin.amin(dim=1), xmax.amax(dim=1), ymin.amin(dim=1), ymax.amax(dim=1)]
+    ext = torch.zeros((chunks * warps, 4), dtype=torch.int64, device=xmin.device)
+    ext[:, :2] = torch.stack(bounds, dim=1).view(torch.int64)
+    if times is not None:
+        keys = _time_keys(by_warp(cols[4]), by_warp(cols[5]))
+        ext[:, 2], ext[:, 3] = keys.amin(dim=1), keys.amax(dim=1)
+    g = torch.arange(chunks * warps, device=xmin.device)
+    first = g // warps * JOIN_BLOCK + g % warps * (JOIN_BLOCK // runs // warps)
+    return _pairs_from_extents(ext, n, base, true_n, boxes, times, first)
+
+
+def overlap_warp_rows() -> torch.Tensor:
+    """(16, 256) int64: the rows of a ``JOIN_BLOCK``-row chunk each warp of
+    the overlap scan holds (``csrc/overlap_cull.cuh``): thread ``t`` holds
+    rows ``j * 2048 + 4t .. + 3`` for ``j = 0, 1``, so warp ``w`` holds
+    rows ``128w .. 128w + 127`` and ``2048 + 128w .. 2048 + 128w + 127``."""
+    warps, groups = OVERLAP_THREADS // 32, JOIN_BLOCK // OVERLAP_THREADS // 4
+    t = torch.arange(OVERLAP_THREADS).view(warps, 32, 1, 1)
+    j = torch.arange(groups).view(1, 1, groups, 1)
+    return (j * 4 * OVERLAP_THREADS + 4 * t + torch.arange(4)).reshape(warps, -1)
+
+
+def overlap_edge_possible(x0, y0, x1, y1, keys, boxes, times) -> torch.Tensor:
+    """The overlap edge gather's per-warp skip, plain: which (row group,
+    query) pairs can hold an edge candidate. ``x0, y0, x1, y1`` (xmin, ymin,
+    xmax, ymax) and ``keys`` (the biased time keys of :func:`chunk_extents`)
+    are (G, R), a group's rows as one warp of the kernel holds them
+    (:func:`overlap_warp_rows`); ``boxes`` (Q, B, 4), ``times`` (Q, T, 4).
+    Returns (G, Q) bool: True where a live box has ``qxhi`` in the group's
+    [min xmin, max xmin], ``qxlo`` in [min xmax, max xmax], ``qyhi`` in
+    [min ymin, max ymin] or ``qylo`` in [min ymax, max ymax], or a live
+    window has an endpoint in [min key, max key]. A row can share an
+    opposing edge bucket with a box, or sit at a window's endpoint, only
+    then, so a group this returns False for holds no candidate of
+    :func:`overlap_masks` (``edges=True``): the kernel runs the edge test
+    only where it is True."""
+    def span(v):
+        return v.long().amin(dim=1)[:, None, None], v.long().amax(dim=1)[:, None, None]
+
+    def within(v, lo_hi):
+        return (lo_hi[0] <= v[None]) & (v[None] <= lo_hi[1])
+
+    b = boxes.long()
+    live = (b[..., 0] <= b[..., 1]) & (b[..., 2] <= b[..., 3])
+    box = live[None] & (within(b[..., 1], span(x0)) | within(b[..., 0], span(x1))
+                        | within(b[..., 3], span(y0)) | within(b[..., 2], span(y1)))
+    t = times.long()
+    lo, hi = _time_keys(t[..., 0], t[..., 1]), _time_keys(t[..., 2], t[..., 3])
+    k = span(keys)
+    win = (lo <= hi)[None] & (within(lo, k) | within(hi, k))
+    return box.any(dim=2) | win.any(dim=2)
 
 
 def batched_edge_gather_overlap(cols, base: int, true_n: int, boxes, times,
@@ -1332,26 +1439,21 @@ def batched_edge_gather_overlap(cols, base: int, true_n: int, boxes, times,
     matches ``q`` and overlaps a live box of ``q`` with one of ``xmin ==
     qxhi``, ``xmax == qxlo``, ``ymin == qyhi``, ``ymax == qylo``, or lies at
     an endpoint of a live window (:func:`overlap_masks`). On the card
-    ``csrc/batched_edge_gather.cu``'s overlap instance."""
+    ``csrc/batched_edge_gather.cu``'s overlap instance, which runs the edge
+    test only on the warps where :func:`overlap_edge_possible` allows a
+    candidate, and sorts the lanes as :func:`batched_edge_gather` does."""
     _check_box_args(cols, boxes, times)
     if times is None:
         raise ValueError("the overlap edge gather needs the time columns and windows")
-    if capacity < 0:
-        raise ValueError(f"capacity must be >= 0, got {capacity}")
     x = cols[0]
-    if int(base) + x.shape[0] > _I32_MAX:
-        raise ValueError("base + rows must stay below 2^31: positions are int32")
+    _check_edge_capacity(capacity, base, x)
     if x.device.type == "cpu":
         return batched_edge_gather_overlap_plain(cols, base, true_n, boxes, times, capacity)
     if x.device.type != "cuda":
         raise ValueError(f"batched_edge_gather_overlap runs on cuda or cpu, not {x.device}")
-    q = boxes.shape[0]
-    counts = torch.zeros(q, dtype=torch.int32, device=x.device)
-    hits = torch.zeros(q, dtype=torch.int32, device=x.device)
-    pos = torch.full((q, capacity), -1, dtype=torch.int32, device=x.device)
-    _launch_overlap("geomesa_batched_edge_gather_overlap", "batched_edge_gather_overlap", cols,
-                    base, true_n, boxes, times, counts, hits, pos, ints=(int(capacity),))
-    return counts, _sorted_lanes(pos)[:, None, :], hits[:, None]
+    return _edge_outputs(boxes.shape[0], capacity, x, lambda *outs: _launch_overlap(
+        "geomesa_batched_edge_gather_overlap", "batched_edge_gather_overlap", cols, base, true_n,
+        boxes, times, *outs, ints=(int(capacity),)))
 
 
 def batched_edge_gather_overlap_plain(cols, base: int, true_n: int, boxes, times,

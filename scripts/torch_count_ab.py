@@ -2,7 +2,7 @@
 grouped aggregation and its spatial join of several checkouts against each
 other in one run on a CUDA card.
 
-    python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR] [--join-only]
+    python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR] [--join-only | --overlap-only]
 
 Each ROOT is a checkout of this repo: ``.``, or another commit unpacked with
 ``git archive`` into an ignored directory. The roots run one after another
@@ -43,6 +43,28 @@ prints one line per shape:
   (``block_join_step`` per bucket and the counts' copies), p50 of 5 on the
   host clock, with the tested pairs per second. ``--join-only`` runs this
   shape alone.
+
+``--overlap-only`` runs the bbox-overlap kernels instead, and nothing else:
+
+- ``batched_overlap`` (no time) at bench config 5: 4M trajectory bboxes
+  (``workload.xz_boxes``, seed 9) in xz2 order and the 64 city boxes of
+  seed 7, one overlap slot each; then the same rows repeated to 64M (1 GB
+  of columns); and config 5's batch (``batched_overlap_step`` and the
+  counts' copy), p50 of 20 on the host clock;
+- ``batched_overlap`` with time and ``batched_edge_gather_overlap`` at a
+  line store shaped as ``chip_smoke.py``'s phase 9c: 4M line strings on
+  config 5's boxes through ``DataStore`` (xz3 + xz2), config 2's 64
+  queries as the planner packs them (B = 8, T = 16); and the store's
+  ``count_many``, loose and exact, p50 of 10 on the host clock.
+
+Each overlap kernel is held equal to its plain version, then timed three
+ways: the wrapper by CUDA events (10 calls after a warm-up), the bare C
+entry point by CUDA events (10 launches into outputs allocated
+beforehand), and the device time of each op of a wrapper call by
+``torch.profiler`` (the kernel's own line is its device time; the rest are
+the wrapper's fills and sorts), averaged over 10 calls. ``nvcc -Xptxas -v``
+of the overlap sources prints each overlap kernel's registers, spills and
+shared memory.
 
 Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
@@ -192,14 +214,16 @@ def batch_p50(label: str, ds) -> None:
             f"{max(ms):.3f}; host clock)")
 
 
-def device_breakdown(fn) -> str:
-    """One call of ``fn`` under ``torch.profiler``: device time by kernel or
-    copy name, largest first (the profiler's own clock, not CUDA events)."""
+def device_by_op(fn, calls: int = 1) -> dict[str, float]:
+    """``calls`` calls of ``fn`` under ``torch.profiler``: device ms per
+    call by kernel or copy name (the profiler's own clock, not CUDA
+    events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
     for e in prof.events():
@@ -207,8 +231,13 @@ def device_breakdown(fn) -> str:
             name = e.name.replace("void ", "").replace("(anonymous namespace)::", "")
             name = name.split("(")[0][:48]
             by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return "; ".join(f"{name} {t / 1e3:.4f} ms" for name, t in top) or "no device events"
+    return {name: t / 1e3 / calls for name, t in by_name.items()}
+
+
+def device_breakdown(fn) -> str:
+    """One call's :func:`device_by_op` as a line, largest first."""
+    top = sorted(device_by_op(fn).items(), key=lambda kv: -kv[1])[:6]
+    return "; ".join(f"{name} {t:.4f} ms" for name, t in top) or "no device events"
 
 
 def gather_timed(label: str, kernels, ds) -> None:
@@ -394,11 +423,195 @@ def join_timed(label: str, kernels, inp: dict) -> None:
                                     for _, a, _, _ in inp["buckets"]]))
 
 
-def worker(label: str, out: Path, join_only: bool = False) -> None:
+XZ_ROWS, XZ_TILES, XZ_BATCHES = 4_000_000, 16, 20
+XZ_SOURCES = ("batched_overlap", "batched_edge_gather")
+
+
+def ptxas_usage(kernels, label: str) -> None:
+    """``nvcc -Xptxas -v`` of the overlap kernels' sources: each overlap
+    kernel's registers, stack, spills and shared memory."""
+    import tempfile
+
+    for stem in XZ_SOURCES:
+        src = kernels.CSRC / f"{stem}.cu"
+        with tempfile.TemporaryDirectory() as tmp:
+            log_ = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                                   str(Path(tmp) / "lib.so"), str(src)],
+                                  capture_output=True, text=True, check=True).stderr
+        entry = None
+        for ln in log_.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "overlap" in ln else None
+            elif entry and ("Used" in ln or "spill" in ln):
+                log(f"{label} ptxas {entry}: {ln.split(':', 1)[-1].strip()}")
+
+
+def xz_columns(dev):
+    """Bench config 5's bboxes normalized at 31 bits in xz2 order (codes on
+    the host, a stable sort on the card), staged as ``DataStore`` stages
+    them: (int32 columns padded to whole blocks, rows)."""
+    from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
+    from geomesa_tpu_torch.curve.xz import xz2_sfc
+    from geomesa_tpu_torch.parallel.residency import stage_columns
+    from geomesa_tpu_torch.workload import xz_boxes
+
+    b = xz_boxes(XZ_ROWS, 9)
+    codes = xz2_sfc(12).index((b[0], b[1]), (b[2], b[3]))
+    perm = torch.sort(torch.from_numpy(codes.view(np.int64)).to(dev), stable=True)
+    perm = perm.indices.cpu().numpy()
+    nlon, nlat = norm_lon(31), norm_lat(31)
+    host = {k: norm.normalize(c).astype(np.int32)[perm]
+            for k, norm, c in zip(("xmin", "ymin", "xmax", "ymax"),
+                                  (nlon, nlat, nlon, nlat), b)}
+    cols, _ = stage_columns(host, dev)
+    return [cols[k] for k in ("xmin", "ymin", "xmax", "ymax")]
+
+
+def xz_store(dev):
+    """A line store shaped as ``chip_smoke.py``'s phase 9c: (the store,
+    the 64 queries' CQL, the xz3 state's bbox columns, rows, boxes, times
+    as the planner packs them)."""
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, linestring_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import (
+        XZ_SPEC, bbox_time_cql, box_linestrings, make_queries, synth_gdelt, xz_boxes)
+
+    coords, offsets = box_linestrings(*xz_boxes(XZ_ROWS, 9))
+    cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, 7))]
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("xz", XZ_SPEC)
+    ds.write("xz", FeatureTable.from_columns(sft, np.arange(XZ_ROWS).astype("U9"), {
+        "dtg": Column(AttributeType.DATE, synth_gdelt(XZ_ROWS)[2]),
+        "geom": linestring_column(coords, offsets)}))
+    ds.compact("xz")
+    st = ds._state("xz")
+    state = st.backend_state["xz3"]
+    planner = QueryPlanner(sft, st.indices)
+    pays = [ds.backend.payload(sft, planner.plan(Query(c))[2].extraction, overlap=True)
+            for c in cqls]
+    boxes, times = (torch.from_numpy(np.ascontiguousarray(np.stack([p[k] for p in pays])))
+                    .to(dev) for k in (0, 1))
+    return ds, cqls, list(state.spatial_cols()), state.n, boxes, times
+
+
+def bare_launch(kernels, cols, n: int, boxes, times, cap: int | None):
+    """The overlap kernel's C entry point bound to its inputs and to outputs
+    allocated here, launched on the current stream: no checks, no fills,
+    no sort. For timing only (the outputs accumulate over launches)."""
+    q = boxes.shape[0]
+    outs = [torch.zeros(q, dtype=torch.int32, device=boxes.device)]
+    if cap is not None:
+        outs += [torch.zeros(q, dtype=torch.int32, device=boxes.device),
+                 torch.full((q, cap), -1, dtype=torch.int32, device=boxes.device)]
+    entry = "geomesa_batched_overlap" if cap is None else "geomesa_batched_edge_gather_overlap"
+    fn = kernels._fn(entry)
+    args = ([c.data_ptr() for c in cols] + [None] * (6 - len(cols))
+            + [cols[0].shape[0], 0, n, boxes.data_ptr(),
+               None if times is None else times.data_ptr(), q, boxes.shape[1],
+               0 if times is None else times.shape[1],
+               torch.cuda.get_device_properties(boxes.device).multi_processor_count]
+            + [o.data_ptr() for o in outs] + ([] if cap is None else [cap])
+            + [torch.cuda.current_stream(boxes.device).cuda_stream])
+
+    def launch():
+        rc = fn(*args)
+        if rc:
+            raise SystemExit(f"{entry}: cudaError {rc}")
+    return launch
+
+
+def overlap_timed(label: str, shape: str, kernels, stem: str, cols, n: int, boxes, times,
+                  check: bool = True) -> None:
+    """Hold ``stem`` (``batched_overlap`` or ``batched_edge_gather_overlap``)
+    equal to its plain version, then time the wrapper, the bare launch and
+    the device time by op."""
+    cap = kernels.EDGE_CAPACITY if stem == "batched_edge_gather_overlap" else None
+    extra = () if cap is None else (cap,)
+    kernel, plain = getattr(kernels, stem), getattr(kernels, stem + "_plain")
+    got = kernel(cols, 0, n, boxes, times, *extra)
+    got = got if isinstance(got, tuple) else (got,)
+    if check:
+        want = plain(cols, 0, n, boxes, times, *extra)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"{label} {shape}: {stem} disagrees with its plain version")
+    ms = cuda_ms(lambda: kernel(cols, 0, n, boxes, times, *extra), 10)
+    bare_ms = cuda_ms(bare_launch(kernels, cols, n, boxes, times, cap), 10)
+    ops = device_by_op(lambda: kernel(cols, 0, n, boxes, times, *extra), 10)
+    dev = [t for name, t in ops.items() if stem + "_kernel" in name]
+    others = "; ".join(f"{name} {t:.4f} ms" for name, t in sorted(ops.items(),
+                                                                   key=lambda kv: -kv[1])
+                       if stem + "_kernel" not in name) or "none"
+    dev_ms = f"{sum(dev):.4f} ms" if dev else "not measured (no record of the kernel)"
+    log(f"{label} {shape} {stem}: wrapper {ms:.4f} ms (CUDA events, 10 calls), bare launch "
+        f"{bare_ms:.4f} ms (CUDA events, 10 launches), device {dev_ms} (torch.profiler, "
+        f"mean of 10 calls) at N={n} Q={boxes.shape[0]} B={boxes.shape[1]} "
+        f"T={0 if times is None else times.shape[1]}; "
+        f"{'equal to plain' if check else 'counts checked'}; {int(got[0].long().sum())} matches"
+        + ("" if cap is None else f", {int(got[2].long().sum())} candidates")
+        + f"; the wrapper's other device ops per call: {others}")
+
+
+def host_p50(fn, reps: int) -> tuple[float, float, float]:
+    import time
+
+    fn()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ms, 50)), min(ms), max(ms)
+
+
+def overlap_worker(label: str, kernels, dev) -> None:
+    """The ``--overlap-only`` shapes (see the module docstring)."""
+    from geomesa_tpu_torch.parallel.query import batched_overlap_step
+    from geomesa_tpu_torch.workload import make_queries, pack_query_boxes
+
+    ptxas_usage(kernels, label)
+    cols = xz_columns(dev)
+    boxes = torch.from_numpy(pack_query_boxes(make_queries(N_QUERIES, 7)[0],
+                                              overlap=True)).to(dev)
+    overlap_timed(label, "config 5", kernels, "batched_overlap", cols, XZ_ROWS, boxes, None)
+    p50, lo, hi = host_p50(lambda: batched_overlap_step(cols, XZ_ROWS, boxes).cpu(), XZ_BATCHES)
+    log(f"{label} config 5 batch: p50 {p50:.4f} ms over {XZ_BATCHES} (min {lo:.4f}, max "
+        f"{hi:.4f}; host clock, batched_overlap_step and the counts' copy), "
+        f"{p50 / N_QUERIES:.5f} ms a query")
+    want = kernels.batched_overlap(cols, 0, XZ_ROWS, boxes).long() * XZ_TILES
+    big = [c[:XZ_ROWS].repeat(XZ_TILES) for c in cols]
+    del cols
+    torch.cuda.empty_cache()
+    bn = XZ_ROWS * XZ_TILES
+    if not torch.equal(kernels.batched_overlap(big, 0, bn, boxes).long(), want):
+        raise SystemExit(f"{label} 64M rows: batched_overlap != {XZ_TILES} x config 5's counts")
+    overlap_timed(label, f"config 5 x{XZ_TILES}", kernels, "batched_overlap", big, bn, boxes,
+                  None, check=False)
+    del big
+    torch.cuda.empty_cache()
+    ds, cqls, cols, n, boxes, times = xz_store(dev)
+    overlap_timed(label, "line store", kernels, "batched_overlap", cols, n, boxes, times)
+    overlap_timed(label, "line store", kernels, "batched_edge_gather_overlap", cols, n, boxes,
+                  times)
+    for loose in (True, False):
+        p50, lo, hi = host_p50(lambda: ds.count_many("xz", cqls, loose=loose), 10)
+        log(f"{label} line store count_many {'loose' if loose else 'exact'}: p50 {p50:.3f} ms "
+            f"over 10 (min {lo:.3f}, max {hi:.3f}; host clock; {ds.exact_fallbacks} "
+            f"fallback(s) so far)")
+
+
+def worker(label: str, out: Path, join_only: bool = False, overlap_only: bool = False) -> None:
     sys.path.insert(0, os.getcwd())
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")  # several profiler windows in one process
     from geomesa_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
+    if overlap_only:
+        overlap_worker(label, kernels, dev)
+        return
     dump_builds(kernels, label, out)
     if join_only:
         join_timed(label, kernels, config4_inputs(dev))
@@ -432,13 +645,16 @@ def main() -> None:
     ap.add_argument("--out", default="chiprun_out/count_ab")
     ap.add_argument("--join-only", action="store_true",
                     help="time polygon_join at bench config 4 and nothing else")
+    ap.add_argument("--overlap-only", action="store_true",
+                    help="time the bbox-overlap kernels at bench config 5 and a line store, "
+                         "and nothing else")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out = Path(args.out).resolve()
     if args.worker:
-        return worker(args.worker, out, args.join_only)
+        return worker(args.worker, out, args.join_only, args.overlap_only)
     if not args.roots:
         ap.error("give at least one ROOT")
     log("card: " + subprocess.run(
@@ -448,8 +664,9 @@ def main() -> None:
         label = f"run{i + 1}:{Path(root).resolve().name}"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", label,
                         "--out", str(out / f"run{i + 1}")]
-                       + (["--join-only"] if args.join_only else []), cwd=root, check=True)
-    for stem in () if args.join_only else SAME_SASS:
+                       + (["--join-only"] if args.join_only else [])
+                       + (["--overlap-only"] if args.overlap_only else []), cwd=root, check=True)
+    for stem in () if args.join_only or args.overlap_only else SAME_SASS:
         first = sass_instructions(out / "run1" / f"{stem}.sass")
         for i in range(2, len(args.roots) + 1):
             same = sass_instructions(out / f"run{i}" / f"{stem}.sass") == first

@@ -10,8 +10,9 @@ CPU.
 - ``planned_gather_overlap_plain`` equals
   ``make_planned_gather_step(overlap=True)`` pair for pair;
 - ``refine_bboxes`` equals the reference's;
-- the overlap pad and ``chunk_extents_bbox`` / ``overlap_chunk_pairs``: no
-  culled (chunk, query) pair holds a match.
+- the overlap pad and ``chunk_extents_bbox`` / ``overlap_chunk_pairs``, and
+  the kernels' own cull per warp, ``overlap_warp_pairs``: no culled (chunk,
+  query) or (warp, query) pair holds a match.
 
 Rows are config-5 bboxes normalized at 31 bits with adversarial rows: on
 each of the four opposing query edges, zero-size boxes, whole-world boxes
@@ -37,8 +38,8 @@ from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
 from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops.kernels import (
     JOIN_BLOCK, batched_edge_gather_overlap, batched_edge_gather_overlap_plain, batched_overlap,
-    batched_overlap_plain, overlap_chunk_pairs, overlap_masks, planned_gather_overlap,
-    planned_gather_overlap_plain)
+    batched_overlap_plain, overlap_chunk_pairs, overlap_masks, overlap_warp_pairs,
+    planned_gather_overlap, planned_gather_overlap_plain)
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_bboxes
 from geomesa_tpu_torch.parallel.query import batched_overlap_step, intervals_to_block_pairs
 from geomesa_tpu_torch.parallel.residency import stage_columns
@@ -288,10 +289,12 @@ def test_overlap_pad_and_live_slots():
 
 @pytest.mark.parametrize("with_time", [False, True])
 def test_overlap_cull_never_drops_a_match(with_time):
-    """``overlap_chunk_pairs`` (the kernels' cull over
-    ``chunk_extents_bbox``) keeps every (chunk, query) pair that holds a
-    match, stamped and padded rows included, with a ``base``/``true_n``
-    tail; in sorted order it culls most pairs of small boxes."""
+    """``overlap_chunk_pairs`` (over ``chunk_extents_bbox``) keeps every
+    (chunk, query) pair that holds a match, and ``overlap_warp_pairs`` (the
+    kernels' cull, at their unit: the 256 rows of a chunk one warp holds)
+    every (warp, query) pair, stamped and padded rows included, with a
+    ``base``/``true_n`` tail; a kept warp's chunk is kept; in sorted order
+    both cull most pairs of small boxes."""
     n = 9 * JOIN_BLOCK + 77
     cols, edge_rows = _rows(n, seed=41)
     boxes, times = _payload(cols, edge_rows, 20, 2, 3, seed=42)
@@ -300,12 +303,18 @@ def test_overlap_cull_never_drops_a_match(with_time):
     base, true_n = JOIN_BLOCK, JOIN_BLOCK + n - 999
     keep = overlap_chunk_pairs(tc, base, true_n, _t(boxes), tm)
     assert keep.shape == (10, 20)
+    wkeep = overlap_warp_pairs(tc, base, true_n, _t(boxes), tm)
+    assert wkeep.shape == (10 * 16, 20)
+    assert not (wkeep.view(10, 16, 20).any(dim=1) & ~keep).any()
     for qi in range(20):
         m, _ = overlap_masks(*(c[None] for c in tc), *([None] * (6 - len(tc))),
                              _t(boxes[qi:qi + 1]), None if tm is None else tm[qi:qi + 1])
         m = m[0] & ((base + torch.arange(n)) < true_n)
-        hit_chunks = torch.unique(torch.nonzero(m).flatten() // JOIN_BLOCK)
+        hit = torch.nonzero(m).flatten()
+        hit_chunks = torch.unique(hit // JOIN_BLOCK)
         assert keep[hit_chunks, qi].all()
+        hit_warps = hit // JOIN_BLOCK * 16 + hit % JOIN_BLOCK % 2048 // 128
+        assert wkeep[hit_warps, qi].all()
     # without the whole-world rows, which widen every chunk they sit in,
     # narrow boxes over rows sorted by xmin keep few pairs
     b = xz_boxes(n, 43)
@@ -318,6 +327,7 @@ def test_overlap_cull_never_drops_a_match(with_time):
         for x in clean[0][JOIN_BLOCK // 2::JOIN_BLOCK].tolist()])))
     kept = overlap_chunk_pairs(clean, 0, n, small)
     assert float(kept.float().mean()) < 0.5
+    assert float(overlap_warp_pairs(clean, 0, n, small).float().mean()) < 0.5
     assert torch.equal(batched_overlap(clean, 0, n, small) > 0, kept.any(dim=0) &
                        (batched_overlap(clean, 0, n, small) > 0))
     with pytest.raises(ValueError, match="without times"):
