@@ -108,8 +108,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    rows with group ids over G = 8192 (the fold's global mode), its time
    beside the plain version's and its bound, with its mode, registers,
    spills and shared and global atomics; ``agg_work_list`` against its
-   plain version with its time and bound; and one ``aggregate_many`` under
-   ``torch.profiler``.
+   plain version with its time, its device time behind a spin and its
+   bound, beside the launch floor (one empty kernel's launch through the
+   same ctypes path, ``kernels.launch_floor_ms``); and one
+   ``aggregate_many`` under ``torch.profiler``, with every device op of
+   the call by name and count.
 7. bench config 3 (``bench.py:510``), density heatmaps and batched KNN:
    7a, ``batched_density`` against ``batched_density_plain`` on the card,
    exact, at N = 1,000,003 over GDELT-shaped rows in z3 order (city boxes;
@@ -958,13 +961,15 @@ def gather_floor(cols, true_n: int, pair_q, pair_blk, boxes, times, hits, pos_by
     return (alu, total), nbytes
 
 
-def profile_window(label: str, fn, expect: str | None = None, kernels_in_order: bool = False
-                   ) -> None:
+def profile_window(label: str, fn, expect: str | None = None, kernels_in_order: bool = False,
+                   all_ops: bool = False) -> None:
     """Runs ``fn`` once under ``torch.profiler`` (CPU and CUDA) and logs the
     device's busy share of the window (the union of its kernels and copies
     over the span of every recorded event), the five device ops that took
     the most time, and the longest stretch with nothing on the device; with
-    ``kernels_in_order``, also every kernel's device time in launch order.
+    ``kernels_in_order``, also every kernel's device time in launch order;
+    with ``all_ops``, every device op of the window by name (kernels,
+    memsets and copies, in the order each name first ran) with its count.
     Logs "not measured" where the profiler saw no device activity. With
     ``expect``, a kernel name that ``fn`` launches: a trace that holds no
     record of it is taken once more, and logged as incomplete if the
@@ -1016,6 +1021,14 @@ def profile_window(label: str, fn, expect: str | None = None, kernels_in_order: 
         f"{busy / 1e3:.3f} ms ({busy / (w1 - w0):.6f} of the window) over {len(device)} device "
         f"ops; longest idle gap {gap / 1e3:.3f} ms; top device ops: " + "; ".join(
             f"{name[:60]} {t / 1e3:.4f} ms x{k}" for name, (t, k) in top))
+    if all_ops:
+        seen: dict[str, int] = {}
+        for e in sorted(device, key=lambda e: e.time_range.start):
+            name = e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0][:48]
+            seen[name] = seen.get(name, 0) + 1
+        log(f"phase profile {label}: device ops ({len(device)}): "
+            + ", ".join(f"{name} x{k}" for name, k in seen.items()))
     if kernels_in_order:
         launched = sorted((e for e in device if "emcpy" not in e.name and "emset" not in e.name),
                           key=lambda e: e.time_range.start)
@@ -1875,17 +1888,21 @@ def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
         if not all(torch.equal(g, w) for g, w in zip(got_wl, want_wl)):
             raise AssertionError("agg_work_list disagrees with its plain version at config 9")
         wl_ms = cuda_ms(lambda: kernels.agg_work_list(*wl_args), 5)
+        wl_dev = device_ms(lambda: kernels.agg_work_list(*wl_args))
         wl_plain_ms = cuda_ms(lambda: kernels.agg_work_list_plain(*wl_args), 1)
+        floor_ms = kernels.launch_floor_ms(dev)
         n_runs = int(want_wl[3][kernels.W_RUNS])
         wl_ops, wl_bytes = work_list_floor(ext, boxes, times, want_wl[1], n_runs)
-        wl_record.update(max_abs_err=0, ms=wl_ms, plain_ms=wl_plain_ms,
-                         **bound_fields(wl_ops, wl_bytes))
-        log(f"phase agg_work_list timing: {wl_ms:.4f} ms (CUDA events, 5 launches) over "
-            f"{ext.shape[0]} chunks x {n_queries} queries: {int(want_wl[1].sum())} kept pairs "
-            f"in {n_runs} runs of up to {int(want_wl[3][kernels.W_RUN_LEN])} chunks (target "
-            f"{target}); equal to plain ({wl_plain_ms:.4f} ms); bound "
-            f"{wl_record['bound_ms']:.6f} ms ({wl_record['bound_by']}: {wl_ops[0]} ops; "
-            f"{wl_bytes} bytes), {wl_record['bound_ms'] / wl_ms:.4f} of it")
+        wl_record.update(max_abs_err=0, ms=wl_ms, device_ms=wl_dev, plain_ms=wl_plain_ms,
+                         launch_floor_ms=floor_ms, **bound_fields(wl_ops, wl_bytes))
+        log(f"phase agg_work_list timing: {wl_ms:.4f} ms (CUDA events, 5 launches), device "
+            f"{fmt_ms(wl_dev)} (10 calls behind a spin) over {ext.shape[0]} chunks x "
+            f"{n_queries} queries: {int(want_wl[1].sum())} kept pairs in {n_runs} runs of up to "
+            f"{int(want_wl[3][kernels.W_RUN_LEN])} chunks (target {target}); equal to plain "
+            f"({wl_plain_ms:.4f} ms); bound {wl_record['bound_ms']:.6f} ms "
+            f"({wl_record['bound_by']}: {wl_ops[0]} ops; {wl_bytes} bytes), "
+            f"{wl_record['bound_ms'] / wl_ms:.4f} of it; launch floor {floor_ms:.4f} ms (one "
+            f"empty kernel's launch through the same ctypes path, CUDA events over 20)")
         rng = np.random.default_rng(23)
         grid = [torch.from_numpy(c).to(dev) for c in grid_columns(1_000_003, seed=23)]
         gb, gt = (torch.from_numpy(a).to(dev)
@@ -1944,7 +1961,7 @@ def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
                                  "count is wrong")
         profile_window("aggregate_many", lambda: ds.aggregate_many(
             "gagg", cqls[AGG_SEEDS[0]], group_by=["cat"], value_cols=["val"]),
-            "grouped_agg_kernel")
+            "grouped_agg_kernel", all_ops=True)
         log(f"phase 6 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     return record, wl_record
 
@@ -3532,8 +3549,9 @@ def config5_step(dev, m: int, tiles: int) -> tuple[dict, int]:
 def planned_overlap_passes(cols, true_n: int, pair_q, pair_blk, boxes, times, plan):
     """``planned_gather_overlap``'s two passes as one call that does not
     synchronise, for :func:`device_ms`: its count and write entry points
-    launched into outputs allocated here, the positions' size (the
-    wrapper's one read of the device) read once beforehand."""
+    launched into outputs allocated here (the count pass's entry point
+    writes the counts' prefix sum too), the positions' size (the wrapper's
+    one read of the device) read once beforehand."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
@@ -3541,6 +3559,7 @@ def planned_overlap_passes(cols, true_n: int, pair_q, pair_blk, boxes, times, pl
     n_pairs = pair_q.shape[0]
     n_blocks = (plan.shape[0] - 2 * n_pairs - 1) // 2
     hits = torch.empty(n_pairs, dtype=torch.int64, device=plan.device)
+    ends = torch.empty(n_pairs, dtype=torch.int64, device=plan.device)
     masks = torch.empty((n_pairs, kernels.JOIN_BLOCK // 16), dtype=torch.int16,
                         device=plan.device)
     stream = torch.cuda.current_stream(plan.device).cuda_stream
@@ -3549,10 +3568,9 @@ def planned_overlap_passes(cols, true_n: int, pair_q, pair_blk, boxes, times, pl
     count_args = ([c.data_ptr() for c in cols] + [cols[0].shape[0], int(true_n),
                   plan.data_ptr(), n_pairs, n_blocks, boxes.data_ptr(), times.data_ptr(),
                   boxes.shape[0], boxes.shape[1], times.shape[1], hits.data_ptr(),
-                  masks.data_ptr(), stream])
+                  ends.data_ptr(), masks.data_ptr(), stream])
     if count_fn(*count_args):
         raise RuntimeError("planned_gather_overlap's count pass failed")
-    ends = torch.cumsum(hits, dim=0)
     positions = torch.empty(int(ends[-1]), dtype=torch.int32, device=plan.device)
     write_args = (pair_blk.data_ptr(), n_pairs, hits.data_ptr(), ends.data_ptr(),
                   masks.data_ptr(), positions.data_ptr(), stream)

@@ -6,11 +6,14 @@
 // cost host time on every call, and a count batch over a store of a few
 // million rows takes only tens of microseconds on the card, so the
 // wrappers of batched_overlap.cu and batched_edge_gather.cu keep one
-// LaunchCache per kernel instance. The dynamic shared-memory limit is only
+// LaunchCache per kernel instance (grouped_agg.cu one per fold mode). The
+// dynamic shared-memory limit is only
 // ever raised (a launch with fewer bytes than an earlier one finds the
 // limit already high enough), and the carveout is set with it. A mutex
 // guards the cache: ctypes releases the GIL, so launches may come from
-// several host threads at once.
+// several host threads at once. device_attr() keeps a device attribute
+// (the opt-in shared-memory limit, the SM count) the same way, asked once
+// per device.
 
 #pragma once
 
@@ -75,5 +78,30 @@ cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, LaunchCache
   }
   return cudaSuccess;
 }
+
+// The current device's value of attr (0 on an error), asked once per
+// (device, attribute).
+inline int device_attr(cudaDeviceAttr attr) {
+  static std::mutex mu;
+  static int known_dev[LaunchCache::SLOTS], known_attr[LaunchCache::SLOTS],
+      known[LaunchCache::SLOTS];
+  static int n_known = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_known; ++i)
+    if (known_dev[i] == dev && known_attr[i] == (int)attr) return known[i];
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) return 0;
+  if (n_known < LaunchCache::SLOTS) {
+    known_dev[n_known] = dev;
+    known_attr[n_known] = (int)attr;
+    known[n_known++] = v;
+  }
+  return v;
+}
+
+// The current device's opt-in shared memory per block (0 on an error).
+inline int smem_optin() { return device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin); }
 
 }  // namespace geomesa

@@ -77,9 +77,8 @@
 // (may_hold_edge; its plain version is ops/kernels.py
 // overlap_edge_possible).
 //
-// planned_gather.cu's overlap count pass reads a block once into registers
-// in count_predicate.cuh's layout instead (load_box_rows, BoxRows: 16
-// consecutive rows a thread), and shares the row tests.
+// planned_gather.cu's overlap count pass shares the row tests and the
+// 8-row register layout (ScanRows), loading its rows without the ring.
 
 #pragma once
 
@@ -131,7 +130,6 @@ struct BoxRowsT {
   int32_t x0[R], y0[R], x1[R], y1[R];
   long long key[R];
 };
-using BoxRows = BoxRowsT<ROWS>;  // planned_gather.cu's 16 consecutive rows
 using ScanRows = BoxRowsT<OV_ROWS>;
 
 // Starts the copy of chunk c's rows of the thread into stage (laid out
@@ -204,25 +202,6 @@ __device__ __forceinline__ uint32_t take_box_chunk(const int4* stage, int64_t ch
     valid |= (nv >= 4 ? 0xfu : (nv <= 0 ? 0u : (1u << (int)nv) - 1)) << (4 * j);
   }
   return valid;
-}
-
-// Loads the ROWS consecutive rows of a thread from row0 into registers
-// (count_predicate.cuh's layout: bit r is row row0 + r); returns the mask of
-// its rows below limit. The planned gather's overlap count pass reads a
-// block this way, once.
-__device__ __forceinline__ uint32_t load_box_rows(const BoxCols& cols, int64_t n, int64_t limit,
-                                                  int64_t row0, BoxRows& rows) {
-  int32_t b[ROWS], o[ROWS];
-  load_col(cols.c[0], row0, n, rows.x0);
-  load_col(cols.c[1], row0, n, rows.y0);
-  load_col(cols.c[2], row0, n, rows.x1);
-  load_col(cols.c[3], row0, n, rows.y1);
-  load_col(cols.c[4], row0, n, b);
-  load_col(cols.c[5], row0, n, o);
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) rows.key[r] = time_key(b[r], o[r]);
-  const int64_t nv = limit - row0;
-  return nv >= ROWS ? (1u << ROWS) - 1 : (nv <= 0 ? 0u : (1u << (int)nv) - 1);
 }
 
 // The warp's extent of its lanes' rows (every lane gets it): min xmin, max

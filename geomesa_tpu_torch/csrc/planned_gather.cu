@@ -7,8 +7,8 @@
 // reference computes it in XLA. The port's eager torch form
 // (ops.kernels.planned_gather_plain) runs about 24 slot passes of small ops
 // per chunk of pairs plus a boolean index that syncs with the host each
-// chunk; this kernel does the same work in two launches and one read of a
-// total.
+// chunk; this kernel does the same work in three launches (count pass,
+// scan, write pass) and one read of a total.
 //
 // What it computes: pair p = (query pair_q[p], block pair_blk[p]) covers
 // the JOIN_BLOCK rows [blk * JOIN_BLOCK, (blk + 1) * JOIN_BLOCK) of the
@@ -17,8 +17,9 @@
 // predicate), and positions[offsets[p] ..] their global positions (int32,
 // the reference's contract: geomesa_tpu/parallel/query.py:873-876) in row
 // order. offsets[p] = ends[p] - pair_hits[p], ends the inclusive prefix
-// sum of pair_hits (the wrapper takes it with one torch.cumsum and sizes
-// positions from its last element).
+// sum of pair_hits (the count pass's entry point writes it with a one-block
+// scan; the wrapper sizes positions from its last element, its one read of
+// the device).
 //
 // Bound on an H100: bytes. Each distinct block is read once at least (16 B
 // a row), plus the pair lists in, the pair counts out and 4 B per written
@@ -42,7 +43,9 @@
 //     stages dead). Per pair it runs the predicate on the rows in
 //     registers and writes the pair's 4096-bit match mask (16 bits a
 //     thread, 512 B a pair) to scratch the wrapper allocates, and its count
-//     (per-warp sums, added once per tile).
+//     (per-warp sums, added once per tile). Its entry point then launches
+//     a one-block scan that writes ends, the inclusive prefix sum of the
+//     counts, so the wrapper launches no torch op between the passes.
 //   - The write pass runs one block per pair: it reads the pair's 512 B
 //     mask instead of its columns, places each thread's rows in shared
 //     memory at a block-wide exclusive scan of the per-thread popcounts,
@@ -61,12 +64,33 @@
 // extended-geometry store: it replaces make_planned_gather_step(...,
 // overlap=True) (query.py:820) over _batched_overlap_masks (:636-658), the
 // count pass playing the role of make_planned_count_step(overlap=True)
-// (:716). Its count pass loads a block's six bbox columns (xmin, ymin,
-// xmax, ymax, bins, offs: 24 B a row) once into registers
-// (overlap_cull.cuh load_box_rows) and tests each pair's query with the
-// overlap predicate (overlap_mask, box_time_mask); masks, counts and the
-// write pass are the point form's, so a pair's positions come out the same
-// way. Bound: the same terms over 24 B a row.
+// (:716). It tests each pair's query with the overlap predicate
+// (overlap_mask, box_time_mask) on a block's six bbox columns (xmin, ymin,
+// xmax, ymax, bins, offs: 24 B a row); counts and the write pass are the
+// point form's, so a pair's positions come out the same way. Bound: the
+// same terms over 24 B a row.
+//
+// What held its first count pass back (0.0700 ms for both passes, 0.1809
+// ms by CUDA events, at a 4M line store's 3,119 pairs over 877 blocks;
+// bound 0.0294 ms): one 256-thread block per distinct block under
+// __launch_bounds__(THREADS, 1), each thread holding 16 rows x 24 B in
+// registers, so an SM ran one block of 8 warps that loaded its 96 KB,
+// staged its pairs and tested them with nothing of the next block in
+// flight.
+//
+// Its design now keeps more of the column bytes in flight on each SM: two
+// 256-thread blocks a distinct block, one a half (2048 rows), each thread
+// holding 8 rows in registers (two 16-byte loads a column: rows 4t..4t+3
+// and 1024+4t..+3 of its half; 80 registers, so three blocks fit an SM
+// where one did), placed by the hardware as blocks finish, so one block's
+// staging and tests overlap the others' loads. Each half counts its pairs
+// apart (pair_hits, ends) and the scan after the pass adds them while it
+// writes ends. Each thread's 8 match bits are regrouped by two shuffles
+// into the 16 consecutive rows a uint16 of the mask holds
+// (store_half_words; its plain version is ops/kernels.py
+// overlap_mask_words, over planned_overlap_rows), so the write pass reads
+// the masks as the point form writes them. A persistent form over the
+// overlap scan's two-chunk cp.async ring ran slower (PERF.md §7).
 //
 // Plain C entry points for ctypes; they launch on the caller's stream, do
 // not synchronise, allocate nothing and return a cudaError_t.
@@ -75,6 +99,7 @@
 #include <stdint.h>
 
 #include "count_predicate.cuh"
+#include "launch_cache.cuh"
 #include "overlap_cull.cuh"
 
 namespace {
@@ -132,6 +157,74 @@ __device__ __forceinline__ void stage_pairs(const int32_t* __restrict__ boxes,
   __syncthreads();
 }
 
+// ends, the inclusive prefix sum of pair_hits over all pairs in pair order:
+// one block, launched by the count pass's entry point after it. HALVES: the
+// count pass counted each pair in two halves, the first in pair_hits and
+// the second in ends; they are added into pair_hits first. Each pass
+// stages ENDS_THREADS x ENDS_ITEMS counts in dynamic shared memory with
+// coalesced loads, scans each thread's ENDS_ITEMS consecutive ones, then a
+// block-wide scan of the threads' sums, and stores coalesced.
+constexpr int ENDS_THREADS = 1024;
+constexpr int ENDS_ITEMS = 8;                              // counts a thread scans a pass
+constexpr int ENDS_SMEM = ENDS_THREADS * ENDS_ITEMS * 8;  // 64 KB staged a pass
+
+template <bool HALVES>
+__global__ void __launch_bounds__(ENDS_THREADS)
+planned_ends_kernel(int64_t* __restrict__ pair_hits, int64_t* __restrict__ ends,
+                    int64_t n_pairs) {
+  extern __shared__ long long buf[];  // (ENDS_THREADS x ENDS_ITEMS)
+  __shared__ long long warp_sum[ENDS_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long carry = 0;
+  for (int64_t base = 0; base < n_pairs; base += (int64_t)ENDS_THREADS * ENDS_ITEMS) {
+#pragma unroll
+    for (int j = 0; j < ENDS_ITEMS; ++j) {
+      const int64_t i = base + (int64_t)j * ENDS_THREADS + threadIdx.x;
+      long long v = 0;
+      if (i < n_pairs) {
+        v = pair_hits[i] + (HALVES ? ends[i] : 0);
+        if (HALVES) pair_hits[i] = v;
+      }
+      buf[j * ENDS_THREADS + threadIdx.x] = v;
+    }
+    __syncthreads();
+    long long v[ENDS_ITEMS], sum = 0;
+#pragma unroll
+    for (int k = 0; k < ENDS_ITEMS; ++k) {
+      v[k] = buf[threadIdx.x * ENDS_ITEMS + k];
+      sum += v[k];
+    }
+    long long incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long u = __shfl_up_sync(FULL_WARP, incl, d);
+      if (lane >= d) incl += u;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    long long at = carry + incl - sum, total = 0;
+#pragma unroll
+    for (int w = 0; w < ENDS_THREADS / 32; ++w) {
+      const long long s = warp_sum[w];
+      if (w < warp) at += s;
+      total += s;
+    }
+#pragma unroll
+    for (int k = 0; k < ENDS_ITEMS; ++k) {
+      at += v[k];
+      buf[threadIdx.x * ENDS_ITEMS + k] = at;  // the thread's own slots
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ENDS_ITEMS; ++j) {
+      const int64_t i = base + (int64_t)j * ENDS_THREADS + threadIdx.x;
+      if (i < n_pairs) ends[i] = buf[j * ENDS_THREADS + threadIdx.x];
+    }
+    carry += total;
+    __syncthreads();  // buf and warp_sum are read before the next pass writes them
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 2)
 planned_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                      const int32_t* __restrict__ bins, const int32_t* __restrict__ offs,
@@ -186,7 +279,58 @@ planned_count_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// A count block of the overlap form holds half a block: half h's rows
+// h * HALF_ROWS + j * HALF_GROUP + 4t .. +3 at thread t, bit 4j + i for
+// row + i (j = 0, 1): 8 rows a thread, each 16-byte group of a column one
+// load, neighbouring threads on neighbouring groups.
+constexpr int HALF_ROWS = JOIN_BLOCK / 2;  // 2048
+constexpr int HALF_GROUP = THREADS * 4;    // 1024
+static_assert(2 * HALF_GROUP == HALF_ROWS, "a half is two groups of THREADS x 4 rows");
+
+// Loads the thread's 8 rows of the half at row0 (a block's first row plus
+// h * HALF_ROWS) into registers; returns the mask of those below limit.
+// n is a multiple of JOIN_BLOCK, so a valid block's rows are all in the
+// columns.
+__device__ __forceinline__ uint32_t load_half_rows(const BoxCols& cols, int64_t row0,
+                                                   int64_t limit, ScanRows& rows) {
+  uint32_t valid = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int64_t r = row0 + (int64_t)j * HALF_GROUP + 4 * threadIdx.x;
+    put4(rows.x0, j, __ldg(reinterpret_cast<const int4*>(cols.c[0] + r)));
+    put4(rows.y0, j, __ldg(reinterpret_cast<const int4*>(cols.c[1] + r)));
+    put4(rows.x1, j, __ldg(reinterpret_cast<const int4*>(cols.c[2] + r)));
+    put4(rows.y1, j, __ldg(reinterpret_cast<const int4*>(cols.c[3] + r)));
+    const int4 vb = __ldg(reinterpret_cast<const int4*>(cols.c[4] + r));
+    const int4 vo = __ldg(reinterpret_cast<const int4*>(cols.c[5] + r));
+    rows.key[4 * j] = time_key(vb.x, vo.x);
+    rows.key[4 * j + 1] = time_key(vb.y, vo.y);
+    rows.key[4 * j + 2] = time_key(vb.z, vo.z);
+    rows.key[4 * j + 3] = time_key(vb.w, vo.w);
+    const int64_t nv = limit - r;
+    valid |= (nv >= 4 ? 0xfu : (nv <= 0 ? 0u : (1u << (int)nv) - 1)) << (4 * j);
+  }
+  return valid;
+}
+
+// Stores one pair's match bits m of the thread's 8 rows in half h as the
+// write pass reads a mask: uint16 word w holds rows 16w .. 16w + 15, bit b
+// row 16w + b. The low nibbles of threads 4u .. 4u + 3 are word 128h + u,
+// their high nibbles word 128h + 64 + u: four lanes of one warp, gathered
+// by two shuffles in lane 4(u % 8). All 32 lanes call it together.
+__device__ __forceinline__ void store_half_words(uint16_t* __restrict__ words, uint32_t m,
+                                                 int h) {
+  uint32_t v = (m & 0xfu) | ((m & 0xf0u) << 12);  // low nibble: bits 0-3, high: 16-19
+  v |= __shfl_down_sync(FULL_WARP, v, 1) << 4;
+  v |= __shfl_down_sync(FULL_WARP, v, 2) << 8;
+  if ((threadIdx.x & 3) == 0) {
+    const int w = h * (HALF_ROWS / 16) + (threadIdx.x >> 2);
+    words[w] = (uint16_t)v;
+    words[w + HALF_GROUP / 16] = (uint16_t)(v >> 16);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
 planned_count_overlap_kernel(BoxCols cols, int64_t n, int64_t true_n,
                              const int32_t* __restrict__ order,    // (P,): pairs, block-major
                              const int32_t* __restrict__ order_q,  // (P,): their queries
@@ -195,19 +339,21 @@ planned_count_overlap_kernel(BoxCols cols, int64_t n, int64_t true_n,
                              const int32_t* __restrict__ boxes,    // (Q, nb, 4)
                              const int32_t* __restrict__ times,    // (Q, nt, 4)
                              int q, int nb, int nt, int tile,
-                             int64_t* __restrict__ pair_hits,      // (P,)
+                             int64_t* __restrict__ pair_hits,      // (P,): first halves' counts
+                             int64_t* __restrict__ ends,           // (P,): second halves' counts
                              uint16_t* __restrict__ masks) {       // (P, THREADS)
   extern __shared__ int4 smem[];
-  const int d = blockIdx.x;
+  const int d = blockIdx.x >> 1, h = blockIdx.x & 1;
   const int s = starts[d], e = starts[d + 1];
   const int64_t blk = blocks[d];
   const bool blk_ok = blk >= 0 && blk < n / JOIN_BLOCK;  // block-uniform
-  const int64_t row0 = blk * JOIN_BLOCK + (int64_t)threadIdx.x * ROWS;
-  BoxRows rows;
+  ScanRows rows;
   uint32_t valid = 0;
-  if (blk_ok) valid = load_box_rows(cols, n, valid_limit(n, 0, true_n), row0, rows);
+  if (blk_ok) valid = load_half_rows(cols, blk * JOIN_BLOCK + h * HALF_ROWS,
+                                     valid_limit(n, 0, true_n), rows);
   const Tile t = carve(smem, tile, nb, nt);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int64_t* counts = h ? ends : pair_hits;
   for (int p0 = s; p0 < e; p0 += tile) {
     const int k = min(tile, e - p0);
     stage_pairs(boxes, times, order_q + p0, order + p0, k, q, t);  // the loads are in flight
@@ -223,7 +369,7 @@ planned_count_overlap_kernel(BoxCols cols, int64_t n, int64_t true_n,
           if (m) m &= box_time_mask<false>(t.win + i * nt, lv >> 16, rows);
         }
       }
-      masks[(int64_t)t.extra[i] * THREADS + threadIdx.x] = (uint16_t)m;
+      store_half_words(masks + (int64_t)t.extra[i] * THREADS, m, h);
       const int c = __reduce_add_sync(FULL_WARP, __popc(m));
       if (lane == 0) t.cnt[warp * tile + i] = c;
     }
@@ -232,7 +378,7 @@ planned_count_overlap_kernel(BoxCols cols, int64_t n, int64_t true_n,
       int64_t total = 0;
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) total += t.cnt[w * tile + i];
-      pair_hits[t.extra[i]] = total;
+      counts[t.extra[i]] = total;
     }
     __syncthreads();  // the tile is read before the next is staged
   }
@@ -278,16 +424,32 @@ planned_write_kernel(const int32_t* __restrict__ pair_blk,   // (P,)
   for (int i = threadIdx.x; i < hits; i += THREADS) out[i] = rows_out[i];
 }
 
+LaunchCache ends_cache[2];  // per HALVES: the scan's shared-memory attribute
+
+// Launches the scan of the counts (one block) on the stream.
+template <bool HALVES>
+cudaError_t launch_ends(int64_t* pair_hits, int64_t* ends, int64_t n_pairs, cudaStream_t st) {
+  int per_sm = 1;
+  const cudaError_t e = resident_blocks(planned_ends_kernel<HALVES>, ENDS_THREADS, ENDS_SMEM,
+                                        ends_cache[HALVES], &per_sm);
+  if (e != cudaSuccess) return e;
+  planned_ends_kernel<HALVES><<<1, ENDS_THREADS, ENDS_SMEM, st>>>(pair_hits, ends, n_pairs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The count pass: plan is the host's block-major order packed as int32
-// [order (P) | order_q (P) | starts (D + 1) | blocks (D)] on the device.
+// The count pass and its prefix sum: plan is the host's block-major order
+// packed as int32 [order (P) | order_q (P) | starts (D + 1) | blocks (D)]
+// on the device; pair_hits and ends (P int64), masks (P x THREADS uint16)
+// out.
 extern "C" int geomesa_planned_gather_count(const void* x, const void* y, const void* bins,
                                             const void* offs, long long n, long long true_n,
                                             const void* plan, long long n_pairs,
                                             long long n_blocks, const void* boxes,
                                             const void* times, int q, int nb, int nt,
-                                            void* pair_hits, void* masks, void* stream) {
+                                            void* pair_hits, void* ends, void* masks,
+                                            void* stream) {
   if (n_pairs <= 0 || n_blocks <= 0 || n <= 0) return (int)cudaSuccess;
   if (n_pairs > 0x7fffffffLL || n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int tile = q_tile_for(nb, nt, PAIR_INTS);
@@ -298,32 +460,39 @@ extern "C" int geomesa_planned_gather_count(const void* x, const void* y, const 
       true_n, p, p + n_pairs, p + 2 * n_pairs, p + 2 * n_pairs + n_blocks + 1,
       (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, tile, (int64_t*)pair_hits,
       (uint16_t*)masks);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_ends<false>((int64_t*)pair_hits, (int64_t*)ends, n_pairs,
+                                 (cudaStream_t)stream);
 }
 
 // The overlap form's count pass: columns xmin, ymin, xmax, ymax, bins, offs;
-// its write pass is geomesa_planned_gather_write.
+// its write pass is geomesa_planned_gather_write. Two blocks a distinct
+// block, one a half.
 extern "C" int geomesa_planned_gather_overlap_count(
     const void* xmin, const void* ymin, const void* xmax, const void* ymax, const void* bins,
     const void* offs, long long n, long long true_n, const void* plan, long long n_pairs,
     long long n_blocks, const void* boxes, const void* times, int q, int nb, int nt,
-    void* pair_hits, void* masks, void* stream) {
+    void* pair_hits, void* ends, void* masks, void* stream) {
   if (n_pairs <= 0 || n_blocks <= 0 || n <= 0) return (int)cudaSuccess;
-  if (n_pairs > 0x7fffffffLL || n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (n_pairs > 0x7fffffffLL || n_blocks > 0x3fffffffLL || n % JOIN_BLOCK)
+    return (int)cudaErrorInvalidValue;
   const int tile = q_tile_for(nb, nt, PAIR_INTS);
   const size_t smem = (size_t)tile * staged_bytes_per_query(nb, nt, PAIR_INTS);
   const int32_t* p = (const int32_t*)plan;
   const BoxCols cols{{(const int32_t*)xmin, (const int32_t*)ymin, (const int32_t*)xmax,
                       (const int32_t*)ymax, (const int32_t*)bins, (const int32_t*)offs}};
-  planned_count_overlap_kernel<<<(unsigned)n_blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  planned_count_overlap_kernel<<<(unsigned)(2 * n_blocks), THREADS, smem, (cudaStream_t)stream>>>(
       cols, n, true_n, p, p + n_pairs, p + 2 * n_pairs, p + 2 * n_pairs + n_blocks + 1,
       (const int32_t*)boxes, (const int32_t*)times, q, nb, nt, tile, (int64_t*)pair_hits,
-      (uint16_t*)masks);
-  return (int)cudaGetLastError();
+      (int64_t*)ends, (uint16_t*)masks);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_ends<true>((int64_t*)pair_hits, (int64_t*)ends, n_pairs,
+                                (cudaStream_t)stream);
 }
 
-// The write pass: positions from the count pass's masks and counts; ends
-// is the inclusive prefix sum of pair_hits.
+// The write pass: positions from the count pass's masks, counts and ends.
 extern "C" int geomesa_planned_gather_write(const void* pair_blk, long long n_pairs,
                                             const void* pair_hits, const void* ends,
                                             const void* masks, void* positions, void* stream) {

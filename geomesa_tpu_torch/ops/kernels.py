@@ -45,9 +45,10 @@ in XLA (``geomesa_tpu/parallel/query.py:820``, ``make_planned_gather_step``).
 It is ``select_many``'s batched row retrieval over planned (query, block)
 pairs: a count pass with one 256-thread block per distinct block of the
 pairs (each block's rows read once; each pair's 512 B match mask kept for
-the next pass), and a write pass with one block per pair that reads only
-its mask. Its source is ``csrc/planned_gather.cu``; its plain version
-(:func:`planned_gather_plain`) is the eager torch form it replaced.
+the next pass) with a one-block scan of the counts after it, and a write
+pass with one block per pair that reads only its mask. Its source is
+``csrc/planned_gather.cu``; its plain version (:func:`planned_gather_plain`)
+is the eager torch form it replaced.
 
 ``grouped_agg`` replaces no TPU kernel either: the reference computes it in
 XLA (``geomesa_tpu/parallel/query.py:1498``, ``make_grouped_agg_step``,
@@ -151,6 +152,7 @@ a launch happens.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -202,15 +204,19 @@ _ENTRY_POINTS = {
     "geomesa_batched_count_hits_path_blocks": ("batched_count_hits", [_P]),
     "geomesa_batched_edge_gather_path_blocks": ("batched_edge_gather", [_P]),
     # (columns x4, n, true_n, block-major plan, pairs, distinct blocks, boxes, times,
-    #  q, nb, nt, pair_hits, masks, stream)
+    #  q, nb, nt, pair_hits, ends (their inclusive prefix sums), masks, stream)
     "geomesa_planned_gather_count": ("planned_gather", [_P] * 4 + [_LL, _LL, _P, _LL, _LL, _P,
-                                                        _P, _I, _I, _I, _P, _P, _P]),
+                                                        _P, _I, _I, _I] + [_P] * 4),
     # (pair_blk, pairs, pair_hits, their inclusive prefix sums, masks, positions, stream)
     "geomesa_planned_gather_write": ("planned_gather", [_P, _LL] + [_P] * 5),
     # (extents, n, base, true_n, boxes, times, q, nb, nt, target runs, min run,
-    #  chunks, kept, run_q, run_s, run_e, work, stream)
+    #  chunks, kept, run_q, run_s, run_e, work, scratch, scratch ints, the fold's
+    #  cnt, first, vcnt, vsum, vmin, vmax, hits, positions to fill (or null),
+    #  values, groups, capacity, stream)
     "geomesa_agg_work_list": ("grouped_agg", [_P, _LL, _LL, _LL, _P, _P] + [_I] * 5
-                              + [_P] * 7),
+                              + [_P] * 7 + [_LL] + [_P] * 8 + [_I] * 3 + [_P]),
+    # (stream): one empty kernel, the launch floor
+    "geomesa_empty_launch": ("grouped_agg", [_P]),
     # (..., chunks, run_q, run_s, run_e, work, gid, rowid, vals, cnt, first, vcnt, vsum,
     #  vmin, vmax, hits, positions, values, groups, capacity, stream)
     "geomesa_grouped_agg": ("grouped_agg", _COUNT_ARGS + [_P] * 16 + [_I] * 3 + [_P]),
@@ -241,10 +247,10 @@ _ENTRY_POINTS = {
     "geomesa_batched_edge_gather_overlap": ("batched_edge_gather",
                                             _BOX_ARGS[:-1] + [_P] * 3 + [_I, _P]),
     # (bbox columns x6, n, true_n, block-major plan, pairs, distinct blocks, boxes, times,
-    #  q, nb, nt, pair_hits, masks, stream)
+    #  q, nb, nt, pair_hits, ends, masks, stream)
     "geomesa_planned_gather_overlap_count": ("planned_gather", [_P] * 6 + [_LL, _LL, _P, _LL,
                                                                           _LL, _P, _P, _I, _I,
-                                                                          _I, _P, _P, _P]),
+                                                                          _I] + [_P] * 4),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -316,8 +322,66 @@ def _fn(entry: str):
         return fn
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # absent without CUDA
+
+
 def _stream_of(t: torch.Tensor) -> int:
+    """The handle of the current stream of ``t``'s card, read without
+    making a ``torch.cuda.Stream`` object where torch offers that."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_device(dev: torch.device):
+    """The device guard of a launch: none where ``dev`` is current already
+    (a guard's enter and exit cost more host time than a small launch)."""
+    return (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+            else torch.cuda.device(dev))
+
+
+_SCRATCH: dict = {}  # (device index, stream) → the work list's self-clearing int32 scratch
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _stream_scratch(dev: torch.device, stream: int, ints: int) -> torch.Tensor:
+    """An int32 scratch of at least ``ints`` on ``dev`` for the kernels
+    launched on ``stream``: zeroed when allocated, and every launch that
+    uses it leaves it zeroed, so launches on one stream (which run one
+    after another) share it. A launch that needs more replaces it with a
+    larger zeroed one."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < ints:
+        with _SCRATCH_LOCK:
+            buf = _SCRATCH.get(key)
+            if buf is None or buf.numel() < ints:
+                buf = _SCRATCH[key] = torch.zeros(max(ints, 1024), dtype=torch.int32,
+                                                  device=dev)
+    return buf
+
+
+def launch_floor_ms(device, launches: int = 20) -> float:
+    """The CUDA-event time of one empty kernel's launch through this
+    module's ctypes path on ``device`` (mean of ``launches`` after a
+    warm-up): the floor under any launch-bound kernel here. For
+    measurements; nothing on a path calls it."""
+    dev = torch.device(device)
+    fn = _fn("geomesa_empty_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for _ in range(2):
+            if fn(stream):
+                raise RuntimeError("empty launch failed")
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            if fn(stream):
+                raise RuntimeError("empty launch failed")
+        end.record()
+        torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / launches
 
 
 @functools.lru_cache(maxsize=None)
@@ -394,7 +458,7 @@ def _launch(stem: str, x, y, bins, offs, base: int, true_n: int, boxes, times, *
                              "(the kernel loads 16-byte vectors)")
     sms = _sm_count(x.device)
     fn = _fn(f"geomesa_{stem}")
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(),
                 n, int(base), int(true_n), boxes.data_ptr(), times.data_ptr(),
                 q, nb, nt, sms, *(o.data_ptr() for o in outs), *ints, _stream_of(x))
@@ -782,6 +846,8 @@ def _check_agg_args(x, gid, rowid, vals, n_groups: int, capacity: int) -> None:
 W_DONE, W_NEXT, W_RUNS, W_RUN_LEN, W_PAIRS, W_FLUSHED, W_INTS = range(7)
 AGG_MIN_RUN = 8  # chunks a run of the grouped fold holds at least (all of a shorter list)
 AGG_MAX_LANES = 4096  # lanes a query the card's grouped_agg sorts (csrc MAX_LANES)
+AGG_LIST_CHUNKS = 1024  # chunks one item of the card's work list tests (csrc LIST_SEG_CHUNKS)
+_LIST_FLAGS = 1  # the work list scratch's ints before its flags (csrc S_FLAGS)
 
 
 def agg_work_list(extents, n: int, base: int, true_n: int, boxes, times, target_runs: int,
@@ -800,10 +866,12 @@ def agg_work_list(extents, n: int, base: int, true_n: int, boxes, times, target_
     the blocks done (Q), the next run (0), the runs, ``run_len``, the kept
     pairs and 0.
 
-    On the card the ``agg_work_list`` kernel (``csrc/grouped_agg.cu``: a
-    block per query, its last block cuts the runs); on the CPU
+    On the card the ``agg_work_list`` kernel (``csrc/grouped_agg.cu``: one
+    launch over ceil(Q / 8) x ceil(C / ``AGG_LIST_CHUNKS``) items, each 8
+    queries' segment of chunks, each query's kept chunks of the segment
+    placed by the counts of its earlier segments; the last block cuts the
+    runs; :func:`agg_work_list_segments` models it); on the CPU
     :func:`agg_work_list_plain`."""
-    q = boxes.shape[0]
     _check_extents(extents, n, extents.device)
     for name, t in (("boxes", boxes), ("times", times)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 3 \
@@ -816,30 +884,43 @@ def agg_work_list(extents, n: int, base: int, true_n: int, boxes, times, target_
         return agg_work_list_plain(extents, n, base, true_n, boxes, times, target_runs, min_run)
     if extents.device.type != "cuda":
         raise ValueError(f"agg_work_list runs on cuda or cpu, not {extents.device}")
+    return _work_list_launch(extents, n, base, true_n, boxes, times, target_runs, min_run)
+
+
+def _work_list_launch(extents, n: int, base: int, true_n: int, boxes, times, target_runs: int,
+                      min_run: int, fills: tuple = (), ints: tuple = (0, 0, 0)):
+    """The ``agg_work_list`` kernel's launch; with ``fills`` (the fold's cnt,
+    first, vcnt, vsum, vmin, vmax, hits and positions) and ``ints`` (V, G,
+    capacity), it also fills the fold's outputs with their initial values."""
     dev = extents.device
+    q, c = boxes.shape[0], extents.shape[0]
     if q == 0:
-        return (torch.empty((0, extents.shape[0]), dtype=torch.int32, device=dev),
+        return (torch.empty((0, c), dtype=torch.int32, device=dev),
                 torch.empty(0, dtype=torch.int32, device=dev),
                 torch.full((3, target_runs), -1, dtype=torch.int32, device=dev),
                 torch.tensor([0, 0, 0, min_run, 0, 0], dtype=torch.int32, device=dev))
-    # the launch fills the lists' and the runs' tails with -1 and zeroes work
-    chunks = torch.empty((q, extents.shape[0]), dtype=torch.int32, device=dev)
-    kept = torch.empty(q, dtype=torch.int32, device=dev)
-    runs = torch.empty((3, q + target_runs), dtype=torch.int32, device=dev)
-    work = torch.empty(W_INTS, dtype=torch.int32, device=dev)
-    for name, t in (("boxes", boxes), ("times", times)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"agg_work_list: {name} must start on a 16-byte boundary")
-    with torch.cuda.device(dev):
+    if boxes.data_ptr() % 16 or times.data_ptr() % 16:
+        raise ValueError("agg_work_list: boxes and times must start on a 16-byte boundary")
+    # one allocation, every int of it written by the launch: the lists with
+    # their -1 tails, the counts, the runs with theirs and the work ints
+    m = q + int(target_runs)
+    out = torch.empty(q * c + q + 3 * m + W_INTS, dtype=torch.int32, device=dev)
+    chunks, kept, runs, work = out.split((q * c, q, 3 * m, W_INTS))
+    at = out.data_ptr() + 4 * (q * c + q)
+    stream = _stream_of(extents)
+    segs = max(1, -(-c // AGG_LIST_CHUNKS))
+    scratch = _stream_scratch(dev, stream, _LIST_FLAGS + q * segs)
+    with _on_device(dev):
         rc = _fn("geomesa_agg_work_list")(
             extents.data_ptr(), int(n), int(base), int(true_n), boxes.data_ptr(),
             times.data_ptr(), q, boxes.shape[1], times.shape[1], int(target_runs), int(min_run),
-            chunks.data_ptr(), kept.data_ptr(), runs[0].data_ptr(), runs[1].data_ptr(),
-            runs[2].data_ptr(), work.data_ptr(), _stream_of(extents))
+            out.data_ptr(), at - 4 * q, at, at + 4 * m, at + 8 * m, at + 12 * m,
+            scratch.data_ptr(), scratch.numel(),
+            *([t.data_ptr() for t in fills] if fills else [None] * 8), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"agg_work_list launch failed: cudaError {rc}")
     launches["agg_work_list"] += 1
-    return chunks, kept, runs, work
+    return chunks.view(q, c), kept, runs.view(3, m), work
 
 
 def agg_work_list_plain(extents, n: int, base: int, true_n: int, boxes, times,
@@ -851,6 +932,13 @@ def agg_work_list_plain(extents, n: int, base: int, true_n: int, boxes, times,
     kept = keep.sum(dim=1)
     idx = torch.where(keep, torch.arange(c, device=dev)[None, :], c).sort(dim=1).values
     chunks = torch.where(idx < c, idx, -1).to(torch.int32)
+    return (chunks, kept.to(torch.int32), *_work_runs(kept, target_runs, min_run))
+
+
+def _work_runs(kept, target_runs: int, min_run: int):
+    """The runs and work ints of a work list with these per-query counts:
+    what the card's last work-list block writes."""
+    q, dev = kept.shape[0], kept.device
     pairs = int(kept.sum())
     run_len = max(min_run, -(-pairs // target_runs))
     per_q = (kept + run_len - 1) // run_len
@@ -863,7 +951,44 @@ def agg_work_list_plain(extents, n: int, base: int, true_n: int, boxes, times,
     runs[1, :n_runs] = (within * run_len).to(torch.int32)
     runs[2, :n_runs] = torch.minimum(kept[run_q], (within + 1) * run_len).to(torch.int32)
     work = torch.tensor([q, 0, n_runs, run_len, pairs, 0], dtype=torch.int32, device=dev)
-    return chunks, kept.to(torch.int32), runs, work
+    return runs, work
+
+
+def agg_work_list_segments(extents, n: int, base: int, true_n: int, boxes, times,
+                           target_runs: int, min_run: int = AGG_MIN_RUN,
+                           segments: int | None = None):
+    """A plain model of the card's work list segment by segment; it returns
+    what :func:`agg_work_list_plain` returns, for any split. Each query's C
+    chunks are cut into ``segments`` segments of ceil(C / segments) chunks
+    (by default the card's: ``AGG_LIST_CHUNKS`` chunks each, the last
+    shorter; a card block takes one segment of 8 queries). A segment is
+    tested in steps of 32 chunks (a warp's ballot); its count is published,
+    and each kept chunk is written at the sum of the query's earlier
+    segments' counts (the look-back) plus the kept chunks before it in its
+    steps and lanes, over the -1 each segment first writes in its own
+    slots; the query's last segment gives ``kept``. The runs and work ints
+    come from the counts as the last block cuts them. For tests: nothing
+    calls it."""
+    keep = _pairs_from_extents(extents, n, base, true_n, boxes, times).T  # (Q, C)
+    q, c = keep.shape
+    dev = extents.device
+    segs = segments or max(1, -(-c // AGG_LIST_CHUNKS))
+    seg_len = max(1, -(-c // segs))
+    width = -(-seg_len // 32) * 32  # a segment's chunks in whole steps of 32 lanes
+    idx = torch.arange(c, device=dev)
+    grid = torch.zeros((q, segs, width), dtype=torch.long, device=dev)
+    grid[:, idx // seg_len, idx % seg_len] = keep.long()
+    ballots = grid.view(q, segs, width // 32, 32)
+    step_counts = ballots.sum(dim=3)
+    count = step_counts.sum(dim=2)  # each block's published count
+    offset = torch.cumsum(count, dim=1) - count  # the look-back over earlier segments
+    slot = (offset[:, :, None, None] + (torch.cumsum(step_counts, dim=2) - step_counts)[..., None]
+            + torch.cumsum(ballots, dim=3) - ballots)
+    qi, si, ki, li = ballots.nonzero(as_tuple=True)
+    chunks = torch.full((q, c), -1, dtype=torch.int32, device=dev)  # each segment's fill
+    chunks[qi, slot[qi, si, ki, li]] = (si * seg_len + ki * 32 + li).to(torch.int32)
+    kept = count.sum(dim=1)
+    return (chunks, kept.to(torch.int32), *_work_runs(kept, target_runs, min_run))
 
 
 def grouped_agg_mode(box_slots: int, time_slots: int, n_vals: int, n_groups: int) -> str:
@@ -919,12 +1044,13 @@ def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxe
     the lanes as the edge gather's candidates do (the same lane contract:
     every one in row order where ``hits <= capacity``).
 
-    On the card: :func:`agg_work_list` (the kept (chunk, query) pairs in
-    query-major runs), then the ``grouped_agg`` kernel over the runs in
-    the mode :func:`grouped_agg_mode` names, between a kernel that fills
-    the outputs and one that decodes min and max and sorts each query's
-    lanes (``capacity`` at most ``AGG_MAX_LANES``); its f64 sums are folded
-    with atomics in no fixed order. On the CPU: :func:`grouped_agg_plain`.
+    On the card, three launches: :func:`agg_work_list`'s kernel (the kept
+    (chunk, query) pairs in query-major runs; the same launch fills the
+    outputs with their initial values), the ``grouped_agg`` kernel over the
+    runs in the mode :func:`grouped_agg_mode` names, and a kernel that
+    decodes min and max and sorts each query's lanes (``capacity`` at most
+    ``AGG_MAX_LANES``); its f64 sums are folded with atomics in no fixed
+    order. On the CPU: :func:`grouped_agg_plain`.
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     _check_agg_args(x, gid, rowid, vals, n_groups, capacity)
@@ -943,7 +1069,7 @@ def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxe
     nb, nt, n = boxes.shape[1], times.shape[1], x.shape[0]
     if q == 0 or n == 0:  # nothing to fold: the outputs' initial values
         return _agg_initial(q, nv, g, int(capacity), dev)
-    # the launch fills them first (and decodes vmin / vmax to doubles last)
+    # the work list's launch fills them (the finish decodes vmin / vmax to doubles)
     cnt = torch.empty((q, g), dtype=torch.int32, device=dev)
     first = torch.empty((q, g), dtype=torch.int32, device=dev)
     vcnt = torch.empty((q, nv, g), dtype=torch.int32, device=dev)
@@ -955,7 +1081,9 @@ def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxe
     if extents is None:
         extents = chunk_extents(x, y, bins, offs)
     target = grouped_agg_target_runs(nb, nt, nv, g, dev)
-    chunks, _, runs, work = agg_work_list(extents, n, base, true_n, boxes, times, target)
+    chunks, _, runs, work = _work_list_launch(extents, n, base, true_n, boxes, times, target,
+                                              AGG_MIN_RUN, (cnt, first, vcnt, vsum, vmin, vmax,
+                                                            hits, pos), (nv, g, int(capacity)))
     _launch("grouped_agg", x, y, bins, offs, base, true_n, boxes, times, chunks, runs[0],
             runs[1], runs[2], work, gid, rowid, vals, cnt, first, vcnt, vsum, vmin, vmax,
             hits, pos, ints=(nv, g, int(capacity)))
@@ -1104,9 +1232,10 @@ def planned_gather(x, y, bins, offs, true_n: int, pair_q, pair_blk, boxes, times
 
     On the card (``csrc/planned_gather.cu``): a count pass with one block
     per distinct block of the pairs (each block's rows read once, each
-    pair's 512 B match mask to scratch), one ``torch.cumsum`` of the counts,
-    one device-to-host read of the total, and a write pass over the masks;
-    an empty pair list launches nothing. On the CPU:
+    pair's 512 B match mask to scratch) and a one-block scan of the counts
+    from the same entry point, one device-to-host read of the total, and a
+    write pass over the masks; an empty pair list launches nothing. On the
+    CPU:
     :func:`planned_gather_plain`.
     """
     _check_pair_args((x, y, bins, offs), pair_q, pair_blk, boxes, times)
@@ -1128,8 +1257,9 @@ def _planned_launch(count_entry: str, counter: str, cols, true_n: int, pair_q, p
     if n_pairs == 0:
         return (torch.empty(0, dtype=torch.int32, device=x.device),
                 torch.empty(0, dtype=torch.int64, device=x.device))
-    for i, t in enumerate((*cols, boxes, times)):
-        if t.data_ptr() % 16:
+    ptrs = [t.data_ptr() for t in (*cols, boxes, times)]
+    for i, ptr in enumerate(ptrs):
+        if ptr % 16:
             raise ValueError(f"{counter}: input {i} must start on a 16-byte boundary "
                              "(the kernel loads 16-byte vectors)")
     if plan is None:
@@ -1142,22 +1272,22 @@ def _planned_launch(count_entry: str, counter: str, cols, true_n: int, pair_q, p
         raise ValueError("plan must be the concatenated block_runs of these pairs, a "
                          f"contiguous int32 tensor on {x.device}")
     hits = torch.empty(n_pairs, dtype=torch.int64, device=x.device)
-    masks = torch.empty((n_pairs, JOIN_BLOCK // 16), dtype=torch.int16, device=x.device)
+    # the counts' prefix sums, then each pair's 512 B match mask: one allocation
+    scratch = torch.empty(n_pairs * (1 + JOIN_BLOCK // 64), dtype=torch.int64, device=x.device)
     stream = _stream_of(x)
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         rc = _fn(count_entry)(
-            *(c.data_ptr() for c in cols), x.shape[0], int(true_n), plan.data_ptr(), n_pairs,
-            n_blocks, boxes.data_ptr(), times.data_ptr(), boxes.shape[0], boxes.shape[1],
-            times.shape[1], hits.data_ptr(), masks.data_ptr(), stream)
+            *ptrs[:-2], x.shape[0], int(true_n), plan.data_ptr(), n_pairs, n_blocks, ptrs[-2],
+            ptrs[-1], boxes.shape[0], boxes.shape[1], times.shape[1], hits.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + 8 * n_pairs, stream)
         if rc != 0:
             raise RuntimeError(f"{counter} count pass failed: cudaError {rc}")
-        ends = torch.cumsum(hits, dim=0)
-        total = int(ends[-1])  # the one device-to-host read: the output's size
+        total = int(scratch[n_pairs - 1])  # the one device-to-host read: the output's size
         positions = torch.empty(total, dtype=torch.int32, device=x.device)
         if total:
             rc = _fn("geomesa_planned_gather_write")(
-                pair_blk.data_ptr(), n_pairs, hits.data_ptr(), ends.data_ptr(),
-                masks.data_ptr(), positions.data_ptr(), stream)
+                pair_blk.data_ptr(), n_pairs, hits.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + 8 * n_pairs, positions.data_ptr(), stream)
             if rc != 0:
                 raise RuntimeError(f"{counter} write pass failed: cudaError {rc}")
     launches[counter] += 1
@@ -1297,7 +1427,7 @@ def _launch_overlap(entry: str, counter: str, cols, base: int, true_n: int, boxe
                              "(the kernel loads 16-byte vectors)")
     ptrs = [c.data_ptr() for c in cols] + [None] * (6 - len(cols))
     sms = _sm_count(x.device)
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         rc = _fn(entry)(*ptrs, x.shape[0], int(base), int(true_n), boxes.data_ptr(),
                         None if times is None else times.data_ptr(), q, nb, nt, sms,
                         *(o.data_ptr() for o in outs), *ints, _stream_of(x))
@@ -1397,6 +1527,37 @@ def overlap_warp_rows() -> torch.Tensor:
     return (j * 4 * OVERLAP_THREADS + 4 * t + torch.arange(4)).reshape(warps, -1)
 
 
+def planned_overlap_rows() -> torch.Tensor:
+    """(512, 8) int64: the rows of a ``JOIN_BLOCK``-row block each thread of
+    ``planned_gather_overlap``'s count pass holds (``csrc/planned_gather.cu``):
+    two 256-thread blocks a block, one a half; thread ``t`` of half ``h``
+    (row ``256h + t`` here) holds rows ``2048h + 1024j + 4t .. + 3`` at bits
+    ``4j .. 4j + 3`` (``j = 0, 1``)."""
+    h = torch.arange(2).view(2, 1, 1, 1)
+    t = torch.arange(256).view(1, 256, 1, 1)
+    j = torch.arange(2).view(1, 1, 2, 1)
+    return (2048 * h + 1024 * j + 4 * t + torch.arange(4)).reshape(512, 8)
+
+
+def overlap_mask_words(bits) -> torch.Tensor:
+    """The plain version of ``csrc/planned_gather.cu``'s ``store_half_words``:
+    the overlap count pass's match bits of one block, (..., 512) ints whose
+    bit ``r`` at thread row ``i`` is row ``planned_overlap_rows()[i, r]``,
+    as the (..., JOIN_BLOCK // 16) int16 mask words the write pass reads:
+    bit ``b`` of word ``w`` is row ``16w + b``. Of half ``h``, the low
+    nibbles of threads ``4u .. 4u + 3`` make word ``128h + u`` in order, their
+    high nibbles word ``128h + 64 + u``."""
+    b = torch.as_tensor(bits).long()
+    shifts = torch.tensor([0, 4, 8, 12], device=b.device)
+
+    def pack(nibbles):  # four threads' nibbles a word
+        return (nibbles.view(*nibbles.shape[:-1], -1, 4) << shifts).sum(dim=-1)
+
+    halves = b.view(*b.shape[:-1], 2, 256)
+    words = torch.cat([pack(halves & 0xF), pack((halves >> 4) & 0xF)], dim=-1)  # (..., 2, 128)
+    return words.reshape(*b.shape[:-1], -1).to(torch.int16)
+
+
 def overlap_edge_possible(x0, y0, x1, y1, keys, boxes, times) -> torch.Tensor:
     """The overlap edge gather's per-warp skip, plain: which (row group,
     query) pairs can hold an edge candidate. ``x0, y0, x1, y1`` (xmin, ymin,
@@ -1469,8 +1630,10 @@ def planned_gather_overlap(cols, true_n: int, pair_q, pair_blk, boxes, times, pl
     """:func:`planned_gather` over the bbox columns ``cols`` (xmin, ymin,
     xmax, ymax, bins, offs) with the overlap predicate: the overlap form of
     ``select_many``'s retrieval. Same pairs, plan and outputs; on the card
-    ``csrc/planned_gather.cu``'s overlap count pass and the shared write
-    pass."""
+    ``csrc/planned_gather.cu``'s overlap count pass (two 256-thread blocks a
+    distinct block, one a half, 8 rows a thread in registers as
+    :func:`planned_overlap_rows` names them, each pair's mask regrouped by
+    :func:`overlap_mask_words`' rule) and the shared write pass."""
     _check_pair_args(cols, pair_q, pair_blk, boxes, times)
     if cols[0].device.type == "cpu":
         return planned_gather_overlap_plain(cols, true_n, pair_q, pair_blk, boxes, times)

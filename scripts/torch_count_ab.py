@@ -2,7 +2,8 @@
 grouped aggregation and its spatial join of several checkouts against each
 other in one run on a CUDA card.
 
-    python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR] [--join-only | --overlap-only]
+    python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR]
+        [--join-only | --overlap-only | --agg-only]
 
 Each ROOT is a checkout of this repo: ``.``, or another commit unpacked with
 ``git archive`` into an ignored directory. The roots run one after another
@@ -10,8 +11,10 @@ in the order given (for two versions: parent, change, change, parent), each
 in a process of its own that imports that root's ``geomesa_tpu_torch``, so
 every root builds its kernels with its own ``build_kernels()`` and launches
 them through its own wrappers. A process holds each kernel equal to its
-plain version, times it with CUDA events (5 launches after a warm-up) and
-prints one line per shape:
+plain version, times it with CUDA events (5 launches after a warm-up; a
+wrapper that is mostly host work, as the planned gathers' and the work
+list's, by the median of 5 readings of 10 calls) and prints one line per
+shape:
 
 - ``batched_count`` at bench config 2: 50M GDELT-shaped points through
   ``DataStore`` and the 64 city-box 2-7 day queries as ``DataStore`` packs
@@ -55,7 +58,20 @@ prints one line per shape:
   line store shaped as ``chip_smoke.py``'s phase 9c: 4M line strings on
   config 5's boxes through ``DataStore`` (xz3 + xz2), config 2's 64
   queries as the planner packs them (B = 8, T = 16); and the store's
-  ``count_many``, loose and exact, p50 of 10 on the host clock.
+  ``count_many``, loose and exact, p50 of 10 on the host clock;
+- ``planned_gather_overlap`` at the same store's planned (query, block)
+  pairs of the 64 queries (as ``select_many`` plans them on xz3), held
+  equal to its plain version, with the split of a call: the device time
+  of its count pass, of the prefix sum of its counts (a ``torch.cumsum``
+  or the count pass's own scan, by root), of the device-to-host copy of
+  the total and of its write pass (``torch.profiler``, mean of 10 calls),
+  the two passes back to back behind a spin of the card (CUDA events,
+  their C entry points launched into outputs allocated beforehand), the
+  wrapper by CUDA events (the median of 5 readings of 10 calls), its host
+  clock per call (p50 of 20, each ending in a synchronise), the latency of
+  the read of the total alone (p50 of 20 reads of one int64 on an idle
+  card), the parts of its host work, and the planned pairs per distinct
+  block.
 
 Each overlap kernel is held equal to its plain version, then timed three
 ways: the wrapper by CUDA events (10 calls after a warm-up), the bare C
@@ -65,6 +81,35 @@ beforehand), and the device time of each op of a wrapper call by
 the wrapper's fills and sorts), averaged over 10 calls. ``nvcc -Xptxas -v``
 of the overlap sources prints each overlap kernel's registers, spills and
 shared memory.
+
+``--agg-only`` runs bench config 9's aggregation kernels instead, and
+nothing else: 50M points with config 9's group ids (G = 1024) and values
+(V = 1) through ``DataStore``, the 64 city-box queries of seed 7, 12,208
+chunks of 4096 rows:
+
+- ``agg_work_list`` at the target runs ``grouped_agg`` gives it, held
+  equal to its plain version, then timed four ways: the wrapper by CUDA
+  events (the median of 5 readings of 10 calls), the device work of a call behind a spin of the card
+  (CUDA events around 10 calls enqueued while the card spins, as
+  ``chip_smoke.device_ms``), the host clock of the same 10 enqueues (the
+  wrapper's host work alone: the checks, allocations and the ctypes call),
+  and each device op of a call by ``torch.profiler`` (mean of 10 calls:
+  the kernel and any memset or fill by name), with the parts of its host
+  work and its device time at fewer queries and chunks;
+- ``grouped_agg`` (the work list, the fold and its fills and finish) held
+  to its plain version, then timed the same four ways, with the device ops
+  of one call and their count, and those of one ``aggregate_many`` call of
+  the 64 queries;
+- ``planned_gather`` at the planned (query, block) pairs of the same
+  queries on this store, as in the default run but by the median of 5
+  readings of 10 calls, with no ``select_many``;
+  and on the pairs ``join_rows_device`` makes for the first 64 polygons of
+  bench config 4 (``chip_smoke.py`` phase 8 (d)) on this store's z2 state;
+- where the root has it, one empty kernel launch's CUDA-event time through
+  the same ctypes path (``kernels.launch_floor_ms``): the floor a
+  launch-bound kernel cannot go below;
+- ``nvcc -Xptxas -v`` of ``grouped_agg.cu`` and ``planned_gather.cu``:
+  every kernel's registers, spills and shared memory.
 
 Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
@@ -214,6 +259,12 @@ def batch_p50(label: str, ds) -> None:
             f"{max(ms):.3f}; host clock)")
 
 
+def cuda_ms_p50(fn, iters: int = 10, reps: int = 5) -> float:
+    """The median of ``reps`` readings of :func:`cuda_ms` (``iters`` calls
+    each): a wrapper whose time is mostly host work reads steadier so."""
+    return float(np.median([cuda_ms(fn, iters) for _ in range(reps)]))
+
+
 def device_by_op(fn, calls: int = 1) -> dict[str, float]:
     """``calls`` calls of ``fn`` under ``torch.profiler``: device ms per
     call by kernel or copy name (the profiler's own clock, not CUDA
@@ -240,9 +291,56 @@ def device_breakdown(fn) -> str:
     return "; ".join(f"{name} {t:.4f} ms" for name, t in top) or "no device events"
 
 
-def gather_timed(label: str, kernels, ds) -> None:
+def spin_ms(fn, calls: int = 10) -> tuple[float | None, float | None]:
+    """(device ms, host ms) of one call of ``fn``, which must not
+    synchronise: ``calls`` calls enqueued behind a spin of the card
+    (``torch.cuda._sleep``), CUDA events around them giving their device work
+    back to back, the host clock around their enqueue giving the host's work
+    per call with nothing waiting on the card (``chip_smoke.device_ms``'s
+    method). The spin doubles until the host has enqueued every call before
+    the card reaches the first event; (None, None) if it never does."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    spin = 1 << 24
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / calls
+        end.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / calls, host
+        spin *= 2
+    return None, None
+
+
+def fmt(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def us(v: float | None) -> str:
+    """A time in ms as µs, or "not measured"."""
+    return "not measured" if v is None else f"{v * 1e3:.1f}"
+
+
+def ops_line(ops: dict[str, float]) -> str:
+    """:func:`device_by_op`'s result as a line, largest first."""
+    return "; ".join(f"{name} {t:.4f} ms" for name, t in sorted(ops.items(),
+                                                                 key=lambda kv: -kv[1])) or "none"
+
+
+def gather_timed(label: str, kernels, ds, type_name: str = "gdelt",
+                 select: bool = True) -> None:
     """``planned_gather`` at config 2's planned pairs against its plain
-    version, then ``select_many`` of the same queries with its split."""
+    version, then (with ``select``) ``select_many`` of the same queries with
+    its split."""
     import time
 
     from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
@@ -250,7 +348,7 @@ def gather_timed(label: str, kernels, ds) -> None:
     from geomesa_tpu_torch.workload import bbox_time_cql, make_queries
 
     cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, seed=7))]
-    st = ds._state("gdelt")
+    st = ds._state(type_name)
     planner = QueryPlanner(st.sft, st.indices)
     plans = [planner.plan(Query(c)) for c in cqls]
     pair_q, pair_blk = intervals_to_block_pairs([pl.intervals for pl, _, _ in plans],
@@ -271,12 +369,15 @@ def gather_timed(label: str, kernels, ds) -> None:
     torch.cuda.synchronize()
     if not (torch.equal(got_p.long(), want_p.long()) and torch.equal(got_h, want_h)):
         raise SystemExit(f"{label} config 2: planned_gather disagrees with its plain version")
-    ms = cuda_ms(lambda: kernels.planned_gather(*args, **kw))
+    ms = cuda_ms_p50(lambda: kernels.planned_gather(*args, **kw))
     blocks = len(np.unique(pair_blk))
-    log(f"{label} config 2 planned_gather: {ms:.4f} ms (CUDA events, 5 calls) for "
+    log(f"{label} config 2 planned_gather: {ms:.4f} ms (CUDA events, median of 5 readings of "
+        f"10 calls) for "
         f"{len(pair_q)} pairs over {blocks} distinct blocks; equal to plain; "
         f"{int(want_h.sum())} positions of {got_p.element_size()} B; device time by op: "
         + device_breakdown(lambda: kernels.planned_gather(*args, **kw)))
+    if not select:
+        return
     ds.select_many("gdelt", cqls)
     wall, gather = [], []
     for _ in range(3):
@@ -340,6 +441,291 @@ def agg_timed(label: str, kernels, args, extents) -> None:
         f"N={args[0].shape[0]} Q={args[9].shape[0]} G={args[-2]} V=1{mode}; equal to plain "
         f"(sums within {rel:.3e}); {int(want[0].long().sum())} folded row-queries; device "
         f"time by op: " + device_breakdown(lambda: kernels.grouped_agg(*args, **kw)))
+
+
+def work_list_timed(label: str, kernels, args, extents) -> None:
+    """``agg_work_list`` at config 9 (the target runs ``grouped_agg`` gives
+    it) against its plain version, then its wrapper by CUDA events, its
+    device work and host work behind a spin, and its device ops by name."""
+    boxes, times, g_pad = args[9], args[10], args[11]
+    nb, nt = boxes.shape[1], times.shape[1]
+    target = kernels.grouped_agg_target_runs(nb, nt, 1, g_pad, boxes.device)
+    wl = (extents, args[0].shape[0], 0, args[8], boxes, times, target)
+    got, want = kernels.agg_work_list(*wl), kernels.agg_work_list_plain(*wl)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit(f"{label} config 9: agg_work_list disagrees with its plain version")
+    ms = cuda_ms_p50(lambda: kernels.agg_work_list(*wl))
+    dev_ms, host_ms = spin_ms(lambda: kernels.agg_work_list(*wl))
+    ops = device_by_op(lambda: kernels.agg_work_list(*wl), 10)
+    log(f"{label} config 9 agg_work_list: wrapper {ms:.4f} ms (CUDA events, median of 5 readings "
+        f"of 10 calls), device "
+        f"{fmt(dev_ms)} and host {fmt(host_ms)} a call (10 calls behind a spin) over "
+        f"{extents.shape[0]} chunks x {boxes.shape[0]} queries, {int(want[1].sum())} kept pairs "
+        f"in {int(want[3][kernels.W_RUNS])} runs (target {target}); equal to plain; device ops "
+        f"per call (torch.profiler, mean of 10 calls): {ops_line(ops)}")
+    work_list_host_split(label, kernels, wl)
+    # its device time against the queries and chunks it takes: what is fixed
+    parts = []
+    for q, c in ((1, 1), (64, 1), (1, extents.shape[0]), (8, extents.shape[0]),
+                 (64, 1024), (64, extents.shape[0])):
+        sub = (extents[:c], c * kernels.JOIN_BLOCK, 0, min(int(args[8]), c * kernels.JOIN_BLOCK),
+               boxes[:q], times[:q], target)
+        parts.append(f"Q={q} C={c} {fmt(spin_ms(lambda: kernels.agg_work_list(*sub))[0])}")
+    log(f"{label} config 9 agg_work_list device time by shape (10 calls behind a spin): "
+        + "; ".join(parts))
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host clock per call of ``fn`` (µs, mean of ``reps`` after one), for
+    host work that launches nothing."""
+    import time
+
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e6 / reps
+
+
+def work_list_host_split(label: str, kernels, wl) -> None:
+    """The parts of ``agg_work_list``'s host work on this root: its checks,
+    its output allocations, the stream lookup, the device guard, and its C
+    entry point alone (the launch and, where the root has them, its memsets;
+    host clock behind a spin), in µs a call."""
+    ext, n, base, true_n, boxes, times, target = wl
+    dev, q, c = ext.device, boxes.shape[0], ext.shape[0]
+    m = q + target
+
+    def checks():
+        kernels._check_extents(ext, n, dev)
+        for t in (boxes, times):
+            if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 3 \
+                    or t.shape[2] != 4 or not t.is_contiguous() or t.device != dev:
+                raise SystemExit("bad payload")
+
+    def allocs():
+        return (torch.empty((q, c), dtype=torch.int32, device=dev),
+                torch.empty(q, dtype=torch.int32, device=dev),
+                torch.empty((3, m), dtype=torch.int32, device=dev),
+                torch.empty(kernels.W_INTS, dtype=torch.int32, device=dev))
+
+    def carved():
+        out = torch.empty(q * c + q + 3 * m + kernels.W_INTS, dtype=torch.int32, device=dev)
+        a, b, r, w = out.split((q * c, q, 3 * m, kernels.W_INTS))
+        return a.view(q, c), b, r.view(3, m), w
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    chunks, kept, runs, work = allocs()
+    fn = kernels._fn("geomesa_agg_work_list")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = [ext.data_ptr(), n, base, true_n, boxes.data_ptr(), times.data_ptr(), q,
+            boxes.shape[1], times.shape[1], target, kernels.AGG_MIN_RUN, chunks.data_ptr(),
+            kept.data_ptr(), runs[0].data_ptr(), runs[1].data_ptr(), runs[2].data_ptr(),
+            work.data_ptr()]
+    if len(kernels._ENTRY_POINTS["geomesa_agg_work_list"][1]) > 18:  # a scratch and fills
+        scratch = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+        head += [scratch.data_ptr(), scratch.numel()] + [None] * 8 + [0, 0, 0]
+
+    def entry():
+        if fn(*head, stream):
+            raise SystemExit("agg_work_list entry point failed")
+    _, entry_ms = spin_ms(entry, 20)
+    log(f"{label} config 9 agg_work_list host split (µs a call): checks "
+        f"{host_us(checks):.1f}, four allocations {host_us(allocs):.1f}, one allocation and "
+        f"its split {host_us(carved):.1f}, stream lookup "
+        f"{host_us(lambda: kernels._stream_of(ext)):.1f}, device guard {host_us(guard):.1f}, "
+        f"the C entry point {us(entry_ms)} (behind a spin: the launch and any memsets)")
+
+
+def agg_split(label: str, kernels, args, extents) -> None:
+    """``grouped_agg`` at config 9 behind a spin (device and host work of a
+    call) and one call's device ops with their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = {"extents": extents} if extents is not None else {}
+    dev_ms, host_ms = spin_ms(lambda: kernels.grouped_agg(*args, **kw))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernels.grouped_agg(*args, **kw)
+        torch.cuda.synchronize()
+    names = [e.name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:40]
+             for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"{label} config 9 grouped_agg: device {fmt(dev_ms)} and host {fmt(host_ms)} a call "
+        f"(10 calls behind a spin); one call's device ops ({len(names)}): " + ", ".join(names))
+
+
+def launch_floor(label: str, kernels) -> None:
+    """One empty kernel's launch by CUDA events, where the root has it."""
+    if not hasattr(kernels, "launch_floor_ms"):
+        log(f"{label} launch floor: not measured (this root has no empty launch)")
+        return
+    log(f"{label} launch floor: an empty kernel {kernels.launch_floor_ms(torch.device('cuda')):.4f}"
+        " ms a launch (CUDA events over 20 launches through ctypes)")
+
+
+def agg_ops(label: str, ds) -> None:
+    """One ``aggregate_many`` call of config 9's 64 queries: its device ops
+    by name (kernels, memsets and copies) and their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomesa_tpu_torch.workload import bbox_time_cql, make_queries
+
+    cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, seed=7))]
+
+    def call():
+        return ds.aggregate_many("gagg", cqls, group_by=["cat"], value_cols=["val"])
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    seen: dict[str, int] = {}
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    for e in events:
+        name = e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0][:48]
+        seen[name] = seen.get(name, 0) + 1
+    log(f"{label} config 9 aggregate_many: one call's device ops ({len(events)}): "
+        + ", ".join(f"{name} x{k}" for name, k in seen.items()))
+
+
+def join_gather_timed(label: str, kernels, ds) -> None:
+    """``planned_gather`` on the join's pairs, as ``join_rows_device`` makes
+    them (``chip_smoke.py`` phase 8 (d)): the first 64 polygons of
+    ``workload.join_polygons(seed=5)``, each its int bbox under the
+    full-span window, against the z2 blocks its bbox touches, on this
+    store's z2 state; held to the plain version, then timed."""
+    from geomesa_tpu_torch.ops.join import polygon_block_plan
+    from geomesa_tpu_torch.parallel.query import FULL_WINDOW
+    from geomesa_tpu_torch.store.backends import int_boxes
+    from geomesa_tpu_torch.workload import join_polygons
+
+    st = ds._state("gagg")
+    state, z2 = st.backend_state["z2"], st.indices["z2"]
+    bb = np.array([g.bbox for g in join_polygons(10_000, seed=5)[:64]])
+    off, blocks = polygon_block_plan(z2.zs, bb, kernels.JOIN_BLOCK, state.rows_per_shard)
+    pair_q = np.repeat(np.arange(64, dtype=np.int32), np.diff(off))
+    boxes = torch.from_numpy(int_boxes([tuple(b) for b in bb]).reshape(-1, 1, 4)).cuda()
+    times = torch.from_numpy(np.tile(FULL_WINDOW, (64, 1)).reshape(-1, 1, 4)).cuda()
+    pq, pb = (torch.from_numpy(a.astype(np.int32)).cuda() for a in (pair_q, blocks))
+    args = (*state.spatial_cols(), state.n, pq, pb, boxes, times)
+    got_p, got_h = kernels.planned_gather(*args)
+    want_p, want_h = kernels.planned_gather_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p, want_p) and torch.equal(got_h, want_h)):
+        raise SystemExit(f"{label}: planned_gather disagrees with plain on the join's pairs")
+    ms = cuda_ms_p50(lambda: kernels.planned_gather(*args))
+    log(f"{label} join-shaped planned_gather: {ms:.4f} ms (CUDA events, median of 5 readings of "
+        f"10 calls) for "
+        f"{len(pair_q)} (polygon, block) pairs over {len(np.unique(blocks))} distinct blocks of "
+        f"config 9's z2 state, {int(want_h.sum())} candidates; equal to plain; device ops per "
+        f"call: {ops_line(device_by_op(lambda: kernels.planned_gather(*args), 10))}")
+
+
+def agg_worker(label: str, kernels, dev) -> None:
+    """The ``--agg-only`` shapes (see the module docstring)."""
+    ptxas_usage(kernels, label, ("grouped_agg", "planned_gather"), None)
+    ds, args, extents = config9_inputs(dev)
+    work_list_timed(label, kernels, args, extents)
+    agg_timed(label, kernels, args, extents)
+    agg_split(label, kernels, args, extents)
+    agg_ops(label, ds)
+    gather_timed(label, kernels, ds, "gagg", select=False)
+    join_gather_timed(label, kernels, ds)
+    launch_floor(label, kernels)
+
+
+def planned_overlap_timed(label: str, kernels, ds, cqls, cols, n: int, boxes, times) -> None:
+    """``planned_gather_overlap`` at the line store's planned pairs against
+    its plain version, then the split of a call (see the module
+    docstring)."""
+    import time
+
+    from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs
+    from geomesa_tpu_torch.planning.planner import Query, QueryPlanner
+
+    st = ds._state("xz")
+    planner = QueryPlanner(st.sft, st.indices)
+    pair_q, pair_blk = intervals_to_block_pairs(
+        [planner.plan(Query(c))[0].intervals for c in cqls], kernels.JOIN_BLOCK)
+    pq, pb = (torch.from_numpy(a.astype(np.int32)).to(boxes.device) for a in (pair_q, pair_blk))
+    plan = torch.from_numpy(np.concatenate(kernels.block_runs(pair_q, pair_blk))).to(boxes.device)
+    args = (cols, n, pq, pb, boxes, times)
+    got_p, got_h = kernels.planned_gather_overlap(*args, plan=plan)
+    want_p, want_h = kernels.planned_gather_overlap_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p, want_p) and torch.equal(got_h, want_h)):
+        raise SystemExit(f"{label} line store: planned_gather_overlap disagrees with plain")
+    ms = cuda_ms_p50(lambda: kernels.planned_gather_overlap(*args, plan=plan))
+    # the two passes alone, into outputs allocated here, the total read once
+    n_pairs = pq.shape[0]
+    n_blocks = (plan.shape[0] - 2 * n_pairs - 1) // 2
+    hits = torch.empty(n_pairs, dtype=torch.int64, device=pq.device)
+    ends = torch.empty(n_pairs, dtype=torch.int64, device=pq.device)
+    masks = torch.empty((n_pairs, kernels.JOIN_BLOCK // 16), dtype=torch.int16, device=pq.device)
+    stream = torch.cuda.current_stream(pq.device).cuda_stream
+    count_fn = kernels._fn("geomesa_planned_gather_overlap_count")
+    write_fn = kernels._fn("geomesa_planned_gather_write")
+    count_args = ([c.data_ptr() for c in cols] + [cols[0].shape[0], int(n), plan.data_ptr(),
+                  n_pairs, n_blocks, boxes.data_ptr(), times.data_ptr(), boxes.shape[0],
+                  boxes.shape[1], times.shape[1], hits.data_ptr()])
+    # a count pass that writes the prefix sum itself takes ends (and, in a
+    # form that counts its blocks done, a zeroed counter)
+    n_args = len(kernels._ENTRY_POINTS["geomesa_planned_gather_overlap_count"][1])
+    fused = n_args > 19
+    if n_args == 21:
+        done = torch.zeros(2, dtype=torch.int32, device=pq.device)
+        count_args += [ends.data_ptr(), masks.data_ptr(), done.data_ptr(), stream]
+    elif fused:
+        count_args += [ends.data_ptr(), masks.data_ptr(), stream]
+    else:
+        count_args += [masks.data_ptr(), stream]
+    if count_fn(*count_args):
+        raise SystemExit(f"{label}: planned_gather_overlap's count pass failed")
+    if not fused:
+        ends = torch.cumsum(hits, dim=0)
+    positions = torch.empty(int(ends[-1]), dtype=torch.int32, device=pq.device)
+    write_args = (pb.data_ptr(), n_pairs, hits.data_ptr(), ends.data_ptr(), masks.data_ptr(),
+                  positions.data_ptr(), stream)
+
+    def passes():
+        if count_fn(*count_args) or write_fn(*write_args):
+            raise SystemExit(f"{label}: planned_gather_overlap's passes failed")
+    _, count_host = spin_ms(lambda: count_fn(*count_args))
+    _, write_host = spin_ms(lambda: write_fn(*write_args))
+    _, cumsum_host = spin_ms(lambda: torch.cumsum(hits, dim=0))
+    checks = host_us(lambda: kernels._check_pair_args(cols, pq, pb, boxes, times))
+    alloc = host_us(lambda: torch.empty(n_pairs, dtype=torch.int64, device=pq.device))
+    split = (f"host split (µs a call): checks {checks:.1f}, the count entry point "
+             f"{us(count_host)}, the write entry point {us(write_host)}"
+             + ("" if fused else f", torch.cumsum {us(cumsum_host)}")
+             + f", an allocation {alloc:.1f}")
+    passes_ms, _ = spin_ms(passes)
+    ops = device_by_op(lambda: kernels.planned_gather_overlap(*args, plan=plan), 10)
+    wall, _, _ = host_p50(lambda: (kernels.planned_gather_overlap(*args, plan=plan),
+                                   torch.cuda.synchronize()), 20)
+    reads = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(ends[-1])
+        reads.append((time.perf_counter() - t0) * 1e3)
+    runs = np.diff(kernels.block_runs(pair_q, pair_blk)[2])
+    log(f"{label} line store planned pairs per distinct block: mean {runs.mean():.2f}, p50 "
+        f"{np.percentile(runs, 50):.0f}, p99 {np.percentile(runs, 99):.0f}, max {runs.max()}, "
+        f"the 10 largest {np.sort(runs)[-10:].tolist()}")
+    log(f"{label} line store planned_gather_overlap: wrapper {ms:.4f} ms (CUDA events, median "
+        f"of 5 readings of 10 calls), its two passes {fmt(passes_ms)} of device work (10 calls behind a spin), host "
+        f"clock p50 {wall:.4f} ms a call (20 calls, each synchronised), the read of the total "
+        f"alone p50 {float(np.percentile(reads, 50)):.4f} ms; {n_pairs} pairs over {n_blocks} "
+        f"distinct blocks, {int(want_h.sum())} positions; equal to plain; device ops per call "
+        f"(torch.profiler, mean of 10 calls): {ops_line(ops)}; {split}")
 
 
 def config4_inputs(dev) -> dict:
@@ -427,12 +813,13 @@ XZ_ROWS, XZ_TILES, XZ_BATCHES = 4_000_000, 16, 20
 XZ_SOURCES = ("batched_overlap", "batched_edge_gather")
 
 
-def ptxas_usage(kernels, label: str) -> None:
-    """``nvcc -Xptxas -v`` of the overlap kernels' sources: each overlap
-    kernel's registers, stack, spills and shared memory."""
+def ptxas_usage(kernels, label: str, sources=XZ_SOURCES, match: str | None = "overlap") -> None:
+    """``nvcc -Xptxas -v`` of ``sources``: the registers, stack, spills and
+    shared memory of each kernel whose name holds ``match`` (every kernel
+    with None)."""
     import tempfile
 
-    for stem in XZ_SOURCES:
+    for stem in sources:
         src = kernels.CSRC / f"{stem}.cu"
         with tempfile.TemporaryDirectory() as tmp:
             log_ = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -441,7 +828,8 @@ def ptxas_usage(kernels, label: str) -> None:
         entry = None
         for ln in log_.splitlines():
             if "Compiling entry function" in ln:
-                entry = ln.split("'")[1] if "overlap" in ln else None
+                entry = ln.split("'")[1]
+                entry = entry if match is None or match in entry else None
             elif entry and ("Used" in ln or "spill" in ln):
                 log(f"{label} ptxas {entry}: {ln.split(':', 1)[-1].strip()}")
 
@@ -573,6 +961,7 @@ def overlap_worker(label: str, kernels, dev) -> None:
     from geomesa_tpu_torch.workload import make_queries, pack_query_boxes
 
     ptxas_usage(kernels, label)
+    ptxas_usage(kernels, label, ("planned_gather",), None)
     cols = xz_columns(dev)
     boxes = torch.from_numpy(pack_query_boxes(make_queries(N_QUERIES, 7)[0],
                                               overlap=True)).to(dev)
@@ -601,9 +990,11 @@ def overlap_worker(label: str, kernels, dev) -> None:
         log(f"{label} line store count_many {'loose' if loose else 'exact'}: p50 {p50:.3f} ms "
             f"over 10 (min {lo:.3f}, max {hi:.3f}; host clock; {ds.exact_fallbacks} "
             f"fallback(s) so far)")
+    planned_overlap_timed(label, kernels, ds, cqls, cols, n, boxes, times)
 
 
-def worker(label: str, out: Path, join_only: bool = False, overlap_only: bool = False) -> None:
+def worker(label: str, out: Path, join_only: bool = False, overlap_only: bool = False,
+           agg_only: bool = False) -> None:
     sys.path.insert(0, os.getcwd())
     os.environ.setdefault("TEARDOWN_CUPTI", "0")  # several profiler windows in one process
     from geomesa_tpu_torch.ops import kernels
@@ -611,6 +1002,9 @@ def worker(label: str, out: Path, join_only: bool = False, overlap_only: bool = 
     dev = torch.device("cuda")
     if overlap_only:
         overlap_worker(label, kernels, dev)
+        return
+    if agg_only:
+        agg_worker(label, kernels, dev)
         return
     dump_builds(kernels, label, out)
     if join_only:
@@ -648,13 +1042,16 @@ def main() -> None:
     ap.add_argument("--overlap-only", action="store_true",
                     help="time the bbox-overlap kernels at bench config 5 and a line store, "
                          "and nothing else")
+    ap.add_argument("--agg-only", action="store_true",
+                    help="time agg_work_list, grouped_agg and planned_gather at bench config 9's "
+                         "points, and nothing else")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out = Path(args.out).resolve()
     if args.worker:
-        return worker(args.worker, out, args.join_only, args.overlap_only)
+        return worker(args.worker, out, args.join_only, args.overlap_only, args.agg_only)
     if not args.roots:
         ap.error("give at least one ROOT")
     log("card: " + subprocess.run(
@@ -665,8 +1062,10 @@ def main() -> None:
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", label,
                         "--out", str(out / f"run{i + 1}")]
                        + (["--join-only"] if args.join_only else [])
-                       + (["--overlap-only"] if args.overlap_only else []), cwd=root, check=True)
-    for stem in () if args.join_only or args.overlap_only else SAME_SASS:
+                       + (["--overlap-only"] if args.overlap_only else [])
+                       + (["--agg-only"] if args.agg_only else []), cwd=root, check=True)
+    only = args.join_only or args.overlap_only or args.agg_only
+    for stem in () if only else SAME_SASS:
         first = sass_instructions(out / "run1" / f"{stem}.sass")
         for i in range(2, len(args.roots) + 1):
             same = sass_instructions(out / f"run{i}" / f"{stem}.sass") == first

@@ -14,7 +14,11 @@ and the port's ``DataStore.aggregate_many`` against the reference
 - the fold's work list (``agg_work_list``): the kept (chunk, query) pairs
   of ``chunk_query_pairs`` in query-major order, cut into runs that cover
   each query's list once, over per-chunk extents equal to a numpy min/max
-  (padding rows included) and cached when a state is staged;
+  (padding rows included) and cached when a state is staged; the card's
+  block-by-block split (``agg_work_list_segments``: segments placed by the
+  counts of the earlier ones) equal to the plain version for any number of
+  segments, on the column makers and on made-up extents of up to 5000
+  chunks;
 - on the card (``cuda`` marker): the kernels against their plain versions,
   in both fold modes (group partials in shared memory, and the global fold
   of a G x V above the shared budget).
@@ -520,6 +524,85 @@ def test_work_list_empty_and_bad_inputs():
                     _t(times), 4, extents=ext[:-1])
 
 
+_CULL_CACHE: dict = {}
+
+
+def _cached_cull_inputs(maker, seed, shuffled):
+    """:func:`_cull_inputs` once per (maker, seed, order): a CPU store write
+    each."""
+    key = (maker, seed, shuffled)
+    if key not in _CULL_CACHE:
+        cols, boxes, times, base, true_n = _cull_inputs(maker, seed)
+        if shuffled:
+            perm = np.random.default_rng(3).permutation(len(cols[0]))
+            cols = tuple(c[perm] for c in cols)
+        _CULL_CACHE[key] = cols, boxes, times, base, true_n
+    return _CULL_CACHE[key]
+
+
+@pytest.mark.parametrize("segments", [1, 2, 7, 64])
+@pytest.mark.parametrize("shuffled", [False, True], ids=["z3", "shuffled"])
+@pytest.mark.parametrize("maker", CULL_MAKERS)
+def test_work_list_segments_equal_plain(maker, shuffled, segments):
+    """The model of the card's work list, each query's chunks cut into
+    ``segments`` blocks placed by the counts of the earlier ones (empty
+    segments past the last chunk included), gives the plain version's
+    lists, counts, runs and work ints exactly, at several run targets."""
+    cols, boxes, times, base, true_n = _cached_cull_inputs(maker, 5, shuffled)
+    ext = kernels.chunk_extents(*(_t(c) for c in cols))
+    for target in (1, 7, 1000):
+        args = (ext, len(cols[0]), base, true_n, _t(boxes), _t(times), target)
+        got = kernels.agg_work_list_segments(*args, segments=segments)
+        want = kernels.agg_work_list_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def _made_extents(n_chunks: int, q: int, seed: int):
+    """Made-up per-chunk extents (``chunk_extents``' layout: xlo, xhi, ylo,
+    yhi as int32 pairs, then the time key's min and max) and a payload of
+    ``q`` queries with dead slots and one query with none live: (extents,
+    boxes, times) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 2**31 - 2**26, (n_chunks, 2))
+    span = rng.integers(0, 2**24, (n_chunks, 2))
+    xy = np.stack([lo[:, 0], lo[:, 0] + span[:, 0], lo[:, 1], lo[:, 1] + span[:, 1]],
+                  axis=1).astype(np.int32)
+    kmin = rng.integers(0, 40, n_chunks) * 2**32 + rng.integers(0, 2**31, n_chunks)
+    keys = np.stack([kmin, kmin + rng.integers(0, 2**33, n_chunks)], axis=1)
+    ext = np.concatenate([xy.view(np.int64), keys], axis=1)
+    blo = rng.integers(0, 2**31 - 2**28, (q, 3, 2))
+    boxes = np.concatenate([blo, blo + rng.integers(0, 2**28, (q, 3, 2))], axis=2)
+    boxes = boxes[..., [0, 2, 1, 3]].astype(np.int32)  # xlo, xhi, ylo, yhi
+    boxes[:, 2] = [1, 0, 1, 0]  # a dead slot
+    bins = np.sort(rng.integers(0, 40, (q, 2, 2)), axis=2)
+    times = np.stack([bins[..., 0], rng.integers(0, 2**31, (q, 2)), bins[..., 1],
+                      rng.integers(0, 2**31, (q, 2))], axis=2).astype(np.int32)
+    times[:, 1] = [5, 0, 4, 0]  # a dead window
+    boxes[-1] = [1, 0, 1, 0]  # a query with no live box
+    return ext, boxes, times
+
+
+@pytest.mark.parametrize("n_chunks", [1, 1023, 1024, 1025, 5000])
+def test_work_list_segments_on_made_extents(n_chunks):
+    """Over made-up extents of up to 5000 chunks (the card's blocks of
+    ``AGG_LIST_CHUNKS``, a query's last one short or one chunk long), the
+    model at the card's split and at 64 segments equals the plain version,
+    with the last three chunks past ``true_n``."""
+    ext, boxes, times = _made_extents(n_chunks, 9, n_chunks)
+    n = n_chunks * kernels.JOIN_BLOCK - 7
+    true_n = n - 3 * kernels.JOIN_BLOCK if n_chunks > 3 else n
+    for target in (1, 50):
+        args = (_t(ext), n, 0, true_n, _t(boxes), _t(times), target)
+        want = kernels.agg_work_list_plain(*args)
+        if n_chunks > 1000:  # most pairs culled, some kept
+            assert 0 < int(want[1].sum()) < n_chunks * 8 // 2
+        for segments in (None, 64):
+            got = kernels.agg_work_list_segments(*args, segments=segments)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 def test_work_list_matches_plain_on_card():
     """The ``agg_work_list`` kernel equals its plain version exactly (lists,
@@ -544,6 +627,19 @@ def test_work_list_matches_plain_on_card():
                 torch.cuda.synchronize()
                 assert kernels.launches["agg_work_list"] == before + 1
                 for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+    # several blocks a query, back to back on one stream (the scratch is left
+    # zeroed by each launch)
+    for n_chunks in (1, 1023, 1024, 1025, 5000, 40000):
+        ext, boxes, times = (_t(a).to(dev) for a in _made_extents(n_chunks, 9, n_chunks))
+        n = n_chunks * kernels.JOIN_BLOCK - 7
+        for true_n in (n, max(0, n - 3 * kernels.JOIN_BLOCK), 0):
+            args = (ext, n, 0, true_n, boxes, times, 50)
+            got = [kernels.agg_work_list(*args) for _ in range(3)]
+            want = kernels.agg_work_list_plain(*args)
+            torch.cuda.synchronize()
+            for out in got:
+                for g, w in zip(out, want):
                     assert torch.equal(g, w)
 
 

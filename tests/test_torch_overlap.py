@@ -245,6 +245,45 @@ def test_planned_gather_overlap_plain_equals_reference(nb, nt):
     assert sum(len(w) for w in want) > 0
 
 
+@pytest.mark.parametrize("nb,nt", CASES)
+def test_planned_overlap_masks_round_trip(nb, nt):
+    """The overlap count pass's masks, modelled on the CPU: each pair's
+    match bits as the kernel's threads hold them (8 a thread, rows
+    ``planned_overlap_rows``), regrouped by ``overlap_mask_words`` into the
+    write pass's uint16 words (16 consecutive rows a word), equal the row
+    mask packed directly, and the write pass's reading of them (bit j of
+    word w is row 16w + j, in pair order) gives ``planned_gather_overlap_
+    plain``'s positions and counts on the reference test's data."""
+    n, q = 60_000, 9
+    cols, edge_rows = _rows(n, seed=20 + nb)
+    boxes, times = _payload(cols, edge_rows, q, nb, nt, seed=7 * nb + nt)
+    rng = np.random.default_rng(nb)
+    intervals = [np.sort(rng.integers(0, n, (int(rng.integers(1, 6)), 2)), axis=1)
+                 for _ in range(q)]
+    pair_q, pair_blk = intervals_to_block_pairs(intervals, JOIN_BLOCK)
+    true_n = n - 1234
+    staged, _ = stage_columns(dict(zip(COLS, cols)), torch.device("cpu"))
+    tc = [staged[c] for c in COLS]
+    pq, pb = _t(pair_q.astype(np.int32)), _t(pair_blk.astype(np.int32))
+    want_p, want_h = kernels.planned_gather_overlap_plain(tc, true_n, pq, pb, _t(boxes),
+                                                          _t(times))
+    rows_of = kernels.planned_overlap_rows()  # (512, 8)
+    block = [c.view(-1, JOIN_BLOCK)[pb.long()] for c in tc]
+    m, _ = kernels.overlap_masks(*block, _t(boxes)[pq.long()], _t(times)[pq.long()])
+    gpos = pb.long()[:, None] * JOIN_BLOCK + torch.arange(JOIN_BLOCK)
+    m &= gpos < true_n  # (P, 4096): each pair's row mask
+    bits = (m[:, rows_of].long() << torch.arange(8)).sum(dim=2)  # (P, 512)
+    words = kernels.overlap_mask_words(bits)
+    assert words.shape == (len(pair_q), JOIN_BLOCK // 16) and words.dtype == torch.int16
+    direct = (m.view(len(pair_q), -1, 16).long() << torch.arange(16)).sum(dim=2)
+    assert torch.equal(words.long() & 0xFFFF, direct)
+    read = (words.long()[..., None] >> torch.arange(16)) & 1  # the write pass's reading
+    read = read.view(len(pair_q), JOIN_BLOCK).bool()
+    assert torch.equal(read.sum(dim=1), want_h)
+    assert torch.equal(gpos[read].to(torch.int32), want_p)
+    assert int(want_h.sum()) > 0
+
+
 def test_refine_bboxes_equals_reference():
     n = 20_000
     cols, edge_rows = _rows(n, seed=31)

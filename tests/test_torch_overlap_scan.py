@@ -8,17 +8,25 @@ holds to the reference): over seeded chunks grouped as the kernel's warps
 hold them, with payloads from ``workload.edge_payload`` and boxes and
 windows placed on rows' opposing bounds and keys, no group that holds a
 candidate is ever skipped. Exact: no tolerance.
+
+The planned overlap count pass holds a block's rows 8 a thread
+(``planned_overlap_rows``) and regroups each pair's match bits into the
+write pass's uint16 words:
+``overlap_mask_words`` (its plain version) puts row r at bit r % 16 of word
+r // 16. On the card (``cuda`` marker) the planned gather's overlap form
+equals its plain version on adversarial pair lists.
 """
 
 import numpy as np
+import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
 from geomesa_tpu_torch.ops.kernels import (
-    JOIN_BLOCK, OVERLAP_WARP_ROWS, _time_keys, overlap_edge_possible, overlap_masks,
-    overlap_warp_rows)
+    JOIN_BLOCK, OVERLAP_WARP_ROWS, _time_keys, overlap_edge_possible, overlap_mask_words,
+    overlap_masks, overlap_warp_rows, planned_overlap_rows)
 from geomesa_tpu_torch.workload import edge_payload, xz_boxes
 
 TOP = 2**31 - 1
@@ -108,6 +116,26 @@ def test_warp_rows_are_the_kernel_layout():
         assert torch.equal(torch.sort(rows[w]).values, want)
 
 
+@pytest.mark.parametrize("pattern", ["each row alone", "all rows", "random"])
+def test_mask_words_are_the_write_pass_layout(pattern):
+    """The planned overlap count pass's regrouping of a thread's 8 match
+    bits (rows ``planned_overlap_rows``: each row of the block held once)
+    into uint16 words puts row r at bit r % 16 of word r // 16, for every
+    row alone, all rows and random masks."""
+    rows_of = planned_overlap_rows()
+    assert torch.equal(torch.sort(rows_of.flatten()).values, torch.arange(JOIN_BLOCK))
+    if pattern == "each row alone":
+        masks = torch.eye(JOIN_BLOCK, dtype=torch.bool)
+    elif pattern == "all rows":
+        masks = torch.ones((1, JOIN_BLOCK), dtype=torch.bool)
+    else:
+        masks = torch.from_numpy(np.random.default_rng(11).random((64, JOIN_BLOCK)) < 0.3)
+    bits = (masks[:, rows_of].long() << torch.arange(8)).sum(dim=2)
+    words = overlap_mask_words(bits).long() & 0xFFFF
+    want = (masks.view(masks.shape[0], -1, 16).long() << torch.arange(16)).sum(dim=2)
+    assert torch.equal(words, want)
+
+
 @settings(max_examples=25, deadline=None, derandomize=True)
 @given(seed=st.integers(0, 2**31 - 1), sort=st.booleans())
 def test_edge_skip_never_skips_a_candidate(seed, sort):
@@ -168,3 +196,83 @@ def test_edge_skip_bounds_are_inclusive():
             == [4000, 6000, 4000, 6001, 6000])
     assert overlap_edge_possible(*group, far_box, tm)[0].tolist() == [True, True, False, False,
                                                                        False]
+
+
+def _card_columns(n: int, seed: int):
+    """``n`` config-5 bounds normalized at 31 bits, padded to whole blocks
+    with stamped rows, and day bins and ms offsets: the six int32 columns
+    of a bbox store, and the valid rows."""
+    rng = np.random.default_rng(seed)
+    b = xz_boxes(n, seed)
+    cols = [norm_lon(31).normalize(b[0]), norm_lat(31).normalize(b[1]),
+            norm_lon(31).normalize(b[2]), norm_lat(31).normalize(b[3]),
+            rng.integers(0, 4, n), rng.integers(-DAY, DAY, n)]
+    pad = -(-n // JOIN_BLOCK) * JOIN_BLOCK - n
+    fill = (TOP, TOP, -1, -1, 0, 0)
+    return [np.concatenate([c, np.full(pad, f)]).astype(np.int32) for c, f in zip(cols, fill)]
+
+
+def _card_payload(cols, q: int, seed: int):
+    """(q, 8, 4) boxes and (q, 16, 4) windows around random rows' bounds and
+    keys, 1..8 live boxes and 1..16 live windows a query, the rest dead; the
+    last query has no live box."""
+    rng = np.random.default_rng(seed)
+    x0, y0, x1, y1, bins, offs = cols
+    boxes = np.tile(np.array([1, 0, 1, 0], np.int64), (q, 8, 1))
+    times = np.tile(np.array([5, 0, 4, 0], np.int64), (q, 16, 1))
+    for qi in range(q - 1):
+        for k in range(int(rng.integers(1, 9))):
+            r, d = int(rng.integers(len(x0))), int(rng.integers(0, 2**26))
+            boxes[qi, k] = [max(0, x0[r] - d), min(TOP, x1[r] + d), max(0, y0[r] - d),
+                            min(TOP, y1[r] + d)]
+        for k in range(int(rng.integers(1, 17))):
+            r, d = int(rng.integers(len(x0))), int(rng.integers(0, DAY))
+            times[qi, k] = [bins[r], offs[r] - d, bins[r] + int(rng.integers(0, 2)), offs[r] + d]
+    return (np.clip(boxes, BOT, TOP).astype(np.int32), np.clip(times, BOT, TOP).astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_planned_gather_overlap_matches_plain_on_card():
+    """The overlap count pass (a block a half of each distinct block, masks
+    regrouped for the write pass, the counts' prefix sum by a one-block
+    scan of several passes) and the write pass equal the plain version, one
+    launch counted a call: more distinct blocks than the card holds blocks
+    at once, more pairs than one pass of the scan, one block with more pairs
+    than a tile stages, pairs duplicated, out of order and out of range, a
+    query with no live box, true_n inside a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    from geomesa_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    n = 600 * JOIN_BLOCK - 1000
+    cols = [torch.from_numpy(c).to(dev) for c in _card_columns(n, 13)]
+    n_blocks = cols[0].shape[0] // JOIN_BLOCK
+    boxes, times = (torch.from_numpy(a).to(dev) for a in _card_payload(_card_columns(n, 13), 40,
+                                                                       14))
+    rng = np.random.default_rng(15)
+    rand_q, rand_b = rng.integers(0, 40, 8500), rng.integers(0, n_blocks, 8500)
+    cases = [
+        ([i % 40 for i in range(300)], [7] * 300, n),
+        ([3] * n_blocks, list(range(n_blocks)), n - 5000),
+        (list(rand_q) + list(rand_q[:700]), list(rand_b) + list(rand_b[:700]), n),
+        ([39, 0], [n_blocks - 1] * 2, n),
+    ]
+    for pq, pb, true_n in cases:
+        pq_t, pb_t = (torch.tensor(np.asarray(a, np.int32), device=dev) for a in (pq, pb))
+        before = kernels.launches["planned_gather_overlap"]
+        got = kernels.planned_gather_overlap(cols, true_n, pq_t, pb_t, boxes, times)
+        want = kernels.planned_gather_overlap_plain(cols, true_n, pq_t, pb_t, boxes, times)
+        torch.cuda.synchronize()
+        assert kernels.launches["planned_gather_overlap"] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 0
+    oq = np.concatenate([rand_q[:200], [-1, 40, 3, 4]]).astype(np.int32)
+    ob = np.concatenate([rand_b[:200], [0, 1, -1, n_blocks + 3]]).astype(np.int32)
+    got_p, got_h = kernels.planned_gather_overlap(cols, n, torch.from_numpy(oq).to(dev),
+                                                  torch.from_numpy(ob).to(dev), boxes, times)
+    want_p, want_h = kernels.planned_gather_overlap_plain(
+        cols, n, torch.from_numpy(oq[:200]).to(dev), torch.from_numpy(ob[:200]).to(dev), boxes,
+        times)
+    assert torch.equal(got_p, want_p) and torch.equal(got_h[:200], want_h)
+    assert int(got_h[200:].abs().sum()) == 0
