@@ -1,8 +1,9 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
 and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
 standing-query stream, a date-less point schema, the grouped aggregation,
-density and KNN, the spatial join, and bench config 5 with a line store on
-the xz3 and xz2 indexes end to end on one CUDA card.
+density and KNN, the spatial join, bench config 5 with a line store on the
+xz3 and xz2 indexes, bench config 7's resident count steps and bench
+config 10's corridor engine and interlink end to end on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -204,6 +205,56 @@ Phases (any failure exits non-zero, and no result line is printed):
    Each overlap kernel's record carries ``device_ms`` beside ``ms``: the
    device work of a call, CUDA events around 10 calls enqueued behind a
    spin of the card (``device_ms``), so the host's share does not count.
+
+10. bench config 7 (``bench.py:1055``, ``bench_resident``): 10a,
+   ``planned_count`` against ``planned_count_plain`` on the card, exact, at
+   1,000,003 GDELT-shaped rows (keys built on the card) and 1,000,003
+   config-5 bboxes (the overlap form), blocks of 1024 and 4096 rows, 65
+   queries of one city slot, of several slots (B = 8, T = 16, an all-dead
+   query) or of the whole world (the overlap form: phase 9a's adversarial
+   payloads), on random pairs with padding among them, one block shared by
+   the 65 queries, the last block with ``true_n`` inside it, every pair
+   padded and no pair (no launch), and ``planned_count_step`` at R = 1 and
+   R = 3 with different pair counts. 10b, config 7 as the bench runs it:
+   125M points (seed 42), the keys built on the card
+   (``workload.resident_store``: ``z3_encode``, a sort by (bin, z), the
+   sorted z and bins copied back), four int32 columns padded to whole
+   4096-row blocks (a multiple of the bench's 1024); R = 12 batches of 64
+   city queries (seeds 100..111); the full scan (``repeated_count_step``, a
+   ``batched_count`` launch a batch) at R = 12 and R = 1, a pass's ms as
+   (t(12) - t(1)) / 11 of host-clock p50s and by CUDA events, its GB/s
+   against 3.35 TB/s and the dispatch; the plan (``plan_query_intervals``,
+   1024-row pairs, padded to a multiple of 128), held to the bench's 2N +
+   2^20 rule; the pruned scan (``planned_count_step``) the same way;
+   checks: pruned == full scan for all 768 queries, both == a numpy int
+   referee on 4 queries of batch 0, and a same-cover referee over batch 0's
+   pairs; log lines "phase 10 full scan", "phase 10 plan", "phase 10
+   checks", "phase 10 resident_125m_scan_device_time_per_query" (with the
+   pruned pass, speed-up, cover fraction, GB gathered and effective GB/s);
+   then ``planned_count`` alone at batch 0's pairs beside its plain version
+   and its bound (``n_pairs x 1024 x 16`` B), and ``planned_gather``'s count
+   entry on the same queries planned at 4096-row blocks.
+
+11. bench config 10 (``bench.py:1829``, ``bench_trajectory``): 11a,
+   ``corridor_masks`` against ``corridor_masks_plain`` on the card, bit for
+   bit (cand and sure), in its four variants, Q in {1, 16, 65}, N in {1,
+   1,000,003}: rows on segments' buffer distances, end points and zero-
+   length segments, NaN and infinite headings, the >= 360 sentinel, padded
+   segments and a padded corridor, the unconstrained quad. 11b: 2M points
+   on drifting tracks (seed 15, ``track:String,dtg:Date,*geom:Point``)
+   through ``DataStore``; the bench's 16 tube corridors through
+   ``tube_select_many(route="device")``, one warm call and 5 timed
+   ("phase 11 tube_select_corridor_p50_latency", ms a corridor, beside the
+   host ``tube_select``'s p50 a corridor), fid sets equal on all 16, one
+   ``corridor_masks`` launch a call; a heading leg (20,000 rows with NaN and
+   null headings, a mixed batch of uni- and bidirectional route corridors:
+   two launches, each corridor == ``route_search``); the interlink leg (L
+   1,500 points, seed 31; R 3,000, seed 32): 2D and time-lifted ``dwithin
+   0.4`` and the forced block route (``planned_gather``), each ==
+   ``interlink_referee``, with ``interlink_ms``; the candidates, the bands
+   and the prune query's host split; then ``corridor_masks`` alone at the
+   candidates and at every row x 16 and x 64 corridors beside its plain
+   version and its bound.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -3832,11 +3883,733 @@ def xz_path(dev, m: int, tiles: int, iters: int) -> list[dict]:
     ]
 
 
+# -- phase 10: bench config 7, the 125M-row resident count steps -------------------
+
+RESIDENT_ROWS = 125_000_000  # bench config 7's N (bench.py:1058), nothing cut
+RESIDENT_R = 12  # query batches a run (bench.py:1069, GEOMESA_BENCH_R)
+RESIDENT_PAIR_CHUNK = 128  # pad_block_pairs' multiple (bench.py:1129 chunkp)
+RESIDENT_REFEREE = 4  # queries of batch 0 held to the numpy referees (bench.py n_ref)
+PLANNED_CHECK_ROWS = 1_000_003  # phase 10a's rows
+
+
+def multi_payload(rng, q: int, nb: int, nt: int, city_boxes, windows, binned):
+    """(q, nb, 4) boxes and (q, nt, 4) windows packed with the packers'
+    sentinels: 1..nb city boxes and 1..nt city windows a query, and the
+    last query all dead."""
+    from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
+
+    boxes, times = [], []
+    for _ in range(q):
+        kb, kt = int(rng.integers(1, nb + 1)), int(rng.integers(1, nt + 1))
+        boxes.append(pack_boxes(city_boxes[rng.integers(len(city_boxes), size=kb)], slots=nb))
+        quads = []
+        for lo, hi in (windows[int(i)] for i in rng.integers(len(windows), size=kt)):
+            (blo,), (olo,) = binned.to_bin_and_offset(np.array([lo]))
+            (bhi,), (ohi,) = binned.to_bin_and_offset(np.array([hi]))
+            quads.append([blo, olo, bhi, ohi])
+        times.append(pack_times(np.array(quads, dtype=np.int32), slots=nt))
+    boxes[-1], times[-1] = unsat_rows(nb, nt)
+    return np.ascontiguousarray(np.stack(boxes)), np.ascontiguousarray(np.stack(times))
+
+
+def pair_cases(rng, q: int, true_n: int, n_rows: int, block_rows: int):
+    """Phase 10a's pair lists (name, pair_q, pair_blk) int32: random pairs
+    with padding among them, one block shared by every query, pairs on the
+    last block (``true_n`` inside it), every pair padded, and none."""
+    n_blocks = n_rows // block_rows
+    last = (true_n - 1) // block_rows
+    k = 3000
+    pq = rng.integers(0, q, k).astype(np.int32)
+    pb = rng.integers(0, n_blocks, k).astype(np.int32)
+    pq[rng.random(k) < 0.1] = -1
+    shared = np.full(q, int(rng.integers(n_blocks)), np.int32)
+    return [("random", pq, pb), ("shared", np.arange(q, dtype=np.int32), shared),
+            ("last", np.arange(q, dtype=np.int32), np.full(q, last, np.int32)),
+            ("padded", np.full(64, -1, np.int32), pb[:64]),
+            ("empty", np.empty(0, np.int32), np.empty(0, np.int32))]
+
+
+def check_planned_count(dev, seed: int) -> int:
+    """Phase 10a: ``planned_count`` against ``planned_count_plain`` on the
+    card, exact: GDELT-shaped rows in (bin, z3) order and config-5 bboxes
+    (the overlap form), blocks of 1024 and 4096 rows, 65 queries of one
+    packed city box and window, of several slots (B = 8, T = 16) or of the
+    whole world and the unconstrained window (every row below ``true_n``
+    matches, so the last block's count is its true rows), the
+    pair lists of :func:`pair_cases`, and ``planned_count_step`` at R = 1
+    and R = 3 with different pair counts. Returns the max |difference|."""
+    import torch
+
+    from geomesa_tpu_torch.curve.binned_time import BinnedTime
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import planned_count, planned_count_plain
+    from geomesa_tpu_torch.parallel.query import pad_block_pairs, planned_count_step
+    from geomesa_tpu_torch.store.backends import int_boxes
+    from geomesa_tpu_torch.workload import (
+        RESIDENT_PERIOD, make_queries, pack_query_boxes, pack_query_times, resident_store,
+        synth_gdelt)
+
+    rng = np.random.default_rng(seed)
+    q = 65
+    lon, lat, t = synth_gdelt(PLANNED_CHECK_ROWS, seed=seed)
+    st = resident_store(lon, lat, t, dev, block_rows=4096)
+    true_n = st["true_n"]
+    bf, wm = make_queries(q, seed=seed + 1)
+    city = int_boxes(bf)
+    binned = BinnedTime(RESIDENT_PERIOD)
+    host_b = overlap_rows(dev, PLANNED_CHECK_ROWS, seed + 2)
+    pad = -PLANNED_CHECK_ROWS % 4096  # zero rows up to whole 4096-row blocks
+    bcols = tuple(torch.from_numpy(np.concatenate([c, np.zeros(pad, np.int32)])).to(dev)
+                  for c in host_b)
+    top = 2**31 - 1
+    world = (np.tile(np.array([0, top, 0, top], np.int32), (q, 1, 1)),
+             np.tile(np.array([0, -1, top, top], np.int32), (q, 1, 1)))
+    forms = {
+        "point": (st["cols"], [
+            ("city", pack_query_boxes(bf), pack_query_times(wm)),
+            ("multi", *multi_payload(rng, q, 8, 16, city, wm, binned)),
+            ("world", *world)]),
+        "overlap": (bcols, [
+            ("city", pack_query_boxes(bf, overlap=True), pack_query_times(wm)),
+            ("adversarial", *overlap_payload(rng, q, 8, 16, city, host_b[:4], host_b[4],
+                                             host_b[5]))]),
+    }
+    worst = 0
+    for form, (cols, payloads) in forms.items():
+        for pname, bx, tm in payloads:
+            boxes = torch.from_numpy(np.ascontiguousarray(bx)).to(dev)
+            times = torch.from_numpy(np.ascontiguousarray(tm)).to(dev)
+            for block_rows in kernels.PLANNED_COUNT_BLOCKS:
+                for cname, pq, pb in pair_cases(rng, q, true_n, cols[0].shape[0], block_rows):
+                    pq_t = torch.from_numpy(pq).to(dev)
+                    pb_t = torch.from_numpy(pb).to(dev)
+                    before = kernels.launches["planned_count"]
+                    got = planned_count(cols, true_n, pq_t, pb_t, boxes, times, block_rows)
+                    want = planned_count_plain(cols, true_n, pq_t, pb_t, boxes, times,
+                                               block_rows)
+                    torch.cuda.synchronize()
+                    err = int((got.long() - want.long()).abs().max())
+                    worst = max(worst, err)
+                    launched = kernels.launches["planned_count"] - before
+                    if launched != (len(pq) > 0):
+                        raise AssertionError(f"planned_count {cname}: {launched} launches")
+                    log(f"  planned_count {form} {pname} block_rows={block_rows} {cname} "
+                        f"({len(pq)} pairs): max_abs_err={err} (matches "
+                        f"{int(want.long().sum())})")
+                # R = 1 and R = 3, the batches' pair lists of different lengths
+                for r in (1, 3):
+                    lists = [pair_cases(rng, q, true_n, cols[0].shape[0], block_rows)[0][1:]
+                             for _ in range(r)]
+                    lists = [(a[:500 + 700 * i], b[:500 + 700 * i]) for i, (a, b) in
+                             enumerate(lists)]
+                    width = -(-max(len(a) for a, _ in lists) // RESIDENT_PAIR_CHUNK) \
+                        * RESIDENT_PAIR_CHUNK
+                    padded = [pad_block_pairs(a, b, width) for a, b in lists]
+                    pq_r = np.stack([p[0] for p in padded])
+                    pb_r = np.stack([p[1] for p in padded])
+                    br, tr = boxes.expand(r, *boxes.shape), times.expand(r, *times.shape)
+                    got = planned_count_step(cols, true_n, pq_r, pb_r, br, tr, block_rows)
+                    want = torch.stack([planned_count_plain(
+                        cols, true_n, torch.from_numpy(pq_r[i]).to(dev),
+                        torch.from_numpy(pb_r[i]).to(dev), boxes, times, block_rows)
+                        for i in range(r)])
+                    torch.cuda.synchronize()
+                    err = int((got.long() - want.long()).abs().max())
+                    worst = max(worst, err)
+                    log(f"  planned_count_step {form} {pname} block_rows={block_rows} R={r} "
+                        f"({[len(a) for a, _ in lists]} pairs): max_abs_err={err}")
+    if worst:
+        raise AssertionError(f"planned_count disagrees with its plain version: {worst}")
+    return worst
+
+
+def planned_gather_count_ms(cols, true_n: int, pair_q, pair_blk, boxes, times):
+    """The CUDA-event ms of ``planned_gather``'s count entry alone (its
+    count pass and the scan of the counts, without the write pass) over
+    4096-row pairs, and the per-pair counts it gives."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+
+    dev = cols[0].device
+    p = len(pair_q)
+    plan = torch.from_numpy(np.concatenate(kernels.block_runs(pair_q, pair_blk))).to(dev)
+    n_blocks = (plan.shape[0] - 2 * p - 1) // 2
+    hits = torch.empty(p, dtype=torch.int64, device=dev)
+    scratch = torch.empty(p * (1 + kernels.JOIN_BLOCK // 64), dtype=torch.int64, device=dev)
+    fn = kernels._fn("geomesa_planned_gather_count")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        rc = fn(*(c.data_ptr() for c in cols), cols[0].shape[0], int(true_n), plan.data_ptr(),
+                p, n_blocks, boxes.data_ptr(), times.data_ptr(), boxes.shape[0],
+                boxes.shape[1], times.shape[1], hits.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + 8 * p, stream)
+        if rc:
+            raise RuntimeError(f"planned_gather count entry failed: cudaError {rc}")
+
+    return cuda_ms(call, 10), hits
+
+
+def host_p50_ms(fn, iters: int) -> float:
+    """p50 host-clock ms of ``fn`` after a synchronisation, each call ended
+    by one."""
+    import torch
+
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return p50(out)
+
+
+def resident_path(dev, n_rows: int, r_batches: int, n_queries: int,
+                  iters: int) -> tuple[dict, dict]:
+    """Phase 10b: bench config 7 at ``n_rows`` (see the module docstring).
+    Returns ``planned_count``'s record and the main path's launches."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import JOIN_BLOCK, planned_count, planned_count_plain
+    from geomesa_tpu_torch.parallel.query import (
+        intervals_to_block_pairs, pad_block_pairs, planned_count_step, repeated_count_step)
+    from geomesa_tpu_torch.workload import (
+        RESIDENT_BLOCK, bin_spans, make_queries, pack_query_boxes, pack_query_times,
+        plan_query_intervals, resident_store, synth_gdelt)
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    lon, lat, t = synth_gdelt(n_rows, seed=42)
+    log(f"phase 10 synth: {time.perf_counter() - t0:.3f} s ({n_rows} points, seed 42)")
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    t0 = time.perf_counter()
+    # padded to whole 4096-row blocks (a multiple of config 7's 1024) so that
+    # planned_gather's count entry can be timed on the same columns below
+    st = resident_store(lon, lat, t, dev, block_rows=JOIN_BLOCK)
+    build_s = time.perf_counter() - t0
+    del lon, lat, t
+    cols, true_n = st["cols"], st["true_n"]
+    resident = sum(c.numel() * c.element_size() for c in cols)
+    log(f"phase 10 build: {build_s:.3f} s (" + ", ".join(
+        f"{k} {v:.3f} s" for k, v in st["seconds"].items()) + f"); resident {resident} bytes "
+        f"({cols[0].shape[0]} rows x 4 int32 columns, true_n {true_n})")
+    raw, boxes_r, times_r = [], [], []
+    for r in range(r_batches):
+        bf, wm = make_queries(n_queries, seed=100 + r)
+        raw.append((bf, wm))
+        boxes_r.append(pack_query_boxes(bf))
+        times_r.append(pack_query_times(wm))
+    boxes_r = torch.from_numpy(np.ascontiguousarray(np.stack(boxes_r))).to(dev)
+    times_r = torch.from_numpy(np.ascontiguousarray(np.stack(times_r))).to(dev)
+
+    # -- the full scan: R passes of batched_count -----------------------------------
+    def run(r):
+        return repeated_count_step(cols, true_n, boxes_r[:r], times_r[:r])
+
+    counts_r = run(r_batches).cpu().numpy()
+    run(1)
+    reps = max(5, iters // 2)
+    t_big = host_p50_ms(lambda: run(r_batches), reps) if on_card else 0.0
+    t_one = host_p50_ms(lambda: run(1), reps) if on_card else 0.0
+    pass_ms = max((t_big - t_one) / (r_batches - 1), 1e-6)
+    ev_pass = cuda_ms(lambda: run(r_batches), 3) / r_batches if on_card else 0.0
+    gbps = true_n * 16 / (pass_ms / 1e3) / 1e9
+    log(f"phase 10 full scan: pass {pass_ms:.4f} ms by host clock ((t({r_batches}) "
+        f"{t_big:.3f} - t(1) {t_one:.3f}) / {r_batches - 1}, p50 of {reps}), "
+        f"{ev_pass:.4f} ms a pass by CUDA events over {r_batches} launches; "
+        f"{gbps:.1f} GB/s of {true_n * 16} bytes ({gbps / (MEM_BYTES_PER_S / 1e9):.4f} of "
+        f"3.35 TB/s); dispatch {max(t_one - pass_ms, 0.0):.3f} ms; "
+        f"{pass_ms / n_queries:.5f} ms a query")
+
+    # -- the plan: per-query z3 intervals → 1024-row (query, block) pairs ----------------
+    t0 = time.perf_counter()
+    spans = bin_spans(st["bins_sorted"])
+    ivs_r = [plan_query_intervals(bf, wm, st["binned"], st["sfc"], st["z_sorted"], spans)
+             for bf, wm in raw]
+    per_batch = [intervals_to_block_pairs(ivs, RESIDENT_BLOCK) for ivs in ivs_r]
+    totals = [len(pq) for pq, _ in per_batch]
+    n_pairs = -(-max(totals) // RESIDENT_PAIR_CHUNK) * RESIDENT_PAIR_CHUNK
+    plan_s = time.perf_counter() - t0
+    log(f"phase 10 plan: {plan_s:.3f} s for {r_batches} x {n_queries} queries; pairs a batch "
+        f"max {max(totals)}, mean {np.mean(totals):.1f}; padded to {n_pairs}")
+    rule = n_pairs * RESIDENT_BLOCK <= 2 * true_n + (1 << 20)
+    if on_card and not rule:
+        raise AssertionError("config 7's cover is wider than two full passes (the bench's "
+                             "2N + 2^20 rule): the bench would report the full scan only")
+    padded = [pad_block_pairs(pq, pb, n_pairs) for pq, pb in per_batch]
+    pq_r = torch.from_numpy(np.stack([p[0] for p in padded])).to(dev)
+    pb_r = torch.from_numpy(np.stack([p[1] for p in padded])).to(dev)
+
+    def prun(r):
+        return planned_count_step(cols, true_n, pq_r[:r], pb_r[:r], boxes_r[:r], times_r[:r],
+                                  RESIDENT_BLOCK)
+
+    pcounts_r = prun(r_batches).cpu().numpy()
+    prun(1)
+    pt_big = host_p50_ms(lambda: prun(r_batches), reps) if on_card else 0.0
+    pt_one = host_p50_ms(lambda: prun(1), reps) if on_card else 0.0
+    p_pass_ms = max((pt_big - pt_one) / (r_batches - 1), 1e-6)
+    p_ev = cuda_ms(lambda: prun(r_batches), 3) / r_batches if on_card else 0.0
+    launched = dict(kernels.launches)
+    log(f"phase 10 launches: {launched}")
+    if on_card and (launched["batched_count"] == 0 or launched["planned_count"] == 0
+                    or launched["z3_encode"] != 1):
+        raise AssertionError("phase 10's main path must launch z3_encode, batched_count and "
+                             "planned_count")
+
+    # -- checks ------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    if not np.array_equal(pcounts_r, counts_r):
+        raise AssertionError("config 7's pruned counts differ from the full scan's")
+    x, y, bins, offs = st["host"]
+    for qi in range(RESIDENT_REFEREE):
+        b = boxes_r[0, qi, 0].cpu().numpy()
+        w = times_r[0, qi, 0].cpu().numpy()
+        m = (x >= b[0]) & (x <= b[1]) & (y >= b[2]) & (y <= b[3])
+        after = (bins > w[0]) | ((bins == w[0]) & (offs >= w[1]))
+        before = (bins < w[2]) | ((bins == w[2]) & (offs <= w[3]))
+        if int((m & after & before).sum()) != int(counts_r[0, qi]):
+            raise AssertionError(f"config 7 query {qi}: the full scan differs from the int "
+                                 "referee")
+    ref_s = time.perf_counter() - t0
+    pq0, pb0 = per_batch[0]
+    t0 = time.perf_counter()
+    for qi in range(RESIDENT_REFEREE):
+        blks = pb0[pq0 == qi].astype(np.int64)
+        rows = (blks[:, None] * RESIDENT_BLOCK + np.arange(RESIDENT_BLOCK)).ravel()
+        rows = torch.from_numpy(rows[rows < true_n]).to(dev)
+        xs, ys, bb, oo = (c[rows].cpu().numpy() for c in cols)
+        b = boxes_r[0, qi, 0].cpu().numpy()
+        w = times_r[0, qi, 0].cpu().numpy()
+        m = (xs >= b[0]) & (xs <= b[1]) & (ys >= b[2]) & (ys <= b[3])
+        after = (bb > w[0]) | ((bb == w[0]) & (oo >= w[1]))
+        before = (bb < w[2]) | ((bb == w[2]) & (oo <= w[3]))
+        if int((m & after & before).sum()) != int(pcounts_r[0, qi]):
+            raise AssertionError(f"config 7 query {qi}: the pruned count differs from the "
+                                 "same-cover referee")
+    cover_ms = (time.perf_counter() - t0) * 1e3 / RESIDENT_REFEREE
+    log(f"phase 10 checks: ok (pruned == full scan for all {r_batches} x {n_queries} queries; "
+        f"both == the int referee on {RESIDENT_REFEREE} queries of batch 0 in {ref_s:.3f} s; "
+        f"the same-cover referee agrees, {cover_ms:.3f} ms a query with its rows gathered "
+        "from the card)")
+    gathered = n_pairs * RESIDENT_BLOCK * 16
+    head = p_pass_ms / n_queries
+    if not rule:
+        head = pass_ms / n_queries
+    log(f"phase 10 resident_125m_scan_device_time_per_query: {head:.6f} ms (the "
+        + ("pruned scan ran and matched" if rule else "full scan: the cover breaks the 2N + "
+           "2^20 rule") + f"); pruned pass {p_pass_ms:.4f} ms by host clock ((t({r_batches}) "
+        f"{pt_big:.3f} - t(1) {pt_one:.3f}) / {r_batches - 1}), {p_ev:.4f} ms by CUDA events; "
+        f"full scan {pass_ms / n_queries:.6f} ms a query; speed-up {pass_ms / p_pass_ms:.2f}x; "
+        f"cover fraction {n_pairs * RESIDENT_BLOCK / (true_n * n_queries):.6f}; gathered "
+        f"{gathered / 1e9:.4f} GB a pass, {gathered / (p_pass_ms / 1e3) / 1e9:.1f} GB/s "
+        f"effective")
+
+    # -- planned_count alone at the real pairs, and planned_gather's count entry -----------
+    pq0_t = torch.from_numpy(pq0).to(dev)
+    pb0_t = torch.from_numpy(pb0).to(dev)
+    args = (cols, true_n, pq0_t, pb0_t, boxes_r[0], times_r[0], RESIDENT_BLOCK)
+    got = planned_count(*args)
+    want = planned_count_plain(*args)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError("planned_count disagrees with its plain version at config 7")
+    # the least the function must read: each distinct block's columns once, however many
+    # of the batch's queries cover it (the kernel reads a block once a pair)
+    n_blocks = len(np.unique(pb0))
+    nbytes = n_blocks * RESIDENT_BLOCK * 16
+    record = {"max_abs_err": err, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes"}
+    if not on_card:
+        return record, launched
+    record["ms"] = cuda_ms(lambda: planned_count(*args), 10)
+    record["device_ms"] = device_ms(lambda: planned_count(*args))
+    record["plain_ms"] = cuda_ms(lambda: planned_count_plain(*args), 1)
+    log(f"phase planned_count timing: {record['ms']:.4f} ms (CUDA events), device "
+        f"{fmt_ms(record['device_ms'])} for batch 0's {len(pq0)} (query, 1024-row block) "
+        f"pairs over {n_blocks} distinct blocks ({len(pq0) / max(n_blocks, 1):.3f} pairs a "
+        f"block); plain {record['plain_ms']:.4f} ms; bound {record['bound_ms']:.6f} ms (bytes: "
+        f"{nbytes}, each distinct block once, at 3.35 TB/s), "
+        f"{record['bound_ms'] / record['ms']:.4f} of it")
+    if record["bound_ms"] / record["ms"] > 1:
+        raise AssertionError("planned_count reads more than its bound")
+    gq, gb = intervals_to_block_pairs(ivs_r[0], JOIN_BLOCK)
+    g_ms, g_hits = planned_gather_count_ms(cols, true_n, gq, gb, boxes_r[0], times_r[0])
+    per_q = np.bincount(gq, weights=g_hits.cpu().numpy(), minlength=n_queries)
+    if not np.array_equal(per_q.astype(np.int64), counts_r[0].astype(np.int64)):
+        raise AssertionError("planned_gather's count pass disagrees with config 7's counts")
+    g_bytes = len(np.unique(gb)) * JOIN_BLOCK * 16
+    log(f"phase 10 planned_gather count entry (for the reader): {g_ms:.4f} ms (CUDA events) "
+        f"for batch 0 planned at 4096-row blocks, {len(gq)} pairs over {len(np.unique(gb))} "
+        f"distinct blocks (bound {g_bytes / MEM_BYTES_PER_S * 1e3:.6f} ms by bytes); "
+        f"planned_count over the same queries at 1024-row blocks {record['ms']:.4f} ms")
+    return record, launched
+
+
+# -- phase 11: bench config 10, the corridor engine and interlink -------------------
+
+TRAJECTORY_ROWS = 2_000_000  # bench config 10's N on an accelerator (bench.py:1840)
+TRAJECTORY_CORRIDORS = 16  # min(Q, 16)
+CORRIDOR_CHECK_ROWS = 1_000_003  # phase 11a's rows
+# corridor_masks stages 40 KB of corridors a tile, 40 B a segment and 16 B a
+# corridor: at most 232 corridors of 4 segments, and one corridor of at most
+# 1023 segments. Phase 11a drives both tiling loops past those.
+CORRIDOR_TILED_Q = 600
+CORRIDOR_LONG_PTS = 1500  # 1499 segments: two segment tiles
+CORRIDOR_LONG_ROWS = 100_003  # the plain version's (S, N) intermediates stay ~0.6 GB
+HEADING_ROWS = 20_000  # the heading leg's store
+LINK_ROWS = (1500, 3000)  # the interlink leg's L and R stores (bench.py:1933-1934)
+LINK_SEEDS = (31, 32)
+LINK_DISTANCE = 0.4
+LINK_TIME_BUFFER_MS = 3_600_000
+# f32 operations of one (row, segment) test of corridor_masks: the distance
+# (two subtracts, a dot of two products and a sum, a division, a clamp of
+# two, x1 + tp * dx and its difference per axis, two squares and a sum: 17)
+# and its two band compares; the heading adds a subtract, an add, the
+# remainder (counted as one), its fix-up add, a subtract, an abs and two
+# compares (8), and the bidirectional minimum two more
+CORRIDOR_SEG_FLOPS = 19
+CORRIDOR_HEADING_FLOPS = 8
+CORRIDOR_BIDIR_FLOPS = 2
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+
+
+def corridor_floor(n: int, q: int, s: int, heading: bool, bidirectional: bool) -> dict:
+    """``bound_ms``/``bound_by`` of one corridor_masks call: 16 B read per
+    row (20 B with the heading, the only variant that reads it) and 2 B
+    written per (corridor, row), against Q x S x N (row, segment) tests at
+    the f32 rate."""
+    flops = q * s * n * (CORRIDOR_SEG_FLOPS + (CORRIDOR_HEADING_FLOPS if heading else 0)
+                         + (CORRIDOR_BIDIR_FLOPS if bidirectional else 0))
+    nbytes = n * (16 + 4 * heading) + 2 * q * n
+    ops_ms, bytes_ms = flops / F32_OPS_PER_S * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def corridor_case(rng, q: int, n: int, heading: bool, bidirectional: bool, sft,
+                  long_pts: int = 0):
+    """Phase 11a's inputs: ``q`` corridors of 2-5 waypoints (so the shorter
+    ones carry padded segments; with ``long_pts`` the first corridor has
+    that many, so that its segments span several of the kernel's
+    shared-memory tiles), tubes and routes (the unconstrained quad),
+    one with a zero-length segment, headings constrained or not (the >= 360
+    sentinel), the last corridor padded (negative buf2); ``n`` rows, the
+    first on segments' buffer distances, end points and just past them, the
+    rest scattered, with NaN and infinite headings and times at and around
+    the quads. Returns the row tensors' host arrays and the packed
+    payloads."""
+    from geomesa_tpu_torch.curve.binned_time import BinnedTime
+    from geomesa_tpu_torch.trajectory.corridor import CorridorSpec, _pack
+
+    t0 = 1_600_000_000_000
+    specs = []
+    for qi in range(q):
+        npts = long_pts if long_pts and qi == 0 else int(rng.integers(2, 6))
+        pts = [(float(a), float(b)) for a, b in zip(np.sort(rng.uniform(-8, 8, npts)),
+                                                    rng.uniform(-4, 4, npts))]
+        if qi % 5 == 2:
+            pts[1] = pts[0]
+        buf = float(rng.uniform(0.05, 1.5))
+        tol = float(rng.uniform(5, 90)) if heading and qi % 4 else None
+        bi = bidirectional and tol is not None
+        ts = ([t0 + int(v) for v in np.sort(rng.integers(0, 3 * DAY_MS, npts))]
+              if qi % 2 else None)
+        specs.append(CorridorSpec(tuple(pts), None if ts is None else tuple(ts), buf,
+                                  int(rng.integers(0, 10)) * 3_600_000, tol, bi))
+    segs, tq, brg, *bands = _pack(specs, sft)
+    if q > 1:
+        bands[0][-1] = bands[1][-1] = -1.0  # a padded corridor
+    xs, ys = [], []
+    for spec in specs:
+        x1, y1, x2, y2, _, _ = spec.segments()
+        for k in range(len(x1)):
+            dx, dy = x2[k] - x1[k], y2[k] - y1[k]
+            norm = np.hypot(dx, dy) or 1.0
+            for u in (0.0, 0.5, 1.0):
+                for off in (spec.buffer_deg, -spec.buffer_deg, spec.buffer_deg * (1 + 1e-7)):
+                    xs.append(x1[k] + u * dx - off * dy / norm)
+                    ys.append(y1[k] + u * dy + off * dx / norm)
+    xs = np.concatenate([xs, rng.uniform(-10, 10, max(n - len(xs), 0))])[:n]
+    ys = np.concatenate([ys, rng.uniform(-6, 6, max(n - len(ys), 0))])[:n]
+    tms = t0 + rng.integers(-DAY_MS, 4 * DAY_MS, n)
+    tms[::3] = t0
+    hdg = rng.uniform(0, 360, n)
+    hdg[::7] = np.nan
+    hdg[3::11] = np.inf
+    bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(tms)
+    rows = (xs.astype(np.float32), ys.astype(np.float32), bins.astype(np.int32),
+            offs.astype(np.int32), hdg.astype(np.float32))
+    return rows, (segs, tq, brg, *bands)
+
+
+def check_corridor_kernel(dev, seed: int) -> int:
+    """Phase 11a: ``corridor_masks`` against ``corridor_masks_plain`` on the
+    card, bit for bit (cand and sure), in its four variants, Q in {1, 16,
+    65} and N in {1, 1,000,003}, on :func:`corridor_case`'s inputs; and the
+    kernel's two tiling loops: Q = CORRIDOR_TILED_Q corridors, more than one
+    shared-memory tile holds (N in {1, 1,000,003}), and a corridor of
+    CORRIDOR_LONG_PTS waypoints, whose segments span two tiles (N in {1,
+    CORRIDOR_LONG_ROWS}). Returns the number of differing mask bits (0)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import corridor_masks, corridor_masks_plain
+    from geomesa_tpu_torch.schema.sft import parse_spec
+
+    rng = np.random.default_rng(seed)
+    sft = parse_spec("c", "heading:Double,dtg:Date,*geom:Point:srid=4326")
+    worst = 0
+    cases = ([(q, n, 0) for q in (1, 16, 65) for n in (1, CORRIDOR_CHECK_ROWS)]
+             + [(CORRIDOR_TILED_Q, n, 0) for n in (1, CORRIDOR_CHECK_ROWS)]
+             + [(3, n, CORRIDOR_LONG_PTS) for n in (1, CORRIDOR_LONG_ROWS)])
+    for heading, bidir in ((False, False), (True, False), (True, True), (False, True)):
+        for q, n, long_pts in cases:
+            rows, payload = corridor_case(rng, q, n, heading, bidir, sft, long_pts)
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in (*rows, *payload)] + [heading, bidir]
+            gc_, gs = corridor_masks(*args)
+            wc, ws = corridor_masks_plain(*args)
+            torch.cuda.synchronize()
+            diff = int((gc_ != wc).sum()) + int((gs != ws).sum())
+            worst = max(worst, diff)
+            log(f"  corridor_masks heading={heading} bidirectional={bidir} Q={q} "
+                f"S={payload[0].shape[1]} N={n}: {diff} differing bits (cand "
+                f"{int(wc.sum())}, sure {int(ws.sum())})")
+    if worst:
+        raise AssertionError(f"corridor_masks disagrees with its plain version: {worst} bits")
+    return worst
+
+
+def link_store(dev, name: str, n: int, seed: int):
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import LINK_SPEC, link_points
+
+    t, x, y = link_points(n, seed)
+    ds = DataStore(device=dev)
+    sft = ds.create_schema(parse_spec(name, LINK_SPEC))
+    ds.write(name, FeatureTable.from_columns(sft, np.arange(n).astype(str), {
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(x, y)}))
+    ds.compact(name)
+    return ds
+
+
+def heading_leg(dev, seed: int) -> int:
+    """A small store with a ``heading:Double`` column holding NaNs and
+    nulls, and a mixed batch of route corridors (unconstrained,
+    unidirectional and bidirectional): the device route's two launches
+    against ``route_search`` by fid sets. Returns the corridors checked."""
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.process.tracks import route_search
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.trajectory.corridor import CorridorSpec, tube_select_many
+    from geomesa_tpu_torch.workload import T0
+
+    rng = np.random.default_rng(seed)
+    n = HEADING_ROWS
+    hdg = rng.uniform(-30, 400, n)
+    hdg[::17] = np.nan
+    valid = np.ones(n, dtype=bool)
+    valid[::13] = False
+    ds = DataStore(device=dev)
+    sft = ds.create_schema(parse_spec("hd", "heading:Double,dtg:Date,*geom:Point"))
+    ds.write("hd", FeatureTable.from_columns(sft, np.arange(n).astype(str), {
+        "heading": Column(AttributeType.DOUBLE, hdg, valid),
+        "dtg": Column(AttributeType.DATE, T0 + rng.integers(0, DAY_MS, n)),
+        "geom": point_column(rng.uniform(-12, 12, n), rng.uniform(-6, 6, n))}))
+    kinds = [(None, False), (40.0, False), (60.0, True), (25.0, False), (75.0, True),
+             (90.0, True)]
+    specs = []
+    for tol, bi in kinds:
+        pts = [(float(a), float(b)) for a, b in zip(np.sort(rng.uniform(-10, 10, 3)),
+                                                    rng.uniform(-4, 4, 3))]
+        specs.append(CorridorSpec.route(pts, float(rng.uniform(0.3, 1.5)), tol, bi))
+    before = kernels.launches["corridor_masks"]
+    got = tube_select_many(ds, "hd", specs, heading_field="heading", route="device")
+    launched = kernels.launches["corridor_masks"] - before
+    if dev.type == "cuda" and launched != 2:
+        raise AssertionError(f"a mixed uni/bidirectional batch launched {launched} times, not 2")
+    for spec, g in zip(specs, got):
+        want = route_search(ds, "hd", list(spec.pts), spec.buffer_deg,
+                            heading_field="heading" if spec.heading_tolerance_deg else None,
+                            heading_tolerance_deg=spec.heading_tolerance_deg or 45.0,
+                            bidirectional=spec.bidirectional)
+        if sorted(map(str, g.fids)) != sorted(map(str, want.fids)):
+            raise AssertionError("the heading leg differs from route_search")
+    log(f"phase 11 heading leg: {len(specs)} route corridors (unconstrained, uni- and "
+        f"bidirectional) on {n} rows with NaN and null headings == route_search by fid sets "
+        f"({[len(g) for g in got]} rows); {launched} corridor_masks launches")
+    return len(specs)
+
+
+def trajectory_path(dev, n_rows: int) -> tuple[dict, dict]:
+    """Phase 11b: bench config 10 at ``n_rows`` (see the module docstring).
+    Returns ``corridor_masks``' record and the main path's launches."""
+    import torch
+
+    from geomesa_tpu_torch.curve.binned_time import BinnedTime
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import corridor_masks, corridor_masks_plain
+    from geomesa_tpu_torch.parallel.query import corridor_step
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.process.processes import tube_select
+    from geomesa_tpu_torch.schema.columnar import (
+        Column, FeatureTable, point_column, representative_xy)
+    from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.trajectory.corridor import (
+        CorridorSpec, _pack, prune_filter, tube_select_many)
+    from geomesa_tpu_torch.trajectory.interlink import interlink, interlink_referee
+    from geomesa_tpu_torch.workload import TRACK_SPEC, trajectory_workload
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    lon, lat, t, tracks, n_tracks, corridors = trajectory_workload(
+        n_rows, TRAJECTORY_CORRIDORS)
+    log(f"phase 11 synth: {time.perf_counter() - t0:.3f} s ({n_rows} points on {n_tracks} "
+        f"tracks, {len(corridors)} corridors, seed 15)")
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    ds = DataStore(device=dev)
+    sft = ds.create_schema(parse_spec("tracks", TRACK_SPEC))
+    table = FeatureTable.from_columns(sft, np.arange(n_rows).astype(str), {
+        "track": Column(AttributeType.STRING, tracks),
+        "dtg": Column(AttributeType.DATE, t.astype(np.int64)), "geom": point_column(lon, lat)})
+    t0 = time.perf_counter()
+    ds.write("tracks", table)
+    ds.compact("tracks")
+    log(f"phase 11 write: {time.perf_counter() - t0:.3f} s (write + compact of {n_rows} rows)")
+    specs = [CorridorSpec.tube(*c) for c in corridors]
+    q = len(specs)
+
+    # -- tube_select_many: one warm call, then the timed ones -------------------------
+    before = kernels.launches["corridor_masks"]
+    dev_res = tube_select_many(ds, "tracks", specs, route="device")
+    per_call = kernels.launches["corridor_masks"] - before
+    if on_card and per_call != 1:
+        raise AssertionError(f"tube_select_many launched corridor_masks {per_call} times")
+    dt = []
+    for _ in range(5):
+        s = time.perf_counter()
+        dev_res = tube_select_many(ds, "tracks", specs, route="device")
+        dt.append((time.perf_counter() - s) * 1e3 / q)
+    dev_p50 = p50(dt)
+    ht, host_res = [], []
+    for spec in specs:
+        track = [(x, y, tt) for (x, y), tt in zip(spec.pts, spec.ts)]
+        s = time.perf_counter()
+        host_res.append(tube_select(ds, "tracks", track, spec.buffer_deg, spec.time_buffer_ms))
+        ht.append((time.perf_counter() - s) * 1e3)
+    host_p50 = p50(ht)
+    for i, (d, h) in enumerate(zip(dev_res, host_res)):
+        if sorted(map(str, d.fids)) != sorted(map(str, h.fids)):
+            raise AssertionError(f"corridor {i}: tube_select_many differs from tube_select")
+    log(f"phase 11 tube_select_corridor_p50_latency: {dev_p50:.4f} ms a corridor (p50 of 5 "
+        f"calls of {q} corridors after a warm call); host tube_select p50 {host_p50:.3f} ms a "
+        f"corridor, {host_p50 / dev_p50:.2f}x the device route; fid sets equal on all {q}; "
+        f"corridor_masks launches a call: {per_call}")
+    heading_leg(dev, 19)
+
+    # -- the interlink leg -----------------------------------------------------------
+    lds = link_store(dev, "L", LINK_ROWS[0], LINK_SEEDS[0])
+    rds = link_store(dev, "R", LINK_ROWS[1], LINK_SEEDS[1])
+    lt, rt = lds.query("L", Query()).table, rds.query("R", Query()).table
+    s = time.perf_counter()
+    link2d = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE)
+    link_ms = (time.perf_counter() - s) * 1e3
+    s = time.perf_counter()
+    link3d = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE,
+                       time_buffer_ms=LINK_TIME_BUFFER_MS)
+    link3d_ms = (time.perf_counter() - s) * 1e3
+    before = kernels.launches["planned_gather"]
+    s = time.perf_counter()
+    link_block = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE,
+                           route="block")
+    block_ms = (time.perf_counter() - s) * 1e3
+    block_launches = kernels.launches["planned_gather"] - before
+    want2d = interlink_referee(lt, rt, "dwithin", LINK_DISTANCE)
+    want3d = interlink_referee(lt, rt, "dwithin", LINK_DISTANCE, LINK_TIME_BUFFER_MS)
+    if link2d != want2d or link_block != want2d or link3d != want3d:
+        raise AssertionError("an interlink leg differs from interlink_referee")
+    if on_card and block_launches == 0:
+        raise AssertionError("the block route launched no planned_gather")
+    log(f"phase 11 interlink: interlink_ms {link_ms:.2f} (2D dwithin {LINK_DISTANCE}, "
+        f"{len(link2d)} pairs), time-lifted {link3d_ms:.2f} ms ({len(link3d)} pairs), block "
+        f"route {block_ms:.2f} ms ({len(link_block)} pairs, {block_launches} planned_gather "
+        "launches); all == interlink_referee")
+    launched = dict(kernels.launches)
+    log(f"phase 11 launches: {launched}")
+    if on_card and any(launched[k] == 0 for k in ("z3_encode", "z2_encode", "corridor_masks",
+                                                    "planned_gather")):
+        raise AssertionError("phase 11's main path must launch z3_encode, z2_encode, "
+                             "corridor_masks and planned_gather")
+    # the candidates and the band, as the device route sees them (outside the run above)
+    cand_t = ds.query("tracks", Query(filter=prune_filter(sft, specs))).table
+    xs, ys = representative_xy(cand_t)
+    bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(cand_t.dtg_millis())
+    rows = [torch.from_numpy(np.ascontiguousarray(a, dtype=d)).to(dev) for a, d in
+            ((xs, np.float32), (ys, np.float32), (bins, np.int32), (offs, np.int32),
+             (np.zeros(len(xs)), np.float32))]
+    payload = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in _pack(specs, sft)]
+    cand, sure = corridor_step(*rows, *payload, False, False)
+    log(f"phase 11 corridors: {len(xs)} candidate rows of {n_rows}; {int(cand.sum())} "
+        f"(corridor, row) pairs in the wide band, {int(sure.sum())} in the narrow one, "
+        f"{int((cand & ~sure).sum())} refined in f64")
+    split = ds.query("tracks", Query(filter=prune_filter(sft, specs))).timings
+    log("phase 11 prune query split (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    record = {}
+    if not on_card:
+        return record, launched
+
+    # -- corridor_masks alone: the bench's candidates, and every row x 16 and x 64 --------
+    all_specs = [CorridorSpec.tube(*c) for c in trajectory_workload(n_rows, 64)[5]]
+    bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(t)
+    all_rows = [torch.from_numpy(np.ascontiguousarray(a, dtype=d)).to(dev) for a, d in
+                ((lon, np.float32), (lat, np.float32), (bins, np.int32), (offs, np.int32),
+                 (np.zeros(n_rows), np.float32))]
+    err = 0
+    for label, rws, sp in (("candidates", rows, specs), ("all rows", all_rows, specs),
+                           ("all rows x 64", all_rows, all_specs)):
+        pay = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in _pack(sp, sft)]
+        args = (*rws, *pay, False, False)
+        gc_, gs = corridor_masks(*args)
+        wc, ws = corridor_masks_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, int((gc_ != wc).sum()) + int((gs != ws).sum()))
+        ms = cuda_ms(lambda: corridor_masks(*args), 10)
+        dms = device_ms(lambda: corridor_masks(*args))
+        plain = cuda_ms(lambda: corridor_masks_plain(*args), 1)
+        fl = corridor_floor(rws[0].shape[0], len(sp), pay[0].shape[1], False, False)
+        log(f"phase corridor_masks timing {label}: {ms:.4f} ms (CUDA events), device "
+            f"{fmt_ms(dms)} at N={rws[0].shape[0]} Q={len(sp)} S={pay[0].shape[1]}; plain "
+            f"{plain:.4f} ms; bound {fl['bound_ms']:.6f} ms ({fl['bound_by']}: {fl['flops']} "
+            f"f32 ops, {fl['bytes']} bytes), {fl['bound_ms'] / ms:.4f} of it")
+        if fl["bound_ms"] / ms > 1:
+            raise AssertionError("corridor_masks beats its bound")
+        if label == "candidates":
+            record.update({"ms": ms, "device_ms": dms, "plain_ms": plain,
+                           "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"]})
+    if err:
+        raise AssertionError("corridor_masks disagrees with its plain version at config 10")
+    record["max_abs_err"] = err
+    return record, launched
+
+
 def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
          n_exact: int = N_EXACT, iters: int = ITERS, stream_rows: int = STREAM_ROWS,
          stream_chunks: int = STREAM_CHUNKS, config3_rows: int = CONFIG3_ROWS,
          join_polygons: int = JOIN_POLYGONS, xz_rows: int = XZ_ROWS,
-         xz_tiles: int = XZ_TILES) -> list[dict]:
+         xz_tiles: int = XZ_TILES, resident_rows: int = RESIDENT_ROWS,
+         trajectory_rows: int = TRAJECTORY_ROWS) -> list[dict]:
     """Run every phase; returns the kernel records. ``device=None`` is the
     card; a rehearsal may pass ``"cpu"`` (phases needing the card skip)."""
     from geomesa_tpu_torch.device import resolve_device
@@ -3942,8 +4715,56 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     t0 = time.perf_counter()
     xz_records = xz_path(dev, xz_rows, xz_tiles, iters)
     log(f"phase xz: {time.perf_counter() - t0:.3f} s in all")
+
+    # -- phase 10: bench config 7, the resident count steps at 125M rows ------------------
+    t0 = time.perf_counter()
+    planned_err = 0
+    if on_card:
+        planned_err = check_planned_count(dev, 43)
+        free_card()
+        log(f"phase planned-count-vs-plain: ok, max_abs_err={planned_err} "
+            f"({time.perf_counter() - t0:.3f} s for phase 10a)")
+    t1 = time.perf_counter()
+    planned_record, launched10 = resident_path(dev, resident_rows, RESIDENT_R, n_queries, iters)
+    free_card()
+    log(f"phase 10b: {time.perf_counter() - t1:.3f} s; phase 10: "
+        f"{time.perf_counter() - t0:.3f} s in all")
+
+    # -- phase 11: bench config 10, the corridor engine and interlink ---------------------
+    t0 = time.perf_counter()
+    corridor_err = 0
+    if on_card:
+        corridor_err = check_corridor_kernel(dev, 47)
+        free_card()
+        log(f"phase corridor-masks-vs-plain: ok, differing bits {corridor_err} "
+            f"({time.perf_counter() - t0:.3f} s for phase 11a)")
+    t1 = time.perf_counter()
+    corridor_record, launched11 = trajectory_path(dev, trajectory_rows)
+    free_card()
+    log(f"phase 11b: {time.perf_counter() - t1:.3f} s; phase 11: "
+        f"{time.perf_counter() - t0:.3f} s in all")
+
+    # the later paths' launches of the earlier kernels
+    count_record["launches"] += launched10["batched_count"]
+    for r in records:
+        if r["name"] in ("z3_encode", "z2_encode"):
+            r["launches"] += launched10[r["name"]] + launched11[r["name"]]
+    for r in join_records:
+        if r["name"] == "planned_gather_join":
+            r["launches"] += launched11["planned_gather"]
+    src = "geomesa_tpu_torch/csrc/"
+    new_records = [
+        {"name": "planned_count", "route": "cuda", "source": src + "planned_count.cu",
+         "replaces": "geomesa_tpu/parallel/query.py:716", "library_ms": None,
+         **planned_record, "launches": launched10["planned_count"],
+         "max_abs_err": max(planned_record.get("max_abs_err", 0), planned_err)},
+        {"name": "corridor_masks", "route": "cuda", "source": src + "corridor_masks.cu",
+         "replaces": "geomesa_tpu/parallel/query.py:1371", "library_ms": None,
+         **corridor_record, "launches": launched11["corridor_masks"],
+         "max_abs_err": max(corridor_record.get("max_abs_err", 0), corridor_err)},
+    ]
     return (records + [edge_record, gather_record, agg_record, work_list_record]
-            + config3_records + join_records + xz_records)
+            + config3_records + join_records + xz_records + new_records)
 
 
 if __name__ == "__main__":

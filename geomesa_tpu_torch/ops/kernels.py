@@ -126,6 +126,28 @@ the edge gather tests a warp's rows for edge candidates only where
 :func:`overlap_edge_possible` (its plain version) allows one, and both edge
 gathers sort their lanes on the card.
 
+``planned_count`` replaces no TPU kernel either: the reference computes it
+in XLA (``geomesa_tpu/parallel/query.py:716``, ``make_planned_count_step``,
+point and overlap forms). It is bench config 7's index-pruned resident
+count: per (query, block) pair, the rows of the block that pass the query,
+added into the query's count. Its source is ``csrc/planned_count.cu``: one
+CTA per pair over 1024- or 4096-row blocks, the query staged by
+``count_predicate.cuh``'s ``stage_tile`` and tested by its (or
+``overlap_cull.cuh``'s) row masks, one atomic a CTA; its plain version
+(:func:`planned_count_plain`) gathers each pair's block and runs
+:func:`row_masks` or :func:`overlap_masks` in chunks.
+
+``corridor_masks`` replaces no TPU kernel either: the reference computes it
+in XLA (``geomesa_tpu/parallel/query.py:1371``, ``make_corridor_step``). It
+is the corridor engine's fused pass: per (corridor, row), the f32 clamped
+point-to-segment distance against two bands, the (bin, offset) time window
+of each segment and the heading test, into the ``cand`` and ``sure`` masks.
+Its source is ``csrc/corridor_masks.cu``: one thread per row, the
+corridors staged in shared memory, the f32 arithmetic in round-to-nearest
+intrinsics in the plain version's order, so that the masks equal its plain
+version's (:func:`corridor_masks_plain`, the reference's per-corridor map
+in torch) bit for bit.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -182,7 +204,7 @@ launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 
             "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "batched_density": 0,
             "batched_knn": 0, "polygon_join": 0, "z3_encode": 0, "z2_encode": 0,
             "batched_overlap": 0, "batched_edge_gather_overlap": 0,
-            "planned_gather_overlap": 0}
+            "planned_gather_overlap": 0, "planned_count": 0, "corridor_masks": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -251,6 +273,14 @@ _ENTRY_POINTS = {
     "geomesa_planned_gather_overlap_count": ("planned_gather", [_P] * 6 + [_LL, _LL, _P, _LL,
                                                                           _LL, _P, _P, _I, _I,
                                                                           _I] + [_P] * 4),
+    # (columns x6 (x, y, bins, offs, -, - or the bbox form's six), n, true_n, pair_q,
+    #  pair_blk, pairs, boxes, times, q, nb, nt, block_rows, overlap?, counts, stream)
+    "geomesa_planned_count": ("planned_count", [_P] * 6 + [_LL, _LL, _P, _P, _LL, _P, _P]
+                              + [_I] * 5 + [_P, _P]),
+    # (cx, cy, bins, offs, hdg, n, segs, tq, brg, buf2_lo, buf2_hi, tol_lo, tol_hi, q, s,
+    #  heading?, bidirectional?, cand, sure, stream)
+    "geomesa_corridor_masks": ("corridor_masks", [_P] * 5 + [_LL] + [_P] * 7 + [_I] * 4
+                               + [_P] * 3),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -1644,6 +1674,225 @@ def planned_gather_overlap(cols, true_n: int, pair_q, pair_blk, boxes, times, pl
 def planned_gather_overlap_plain(cols, true_n: int, pair_q, pair_blk, boxes, times):
     """The plain PyTorch version of :func:`planned_gather_overlap`."""
     return _planned_plain(cols, true_n, pair_q, pair_blk, boxes, times, overlap_masks)
+
+
+# ---------------------------------------------------------------------------
+# planned_count
+# ---------------------------------------------------------------------------
+
+PLANNED_COUNT_BLOCKS = (1024, 4096)  # block sizes the card's kernel is built for
+
+
+def _check_planned_count_args(cols, pair_q, pair_blk, boxes, times, block_rows: int):
+    if len(cols) == 4:
+        _check_count_args(*cols, boxes, times)
+    elif len(cols) == 6:
+        _check_box_args(cols, boxes, times)
+    else:
+        raise ValueError("give (x, y, bins, offs) or (xmin, ymin, xmax, ymax, bins, offs)")
+    x = cols[0]
+    if block_rows < 1 or x.shape[0] % block_rows:
+        raise ValueError(f"columns of {x.shape[0]} rows are not a multiple of block_rows "
+                         f"{block_rows}")
+    for name, t in (("pair_q", pair_q), ("pair_blk", pair_blk)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name} must be contiguous and on {x.device}")
+    if pair_q.shape != pair_blk.shape:
+        raise ValueError("pair_q and pair_blk must have one length")
+
+
+def planned_count(cols, true_n: int, pair_q, pair_blk, boxes, times,
+                  block_rows: int) -> torch.Tensor:
+    """Index-pruned counts over planned (query, block) pairs, one batch.
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns or, in the
+    overlap form, ``xmin, ymin, xmax, ymax, bins, offs``, N a multiple of
+    ``block_rows`` (else ``ValueError``); ``pair_q``/``pair_blk``: (P,)
+    int32 pair lists on the columns' device, a pair with query -1
+    (``pad_block_pairs``' padding) counting nothing; ``boxes`` (Q, B, 4) /
+    ``times`` (Q, T, 4) int32 payloads. Returns (Q,) int32: per query the
+    rows of its pairs' blocks below ``true_n`` that pass it
+    (:func:`row_masks`, or :func:`overlap_masks` in the overlap form).
+
+    On the card (``csrc/planned_count.cu``, ``block_rows`` 1024 or 4096) one
+    CTA per pair reads the pair's block, stages its query and adds its
+    matches to the query's count with one atomic; an empty pair list
+    launches nothing. On the CPU: :func:`planned_count_plain`."""
+    _check_planned_count_args(cols, pair_q, pair_blk, boxes, times, block_rows)
+    x = cols[0]
+    if x.device.type == "cpu":
+        return planned_count_plain(cols, true_n, pair_q, pair_blk, boxes, times, block_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"planned_count runs on cuda or cpu, not {x.device}")
+    if block_rows not in PLANNED_COUNT_BLOCKS:
+        raise ValueError(f"the card's planned_count takes block_rows in {PLANNED_COUNT_BLOCKS}, "
+                         f"not {block_rows}")
+    q = boxes.shape[0]
+    counts = torch.zeros(q, dtype=torch.int32, device=x.device)
+    n_pairs = pair_q.shape[0]
+    if n_pairs == 0 or q == 0 or x.shape[0] == 0:
+        return counts
+    for i, t in enumerate((*cols, boxes, times)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"planned_count: input {i} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
+    ptrs = [c.data_ptr() for c in cols] + [None] * (6 - len(cols))
+    with _on_device(x.device):
+        rc = _fn("geomesa_planned_count")(
+            *ptrs, x.shape[0], int(true_n), pair_q.data_ptr(), pair_blk.data_ptr(), n_pairs,
+            boxes.data_ptr(), times.data_ptr(), q, boxes.shape[1], times.shape[1], block_rows,
+            int(len(cols) == 6), counts.data_ptr(), _stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"planned_count launch failed: cudaError {rc}")
+    launches["planned_count"] += 1
+    return counts
+
+
+def planned_count_plain(cols, true_n: int, pair_q, pair_blk, boxes, times,
+                        block_rows: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`planned_count`: each live pair's
+    block is gathered (a row of the columns viewed as (N / block_rows,
+    block_rows)) and tested against its one query, in chunks of at most
+    ``PLANNED_CHUNK_ROWS`` gathered rows, as :func:`planned_gather_plain`
+    bounds its memory."""
+    x = cols[0]
+    counts = torch.zeros(boxes.shape[0], dtype=torch.int64, device=x.device)
+    pq, pb = pair_q.long(), pair_blk.long()
+    live = pq >= 0
+    pq, pb = pq[live], pb[live]
+    masks_of = overlap_masks if len(cols) == 6 else row_masks
+    blocks = [c.view(-1, block_rows) for c in cols]
+    lrow = torch.arange(block_rows, device=x.device)
+    step = max(1, PLANNED_CHUNK_ROWS // block_rows)
+    for s in range(0, pq.shape[0], step):
+        q, b = pq[s:s + step], pb[s:s + step]
+        m, _ = masks_of(*(c.index_select(0, b) for c in blocks),
+                        boxes.index_select(0, q), times.index_select(0, q))
+        m &= (b[:, None] * block_rows + lrow[None, :]) < int(true_n)
+        counts.index_add_(0, q, m.sum(dim=1))
+    return counts.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# corridor_masks
+# ---------------------------------------------------------------------------
+
+
+def _check_corridor_args(cx, cy, bins, offs, hdg, segs, tq, brg, bands):
+    n = cx.shape[0] if isinstance(cx, torch.Tensor) else -1
+    for name, t, dtype in (("cx", cx, torch.float32), ("cy", cy, torch.float32),
+                           ("bins", bins, torch.int32), ("offs", offs, torch.int32),
+                           ("hdg", hdg, torch.float32)):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D {dtype} tensor")
+        if not t.is_contiguous() or t.shape[0] != n or t.device != cx.device:
+            raise ValueError(f"{name} must be contiguous, of cx's length and on {cx.device}")
+    q = segs.shape[0] if isinstance(segs, torch.Tensor) else -1
+    for name, t, dtype, shape in (("segs", segs, torch.float32, None),
+                                  ("tq", tq, torch.int32, None),
+                                  ("brg", brg, torch.float32, segs.shape[:2]),
+                                  *((nm, b, torch.float32, (q,)) for nm, b in
+                                    zip(("buf2_lo", "buf2_hi", "tol_lo", "tol_hi"), bands))):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise TypeError(f"{name} must be a {dtype} tensor")
+        if shape is None and (t.dim() != 3 or t.shape[2] != 4 or t.shape[:2] != segs.shape[:2]):
+            raise ValueError(f"{name} must have shape (Q, S, 4), one for segs and tq")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}")
+        if not t.is_contiguous() or t.device != cx.device:
+            raise ValueError(f"{name} must be contiguous and on {cx.device}")
+    if segs.shape[1] < 1:
+        raise ValueError("corridors need at least one segment slot")
+
+
+def corridor_masks(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo, tol_hi,
+                   heading: bool, bidirectional: bool):
+    """The corridor engine's two band masks over N rows and Q corridors.
+
+    ``cx, cy``: (N,) f32 row coordinates in degrees; ``bins, offs``: (N,)
+    int32 time columns; ``hdg``: (N,) f32 headings in degrees (read only
+    with ``heading``); ``segs`` (Q, S, 4) f32 [x1, y1, x2, y2]; ``tq`` (Q,
+    S, 4) int32 time quads [bin_lo, off_lo, bin_hi, off_hi]; ``brg`` (Q, S)
+    f32 segment bearings; ``buf2_lo``, ``buf2_hi``, ``tol_lo``, ``tol_hi``
+    (Q,) f32 bands. Returns ``(cand, sure)``, (Q, N) bool: a row is in
+    ``cand`` of a corridor when some segment has the row's squared f32
+    distance at most ``buf2_hi``, its (bin, offset) inside the segment's
+    quad and, with ``heading``, its heading within ``tol_hi`` of the
+    bearing (``bidirectional``: of the bearing or its reverse; a tolerance
+    of 360 or more accepts any heading, NaN included); ``sure`` the same
+    with ``buf2_lo`` and ``tol_lo``. The reference's ``make_corridor_step``
+    (``geomesa_tpu/parallel/query.py:1371``).
+
+    On the card (``csrc/corridor_masks.cu``) one thread per row, the
+    corridors staged in shared memory, the f32 arithmetic in the plain
+    version's order with round-to-nearest intrinsics (no FMA), so the masks
+    equal :func:`corridor_masks_plain`'s bit for bit. On the CPU: the plain
+    version."""
+    bands = (buf2_lo, buf2_hi, tol_lo, tol_hi)
+    _check_corridor_args(cx, cy, bins, offs, hdg, segs, tq, brg, bands)
+    if cx.device.type == "cpu":
+        return corridor_masks_plain(cx, cy, bins, offs, hdg, segs, tq, brg, *bands,
+                                    heading, bidirectional)
+    if cx.device.type != "cuda":
+        raise ValueError(f"corridor_masks runs on cuda or cpu, not {cx.device}")
+    q, s, n = segs.shape[0], segs.shape[1], cx.shape[0]
+    out = torch.empty((2, q, n), dtype=torch.bool, device=cx.device)
+    if q == 0 or n == 0:
+        return out[0], out[1]
+    for name, t in (("segs", segs), ("tq", tq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"corridor_masks: {name} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
+    with _on_device(cx.device):
+        rc = _fn("geomesa_corridor_masks")(
+            cx.data_ptr(), cy.data_ptr(), bins.data_ptr(), offs.data_ptr(), hdg.data_ptr(), n,
+            segs.data_ptr(), tq.data_ptr(), brg.data_ptr(), *(b.data_ptr() for b in bands),
+            q, s, int(bool(heading)), int(bool(bidirectional)), out[0].data_ptr(),
+            out[1].data_ptr(), _stream_of(cx))
+    if rc != 0:
+        raise RuntimeError(f"corridor_masks launch failed: cudaError {rc}")
+    launches["corridor_masks"] += 1
+    return out[0], out[1]
+
+
+def corridor_masks_plain(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo,
+                         tol_hi, heading: bool, bidirectional: bool):
+    """The plain PyTorch version of :func:`corridor_masks`: the reference's
+    per-corridor map, (S, N) intermediates one corridor at a time, each f32
+    operation a torch op of its own (so none fuses into an FMA)."""
+    q, n = segs.shape[0], cx.shape[0]
+    cand = torch.zeros((q, n), dtype=torch.bool, device=cx.device)
+    sure = torch.zeros_like(cand)
+    key = _time_keys(bins, offs)[None, :]
+    px, py = cx[None, :], cy[None, :]
+    for qi in range(q):
+        sg = segs[qi]
+        x1, y1, x2, y2 = (sg[:, i, None] for i in range(4))
+        dx, dy = x2 - x1, y2 - y1
+        len2 = dx * dx + dy * dy
+        safe = torch.where(len2 > 0, len2, torch.ones_like(len2))
+        tp = ((px - x1) * dx + (py - y1) * dy) / safe
+        tp = torch.where(len2 > 0, tp, torch.zeros_like(tp)).clamp(0.0, 1.0)
+        ex = px - (x1 + tp * dx)
+        ey = py - (y1 + tp * dy)
+        d2 = ex * ex + ey * ey
+        t = tq[qi]
+        ok = (key >= _time_keys(t[:, 0], t[:, 1])[:, None]) \
+            & (key <= _time_keys(t[:, 2], t[:, 3])[:, None])
+        c = ok & (d2 <= buf2_hi[qi])
+        s = ok & (d2 <= buf2_lo[qi])
+        if heading:
+            diff = torch.abs(torch.remainder(hdg[None, :] - brg[qi][:, None] + 180.0, 360.0)
+                             - 180.0)
+            if bidirectional:
+                diff = torch.minimum(diff, 180.0 - diff)
+            c &= (diff <= tol_hi[qi]) | (tol_hi[qi] >= 360.0)
+            s &= (diff <= tol_lo[qi]) | (tol_lo[qi] >= 360.0)
+        cand[qi] = c.any(dim=0)
+        sure[qi] = s.any(dim=0)
+    return cand, sure
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,14 @@ have no function of their own, as each is one call with nothing to hide:
 
 The module's steps:
 
+- :func:`repeated_count_step` — R query batches, one full pass each
+  (``make_repeated_count_step`` ``:582``): one ``batched_count`` launch per
+  batch, bench config 7's full scan.
+- :func:`intervals_to_block_pairs` / :func:`pad_block_pairs` /
+  :func:`planned_count_step` — the index-pruned resident count
+  (``:675``, ``:702``, ``make_planned_count_step`` ``:716``): one
+  ``planned_count`` launch per batch over its planned (query, block)
+  pairs, bench config 7's pruned scan.
 - :func:`intervals_to_block_pairs` / :func:`planned_gather_step` — batched
   row retrieval over the planner's candidate blocks
   (``intervals_to_block_pairs`` ``:675``, ``make_planned_gather_step``
@@ -48,13 +56,16 @@ The module's steps:
   (``ops/join.py:247`` / ``:300``, ``make_block_bbox_count_step`` and
   ``make_block_bbox_gather_step``): each polygon's int bbox as a query
   through the ``planned_gather`` kernel, which computes the same function.
+- :func:`corridor_step` — the corridor engine's band masks over N rows x
+  Q corridors x S segments (``make_corridor_step`` ``:1371``): one
+  ``corridor_masks`` launch.
 
 The ``cached_*`` step factories (``cached_batched_edge_gather_step``
 ``:441``, ``cached_matrix_scan_step`` ``:567``, ``cached_grouped_agg_step``
 ``:1716``, ``cached_batched_knn_step`` ``:1179``, ``cached_ring_knn_step``
-``:1355``, ``cached_batched_density_step`` ``:1363``) have no counterparts: they
-memoize a compiled executable per shape, and eager PyTorch has no compile
-cache to key.
+``:1355``, ``cached_batched_density_step`` ``:1363``, ``cached_corridor_step``
+``:1444``) have no counterparts: they memoize a compiled executable per
+shape, and eager PyTorch has no compile cache to key.
 """
 
 from __future__ import annotations
@@ -63,8 +74,9 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.ops.kernels import (
-    EDGE_CAPACITY, LANES, batched_count_hits, batched_density, batched_knn, batched_overlap,
-    block_runs, grouped_agg, planned_gather, planned_gather_overlap, polygon_join)
+    EDGE_CAPACITY, LANES, batched_count, batched_count_hits, batched_density, batched_knn,
+    batched_overlap, block_runs, corridor_masks, grouped_agg, planned_count, planned_gather,
+    planned_gather_overlap, polygon_join)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -76,23 +88,105 @@ def intervals_to_block_pairs(intervals_per_query, block_rows: int):
     unpadded (pair_q, pair_blk) int32 arrays, grouped by query in order with
     each query's blocks sorted and deduplicated: blocks are global row-space
     tiles of ``block_rows`` (many small z-ranges in one block collapse to
-    one gather). The reference's ``pad_block_pairs`` (``:702``) has no
-    counterpart: eager shapes need no compile-time budget."""
+    one gather). :func:`planned_count_step` takes them padded to a common
+    length by :func:`pad_block_pairs`; :func:`planned_gather_step` takes
+    them as they are."""
     qs, bs = [], []
     for q, iv in enumerate(intervals_per_query):
         iv = np.asarray(iv, dtype=np.int64).reshape(-1, 2)
-        spans = [
-            np.arange(a // block_rows, (b - 1) // block_rows + 1)
-            for a, b in iv if b > a
-        ]
-        if not spans:
+        iv = iv[iv[:, 1] > iv[:, 0]]
+        if not len(iv):
             continue
-        blks = np.unique(np.concatenate(spans))
+        first = iv[:, 0] // block_rows
+        lens = (iv[:, 1] - 1) // block_rows - first + 1
+        # every interval's blocks first .. first + len - 1, in one array
+        blks = np.unique(np.repeat(first - (np.cumsum(lens) - lens), lens)
+                         + np.arange(int(lens.sum())))
         qs.append(np.full(len(blks), q, dtype=np.int32))
         bs.append(blks.astype(np.int32))
     if not qs:
         return np.empty(0, np.int32), np.empty(0, np.int32)
     return np.concatenate(qs), np.concatenate(bs)
+
+
+def pad_block_pairs(pair_q, pair_blk, n_pairs: int):
+    """Pad a (query, block) work list to ``n_pairs`` (``:702``): padded
+    slots carry query -1, which counts nothing. Raises ``ValueError`` when
+    the list is longer: truncating a cover would undercount. Config 7 pads
+    each batch's list to one length so that the R batches stack into (R,
+    P) arrays, as the reference's step takes them."""
+    total = len(pair_q)
+    if total > n_pairs:
+        raise ValueError(f"{total} block pairs exceed budget {n_pairs}")
+    out_q = np.full(n_pairs, -1, dtype=np.int32)
+    out_b = np.zeros(n_pairs, dtype=np.int32)
+    out_q[:total] = pair_q
+    out_b[:total] = pair_blk
+    return out_q, out_b
+
+
+def repeated_count_step(cols, true_n: int, boxes_r, times_r) -> torch.Tensor:
+    """R independent query batches over the resident columns, one full pass
+    each (``make_repeated_count_step`` ``:582`` with one shard).
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns; ``boxes_r`` (R,
+    Q, B, 4) / ``times_r`` (R, Q, T, 4) int32 payloads on the columns'
+    device. Returns (R, Q) int32 counts. Each batch is one
+    :func:`~geomesa_tpu_torch.ops.kernels.batched_count` launch, all on the
+    current stream with no host synchronisation between them: each launch
+    reads the columns once, as each iteration of the reference's
+    ``lax.scan`` does, so a pass's device time is ``(t(R) - t(1)) / (R -
+    1)``. The batches are not folded into one launch of R x Q queries,
+    which would read the columns once for all of them."""
+    if boxes_r.dim() != 4 or times_r.dim() != 4 or boxes_r.shape[:2] != times_r.shape[:2]:
+        raise ValueError("boxes_r (R, Q, B, 4) and times_r (R, Q, T, 4) must share R and Q")
+    return torch.stack([batched_count(*cols, 0, true_n, boxes_r[r], times_r[r])
+                        for r in range(boxes_r.shape[0])])
+
+
+def planned_count_step(cols, true_n: int, pair_q_r, pair_blk_r, boxes_r, times_r,
+                       block_rows: int) -> torch.Tensor:
+    """The index-pruned resident count (``make_planned_count_step``
+    ``:716`` with one shard): R batches, each counting only its planned
+    (query, block) pairs.
+
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns or, in the overlap
+    form (``overlap=True``), ``xmin, ymin, xmax, ymax, bins, offs``, N a
+    multiple of ``block_rows`` (else ``ValueError``, as the reference
+    asserts); ``pair_q_r``/``pair_blk_r``: (R, P) int arrays, each row a
+    batch's pairs from :func:`intervals_to_block_pairs` padded by
+    :func:`pad_block_pairs` (query -1 counts nothing): host arrays, checked
+    and uploaded here in one copy, or int32 tensors on the columns' device,
+    taken as they are (a caller that reuses its pairs uploads them once, as
+    the reference's bench does; the kernel counts a pair out of range as
+    nothing); ``boxes_r`` (R, Q, B, 4) / ``times_r`` (R, Q, T, 4) int32
+    payloads on the columns' device. Returns (R, Q) int32 counts, each the
+    rows of its query's pairs below ``true_n`` that pass it: equal to
+    :func:`repeated_count_step`'s when the pairs cover every matching row.
+    One :func:`~geomesa_tpu_torch.ops.kernels.planned_count` launch per
+    batch on the current stream."""
+    x = cols[0]
+    if x.shape[0] % block_rows:
+        raise ValueError(f"per-shard rows {x.shape[0]} not a multiple of block_rows {block_rows}")
+    if not isinstance(pair_q_r, torch.Tensor):
+        pair_q_r = np.asarray(pair_q_r, dtype=np.int64)
+        pair_blk_r = np.asarray(pair_blk_r, dtype=np.int64)
+        if pair_q_r.shape != pair_blk_r.shape:
+            raise ValueError("pair_q_r and pair_blk_r must be (R, P) arrays of one shape")
+        live = pair_q_r >= 0
+        if np.any(pair_q_r[live] >= boxes_r.shape[1]):
+            raise ValueError(f"pair queries must lie in [0, {boxes_r.shape[1]}) or be -1")
+        if np.any((pair_blk_r[live] < 0) | (pair_blk_r[live] >= x.shape[0] // block_rows)):
+            raise ValueError(f"pair blocks must lie in [0, {x.shape[0] // block_rows})")
+        pair_q_r, pair_blk_r = torch.from_numpy(
+            np.stack([pair_q_r, pair_blk_r]).astype(np.int32)).to(x.device)
+    if pair_q_r.dim() != 2 or pair_q_r.shape != pair_blk_r.shape:
+        raise ValueError("pair_q_r and pair_blk_r must be (R, P) of one shape")
+    r = pair_q_r.shape[0]
+    if boxes_r.shape[0] != r or times_r.shape[0] != r:
+        raise ValueError(f"{r} pair lists for {boxes_r.shape[0]} query batches")
+    return torch.stack([planned_count(cols, true_n, pair_q_r[i], pair_blk_r[i], boxes_r[i],
+                                      times_r[i], block_rows) for i in range(r)])
 
 
 def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
@@ -115,9 +209,11 @@ def planned_gather_step(cols, true_n: int, pair_q, pair_blk, boxes, times):
     reference's buffer order. Pairs grouped by query with sorted blocks give
     each query's positions sorted.
 
-    There is no count step: the reference's (``make_planned_count_step``
-    ``:716``) sizes a static XLA buffer; here the kernel's count pass sizes
-    the output, and the plain version's boolean index needs none.
+    The reference sizes a static XLA buffer with a count step first
+    (``make_planned_count_step`` ``:716``); here the kernel's count pass
+    sizes the output, and the plain version's boolean index needs none.
+    The count step itself is :func:`planned_count_step`, bench config 7's
+    pruned scan.
     """
     x = cols[0]
     n = x.shape[0]
@@ -317,3 +413,29 @@ def block_bbox_gather_step(cols, true_n: int, pair_q, pair_blk, iboxes):
         np.asarray(iboxes, dtype=np.int32).reshape(k, 1, 4))).to(dev)
     times = torch.from_numpy(np.tile(FULL_WINDOW, (k, 1)).reshape(k, 1, 4)).to(dev)
     return planned_gather_step(cols, true_n, pair_q, pair_blk, boxes, times)
+
+
+def corridor_step(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo, tol_hi,
+                  heading: bool, bidirectional: bool):
+    """The fused corridor pass (``make_corridor_step`` ``:1371``): N rows x
+    Q corridors x S segments → ``(cand (Q, N) bool, sure (Q, N) bool)``,
+    the two f32 bands of :mod:`geomesa_tpu_torch.trajectory.corridor`.
+
+    ``cx, cy`` (N,) f32, ``bins, offs`` (N,) int32, ``hdg`` (N,) f32,
+    ``segs`` (Q, S, 4) f32, ``tq`` (Q, S, 4) int32, ``brg`` (Q, S) f32 and
+    the four (Q,) f32 bands, all tensors on one device: on the card one
+    ``corridor_masks`` launch, on the CPU its plain version
+    (:func:`~geomesa_tpu_torch.ops.kernels.corridor_masks`).
+
+    The reference pads rows, segments and corridors to power-of-two buckets
+    (``cached_corridor_step`` ``:1444``, ``pow2_bucket``) only so that XLA
+    compiles one executable per bucket. A CUDA kernel takes any size, so
+    nothing is padded here that the kernel does not need: the rows and the
+    corridors come as they are, and the segments only to the batch's
+    longest corridor, since (Q, S, 4) is rectangular. The payload
+    sentinels that carry meaning stay: the unsatisfiable time quad ``[1, 0,
+    0, -1]`` on a short corridor's padded segments, the unconstrained quad
+    ``[0, -1, 2^31 - 1, 2^31 - 1]``, a negative ``buf2`` on a padded
+    corridor and a tolerance of 360 or more for "no heading constraint"."""
+    return corridor_masks(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo,
+                          tol_hi, heading, bidirectional)

@@ -307,3 +307,14 @@ def _concat_geometry(parts: list[GeometryColumn], valid) -> GeometryColumn:
                               coords=np.concatenate([p.coords for p in parts]), offsets=offsets)
     return GeometryColumn(typ, np.concatenate([p.geometries() for p in parts]), valid,
                           bounds=bounds)
+
+
+def representative_xy(table: FeatureTable) -> tuple[np.ndarray, np.ndarray]:
+    """Representative point coordinates of each feature (``columnar.py:351``):
+    a point's own, or its bbox centroid for an extended geometry (the
+    track processes and the corridor engine refine on these)."""
+    col = table.geom_column()
+    if col.x is not None:
+        return col.x, col.y
+    b = col.bounds
+    return (b[:, 0] + b[:, 2]) * 0.5, (b[:, 1] + b[:, 3]) * 0.5

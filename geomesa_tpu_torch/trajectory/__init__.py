@@ -1,0 +1,16 @@
+"""Trajectory plane: the corridor engine and interlinking.
+
+Port of :mod:`geomesa_tpu.trajectory` without its track state (``state.py``,
+ROADMAP.md A.3.3):
+
+- :mod:`.corridor` — tube select and route search as one (rows x
+  corridors) problem on the card (the ``corridor_masks`` kernel, through
+  :func:`geomesa_tpu_torch.parallel.query.corridor_step`), exact by an f64
+  refine of the band between its two f32 masks;
+- :mod:`.interlink` — predicate links between two stores (2D and XZ3
+  time-lifted) by XZ-range pairing, or by the blocked device join.
+"""
+
+from geomesa_tpu_torch.trajectory.corridor import (  # noqa: F401
+    CorridorSpec, route_search_device, tube_select_device, tube_select_many)
+from geomesa_tpu_torch.trajectory.interlink import interlink, interlink_referee  # noqa: F401

@@ -1,12 +1,15 @@
 """GDELT-shaped synthetic events and city-box queries (bench config 2's
 data), bench config 3's KNN points, bench config 4's join polygons, bench
-config 5's trajectory bboxes, bench config 9's group keys and values, and
-bench config 8's streamed chunks.
+config 5's trajectory bboxes, bench config 9's group keys and values, bench
+config 8's streamed chunks, bench config 7's resident store and its query
+planning, and bench config 10's tracks, corridors and link points.
 
 Port copies of ``bench.py``'s ``synth_gdelt``, ``make_queries``, config 3's
 KNN points, config 4's polygons, config 5's bboxes, ``_pack_query_boxes``,
-config 9's group ids and values and config 8's ``host_chunk`` (tests hold
-them equal), plus :func:`box_linestrings` (line strings whose bboxes are
+config 9's group ids and values, config 8's ``host_chunk``, config 7's
+``_bin_spans`` and ``_plan_query_intervals`` and config 10's generators
+(tests hold them equal), plus :func:`resident_store` (config 7's store
+with its keys built on the card), plus :func:`box_linestrings` (line strings whose bboxes are
 given boxes, for a line store), :func:`bbox_cql` and
 :func:`bbox_time_cql`, which write one query as the CQL a user would send, and :func:`edge_columns` /
 :func:`edge_payload`, the rows and payloads that hold the count kernels'
@@ -16,10 +19,17 @@ staged predicate to their plain versions at its edges.
 from __future__ import annotations
 
 import datetime
+import time
 
 import numpy as np
+import torch
 
+from geomesa_tpu_torch.curve import normalize
+from geomesa_tpu_torch.curve.binned_time import MAX_OFFSET, BinnedTime, TimePeriod
+from geomesa_tpu_torch.curve.sfc import z3_sfc
 from geomesa_tpu_torch.geometry.types import Polygon
+from geomesa_tpu_torch.index.z3 import sort_bin_z
+from geomesa_tpu_torch.ops.kernels import z3_encode
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times
 from geomesa_tpu_torch.store.backends import int_boxes
 
@@ -203,6 +213,171 @@ def pack_query_boxes(boxes_f64, overlap: bool = False) -> np.ndarray:
     """f64 boxes → (Q, 1, 4) normalized int32 payloads, one slot per query
     (``bench.py:273``; ``overlap`` for the bbox-overlap kernels)."""
     return np.stack([pack_boxes(int_boxes([b]), slots=1, overlap=overlap) for b in boxes_f64])
+
+
+# -- bench config 7: the resident store and its index-pruned planning ----------
+
+RESIDENT_BLOCK = 1024  # bench config 7's BLOCK: rows a planned pair covers
+RESIDENT_PERIOD = TimePeriod.DAY  # bench.py PERIOD
+
+
+def pack_query_times(windows_ms, period: TimePeriod = RESIDENT_PERIOD) -> np.ndarray:
+    """(lo_ms, hi_ms) windows → (Q, 1, 4) int32 time payloads, one slot per
+    query (the times of ``bench.py:293`` ``_pack_queries``)."""
+    binned = BinnedTime(period)
+    out = []
+    for lo, hi in windows_ms:
+        (blo,), (olo,) = binned.to_bin_and_offset(np.array([lo]))
+        (bhi,), (ohi,) = binned.to_bin_and_offset(np.array([hi]))
+        out.append(pack_times(np.array([[blo, olo, bhi, ohi]], dtype=np.int32), slots=1))
+    return np.stack(out)
+
+
+def resident_store(lon, lat, t_ms, device, block_rows: int = RESIDENT_BLOCK,
+                   period: TimePeriod = RESIDENT_PERIOD) -> dict:
+    """Bench config 7's store (``bench.py:233`` ``_sharded_store`` with one
+    shard): the points as four int32 columns (x, y at 31 bits, the time
+    bin and offset) sorted by (bin, z3), zero-padded to a multiple of
+    ``block_rows``, resident on ``device``. The keys are built there, the
+    port's index-build idiom: the host normalizes, ``z3_encode`` interleaves
+    the 21-bit coordinates, two stable sorts order (bin, z) as the
+    reference's host lexsort does, and only the sorted z and bins (for
+    planning) come back. Returns ``{"cols", "true_n", "z_sorted" (uint64),
+    "bins_sorted" (int32), "host" (the four int32 columns in input order, for
+    a referee), "binned", "sfc", "seconds"}``; ``seconds`` splits the build
+    (normalize, stage, encode, sort, copy_back)."""
+    dev = torch.device(device)
+    clock = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        clock[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    binned, sfc = BinnedTime(period), z3_sfc(period)
+    bins, offs = binned.to_bin_and_offset(t_ms)
+    host = (normalize.lon(31).normalize(lon).astype(np.int32),
+            normalize.lat(31).normalize(lat).astype(np.int32),
+            bins.astype(np.int32), offs.astype(np.int32))
+    zin = sfc.normalized(lon, lat, offs)
+    lap("normalize")
+    d_zin = [torch.from_numpy(c).to(dev) for c in zin]
+    d_bins = torch.from_numpy(host[2]).to(dev)
+    lap("stage")
+    z = z3_encode(*d_zin)
+    del d_zin
+    lap("encode")
+    perm = sort_bin_z(d_bins, z)
+    n = len(lon)
+    padded = -(-n // block_rows) * block_rows
+    cols = []
+    for c in host:
+        out = torch.zeros(padded, dtype=torch.int32, device=dev)
+        out[:n] = torch.from_numpy(c).to(dev)[perm]
+        cols.append(out)
+    z_sorted = z[perm]
+    del z
+    lap("sort")
+    z_np = z_sorted.cpu().numpy().view(np.uint64)
+    bins_np = cols[2][:n].cpu().numpy()
+    lap("copy_back")
+    return {"cols": tuple(cols), "true_n": n, "z_sorted": z_np, "bins_sorted": bins_np,
+            "host": host, "binned": binned, "sfc": sfc, "seconds": clock}
+
+
+def bin_spans(bins_sorted):
+    """Per-bin [start, end) spans of the (bin, z)-sorted store, computed
+    once per store (``bench.py:305`` ``_bin_spans``): ``({bin: start},
+    {bin: end})``."""
+    ub = np.unique(bins_sorted)
+    lo = {int(b): int(np.searchsorted(bins_sorted, b, "left")) for b in ub}
+    hi = {int(b): int(np.searchsorted(bins_sorted, b, "right")) for b in ub}
+    return lo, hi
+
+
+def plan_query_intervals(boxes_f64, windows_ms, binned, sfc, z_sorted, spans):
+    """Per-query global row intervals covering every row the int-domain
+    scan predicate can match (``bench.py:315`` ``_plan_query_intervals``):
+    per time bin, the z3 ranges of the box widened by one 21-bit cell a side
+    (so the coarse planning grid never excludes a row the 31-bit predicate
+    passes; raw-offset windows map monotonically onto the 21-bit time codes
+    and need no widening), mapped onto the (bin, z)-sorted store by
+    ``searchsorted``. ``sfc`` is the port's ``Z3SFC`` (its ranges from the
+    native ``zranges``); returns a list of (k, 2) int64 arrays."""
+    max_off = MAX_OFFSET[binned.period]
+    lo_by_bin, hi_by_bin = spans
+    dx = 360.0 / (1 << 21)
+    dy = 180.0 / (1 << 21)
+    out = []
+    for (x1, y1, x2, y2), (lo, hi) in zip(boxes_f64, windows_ms):
+        (blo,), (olo,) = binned.to_bin_and_offset(np.array([lo]))
+        (bhi,), (ohi,) = binned.to_bin_and_offset(np.array([hi]))
+        box = (max(-180.0, x1 - dx), max(-90.0, y1 - dy),
+               min(180.0, x2 + dx), min(90.0, y2 + dy))
+        ivs = []
+        for b in range(int(blo), int(bhi) + 1):
+            s0 = lo_by_bin.get(b)
+            if s0 is None:
+                continue
+            s1 = hi_by_bin[b]
+            o0 = int(olo) if b == int(blo) else 0
+            o1 = int(ohi) if b == int(bhi) else max_off
+            rng = sfc.ranges([box], (o0, o1), max_ranges=2000)
+            zb = z_sorted[s0:s1]
+            a = s0 + np.searchsorted(zb, rng[:, 0], "left")
+            e = s0 + np.searchsorted(zb, rng[:, 1], "right")
+            keep = e > a
+            ivs.append(np.stack([a[keep], e[keep]], axis=1))
+        out.append(np.concatenate(ivs) if ivs else np.empty((0, 2), np.int64))
+    return out
+
+
+# -- bench config 10: drifting tracks, corridors and link points ---------------
+
+TRACK_SPEC = "track:String,dtg:Date,*geom:Point"  # bench.py:1856
+LINK_SPEC = "dtg:Date,*geom:Point"  # bench.py:1920
+
+
+def trajectory_workload(n: int, n_corridors: int = 16, seed: int = 15):
+    """Bench config 10's store and corridors (``bench.py:1840-1890``), from
+    one generator in the bench's order: ``n_tracks = max(n // 256, 32)``
+    tracks drifting around ``CITIES``, each point of a random track, then
+    ``n_corridors`` tube corridors of 2-3 waypoints near a city, buffers
+    0.3-1.2 degrees and time buffers of 1-47 hours. Returns ``(lon, lat,
+    t_ms, track_ids (object "t<k>"), n_tracks, corridors)``, each corridor
+    ``(track [(lon, lat, ms), ...], buffer_deg, time_buffer_ms)``."""
+    rng = np.random.default_rng(seed)
+    n_tracks = max(n // 256, 32)
+    which = rng.integers(0, len(CITIES), n_tracks)
+    tx = CITIES[which, 0] + rng.normal(0, 3.0, n_tracks)
+    ty = CITIES[which, 1] + rng.normal(0, 2.0, n_tracks)
+    owner = rng.integers(0, n_tracks, n)
+    lon = np.clip(tx[owner] + rng.normal(0, 1.0, n), -179.9, 179.9)
+    lat = np.clip(ty[owner] + rng.normal(0, 0.8, n), -89.9, 89.9)
+    t_ms = T0 + rng.integers(0, SPAN_DAYS * 86_400_000, n)
+    track_ids = np.char.add("t", owner.astype(str)).astype(object)
+    corridors = []
+    for _ in range(n_corridors):
+        npts = int(rng.integers(2, 4))
+        city = CITIES[rng.integers(0, len(CITIES))]
+        xs = np.sort(city[0] + rng.uniform(-6, 6, npts))
+        ys = city[1] + rng.uniform(-4, 4, npts)
+        ts = T0 + np.sort(rng.integers(0, SPAN_DAYS * 86_400_000, npts))
+        corridors.append(([(float(x), float(y), int(t)) for x, y, t in zip(xs, ys, ts)],
+                          float(rng.uniform(0.3, 1.2)), int(rng.integers(1, 48)) * 3_600_000))
+    return lon, lat, t_ms, track_ids, n_tracks, corridors
+
+
+def link_points(n: int, seed: int):
+    """One interlink store's points (``bench.py:1920`` ``_pts``): from one
+    generator, times within a day of ``T0``, lon uniform in [-20, 20], lat
+    in [-10, 10]. Returns (t_ms int64, lon, lat)."""
+    s = np.random.default_rng(seed)
+    t = T0 + s.integers(0, 86_400_000, n)
+    return t, s.uniform(-20, 20, n), s.uniform(-10, 10, n)
 
 
 # -- edge cases of the count kernels' staged predicate -------------------------

@@ -33,6 +33,7 @@ from geomesa_tpu.parallel.query import make_matrix_scan_step
 from geomesa_tpu.planning.planner import standing_query_payload as ref_standing_payload
 from geomesa_tpu.schema.sft import parse_spec as ref_parse_spec
 from geomesa_tpu.stream.matrix import SubscriptionMatrix as RefMatrix
+from geomesa_tpu.stream import telemetry as ref_telemetry
 from geomesa_tpu.stream.pipeline import DeviceStreamScanner as RefScanner
 
 from geomesa_tpu_torch import workload
@@ -43,6 +44,16 @@ from geomesa_tpu_torch.stream.matrix import SubscriptionMatrix
 from geomesa_tpu_torch.stream.pipeline import DeviceStreamScanner
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _clean_reference_telemetry():
+    """The reference scanner registers its topics in the process-wide
+    stream telemetry; drop them after each test, as the reference's own
+    stream tests do, so that a later test file in the same worker (whose
+    metrics endpoint renders that registry) starts from none."""
+    yield
+    ref_telemetry.reset()
 SPEC = "name:String,dtg:Date,*geom:Point:srid=4326;geomesa.z3.interval='day'"
 A = "2017-07-02T00:00:00.000Z/2017-07-05T00:00:00.000Z"
 B = "2017-07-20T06:30:00.000Z/2017-07-22T00:00:00.000Z"
