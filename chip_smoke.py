@@ -235,26 +235,38 @@ Phases (any failure exits non-zero, and no result line is printed):
    and its bound (``n_pairs x 1024 x 16`` B), and ``planned_gather``'s count
    entry on the same queries planned at 4096-row blocks.
 
-11. bench config 10 (``bench.py:1829``, ``bench_trajectory``): 11a,
-   ``corridor_masks`` against ``corridor_masks_plain`` on the card, bit for
-   bit (cand and sure), in its four variants, Q in {1, 16, 65}, N in {1,
-   1,000,003}: rows on segments' buffer distances, end points and zero-
-   length segments, NaN and infinite headings, the >= 360 sentinel, padded
-   segments and a padded corridor, the unconstrained quad. 11b: 2M points
-   on drifting tracks (seed 15, ``track:String,dtg:Date,*geom:Point``)
-   through ``DataStore``; the bench's 16 tube corridors through
-   ``tube_select_many(route="device")``, one warm call and 5 timed
-   ("phase 11 tube_select_corridor_p50_latency", ms a corridor, beside the
-   host ``tube_select``'s p50 a corridor), fid sets equal on all 16, one
-   ``corridor_masks`` launch a call; a heading leg (20,000 rows with NaN and
-   null headings, a mixed batch of uni- and bidirectional route corridors:
-   two launches, each corridor == ``route_search``); the interlink leg (L
-   1,500 points, seed 31; R 3,000, seed 32): 2D and time-lifted ``dwithin
-   0.4`` and the forced block route (``planned_gather``), each ==
-   ``interlink_referee``, with ``interlink_ms``; the candidates, the bands
-   and the prune query's host split; then ``corridor_masks`` alone at the
-   candidates and at every row x 16 and x 64 corridors beside its plain
-   version and its bound.
+11. bench config 10 (``bench.py:1829``, ``bench_trajectory``): 11a, both
+   forms of ``corridor_masks`` against their plain versions on the card,
+   word for word (cand and sure): the gather form on rows staged as
+   resident int32 columns among others in a shuffled order and read
+   through their positions, the row form on the same rows' dequantized f32
+   coordinates, so one plain call holds both; in the four variants,
+   Q in {1, 16, 65}, N in {1, 1,000,003}: rows on segments' buffer
+   distances, end points and zero-length segments and on the edges of the
+   kernel's reach boxes, NaN and infinite headings, the >= 360 sentinel,
+   padded segments and a padded corridor, the unconstrained quad; and the
+   two tiling loops (600 corridors over the same N; a corridor of 1,499
+   segments over 100,003 rows). 11b: 2M points on drifting tracks (seed 15,
+   ``track:String,dtg:Date,*geom:Point``) through ``DataStore``; the
+   bench's 16 tube corridors through ``tube_select_many(route="device")``,
+   one warm call and 5 timed ("phase 11 tube_select_corridor_p50_latency",
+   ms a corridor, beside the host ``tube_select``'s p50 a corridor, and
+   "phase 11 route split"), fid sets equal on all 16, one
+   ``corridor_masks_gather`` launch a call; a heading leg (20,000 rows with
+   NaN and null headings, a mixed batch of uni- and bidirectional route
+   corridors: two gather launches, each corridor == ``route_search``); a
+   line leg (100,000 two-vertex line strings: the row form, one launch,
+   fid sets == the host route); the interlink leg (L 1,500 points, seed 31;
+   R 3,000, seed 32): 2D and time-lifted ``dwithin 0.4`` and the forced
+   block route (``planned_gather``), each == ``interlink_referee``, with
+   ``interlink_ms``; after the main path's launches are read, the row
+   form's route over the same store ("phase 11 table route", the route
+   every store took before the gather form), the candidates of both
+   routes; then both forms alone beside their plain versions and their
+   bounds (counted from the pairs that reach each test): each at its main
+   path's shape, the record (the row form at the line leg's candidates, the
+   gather form at the device select's), the row form at the point
+   candidate query's rows, and both at every row x 16 and x 64 corridors.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -4256,41 +4268,80 @@ def resident_path(dev, n_rows: int, r_batches: int, n_queries: int,
 TRAJECTORY_ROWS = 2_000_000  # bench config 10's N on an accelerator (bench.py:1840)
 TRAJECTORY_CORRIDORS = 16  # min(Q, 16)
 CORRIDOR_CHECK_ROWS = 1_000_003  # phase 11a's rows
-# corridor_masks stages 40 KB of corridors a tile, 40 B a segment and 16 B a
-# corridor: at most 232 corridors of 4 segments, and one corridor of at most
-# 1023 segments. Phase 11a drives both tiling loops past those.
+# corridor_masks stages at most 40 KB of corridors a tile, 56 B a segment and
+# 16 B a corridor: at most 170 corridors of 4 segments, and one corridor of at
+# most 731 segments. Phase 11a drives both tiling loops past those.
 CORRIDOR_TILED_Q = 600
-CORRIDOR_LONG_PTS = 1500  # 1499 segments: two segment tiles
+CORRIDOR_LONG_PTS = 1500  # 1499 segments: three segment tiles
 CORRIDOR_LONG_ROWS = 100_003  # the plain version's (S, N) intermediates stay ~0.6 GB
 HEADING_ROWS = 20_000  # the heading leg's store
+LINE_ROWS = 100_000  # the line leg's store: the row form on the main path
+LINE_SEED = 33
 LINK_ROWS = (1500, 3000)  # the interlink leg's L and R stores (bench.py:1933-1934)
 LINK_SEEDS = (31, 32)
 LINK_DISTANCE = 0.4
 LINK_TIME_BUFFER_MS = 3_600_000
-# f32 operations of one (row, segment) test of corridor_masks: the distance
-# (two subtracts, a dot of two products and a sum, a division, a clamp of
-# two, x1 + tp * dx and its difference per axis, two squares and a sum: 17)
-# and its two band compares; the heading adds a subtract, an add, the
-# remainder (counted as one), its fix-up add, a subtract, an abs and two
-# compares (8), and the bidirectional minimum two more
+# Instructions of one (row, segment) pair of corridor_masks, as the kernel
+# runs it. Every pair takes the time test, two 64-bit compares of the row's
+# biased key (TIME_SLOT_OPS: four ISETP, ALU-only); a pair inside the
+# segment's time quad the reach box's four f32 compares (four FSETP, counted
+# at the issue rate only: their pipe is not assumed); only a pair
+# inside the box too runs the distance test, f32 operations each at least
+# one instruction: two subtracts, a dot of two products and a sum, a
+# division, a clamp of two, x1 + tp * dx and its difference per axis, two
+# squares and a sum (17) and the two band compares; the heading adds a
+# subtract, an add, the remainder (counted as one), its fix-up add, a
+# subtract, an abs and two compares (8), and the bidirectional minimum two
+# more.
+CORRIDOR_BOX_OPS = 4
 CORRIDOR_SEG_FLOPS = 19
 CORRIDOR_HEADING_FLOPS = 8
 CORRIDOR_BIDIR_FLOPS = 2
-F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 
 
-def corridor_floor(n: int, q: int, s: int, heading: bool, bidirectional: bool) -> dict:
-    """``bound_ms``/``bound_by`` of one corridor_masks call: 16 B read per
-    row (20 B with the heading, the only variant that reads it) and 2 B
-    written per (corridor, row), against Q x S x N (row, segment) tests at
-    the f32 rate."""
-    flops = q * s * n * (CORRIDOR_SEG_FLOPS + (CORRIDOR_HEADING_FLOPS if heading else 0)
-                         + (CORRIDOR_BIDIR_FLOPS if bidirectional else 0))
-    nbytes = n * (16 + 4 * heading) + 2 * q * n
-    ops_ms, bytes_ms = flops / F32_OPS_PER_S * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "flops": flops, "bytes": nbytes}
+def corridor_pairs(cx, cy, bins, offs, segs, tq, buf2_hi) -> tuple[int, int]:
+    """The (row, segment) pairs of one corridor_masks call that pass the
+    kernel's time test, and of those the pairs inside the segment's reach
+    box too, whose distance test the kernel runs (the others it skips):
+    the kernel's skip condition on the plain reach boxes
+    (``kernels.corridor_reach_boxes``), one corridor at a time. ``cx, cy``
+    are the f32 coordinates the kernel tests (the gather form's
+    dequantized ones)."""
+    from geomesa_tpu_torch.ops.kernels import _time_keys, corridor_reach_boxes
+
+    key = _time_keys(bins, offs)[None, :]
+    boxes = corridor_reach_boxes(segs, buf2_hi)
+    lo, hi = _time_keys(tq[..., 0], tq[..., 1]), _time_keys(tq[..., 2], tq[..., 3])
+    in_time = tested = 0
+    for qi in range(segs.shape[0]):
+        t = ~((key < lo[qi][:, None]) | (key > hi[qi][:, None]))
+        b = boxes[qi]
+        out = ((cx[None, :] < b[:, 0:1]) | (cx[None, :] > b[:, 1:2])
+               | (cy[None, :] < b[:, 2:3]) | (cy[None, :] > b[:, 3:4]))
+        in_time += int(t.sum())
+        tested += int((t & ~out).sum())
+    return in_time, tested
+
+
+def corridor_floor(n: int, q: int, s: int, heading: bool, bidirectional: bool,
+                   in_time: int, tested: int, gather: bool = False) -> dict:
+    """``bound_ms``/``bound_by`` of one corridor_masks call over ``n`` rows
+    (the row form) or ``n`` candidates (``gather``), ``in_time`` and
+    ``tested`` its pairs from :func:`corridor_pairs`. Bytes: 16 B read a
+    row, 20 with the heading (the only variants that read it), and the
+    gather form's 4 B of position more; 2 bits written a (corridor, row),
+    as the two masks' (Q, ceil(n / 32)) 4-B words. Operations (the
+    constants above): the time test of all Q x S x N pairs (ALU-only), the
+    box test of the ``in_time`` ones and the distance test of the
+    ``tested`` ones; the ALU-only instructions at the ALU rate, all of
+    them at the issue rate (:func:`bound_fields`)."""
+    flops = tested * (CORRIDOR_SEG_FLOPS + (CORRIDOR_HEADING_FLOPS if heading else 0)
+                      + (CORRIDOR_BIDIR_FLOPS if bidirectional else 0))
+    alu = q * s * n * TIME_SLOT_OPS[0]
+    ops = alu + in_time * CORRIDOR_BOX_OPS + flops
+    nbytes = n * (16 + 4 * heading + 4 * gather) + 2 * q * ((n + 31) // 32) * 4
+    return {**bound_fields((alu, ops), nbytes), "alu": alu, "ops": ops, "flops": flops,
+            "bytes": nbytes, "pairs": q * s * n, "in_time": in_time, "tested": tested}
 
 
 def corridor_case(rng, q: int, n: int, heading: bool, bidirectional: bool, sft,
@@ -4301,10 +4352,10 @@ def corridor_case(rng, q: int, n: int, heading: bool, bidirectional: bool, sft,
     shared-memory tiles), tubes and routes (the unconstrained quad),
     one with a zero-length segment, headings constrained or not (the >= 360
     sentinel), the last corridor padded (negative buf2); ``n`` rows, the
-    first on segments' buffer distances, end points and just past them, the
-    rest scattered, with NaN and infinite headings and times at and around
-    the quads. Returns the row tensors' host arrays and the packed
-    payloads."""
+    first on segments' buffer distances, end points and just past them, and
+    on and around the edges of the kernel's reach boxes, the rest scattered,
+    with NaN and infinite headings and times at and around the quads.
+    Returns the row tensors' host arrays and the packed payloads."""
     from geomesa_tpu_torch.curve.binned_time import BinnedTime
     from geomesa_tpu_torch.trajectory.corridor import CorridorSpec, _pack
 
@@ -4336,6 +4387,10 @@ def corridor_case(rng, q: int, n: int, heading: bool, bidirectional: bool, sft,
                 for off in (spec.buffer_deg, -spec.buffer_deg, spec.buffer_deg * (1 + 1e-7)):
                     xs.append(x1[k] + u * dx - off * dy / norm)
                     ys.append(y1[k] + u * dy + off * dx / norm)
+            for r in (spec.buffer_deg * 1.001 + 1e-3 + e for e in (-1e-6, 0.0, 1e-6)):
+                for ex, ey in ((r, 0.0), (-r, 0.0), (0.0, r), (0.0, -r)):  # the reach box's edges
+                    xs.append(x2[k] + ex)
+                    ys.append(y2[k] + ey)
     xs = np.concatenate([xs, rng.uniform(-10, 10, max(n - len(xs), 0))])[:n]
     ys = np.concatenate([ys, rng.uniform(-6, 6, max(n - len(ys), 0))])[:n]
     tms = t0 + rng.integers(-DAY_MS, 4 * DAY_MS, n)
@@ -4349,41 +4404,88 @@ def corridor_case(rng, q: int, n: int, heading: bool, bidirectional: bool, sft,
     return rows, (segs, tq, brg, *bands)
 
 
-def check_corridor_kernel(dev, seed: int) -> int:
-    """Phase 11a: ``corridor_masks`` against ``corridor_masks_plain`` on the
-    card, bit for bit (cand and sure), in its four variants, Q in {1, 16,
-    65} and N in {1, 1,000,003}, on :func:`corridor_case`'s inputs; and the
-    kernel's two tiling loops: Q = CORRIDOR_TILED_Q corridors, more than one
-    shared-memory tile holds (N in {1, 1,000,003}), and a corridor of
-    CORRIDOR_LONG_PTS waypoints, whose segments span two tiles (N in {1,
-    CORRIDOR_LONG_ROWS}). Returns the number of differing mask bits (0)."""
+def gather_case(rng, rows, dev, extra: int = 4099):
+    """The gather form's inputs for :func:`corridor_case`'s rows: their
+    coordinates normalized at 31 bits among ``extra`` other rows in a
+    shuffled resident order, as a point state stages them, and each row's
+    position, so candidate i is row i. Returns ``(cols, pos, hdg)`` on
+    ``dev``."""
     import torch
 
-    from geomesa_tpu_torch.ops.kernels import corridor_masks, corridor_masks_plain
+    from geomesa_tpu_torch.curve.normalize import lat, lon
+
+    xs, ys, bins, offs, hdg = rows
+    n = len(xs)
+    order = rng.permutation(n + extra)  # resident position -> row
+    allx = np.concatenate([xs.astype(np.float64), rng.uniform(-180, 180, extra)])
+    ally = np.concatenate([ys.astype(np.float64), rng.uniform(-90, 90, extra)])
+    allb = np.concatenate([bins, rng.integers(0, 3000, extra)])
+    allo = np.concatenate([offs, rng.integers(0, 604_800, extra)])
+    cols = [lon(31).normalize(allx[order]), lat(31).normalize(ally[order]), allb[order],
+            allo[order]]
+    cols = [torch.from_numpy(np.ascontiguousarray(c, dtype=np.int32)).to(dev) for c in cols]
+    pos = torch.from_numpy(np.argsort(order)[:n].astype(np.int32)).to(dev)
+    return cols, pos, torch.from_numpy(hdg).to(dev)
+
+
+_POPCOUNT = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
+
+
+def popcount(words) -> int:
+    """Set bits of a tensor of mask words (a byte table on the host)."""
+    return int(_POPCOUNT[words.cpu().numpy().view(np.uint8)].sum(dtype=np.int64))
+
+
+def words_differing(got, want) -> int:
+    """Words of the two (cand, sure) mask pairs that differ."""
+    return int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+
+
+def check_corridor_kernel(dev, seed: int) -> tuple[int, int]:
+    """Phase 11a: both forms of ``corridor_masks`` against their plain
+    versions on the card, word for word (cand and sure), in the four
+    variants, Q in {1, 16, 65} and N in {1, 1,000,003}, on
+    :func:`corridor_case`'s rows in :func:`gather_case`'s resident layout;
+    and the kernel's two tiling loops: Q = CORRIDOR_TILED_Q corridors, more
+    than one shared-memory tile holds (N in {1, 1,000,003}), and a corridor
+    of CORRIDOR_LONG_PTS waypoints, whose segments span two tiles (N in {1,
+    CORRIDOR_LONG_ROWS}). The row form takes the candidates' dequantized
+    coordinates (``corridor_dequantize``, the gather form's own), so one
+    call of ``corridor_masks_plain`` on them is both forms' referee: it is
+    what ``corridor_masks_gather_plain`` computes. Returns the differing
+    words of the row and the gather form (0, 0)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import (
+        corridor_dequantize, corridor_masks, corridor_masks_gather, corridor_masks_plain)
     from geomesa_tpu_torch.schema.sft import parse_spec
 
     rng = np.random.default_rng(seed)
     sft = parse_spec("c", "heading:Double,dtg:Date,*geom:Point:srid=4326")
-    worst = 0
-    cases = ([(q, n, 0) for q in (1, 16, 65) for n in (1, CORRIDOR_CHECK_ROWS)]
-             + [(CORRIDOR_TILED_Q, n, 0) for n in (1, CORRIDOR_CHECK_ROWS)]
+    worst = [0, 0]
+    cases = ([(q, n, 0) for q in (1, 16, 65, CORRIDOR_TILED_Q) for n in (1, CORRIDOR_CHECK_ROWS)]
              + [(3, n, CORRIDOR_LONG_PTS) for n in (1, CORRIDOR_LONG_ROWS)])
     for heading, bidir in ((False, False), (True, False), (True, True), (False, True)):
         for q, n, long_pts in cases:
             rows, payload = corridor_case(rng, q, n, heading, bidir, sft, long_pts)
-            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                    for a in (*rows, *payload)] + [heading, bidir]
-            gc_, gs = corridor_masks(*args)
-            wc, ws = corridor_masks_plain(*args)
+            pay = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in payload]
+            cols, pos, hdg = gather_case(rng, rows, dev)
+            p = pos.long()
+            args = [*corridor_dequantize(cols[0][p], cols[1][p]), cols[2][p], cols[3][p], hdg]
+            want = corridor_masks_plain(*args, *pay, heading, bidir)
+            got = corridor_masks(*args, *pay, heading, bidir)
+            ggot = corridor_masks_gather(*cols, pos, hdg if heading else None, *pay, heading,
+                                         bidir)
             torch.cuda.synchronize()
-            diff = int((gc_ != wc).sum()) + int((gs != ws).sum())
-            worst = max(worst, diff)
+            diff = (words_differing(got, want), words_differing(ggot, want))
+            worst = [max(w, d) for w, d in zip(worst, diff)]
+            bits = [popcount(w) for w in want]
             log(f"  corridor_masks heading={heading} bidirectional={bidir} Q={q} "
-                f"S={payload[0].shape[1]} N={n}: {diff} differing bits (cand "
-                f"{int(wc.sum())}, sure {int(ws.sum())})")
-    if worst:
-        raise AssertionError(f"corridor_masks disagrees with its plain version: {worst} bits")
-    return worst
+                f"S={payload[0].shape[1]} N={n}: {diff[0]} differing words (row form), "
+                f"{diff[1]} (gather form); cand bits {bits[0]}, sure bits {bits[1]}")
+    if any(worst):
+        raise AssertionError(f"corridor_masks disagrees with its plain versions: {worst} words")
+    return worst[0], worst[1]
 
 
 def link_store(dev, name: str, n: int, seed: int):
@@ -4433,11 +4535,13 @@ def heading_leg(dev, seed: int) -> int:
         pts = [(float(a), float(b)) for a, b in zip(np.sort(rng.uniform(-10, 10, 3)),
                                                     rng.uniform(-4, 4, 3))]
         specs.append(CorridorSpec.route(pts, float(rng.uniform(0.3, 1.5)), tol, bi))
-    before = kernels.launches["corridor_masks"]
-    got = tube_select_many(ds, "hd", specs, heading_field="heading", route="device")
-    launched = kernels.launches["corridor_masks"] - before
-    if dev.type == "cuda" and launched != 2:
-        raise AssertionError(f"a mixed uni/bidirectional batch launched {launched} times, not 2")
+    before = kernels.launches["corridor_masks_gather"]
+    tm = {}
+    got = tube_select_many(ds, "hd", specs, heading_field="heading", route="device", timings=tm)
+    launched = kernels.launches["corridor_masks_gather"] - before
+    if tm["route"] != "device:resident" or (dev.type == "cuda" and launched != 2):
+        raise AssertionError(f"a mixed uni/bidirectional batch took {tm['route']} and launched "
+                             f"the gather form {launched} times, not 2")
     for spec, g in zip(specs, got):
         want = route_search(ds, "hd", list(spec.pts), spec.buffer_deg,
                             heading_field="heading" if spec.heading_tolerance_deg else None,
@@ -4447,23 +4551,89 @@ def heading_leg(dev, seed: int) -> int:
             raise AssertionError("the heading leg differs from route_search")
     log(f"phase 11 heading leg: {len(specs)} route corridors (unconstrained, uni- and "
         f"bidirectional) on {n} rows with NaN and null headings == route_search by fid sets "
-        f"({[len(g) for g in got]} rows); {launched} corridor_masks launches")
+        f"({[len(g) for g in got]} rows); {launched} corridor_masks_gather launches")
     return len(specs)
 
 
-def trajectory_path(dev, n_rows: int) -> tuple[dict, dict]:
+def table_rows(ds, name: str, specs, dev) -> list:
+    """The row form's inputs as the table route uploads them
+    (``trajectory.corridor._TableRows``): the rows of the candidate query
+    (``prune_filter``) as f32 ``representative_xy``, int32 (bin, offset),
+    and zero headings."""
+    import torch
+
+    from geomesa_tpu_torch.curve.binned_time import BinnedTime
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.schema.columnar import representative_xy
+    from geomesa_tpu_torch.trajectory.corridor import prune_filter
+
+    sft = ds.get_schema(name)
+    cand = ds.query(name, Query(filter=prune_filter(sft, specs))).table
+    xs, ys = representative_xy(cand)
+    bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(cand.dtg_millis())
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=d)).to(dev) for a, d in
+            ((xs, np.float32), (ys, np.float32), (bins, np.int32), (offs, np.int32),
+             (np.zeros(len(xs)), np.float32))]
+
+
+def line_leg(dev, lon, lat, t, specs) -> tuple[int, list]:
+    """The row form on the main path: a line-string store (LINE_ROWS
+    two-vertex tracks from config 10's first points, on xz3 + xz2, so its
+    plan reads a bbox state) through ``tube_select_many(route="device")``,
+    one ``corridor_masks`` launch, fid sets == the host route's. Returns the
+    rows matched and the rows that launch tested (:func:`table_rows`)."""
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, linestring_column
+    from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.trajectory.corridor import tube_select_many
+
+    m = min(LINE_ROWS, len(lon))
+    rng = np.random.default_rng(LINE_SEED)
+    coords = np.empty((2 * m, 2))
+    coords[0::2, 0], coords[0::2, 1] = lon[:m], lat[:m]
+    coords[1::2, 0] = np.clip(lon[:m] + rng.uniform(-0.3, 0.3, m), -179.9, 179.9)
+    coords[1::2, 1] = np.clip(lat[:m] + rng.uniform(-0.2, 0.2, m), -89.9, 89.9)
+    ds = DataStore(device=dev)
+    sft = ds.create_schema(parse_spec("lines", "dtg:Date,*geom:LineString"))
+    ds.write("lines", FeatureTable.from_columns(sft, np.arange(m).astype(str), {
+        "dtg": Column(AttributeType.DATE, t[:m].astype(np.int64)),
+        "geom": linestring_column(coords, np.arange(0, 2 * m + 1, 2))}))
+    before = kernels.launches["corridor_masks"]
+    tm = {}
+    got = tube_select_many(ds, "lines", specs, route="device", timings=tm)
+    launched = kernels.launches["corridor_masks"] - before
+    if tm["route"] != "device:table" or (dev.type == "cuda" and launched != 1):
+        raise AssertionError(f"the line store took {tm['route']} and launched the row form "
+                             f"{launched} times, not once")
+    host = tube_select_many(ds, "lines", specs, route="host")
+    for i, (g, h) in enumerate(zip(got, host)):
+        if sorted(map(str, g.fids)) != sorted(map(str, h.fids)):
+            raise AssertionError(f"line corridor {i}: the row form's route differs from the host")
+    rows = sum(len(g) for g in got)
+    tested = table_rows(ds, "lines", specs, dev)
+    if tested[0].shape[0] != tm["candidates"]:
+        raise AssertionError("the line leg's rows rebuilt differ from those it tested")
+    log(f"phase 11 line leg: {m} line strings, {len(specs)} corridors, route {tm['route']}, "
+        f"{tm['candidates']} candidates, {rows} rows == the host route; {launched} "
+        f"corridor_masks launch (row form)")
+    return rows, tested
+
+
+def trajectory_path(dev, n_rows: int) -> tuple[dict, dict, dict]:
     """Phase 11b: bench config 10 at ``n_rows`` (see the module docstring).
-    Returns ``corridor_masks``' record and the main path's launches."""
+    Returns the records of ``corridor_masks``' row form and gather form and
+    the main path's launches."""
     import torch
 
     from geomesa_tpu_torch.curve.binned_time import BinnedTime
     from geomesa_tpu_torch.ops import kernels
-    from geomesa_tpu_torch.ops.kernels import corridor_masks, corridor_masks_plain
-    from geomesa_tpu_torch.parallel.query import corridor_step
+    from geomesa_tpu_torch.ops.kernels import (
+        corridor_dequantize, corridor_masks, corridor_masks_gather, corridor_masks_gather_plain,
+        corridor_masks_plain)
     from geomesa_tpu_torch.planning.planner import Query
     from geomesa_tpu_torch.process.processes import tube_select
-    from geomesa_tpu_torch.schema.columnar import (
-        Column, FeatureTable, point_column, representative_xy)
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
     from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
     from geomesa_tpu_torch.store.datastore import DataStore
     from geomesa_tpu_torch.trajectory.corridor import (
@@ -4492,16 +4662,21 @@ def trajectory_path(dev, n_rows: int) -> tuple[dict, dict]:
     q = len(specs)
 
     # -- tube_select_many: one warm call, then the timed ones -------------------------
-    before = kernels.launches["corridor_masks"]
-    dev_res = tube_select_many(ds, "tracks", specs, route="device")
-    per_call = kernels.launches["corridor_masks"] - before
-    if on_card and per_call != 1:
-        raise AssertionError(f"tube_select_many launched corridor_masks {per_call} times")
-    dt = []
+    before = dict(kernels.launches)
+    tm = {}
+    dev_res = tube_select_many(ds, "tracks", specs, route="device", timings=tm)
+    per_call = {k: kernels.launches[k] - before[k]
+                for k in ("corridor_masks_gather", "corridor_masks")}
+    if tm["route"] != "device:resident" or (on_card and per_call != {
+            "corridor_masks_gather": 1, "corridor_masks": 0}):
+        raise AssertionError(f"tube_select_many took {tm['route']} with launches {per_call}")
+    dt, splits = [], []
     for _ in range(5):
+        tm = {}
         s = time.perf_counter()
-        dev_res = tube_select_many(ds, "tracks", specs, route="device")
+        dev_res = tube_select_many(ds, "tracks", specs, route="device", timings=tm)
         dt.append((time.perf_counter() - s) * 1e3 / q)
+        splits.append(tm)
     dev_p50 = p50(dt)
     ht, host_res = [], []
     for spec in specs:
@@ -4516,8 +4691,15 @@ def trajectory_path(dev, n_rows: int) -> tuple[dict, dict]:
     log(f"phase 11 tube_select_corridor_p50_latency: {dev_p50:.4f} ms a corridor (p50 of 5 "
         f"calls of {q} corridors after a warm call); host tube_select p50 {host_p50:.3f} ms a "
         f"corridor, {host_p50 / dev_p50:.2f}x the device route; fid sets equal on all {q}; "
-        f"corridor_masks launches a call: {per_call}")
+        f"launches a call: {per_call}")
+    keys = ("plan_ms", "select_ms", "kernel_ms", "refine_ms", "residual_ms", "take_ms")
+    log(f"phase 11 route split (p50 of 5 calls, ms; route {splits[0]['route']}): "
+        + ", ".join(f"{k} {p50([sp[k] for sp in splits]):.3f}" for k in keys)
+        + f"; {splits[0]['candidates']} candidates, {splits[0]['band_rows']} band rows refined "
+        f"in f64, {splits[0]['residual_rows']} rows given to a residual, "
+        f"{sum(len(d) for d in dev_res)} rows returned")
     heading_leg(dev, 19)
+    _, line_rows = line_leg(dev, lon, lat, t, specs)
 
     # -- the interlink leg -----------------------------------------------------------
     lds = link_store(dev, "L", LINK_ROWS[0], LINK_SEEDS[0])
@@ -4549,59 +4731,99 @@ def trajectory_path(dev, n_rows: int) -> tuple[dict, dict]:
     launched = dict(kernels.launches)
     log(f"phase 11 launches: {launched}")
     if on_card and any(launched[k] == 0 for k in ("z3_encode", "z2_encode", "corridor_masks",
+                                                    "corridor_masks_gather",
                                                     "planned_gather")):
-        raise AssertionError("phase 11's main path must launch z3_encode, z2_encode, "
-                             "corridor_masks and planned_gather")
-    # the candidates and the band, as the device route sees them (outside the run above)
-    cand_t = ds.query("tracks", Query(filter=prune_filter(sft, specs))).table
-    xs, ys = representative_xy(cand_t)
-    bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(cand_t.dtg_millis())
-    rows = [torch.from_numpy(np.ascontiguousarray(a, dtype=d)).to(dev) for a, d in
-            ((xs, np.float32), (ys, np.float32), (bins, np.int32), (offs, np.int32),
-             (np.zeros(len(xs)), np.float32))]
-    payload = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in _pack(specs, sft)]
-    cand, sure = corridor_step(*rows, *payload, False, False)
-    log(f"phase 11 corridors: {len(xs)} candidate rows of {n_rows}; {int(cand.sum())} "
-        f"(corridor, row) pairs in the wide band, {int(sure.sum())} in the narrow one, "
-        f"{int((cand & ~sure).sum())} refined in f64")
-    split = ds.query("tracks", Query(filter=prune_filter(sft, specs))).timings
-    log("phase 11 prune query split (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    record = {}
-    if not on_card:
-        return record, launched
+        raise AssertionError("phase 11's main path must launch z3_encode, z2_encode, both "
+                             "forms of corridor_masks and planned_gather")
 
-    # -- corridor_masks alone: the bench's candidates, and every row x 16 and x 64 --------
+    # -- the table route on the same store (outside the run above) -------------------------
+    # The row form over the candidate query's rows, the route every store took before the
+    # gather form: the candidate query's residual and take, the rows' upload.
+    ds.resident_candidates = lambda *a, **k: None
+    tt, tsplits = [], []
+    for _ in range(4):
+        tm = {}
+        s = time.perf_counter()
+        table_res = tube_select_many(ds, "tracks", specs, route="device", timings=tm)
+        tt.append((time.perf_counter() - s) * 1e3 / q)
+        tsplits.append(tm)
+    del ds.resident_candidates
+    for i, (a, b) in enumerate(zip(table_res, dev_res)):
+        if sorted(map(str, a.fids)) != sorted(map(str, b.fids)):
+            raise AssertionError(f"corridor {i}: the table route differs from the resident one")
+    log(f"phase 11 table route (row form over the candidate query's rows, route "
+        f"{tsplits[0]['route']}): p50 {p50(tt[1:]):.4f} ms a corridor of 3 calls after a warm "
+        "one; split (ms) " + ", ".join(f"{k} {p50([sp[k] for sp in tsplits[1:]]):.3f}"
+                                       for k in keys)
+        + f"; {tsplits[0]['candidates']} candidates, {tsplits[0]['band_rows']} band rows")
+    record, grecord = {}, {}
+    if not on_card:
+        return record, grecord, launched
+
+    # -- both forms alone: each at its main-path shape (the record), and at the point
+    # store's candidate query's rows and every row x 16 and x 64 -----------------------------
+    res = ds.resident_candidates("tracks", Query(filter=prune_filter(sft, specs)))
+    rows = table_rows(ds, "tracks", specs, dev)
     all_specs = [CorridorSpec.tube(*c) for c in trajectory_workload(n_rows, 64)[5]]
     bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(t)
     all_rows = [torch.from_numpy(np.ascontiguousarray(a, dtype=d)).to(dev) for a, d in
                 ((lon, np.float32), (lat, np.float32), (bins, np.int32), (offs, np.int32),
                  (np.zeros(n_rows), np.float32))]
-    err = 0
-    for label, rws, sp in (("candidates", rows, specs), ("all rows", all_rows, specs),
-                           ("all rows x 64", all_rows, all_specs)):
+    cols = res.state.spatial_cols()
+    every = torch.arange(n_rows, dtype=torch.int32, device=dev)
+    log(f"phase 11 corridors: {rows[0].shape[0]} candidate rows of {n_rows} by the candidate "
+        f"query, {res.positions.shape[0]} positions by the device select (a superset, no "
+        f"residual); the line leg's row form tested {line_rows[0].shape[0]} rows")
+    err = [0, 0]
+    # (label, gather form?, rows, positions, corridors, the form's record?)
+    for label, gather, rws, pos, sp, main in (
+            ("line leg's candidates", False, line_rows, None, specs, True),
+            ("candidates", True, None, res.positions, specs, True),
+            ("point candidate query's rows", False, rows, None, specs, False),
+            ("all rows", False, all_rows, None, specs, False),
+            ("all rows", True, None, every, specs, False),
+            ("all rows x 64", False, all_rows, None, all_specs, False),
+            ("all rows x 64", True, None, every, all_specs, False)):
         pay = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in _pack(sp, sft)]
-        args = (*rws, *pay, False, False)
-        gc_, gs = corridor_masks(*args)
-        wc, ws = corridor_masks_plain(*args)
+        s_ = pay[0].shape[1]
+        if gather:
+            args = (*cols, pos, None, *pay, False, False)
+            fn, plain_fn, n = corridor_masks_gather, corridor_masks_gather_plain, pos.shape[0]
+            p = pos.long()
+            tested = (*corridor_dequantize(cols[0][p], cols[1][p]), cols[2][p], cols[3][p])
+        else:
+            args = (*rws, *pay, False, False)
+            fn, plain_fn, n = corridor_masks, corridor_masks_plain, rws[0].shape[0]
+            tested = rws[:4]
+        got, want = fn(*args), plain_fn(*args)
         torch.cuda.synchronize()
-        err = max(err, int((gc_ != wc).sum()) + int((gs != ws).sum()))
-        ms = cuda_ms(lambda: corridor_masks(*args), 10)
-        dms = device_ms(lambda: corridor_masks(*args))
-        plain = cuda_ms(lambda: corridor_masks_plain(*args), 1)
-        fl = corridor_floor(rws[0].shape[0], len(sp), pay[0].shape[1], False, False)
-        log(f"phase corridor_masks timing {label}: {ms:.4f} ms (CUDA events), device "
-            f"{fmt_ms(dms)} at N={rws[0].shape[0]} Q={len(sp)} S={pay[0].shape[1]}; plain "
-            f"{plain:.4f} ms; bound {fl['bound_ms']:.6f} ms ({fl['bound_by']}: {fl['flops']} "
-            f"f32 ops, {fl['bytes']} bytes), {fl['bound_ms'] / ms:.4f} of it")
-        if fl["bound_ms"] / ms > 1:
-            raise AssertionError("corridor_masks beats its bound")
-        if label == "candidates":
-            record.update({"ms": ms, "device_ms": dms, "plain_ms": plain,
-                           "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"]})
-    if err:
-        raise AssertionError("corridor_masks disagrees with its plain version at config 10")
-    record["max_abs_err"] = err
-    return record, launched
+        diff = words_differing(got, want)
+        err[gather] = max(err[gather], diff)
+        ms = cuda_ms(lambda: fn(*args), 10)
+        dms = device_ms(lambda: fn(*args))
+        plain = cuda_ms(lambda: plain_fn(*args), 1)
+        fl = corridor_floor(n, len(sp), s_, False, False,
+                            *corridor_pairs(*tested, pay[0], pay[1], pay[4]), gather=gather)
+        name = "corridor_masks_gather" if gather else "corridor_masks"
+        log(f"phase {name} timing {label}: {ms:.4f} ms (CUDA events), device "
+            f"{fmt_ms(dms)} at N={n} Q={len(sp)} S={s_}; plain {plain:.4f} ms; bound "
+            f"{fl['bound_ms']:.6f} ms ({fl['bound_by']}: {fl['pairs']} pairs, {fl['in_time']} "
+            f"in time, {fl['tested']} in the reach box; {fl['alu']} ALU-only of {fl['ops']} "
+            f"instructions, {fl['flops']} of them f32 ops; {fl['bytes']} bytes), "
+            f"{fl['bound_ms'] / ms:.4f} of it by "
+            f"events, {fmt_ms(None if dms is None else fl['bound_ms'] / dms)} by device; "
+            f"{diff} differing words{' (the record)' if main else ''}")
+        if fl["bound_ms"] / ms > 1 or (dms is not None and fl["bound_ms"] / dms > 1):
+            raise AssertionError(f"{name} beats its bound")
+        if main:
+            (grecord if gather else record).update({
+                "ms": ms, "device_ms": dms, "plain_ms": plain, "bound_ms": fl["bound_ms"],
+                "bound_by": fl["bound_by"]})
+    if any(err):
+        raise AssertionError(f"corridor_masks disagrees with its plain versions at config 10: "
+                             f"{err} words")
+    record["max_abs_err"], grecord["max_abs_err"] = err
+    return record, grecord, launched
 
 
 def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
@@ -4732,14 +4954,14 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
 
     # -- phase 11: bench config 10, the corridor engine and interlink ---------------------
     t0 = time.perf_counter()
-    corridor_err = 0
+    corridor_err = (0, 0)
     if on_card:
         corridor_err = check_corridor_kernel(dev, 47)
         free_card()
-        log(f"phase corridor-masks-vs-plain: ok, differing bits {corridor_err} "
-            f"({time.perf_counter() - t0:.3f} s for phase 11a)")
+        log(f"phase corridor-masks-vs-plain: ok, differing words (row form, gather form) "
+            f"{corridor_err} ({time.perf_counter() - t0:.3f} s for phase 11a)")
     t1 = time.perf_counter()
-    corridor_record, launched11 = trajectory_path(dev, trajectory_rows)
+    corridor_record, corridor_gather_record, launched11 = trajectory_path(dev, trajectory_rows)
     free_card()
     log(f"phase 11b: {time.perf_counter() - t1:.3f} s; phase 11: "
         f"{time.perf_counter() - t0:.3f} s in all")
@@ -4761,7 +4983,11 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         {"name": "corridor_masks", "route": "cuda", "source": src + "corridor_masks.cu",
          "replaces": "geomesa_tpu/parallel/query.py:1371", "library_ms": None,
          **corridor_record, "launches": launched11["corridor_masks"],
-         "max_abs_err": max(corridor_record.get("max_abs_err", 0), corridor_err)},
+         "max_abs_err": max(corridor_record.get("max_abs_err", 0), corridor_err[0])},
+        {"name": "corridor_masks_gather", "route": "cuda", "source": src + "corridor_masks.cu",
+         "replaces": "geomesa_tpu/parallel/query.py:1371", "library_ms": None,
+         **corridor_gather_record, "launches": launched11["corridor_masks_gather"],
+         "max_abs_err": max(corridor_gather_record.get("max_abs_err", 0), corridor_err[1])},
     ]
     return (records + [edge_record, gather_record, agg_record, work_list_record]
             + config3_records + join_records + xz_records + new_records)

@@ -65,18 +65,21 @@ def merge_intervals(intervals: list[tuple[int, int]]) -> np.ndarray:
     return np.asarray(out, dtype=np.int64)
 
 
-def gather_indices(intervals: np.ndarray):
+def gather_indices(intervals: np.ndarray, device=None) -> tuple[torch.Tensor, int]:
     """Expand [start, end) intervals into a flat array of row positions:
-    (idx int64, count). Torch needs no padded shape buckets, so the
-    reference's ``pad_to`` is not carried."""
+    (idx int64 tensor on ``device``, the CPU by default; count). The (R, 2)
+    intervals are uploaded (16 B each, not 8 B a slot) and expanded there.
+    Torch needs no padded shape buckets, so the reference's ``pad_to`` is
+    not carried."""
+    device = torch.device("cpu") if device is None else device
     if len(intervals) == 0:
-        return np.zeros(0, dtype=np.int64), 0
-    lens = intervals[:, 1] - intervals[:, 0]
-    total = int(lens.sum())
-    idx = np.repeat(intervals[:, 0], lens) + (
-        np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
-    )
-    return idx.astype(np.int64), total
+        return torch.zeros(0, dtype=torch.int64, device=device), 0
+    iv = torch.from_numpy(np.ascontiguousarray(intervals, dtype=np.int64)).to(device)
+    lens = iv[:, 1] - iv[:, 0]
+    total = int((intervals[:, 1] - intervals[:, 0]).sum())  # the host's copy: no sync
+    first = torch.cumsum(lens, 0) - lens  # each interval's first slot
+    idx = torch.repeat_interleave(iv[:, 0] - first, lens, output_size=total)
+    return idx + torch.arange(total, device=device), total
 
 
 

@@ -141,12 +141,19 @@ CTA per pair over 1024- or 4096-row blocks, the query staged by
 in XLA (``geomesa_tpu/parallel/query.py:1371``, ``make_corridor_step``). It
 is the corridor engine's fused pass: per (corridor, row), the f32 clamped
 point-to-segment distance against two bands, the (bin, offset) time window
-of each segment and the heading test, into the ``cand`` and ``sure`` masks.
-Its source is ``csrc/corridor_masks.cu``: one thread per row, the
-corridors staged in shared memory, the f32 arithmetic in round-to-nearest
-intrinsics in the plain version's order, so that the masks equal its plain
-version's (:func:`corridor_masks_plain`, the reference's per-corridor map
-in torch) bit for bit.
+of each segment and the heading test, into the ``cand`` and ``sure`` masks,
+packed one bit a (corridor, row) into 32-bit words
+(:func:`unpack_mask_words` turns them back into bools). Its source is
+``csrc/corridor_masks.cu``, in two entry forms: the row form
+(:func:`corridor_masks`) over f32 rows, and the gather form
+(:func:`corridor_masks_gather`) over a point state's resident int32 columns
+read through candidate positions and dequantized by one rule
+(:func:`corridor_dequantize`). Four rows a thread, the corridors staged in
+shared memory, a warp's ballot a word, the f32 arithmetic in
+round-to-nearest intrinsics in the plain version's order, so that the
+words equal its plain versions' (:func:`corridor_masks_plain`, the
+reference's per-corridor map in torch, and
+:func:`corridor_masks_gather_plain`) bit for bit.
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -204,7 +211,8 @@ launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 
             "planned_gather": 0, "agg_work_list": 0, "grouped_agg": 0, "batched_density": 0,
             "batched_knn": 0, "polygon_join": 0, "z3_encode": 0, "z2_encode": 0,
             "batched_overlap": 0, "batched_edge_gather_overlap": 0,
-            "planned_gather_overlap": 0, "planned_count": 0, "corridor_masks": 0}
+            "planned_gather_overlap": 0, "planned_count": 0, "corridor_masks": 0,
+            "corridor_masks_gather": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -278,9 +286,12 @@ _ENTRY_POINTS = {
     "geomesa_planned_count": ("planned_count", [_P] * 6 + [_LL, _LL, _P, _P, _LL, _P, _P]
                               + [_I] * 5 + [_P, _P]),
     # (cx, cy, bins, offs, hdg, n, segs, tq, brg, buf2_lo, buf2_hi, tol_lo, tol_hi, q, s,
-    #  heading?, bidirectional?, cand, sure, stream)
+    #  heading?, bidirectional?, cand words, sure words, stream)
     "geomesa_corridor_masks": ("corridor_masks", [_P] * 5 + [_LL] + [_P] * 7 + [_I] * 4
                                + [_P] * 3),
+    # (x, y, bins, offs, positions, hdg, n candidates, segs, ..., the same as above)
+    "geomesa_corridor_masks_gather": ("corridor_masks", [_P] * 6 + [_LL] + [_P] * 7
+                                      + [_I] * 4 + [_P] * 3),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -1780,15 +1791,84 @@ def planned_count_plain(cols, true_n: int, pair_q, pair_blk, boxes, times,
 # ---------------------------------------------------------------------------
 
 
-def _check_corridor_args(cx, cy, bins, offs, hdg, segs, tq, brg, bands):
-    n = cx.shape[0] if isinstance(cx, torch.Tensor) else -1
-    for name, t, dtype in (("cx", cx, torch.float32), ("cy", cy, torch.float32),
-                           ("bins", bins, torch.int32), ("offs", offs, torch.int32),
-                           ("hdg", hdg, torch.float32)):
+CORRIDOR_WORD_BITS = 32  # rows a mask word of corridor_masks holds (csrc: a warp's ballot)
+# the gather form's dequantization (csrc LON_CELL, LAT_CELL): each
+# dimension's lower end and a normalized 31-bit cell's width in degrees,
+# exact in f64
+_CORRIDOR_CELLS = ((-180.0, 360.0 / 2**31), (-90.0, 180.0 / 2**31))
+
+
+def corridor_words(n: int) -> int:
+    """Mask words a corridor takes over ``n`` rows: ceil(n / 32)."""
+    return (int(n) + CORRIDOR_WORD_BITS - 1) // CORRIDOR_WORD_BITS
+
+
+def corridor_dequantize(x: torch.Tensor, y: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Resident 31-bit normalized ``x, y`` (int32) → degrees, the gather
+    form's one rule: the cell's centre, ``lo + (i + 0.5) * cell`` in f64
+    (exact: every term is a multiple of 2^-30, under 2^38 of them), rounded
+    once to ``dtype`` (f32, as ``csrc/corridor_masks.cu`` computes it; f64
+    keeps the exact centre). The centre is within half a cell (8.4e-8
+    degrees of longitude, 4.2e-8 of latitude) of every value the cell
+    holds; the f32 rounding adds at most half an f32 ulp (7.6e-6 near
+    180)."""
+    cx, cy = (((v.double() + 0.5) * cell + lo).to(dtype)
+              for v, (lo, cell) in zip((x, y), _CORRIDOR_CELLS))
+    return cx, cy
+
+
+# the kernel's reach box (csrc REACH_SCALE, REACH_PAD, REACH_REL)
+CORRIDOR_REACH = (1.001, 1e-3, 1e-6)
+
+
+def corridor_reach_boxes(segs: torch.Tensor, buf2_hi: torch.Tensor) -> torch.Tensor:
+    """The plain form of the kernel's reach boxes: each segment's bbox grown
+    by ``sqrt(buf2_hi) * 1.001 + 1e-3 + 1e-6 * m`` (``m`` the segment's
+    largest |coordinate|), in f32, (Q, S, 4) [xlo, xhi, ylo, yhi]. The
+    kernel skips the distance test of a row outside its segment's box:
+    such a row's f32 squared distance exceeds ``buf2_hi`` (the argument is
+    in ``csrc/corridor_masks.cu``), so neither band holds it; a negative
+    ``buf2_hi`` gives NaN edges, which skip nothing."""
+    scale, pad, rel = (torch.tensor(v, dtype=torch.float32) for v in CORRIDOR_REACH)
+    x1, y1, x2, y2 = segs.unbind(dim=2)
+    m = torch.maximum(torch.maximum(x1.abs(), x2.abs()), torch.maximum(y1.abs(), y2.abs()))
+    reach = (torch.sqrt(buf2_hi)[:, None] * scale + pad) + m * rel
+    return torch.stack([torch.minimum(x1, x2) - reach, torch.maximum(x1, x2) + reach,
+                        torch.minimum(y1, y2) - reach, torch.maximum(y1, y2) + reach], dim=2)
+
+
+def pack_mask_words(masks: torch.Tensor) -> torch.Tensor:
+    """(Q, N) bool → (Q, ceil(N / 32)) int32 words, bit j of word w the row
+    32 w + j (the kernel's ballot order), the bits past N zero."""
+    q, n = masks.shape
+    w = corridor_words(n)
+    padded = torch.zeros((q, w * CORRIDOR_WORD_BITS), dtype=torch.int64, device=masks.device)
+    padded[:, :n] = masks.long()
+    shifts = torch.arange(CORRIDOR_WORD_BITS, dtype=torch.int64, device=masks.device)
+    words = (padded.view(q, w, CORRIDOR_WORD_BITS) << shifts).sum(dim=2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def unpack_mask_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of :func:`pack_mask_words`: (Q, W) int32 words → (Q, n)
+    bool."""
+    shifts = torch.arange(CORRIDOR_WORD_BITS, dtype=torch.int64, device=words.device)
+    bits = (words.long()[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :n].bool()
+
+
+def _check_vectors(specs, n: int, device) -> None:
+    """Each ``(name, tensor, dtype)`` a contiguous 1-D tensor of ``n`` on
+    ``device``."""
+    for name, t, dtype in specs:
         if not isinstance(t, torch.Tensor) or t.dtype != dtype or t.dim() != 1:
             raise TypeError(f"{name} must be a 1-D {dtype} tensor")
-        if not t.is_contiguous() or t.shape[0] != n or t.device != cx.device:
-            raise ValueError(f"{name} must be contiguous, of cx's length and on {cx.device}")
+        if not t.is_contiguous() or t.shape[0] != n or t.device != device:
+            raise ValueError(f"{name} must be contiguous, of length {n} and on {device}")
+
+
+def _check_corridor_payload(segs, tq, brg, bands, device) -> None:
     q = segs.shape[0] if isinstance(segs, torch.Tensor) else -1
     for name, t, dtype, shape in (("segs", segs, torch.float32, None),
                                   ("tq", tq, torch.int32, None),
@@ -1801,33 +1881,80 @@ def _check_corridor_args(cx, cy, bins, offs, hdg, segs, tq, brg, bands):
             raise ValueError(f"{name} must have shape (Q, S, 4), one for segs and tq")
         if shape is not None and tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} must have shape {tuple(shape)}")
-        if not t.is_contiguous() or t.device != cx.device:
-            raise ValueError(f"{name} must be contiguous and on {cx.device}")
+        if not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name} must be contiguous and on {device}")
     if segs.shape[1] < 1:
         raise ValueError("corridors need at least one segment slot")
 
 
+def _check_corridor_args(cx, cy, bins, offs, hdg, segs, tq, brg, bands):
+    if not isinstance(cx, torch.Tensor):
+        raise TypeError("cx must be a 1-D torch.float32 tensor")
+    _check_vectors((("cx", cx, torch.float32), ("cy", cy, torch.float32),
+                    ("bins", bins, torch.int32), ("offs", offs, torch.int32),
+                    ("hdg", hdg, torch.float32)), cx.shape[0], cx.device)
+    _check_corridor_payload(segs, tq, brg, bands, cx.device)
+
+
+def _check_corridor_gather_args(x, y, bins, offs, pos, hdg, segs, tq, brg, bands,
+                                heading: bool):
+    if not isinstance(x, torch.Tensor) or not isinstance(pos, torch.Tensor):
+        raise TypeError("x and pos must be 1-D torch.int32 tensors")
+    _check_vectors((("x", x, torch.int32), ("y", y, torch.int32), ("bins", bins, torch.int32),
+                    ("offs", offs, torch.int32)), x.shape[0], x.device)
+    _check_vectors((("pos", pos, torch.int32),), pos.shape[0], x.device)
+    if heading or hdg is not None:
+        _check_vectors((("hdg", hdg, torch.float32),), pos.shape[0], x.device)
+    _check_corridor_payload(segs, tq, brg, bands, x.device)
+
+
+def _corridor_launch(entry: str, counter: str, rows: tuple, n: int, segs, tq, brg, bands,
+                     heading: bool, bidirectional: bool, device):
+    """Allocate the two (Q, W) word masks and launch ``entry`` (the row or
+    the gather form) over ``n`` rows, ``rows`` the form's row pointers;
+    nothing is launched for no rows or no corridors."""
+    q, s = segs.shape[0], segs.shape[1]
+    out = torch.empty((2, q, corridor_words(n)), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return out[0], out[1]
+    for name, t in (("segs", segs), ("tq", tq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"corridor_masks: {name} must start on a 16-byte boundary "
+                             "(the kernel loads 16-byte vectors)")
+    with _on_device(device):
+        rc = _fn(entry)(*rows, n, segs.data_ptr(), tq.data_ptr(), brg.data_ptr(),
+                        *(b.data_ptr() for b in bands), q, s, int(bool(heading)),
+                        int(bool(bidirectional)), out[0].data_ptr(), out[1].data_ptr(),
+                        _stream_of(segs))
+    if rc != 0:
+        raise RuntimeError(f"{counter} launch failed: cudaError {rc}")
+    launches[counter] += 1
+    return out[0], out[1]
+
+
 def corridor_masks(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo, tol_hi,
                    heading: bool, bidirectional: bool):
-    """The corridor engine's two band masks over N rows and Q corridors.
+    """The corridor engine's two band masks over N rows and Q corridors,
+    the row form.
 
     ``cx, cy``: (N,) f32 row coordinates in degrees; ``bins, offs``: (N,)
     int32 time columns; ``hdg``: (N,) f32 headings in degrees (read only
     with ``heading``); ``segs`` (Q, S, 4) f32 [x1, y1, x2, y2]; ``tq`` (Q,
     S, 4) int32 time quads [bin_lo, off_lo, bin_hi, off_hi]; ``brg`` (Q, S)
     f32 segment bearings; ``buf2_lo``, ``buf2_hi``, ``tol_lo``, ``tol_hi``
-    (Q,) f32 bands. Returns ``(cand, sure)``, (Q, N) bool: a row is in
-    ``cand`` of a corridor when some segment has the row's squared f32
-    distance at most ``buf2_hi``, its (bin, offset) inside the segment's
-    quad and, with ``heading``, its heading within ``tol_hi`` of the
-    bearing (``bidirectional``: of the bearing or its reverse; a tolerance
-    of 360 or more accepts any heading, NaN included); ``sure`` the same
-    with ``buf2_lo`` and ``tol_lo``. The reference's ``make_corridor_step``
-    (``geomesa_tpu/parallel/query.py:1371``).
+    (Q,) f32 bands. Returns ``(cand, sure)``, (Q, ceil(N / 32)) int32
+    words in :func:`pack_mask_words`' layout (:func:`unpack_mask_words`
+    gives the (Q, N) bools): a row is in ``cand`` of a corridor when some
+    segment has the row's squared f32 distance at most ``buf2_hi``, its
+    (bin, offset) inside the segment's quad and, with ``heading``, its
+    heading within ``tol_hi`` of the bearing (``bidirectional``: of the
+    bearing or its reverse; a tolerance of 360 or more accepts any heading,
+    NaN included); ``sure`` the same with ``buf2_lo`` and ``tol_lo``. The
+    reference's ``make_corridor_step`` (``geomesa_tpu/parallel/query.py:1371``).
 
-    On the card (``csrc/corridor_masks.cu``) one thread per row, the
+    On the card (``csrc/corridor_masks.cu``) four rows a thread, the
     corridors staged in shared memory, the f32 arithmetic in the plain
-    version's order with round-to-nearest intrinsics (no FMA), so the masks
+    version's order with round-to-nearest intrinsics (no FMA), so the words
     equal :func:`corridor_masks_plain`'s bit for bit. On the CPU: the plain
     version."""
     bands = (buf2_lo, buf2_hi, tol_lo, tol_hi)
@@ -1837,31 +1964,17 @@ def corridor_masks(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol
                                     heading, bidirectional)
     if cx.device.type != "cuda":
         raise ValueError(f"corridor_masks runs on cuda or cpu, not {cx.device}")
-    q, s, n = segs.shape[0], segs.shape[1], cx.shape[0]
-    out = torch.empty((2, q, n), dtype=torch.bool, device=cx.device)
-    if q == 0 or n == 0:
-        return out[0], out[1]
-    for name, t in (("segs", segs), ("tq", tq)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"corridor_masks: {name} must start on a 16-byte boundary "
-                             "(the kernel loads 16-byte vectors)")
-    with _on_device(cx.device):
-        rc = _fn("geomesa_corridor_masks")(
-            cx.data_ptr(), cy.data_ptr(), bins.data_ptr(), offs.data_ptr(), hdg.data_ptr(), n,
-            segs.data_ptr(), tq.data_ptr(), brg.data_ptr(), *(b.data_ptr() for b in bands),
-            q, s, int(bool(heading)), int(bool(bidirectional)), out[0].data_ptr(),
-            out[1].data_ptr(), _stream_of(cx))
-    if rc != 0:
-        raise RuntimeError(f"corridor_masks launch failed: cudaError {rc}")
-    launches["corridor_masks"] += 1
-    return out[0], out[1]
+    rows = (cx.data_ptr(), cy.data_ptr(), bins.data_ptr(), offs.data_ptr(), hdg.data_ptr())
+    return _corridor_launch("geomesa_corridor_masks", "corridor_masks", rows, cx.shape[0], segs,
+                            tq, brg, bands, heading, bidirectional, cx.device)
 
 
 def corridor_masks_plain(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo,
                          tol_hi, heading: bool, bidirectional: bool):
     """The plain PyTorch version of :func:`corridor_masks`: the reference's
     per-corridor map, (S, N) intermediates one corridor at a time, each f32
-    operation a torch op of its own (so none fuses into an FMA)."""
+    operation a torch op of its own (so none fuses into an FMA), the masks
+    packed by :func:`pack_mask_words`."""
     q, n = segs.shape[0], cx.shape[0]
     cand = torch.zeros((q, n), dtype=torch.bool, device=cx.device)
     sure = torch.zeros_like(cand)
@@ -1892,7 +2005,48 @@ def corridor_masks_plain(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_h
             s &= (diff <= tol_lo[qi]) | (tol_lo[qi] >= 360.0)
         cand[qi] = c.any(dim=0)
         sure[qi] = s.any(dim=0)
-    return cand, sure
+    return pack_mask_words(cand), pack_mask_words(sure)
+
+
+def corridor_masks_gather(x, y, bins, offs, pos, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo,
+                          tol_hi, heading: bool, bidirectional: bool):
+    """:func:`corridor_masks` over a point state's resident rows, the gather
+    form: ``x, y, bins, offs`` the state's (R,) int32 sorted columns
+    (``IndexState.spatial_cols()``), ``pos`` (C,) int32 candidate
+    sorted-order positions, each below R (not checked: the plain version
+    raises on one past R, the kernel would read past the columns), ``hdg``
+    (C,) f32 headings aligned with the candidates, or None without
+    ``heading``; the corridors as in :func:`corridor_masks`. Each
+    candidate's coordinates are :func:`corridor_dequantize`'s. Returns
+    ``(cand, sure)``, (Q, ceil(C / 32)) int32 words over the candidates.
+
+    On the card one launch of the row form's kernel reading its rows
+    through ``pos``, equal to :func:`corridor_masks_gather_plain` bit for
+    bit; on the CPU that plain version."""
+    bands = (buf2_lo, buf2_hi, tol_lo, tol_hi)
+    _check_corridor_gather_args(x, y, bins, offs, pos, hdg, segs, tq, brg, bands, heading)
+    if x.device.type == "cpu":
+        return corridor_masks_gather_plain(x, y, bins, offs, pos, hdg, segs, tq, brg, *bands,
+                                           heading, bidirectional)
+    if x.device.type != "cuda":
+        raise ValueError(f"corridor_masks_gather runs on cuda or cpu, not {x.device}")
+    rows = (x.data_ptr(), y.data_ptr(), bins.data_ptr(), offs.data_ptr(), pos.data_ptr(),
+            None if hdg is None else hdg.data_ptr())
+    return _corridor_launch("geomesa_corridor_masks_gather", "corridor_masks_gather", rows,
+                            pos.shape[0], segs, tq, brg, bands, heading, bidirectional,
+                            x.device)
+
+
+def corridor_masks_gather_plain(x, y, bins, offs, pos, hdg, segs, tq, brg, buf2_lo, buf2_hi,
+                                tol_lo, tol_hi, heading: bool, bidirectional: bool):
+    """The plain PyTorch version of :func:`corridor_masks_gather`: the
+    candidates' columns gathered, dequantized by :func:`corridor_dequantize`
+    and fed to :func:`corridor_masks_plain`."""
+    p = pos.long()
+    cx, cy = corridor_dequantize(x[p], y[p])
+    h = hdg if hdg is not None else torch.zeros_like(cx)
+    return corridor_masks_plain(cx, cy, bins[p], offs[p], h, segs, tq, brg, buf2_lo, buf2_hi,
+                                tol_lo, tol_hi, heading, bidirectional)
 
 
 # ---------------------------------------------------------------------------

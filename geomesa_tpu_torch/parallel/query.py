@@ -58,7 +58,9 @@ The module's steps:
   through the ``planned_gather`` kernel, which computes the same function.
 - :func:`corridor_step` — the corridor engine's band masks over N rows x
   Q corridors x S segments (``make_corridor_step`` ``:1371``): one
-  ``corridor_masks`` launch.
+  ``corridor_masks`` launch. The gather form over a resident point
+  state's candidate positions (``corridor_masks_gather``) is launched by
+  the corridor engine itself (``trajectory/corridor.py``).
 
 The ``cached_*`` step factories (``cached_batched_edge_gather_step``
 ``:441``, ``cached_matrix_scan_step`` ``:567``, ``cached_grouped_agg_step``
@@ -418,8 +420,10 @@ def block_bbox_gather_step(cols, true_n: int, pair_q, pair_blk, iboxes):
 def corridor_step(cx, cy, bins, offs, hdg, segs, tq, brg, buf2_lo, buf2_hi, tol_lo, tol_hi,
                   heading: bool, bidirectional: bool):
     """The fused corridor pass (``make_corridor_step`` ``:1371``): N rows x
-    Q corridors x S segments → ``(cand (Q, N) bool, sure (Q, N) bool)``,
-    the two f32 bands of :mod:`geomesa_tpu_torch.trajectory.corridor`.
+    Q corridors x S segments → ``(cand, sure)``, the two f32 bands of
+    :mod:`geomesa_tpu_torch.trajectory.corridor`, each (Q, ceil(N / 32))
+    int32 words of one bit a row (``kernels.unpack_mask_words`` gives the
+    reference's (Q, N) bools).
 
     ``cx, cy`` (N,) f32, ``bins, offs`` (N,) int32, ``hdg`` (N,) f32,
     ``segs`` (Q, S, 4) f32, ``tq`` (Q, S, 4) int32, ``brg`` (Q, S) f32 and

@@ -279,18 +279,24 @@ class DeviceBackend:
         return (np.ascontiguousarray(pack_boxes(int_boxes(e.boxes), overlap=overlap)),
                 np.ascontiguousarray(pack_times(time_quads(sft, e.intervals))))
 
-    def select_positions(self, dev: IndexState, sft, e: Extraction,
-                         intervals: np.ndarray) -> np.ndarray:
+    def select_positions_device(self, dev: IndexState, sft, e: Extraction,
+                                intervals: np.ndarray) -> torch.Tensor:
         """Sorted-order positions passing the int-domain refine (point
-        containment, or bbox overlap on a bbox state): one boolean mask over
-        the candidate slots, one device → host copy."""
-        idx, count = gather_indices(intervals)
-        idx = torch.from_numpy(idx).to(self.device)
+        containment, or bbox overlap on a bbox state), as an int64 tensor
+        on the store's device, ascending: one boolean mask over the
+        candidate slots. A superset of the rows that pass the filter the
+        extraction came from (normalization is monotone)."""
+        idx, count = gather_indices(intervals, self.device)
         overlap = dev.kind == "bboxes"
         boxes, times = (torch.from_numpy(a).to(self.device)
                         for a in self.payload(sft, e, overlap=overlap))
         refine = refine_bboxes if overlap else refine_points
-        return idx[refine(*dev.spatial_cols(), idx, count, boxes, times)].cpu().numpy()
+        return idx[refine(*dev.spatial_cols(), idx, count, boxes, times)]
+
+    def select_positions(self, dev: IndexState, sft, e: Extraction,
+                         intervals: np.ndarray) -> np.ndarray:
+        """:meth:`select_positions_device`, copied to the host."""
+        return self.select_positions_device(dev, sft, e, intervals).cpu().numpy()
 
     def select_many_positions(self, dev: IndexState, index, extractions,
                               intervals_list, timings: dict | None = None) -> list[np.ndarray]:

@@ -136,6 +136,25 @@ class QueryResult:
 
 
 @dataclass
+class ResidentCandidates:
+    """A planned query's candidates where they are resident
+    (:meth:`DataStore.resident_candidates`): ``positions`` (C,) int32
+    sorted-order positions on the store's device, ascending, that pass the
+    device's int-domain refine (a superset of the filter's rows, with no
+    exact residual applied); ``state`` the point state they index; ``perm``
+    the index's sorted position → table row map; ``table`` the main tier;
+    ``plan_info`` the plan; ``timings`` host-clock ms of ``plan_ms`` and
+    ``select_ms`` (the refine and its uploads)."""
+
+    table: FeatureTable
+    perm: np.ndarray
+    state: Any
+    positions: torch.Tensor
+    plan_info: Any
+    timings: dict
+
+
+@dataclass
 class _TypeState:
     sft: FeatureType
     table: FeatureTable | None = None  # main tier, in write order
@@ -291,6 +310,29 @@ class DataStore:
         table = main.take(rows)
         timings["take_ms"] = (time.perf_counter() - t0) * 1e3
         return QueryResult(table, rows, info, timings, self._density_hint(q, table))
+
+    def resident_candidates(self, type_name: str, q: "Query | str | ast.Filter"):
+        """``q``'s candidates as sorted-order positions on the card, for a
+        consumer that tests them there (the corridor engine's gather form):
+        the plan and the device refine of :meth:`query`, without its exact
+        host residual and its take. A :class:`ResidentCandidates`, or None
+        where the plan reads no resident point state: an Oracle backend, an
+        empty store, or a line or polygon store's bbox state."""
+        st = self._state(type_name)
+        if not isinstance(self.backend, DeviceBackend) or st.table is None:
+            return None
+        if not isinstance(q, Query):
+            q = Query(filter=q)
+        plan, _, info = QueryPlanner(st.sft, st.indices).plan(q)
+        state = (st.backend_state or {}).get(info.scan_index)
+        if state is None or state.kind != "points":
+            return None
+        t0 = time.perf_counter()
+        pos = self.backend.select_positions_device(state, st.sft, info.extraction,
+                                                   plan.intervals)
+        return ResidentCandidates(
+            st.table, st.indices[info.scan_index].perm, state, pos.to(torch.int32), info,
+            {"plan_ms": info.plan_ms, "select_ms": (time.perf_counter() - t0) * 1e3})
 
     @staticmethod
     def _density_hint(q: Query, table: FeatureTable):

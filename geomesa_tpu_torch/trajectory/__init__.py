@@ -4,7 +4,10 @@ Port of :mod:`geomesa_tpu.trajectory` without its track state (``state.py``,
 ROADMAP.md A.3.3):
 
 - :mod:`.corridor` — tube select and route search as one (rows x
-  corridors) problem on the card (the ``corridor_masks`` kernel, through
+  corridors) problem on the card (the ``corridor_masks`` kernel: its gather
+  form over a point store's resident candidates,
+  :func:`geomesa_tpu_torch.ops.kernels.corridor_masks_gather`, its row
+  form over a candidate table, through
   :func:`geomesa_tpu_torch.parallel.query.corridor_step`), exact by an f64
   refine of the band between its two f32 masks;
 - :mod:`.interlink` — predicate links between two stores (2D and XZ3

@@ -7,10 +7,14 @@ Port of :mod:`geomesa_tpu.trajectory.corridor`. Q corridor queries are one
   corridor's per-segment buffered bbox (and time window) runs as one
   planned query (:func:`prune_filter`, ``DataStore.query``);
 - the corridors' segments pack into query matrices (:func:`_pack`) that the
-  fused ``corridor_masks`` kernel evaluates over the candidates
-  (:func:`geomesa_tpu_torch.parallel.query.corridor_step`): the clamped f32
-  point-to-segment distance, the exact int (bin, offset) time window and
-  the heading test;
+  fused ``corridor_masks`` kernel evaluates over the candidates: the
+  clamped f32 point-to-segment distance, the exact int (bin, offset) time
+  window and the heading test. On a store whose plan reads a resident point
+  state the kernel's gather form reads the device select's positions there
+  (:func:`geomesa_tpu_torch.ops.kernels.corridor_masks_gather`), and the
+  candidate query's residual and take are skipped: the corridor test
+  implies the prune filter. Elsewhere its row form reads the candidate
+  query's rows (:func:`geomesa_tpu_torch.parallel.query.corridor_step`);
 - the kernel answers in two f32 bands (``cand`` a widened superset,
   ``sure`` a narrowed certain-in); only the rows between them are re-checked
   in f64 (:func:`corridor_masks_f64`), so the results are exactly the f64
@@ -24,11 +28,15 @@ observation and audit shadow (``_observe_route``, ``_maybe_audit``) wait
 for the observability plane (ROADMAP.md A.9); record-level visibility
 (``auths``) raises ``NotImplementedError`` (A.8.6). The reference pads rows,
 segments and corridors to power-of-two buckets for XLA; the port pads the
-segments to the batch's longest corridor only (``corridor_step``).
+segments to the batch's longest corridor only (``corridor_step``). The
+reference's device route always takes the candidate query's rows to the
+host and uploads them again; the port's reads resident candidates in
+place where it can (same results: the f64 semantics above).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,6 +45,7 @@ import torch
 from geomesa_tpu_torch.curve.binned_time import BinnedTime
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.cql import parse
+from geomesa_tpu_torch.ops.kernels import corridor_masks_gather
 from geomesa_tpu_torch.parallel.query import corridor_step
 from geomesa_tpu_torch.planning.planner import Query
 from geomesa_tpu_torch.schema.columnar import representative_xy
@@ -56,10 +65,11 @@ ROUTES = ("device", "host")
 # model (traj:corridor-dev / traj:corridor-host), whose untrained seed picks
 # the device; the port has no cost model yet (ROADMAP.md A.8.3), so the
 # seed's winner is a fixed rule here, as process.join.join_counts_auto keeps
-# its seed rule. The card contradicts the seed: chip_smoke.py's phase 11 on
-# an H100 times the host route faster at bench config 10 (PERF.md), since
-# the device route's time goes to the candidate query's host residual (an OR
-# of every segment's box) and its take, not to the kernel.
+# its seed rule. On a point store the card bears the seed out since the
+# device route reads the candidates where they are resident (chip_smoke.py's
+# phase 11 on an H100, PERF.md); on a line or polygon store the device route
+# still pays the candidate query's host residual (an OR of every segment's
+# box) and its take, as the host route does.
 DEFAULT_ROUTE = "device"
 _UNCONSTRAINED = np.array([0, -1, 2**31 - 1, 2**31 - 1], dtype=np.int32)
 _UNSATISFIABLE = np.array([1, 0, 0, -1], dtype=np.int32)
@@ -219,15 +229,27 @@ def _pack(specs, sft):
 
 
 def tube_select_many(ds, type_name: str, specs, filter=None, heading_field: str | None = None,
-                     route: str | None = None, auths=None):
+                     route: str | None = None, auths=None, timings: dict | None = None):
     """Q corridor queries in one pass → one result table per corridor.
 
     One planned candidate query (:func:`prune_filter`), then the fused
     device kernel and the f64 band refine (``route="device"``, the default)
     or the f64 refine on the host (``"host"``) over the shared candidates.
-    The results are exactly :func:`corridor_masks_f64`'s either way.
-    ``auths`` (record-level visibility) is not ported and raises
-    ``NotImplementedError``."""
+    The device route reads the candidates where the plan finds them: on a
+    store whose plan scans a resident point state (z3 or z2 of a
+    ``DeviceBackend``) the kernel's gather form tests the device select's
+    positions on the card, with no residual of the candidate query and no
+    take of its rows (the corridor test implies the prune filter, so only
+    ``filter`` is applied exactly, to the matched rows); on any other store
+    (lines and polygons, the Oracle backend) the row form tests the rows of
+    the candidate query's table. The results are exactly
+    :func:`corridor_masks_f64`'s either way. ``timings``, when given, gains
+    ``route`` ("device:resident", "device:table" or "host"), the candidates
+    and band rows, the rows given to an exact residual, and the host-clock
+    ms of ``plan_ms``, ``select_ms``, ``residual_ms``, ``kernel_ms`` (the
+    uploads, launches and the masks' copy back), ``refine_ms`` (the f64
+    band refine) and ``take_ms``. ``auths`` (record-level visibility) is
+    not ported and raises ``NotImplementedError``."""
     if auths is not None:
         raise NotImplementedError("tube_select_many: record-level visibility (auths) is not "
                                   "ported yet (ROADMAP.md A.8.6)")
@@ -237,74 +259,204 @@ def tube_select_many(ds, type_name: str, specs, filter=None, heading_field: str 
     if not specs:
         return []
     sft = ds.get_schema(type_name)
-    if heading_field is None and any(s.heading_tolerance_deg is not None for s in specs):
+    if heading_field is None and _constrained(specs):
         raise ValueError("heading-constrained specs need heading_field")
-    t = ds.query(type_name, Query(filter=prune_filter(sft, specs, filter))).table
-    n = len(t)
+    base = parse(filter) if isinstance(filter, str) else filter
+    prune = Query(filter=prune_filter(sft, specs, base))
+    tm = timings if timings is not None else {}
+    tm.update({"kernel_ms": 0.0, "refine_ms": 0.0, "band_rows": 0})
+    device = (route or DEFAULT_ROUTE) == "device"
+    res = ds.resident_candidates(type_name, prune) if device else None
+    if res is not None:
+        return _resident_route(sft, specs, res, base, heading_field, ds.device, tm)
+    r = ds.query(type_name, prune)
+    t, n = r.table, len(r.table)
+    tm.update({"route": "device:table" if device else "host", "candidates": n,
+               "residual_rows": n, **(r.timings or {})})
     if n == 0:
         return [t for _ in specs]
     xs, ys = representative_xy(t)
     tms = t.dtg_millis() if sft.dtg_field else np.zeros(n, dtype=np.int64)
-    hdg = None
-    if heading_field is not None:
-        col = t.columns[heading_field]
-        with np.errstate(invalid="ignore"):
-            hdg = col.values.astype(np.float64) % 360.0  # NaN stays NaN: never aligned
-        if col.valid is not None:
-            hdg = np.where(col.valid, hdg, np.nan)
-    if (route or DEFAULT_ROUTE) == "device":
-        masks = _device_masks(sft, specs, xs, ys, tms, hdg, ds.device)
+    hdg = _headings(t.columns[heading_field]) if _constrained(specs) else None
+    if device:
+        matches = _device_matches(sft, specs, _TableRows(xs, ys, tms, sft, ds.device), hdg,
+                                  ds.device, tm)
     else:
+        s = time.perf_counter()
         masks = corridor_masks_f64(xs, ys, tms, hdg, specs)
-    return [t.take(np.nonzero(masks[qi])[0]) for qi in range(len(specs))]
+        matches = [np.nonzero(m)[0] for m in masks]
+        tm["refine_ms"] = (time.perf_counter() - s) * 1e3
+    s = time.perf_counter()
+    out = [t.take(idx) for idx in matches]
+    tm["take_ms"] = tm.get("take_ms", 0.0) + (time.perf_counter() - s) * 1e3
+    return out
 
 
-def _device_masks(sft, specs, xs, ys, tms, hdg, device) -> np.ndarray:
-    """The device route: one kernel launch, or two when a batch mixes uni-
-    and bidirectional heading constraints (each launch runs one variant of
-    the kernel, as each of the reference's compiled steps does)."""
+def _constrained(specs) -> bool:
+    return any(s.heading_tolerance_deg is not None for s in specs)
+
+
+def _headings(col, rows=None) -> np.ndarray:
+    """A heading column's values (at ``rows``) as f64 degrees mod 360, NaN
+    where null or not finite (never aligned)."""
+    vals = col.values if rows is None else col.values[rows]
+    with np.errstate(invalid="ignore"):
+        hdg = vals.astype(np.float64) % 360.0  # NaN stays NaN: never aligned
+    if col.valid is not None:
+        hdg = np.where(col.valid if rows is None else col.valid[rows], hdg, np.nan)
+    return hdg
+
+
+def _resident_route(sft, specs, res, base, heading_field, device, tm) -> list:
+    """The device route over resident candidates: the gather form over the
+    device select's positions, the band rows refined in f64 from the
+    table's exact columns, ``base`` (the caller's filter) applied exactly to
+    the matched rows only, each corridor's rows sorted and taken."""
+    table, pos = res.table, res.positions
+    c = int(pos.shape[0])
+    tm.update({"route": "device:resident", "candidates": c, "residual_rows": 0,
+               "residual_ms": 0.0, **res.timings})
+    if c == 0:
+        empty = table.take(np.zeros(0, dtype=np.int64))
+        return [empty for _ in specs]
+    rows = _ResidentRows(res, sft)
+    hdg = None
+    if _constrained(specs):
+        hdg = _headings(table.columns[heading_field], rows.table_rows())
+    matches = [rows.table_rows(idx) for idx in _device_matches(sft, specs, rows, hdg, device, tm)]
+    if base is not None and not isinstance(base, ast.Include):
+        s = time.perf_counter()
+        matched = np.unique(np.concatenate(matches))
+        kept = matched[ast.residual_mask(base, table, matched)]
+        matches = [m[np.isin(m, kept)] for m in matches]
+        tm.update({"residual_rows": len(matched), "residual_ms": (time.perf_counter() - s) * 1e3})
+    s = time.perf_counter()
+    out = [table.take(np.sort(m)) for m in matches]
+    tm["take_ms"] = (time.perf_counter() - s) * 1e3
+    return out
+
+
+class _TableRows:
+    """The row form's candidates: the rows of the candidate query's table,
+    uploaded once as f32 coordinates and int32 (bin, offset)."""
+
+    def __init__(self, xs, ys, tms, sft, device):
+        self.xs, self.ys, self.tms, self.sft, self.device = xs, ys, tms, sft, device
+        self.n = len(xs)
+        self._up = None
+
+    def masks(self, hdg, payload, heading: bool, bidirectional: bool):
+        if self._up is None:
+            if self.sft.dtg_field:
+                bins, offs = BinnedTime(self.sft.z3_interval).to_bin_and_offset(self.tms)
+            else:
+                bins = offs = np.zeros(self.n, dtype=np.int64)
+            self._up = [_upload(a, d, self.device) for a, d in
+                        ((self.xs, np.float32), (self.ys, np.float32), (bins, np.int32),
+                         (offs, np.int32))]
+        if hdg is None:
+            hdg = torch.zeros(self.n, dtype=torch.float32, device=self.device)
+        return corridor_step(*self._up, hdg, *payload, heading, bidirectional)
+
+    def exact(self, idx):
+        return self.xs[idx], self.ys[idx], self.tms[idx]
+
+
+class _ResidentRows:
+    """The gather form's candidates: a point state's resident columns read
+    through the device select's positions; the exact columns of a
+    candidate come from the table row its position maps to."""
+
+    def __init__(self, res, sft):
+        self.res, self.sft = res, sft
+        self._pos = None
+
+    def table_rows(self, idx=None) -> np.ndarray:
+        """The table rows of the candidates ``idx`` (all by default): their
+        positions, copied to the host once, through the index's ``perm``."""
+        if self._pos is None:
+            self._pos = self.res.positions.cpu().numpy()
+        return self.res.perm[self._pos if idx is None else self._pos[idx]]
+
+    def masks(self, hdg, payload, heading: bool, bidirectional: bool):
+        return corridor_masks_gather(*self.res.state.spatial_cols(), self.res.positions, hdg,
+                                     *payload, heading, bidirectional)
+
+    def exact(self, idx):
+        r = self.table_rows(idx)
+        t = self.res.table
+        xs, ys = representative_xy(t)
+        tms = t.dtg_millis()[r] if self.sft.dtg_field else np.zeros(len(r), dtype=np.int64)
+        return xs[r], ys[r], tms
+
+
+def _upload(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def _device_matches(sft, specs, rows, hdg, device, tm) -> list:
+    """The device route's matches, each corridor's candidate indices
+    ascending: one kernel launch, or two when a batch mixes uni- and
+    bidirectional heading constraints (each launch runs one variant of the
+    kernel, as each of the reference's compiled steps does)."""
     constrained = [s.heading_tolerance_deg is not None for s in specs]
     bi = [c and s.bidirectional for c, s in zip(constrained, specs)]
     if hdg is None or not any(bi) or all(b for b, c in zip(bi, constrained) if c):
-        return _corridor_kernel(sft, specs, xs, ys, tms, hdg, device)
-    m = np.zeros((len(specs), len(xs)), dtype=bool)
+        return _corridor_kernel(sft, specs, rows, hdg, device, tm)
+    out = [None] * len(specs)
     for side in (False, True):
         idx = [i for i, b in enumerate(bi) if b == side]
-        m[idx] = _corridor_kernel(sft, [specs[i] for i in idx], xs, ys, tms, hdg, device)
-    return m
+        for i, m in zip(idx, _corridor_kernel(sft, [specs[i] for i in idx], rows, hdg, device,
+                                              tm)):
+            out[i] = m
+    return out
 
 
-def _corridor_kernel(sft, specs, xs, ys, tms, hdg, device) -> np.ndarray:
-    """One ``corridor_masks`` launch over a batch of one directionality:
-    the rows and the packed corridors uploaded, the two band masks read
-    back, and the rows of ``cand & ~sure`` re-checked in f64."""
-    n = len(xs)
-    if sft.dtg_field:
-        bins, offs = BinnedTime(sft.z3_interval).to_bin_and_offset(tms)
-    else:
-        bins = offs = np.zeros(n, dtype=np.int64)
-    heading = hdg is not None and any(s.heading_tolerance_deg is not None for s in specs)
+def _set_bits(words: np.ndarray) -> list:
+    """Each corridor's set bits of (Q, W) uint32 mask words as row indices,
+    ascending (bit j of word w is the row 32 w + j): the words read 64 bits
+    at a time, only the non-zero ones unpacked."""
+    q, w = words.shape
+    flat = np.ascontiguousarray(words).reshape(-1)
+    if flat.size % 2:
+        flat = np.append(flat, np.uint32(0))
+    u = flat.view(np.uint64)
+    nz = np.flatnonzero(u)
+    k = np.flatnonzero(np.unpackbits(u[nz].view(np.uint8), bitorder="little").view(bool))
+    g = nz[k >> 6] * 64 + (k & 63)  # corridor * 32 W + row
+    span = 32 * w
+    return [part - i * span
+            for i, part in enumerate(np.split(g, np.searchsorted(g, np.arange(1, q) * span)))]
+
+
+def _corridor_kernel(sft, specs, rows, hdg, device, tm) -> list:
+    """One ``corridor_masks`` launch (the row or the gather form, as
+    ``rows`` is) over a batch of one directionality: the packed corridors
+    (and the headings) uploaded, the two bands' words read back, and each
+    corridor's rows of ``cand & ~sure`` re-checked in f64 and merged into
+    its ``sure`` rows. Returns each corridor's matched candidate indices,
+    ascending."""
+    heading = hdg is not None and _constrained(specs)
     bidirectional = heading and any(s.bidirectional for s in specs
                                     if s.heading_tolerance_deg is not None)
-    dev = torch.device(device)
-
-    def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-
-    rows = (up(xs, np.float32), up(ys, np.float32), up(bins, np.int32), up(offs, np.int32),
-            up(hdg if hdg is not None else np.zeros(n), np.float32))
-    segs, tq, brg, *bands = _pack(specs, sft)
-    payload = (up(segs, np.float32), up(tq, np.int32), up(brg, np.float32),
-               *(up(b, np.float32) for b in bands))
-    cand, sure = corridor_step(*rows, *payload, heading, bidirectional)
-    cand, sure = cand.cpu().numpy(), sure.cpu().numpy()
-    out = sure.copy()
-    band = cand & ~sure
-    for qi in np.nonzero(band.any(axis=1))[0]:
-        r = np.nonzero(band[qi])[0]
-        exact = corridor_masks_f64(xs[r], ys[r], tms[r], None if hdg is None else hdg[r],
-                                   [specs[qi]])
-        out[qi, r] |= exact[0]
+    s0 = time.perf_counter()
+    payload = [_upload(a, a.dtype, device) for a in _pack(specs, sft)]
+    hdg_t = _upload(hdg, np.float32, device) if heading else None
+    cand, sure = rows.masks(hdg_t, payload, heading, bidirectional)
+    cand = cand.cpu().numpy().view(np.uint32)
+    sure = sure.cpu().numpy().view(np.uint32)
+    s1 = time.perf_counter()
+    out = _set_bits(sure)
+    for qi, band in enumerate(_set_bits(cand & ~sure)):
+        if not len(band):
+            continue
+        xs, ys, tms = rows.exact(band)
+        keep = band[corridor_masks_f64(xs, ys, tms, None if hdg is None else hdg[band],
+                                       [specs[qi]])[0]]
+        out[qi] = np.insert(out[qi], np.searchsorted(out[qi], keep), keep)
+        tm["band_rows"] += len(band)
+    tm["kernel_ms"] += (s1 - s0) * 1e3
+    tm["refine_ms"] += (time.perf_counter() - s1) * 1e3
     return out
 
 

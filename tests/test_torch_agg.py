@@ -293,6 +293,55 @@ def test_aggregate_many_equals_reference(agg_stores, monkeypatch, group_by, valu
         assert max(firsts) > 1
 
 
+NULL_SPEC = "cat:Integer,kind:String,w:Double,dtg:Date,*geom:Point"
+NULL_ROWS = 20_000
+
+
+@pytest.fixture(scope="module")
+def null_key_stores():
+    """A point store whose group keys (Integer and String) and value column
+    hold ~20% nulls, in both packages from the same columns: the reference
+    on a one-device mesh."""
+    lon, lat, t = synth_gdelt(NULL_ROWS, seed=5)
+    rng = np.random.default_rng(29)
+    cat = rng.integers(0, 12, NULL_ROWS).astype(np.int32)
+    kind = np.array([f"k{i}" for i in rng.integers(0, 4, NULL_ROWS)], dtype=object)
+    w = rng.normal(0.0, 3.0, NULL_ROWS)
+    valid = {c: rng.random(NULL_ROWS) > 0.2 for c in ("cat", "kind", "w")}
+
+    def table(mod, sft):
+        return mod.FeatureTable.from_columns(sft, [f"n.{i}" for i in range(NULL_ROWS)], {
+            "cat": mod.Column(sft.attr("cat").type, cat.copy(), valid["cat"].copy()),
+            "kind": mod.Column(sft.attr("kind").type, kind.copy(), valid["kind"].copy()),
+            "w": mod.Column(sft.attr("w").type, w.copy(), valid["w"].copy()),
+            "dtg": mod.Column(sft.attr("dtg").type, t.copy()),
+            "geom": mod.point_column(lon.copy(), lat.copy())})
+
+    ref = RefDataStore(backend=TpuBackend(mesh=make_mesh(1)))
+    sft = ref.create_schema("nk", NULL_SPEC)
+    ref.write("nk", table(ref_columnar, sft))
+    ref.compact("nk")
+    port = DataStore(device="cpu")
+    sft = port.create_schema("nk", NULL_SPEC)
+    port.write("nk", table(columnar, sft))
+    port.compact("nk")
+    boxes, windows = make_queries(8, seed=7)
+    return port, ref, [bbox_time_cql(b, w) for b, w in zip(boxes, windows)] + ["INCLUDE"]
+
+
+@pytest.mark.parametrize("group_by", [["cat"], ["kind"], ["cat", "kind"]])
+def test_aggregate_many_null_group_keys_equal_reference(null_key_stores, monkeypatch, group_by):
+    """Null keys in ``group_by`` (Integer, String, both) and a nullable
+    value column: the port's groups, counts and value folds equal the
+    reference's exactly (sums within RTOL)."""
+    monkeypatch.setenv("GEOMESA_TPU_PYRAMID", "0")
+    port, ref, queries = null_key_stores
+    got = port.aggregate_many("nk", queries, group_by=group_by, value_cols=["w"])
+    want = ref.aggregate_many("nk", queries, group_by=group_by, value_cols=["w"])
+    _assert_agg_equal(got, want)
+    assert got[-1] is not None and sum(got[-1]["count"]) == NULL_ROWS
+
+
 def test_host_retest_adds_boundary_rows(agg_stores, agg_data, monkeypatch):
     """The snapped queries' boundary rows that pass the f64 filter are
     added to their groups: the port's answer equals an f64 numpy fold,

@@ -11,6 +11,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 import geomesa_tpu  # noqa: F401  (x64 on)
 from geomesa_tpu.curve import binned_time as ref_bt
@@ -205,3 +206,21 @@ def test_index_helpers_and_time_quads():
     bins = np.arange(2470, 2490)
     for chosen in ([ivals[0]], ivals[:2], None):
         assert time_windows(binned, bins, chosen) == ref_time_windows(ref_binned, bins, chosen)
+
+
+@pytest.mark.parametrize("n", [0, 1, 40, 3000])
+def test_gather_indices_equals_reference(n):
+    """The port expands a plan's intervals on a torch device (the CPU
+    here) into the reference's slots."""
+    from geomesa_tpu.index import api as ref_api
+
+    from geomesa_tpu_torch.index import api
+
+    rng = np.random.default_rng(n)
+    starts = np.sort(rng.choice(10 * n + 10, n, replace=False))
+    ivs = np.stack([starts, starts + rng.integers(1, 9, n)], axis=1).astype(np.int64)
+    ivs = ivs[np.concatenate([[True], ivs[1:, 0] >= ivs[:-1, 1]])] if n else ivs.reshape(0, 2)
+    idx, count = api.gather_indices(ivs)
+    ref_idx, ref_count = ref_api.gather_indices(ivs)
+    assert count == ref_count and idx.dtype == torch.int64
+    assert np.array_equal(idx.numpy(), np.asarray(ref_idx)[:count])

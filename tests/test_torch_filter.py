@@ -96,6 +96,67 @@ def test_extract_and_masks_match_reference(cql, tables):
     )
 
 
+NULL_CQLS = [
+    "name = 'n1'",
+    "name <> 'n1'",
+    "NOT (name = 'n2')",
+    "name IN ('n0', 'n3')",
+    "NOT (name IN ('n0', 'n3'))",
+    "count > 4",
+    "NOT (count > 4)",
+    "count BETWEEN 2 AND 6",
+    "NOT (count BETWEEN 2 AND 6)",
+    "count <> 3",
+    "score <= 0.5",
+    "NOT (score < 0.25)",
+    "score BETWEEN 0.2 AND 0.7",
+    f"dtg DURING {A}",
+    f"NOT (dtg DURING {A})",
+    "count > 2 AND score < 0.6 OR name = 'n0'",
+]
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["dates", "null_dates"])
+def null_tables(request):
+    """4,000 rows whose String, Integer and Double columns hold ~20% nulls
+    (and, in one form, the date too), made in both packages by
+    ``from_records`` from the same records."""
+    rng = np.random.default_rng(33)
+    recs = []
+    for i in range(4000):
+        rec = {"name": f"n{i % 4}", "count": int(rng.integers(0, 10)),
+               "score": float(rng.uniform(0, 1)), "dtg": int(T0 + rng.integers(0, 14 * 86_400_000))}
+        for k in ("name", "count", "score") + (("dtg",) if request.param else ()):
+            if rng.random() < 0.2:
+                rec[k] = None
+        recs.append((rec, float(rng.uniform(-180, 180)), float(rng.uniform(-90, 90))))
+    from geomesa_tpu.geometry.types import Point as RefPoint
+    from geomesa_tpu_torch.geometry.types import Point
+
+    fids = [f"f{i}" for i in range(len(recs))]
+    ref = ref_columnar.FeatureTable.from_records(
+        ref_parse_spec("t", SPEC), [{**r, "geom": RefPoint(x, y)} for r, x, y in recs], fids)
+    port = columnar.FeatureTable.from_records(
+        parse_spec("t", SPEC), [{**r, "geom": Point(x, y)} for r, x, y in recs], fids)
+    return ref, port
+
+
+@pytest.mark.parametrize("cql", NULL_CQLS)
+def test_masks_over_null_columns_match_reference(cql, null_tables):
+    """A null value matches no compare, ``BETWEEN``, ``IN`` or ``DURING``,
+    and ``NOT`` over them is what the reference makes of it: masks and
+    residual masks equal the reference's row for row."""
+    ref_table, table = null_tables
+    rf, f = ref_parse(cql), parse(cql)
+    for c in ("name", "count", "score"):
+        assert (~table.columns[c].is_valid()).sum() > 500
+    want = rf.mask(ref_table)
+    assert np.array_equal(f.mask(table), want)
+    rows = np.random.default_rng(len(cql)).choice(len(table), 900, replace=False)
+    assert np.array_equal(
+        ast.residual_mask(f, table, rows), ref_ast.residual_mask(rf, ref_table, rows))
+
+
 @pytest.mark.parametrize(
     "cql",
     [
