@@ -2,8 +2,9 @@
 and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
 standing-query stream, a date-less point schema, the grouped aggregation,
 density and KNN, the spatial join, bench config 5 with a line store on the
-xz3 and xz2 indexes, bench config 7's resident count steps and bench
-config 10's corridor engine and interlink end to end on one CUDA card.
+xz3 and xz2 indexes (with its grouped aggregation and density), bench
+config 7's resident count steps and bench config 10's corridor engine,
+interlink and track statistics end to end on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -193,15 +194,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    the bench's int referee (f64 boundary rows logged), p50 of 20 batches by
    host clock as ``xz2_linestring_bbox_query_p50_latency`` (ms per query);
    the kernel beside its plain version and bound, and at 64M rows (the 4M
-   repeated 16 times, 1 GB of columns). 9c, ``dtg:Date,*geom:LineString``
-   (day bins) with 4M line strings on config 5's boxes
-   (``workload.box_linestrings``) dated as ``synth_gdelt`` dates, written
-   through ``DataStore`` (xz3 + xz2); the 64 city-box 2-7 day queries, 8
-   boxes with no time (planned on xz2) and one box across the antimeridian:
-   ``count_many`` loose against a numpy int referee, exact against an f64
-   referee, ``select_many`` of the 64 and ``query()`` of 17 against the f64
-   referee (rows, fid sets, the index planned); timings with their host
-   split; the three kernels alone at the store's shapes with their bounds.
+   repeated 16 times, 1 GB of columns). 9c,
+   ``cat:Integer,val:Double,dtg:Date,*geom:LineString`` (day bins) with 4M
+   line strings on config 5's boxes (``workload.box_linestrings``) dated as
+   ``synth_gdelt`` dates, config 9's group ids (G = 1024) and values with a
+   tenth of them null, written through ``DataStore`` (xz3 + xz2); the 64
+   city-box 2-7 day queries, 8 boxes with no time (planned on xz2) and one
+   box across the antimeridian: ``count_many`` loose against a numpy int
+   referee, exact against an f64 referee, ``select_many`` of the 64 and
+   ``query()`` of 17 against the f64 referee (rows, fid sets, the index
+   planned); timings with their host split; then, with the launch counts
+   zeroed before it, ``aggregate_many(group_by=["cat"],
+   value_cols=["val"])`` of the 64 (the overlap fold: one
+   ``grouped_agg_overlap`` and one ``agg_work_list`` launch a call), first
+   call and p50 of 5, every answer equal to an f64 numpy fold over the f64
+   referee's rows (``agg_referee``: groups in order, counts, value counts,
+   min and max exact, sums within a relative 1e-12); ``density_many`` of
+   the 4 queries with the fewest matches over the world viewport at 256 x
+   256 and the ``density`` hint of one (the exact path, the host
+   rasterization: each grid's mass equals its query's exact count); the
+   three overlap kernels alone at the store's shapes with their bounds, and
+   ``grouped_agg_overlap`` against ``grouped_agg_overlap_plain`` at the
+   store's payloads, with dead and inverted slots, an all-dead query and
+   ``true_n`` inside the last chunk, and at G = 8192 (the global mode), its
+   time beside the plain version's and its bound (``agg_overlap_floor``).
    Each overlap kernel's record carries ``device_ms`` beside ``ms``: the
    device work of a call, CUDA events around 10 calls enqueued behind a
    spin of the card (``device_ms``), so the host's share does not count.
@@ -267,6 +283,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    path's shape, the record (the row form at the line leg's candidates, the
    gather form at the device select's), the row form at the point
    candidate query's rows, and both at every row x 16 and x 64 corridors.
+   11d, track statistics over 11b's store (with the launch counts zeroed
+   before it): ``build_track_state`` with its split (scan, lexsort and
+   offsets, sorted table and columns, staging), ``track_stats`` cold (the
+   state built) and warm (the cached state, p50 of 5; one ``track_stats``
+   launch a call), equal to ``track_stats_host`` (labels, rows and times
+   exact, the sums within the reference's rtol 5e-3 + atol 1e-3); then the
+   kernel against ``track_stats_plain`` on the card (rtol 1e-4 + atol 1e-3)
+   at config 10's shape, no row, one-row entities, one entity holding half
+   of 1,000,003 rows, parked runs (dwell) and a row count that is not a
+   multiple of 32; its time beside the plain version's, its bound
+   (``track_floor``) and ``torch.segment_reduce`` of the four precomputed
+   term columns, a part of the work.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -1699,7 +1727,8 @@ def dateless_path(dev, n_rows: int, n_queries: int, n_exact: int) -> dict:
 def agg_referee(rows, gid, vals, n_groups: int):
     """The f64 numpy fold of one query's matching ``rows`` (row ids): group
     keys in first-occurrence row order, counts, value counts, sums, min and
-    max per group, in that order."""
+    max per group, in that order; a group whose values are all NaN (null)
+    has NaN min and max, as ``aggregate_many`` answers."""
     rows = np.sort(rows)
     g, v = gid[rows], vals[rows]
     keys, first = np.unique(g, return_index=True)
@@ -1709,9 +1738,11 @@ def agg_referee(rows, gid, vals, n_groups: int):
     vmax = np.full(n_groups, -np.inf)
     np.minimum.at(vmin, g[ok], v[ok])
     np.maximum.at(vmax, g[ok], v[ok])
-    return (keys, np.bincount(g, minlength=n_groups)[keys],
-            np.bincount(g[ok], minlength=n_groups)[keys],
-            np.bincount(g[ok], weights=v[ok], minlength=n_groups)[keys], vmin[keys], vmax[keys])
+    vcnt = np.bincount(g[ok], minlength=n_groups)[keys]
+    empty = vcnt == 0
+    return (keys, np.bincount(g, minlength=n_groups)[keys], vcnt,
+            np.bincount(g[ok], weights=v[ok], minlength=n_groups)[keys],
+            np.where(empty, np.nan, vmin[keys]), np.where(empty, np.nan, vmax[keys]))
 
 
 def check_agg_answer(res, want, label: str) -> None:
@@ -1724,23 +1755,29 @@ def check_agg_answer(res, want, label: str) -> None:
         raise AssertionError(f"aggregate_many {label}: groups or their order differ")
     for name, got, w in (("count", res["count"], cnt), ("value count", col["count"], vcnt),
                          ("min", col["min"], vmin), ("max", col["max"], vmax)):
-        if not np.array_equal(got, w):
+        if not np.array_equal(got, w, equal_nan=True):
             raise AssertionError(f"aggregate_many {label}: {name} differs from the f64 fold")
     err = np.abs(col["sum"] - vsum)
     if not (err <= AGG_RTOL * np.abs(vsum)).all():
         raise AssertionError(f"aggregate_many {label}: sums differ by up to {err.max()}")
 
 
-def check_grouped_kernel(dev, args: tuple, label: str, extents=None) -> tuple[int, float]:
+def check_grouped_kernel(dev, args: tuple, label: str, extents=None,
+                         overlap: bool = False) -> tuple[int, float]:
     """``grouped_agg`` (given the columns' ``extents``, as the store gives
-    them) against ``grouped_agg_plain`` on the card: integer outputs, min
-    and max exact, lanes exact where they hold every boundary row and a
-    subset of them where they overflow, sums within a relative 1e-12; logs
-    the fold's mode. Returns (max |difference| of the exact outputs, the
-    sums' largest relative difference)."""
+    them) against ``grouped_agg_plain`` on the card, or with ``overlap``
+    ``grouped_agg_overlap`` against ``grouped_agg_overlap_plain``: integer
+    outputs, min and max exact, lanes exact where they hold every boundary
+    row and a subset of them where they overflow, sums within a relative
+    1e-12; logs the fold's mode. Returns (max |difference| of the exact
+    outputs, the sums' largest relative difference)."""
     import torch
 
-    from geomesa_tpu_torch.ops.kernels import grouped_agg, grouped_agg_plain
+    from geomesa_tpu_torch.ops import kernels
+
+    grouped_agg = kernels.grouped_agg_overlap if overlap else kernels.grouped_agg
+    grouped_agg_plain = (kernels.grouped_agg_overlap_plain if overlap
+                         else kernels.grouped_agg_plain)
 
     def worst(t) -> float:
         return float(t.abs().max()) if t.numel() else 0.0
@@ -3644,10 +3681,171 @@ def planned_overlap_passes(cols, true_n: int, pair_q, pair_blk, boxes, times, pl
     return passes
 
 
-def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
+XZ_AGG_GROUPS = 1024  # phase 9c's group key: bench config 9's G
+XZ_NULL_SHARE = 0.1  # phase 9c's value column: about a tenth of it null
+XZ_DENSITY_QUERIES = 4  # density_many's queries on the line store: the host rasterization
+XZ_WORLD = (-180.0, -90.0, 180.0, 90.0)  # the density viewport: every feature touches a cell
+
+
+def agg_overlap_floor(cols, n: int, boxes, times, n_vals: int, cnt, hits, capacity: int,
+                      n_groups: int):
+    """The least work of ``grouped_agg_overlap`` on these inputs:
+    operations are :func:`overlap_floor`'s over the (chunk, query) pairs
+    the work list keeps (``overlap_chunk_pairs``), with the edge compares
+    of every matched (row, query); bytes are :func:`agg_floor`'s at the
+    bbox width: the six columns of every loaded row read once (24 B a row),
+    ``gid``, ``rowid`` and the values of each row that folds in some query
+    (8 + 8 V B), the payload read once and the outputs written once.
+    Returns ((alu, all), bytes, distinct folded rows)."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+
+    keep = kernels.overlap_chunk_pairs(cols, 0, n, boxes, times)
+    counts = cnt.long().sum(dim=1) + hits[:, 0].long()
+    ops, _, _ = overlap_floor(cols, n, boxes, times, keep, counts, hits, capacity)
+    folded = torch.zeros(cols[0].shape[0], dtype=torch.bool, device=cols[0].device)
+    for s, e, m, edge in kernels._overlap_plain_masks(cols, 0, n, boxes, times, 1 << 20,
+                                                      edges=True):
+        folded[s:e] |= (m & ~edge).any(dim=0)
+    distinct = int(folded.sum())
+    q = boxes.shape[0]
+    out_bytes = q * n_groups * 8 + q * n_vals * n_groups * 28 + q * capacity * 4 + q * 4
+    nbytes = (24 * cols[0].shape[0] + distinct * (8 + 8 * n_vals)
+              + 4 * (boxes.numel() + times.numel()) + out_bytes)
+    return ops, nbytes, distinct
+
+
+def xz_agg_leg(dev, ds, cqls, rows, gid, vals, exact) -> dict:
+    """Phase 9c's aggregation and density legs on the line store ``ds``
+    (type ``xz``): ``aggregate_many`` of the 64 city-box queries against
+    :func:`agg_referee` over their f64 referee ``rows``, the overlap fold
+    alone against its plain version, then ``density_many`` and the
+    ``density`` hint. Returns the ``grouped_agg_overlap`` record's fields
+    with its launches."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import (
+        EDGE_CAPACITY, grouped_agg_overlap, grouped_agg_overlap_plain)
+    from geomesa_tpu_torch.planning.planner import Query
+
+    on_card = dev.type == "cuda"
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    s = time.perf_counter()
+    answers = ds.aggregate_many("xz", cqls, group_by=["cat"], value_cols=["val"])
+    first_ms = (time.perf_counter() - s) * 1e3
+    ms = []
+    for _ in range(5):
+        s = time.perf_counter()
+        ds.aggregate_many("xz", cqls, group_by=["cat"], value_cols=["val"])
+        ms.append((time.perf_counter() - s) * 1e3)
+    launched = dict(kernels.launches)
+    if on_card and (launched["grouped_agg_overlap"], launched["agg_work_list"],
+                    launched["grouped_agg"]) != (6, 6, 0):
+        raise AssertionError(f"6 aggregate_many calls on the line store launched {launched}, not "
+                             "6 overlap folds and 6 work lists")
+    declined = sum(a is None for a in answers)
+    t0 = time.perf_counter()
+    for i, res in enumerate(answers):
+        check_agg_answer(res, agg_referee(rows[i], gid, vals, XZ_AGG_GROUPS), f"line store {i}")
+    log(f"phase 9c aggregate_many: first call {first_ms:.3f} ms (the group-id, row-id and value "
+        f"staging included), p50 {p50(ms):.3f} ms over 5 (min {min(ms):.3f}, max {max(ms):.3f}) "
+        f"for {len(cqls)} queries, {p50(ms) / len(cqls):.3f} ms per query; {declined} lanes None; "
+        f"{sum(int(a['count'].sum()) for a in answers)} rows in "
+        f"{sum(len(a['groups']) for a in answers)} groups; all {len(cqls)} equal the f64 numpy "
+        f"fold over the referee's rows (groups in order; counts, value counts, min, max exact; "
+        f"sums within {AGG_RTOL}) in {time.perf_counter() - t0:.3f} s; launches "
+        f"{ {k: v for k, v in launched.items() if v} }")
+
+    # -- density: the exact per-query path (the host rasterization) -----------------
+    # the host rasterizes every matching line string in Python (the reference's
+    # path): the queries with the fewest matches keep the leg inside the time limit
+    order = [i for i in np.argsort(exact[:len(cqls)], kind="stable") if exact[i] > 0]
+    picked = order[:XZ_DENSITY_QUERIES]
+    dq = [cqls[i] for i in picked]
+    exact = [exact[i] for i in picked]
+    s = time.perf_counter()
+    grids = ds.density_many("xz", dq, XZ_WORLD, 256, 256)
+    dens_ms = (time.perf_counter() - s) * 1e3
+    s = time.perf_counter()
+    hint = ds.query("xz", Query(dq[0], hints={"density": {"bbox": XZ_WORLD, "width": 256,
+                                                          "height": 256}}))
+    hint_ms = (time.perf_counter() - s) * 1e3
+    for i, g in enumerate(grids):
+        if g.shape != (256, 256) or not np.isfinite(g).all() or (g < 0).any() \
+                or abs(g.sum() - exact[i]) > 1e-6 * max(1, exact[i]):
+            raise AssertionError(f"density_many query {i}: its grid's mass {g.sum()} is not the "
+                                 f"query's {exact[i]} features")
+    if not np.allclose(hint.density, grids[0], rtol=0, atol=1e-9):
+        raise AssertionError("the density hint differs from density_many")
+    log(f"phase 9c density_many: {dens_ms / len(dq):.3f} ms per query over {len(dq)} queries "
+        f"(queries {picked}, the fewest matches of the {len(cqls)}; the exact path: query() and "
+        f"the host rasterization of {sum(exact)} line strings at 256 x 256, "
+        f"{dens_ms / max(1, sum(exact)):.4f} ms a line string), each grid's mass == its exact "
+        f"count over the world viewport; the density hint {hint_ms:.3f} ms for query "
+        f"{picked[0]}, == density_many's grid")
+    record = {"launches": launched["grouped_agg_overlap"]}
+    if not on_card:
+        return record
+
+    # -- the overlap fold alone at the store's shapes, then adversarial payloads ---------
+    st = ds._state("xz")
+    state = st.backend_state["xz3"]
+    (dgid, _, keys), drowid, dvals, _ = ds._agg_residency(state, st.table, st.indices["xz3"].perm,
+                                                         ["cat"], ["val"])
+    g_pad = 1 << max(0, (len(keys) - 1).bit_length())
+    pend = ds._batch_payloads(st, [Query(c) for c in cqls])
+    boxes = torch.from_numpy(np.stack([p[0] for _, p, _ in pend])).to(dev)
+    times = torch.from_numpy(np.stack([p[1] for _, p, _ in pend])).to(dev)
+    cols = state.spatial_cols()
+    ext = state.extents
+    main_args = (cols, dgid, drowid, dvals, 0, state.n, boxes, times, g_pad, EDGE_CAPACITY)
+    err, rel = check_grouped_kernel(dev, main_args, f"overlap, line store N={state.n} "
+                                    f"Q={len(cqls)}", ext, overlap=True)
+    adv = boxes.clone()
+    adv[1, -1] = torch.tensor([500, 100, 500, 100], dtype=torch.int32)  # inverted: dead
+    adv[2, :] = torch.tensor([7, 3, 7, 3], dtype=torch.int32)  # every slot dead
+    adv_args = (cols, dgid, drowid, dvals, 0, state.n - 1234, adv, times, g_pad, EDGE_CAPACITY)
+    e2, r2 = check_grouped_kernel(dev, adv_args, "overlap, dead and inverted slots, an all-dead "
+                                  "query, true_n inside the last chunk", ext, overlap=True)
+    wide_gid = torch.from_numpy(np.random.default_rng(37).integers(
+        0, AGG_WIDE_GROUPS, cols[0].shape[0]).astype(np.int32)).to(dev)
+    wide_args = (cols, wide_gid, drowid, dvals, 0, state.n, boxes, times, AGG_WIDE_GROUPS,
+                 EDGE_CAPACITY)
+    e3, r3 = check_grouped_kernel(dev, wide_args, f"overlap G={AGG_WIDE_GROUPS}", ext,
+                                  overlap=True)
+    kernel_ms = cuda_ms(lambda: grouped_agg_overlap(*main_args, extents=ext), 5)
+    dms = device_ms(lambda: grouped_agg_overlap(*main_args, extents=ext))
+    plain_ms = cuda_ms(lambda: grouped_agg_overlap_plain(*main_args), 1)
+    out = grouped_agg_overlap(*main_args, extents=ext)
+    torch.cuda.synchronize()
+    work = kernels.grouped_agg_last_work()
+    ops, nbytes, distinct = agg_overlap_floor(cols, state.n, boxes, times, 1, out[0], out[7],
+                                              EDGE_CAPACITY, g_pad)
+    record.update(max_abs_err=max(err, e2, e3), ms=kernel_ms, device_ms=dms, plain_ms=plain_ms,
+                  mode=work["mode"], **bound_fields(ops, nbytes))
+    attrs = {m: kernels.grouped_agg_attrs(m, overlap=True) for m in ("shared", "global")}
+    log(f"phase grouped_agg_overlap timing: {kernel_ms:.4f} ms (CUDA events, 5 calls: work list, "
+        f"fold, finish), device {fmt_ms(dms)} (10 calls behind a spin) at N={state.n} "
+        f"Q={len(cqls)} G={g_pad} V=1, {work['mode']} mode ({work['runs']} runs of up to "
+        f"{work['run_len']} chunks over {work['pairs']} kept pairs); plain {plain_ms:.4f} ms; "
+        f"bound {record['bound_ms']:.6f} ms ({record['bound_by']}: {ops[0]} ops; {nbytes} bytes, "
+        f"{distinct} distinct folded rows), {record['bound_ms'] / kernel_ms:.4f} of it by events, "
+        f"{fmt_ms(None if dms is None else record['bound_ms'] / dms)} by device; registers and "
+        f"local-memory bytes a thread: shared mode {attrs['shared']}, global mode "
+        f"{attrs['global']}; sums' max relative difference {max(rel, r2, r3):.3e}")
+    if record["bound_ms"] / kernel_ms > 1:
+        raise AssertionError("grouped_agg_overlap beats its bound: the bound's count is wrong")
+    return record
+
+
+def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict, dict, dict]:
     """Phase 9c: a line store at config 5's scale through ``DataStore``.
     Returns the records' timing fields of ``batched_edge_gather_overlap``
-    and ``planned_gather_overlap``."""
+    and ``planned_gather_overlap``, the main path's launches and the
+    ``grouped_agg_overlap`` record (:func:`xz_agg_leg`)."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
@@ -3662,12 +3860,15 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
     from geomesa_tpu_torch.schema.sft import AttributeType
     from geomesa_tpu_torch.store.datastore import DataStore
     from geomesa_tpu_torch.workload import (
-        XZ_SPEC, bbox_cql, bbox_time_cql, box_linestrings, make_queries, synth_gdelt, xz_boxes)
+        XZ_AGG_SPEC, bbox_cql, bbox_time_cql, box_linestrings, grouped_columns, make_queries,
+        synth_gdelt, xz_boxes)
 
     t0 = time.perf_counter()
     b = xz_boxes(m, 9)
     coords, offsets = box_linestrings(*b)
     t = synth_gdelt(m)[2]
+    gid, vals = grouped_columns(m, XZ_AGG_GROUPS)
+    valid = np.random.default_rng(19).random(m) >= XZ_NULL_SHARE
     fids = np.arange(m).astype("U9")
     boxes_f64, windows_ms = make_queries(N_QUERIES, 7)
     cqls = [bbox_time_cql(bx, w) for bx, w in zip(boxes_f64, windows_ms)]
@@ -3678,8 +3879,10 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
     for k in kernels.launches:
         kernels.launches[k] = 0
     ds = DataStore(device=dev)
-    sft = ds.create_schema("xz", XZ_SPEC)
+    sft = ds.create_schema("xz", XZ_AGG_SPEC)
     table = FeatureTable.from_columns(sft, fids, {
+        "cat": Column(AttributeType.INT, gid.copy()),
+        "val": Column(AttributeType.DOUBLE, vals.copy(), valid.copy()),
         "dtg": Column(AttributeType.DATE, t), "geom": linestring_column(coords, offsets)})
     t0 = time.perf_counter()
     ds.write("xz", table)
@@ -3764,9 +3967,13 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
     log(f"phase 9c query(): p50 {p50(q_ms):.3f} ms per query over {N_EXACT}; split p50 (ms): "
         + ", ".join(f"{k} {p50([s[k] for s in q_split]):.3f}" for k in q_split[0]))
 
+    t0 = time.perf_counter()
+    agg = xz_agg_leg(dev, ds, cqls, rows, gid, np.where(valid, vals, np.nan), exact)
+    log(f"phase 9c aggregation and density: {time.perf_counter() - t0:.3f} s")
+
     # -- the kernels alone at the store's shapes ----------------------------------
     if dev.type != "cuda":
-        return {}, {}, launched
+        return {}, {}, launched, agg
     dev_state = states["xz3"]
     cols, n = dev_state.spatial_cols(), dev_state.n
     planner = QueryPlanner(sft, ds._state("xz").indices)
@@ -3853,12 +4060,12 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict]:
         f"{gather['bound_ms'] / g_ms:.4f} of it")
     if gather["bound_ms"] / g_ms > 1:
         raise AssertionError("planned_gather_overlap reads more than its bound")
-    return edge, gather, launched
+    return edge, gather, launched, agg
 
 
 def xz_path(dev, m: int, tiles: int, iters: int) -> list[dict]:
-    """Phase 9: 9a (on the card), 9b and 9c; the three overlap kernels'
-    records."""
+    """Phase 9: 9a (on the card), 9b and 9c; the records of the three
+    overlap kernels and of the grouped fold's overlap form."""
     from geomesa_tpu_torch.ops import kernels
 
     errs = dict.fromkeys(("batched_overlap", "batched_edge_gather_overlap",
@@ -3875,7 +4082,7 @@ def xz_path(dev, m: int, tiles: int, iters: int) -> list[dict]:
     k1, k1_launches = config5_step(dev, m, tiles)
     log(f"phase 9b: {time.perf_counter() - t0:.3f} s in all")
     t0 = time.perf_counter()
-    edge, gather, launched = xz_store_path(dev, m, iters)
+    edge, gather, launched, agg = xz_store_path(dev, m, iters)
     free_card()
     log(f"phase 9c: {time.perf_counter() - t0:.3f} s in all")
     src = "geomesa_tpu_torch/csrc/"
@@ -3892,6 +4099,8 @@ def xz_path(dev, m: int, tiles: int, iters: int) -> list[dict]:
          "replaces": "geomesa_tpu/parallel/query.py:820",
          "launches": launched["planned_gather_overlap"], "library_ms": None, **gather,
          "max_abs_err": max(gather.get("max_abs_err", 0), errs["planned_gather_overlap"])},
+        {"name": "grouped_agg_overlap", "route": "cuda", "source": src + "grouped_agg.cu",
+         "replaces": "geomesa_tpu/parallel/query.py:1498", "library_ms": None, **agg},
     ]
 
 
@@ -4620,10 +4829,186 @@ def line_leg(dev, lon, lat, t, specs) -> tuple[int, list]:
     return rows, tested
 
 
-def trajectory_path(dev, n_rows: int) -> tuple[dict, dict, dict]:
-    """Phase 11b: bench config 10 at ``n_rows`` (see the module docstring).
-    Returns the records of ``corridor_masks``' row form and gather form and
-    the main path's launches."""
+# -- phase 11d: track statistics over phase 11b's store -------------------------------
+
+TRACK_CHECK_ROWS = 1_000_003  # the kernel alone: one entity holds half of them
+TRACK_RTOL, TRACK_ATOL = 5e-3, 1e-3  # f32 sums against the f64 referee (tests/test_trajectory.py:176)
+# the kernel against its plain version: the sums' order (the card's atomics,
+# index_add_'s) and atan2f's last bit; every decision (dist > 0, dist <= eps)
+# is taken on the same correctly rounded f32 distance
+TRACK_KERNEL_RTOL, TRACK_KERNEL_ATOL = 1e-4, 1e-3
+# f32 operations a row at least: dx, dy, two squares, their sum, the root,
+# atan2 (counted as one), the degrees, the bearing difference, + 180, the
+# remainder, - 180, the absolute value, and the four sums' adds
+TRACK_ROW_FLOPS = 17
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TRACK_LAYOUTS = ("empty", "singles", "giant", "dwell", "odd")
+
+
+def track_layout(kind: str, seed: int, n: int):
+    """(offsets int64, dt f32, x f32, y f32) of a track layout of about
+    ``n`` rows: no row (``empty``), one row an entity (``singles``), one
+    entity holding half the rows (``giant``), parked runs of repeated
+    positions (``dwell``) or a row count that is not a multiple of 32
+    (``odd``)."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        sizes = np.zeros(0, dtype=np.int64)
+    elif kind == "singles":
+        sizes = np.ones(n, dtype=np.int64)
+    elif kind == "giant":
+        side = rng.integers(1, 400, 2 * (n // 2) // 400)
+        side = side[np.cumsum(side) <= n - n // 2]
+        sizes = np.r_[side[: len(side) // 2], n // 2, side[len(side) // 2:]]
+        sizes[-1] += n - sizes.sum()
+    elif kind == "dwell":
+        sizes = rng.integers(2, 300, n // 150)
+    else:
+        sizes = rng.integers(1, 300, n // 150)
+        sizes[-1] += sizes.sum() % 32 == 0
+    offsets = np.r_[0, np.cumsum(sizes)].astype(np.int64)
+    m = int(offsets[-1])
+    x = rng.uniform(-30, 30, m).astype(np.float32)
+    y = rng.uniform(-20, 20, m).astype(np.float32)
+    if kind == "dwell":
+        for k in range(0, max(m - 4, 0), 7):
+            x[k + 1:k + 4], y[k + 1:k + 4] = x[k], y[k]
+    dt = rng.integers(0, 90, m).astype(np.float32)
+    dt[offsets[:-1][sizes > 0]] = 0
+    return offsets, dt, x, y
+
+
+def track_floor(n: int, e: int) -> dict:
+    """``track_stats``' least work: bytes are the three f32 columns read
+    once (12 B a row), the offsets (8 B an entity, and one) and the four
+    f32 sums written once (16 B an entity); operations
+    :data:`TRACK_ROW_FLOPS` a row at the f32 rate."""
+    nbytes = 12 * n + 8 * (e + 1) + 16 * e
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = TRACK_ROW_FLOPS * n / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+
+
+def track_kernel_err(got, want) -> tuple[float, float]:
+    """(largest |kernel - plain| over the four sums, the largest of it over
+    the tolerance rtol |plain| + atol: above 1 fails)."""
+    err = ratio = 0.0
+    for g, w in zip(got, want):
+        if g.numel():
+            d = (g.double() - w.double()).abs()
+            err = max(err, float(d.max()))
+            lim = TRACK_KERNEL_RTOL * w.double().abs() + TRACK_KERNEL_ATOL
+            ratio = max(ratio, float((d / lim).max()))
+    return err, ratio
+
+
+def track_stats_leg(dev, ds, n_rows: int) -> tuple[dict, dict]:
+    """Phase 11d: track statistics over phase 11b's store (``ds``, type
+    ``tracks``). Returns the ``track_stats`` record's fields and the main
+    path's launches."""
+    import torch
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.kernels import track_stats, track_stats_plain, track_terms
+    from geomesa_tpu_torch.trajectory import state as tstate
+
+    on_card = dev.type == "cuda"
+    tstate.invalidate(ds)
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    tm = {}
+    t0 = time.perf_counter()
+    st = tstate.build_track_state(ds, "tracks", "track", timings=tm)
+    build_s = time.perf_counter() - t0
+    cols = st.device_columns(dev)
+    log(f"phase 11d build_track_state: {build_s:.3f} s (scan {tm['scan_s']:.3f}, lexsort and "
+        f"offsets {tm['sort_s']:.3f}, sorted table and columns {tm['take_s']:.3f}); staging "
+        f"{st.stage_s:.3f} s ({st.nbytes} device bytes); {st.n} rows, {st.n_entities} "
+        f"entities, validate {st.validate() or 'clean'}")
+    if st.validate():
+        raise AssertionError("the track state breaks its CSR invariants")
+    tstate.invalidate(ds)
+    s = time.perf_counter()
+    got = tstate.track_stats(ds, "tracks", "track")
+    cold_ms = (time.perf_counter() - s) * 1e3
+    warm = []
+    for _ in range(5):
+        s = time.perf_counter()
+        got = tstate.track_stats(ds, "tracks", "track")
+        warm.append((time.perf_counter() - s) * 1e3)
+    launched = dict(kernels.launches)
+    if on_card and launched["track_stats"] != 6:
+        raise AssertionError(f"6 track_stats calls launched the kernel {launched['track_stats']} "
+                             "times")
+    st = tstate.get_track_state(ds, "tracks", "track")
+    host = tstate.track_stats_host(st)
+    for k in ("track", "rows", "first_ms", "last_ms", "last_x", "last_y", "last_fid"):
+        if list(got[k]) != list(host[k]):
+            raise AssertionError(f"track_stats {k} differs from track_stats_host")
+    worst = 0.0
+    for k in ("length_deg", "duration_s", "avg_speed_deg_s", "heading_change_deg", "dwell_s"):
+        d = np.abs(got[k] - host[k])
+        if not (d <= TRACK_RTOL * np.abs(host[k]) + TRACK_ATOL).all():
+            raise AssertionError(f"track_stats {k} differs from track_stats_host by {d.max()}")
+        worst = max(worst, float((d / (TRACK_RTOL * np.abs(host[k]) + TRACK_ATOL)).max()))
+    log(f"phase 11d track_stats: cold {cold_ms:.3f} ms (the state built, staged and the kernel), "
+        f"warm p50 {p50(warm):.3f} ms over 5 (the cached state) for {st.n_entities} entities; "
+        f"== track_stats_host (labels, rows and times exact; the sums within rtol "
+        f"{TRACK_RTOL} + atol {TRACK_ATOL}, worst {worst:.4f} of it; dwell total "
+        f"{got['dwell_s'].sum():.1f} s); launches {launched['track_stats']}")
+    record = {}
+    if not on_card:
+        return record, launched
+
+    # -- the kernel alone: config 10's shape, then the adversarial shapes -----------------
+    eps = tstate.DEFAULT_DWELL_EPS_DEG
+    args = (*cols, eps)
+    err, ratio = track_kernel_err(track_stats(*args), track_stats_plain(*args))
+    shapes = [f"config 10 (N={st.n}, E={st.n_entities}) {err:.3e}"]
+    for i, kind in enumerate(TRACK_LAYOUTS):
+        off, dt, x, y = track_layout(kind, 61 + i, TRACK_CHECK_ROWS)
+        a = [torch.from_numpy(v).to(dev) for v in (x, y, dt, off)]
+        e, r = track_kernel_err(track_stats(*a, eps), track_stats_plain(*a, eps))
+        err, ratio = max(err, e), max(ratio, r)
+        shapes.append(f"{kind} (N={len(x)}, E={len(off) - 1}) {e:.3e}")
+    torch.cuda.synchronize()
+    if ratio > 1:
+        raise AssertionError(f"track_stats disagrees with its plain version: {ratio:.3f} of the "
+                             "tolerance")
+    log(f"phase 11d kernel-vs-plain: ok within rtol {TRACK_KERNEL_RTOL} + atol "
+        f"{TRACK_KERNEL_ATOL} (worst {ratio:.4f} of it); largest |difference|: "
+        + "; ".join(shapes))
+    ms = cuda_ms(lambda: track_stats(*args), 20)
+    dms = device_ms(lambda: track_stats(*args))
+    plain = cuda_ms(lambda: track_stats_plain(*args), 3)
+    terms = torch.stack(track_terms(*cols, eps)[1:], dim=1).contiguous()
+    lengths = cols[3][1:] - cols[3][:-1]
+    seg = torch.segment_reduce(terms, "sum", lengths=lengths, axis=0)
+    _, seg_ratio = track_kernel_err(track_stats(*args), tuple(seg.T))
+    seg_ms = cuda_ms(lambda: torch.segment_reduce(terms, "sum", lengths=lengths, axis=0), 20)
+    fl = track_floor(st.n, st.n_entities)
+    record.update(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain,
+                  bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+                  segment_reduce_part_ms=seg_ms)
+    log(f"phase track_stats timing: {ms:.4f} ms (CUDA events, 20 launches), device "
+        f"{fmt_ms(dms)} (10 calls behind a spin) at N={st.n} E={st.n_entities}; plain "
+        f"{plain:.4f} ms; bound {fl['bound_ms']:.6f} ms ({fl['bound_by']}: {fl['bytes']} bytes, "
+        f"{TRACK_ROW_FLOPS} f32 ops a row), {fl['bound_ms'] / ms:.4f} of it by events, "
+        f"{fmt_ms(None if dms is None else fl['bound_ms'] / dms)} by device; a part of the work: "
+        f"torch.segment_reduce of the four precomputed term columns {seg_ms:.4f} ms (its sums "
+        f"{seg_ratio:.4f} of the tolerance from the kernel's); launch floor "
+        f"{kernels.launch_floor_ms(dev):.4f} ms")
+    if fl["bound_ms"] / ms > 1 or (dms is not None and fl["bound_ms"] / dms > 1):
+        raise AssertionError("track_stats beats its bound")
+    return record, launched
+
+
+def trajectory_path(dev, n_rows: int) -> tuple[dict, dict, dict, dict]:
+    """Phase 11b: bench config 10 at ``n_rows`` (see the module docstring),
+    with phase 11d over its store. Returns the records of
+    ``corridor_masks``' row form and gather form, the main path's launches
+    and the ``track_stats`` record."""
     import torch
 
     from geomesa_tpu_torch.curve.binned_time import BinnedTime
@@ -4756,9 +5141,13 @@ def trajectory_path(dev, n_rows: int) -> tuple[dict, dict, dict]:
         "one; split (ms) " + ", ".join(f"{k} {p50([sp[k] for sp in tsplits[1:]]):.3f}"
                                        for k in keys)
         + f"; {tsplits[0]['candidates']} candidates, {tsplits[0]['band_rows']} band rows")
+    t1 = time.perf_counter()
+    track_record, track_launched = track_stats_leg(dev, ds, n_rows)
+    track_record["launches"] = track_launched["track_stats"]
+    log(f"phase 11d: {time.perf_counter() - t1:.3f} s in all")
     record, grecord = {}, {}
     if not on_card:
-        return record, grecord, launched
+        return record, grecord, launched, track_record
 
     # -- both forms alone: each at its main-path shape (the record), and at the point
     # store's candidate query's rows and every row x 16 and x 64 -----------------------------
@@ -4823,7 +5212,7 @@ def trajectory_path(dev, n_rows: int) -> tuple[dict, dict, dict]:
         raise AssertionError(f"corridor_masks disagrees with its plain versions at config 10: "
                              f"{err} words")
     record["max_abs_err"], grecord["max_abs_err"] = err
-    return record, grecord, launched
+    return record, grecord, launched, track_record
 
 
 def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
@@ -4961,7 +5350,8 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
         log(f"phase corridor-masks-vs-plain: ok, differing words (row form, gather form) "
             f"{corridor_err} ({time.perf_counter() - t0:.3f} s for phase 11a)")
     t1 = time.perf_counter()
-    corridor_record, corridor_gather_record, launched11 = trajectory_path(dev, trajectory_rows)
+    corridor_record, corridor_gather_record, launched11, track_record = trajectory_path(
+        dev, trajectory_rows)
     free_card()
     log(f"phase 11b: {time.perf_counter() - t1:.3f} s; phase 11: "
         f"{time.perf_counter() - t0:.3f} s in all")
@@ -4976,6 +5366,9 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
             r["launches"] += launched11["planned_gather"]
     src = "geomesa_tpu_torch/csrc/"
     new_records = [
+        {"name": "track_stats", "route": "cuda", "source": src + "track_stats.cu",
+         "replaces": "geomesa_tpu/trajectory/state.py:364", "library_ms": None,
+         **track_record},
         {"name": "planned_count", "route": "cuda", "source": src + "planned_count.cu",
          "replaces": "geomesa_tpu/parallel/query.py:716", "library_ms": None,
          **planned_record, "launches": launched10["planned_count"],

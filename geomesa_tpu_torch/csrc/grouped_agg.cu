@@ -106,6 +106,26 @@
 // Q x C x 4 B) and agg_init_kernel after it; and the fold's launch setting
 // two attributes and asking the occupancy on every call.
 //
+// The overlap form (grouped_agg_kernel<SHARED, true>, entry point
+// geomesa_grouped_agg_overlap) is the same fold over a line or polygon
+// store's bbox columns (xmin, ymin, xmax, ymax, bins, offs): the overlap mode
+// of make_grouped_agg_step (query.py:1498 with overlap=True, per-slot
+// predicate _slot_overlap :316). A row matches when its bbox overlaps a live
+// box and its (bin, offset) lies in a live window; it is a boundary row when
+// it also shares an opposing edge bucket with a box it overlaps or sits at a
+// window's end: overlap_cull.cuh's overlap_mask, box_time_mask and
+// overlap_edge_mask, bit for bit the overlap edge gather's. Its work list is
+// the point form's over the bbox state's extents (ops/kernels.py
+// chunk_extents_bbox: min xmin, max xmax, min ymin, max ymax and the time
+// key's range per chunk), whose test meets() is an exact superset for
+// overlap too: a row overlapping live box q has xmin <= qxhi and xmax >=
+// qxlo, so the chunk's min xmin <= qxhi and max xmax >= qxlo, and likewise
+// in y (overlap_cull.cuh's cull note). A thread loads its 16 rows of each of
+// the six columns straight from device memory as 16-byte vectors, in the
+// point form's bit layout (chunk_row), so the lanes and the fold are the
+// point form's; the block has no row buffer. It reads 24 B a row where the
+// point form reads 16: its bound is the point form's bytes at that width.
+//
 // Sums: atomics fold in no fixed order (neither within a run nor across
 // runs), so sums may differ from a sequential sum in the last bits: the
 // callers state a relative 1e-12. Counts, first, min and max are exact.
@@ -119,6 +139,7 @@
 #include "chunk_cull.cuh"
 #include "count_predicate.cuh"
 #include "launch_cache.cuh"
+#include "overlap_cull.cuh"
 
 namespace {
 
@@ -419,16 +440,14 @@ __device__ __forceinline__ void fold_rows(uint32_t f, int64_t chunk0,
 // Streams chunks list[s..e) of the staged query (tile slot 0) through the
 // prefetch buffer: match, edge split, lanes, fold. All threads call it.
 template <bool FAST>
-__device__ __forceinline__ void fold_run(const int32_t* __restrict__ x,
-                                         const int32_t* __restrict__ y,
-                                         const int32_t* __restrict__ bins,
-                                         const int32_t* __restrict__ offs, int64_t n,
-                                         int64_t base, int64_t limit, const Tile& t,
+__device__ __forceinline__ void fold_run(const BoxCols& cols, int64_t n, int64_t base,
+                                         int64_t limit, const Tile& t,
                                          const int32_t* __restrict__ list, int s, int e,
                                          int4* buf, const int32_t* __restrict__ gid,
                                          const int32_t* __restrict__ rowid,
                                          const double* __restrict__ vals, int nv, int g,
                                          const Acc& acc, int32_t* hits, int32_t* pos, int cap) {
+  const int32_t *x = cols.c[0], *y = cols.c[1], *bins = cols.c[2], *offs = cols.c[3];
   const int lv = FAST ? 0 : t.live[0];
   prefetch_chunk(buf, x, y, bins, offs, n, list[s]);
   for (int i = s; i < e; ++i) {
@@ -448,6 +467,69 @@ __device__ __forceinline__ void fold_run(const int32_t* __restrict__ x,
   }
 }
 
+// Loads the thread's 16 rows of each bbox column of the chunk at chunk0, bit
+// r being chunk row chunk_row(r) as in the point form (rows at n or past it
+// as zeros); returns the mask of its rows below limit.
+__device__ __forceinline__ uint32_t load_box_rows(const BoxCols& cols, int64_t chunk0, int64_t n,
+                                                  int64_t limit, BoxRowsT<ROWS>& rows) {
+  uint32_t valid = 0;
+#pragma unroll
+  for (int j = 0; j < GROUPS; ++j) {
+    const int64_t row = chunk0 + (int64_t)j * GROUP_ROWS + 4 * threadIdx.x;
+    int4 v[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      if (row + 4 <= n) {
+        v[k] = __ldg(reinterpret_cast<const int4*>(cols.c[k] + row));
+      } else {
+        v[k].x = row < n ? __ldg(cols.c[k] + row) : 0;
+        v[k].y = row + 1 < n ? __ldg(cols.c[k] + row + 1) : 0;
+        v[k].z = row + 2 < n ? __ldg(cols.c[k] + row + 2) : 0;
+        v[k].w = row + 3 < n ? __ldg(cols.c[k] + row + 3) : 0;
+      }
+    }
+    put4(rows.x0, j, v[0]);
+    put4(rows.y0, j, v[1]);
+    put4(rows.x1, j, v[2]);
+    put4(rows.y1, j, v[3]);
+    rows.key[4 * j] = time_key(v[4].x, v[5].x);
+    rows.key[4 * j + 1] = time_key(v[4].y, v[5].y);
+    rows.key[4 * j + 2] = time_key(v[4].z, v[5].z);
+    rows.key[4 * j + 3] = time_key(v[4].w, v[5].w);
+    const int64_t nv = limit - row;
+    valid |= (nv >= 4 ? 0xfu : (nv <= 0 ? 0u : (1u << (int)nv) - 1)) << (4 * j);
+  }
+  return valid;
+}
+
+// fold_run's overlap form: chunks list[s..e) of the staged query over the
+// bbox columns, loaded straight into registers: overlap and window masks,
+// the overlap edge split, lanes, fold. All threads call it.
+template <bool FAST>
+__device__ __forceinline__ void fold_run_overlap(const BoxCols& cols, int64_t n, int64_t base,
+                                                 int64_t limit, const Tile& t,
+                                                 const int32_t* __restrict__ list, int s, int e,
+                                                 const int32_t* __restrict__ gid,
+                                                 const int32_t* __restrict__ rowid,
+                                                 const double* __restrict__ vals, int nv, int g,
+                                                 const Acc& acc, int32_t* hits, int32_t* pos,
+                                                 int cap) {
+  const int lv = FAST ? 0 : t.live[0];
+  for (int i = s; i < e; ++i) {
+    const int64_t chunk0 = (int64_t)list[i] * CHUNK;
+    BoxRowsT<ROWS> rows;
+    const uint32_t valid = load_box_rows(cols, chunk0, n, limit, rows);
+    const uint32_t inb = overlap_mask<FAST>(t.box, lv & 0xffff, rows) & valid;
+    if (!__any_sync(FULL_WARP, inb)) continue;  // warp-uniform
+    const uint32_t m = inb & box_time_mask<FAST>(t.win, lv >> 16, rows);
+    if (!__any_sync(FULL_WARP, m)) continue;
+    const uint32_t ed = m ? overlap_edge_mask(t, 0, m, rows) : 0u;
+    append_lanes(ed, base + chunk0, hits, pos, cap);
+    const uint32_t f = m & ~ed;
+    if (f) fold_rows(f, chunk0, gid, rowid, vals, n, nv, g, acc);
+  }
+}
+
 // Bytes of one query's shared partials: vsum, vmin, vmax (8 B each), then
 // cnt, first and vcnt (4 B each).
 __host__ __device__ constexpr long long partial_bytes(int nv, int g) {
@@ -458,10 +540,9 @@ __host__ __device__ constexpr int tile_bytes(int nb, int nt) {
   return (staged_bytes_per_query(nb, nt, 0) + 15) / 16 * 16;
 }
 
-template <bool SHARED>
+template <bool SHARED, bool OVERLAP>
 __global__ void __launch_bounds__(THREADS, 2)
-grouped_agg_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                   const int32_t* __restrict__ bins, const int32_t* __restrict__ offs,
+grouped_agg_kernel(const BoxCols cols,  // x, y, bins, offs; the overlap form's six
                    int64_t n, int64_t base, int64_t true_n,
                    const int32_t* __restrict__ boxes,  // (Q, nb, 4)
                    const int32_t* __restrict__ times,  // (Q, nt, 4)
@@ -475,11 +556,11 @@ grouped_agg_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                    double* __restrict__ vsum, long long* __restrict__ vmin,
                    long long* __restrict__ vmax, int32_t* __restrict__ hits,
                    int32_t* __restrict__ pos, int nv, int g, int cap) {
-  extern __shared__ int4 smem[];  // the row buffer, the staged query, the partials
+  extern __shared__ int4 smem[];  // the row buffer (point form), the staged query, the partials
   __shared__ int meta[2];
   __shared__ int run[3];
   int4* buf = smem;
-  char* tile_at = reinterpret_cast<char*>(smem + ROW_BUF_BYTES / 16);
+  char* tile_at = reinterpret_cast<char*>(smem + (OVERLAP ? 0 : ROW_BUF_BYTES / 16));
   const Tile t = carve(tile_at, 1, nb, nt);
   const int64_t vg = (int64_t)nv * g;
   Acc part{};
@@ -525,12 +606,21 @@ grouped_agg_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
     const int32_t* lq = list + (int64_t)qi * n_chunks;
     int32_t* hq = hits + qi;
     int32_t* pq = pos + (int64_t)qi * cap;
-    if (meta[0] && meta[1])
-      fold_run<true>(x, y, bins, offs, n, base, limit, t, lq, s, e, buf, gid, rowid, vals, nv,
-                     g, acc, hq, pq, cap);
-    else if (meta[0])
-      fold_run<false>(x, y, bins, offs, n, base, limit, t, lq, s, e, buf, gid, rowid, vals, nv,
-                      g, acc, hq, pq, cap);
+    if constexpr (OVERLAP) {
+      if (meta[0] && meta[1])
+        fold_run_overlap<true>(cols, n, base, limit, t, lq, s, e, gid, rowid, vals, nv, g, acc,
+                               hq, pq, cap);
+      else if (meta[0])
+        fold_run_overlap<false>(cols, n, base, limit, t, lq, s, e, gid, rowid, vals, nv, g, acc,
+                                hq, pq, cap);
+    } else {
+      if (meta[0] && meta[1])
+        fold_run<true>(cols, n, base, limit, t, lq, s, e, buf, gid, rowid, vals, nv, g, acc, hq,
+                       pq, cap);
+      else if (meta[0])
+        fold_run<false>(cols, n, base, limit, t, lq, s, e, buf, gid, rowid, vals, nv, g, acc, hq,
+                        pq, cap);
+    }
     __syncthreads();  // the run's partials are complete
     if (SHARED) {  // one global atomic per touched (group, field); each thread resets its own
       for (int i = threadIdx.x; i < g; i += THREADS) {
@@ -601,60 +691,106 @@ agg_finish_kernel(long long* __restrict__ vmin, long long* __restrict__ vmax, in
   for (int i = threadIdx.x; i < cap; i += THREADS) lq[i] = lanes[i] == INT32_MAX ? -1 : lanes[i];
 }
 
-// The dynamic shared memory of a mode's fold block.
-size_t fold_smem(bool shared, int nb, int nt, int nv, int g) {
-  return ROW_BUF_BYTES + tile_bytes(nb, nt) + (shared ? (size_t)partial_bytes(nv, g) : 0);
+// The dynamic shared memory of a mode's fold block (the overlap form has no
+// row buffer).
+size_t fold_smem(bool shared, bool overlap, int nb, int nt, int nv, int g) {
+  return (overlap ? 0 : ROW_BUF_BYTES) + tile_bytes(nb, nt) +
+         (shared ? (size_t)partial_bytes(nv, g) : 0);
 }
 
 // 1: the SHARED mode's partials fit a block beside the row buffer; 0: GLOBAL.
-bool shared_fits(int nb, int nt, int nv, int g) {
-  return fold_smem(true, nb, nt, nv, g) <= (size_t)smem_optin();
+bool shared_fits(bool overlap, int nb, int nt, int nv, int g) {
+  return fold_smem(true, overlap, nb, nt, nv, g) <= (size_t)smem_optin();
 }
 
-LaunchCache fold_cache[2];  // per mode: GLOBAL, SHARED
-LaunchCache list_cache;     // the work list's resident blocks
+LaunchCache fold_cache[2][2];  // per form (point, overlap) and mode (GLOBAL, SHARED)
+LaunchCache list_cache;        // the work list's resident blocks
 
 // The fold's resident blocks on the card (sms x blocks per SM), its launch
-// attributes set once per mode and shared size.
-template <bool SHARED>
+// attributes set once per form, mode and shared size.
+template <bool SHARED, bool OVERLAP>
 cudaError_t fold_blocks(int nb, int nt, int nv, int g, int sms, int* blocks) {
   int per_sm = 1;
-  const cudaError_t e = resident_blocks(grouped_agg_kernel<SHARED>, THREADS,
-                                        fold_smem(SHARED, nb, nt, nv, g), fold_cache[SHARED],
-                                        &per_sm);
+  const cudaError_t e = resident_blocks(grouped_agg_kernel<SHARED, OVERLAP>, THREADS,
+                                        fold_smem(SHARED, OVERLAP, nb, nt, nv, g),
+                                        fold_cache[OVERLAP][SHARED], &per_sm);
   *blocks = sms * per_sm;
   return e;
+}
+
+cudaError_t fold_blocks_for(bool overlap, int nb, int nt, int nv, int g, int sms, int* blocks) {
+  const bool shared = shared_fits(overlap, nb, nt, nv, g);
+  if (overlap)
+    return shared ? fold_blocks<true, true>(nb, nt, nv, g, sms, blocks)
+                  : fold_blocks<false, true>(nb, nt, nv, g, sms, blocks);
+  return shared ? fold_blocks<true, false>(nb, nt, nv, g, sms, blocks)
+                : fold_blocks<false, false>(nb, nt, nv, g, sms, blocks);
+}
+
+// The fold and the finish over columns cols (four or six), both forms.
+cudaError_t launch_fold(bool overlap, const BoxCols& cols, long long n, long long base,
+                        long long true_n, const void* boxes, const void* times, int q, int nb,
+                        int nt, int sms, const void* list, const void* run_q, const void* run_s,
+                        const void* run_e, void* work, const void* gid, const void* rowid,
+                        const void* vals, void* cnt, void* first, void* vcnt, void* vsum,
+                        void* vmin, void* vmax, void* hits, void* pos, int nv, int g, int cap,
+                        cudaStream_t st) {
+  if (q <= 0 || n <= 0) return cudaSuccess;
+  if (cap > MAX_LANES) return cudaErrorInvalidValue;
+  const long long n_chunks = (n + CHUNK - 1) / CHUNK;
+  const bool shared = shared_fits(overlap, nb, nt, nv, g);
+  int blocks = 0;
+  cudaError_t e = fold_blocks_for(overlap, nb, nt, nv, g, sms, &blocks);
+  if (e != cudaSuccess) return e;
+  const size_t smem = fold_smem(shared, overlap, nb, nt, nv, g);
+  auto kernel = overlap ? (shared ? grouped_agg_kernel<true, true> : grouped_agg_kernel<false, true>)
+                        : (shared ? grouped_agg_kernel<true, false>
+                                  : grouped_agg_kernel<false, false>);
+  kernel<<<blocks, THREADS, smem, st>>>(
+      cols, n, base, true_n, (const int32_t*)boxes, (const int32_t*)times, nb, nt,
+      (const int32_t*)list, n_chunks, (const int32_t*)run_q, (const int32_t*)run_s,
+      (const int32_t*)run_e, (int32_t*)work, (const int32_t*)gid, (const int32_t*)rowid,
+      (const double*)vals, (int32_t*)cnt, (int32_t*)first, (int32_t*)vcnt, (double*)vsum,
+      (long long*)vmin, (long long*)vmax, (int32_t*)hits, (int32_t*)pos, nv, g, cap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  int cap2 = 1;
+  while (cap2 < cap) cap2 <<= 1;
+  agg_finish_kernel<<<q, THREADS, 0, st>>>((long long*)vmin, (long long*)vmax, (int64_t)nv * g,
+                                          (int32_t*)pos, cap, cap2);
+  return cudaGetLastError();
 }
 
 __global__ void empty_kernel() {}
 
 }  // namespace
 
-// The fold's mode at this shape: 1 SHARED (partials in shared memory),
-// 0 GLOBAL (the fold's atomics on the outputs).
-extern "C" int geomesa_grouped_agg_mode(int nb, int nt, int nv, int g) {
-  return shared_fits(nb, nt, nv, g) ? 1 : 0;
+// The fold's mode at this shape (overlap: the overlap form): 1 SHARED
+// (partials in shared memory), 0 GLOBAL (the fold's atomics on the outputs).
+extern "C" int geomesa_grouped_agg_mode(int nb, int nt, int nv, int g, int overlap) {
+  return shared_fits(overlap != 0, nb, nt, nv, g) ? 1 : 0;
 }
 
 // The runs the work list aims at for the fold at this shape: RUNS_PER_BLOCK
 // per resident fold block (host out: 1 x int).
 extern "C" int geomesa_grouped_agg_target_runs(int nb, int nt, int nv, int g, int sms,
-                                               void* out) {
+                                               int overlap, void* out) {
   int blocks = 0;
-  const cudaError_t e = shared_fits(nb, nt, nv, g)
-                            ? fold_blocks<true>(nb, nt, nv, g, sms, &blocks)
-                            : fold_blocks<false>(nb, nt, nv, g, sms, &blocks);
+  const cudaError_t e = fold_blocks_for(overlap != 0, nb, nt, nv, g, sms, &blocks);
   *(int*)out = RUNS_PER_BLOCK * blocks;
   return (int)e;
 }
 
-// A mode's fold kernel as compiled (cudaFuncGetAttributes): out (host, 2 x
-// int) gets its registers per thread and its local memory bytes per thread
-// (spills).
-extern "C" int geomesa_grouped_agg_attrs(int shared, void* out) {
+// A form's and mode's fold kernel as compiled (cudaFuncGetAttributes): out
+// (host, 2 x int) gets its registers per thread and its local memory bytes
+// per thread (spills).
+extern "C" int geomesa_grouped_agg_attrs(int shared, int overlap, void* out) {
   cudaFuncAttributes attr;
-  const cudaError_t e = shared ? cudaFuncGetAttributes(&attr, grouped_agg_kernel<true>)
-                               : cudaFuncGetAttributes(&attr, grouped_agg_kernel<false>);
+  const void* fn = overlap ? (shared ? (const void*)grouped_agg_kernel<true, true>
+                                     : (const void*)grouped_agg_kernel<false, true>)
+                           : (shared ? (const void*)grouped_agg_kernel<true, false>
+                                     : (const void*)grouped_agg_kernel<false, false>);
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e == cudaSuccess) {
     ((int*)out)[0] = attr.numRegs;
     ((int*)out)[1] = (int)attr.localSizeBytes;
@@ -715,31 +851,30 @@ extern "C" int geomesa_grouped_agg(const void* x, const void* y, const void* bin
                                    const void* vals, void* cnt, void* first, void* vcnt,
                                    void* vsum, void* vmin, void* vmax, void* hits, void* pos,
                                    int nv, int g, int cap, void* stream) {
-  if (q <= 0 || n <= 0) return (int)cudaSuccess;
-  if (cap > MAX_LANES) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long n_chunks = (n + CHUNK - 1) / CHUNK;
-  const bool shared = shared_fits(nb, nt, nv, g);
-  int blocks = 0;
-  cudaError_t e = shared ? fold_blocks<true>(nb, nt, nv, g, sms, &blocks)
-                         : fold_blocks<false>(nb, nt, nv, g, sms, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = fold_smem(shared, nb, nt, nv, g);
-  auto kernel = shared ? grouped_agg_kernel<true> : grouped_agg_kernel<false>;
-  kernel<<<blocks, THREADS, smem, st>>>(
-      (const int32_t*)x, (const int32_t*)y, (const int32_t*)bins, (const int32_t*)offs, n, base,
-      true_n, (const int32_t*)boxes, (const int32_t*)times, nb, nt, (const int32_t*)list,
-      n_chunks, (const int32_t*)run_q, (const int32_t*)run_s, (const int32_t*)run_e,
-      (int32_t*)work, (const int32_t*)gid, (const int32_t*)rowid, (const double*)vals,
-      (int32_t*)cnt, (int32_t*)first, (int32_t*)vcnt, (double*)vsum, (long long*)vmin,
-      (long long*)vmax, (int32_t*)hits, (int32_t*)pos, nv, g, cap);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  int cap2 = 1;
-  while (cap2 < cap) cap2 <<= 1;
-  agg_finish_kernel<<<q, THREADS, 0, st>>>((long long*)vmin, (long long*)vmax, (int64_t)nv * g,
-                                          (int32_t*)pos, cap, cap2);
-  return (int)cudaGetLastError();
+  const BoxCols cols{{(const int32_t*)x, (const int32_t*)y, (const int32_t*)bins,
+                      (const int32_t*)offs, nullptr, nullptr}};
+  return (int)launch_fold(false, cols, n, base, true_n, boxes, times, q, nb, nt, sms, list, run_q,
+                          run_s, run_e, work, gid, rowid, vals, cnt, first, vcnt, vsum, vmin,
+                          vmax, hits, pos, nv, g, cap, (cudaStream_t)stream);
+}
+
+// The overlap form's fold and finish over the bbox columns (xmin, ymin,
+// xmax, ymax, bins, offs); the rest as geomesa_grouped_agg.
+extern "C" int geomesa_grouped_agg_overlap(const void* xmin, const void* ymin, const void* xmax,
+                                           const void* ymax, const void* bins, const void* offs,
+                                           long long n, long long base, long long true_n,
+                                           const void* boxes, const void* times, int q, int nb,
+                                           int nt, int sms, const void* list, const void* run_q,
+                                           const void* run_s, const void* run_e, void* work,
+                                           const void* gid, const void* rowid, const void* vals,
+                                           void* cnt, void* first, void* vcnt, void* vsum,
+                                           void* vmin, void* vmax, void* hits, void* pos, int nv,
+                                           int g, int cap, void* stream) {
+  const BoxCols cols{{(const int32_t*)xmin, (const int32_t*)ymin, (const int32_t*)xmax,
+                      (const int32_t*)ymax, (const int32_t*)bins, (const int32_t*)offs}};
+  return (int)launch_fold(true, cols, n, base, true_n, boxes, times, q, nb, nt, sms, list, run_q,
+                          run_s, run_e, work, gid, rowid, vals, cnt, first, vcnt, vsum, vmin,
+                          vmax, hits, pos, nv, g, cap, (cudaStream_t)stream);
 }
 
 // One empty kernel's launch on the stream: the launch floor of the path

@@ -155,6 +155,16 @@ words equal its plain versions' (:func:`corridor_masks_plain`, the
 reference's per-corridor map in torch, and
 :func:`corridor_masks_gather_plain`) bit for bit.
 
+``track_stats`` replaces no TPU kernel either: the reference computes it in
+XLA (``geomesa_tpu/trajectory/state.py:364``, ``cached_track_stats_step``).
+Per entity of a track layout (rows sorted by entity and time, CSR offsets),
+the sums of step length, step duration, heading change between consecutive
+moving steps and dwell time. Its source is ``csrc/track_stats.cu``: a
+warp-segmented reduction over the sorted rows with a carry, one atomic a
+(warp, segment) and sum, the step distance in round-to-nearest intrinsics in
+the plain version's order; its plain version (:func:`track_stats_plain`) is
+the reference's step in torch, ``index_add_`` for the segment sums.
+
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
 ``_z2_kernel`` :349): the Morton interleave of normalized int32 coordinates
@@ -185,6 +195,7 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -212,7 +223,7 @@ launches = {"batched_count": 0, "batched_count_hits": 0, "batched_edge_gather": 
             "batched_knn": 0, "polygon_join": 0, "z3_encode": 0, "z2_encode": 0,
             "batched_overlap": 0, "batched_edge_gather_overlap": 0,
             "planned_gather_overlap": 0, "planned_count": 0, "corridor_masks": 0,
-            "corridor_masks_gather": 0}
+            "corridor_masks_gather": 0, "grouped_agg_overlap": 0, "track_stats": 0}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # entry point → (source stem, argtypes); every entry point returns a C int
@@ -250,12 +261,15 @@ _ENTRY_POINTS = {
     # (..., chunks, run_q, run_s, run_e, work, gid, rowid, vals, cnt, first, vcnt, vsum,
     #  vmin, vmax, hits, positions, values, groups, capacity, stream)
     "geomesa_grouped_agg": ("grouped_agg", _COUNT_ARGS + [_P] * 16 + [_I] * 3 + [_P]),
-    # (nb, nt, values, groups) → 1 for the shared-memory fold, 0 for the global one
-    "geomesa_grouped_agg_mode": ("grouped_agg", [_I] * 4),
-    # (nb, nt, values, groups, sms, host out: 1 x int) → runs the work list aims at
-    "geomesa_grouped_agg_target_runs": ("grouped_agg", [_I] * 5 + [_P]),
-    # (shared mode?, host out: 2 x int) → registers and local-memory bytes per thread
-    "geomesa_grouped_agg_attrs": ("grouped_agg", [_I, _P]),
+    # (bbox columns x6, n, base, true_n, boxes, times, q, nb, nt, sms, then as above)
+    "geomesa_grouped_agg_overlap": ("grouped_agg", _BOX_ARGS[:-1] + [_P] * 16 + [_I] * 3
+                                    + [_P]),
+    # (nb, nt, values, groups, overlap?) → 1 for the shared-memory fold, 0 for the global one
+    "geomesa_grouped_agg_mode": ("grouped_agg", [_I] * 5),
+    # (nb, nt, values, groups, sms, overlap?, host out: 1 x int) → runs the work list aims at
+    "geomesa_grouped_agg_target_runs": ("grouped_agg", [_I] * 6 + [_P]),
+    # (shared mode?, overlap?, host out: 2 x int) → registers and local-memory bytes per thread
+    "geomesa_grouped_agg_attrs": ("grouped_agg", [_I, _I, _P]),
     # (..., grid_bounds, grids, width, height, stream)
     "geomesa_batched_density": ("batched_density", _COUNT_ARGS + [_P] * 2 + [_I, _I, _P]),
     "geomesa_batched_density_q_tile": ("batched_density", [_I, _I]),
@@ -292,6 +306,8 @@ _ENTRY_POINTS = {
     # (x, y, bins, offs, positions, hdg, n candidates, segs, ..., the same as above)
     "geomesa_corridor_masks_gather": ("corridor_masks", [_P] * 6 + [_LL] + [_P] * 7
                                       + [_I] * 4 + [_P] * 3),
+    # (x, y, dt, offsets, n, entities, dwell_eps, out (4, E), stream)
+    "geomesa_track_stats": ("track_stats", [_P] * 4 + [_LL, _I, ctypes.c_float, _P, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -1032,27 +1048,30 @@ def agg_work_list_segments(extents, n: int, base: int, true_n: int, boxes, times
     return (chunks, kept.to(torch.int32), *_work_runs(kept, target_runs, min_run))
 
 
-def grouped_agg_mode(box_slots: int, time_slots: int, n_vals: int, n_groups: int) -> str:
+def grouped_agg_mode(box_slots: int, time_slots: int, n_vals: int, n_groups: int,
+                     overlap: bool = False) -> str:
     """The fold's mode at this shape, as the card's kernel chooses it:
     ``"shared"`` (each run's group partials in shared memory, then one
     global atomic per touched group and field) where G x (8 + 28 V) B fit
-    a block beside its 64 KB row buffer, else ``"global"`` (the fold's
+    a block beside its 64 KB row buffer (the overlap form,
+    :func:`grouped_agg_overlap`, has none), else ``"global"`` (the fold's
     atomics on the outputs). Asks the built library."""
     return ("shared" if _fn("geomesa_grouped_agg_mode")(box_slots, time_slots, n_vals,
-                                                        n_groups) else "global")
+                                                        n_groups, int(overlap)) else "global")
 
 
 @functools.lru_cache(maxsize=64)
 def grouped_agg_target_runs(box_slots: int, time_slots: int, n_vals: int, n_groups: int,
-                            device) -> int:
-    """The runs :func:`agg_work_list` aims at for a ``grouped_agg`` launch
-    on ``device`` at this shape: a few per fold block resident on the card
-    in the shape's mode. Asks the built library."""
+                            device, overlap: bool = False) -> int:
+    """The runs :func:`agg_work_list` aims at for a ``grouped_agg`` (or,
+    with ``overlap``, ``grouped_agg_overlap``) launch on ``device`` at this
+    shape: a few per fold block resident on the card in the shape's mode.
+    Asks the built library."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = ctypes.c_int()
     with torch.cuda.device(device):
         rc = _fn("geomesa_grouped_agg_target_runs")(box_slots, time_slots, n_vals, n_groups,
-                                                     sms, ctypes.addressof(out))
+                                                     sms, int(overlap), ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"grouped_agg occupancy: cudaError {rc}")
     return out.value
@@ -1095,17 +1114,62 @@ def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxe
     """
     _check_count_args(x, y, bins, offs, boxes, times)
     _check_agg_args(x, gid, rowid, vals, n_groups, capacity)
+    if x.device.type == "cpu":
+        _check_agg_slice(x, base, extents)
+        return grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base, true_n, boxes,
+                                 times, n_groups, capacity)
+    return _agg_launch("grouped_agg", (x, y, bins, offs), gid, rowid, vals, base, true_n, boxes,
+                       times, n_groups, capacity, extents)
+
+
+def grouped_agg_overlap(cols, gid, rowid, vals, base: int, true_n: int, boxes, times,
+                        n_groups: int, capacity: int = EDGE_CAPACITY, extents=None):
+    """:func:`grouped_agg` over a line or polygon store's bbox columns
+    ``cols`` (xmin, ymin, xmax, ymax, bins, offs) with the overlap
+    predicate: the overlap mode of ``make_grouped_agg_step(overlap=True)``
+    (``geomesa_tpu/parallel/query.py:1498``, per-slot ``_slot_overlap``
+    :316). A row matches when its bbox overlaps a live box and it lies in a
+    live window (:func:`overlap_masks`); a boundary row is a match that
+    shares an opposing edge bucket with a live box it overlaps or sits at a
+    window's endpoint, the overlap edge gather's candidate
+    (:func:`batched_edge_gather_overlap`). Same outputs and lane contract;
+    ``extents`` the columns' :func:`chunk_extents_bbox` (computed here when
+    None), whose work list is the point form's (its extent test is an exact
+    superset for overlap). On the card the work list, then
+    ``csrc/grouped_agg.cu``'s overlap fold (launches counted as
+    ``grouped_agg_overlap``) and the finish; on the CPU
+    :func:`grouped_agg_overlap_plain`."""
+    _check_box_args(cols, boxes, times)
+    if times is None:
+        raise ValueError("the overlap grouped fold needs the time columns and windows")
+    x = cols[0]
+    _check_agg_args(x, gid, rowid, vals, n_groups, capacity)
+    if x.device.type == "cpu":
+        _check_agg_slice(x, base, extents)
+        return grouped_agg_overlap_plain(cols, gid, rowid, vals, base, true_n, boxes, times,
+                                         n_groups, capacity)
+    return _agg_launch("grouped_agg_overlap", tuple(cols), gid, rowid, vals, base, true_n,
+                       boxes, times, n_groups, capacity, extents)
+
+
+def _check_agg_slice(x, base: int, extents) -> None:
     if int(base) + x.shape[0] > _I32_MAX:
         raise ValueError("base + rows must stay below 2^31: positions are int32")
     if extents is not None:
         _check_extents(extents, x.shape[0], x.device)
-    if x.device.type == "cpu":
-        return grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base, true_n, boxes,
-                                 times, n_groups, capacity)
+
+
+def _agg_launch(stem: str, cols: tuple, gid, rowid, vals, base: int, true_n: int, boxes,
+                times, n_groups: int, capacity: int, extents):
+    """The card's three launches of a grouped fold (``stem``: the point or
+    the overlap form): the work list with the fills, the fold, the finish."""
+    x = cols[0]
+    _check_agg_slice(x, base, extents)
     if x.device.type != "cuda":
-        raise ValueError(f"grouped_agg runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"{stem} runs on cuda or cpu, not {x.device}")
     if capacity > AGG_MAX_LANES:
-        raise ValueError(f"grouped_agg on the card sorts at most {AGG_MAX_LANES} lanes a query")
+        raise ValueError(f"{stem} on the card sorts at most {AGG_MAX_LANES} lanes a query")
+    overlap = len(cols) == 6
     q, nv, g, dev = boxes.shape[0], vals.shape[0], int(n_groups), x.device
     nb, nt, n = boxes.shape[1], times.shape[1], x.shape[0]
     if q == 0 or n == 0:  # nothing to fold: the outputs' initial values
@@ -1120,15 +1184,20 @@ def grouped_agg(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int, boxe
     hits = torch.empty(q, dtype=torch.int32, device=dev)
     pos = torch.empty((q, capacity), dtype=torch.int32, device=dev)
     if extents is None:
-        extents = chunk_extents(x, y, bins, offs)
-    target = grouped_agg_target_runs(nb, nt, nv, g, dev)
+        extents = (chunk_extents_bbox(*cols) if overlap else chunk_extents(*cols))
+    target = grouped_agg_target_runs(nb, nt, nv, g, dev, overlap)
     chunks, _, runs, work = _work_list_launch(extents, n, base, true_n, boxes, times, target,
                                               AGG_MIN_RUN, (cnt, first, vcnt, vsum, vmin, vmax,
                                                             hits, pos), (nv, g, int(capacity)))
-    _launch("grouped_agg", x, y, bins, offs, base, true_n, boxes, times, chunks, runs[0],
-            runs[1], runs[2], work, gid, rowid, vals, cnt, first, vcnt, vsum, vmin, vmax,
-            hits, pos, ints=(nv, g, int(capacity)))
-    _last_agg.update(work=work, shape=(nb, nt, nv, g), target_runs=target)
+    fold = (chunks, runs[0], runs[1], runs[2], work, gid, rowid, vals, cnt, first, vcnt, vsum,
+            vmin, vmax, hits, pos)
+    ints = (nv, g, int(capacity))
+    if overlap:
+        _launch_overlap("geomesa_grouped_agg_overlap", stem, cols, base, true_n, boxes, times,
+                        *fold, ints=ints)
+    else:
+        _launch(stem, *cols, base, true_n, boxes, times, *fold, ints=ints)
+    _last_agg.update(work=work, shape=(nb, nt, nv, g, overlap), target_runs=target)
     return (cnt, first, vcnt, vsum, vmin, vmax, pos[:, None, :], hits[:, None])
 
 
@@ -1150,19 +1219,21 @@ def grouped_agg_last_work() -> dict:
     (chunk, query) pairs, and the global atomics of the shared mode's
     flushes. Reads the card's work ints, so it synchronises the device."""
     w = _last_agg["work"].tolist()
-    return {"mode": grouped_agg_mode(*_last_agg["shape"]), "target_runs": _last_agg["target_runs"],
+    return {"mode": grouped_agg_mode(*_last_agg["shape"]), "overlap": _last_agg["shape"][4], "target_runs": _last_agg["target_runs"],
             "runs": w[W_RUNS], "run_len": w[W_RUN_LEN], "pairs": w[W_PAIRS],
             "flush_atomics": w[W_FLUSHED]}
 
 
-def grouped_agg_attrs(mode: str = "shared") -> tuple[int, int]:
+def grouped_agg_attrs(mode: str = "shared", overlap: bool = False) -> tuple[int, int]:
     """The ``grouped_agg`` kernel's registers and local-memory (spill)
-    bytes per thread in ``mode`` (``"shared"`` or ``"global"``), as
-    compiled for the card."""
+    bytes per thread in ``mode`` (``"shared"`` or ``"global"``), of the
+    point form or (``overlap``) the overlap form, as compiled for the
+    card."""
     if mode not in ("shared", "global"):
         raise ValueError(f"mode must be shared or global, not {mode!r}")
     out = (ctypes.c_int * 2)()
-    rc = _fn("geomesa_grouped_agg_attrs")(int(mode == "shared"), ctypes.addressof(out))
+    rc = _fn("geomesa_grouped_agg_attrs")(int(mode == "shared"), int(overlap),
+                                          ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"grouped_agg attributes: cudaError {rc}")
     return int(out[0]), int(out[1])
@@ -1177,7 +1248,25 @@ def grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int
     ``scatter_reduce_`` over ``query * G + gid``, chunked over rows; the
     boundary rows fill the lanes in row order by a running prefix sum, as in
     :func:`batched_edge_gather_plain`."""
-    q, nv, g, dev = boxes.shape[0], vals.shape[0], int(n_groups), x.device
+    return _agg_plain(_plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk,
+                                   edges=True), gid, rowid, vals, base, boxes.shape[0],
+                      n_groups, capacity)
+
+
+def grouped_agg_overlap_plain(cols, gid, rowid, vals, base: int, true_n: int, boxes, times,
+                              n_groups: int, capacity: int = EDGE_CAPACITY,
+                              chunk: int = 1 << 20):
+    """The plain PyTorch version of :func:`grouped_agg_overlap`: the fold of
+    :func:`grouped_agg_plain` over :func:`overlap_masks`' matches and edges
+    (the reference's ``one`` in overlap mode)."""
+    return _agg_plain(_overlap_plain_masks(cols, base, true_n, boxes, times, chunk, edges=True),
+                      gid, rowid, vals, base, boxes.shape[0], n_groups, capacity)
+
+
+def _agg_plain(masks, gid, rowid, vals, base: int, q: int, n_groups: int, capacity: int):
+    """The grouped fold of both plain versions over ``masks``' chunks of
+    (start, end, match mask, edge mask)."""
+    nv, g, dev = vals.shape[0], int(n_groups), gid.device
     cnt = torch.zeros(q * g, dtype=torch.int64, device=dev)
     first = torch.full((q * g,), _I32_MAX, dtype=torch.int64, device=dev)
     vcnt = torch.zeros(q * nv * g, dtype=torch.int64, device=dev)
@@ -1186,8 +1275,7 @@ def grouped_agg_plain(x, y, bins, offs, gid, rowid, vals, base: int, true_n: int
     vmax = torch.full((q * nv * g,), float("-inf"), dtype=torch.float64, device=dev)
     hits = torch.zeros(q, dtype=torch.int64, device=dev)
     pos = torch.full((q, capacity), -1, dtype=torch.int32, device=dev)
-    for s, e, m, edge in _plain_masks(x, y, bins, offs, base, true_n, boxes, times, chunk,
-                                      edges=True):
+    for s, e, m, edge in masks:
         slot = hits[:, None] + torch.cumsum(edge, dim=1) - 1
         qi, ri = (edge & (slot < capacity)).nonzero(as_tuple=True)
         pos[qi, slot[qi, ri]] = (int(base) + s + ri).to(torch.int32)
@@ -2700,3 +2788,95 @@ def z3_encode_plain(x, y, t) -> torch.Tensor:
 def z2_encode_plain(x, y) -> torch.Tensor:
     """The plain PyTorch version of :func:`z2_encode`."""
     return _spread_plain(x, _M2, _M2_SHIFTS) | (_spread_plain(y, _M2, _M2_SHIFTS) << 1)
+
+
+# ---------------------------------------------------------------------------
+# track_stats
+# ---------------------------------------------------------------------------
+
+_RAD2DEG = 180.0 / math.pi
+
+
+def _check_track_args(x, y, dt, offsets) -> None:
+    for name, t in (("x", x), ("y", y), ("dt", dt)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D float32 tensor")
+        if t.shape != x.shape or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and match x in length and device")
+    if not isinstance(offsets, torch.Tensor) or offsets.dtype != torch.int64 \
+            or offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise TypeError("offsets must be a 1-D int64 tensor of E + 1 >= 1 entries")
+    if offsets.device != x.device or not offsets.is_contiguous():
+        raise ValueError("offsets must be contiguous and on the columns' device")
+    if offsets.shape[0] - 1 >= 2**31 or x.shape[0] >= 2**62:
+        raise ValueError("too many entities or rows")
+
+
+def track_stats(x, y, dt, offsets, dwell_eps: float):
+    """Every entity's track sums over a track layout, one pass.
+
+    ``x, y`` (N,) float32 coordinates and ``dt`` (N,) float32 seconds since
+    the previous row of the entity (0 on its first row), rows sorted by
+    (entity, time); ``offsets`` (E + 1,) int64, nondecreasing from 0 to N:
+    entity ``e`` owns rows ``offsets[e]`` to ``offsets[e + 1] - 1``.
+    Returns ``(length_deg, duration_s, heading_change_deg, dwell_s)``, each
+    (E,) float32 (``cached_track_stats_step``,
+    ``geomesa_tpu/trajectory/state.py:379-399``): the sums of step distance,
+    of step duration, of ``|remainder(b_i - b_{i-1} + 180, 360) - 180|`` over
+    consecutive steps that both moved (distance > 0; ``b`` the step bearing
+    in degrees clockwise from north) and of the duration of steps no longer
+    than ``dwell_eps`` degrees. On the card one launch of
+    ``csrc/track_stats.cu`` (its entry point zeroes the sums first); on the
+    CPU :func:`track_stats_plain`."""
+    _check_track_args(x, y, dt, offsets)
+    if x.device.type == "cpu":
+        return track_stats_plain(x, y, dt, offsets, dwell_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"track_stats runs on cuda or cpu, not {x.device}")
+    e = offsets.shape[0] - 1
+    out = torch.empty((4, e), dtype=torch.float32, device=x.device)
+    if e:
+        with _on_device(x.device):
+            rc = _fn("geomesa_track_stats")(x.data_ptr(), y.data_ptr(), dt.data_ptr(),
+                                            offsets.data_ptr(), x.shape[0], e, float(dwell_eps),
+                                            out.data_ptr(), _stream_of(x))
+        if rc != 0:
+            raise RuntimeError(f"track_stats launch failed: cudaError {rc}")
+        launches["track_stats"] += 1
+    return tuple(out.unbind(0))
+
+
+def track_terms(x, y, dt, offsets, dwell_eps: float):
+    """The per-row terms of :func:`track_stats_plain` before their segment
+    sums: ``(sid (N,) int64, dist, step_dt, turn, dwell)``. The reference's
+    step (``state.py:379-394``) line by line, ``jnp.concatenate`` shifts as
+    ``torch.cat``, ``jnp.mod`` as ``torch.remainder`` (both floor modulo)."""
+    n, e = x.shape[0], offsets.shape[0] - 1
+    counts = offsets[1:] - offsets[:-1]
+    sid = torch.repeat_interleave(torch.arange(e, device=x.device), counts, output_size=n)
+    first = torch.zeros(n, dtype=torch.bool, device=x.device)
+    first[offsets[:-1][counts > 0]] = True
+    dx = x - torch.cat([x[:1], x[:-1]])
+    dy = y - torch.cat([y[:1], y[:-1]])
+    dist = torch.where(first, 0.0, torch.sqrt(dx * dx + dy * dy))
+    step_dt = torch.where(first, 0.0, dt)
+    brg = torch.atan2(dx, dy) * _RAD2DEG
+    moved = ~first & (dist > 0)
+    pbrg = torch.cat([brg[:1], brg[:-1]])
+    pmoved = torch.cat([torch.zeros(1, dtype=torch.bool, device=x.device), moved[:-1]])
+    turn = torch.abs(torch.remainder(brg - pbrg + 180.0, 360.0) - 180.0)
+    turn = torch.where(moved & pmoved, turn, 0.0)
+    dwell = torch.where(dist <= torch.tensor(dwell_eps, dtype=torch.float32), step_dt, 0.0)
+    return sid, dist, step_dt, turn, dwell
+
+
+def track_stats_plain(x, y, dt, offsets, dwell_eps: float):
+    """The plain PyTorch version of :func:`track_stats`: the per-row terms
+    of :func:`track_terms`, summed per entity by ``index_add_``."""
+    e = offsets.shape[0] - 1
+    if x.shape[0] == 0:
+        z = torch.zeros(e, dtype=torch.float32, device=x.device)
+        return z, z.clone(), z.clone(), z.clone()
+    sid, *terms = track_terms(x, y, dt, offsets, float(dwell_eps))
+    return tuple(torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(0, sid, v)
+                 for v in terms)

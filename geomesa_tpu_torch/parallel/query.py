@@ -36,8 +36,9 @@ The module's steps:
   polygon store's per-feature bounds (``make_batched_overlap_step``
   ``:914``, with or without time): one ``batched_overlap`` launch.
 - :func:`grouped_agg_step` — the fused GROUP BY of ``aggregate_many``
-  (``make_grouped_agg_step`` ``:1498``, point mode): the ``agg_work_list``
-  kernel, then one ``grouped_agg`` launch over its runs.
+  (``make_grouped_agg_step`` ``:1498``, point and overlap modes): the
+  ``agg_work_list`` kernel, then one ``grouped_agg`` launch over its runs,
+  or over a store's bbox columns its overlap form (``overlap=True``).
 - :func:`matrix_scan_step` — the subscription matrix's fused scan
   (``make_matrix_scan_step`` ``:497``): one ``batched_count_hits`` launch,
   then the top-k of its lane scoreboard.
@@ -77,8 +78,8 @@ import torch
 
 from geomesa_tpu_torch.ops.kernels import (
     EDGE_CAPACITY, LANES, batched_count, batched_count_hits, batched_density, batched_knn,
-    batched_overlap, block_runs, corridor_masks, grouped_agg, planned_count, planned_gather,
-    planned_gather_overlap, polygon_join)
+    batched_overlap, block_runs, corridor_masks, grouped_agg, grouped_agg_overlap, planned_count,
+    planned_gather, planned_gather_overlap, polygon_join)
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK
 
 
@@ -253,26 +254,35 @@ def batched_overlap_step(cols, true_n: int, boxes, times=None) -> torch.Tensor:
 
 
 def grouped_agg_step(cols, gid, rowid, vals, true_n: int, boxes, times, n_groups: int,
-                     capacity: int = EDGE_CAPACITY, extents=None):
+                     capacity: int = EDGE_CAPACITY, extents=None, overlap: bool = False):
     """Q filtered GROUP BY queries over one shard's resident columns, one
-    fused pass: ``make_grouped_agg_step(mesh, n_groups, V, capacity)`` in
-    point mode with one shard (``base = 0``, ``D = 1``), without TTL
-    (the port has none) and without the overlap mode (no XZ layout yet).
+    fused pass: ``make_grouped_agg_step(mesh, n_groups, V, capacity,
+    overlap=overlap)`` with one shard (``base = 0``, ``D = 1``), without TTL
+    (the port has none).
 
-    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns; ``gid`` (N,)
-    int32 group ids in ``[0, n_groups)``, ``rowid`` (N,) int32 original row
+    ``cols``: the (N,) int32 ``x, y, bins, offs`` columns, or with
+    ``overlap`` a line or polygon store's ``xmin, ymin, xmax, ymax, bins,
+    offs`` (the spatial test is then int-bbox overlap); ``gid`` (N,) int32
+    group ids in ``[0, n_groups)``, ``rowid`` (N,) int32 original row
     indexes (int32 max on padding) and ``vals`` (V, N) float64 (NaN for
     nulls), all in the columns' sorted order; ``n_groups`` the padded group
     count (``1 << ceil(log2 G)``, as ``aggregate_many`` passes it);
     ``extents`` the columns' per-chunk extents (``IndexState.extents``;
-    computed per call when None). Returns
-    ``(cnt, first, vcnt, vsum, vmin, vmax, positions, hits)`` as
+    computed per call when None). Returns ``(cnt, first, vcnt, vsum, vmin,
+    vmax, positions, hits)`` as
     :func:`~geomesa_tpu_torch.ops.kernels.grouped_agg` does: the folds over
     every matching row but the boundary rows, whose positions take the
     ``capacity`` lanes (``hits > capacity``: truncated, the caller declines
     that query). On the card the work list of kept (chunk, query) pairs in
-    query-major runs, then the fold over it; its plain version on the
-    CPU."""
+    query-major runs, then the fold over it
+    (:func:`~geomesa_tpu_torch.ops.kernels.grouped_agg_overlap` in overlap
+    mode); its plain version on the CPU."""
+    if len(cols) != (6 if overlap else 4):
+        raise ValueError(f"{'overlap' if overlap else 'point'} mode takes "
+                         f"{6 if overlap else 4} columns, got {len(cols)}")
+    if overlap:
+        return grouped_agg_overlap(cols, gid, rowid, vals, 0, true_n, boxes, times, n_groups,
+                                   capacity, extents=extents)
     return grouped_agg(*cols, gid, rowid, vals, 0, true_n, boxes, times, n_groups, capacity,
                        extents=extents)
 

@@ -1,9 +1,10 @@
-"""Track-oriented geoprocesses: route search.
+"""Track-oriented geoprocesses: route search, track labels.
 
-Port of :func:`geomesa_tpu.process.tracks.route_search` (``tracks.py:18``,
-the ``RouteSearchProcess`` role), the corridor engine's host referee for
-routes with a heading. ``track_label`` (``:96``) waits with the track
-statistics (ROADMAP.md A.3.3).
+Port of :mod:`geomesa_tpu.process.tracks`: :func:`route_search`
+(``tracks.py:18``, the ``RouteSearchProcess`` role), the corridor engine's
+host referee for routes with a heading, and :func:`track_label` (``:96``,
+the ``TrackLabelProcess`` role), whose tie rule the track state's label
+row follows (:mod:`geomesa_tpu_torch.trajectory.state`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.planning.planner import Query
-from geomesa_tpu_torch.schema.columnar import representative_xy
+from geomesa_tpu_torch.schema.columnar import FeatureTable, representative_xy
 
 
 def route_search(ds, type_name: str, route, buffer_deg: float, heading_field: str | None = None,
@@ -70,3 +71,21 @@ def route_search(ds, type_name: str, route, buffer_deg: float, heading_field: st
             aligned &= col.valid[:, None]
         ok &= aligned
     return r.table.take(np.nonzero(ok.any(axis=1))[0])
+
+
+def track_label(table: FeatureTable, track_field: str) -> FeatureTable:
+    """One label feature per track: its most recent row by the schema's
+    date attribute, ties resolved to the lowest original row. A lexsort by
+    (track, time, descending row) takes each group's last sorted row; the
+    output rows stay in ascending original order."""
+    n = len(table)
+    if n == 0:
+        return table
+    t = table.dtg_millis()
+    groups = table.columns[track_field].values.astype(object)
+    _ents, codes = np.unique(groups, return_inverse=True)
+    codes = codes.reshape(-1)
+    order = np.lexsort((-np.arange(n), t, codes))
+    sorted_codes = codes[order]
+    last = np.nonzero(np.r_[sorted_codes[1:] != sorted_codes[:-1], True])[0]
+    return table.take(np.sort(order[last]).astype(np.int64))

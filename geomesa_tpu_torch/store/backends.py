@@ -39,7 +39,7 @@ from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import Extraction
 from geomesa_tpu_torch.index.api import IndexPlan, gather_indices
-from geomesa_tpu_torch.ops.kernels import chunk_extents
+from geomesa_tpu_torch.ops.kernels import chunk_extents, chunk_extents_bbox
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, refine_bboxes, refine_points
 from geomesa_tpu_torch.parallel.query import intervals_to_block_pairs, planned_gather_step
 from geomesa_tpu_torch.parallel.residency import JOIN_BLOCK, stage_columns
@@ -81,12 +81,12 @@ class IndexState:
     """One index's resident columns, sorted in index order. Rows past ``n``
     are padding; ``rows_per_shard`` is the padded length (one shard).
     ``extents`` holds each 4096-row chunk's extent
-    (:func:`~geomesa_tpu_torch.ops.kernels.chunk_extents`, 32 B a chunk),
-    taken once after the columns are staged (``extents_s``, synchronized),
-    for the grouped fold's work list (None on a bbox state, which has no
-    grouped fold yet). ``agg_cache`` holds ``aggregate_many``'s staged group ids, row ids and
-    value columns in the same order, so a rebuild, which makes a new state,
-    drops them. ``kind`` is ``"points"`` (``x, y, bins, offs``) or
+    (:func:`~geomesa_tpu_torch.ops.kernels.chunk_extents`, or on a bbox
+    state :func:`~geomesa_tpu_torch.ops.kernels.chunk_extents_bbox`, 32 B a
+    chunk), taken once after the columns are staged (``extents_s``,
+    synchronized), for the grouped fold's work list. ``agg_cache`` holds
+    ``aggregate_many``'s staged group ids, row ids and value columns in the
+    same order, so a rebuild, which makes a new state, drops them. ``kind`` is ``"points"`` (``x, y, bins, offs``) or
     ``"bboxes"`` (``xmin, ymin, xmax, ymax, bins, offs``)."""
 
     cols: dict[str, torch.Tensor]
@@ -241,10 +241,13 @@ class DeviceBackend:
             cols, padded = stage_columns(host, self.device)
             self._sync()
             t1 = time.perf_counter()
-            extents = None  # the grouped fold's work list reads them: points only
+            # the grouped fold's work list reads them
             if kind == "points":
                 extents = chunk_extents(cols["x"], cols["y"], cols["bins"], cols["offs"])
-                self._sync()
+            else:
+                extents = chunk_extents_bbox(cols["xmin"], cols["ymin"], cols["xmax"],
+                                             cols["ymax"], cols["bins"], cols["offs"])
+            self._sync()
             state[name] = IndexState(
                 cols=cols, rows_per_shard=padded, n=len(table),
                 h2d_bytes=sum(int(c.nbytes) for c in cols.values()),

@@ -22,15 +22,18 @@ deliberate:
   interceptors, TTL age-off, the audit trail, the delta tier and
   ``reduce_result``; a query with a hint goes through ``query``.
 - ``query`` answers one hint, ``density`` (``reduce_result``'s density
-  branch, points only); any other hint but the ``tenant`` metadata raises
+  branch: points snap to their cell, lines and polygons rasterize their
+  footprint); any other hint but the ``tenant`` metadata raises
   ``NotImplementedError``.
 - ``aggregate_many`` is the reference's fused path (its pyramid and query
   cache off): see its docstring for what it leaves out.
 - ``density_many`` has no circuit breaker, failover or audit, as above.
-- On a line or polygon store, ``aggregate_many``, ``density_many`` and the
-  ``density`` hint raise ``NotImplementedError`` (ROADMAP.md A.2.1, A.2.2),
-  as do ``process.knn`` and ``process.join`` (A.2.3): none of them runs
-  point code on bbox columns.
+- On a line or polygon store, ``aggregate_many`` folds over the bbox
+  state with the overlap form of the grouped fold, and ``density_many``
+  and the ``density`` hint take the exact per-query path (the host
+  rasterization), as the reference's do; ``process.knn`` and
+  ``process.join`` raise ``NotImplementedError`` there (ROADMAP.md A.2.3):
+  neither runs point code on bbox columns.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indice
 from geomesa_tpu_torch.schema.columnar import FeatureTable, GeometryColumn
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
 from geomesa_tpu_torch.store.backends import (
-    DeviceBackend, OracleBackend, int_boxes, refuse_extended, residual_rows)
+    DeviceBackend, OracleBackend, int_boxes, residual_rows)
 from geomesa_tpu_torch.store.reduce import density_grid
 
 # hints that are execution metadata, never semantics (datastore.py:51): the
@@ -161,6 +164,15 @@ class _TypeState:
     indices: dict | None = None
     backend_state: Any = None
     rebuild_s: dict | None = None  # last rebuild's phase seconds
+    epoch: int = 0  # rebuild epoch: every write and compact advances it
+
+    def data_epoch(self) -> tuple:
+        """The (rebuild epoch, delta version) pair every mutation advances
+        (``datastore.py:298``): a cache keyed on it is stale once it moves.
+        The delta version stays 0 until the port has a delta tier (ROADMAP.md
+        A.8.2): every write lands in the main tier and advances the rebuild
+        epoch."""
+        return (self.epoch, 0)
 
 
 class DataStore:
@@ -226,8 +238,9 @@ class DataStore:
 
     def compact(self, type_name: str) -> None:
         """Merge pending writes into the sorted main tier. Every write already
-        lands there (no hot tier in this port), so this only checks the name."""
-        self._state(type_name)
+        lands there (no hot tier in this port), so this merges nothing; it
+        advances the data epoch, as the reference's compaction does."""
+        self._state(type_name).epoch += 1
 
     def _rebuild(self, st: _TypeState, table: FeatureTable, perms=None) -> None:
         """Build every index of the schema (or install ``perms[name]``, a
@@ -242,6 +255,7 @@ class DataStore:
         t1 = time.perf_counter()
         state = self.backend.load(st.sft, table, indices)
         st.table, st.indices, st.backend_state = table, indices, state
+        st.epoch += 1
         st.rebuild_s = {
             "index_build": t1 - t0,
             "load": time.perf_counter() - t1,
@@ -275,14 +289,12 @@ class DataStore:
     def query(self, type_name: str, q: "Query | str | ast.Filter | None" = None) -> QueryResult:
         """Exact row set: plan → device superset (or oracle) → host residual.
         With the ``density`` hint the result also carries its exact f64
-        heatmap (``reduce.py:208-249``, points only: on a line or polygon
-        store it raises ``NotImplementedError``); another hint but the
-        ``tenant`` metadata raises ``NotImplementedError``."""
+        heatmap (``reduce.py:208-249``: points snap to their cell, lines and
+        polygons rasterize their footprint); another hint but the ``tenant``
+        metadata raises ``NotImplementedError``."""
         st = self._state(type_name)
         if not isinstance(q, Query):
             q = Query(filter=q)
-        if "density" in q.hints:
-            refuse_extended(st.sft, "the density hint", "A.2.2")
         unported = sorted(k for k in q.hints
                           if k not in _METADATA_HINTS and k not in _ANSWERED_HINTS)
         if unported:
@@ -515,10 +527,12 @@ class DataStore:
         nothing, or a provably disjoint one, is an empty grid. Every other
         query, and every query with ``loose=False``, takes the exact path:
         :meth:`query` with the ``density`` hint, the viewport merged over
-        the caller's density options (``weight_by`` survives). No circuit
-        breaker, failover or audit: a device error propagates."""
+        the caller's density options (``weight_by`` survives). A line or
+        polygon store takes the exact path for every query, as the
+        reference's does (``datastore.py:2955-2970``: its batched step
+        snaps points only). No circuit breaker, failover or audit: a device
+        error propagates."""
         st = self._state(type_name)
-        refuse_extended(st.sft, "density_many", "A.2.2")
         qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
         width, height = int(width), int(height)
         opts = {"bbox": tuple(bbox), "width": width, "height": height}
@@ -529,7 +543,7 @@ class DataStore:
             return self.query(type_name, replace(q, hints={**q.hints, "density": merged})).density
 
         main = st.table
-        if (not loose or main is None or len(main) == 0
+        if (not loose or main is None or len(main) == 0 or not st.sft.geom_is_points
                 or not isinstance(self.backend, DeviceBackend)):
             return [exact(q) for q in qs]
         out: list = [None] * len(qs)
@@ -578,16 +592,19 @@ class DataStore:
         window endpoint, the only rows where the int-domain predicate and
         the f64 filter can differ); the host re-tests those against the
         full filter and ADDS the ones that pass. Sums ride f64, folded with
-        atomics in no fixed order on the card.
+        atomics in no fixed order on the card. A line or polygon store
+        folds over its bbox state (xz3, then xz2) with the overlap form
+        (``datastore.py:2666-2675``): a feature matches when its int bbox
+        overlaps a query box, exact for the envelope semantics of BBOX away
+        from the boundary rows, which are a bbox sharing an opposing edge
+        bucket with a box or a row at a window's endpoint.
 
         Left out, as the port carries none of them yet: query interceptors,
         the audit hook, the GeoBlocks pyramid and its query cache (the
         reference's route when ``GEOMESA_TPU_PYRAMID`` is on and the cost
-        table says so), TTL age-off and the delta tier. A line or polygon
-        store raises ``NotImplementedError``: the overlap mode is ROADMAP.md
-        A.2.1. A device error propagates."""
+        table says so), TTL age-off and the delta tier. A device error
+        propagates."""
         st = self._state(type_name)
-        refuse_extended(st.sft, "aggregate_many", "A.2.1")
         qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
         out: list = [None] * len(qs)
         group_by = list(group_by) if group_by else None
@@ -598,6 +615,11 @@ class DataStore:
         if any(c not in main.columns for c in (group_by or []) + value_cols):
             return out
         dev, name = DeviceBackend.point_state(st.backend_state)
+        overlap = dev is None  # a line or polygon store: its bbox state (datastore.py:2666)
+        if overlap:
+            dev, name = DeviceBackend.bbox_state(st.backend_state)
+        if dev is None:
+            return out
         perm = st.indices[name].perm
         try:
             (dev_gid, gid_orig, keys), dev_rowid, dev_vals, host_vals = self._agg_residency(
@@ -617,7 +639,7 @@ class DataStore:
         boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
         times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
         res = grouped_agg_step(dev.spatial_cols(), dev_gid, dev_rowid, dev_vals, dev.n,
-                               boxes, times, g_pad, cap, extents=dev.extents)
+                               boxes, times, g_pad, cap, extents=dev.extents, overlap=overlap)
         cnt, first, vcnt, vsum, vmin, vmax, epos, ehits = (t.cpu().numpy() for t in res)
         for k, (i, _) in enumerate(live):
             h = int(ehits[k, 0])

@@ -1,8 +1,10 @@
-"""Trajectory plane: the corridor engine and interlinking.
+"""Trajectory plane: track statistics, the corridor engine and interlinking.
 
-Port of :mod:`geomesa_tpu.trajectory` without its track state (``state.py``,
-ROADMAP.md A.3.3):
+Port of :mod:`geomesa_tpu.trajectory`:
 
+- :mod:`.state` — the per-entity track layout (rows sorted by track and
+  time, CSR entity offsets, cached on the store's data epoch) and every
+  entity's statistics in one pass of the ``track_stats`` kernel;
 - :mod:`.corridor` — tube select and route search as one (rows x
   corridors) problem on the card (the ``corridor_masks`` kernel: its gather
   form over a point store's resident candidates,
@@ -17,3 +19,5 @@ ROADMAP.md A.3.3):
 from geomesa_tpu_torch.trajectory.corridor import (  # noqa: F401
     CorridorSpec, route_search_device, tube_select_device, tube_select_many)
 from geomesa_tpu_torch.trajectory.interlink import interlink, interlink_referee  # noqa: F401
+from geomesa_tpu_torch.trajectory.state import (  # noqa: F401
+    TrackState, build_track_state, track_stats, track_stats_host)

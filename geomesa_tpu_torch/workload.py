@@ -112,6 +112,9 @@ def join_polygons(k: int, seed: int = 5):
 
 # bench config 5's store as a line-string schema: config 2's day bins
 XZ_SPEC = "dtg:Date,*geom:LineString:srid=4326;geomesa.z3.interval='day'"
+# the same with bench config 9's group key and value column (the value nullable)
+XZ_AGG_SPEC = ("cat:Integer,val:Double,dtg:Date,*geom:LineString:srid=4326;"
+               "geomesa.z3.interval='day'")
 
 
 def xz_boxes(m: int, seed: int = 9):

@@ -85,6 +85,31 @@ def test_join_modules_stand_alone():
     assert out.returncode == 0, out.stderr
 
 
+def test_track_and_extended_modules_stand_alone():
+    """The track statistics slice's modules (trajectory/state.py, the
+    track_stats kernel's wrapper, process/tracks.py) and the extended
+    stores' density reduce and overlap fold are among those the scans above
+    cover, and import cleanly without jax in a fresh interpreter."""
+    mods = ["trajectory/state.py", "process/tracks.py", "store/reduce.py", "ops/kernels.py",
+            "parallel/query.py"]
+    assert all((PKG / m).exists() for m in mods)
+    assert (PKG / "csrc" / "track_stats.cu").exists()
+    code = (
+        "import sys\n"
+        + "".join(f"import geomesa_tpu_torch.{m[:-3].replace('/', '.')}\n" for m in mods)
+        + "from geomesa_tpu_torch.trajectory import TrackState, build_track_state, track_stats\n"
+        "from geomesa_tpu_torch.process.tracks import track_label\n"
+        "from geomesa_tpu_torch.ops.kernels import (grouped_agg_overlap, track_stats_plain,\n"
+        "    grouped_agg_overlap_plain)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'geomesa_tpu.'))\n"
+        "       or m == 'geomesa_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     mods = []
@@ -122,7 +147,7 @@ def test_native_sources_stand_alone_and_are_bound():
     csrc = PKG / "csrc"
     sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cpp"))
     assert {p.name for p in sources} >= {"grouped_agg.cu", "zranges.cpp", "batched_density.cu",
-                                         "batched_knn.cu", "polygon_join.cu"}
+                                         "batched_knn.cu", "polygon_join.cu", "track_stats.cu"}
     local = {p.name for p in csrc.glob("*.cuh")}
     bound = set(kernels._ENTRY_POINTS) | {"geomesa_zranges"}
     defined = set()

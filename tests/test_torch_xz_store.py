@@ -14,8 +14,10 @@ date, and line strings without one (xz2 alone). For each:
 - the port's own build gives the reference's resident bbox columns, and
   ``load_reference_state`` reproduces them from the reference's
   permutations and geometry coordinates;
-- every surface the slice does not carry raises ``NotImplementedError``
-  naming its ROADMAP item.
+- every surface the port does not carry on such a store yet (KNN and the
+  joins) raises ``NotImplementedError`` naming its ROADMAP item;
+  ``aggregate_many`` and density there are held to the reference in
+  ``tests/test_torch_extended_agg.py``.
 
 Tolerance: none — counts, fid sets, permutations and int32 columns compare
 exactly.
@@ -35,7 +37,7 @@ from geomesa_tpu.store.datastore import DataStore as RefDataStore
 
 from geomesa_tpu_torch.geometry import types
 from geomesa_tpu_torch.geometry.types import Point, box
-from geomesa_tpu_torch.planning.planner import FULL_SCAN, Query
+from geomesa_tpu_torch.planning.planner import FULL_SCAN
 from geomesa_tpu_torch.process import join, knn
 from geomesa_tpu_torch.schema import columnar
 from geomesa_tpu_torch.store.convert import load_reference_state
@@ -232,12 +234,6 @@ def test_residency_and_load_reference_state(stores):
 
 def test_unported_surfaces_raise(stores):
     name, port, _, _, queries = stores
-    with pytest.raises(NotImplementedError, match="A.2.1"):
-        port.aggregate_many("x", queries[:2], group_by=["name"])
-    with pytest.raises(NotImplementedError, match="A.2.2"):
-        port.density_many("x", queries[:2], (-180, -90, 180, 90))
-    with pytest.raises(NotImplementedError, match="A.2.2"):
-        port.query("x", Query(queries[0], hints={"density": {}}))
     with pytest.raises(NotImplementedError, match="A.2.3"):
         knn.knn_many(port, "x", [Point(0.0, 0.0)], k=3)
     with pytest.raises(NotImplementedError, match="A.2.3"):
