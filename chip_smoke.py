@@ -291,10 +291,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    exact, the sums within the reference's rtol 5e-3 + atol 1e-3); then the
    kernel against ``track_stats_plain`` on the card (rtol 1e-4 + atol 1e-3)
    at config 10's shape, no row, one-row entities, one entity holding half
-   of 1,000,003 rows, parked runs (dwell) and a row count that is not a
-   multiple of 32; its time beside the plain version's, its bound
-   (``track_floor``) and ``torch.segment_reduce`` of the four precomputed
-   term columns, a part of the work.
+   of 1,000,003 rows, parked runs (dwell), a row count that is not a
+   multiple of 32, and layouts around the kernel's tiles of ``TRACK_TILE``
+   rows (entities and empty entities on tile edges, zero-length steps and
+   turns across tile edges, a single entity, fewer rows than a tile); two
+   calls equal bit for bit (each sum's order is fixed by the layout); its
+   time beside the plain version's, its bound (``track_floor``) and
+   ``torch.segment_reduce`` of the four precomputed term columns, a part of
+   the work.
 
 Each store is freed before the next phase (phase 7's after phase 8).
 
@@ -3829,8 +3833,9 @@ def xz_agg_leg(dev, ds, cqls, rows, gid, vals, exact) -> dict:
     attrs = {m: kernels.grouped_agg_attrs(m, overlap=True) for m in ("shared", "global")}
     log(f"phase grouped_agg_overlap timing: {kernel_ms:.4f} ms (CUDA events, 5 calls: work list, "
         f"fold, finish), device {fmt_ms(dms)} (10 calls behind a spin) at N={state.n} "
-        f"Q={len(cqls)} G={g_pad} V=1, {work['mode']} mode ({work['runs']} runs of up to "
-        f"{work['run_len']} chunks over {work['pairs']} kept pairs); plain {plain_ms:.4f} ms; "
+        f"Q={len(cqls)} G={g_pad} V=1, {work['mode']} mode ({work['runs']} window runs of up to "
+        f"{work['run_len']} chunks over {work['pairs']} kept pairs, {work['fold_runs']} runs a "
+        f"fold block at once, {work['flush_atomics']} flush atomics); plain {plain_ms:.4f} ms; "
         f"bound {record['bound_ms']:.6f} ms ({record['bound_by']}: {ops[0]} ops; {nbytes} bytes, "
         f"{distinct} distinct folded rows), {record['bound_ms'] / kernel_ms:.4f} of it by events, "
         f"{fmt_ms(None if dms is None else record['bound_ms'] / dms)} by device; registers and "
@@ -4842,17 +4847,35 @@ TRACK_KERNEL_RTOL, TRACK_KERNEL_ATOL = 1e-4, 1e-3
 # remainder, - 180, the absolute value, and the four sums' adds
 TRACK_ROW_FLOPS = 17
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-TRACK_LAYOUTS = ("empty", "singles", "giant", "dwell", "odd")
+TRACK_LAYOUTS = ("empty", "singles", "giant", "dwell", "odd", "edges", "steps", "one", "small")
 
 
 def track_layout(kind: str, seed: int, n: int):
     """(offsets int64, dt f32, x f32, y f32) of a track layout of about
     ``n`` rows: no row (``empty``), one row an entity (``singles``), one
     entity holding half the rows (``giant``), parked runs of repeated
-    positions (``dwell``) or a row count that is not a multiple of 32
-    (``odd``)."""
+    positions (``dwell``), a row count that is not a multiple of 32
+    (``odd``), or around the card kernel's tiles of ``TRACK_TILE`` rows T:
+    entities that end and empty entities that sit on tile edges and between
+    entities inside a tile (``edges``: a cycle of sizes 0, T, 0, 0, T / 3,
+    0, 2T - T / 3, T - 5, 5, 0), entities of 3T + 7 rows with a zero-length
+    step into the first row of even tiles and a 90-degree turn across the
+    edge into odd ones (``steps``), a single entity of n / 4 rows (``one``)
+    or fewer rows than a tile (``small``)."""
+    from geomesa_tpu_torch.ops.kernels import TRACK_TILE
+
     rng = np.random.default_rng(seed)
-    if kind == "empty":
+    t = TRACK_TILE
+    if kind == "edges":
+        cycle = [0, t, 0, 0, t // 3, 0, 2 * t - t // 3, t - 5, 5, 0]
+        sizes = np.array(cycle * (n // (4 * t)) + [n % (4 * t)], dtype=np.int64)
+    elif kind == "steps":
+        sizes = np.full(n // (3 * t + 7), 3 * t + 7, dtype=np.int64)
+    elif kind == "one":  # a quarter of n: the plain version's f32 sum of one entity drifts
+        sizes = np.array([n // 4], dtype=np.int64)
+    elif kind == "small":
+        sizes = np.array([1, t // 4 + 1, 0, t // 4 + 1], dtype=np.int64)
+    elif kind == "empty":
         sizes = np.zeros(0, dtype=np.int64)
     elif kind == "singles":
         sizes = np.ones(n, dtype=np.int64)
@@ -4873,6 +4896,12 @@ def track_layout(kind: str, seed: int, n: int):
     if kind == "dwell":
         for k in range(0, max(m - 4, 0), 7):
             x[k + 1:k + 4], y[k + 1:k + 4] = x[k], y[k]
+    if kind == "steps":
+        for j, e in enumerate(range(t, m, t)):
+            if j % 2:  # a turn whose middle row ends a tile
+                x[e - 2:e + 1], y[e - 2:e + 1] = [1.0, 2.0, 2.0], [1.0, 1.0, 2.0]
+            else:  # a zero-length step into a tile's first row
+                x[e], y[e] = x[e - 1], y[e - 1]
     dt = rng.integers(0, 90, m).astype(np.float32)
     dt[offsets[:-1][sizes > 0]] = 0
     return offsets, dt, x, y
@@ -4964,21 +4993,30 @@ def track_stats_leg(dev, ds, n_rows: int) -> tuple[dict, dict]:
     # -- the kernel alone: config 10's shape, then the adversarial shapes -----------------
     eps = tstate.DEFAULT_DWELL_EPS_DEG
     args = (*cols, eps)
-    err, ratio = track_kernel_err(track_stats(*args), track_stats_plain(*args))
+    got = track_stats(*args)
+    err, ratio = track_kernel_err(got, track_stats_plain(*args))
+    repeats = all(torch.equal(a, b) for a, b in zip(got, track_stats(*args)))
     shapes = [f"config 10 (N={st.n}, E={st.n_entities}) {err:.3e}"]
     for i, kind in enumerate(TRACK_LAYOUTS):
         off, dt, x, y = track_layout(kind, 61 + i, TRACK_CHECK_ROWS)
         a = [torch.from_numpy(v).to(dev) for v in (x, y, dt, off)]
-        e, r = track_kernel_err(track_stats(*a, eps), track_stats_plain(*a, eps))
+        got = track_stats(*a, eps)
+        e, r = track_kernel_err(got, track_stats_plain(*a, eps))
+        repeats = repeats and all(torch.equal(u, v) for u, v in zip(got, track_stats(*a, eps)))
+        empty = torch.from_numpy(np.diff(off) == 0).to(dev)
+        if any(bool(g[empty].any()) for g in got):
+            raise AssertionError(f"track_stats gives an empty entity non-zero sums ({kind})")
         err, ratio = max(err, e), max(ratio, r)
         shapes.append(f"{kind} (N={len(x)}, E={len(off) - 1}) {e:.3e}")
     torch.cuda.synchronize()
     if ratio > 1:
         raise AssertionError(f"track_stats disagrees with its plain version: {ratio:.3f} of the "
                              "tolerance")
+    if not repeats:
+        raise AssertionError("two track_stats calls on the same inputs differ")
     log(f"phase 11d kernel-vs-plain: ok within rtol {TRACK_KERNEL_RTOL} + atol "
-        f"{TRACK_KERNEL_ATOL} (worst {ratio:.4f} of it); largest |difference|: "
-        + "; ".join(shapes))
+        f"{TRACK_KERNEL_ATOL} (worst {ratio:.4f} of it; empty entities 0; two calls on each "
+        f"layout equal bit for bit); largest |difference|: " + "; ".join(shapes))
     ms = cuda_ms(lambda: track_stats(*args), 20)
     dms = device_ms(lambda: track_stats(*args))
     plain = cuda_ms(lambda: track_stats_plain(*args), 3)

@@ -64,8 +64,12 @@ and cuts them into runs; the fold takes one run at a time, one query a
 block, and folds into that query's group partials in shared memory, then
 adds them to the outputs with one global atomic per touched group and
 field (a G x V too large for shared memory folds with global atomics
-instead: :func:`grouped_agg_mode`). Its note gives the bound (bytes); its
-plain version (:func:`grouped_agg_plain`) is torch ``index_add_`` /
+instead: :func:`grouped_agg_mode`). The overlap form
+(:func:`grouped_agg_overlap`, a line or polygon store's bbox columns) cuts
+the runs at aligned windows of ``AGG_WINDOW`` chunks in (window, query)
+order, and its fold takes up to ``AGG_FOLD_K`` runs a block, reading each
+chunk once for all of them. Its note gives the bound (bytes); its plain
+version (:func:`grouped_agg_plain`) is torch ``index_add_`` /
 ``scatter_reduce_``.
 
 ``batched_density`` replaces no TPU kernel either: the reference computes it
@@ -160,10 +164,12 @@ XLA (``geomesa_tpu/trajectory/state.py:364``, ``cached_track_stats_step``).
 Per entity of a track layout (rows sorted by entity and time, CSR offsets),
 the sums of step length, step duration, heading change between consecutive
 moving steps and dwell time. Its source is ``csrc/track_stats.cu``: a
-warp-segmented reduction over the sorted rows with a carry, one atomic a
-(warp, segment) and sum, the step distance in round-to-nearest intrinsics in
-the plain version's order; its plain version (:func:`track_stats_plain`) is
-the reference's step in torch, ``index_add_`` for the segment sums.
+segmented reduction over tiles of ``TRACK_TILE`` sorted rows, each entity's
+sums written once by the tile holding its last row, the carry across tiles
+by a look-back, the step distance in round-to-nearest intrinsics in the
+plain version's order (:func:`track_stats_tiles_plain` models the tiles);
+its plain version (:func:`track_stats_plain`) is the reference's step in
+torch, ``index_add_`` for the segment sums.
 
 ``z3_encode`` and ``z2_encode`` replace ``pallas_kernels.py:380`` and
 ``:393`` (``_elementwise_call`` :357 → ``_z3_kernel`` :340 /
@@ -253,9 +259,9 @@ _ENTRY_POINTS = {
     # (extents, n, base, true_n, boxes, times, q, nb, nt, target runs, min run,
     #  chunks, kept, run_q, run_s, run_e, work, scratch, scratch ints, the fold's
     #  cnt, first, vcnt, vsum, vmin, vmax, hits, positions to fill (or null),
-    #  values, groups, capacity, stream)
+    #  values, groups, capacity, window (0: query runs), cells, stream)
     "geomesa_agg_work_list": ("grouped_agg", [_P, _LL, _LL, _LL, _P, _P] + [_I] * 5
-                              + [_P] * 7 + [_LL] + [_P] * 8 + [_I] * 3 + [_P]),
+                              + [_P] * 7 + [_LL] + [_P] * 8 + [_I] * 4 + [_P, _P]),
     # (stream): one empty kernel, the launch floor
     "geomesa_empty_launch": ("grouped_agg", [_P]),
     # (..., chunks, run_q, run_s, run_e, work, gid, rowid, vals, cnt, first, vcnt, vsum,
@@ -266,6 +272,8 @@ _ENTRY_POINTS = {
                                     + [_P]),
     # (nb, nt, values, groups, overlap?) → 1 for the shared-memory fold, 0 for the global one
     "geomesa_grouped_agg_mode": ("grouped_agg", [_I] * 5),
+    # (nb, nt, values, groups, overlap?) → the runs a fold block takes at once
+    "geomesa_grouped_agg_fold_runs": ("grouped_agg", [_I] * 5),
     # (nb, nt, values, groups, sms, overlap?, host out: 1 x int) → runs the work list aims at
     "geomesa_grouped_agg_target_runs": ("grouped_agg", [_I] * 6 + [_P]),
     # (shared mode?, overlap?, host out: 2 x int) → registers and local-memory bytes per thread
@@ -306,8 +314,10 @@ _ENTRY_POINTS = {
     # (x, y, bins, offs, positions, hdg, n candidates, segs, ..., the same as above)
     "geomesa_corridor_masks_gather": ("corridor_masks", [_P] * 6 + [_LL] + [_P] * 7
                                       + [_I] * 4 + [_P] * 3),
-    # (x, y, dt, offsets, n, entities, dwell_eps, out (4, E), stream)
-    "geomesa_track_stats": ("track_stats", [_P] * 4 + [_LL, _I, ctypes.c_float, _P, _P]),
+    # (x, y, dt, offsets, n, entities, dwell_eps, out (4, E), scratch, scratch ints, epoch,
+    #  stream)
+    "geomesa_track_stats": ("track_stats", [_P] * 4 + [_LL, _I, ctypes.c_float, _P, _P, _LL,
+                                                       _I, _P]),
     # (coordinate columns..., n, sms, out, stream)
     "geomesa_z3_encode": ("morton_encode", [_P] * 3 + [_LL, _I, _P, _P]),
     "geomesa_z2_encode": ("morton_encode", [_P] * 2 + [_LL, _I, _P, _P]),
@@ -904,24 +914,29 @@ W_DONE, W_NEXT, W_RUNS, W_RUN_LEN, W_PAIRS, W_FLUSHED, W_INTS = range(7)
 AGG_MIN_RUN = 8  # chunks a run of the grouped fold holds at least (all of a shorter list)
 AGG_MAX_LANES = 4096  # lanes a query the card's grouped_agg sorts (csrc MAX_LANES)
 AGG_LIST_CHUNKS = 1024  # chunks one item of the card's work list tests (csrc LIST_SEG_CHUNKS)
+AGG_WINDOW = 8  # chunks of a window of the overlap form's runs (csrc WINDOW)
 _LIST_FLAGS = 1  # the work list scratch's ints before its flags (csrc S_FLAGS)
 
 
 def agg_work_list(extents, n: int, base: int, true_n: int, boxes, times, target_runs: int,
-                  min_run: int = AGG_MIN_RUN):
+                  min_run: int = AGG_MIN_RUN, overlap: bool = False):
     """The kept (chunk, query) pairs of a ``grouped_agg`` launch in query-major
     order, cut into runs: the fold's work list.
 
     ``extents``: :func:`chunk_extents` of the (N,) columns; ``n``, ``base``,
     ``true_n``, ``boxes`` and ``times`` as :func:`batched_count`'s. A pair is
     kept as :func:`chunk_query_pairs` keeps it. Returns ``(chunks (Q, C)
-    int32, kept (Q,) int32, runs (3, Q + target_runs) int32, work (W_INTS,)
-    int32)``: query q's kept chunks in order in ``chunks[q, :kept[q]]`` (-1
-    after them); the runs, ``run_len = max(min_run, ceil(pairs /
-    target_runs))`` chunks each but for each query's last, in query order
-    as (query, first, end) columns of ``runs`` (-1 after them); ``work``
-    the blocks done (Q), the next run (0), the runs, ``run_len``, the kept
-    pairs and 0.
+    int32, kept (Q,) int32, runs (3, R) int32, work (W_INTS,) int32)``:
+    query q's kept chunks in order in ``chunks[q, :kept[q]]`` (-1 after
+    them); the runs as (query, first, end) columns of ``runs`` (-1 after
+    them); ``work`` the blocks done (Q), the next run (0), the runs,
+    ``run_len``, the kept pairs and 0. The point form's runs (R = Q +
+    ``target_runs``) hold ``run_len = max(min_run, ceil(pairs /
+    target_runs))`` chunks each but for each query's last, in query order;
+    with ``overlap`` (``grouped_agg_overlap``'s runs, R = Q x ceil(C /
+    ``AGG_WINDOW``)) each query's kept chunks are cut at the edges of
+    aligned windows of ``AGG_WINDOW`` chunks, in (window, query) order
+    (:func:`work_runs_overlap`; ``run_len`` is the window).
 
     On the card the ``agg_work_list`` kernel (``csrc/grouped_agg.cu``: one
     launch over ceil(Q / 8) x ceil(C / ``AGG_LIST_CHUNKS``) items, each 8
@@ -938,32 +953,45 @@ def agg_work_list(extents, n: int, base: int, true_n: int, boxes, times, target_
     if target_runs < 1 or min_run < 1:
         raise ValueError(f"need target_runs >= 1 and min_run >= 1, got {target_runs}, {min_run}")
     if extents.device.type == "cpu":
-        return agg_work_list_plain(extents, n, base, true_n, boxes, times, target_runs, min_run)
+        return agg_work_list_plain(extents, n, base, true_n, boxes, times, target_runs, min_run,
+                                   overlap)
     if extents.device.type != "cuda":
         raise ValueError(f"agg_work_list runs on cuda or cpu, not {extents.device}")
-    return _work_list_launch(extents, n, base, true_n, boxes, times, target_runs, min_run)
+    return _work_list_launch(extents, n, base, true_n, boxes, times, target_runs, min_run,
+                             overlap=overlap)
+
+
+def _max_runs(q: int, c: int, target_runs: int, overlap: bool) -> int:
+    """The run table's length: Q + ``target_runs``, or with ``overlap`` one
+    run a (window, query) cell."""
+    return q * -(-c // AGG_WINDOW) if overlap else q + int(target_runs)
 
 
 def _work_list_launch(extents, n: int, base: int, true_n: int, boxes, times, target_runs: int,
-                      min_run: int, fills: tuple = (), ints: tuple = (0, 0, 0)):
+                      min_run: int, fills: tuple = (), ints: tuple = (0, 0, 0),
+                      overlap: bool = False):
     """The ``agg_work_list`` kernel's launch; with ``fills`` (the fold's cnt,
     first, vcnt, vsum, vmin, vmax, hits and positions) and ``ints`` (V, G,
-    capacity), it also fills the fold's outputs with their initial values."""
+    capacity), it also fills the fold's outputs with their initial values;
+    with ``overlap``, window runs."""
     dev = extents.device
     q, c = boxes.shape[0], extents.shape[0]
+    m = _max_runs(q, c, target_runs, overlap)
     if q == 0:
         return (torch.empty((0, c), dtype=torch.int32, device=dev),
                 torch.empty(0, dtype=torch.int32, device=dev),
-                torch.full((3, target_runs), -1, dtype=torch.int32, device=dev),
-                torch.tensor([0, 0, 0, min_run, 0, 0], dtype=torch.int32, device=dev))
+                torch.full((3, m), -1, dtype=torch.int32, device=dev),
+                torch.tensor([0, 0, 0, AGG_WINDOW if overlap else min_run, 0, 0],
+                             dtype=torch.int32, device=dev))
     if boxes.data_ptr() % 16 or times.data_ptr() % 16:
         raise ValueError("agg_work_list: boxes and times must start on a 16-byte boundary")
-    # one allocation, every int of it written by the launch: the lists with
-    # their -1 tails, the counts, the runs with theirs and the work ints
-    m = q + int(target_runs)
-    out = torch.empty(q * c + q + 3 * m + W_INTS, dtype=torch.int32, device=dev)
-    chunks, kept, runs, work = out.split((q * c, q, 3 * m, W_INTS))
-    at = out.data_ptr() + 4 * (q * c + q)
+    # one allocation, every int of it written by the launch: the window runs'
+    # (first slot, count) cells first (8-byte aligned), the lists with their
+    # -1 tails, the counts, the runs with theirs and the work ints
+    cells = 2 * m if overlap else 0
+    out = torch.empty(cells + q * c + q + 3 * m + W_INTS, dtype=torch.int32, device=dev)
+    _, chunks, kept, runs, work = out.split((cells, q * c, q, 3 * m, W_INTS))
+    at = out.data_ptr() + 4 * (cells + q * c + q)
     stream = _stream_of(extents)
     segs = max(1, -(-c // AGG_LIST_CHUNKS))
     scratch = _stream_scratch(dev, stream, _LIST_FLAGS + q * segs)
@@ -971,9 +999,10 @@ def _work_list_launch(extents, n: int, base: int, true_n: int, boxes, times, tar
         rc = _fn("geomesa_agg_work_list")(
             extents.data_ptr(), int(n), int(base), int(true_n), boxes.data_ptr(),
             times.data_ptr(), q, boxes.shape[1], times.shape[1], int(target_runs), int(min_run),
-            out.data_ptr(), at - 4 * q, at, at + 4 * m, at + 8 * m, at + 12 * m,
+            at - 4 * (q * c + q), at - 4 * q, at, at + 4 * m, at + 8 * m, at + 12 * m,
             scratch.data_ptr(), scratch.numel(),
-            *([t.data_ptr() for t in fills] if fills else [None] * 8), *ints, stream)
+            *([t.data_ptr() for t in fills] if fills else [None] * 8), *ints,
+            AGG_WINDOW if overlap else 0, out.data_ptr() if overlap else None, stream)
     if rc != 0:
         raise RuntimeError(f"agg_work_list launch failed: cudaError {rc}")
     launches["agg_work_list"] += 1
@@ -981,7 +1010,7 @@ def _work_list_launch(extents, n: int, base: int, true_n: int, boxes, times, tar
 
 
 def agg_work_list_plain(extents, n: int, base: int, true_n: int, boxes, times,
-                        target_runs: int, min_run: int = AGG_MIN_RUN):
+                        target_runs: int, min_run: int = AGG_MIN_RUN, overlap: bool = False):
     """The plain PyTorch version of :func:`agg_work_list`."""
     keep = _pairs_from_extents(extents, n, base, true_n, boxes, times).T  # (Q, C)
     q, c = keep.shape
@@ -989,7 +1018,60 @@ def agg_work_list_plain(extents, n: int, base: int, true_n: int, boxes, times,
     kept = keep.sum(dim=1)
     idx = torch.where(keep, torch.arange(c, device=dev)[None, :], c).sort(dim=1).values
     chunks = torch.where(idx < c, idx, -1).to(torch.int32)
-    return (chunks, kept.to(torch.int32), *_work_runs(kept, target_runs, min_run))
+    runs = work_runs_overlap(keep) if overlap else _work_runs(kept, target_runs, min_run)
+    return (chunks, kept.to(torch.int32), *runs)
+
+
+def work_runs_overlap(keep):
+    """The overlap form's runs and work ints of the kept (Q, C) pairs
+    ``keep``: what the card's last work-list block writes from the window
+    cells. Query q's kept chunks are cut at the edges of aligned windows of
+    ``AGG_WINDOW`` chunks; a (window, query) cell that kept a chunk is one
+    run (query, first, end), ``first`` and ``end`` slots of the query's
+    list; runs in (window, query) order, -1 after them."""
+    q, c = keep.shape
+    dev = keep.device
+    nw = -(-c // AGG_WINDOW)
+    k = keep.long()
+    grid = torch.zeros((q, nw * AGG_WINDOW), dtype=torch.long, device=dev)
+    grid[:, :c] = k
+    count = grid.view(q, nw, AGG_WINDOW).sum(dim=2)  # (Q, W)
+    start = torch.cumsum(count, dim=1) - count  # each cell's first slot in its query's list
+    wi, qi = (count.T > 0).nonzero(as_tuple=True)  # (window, query) order
+    runs = torch.full((3, _max_runs(q, c, 0, True)), -1, dtype=torch.int32, device=dev)
+    n_runs = wi.shape[0]
+    runs[0, :n_runs] = qi.to(torch.int32)
+    runs[1, :n_runs] = start[qi, wi].to(torch.int32)
+    runs[2, :n_runs] = (start[qi, wi] + count[qi, wi]).to(torch.int32)
+    work = torch.tensor([q, 0, n_runs, AGG_WINDOW, int(k.sum()), 0], dtype=torch.int32,
+                        device=dev)
+    return runs, work
+
+
+AGG_FOLD_K = 3  # runs an overlap fold block takes at once at most (csrc FOLD_K)
+
+
+def overlap_fold_walk(chunks, runs, work, k: int = AGG_FOLD_K) -> list:
+    """A plain model of the overlap fold's items: the card's blocks take
+    the window runs ``k`` at a time in table order (``runs``, ``work`` and
+    the kept ``chunks`` lists as :func:`agg_work_list` returns them with
+    ``overlap``), and each walks the union of its runs' chunks in order,
+    window by window, reading each chunk once for every run that keeps it.
+    Returns one list an item of ``(chunk, [runs of the item that keep
+    it])``. For tests: nothing calls it."""
+    items = []
+    n_runs = int(work[W_RUNS])
+    for r0 in range(0, n_runs, k):
+        per_run = []
+        for r in range(r0, min(r0 + k, n_runs)):
+            q, s, e = (int(v) for v in runs[:, r])
+            per_run.append(chunks[q, s:e].tolist())
+        walk: dict = {}
+        for ki, cs in enumerate(per_run):
+            for c in cs:
+                walk.setdefault(c, []).append(ki)
+        items.append(sorted(walk.items()))
+    return items
 
 
 def _work_runs(kept, target_runs: int, min_run: int):
@@ -1013,7 +1095,7 @@ def _work_runs(kept, target_runs: int, min_run: int):
 
 def agg_work_list_segments(extents, n: int, base: int, true_n: int, boxes, times,
                            target_runs: int, min_run: int = AGG_MIN_RUN,
-                           segments: int | None = None):
+                           segments: int | None = None, overlap: bool = False):
     """A plain model of the card's work list segment by segment; it returns
     what :func:`agg_work_list_plain` returns, for any split. Each query's C
     chunks are cut into ``segments`` segments of ceil(C / segments) chunks
@@ -1024,8 +1106,9 @@ def agg_work_list_segments(extents, n: int, base: int, true_n: int, boxes, times
     segments' counts (the look-back) plus the kept chunks before it in its
     steps and lanes, over the -1 each segment first writes in its own
     slots; the query's last segment gives ``kept``. The runs and work ints
-    come from the counts as the last block cuts them. For tests: nothing
-    calls it."""
+    come from the counts as the last block cuts them (with ``overlap``,
+    the window runs of the kept pairs: :func:`work_runs_overlap`). For
+    tests: nothing calls it."""
     keep = _pairs_from_extents(extents, n, base, true_n, boxes, times).T  # (Q, C)
     q, c = keep.shape
     dev = extents.device
@@ -1045,7 +1128,8 @@ def agg_work_list_segments(extents, n: int, base: int, true_n: int, boxes, times
     chunks = torch.full((q, c), -1, dtype=torch.int32, device=dev)  # each segment's fill
     chunks[qi, slot[qi, si, ki, li]] = (si * seg_len + ki * 32 + li).to(torch.int32)
     kept = count.sum(dim=1)
-    return (chunks, kept.to(torch.int32), *_work_runs(kept, target_runs, min_run))
+    runs = work_runs_overlap(keep) if overlap else _work_runs(kept, target_runs, min_run)
+    return (chunks, kept.to(torch.int32), *runs)
 
 
 def grouped_agg_mode(box_slots: int, time_slots: int, n_vals: int, n_groups: int,
@@ -1054,8 +1138,9 @@ def grouped_agg_mode(box_slots: int, time_slots: int, n_vals: int, n_groups: int
     ``"shared"`` (each run's group partials in shared memory, then one
     global atomic per touched group and field) where G x (8 + 28 V) B fit
     a block beside its 64 KB row buffer (the overlap form,
-    :func:`grouped_agg_overlap`, has none), else ``"global"`` (the fold's
-    atomics on the outputs). Asks the built library."""
+    :func:`grouped_agg_overlap`: G x (8 + 20 V) B beside its 96 KB ring,
+    its sums going to the outputs), else ``"global"`` (the fold's atomics on
+    the outputs). Asks the built library."""
     return ("shared" if _fn("geomesa_grouped_agg_mode")(box_slots, time_slots, n_vals,
                                                         n_groups, int(overlap)) else "global")
 
@@ -1135,10 +1220,11 @@ def grouped_agg_overlap(cols, gid, rowid, vals, base: int, true_n: int, boxes, t
     (:func:`batched_edge_gather_overlap`). Same outputs and lane contract;
     ``extents`` the columns' :func:`chunk_extents_bbox` (computed here when
     None), whose work list is the point form's (its extent test is an exact
-    superset for overlap). On the card the work list, then
-    ``csrc/grouped_agg.cu``'s overlap fold (launches counted as
-    ``grouped_agg_overlap``) and the finish; on the CPU
-    :func:`grouped_agg_overlap_plain`."""
+    superset for overlap) with window runs (:func:`work_runs_overlap`). On
+    the card the work list, then ``csrc/grouped_agg.cu``'s overlap fold
+    (launches counted as ``grouped_agg_overlap``: a block takes up to three
+    runs of a window at once and reads each of their chunks once) and the
+    finish; on the CPU :func:`grouped_agg_overlap_plain`."""
     _check_box_args(cols, boxes, times)
     if times is None:
         raise ValueError("the overlap grouped fold needs the time columns and windows")
@@ -1188,7 +1274,8 @@ def _agg_launch(stem: str, cols: tuple, gid, rowid, vals, base: int, true_n: int
     target = grouped_agg_target_runs(nb, nt, nv, g, dev, overlap)
     chunks, _, runs, work = _work_list_launch(extents, n, base, true_n, boxes, times, target,
                                               AGG_MIN_RUN, (cnt, first, vcnt, vsum, vmin, vmax,
-                                                            hits, pos), (nv, g, int(capacity)))
+                                                            hits, pos), (nv, g, int(capacity)),
+                                              overlap=overlap)
     fold = (chunks, runs[0], runs[1], runs[2], work, gid, rowid, vals, cnt, first, vcnt, vsum,
             vmin, vmax, hits, pos)
     ints = (nv, g, int(capacity))
@@ -1214,14 +1301,19 @@ def _agg_initial(q: int, nv: int, g: int, capacity: int, dev):
 
 
 def grouped_agg_last_work() -> dict:
-    """The last card launch of :func:`grouped_agg` (any thread's): its
-    mode, the runs the work list aimed at and made, ``run_len``, the kept
-    (chunk, query) pairs, and the global atomics of the shared mode's
+    """The last card launch of :func:`grouped_agg` or
+    :func:`grouped_agg_overlap` (any thread's): its mode, whether it was
+    the overlap form, the runs the work list aimed at and made, ``run_len``
+    (the overlap form's window), the runs a fold block takes at once, the
+    kept (chunk, query) pairs, and the global atomics of the shared mode's
     flushes. Reads the card's work ints, so it synchronises the device."""
     w = _last_agg["work"].tolist()
-    return {"mode": grouped_agg_mode(*_last_agg["shape"]), "overlap": _last_agg["shape"][4], "target_runs": _last_agg["target_runs"],
-            "runs": w[W_RUNS], "run_len": w[W_RUN_LEN], "pairs": w[W_PAIRS],
-            "flush_atomics": w[W_FLUSHED]}
+    shape = _last_agg["shape"]
+    return {"mode": grouped_agg_mode(*shape), "overlap": shape[4],
+            "target_runs": _last_agg["target_runs"], "runs": w[W_RUNS],
+            "run_len": w[W_RUN_LEN],
+            "fold_runs": _fn("geomesa_grouped_agg_fold_runs")(*shape[:4], int(shape[4])),
+            "pairs": w[W_PAIRS], "flush_atomics": w[W_FLUSHED]}
 
 
 def grouped_agg_attrs(mode: str = "shared", overlap: bool = False) -> tuple[int, int]:
@@ -2795,6 +2887,25 @@ def z2_encode_plain(x, y) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _RAD2DEG = 180.0 / math.pi
+TRACK_TILE = 2048  # rows a block of the card's track_stats takes (csrc TILE)
+_TRACK_EPOCHS = (1 << 29) - 1  # launch epochs a track_stats scratch takes (csrc EPOCH_BITS)
+_TRACK_SCRATCH: dict = {}  # (device index, stream) → [int32 scratch, the last launch's epoch]
+
+
+def _track_scratch(dev: torch.device, stream: int, ints: int) -> tuple[torch.Tensor, int]:
+    """``track_stats``' scratch for launches on ``stream`` (a status and four
+    sums a tile) and the next launch's epoch. A status is tagged with its
+    launch's epoch, so launches leave the scratch as it is and need no
+    memset; a new or larger scratch is zeroed and its epochs start at 1, as
+    they do again once they run out."""
+    key = (dev.index, stream)
+    with _SCRATCH_LOCK:
+        entry = _TRACK_SCRATCH.get(key)
+        if entry is None or entry[0].numel() < ints or entry[1] >= _TRACK_EPOCHS:
+            entry = _TRACK_SCRATCH[key] = [
+                torch.zeros(max(ints, 5 * 1024), dtype=torch.int32, device=dev), 0]
+        entry[1] += 1
+        return entry[0], entry[1]
 
 
 def _check_track_args(x, y, dt, offsets) -> None:
@@ -2826,20 +2937,26 @@ def track_stats(x, y, dt, offsets, dwell_eps: float):
     consecutive steps that both moved (distance > 0; ``b`` the step bearing
     in degrees clockwise from north) and of the duration of steps no longer
     than ``dwell_eps`` degrees. On the card one launch of
-    ``csrc/track_stats.cu`` (its entry point zeroes the sums first); on the
+    ``csrc/track_stats.cu`` (tiles of ``TRACK_TILE`` rows, each entity's
+    sums written once; :func:`track_stats_tiles_plain` models it); on the
     CPU :func:`track_stats_plain`."""
     _check_track_args(x, y, dt, offsets)
     if x.device.type == "cpu":
         return track_stats_plain(x, y, dt, offsets, dwell_eps)
     if x.device.type != "cuda":
         raise ValueError(f"track_stats runs on cuda or cpu, not {x.device}")
-    e = offsets.shape[0] - 1
+    e, n = offsets.shape[0] - 1, x.shape[0]
+    if e >= 2**30:
+        raise ValueError("track_stats on the card takes fewer than 2^30 entities")
     out = torch.empty((4, e), dtype=torch.float32, device=x.device)
     if e:
+        stream = _stream_of(x)
+        scratch, epoch = _track_scratch(x.device, stream, 5 * -(-n // TRACK_TILE))
         with _on_device(x.device):
             rc = _fn("geomesa_track_stats")(x.data_ptr(), y.data_ptr(), dt.data_ptr(),
-                                            offsets.data_ptr(), x.shape[0], e, float(dwell_eps),
-                                            out.data_ptr(), _stream_of(x))
+                                            offsets.data_ptr(), n, e, float(dwell_eps),
+                                            out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                                            epoch, stream)
         if rc != 0:
             raise RuntimeError(f"track_stats launch failed: cudaError {rc}")
         launches["track_stats"] += 1
@@ -2880,3 +2997,69 @@ def track_stats_plain(x, y, dt, offsets, dwell_eps: float):
     sid, *terms = track_terms(x, y, dt, offsets, float(dwell_eps))
     return tuple(torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(0, sid, v)
                  for v in terms)
+
+
+def track_stats_tiles_plain(x, y, dt, offsets, dwell_eps: float, tile: int = TRACK_TILE):
+    """A plain model of the card's ``track_stats`` tile by tile; it returns
+    what :func:`track_stats_plain` returns, within f32 rounding. The rows
+    are cut into tiles of ``tile`` rows. Each tile finds the entity of the
+    row before it (``lo``, by search) and of its last row (``hi``; the last
+    tile's runs to E - 1), marks the first row of each non-empty entity in
+    (lo, hi] as a head and writes 0 for each empty one; its rows' terms
+    (:func:`track_terms`) are summed per segment between heads, and the tile
+    publishes its tail (the sums from its last head on, ``HEAD``) or, with
+    no head, its whole sums (``PART``). A tile whose first row is not a
+    head takes as carry the published sums from the nearest earlier
+    ``HEAD`` tile to the tile before it, added in tile order (the card's
+    look-back), and every segment that ends an entity in the tile is
+    written there: its sums, plus the carry for the tile's first entity.
+    Raises if an entity is written other than once. For tests: nothing
+    calls it."""
+    n, e = x.shape[0], offsets.shape[0] - 1
+    dev = x.device
+    out = torch.zeros((4, e), dtype=torch.float32, device=dev)
+    if n == 0:
+        return tuple(out.unbind(0))
+    written = torch.zeros(e, dtype=torch.long, device=dev)
+    terms = torch.stack(track_terms(x, y, dt, offsets, float(dwell_eps))[1:], dim=1)  # (N, 4)
+    counts = offsets[1:] - offsets[:-1]
+    ent_at = torch.full((n,), -1, dtype=torch.long, device=dev)
+    ent_at[offsets[:-1][counts > 0]] = torch.nonzero(counts > 0)[:, 0]
+
+    def entity(row: int) -> int:  # the largest e in [0, E - 1] with offsets[e] <= row
+        return min(int(torch.searchsorted(offsets, torch.tensor([row], device=dev),
+                                          right=True)) - 1, e - 1)
+
+    tiles = -(-n // tile)
+    published, has_head, parts = [], [], []
+    for t in range(tiles):
+        r0, r1 = t * tile, min((t + 1) * tile, n)
+        lo = entity(r0 - 1) if r0 else -1
+        hi = e - 1 if t == tiles - 1 else entity(r1 - 1)
+        empty = torch.arange(lo + 1, hi + 1, device=dev)
+        empty = empty[counts[lo + 1:hi + 1] == 0]
+        out[:, empty] = 0.0
+        written[empty] += 1
+        heads = (torch.nonzero(ent_at[r0:r1] >= 0)[:, 0] + r0).tolist()
+        bounds = sorted({r0, *heads}) + [r1]
+        segs = [(int(ent_at[a]), a, b, terms[a:b].sum(dim=0)) for a, b in zip(bounds, bounds[1:])]
+        parts.append((lo, segs))
+        has_head.append(bool(heads))
+        published.append(segs[-1][3])
+    for t, (lo, segs) in enumerate(parts):
+        carry = torch.zeros(4, dtype=torch.float32, device=dev)
+        if segs[0][0] < 0:  # the first row continues an entity: the look-back
+            h = t - 1
+            while not has_head[h]:
+                h -= 1
+            for b in range(h, t):
+                carry = carry + published[b]
+        for ent, a, b, sums in segs:
+            if b < n and ent_at[b] < 0:  # the entity goes on past the segment
+                continue
+            at = ent if ent >= 0 else lo
+            out[:, at] = sums if ent >= 0 else carry + sums
+            written[at] += 1
+    if not bool((written == 1).all()):
+        raise RuntimeError("an entity was written other than once")
+    return tuple(out.unbind(0))

@@ -3,7 +3,7 @@ grouped aggregation and its spatial join of several checkouts against each
 other in one run on a CUDA card.
 
     python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR]
-        [--join-only | --overlap-only | --agg-only]
+        [--join-only | --overlap-only | --agg-only | --fold-only | --track-only]
 
 Each ROOT is a checkout of this repo: ``.``, or another commit unpacked with
 ``git archive`` into an ignored directory. The roots run one after another
@@ -110,6 +110,29 @@ chunks of 4096 rows:
   launch-bound kernel cannot go below;
 - ``nvcc -Xptxas -v`` of ``grouped_agg.cu`` and ``planned_gather.cu``:
   every kernel's registers, spills and shared memory.
+
+``--fold-only`` runs ``grouped_agg_overlap`` (the overlap fold of a line
+store's ``aggregate_many``) at a line store shaped as ``chip_smoke.py``'s
+phase 9c: 4M line strings on config 5's boxes with config 9's group key (G
+= 1024) and a value column a tenth null, through ``DataStore``, and the 64
+queries of seed 7 as ``aggregate_many`` packs them. It prints ``nvcc
+-Xptxas -v`` of ``grouped_agg.cu``, holds the fold to its plain version
+(counts, first rows, min, max and the lanes that hold every boundary row
+exact, sums within a relative 1e-12), then times it: the wrapper by CUDA
+events (the median of 5 readings of 10 calls), the device and host work of
+a call behind a spin, the device time of each op of a call by
+``torch.profiler`` (mean of 10 calls: the work list, the fold and the
+finish), the work list's runs and the fold's flush atomics, and the
+store's ``aggregate_many`` of the 64, p50 of 5 on the host clock.
+
+``--track-only`` runs ``track_stats`` at bench config 10's shape: 2M track
+points (``workload.trajectory_workload``, seed 15) through ``DataStore``
+and ``build_track_state`` (7,812 entities). It prints ``nvcc -Xptxas -v``
+of ``track_stats.cu``, holds the kernel to its plain version (rtol 1e-4 +
+atol 1e-3) and two of its calls to each other (bit for bit or not), then
+times it by CUDA events (20 launches), behind a spin, and by device op
+(``torch.profiler``, mean of 10 calls: the kernel and any memset). The
+two flags may be given together, and run in that order.
 
 Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
@@ -526,9 +549,12 @@ def work_list_host_split(label: str, kernels, wl) -> None:
             boxes.shape[1], times.shape[1], target, kernels.AGG_MIN_RUN, chunks.data_ptr(),
             kept.data_ptr(), runs[0].data_ptr(), runs[1].data_ptr(), runs[2].data_ptr(),
             work.data_ptr()]
-    if len(kernels._ENTRY_POINTS["geomesa_agg_work_list"][1]) > 18:  # a scratch and fills
+    n_args = len(kernels._ENTRY_POINTS["geomesa_agg_work_list"][1])
+    if n_args > 18:  # a scratch and fills
         scratch = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
         head += [scratch.data_ptr(), scratch.numel()] + [None] * 8 + [0, 0, 0]
+    if n_args > 31:  # the window runs' flag and cells (none: the point form's runs)
+        head += [0, None]
 
     def entry():
         if fn(*head, stream):
@@ -810,6 +836,7 @@ def join_timed(label: str, kernels, inp: dict) -> None:
 
 
 XZ_ROWS, XZ_TILES, XZ_BATCHES = 4_000_000, 16, 20
+TRACK_ROWS = 2_000_000  # bench config 10's track points
 XZ_SOURCES = ("batched_overlap", "batched_edge_gather")
 
 
@@ -993,13 +1020,143 @@ def overlap_worker(label: str, kernels, dev) -> None:
     planned_overlap_timed(label, kernels, ds, cqls, cols, n, boxes, times)
 
 
+def xz_agg_store(dev):
+    """A line store as ``chip_smoke.py``'s phase 9c builds it for
+    ``aggregate_many`` (see the module docstring): (the store, the 64
+    queries' CQL, ``grouped_agg_overlap``'s arguments, the xz3 state's
+    extents)."""
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, linestring_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import (
+        XZ_AGG_SPEC, bbox_time_cql, box_linestrings, grouped_columns, make_queries, synth_gdelt,
+        xz_boxes)
+
+    coords, offsets = box_linestrings(*xz_boxes(XZ_ROWS, 9))
+    gid, vals = grouped_columns(XZ_ROWS, AGG_GROUPS)
+    valid = np.random.default_rng(19).random(XZ_ROWS) >= 0.1
+    cqls = [bbox_time_cql(b, w) for b, w in zip(*make_queries(N_QUERIES, 7))]
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("xz", XZ_AGG_SPEC)
+    ds.write("xz", FeatureTable.from_columns(sft, np.arange(XZ_ROWS).astype("U9"), {
+        "cat": Column(AttributeType.INT, gid), "val": Column(AttributeType.DOUBLE, vals, valid),
+        "dtg": Column(AttributeType.DATE, synth_gdelt(XZ_ROWS)[2]),
+        "geom": linestring_column(coords, offsets)}))
+    ds.compact("xz")
+    st = ds._state("xz")
+    state = st.backend_state["xz3"]
+    (dgid, _, keys), drowid, dvals, _ = ds._agg_residency(
+        state, st.table, st.indices["xz3"].perm, ["cat"], ["val"])
+    pend = ds._batch_payloads(st, [Query(c) for c in cqls])
+    boxes, times = (torch.from_numpy(np.stack([p[k] for _, p, _ in pend])).to(dev)
+                    for k in (0, 1))
+    g_pad = 1 << max(0, (len(keys) - 1).bit_length())
+    args = (state.spatial_cols(), dgid, drowid, dvals, 0, state.n, boxes, times, g_pad, 512)
+    return ds, cqls, args, state.extents
+
+
+def fold_timed(label: str, kernels, ds, cqls, args, extents) -> None:
+    """``grouped_agg_overlap`` at the line store against its plain version,
+    then timed (see the module docstring)."""
+    got = kernels.grouped_agg_overlap(*args, extents=extents)
+    want = kernels.grouped_agg_overlap_plain(*args)
+    torch.cuda.synchronize()
+    fits = want[7][:, 0] <= args[-1]
+    exact = all(torch.equal(got[i], want[i]) for i in (0, 1, 2, 4, 5, 7))
+    exact = exact and torch.equal(got[6][fits], want[6][fits])
+    rel = float(((got[3] - want[3]).abs() / want[3].abs().clamp(min=1e-300)).max())
+    if not exact or not rel <= AGG_RTOL:
+        raise SystemExit(f"{label} line store: grouped_agg_overlap disagrees with its plain "
+                         "version")
+    work = kernels.grouped_agg_last_work()
+
+    def call():
+        return kernels.grouped_agg_overlap(*args, extents=extents)
+    ms = cuda_ms_p50(call)
+    dev_ms, host_ms = spin_ms(call)
+    ops = device_by_op(call, 10)
+    call()
+    torch.cuda.synchronize()
+    flushed = kernels.grouped_agg_last_work()["flush_atomics"]
+    log(f"{label} line store grouped_agg_overlap: wrapper {ms:.4f} ms (CUDA events, median of 5 "
+        f"readings of 10 calls), device {fmt(dev_ms)} and host {fmt(host_ms)} a call (10 calls "
+        f"behind a spin) at N={args[5]} Q={args[6].shape[0]} G={args[8]} V=1, {work['mode']} "
+        f"mode, {work['runs']} runs of up to {work['run_len']} chunks over {work['pairs']} kept "
+        f"(chunk, query) pairs, {work.get('fold_runs', 1)} runs a fold block at once, "
+        f"{flushed} flush atomics; equal to plain (sums within {rel:.3e}); "
+        f"{int(want[0].long().sum())} folded row-queries; device ops per call (torch.profiler, "
+        f"mean of 10 calls): {ops_line(ops)}")
+    # the work list alone (without the fold's fills): the point form's runs and, where the
+    # root has them, the window runs
+    wl = (extents, args[5], 0, args[5], args[6], args[7],
+          kernels.grouped_agg_target_runs(args[6].shape[1], args[7].shape[1], 1, args[8],
+                                          args[6].device, True))
+    forms = [("query runs", {})]
+    if "overlap" in inspect.signature(kernels.agg_work_list).parameters:
+        forms.append(("window runs", {"overlap": True}))
+    parts = [f"{name} {fmt(spin_ms(lambda: kernels.agg_work_list(*wl, **kw))[0])}"
+             for name, kw in forms]
+    log(f"{label} line store agg_work_list alone (device, 10 calls behind a spin): "
+        + "; ".join(parts))
+    p50, lo, hi = host_p50(lambda: ds.aggregate_many("xz", cqls, group_by=["cat"],
+                                                     value_cols=["val"]), 5)
+    log(f"{label} line store aggregate_many: p50 {p50:.3f} ms over 5 (min {lo:.3f}, max "
+        f"{hi:.3f}; host clock) for {len(cqls)} queries")
+
+
+def track_timed(label: str, kernels, dev) -> None:
+    """``track_stats`` at config 10's shape against its plain version, then
+    timed (see the module docstring)."""
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType, parse_spec
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.trajectory import state as tstate
+    from geomesa_tpu_torch.workload import TRACK_SPEC, trajectory_workload
+
+    lon, lat, t, tracks, _, _ = trajectory_workload(TRACK_ROWS, 16)
+    ds = DataStore(device=dev)
+    sft = ds.create_schema(parse_spec("tracks", TRACK_SPEC))
+    ds.write("tracks", FeatureTable.from_columns(sft, np.arange(TRACK_ROWS).astype(str), {
+        "track": Column(AttributeType.STRING, tracks),
+        "dtg": Column(AttributeType.DATE, t.astype(np.int64)), "geom": point_column(lon, lat)}))
+    ds.compact("tracks")
+    st = tstate.build_track_state(ds, "tracks", "track")
+    args = (*st.device_columns(dev), tstate.DEFAULT_DWELL_EPS_DEG)
+    got, again = kernels.track_stats(*args), kernels.track_stats(*args)
+    want = kernels.track_stats_plain(*args)
+    torch.cuda.synchronize()
+    worst = max(float(((g.double() - w.double()).abs()
+                       / (1e-4 * w.double().abs() + 1e-3)).max()) for g, w in zip(got, want))
+    if not worst <= 1:
+        raise SystemExit(f"{label} config 10: track_stats disagrees with its plain version")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ms = cuda_ms(lambda: kernels.track_stats(*args), 20)
+    dev_ms, host_ms = spin_ms(lambda: kernels.track_stats(*args))
+    ops = device_by_op(lambda: kernels.track_stats(*args), 10)
+    log(f"{label} config 10 track_stats: {ms:.4f} ms (CUDA events, 20 launches), device "
+        f"{fmt(dev_ms)} and host {fmt(host_ms)} a call (10 calls behind a spin) at N={st.n} "
+        f"E={st.n_entities}; within {worst:.4f} of the tolerance of plain; two calls "
+        f"{'bit for bit equal' if same else 'differ in the last bits'}; device ops per call "
+        f"(torch.profiler, mean of 10 calls): {ops_line(ops)}")
+
+
 def worker(label: str, out: Path, join_only: bool = False, overlap_only: bool = False,
-           agg_only: bool = False) -> None:
+           agg_only: bool = False, fold_only: bool = False, track_only: bool = False) -> None:
     sys.path.insert(0, os.getcwd())
     os.environ.setdefault("TEARDOWN_CUPTI", "0")  # several profiler windows in one process
     from geomesa_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
+    if fold_only or track_only:
+        if fold_only:
+            ptxas_usage(kernels, label, ("grouped_agg",), None)
+            fold_timed(label, kernels, *xz_agg_store(dev))
+            torch.cuda.empty_cache()
+        if track_only:
+            ptxas_usage(kernels, label, ("track_stats",), None)
+            track_timed(label, kernels, dev)
+        return
     if overlap_only:
         overlap_worker(label, kernels, dev)
         return
@@ -1045,13 +1202,18 @@ def main() -> None:
     ap.add_argument("--agg-only", action="store_true",
                     help="time agg_work_list, grouped_agg and planned_gather at bench config 9's "
                          "points, and nothing else")
+    ap.add_argument("--fold-only", action="store_true",
+                    help="time grouped_agg_overlap at a phase-9c line store, and nothing else")
+    ap.add_argument("--track-only", action="store_true",
+                    help="time track_stats at bench config 10, and nothing else")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out = Path(args.out).resolve()
     if args.worker:
-        return worker(args.worker, out, args.join_only, args.overlap_only, args.agg_only)
+        return worker(args.worker, out, args.join_only, args.overlap_only, args.agg_only,
+                      args.fold_only, args.track_only)
     if not args.roots:
         ap.error("give at least one ROOT")
     log("card: " + subprocess.run(
@@ -1063,8 +1225,11 @@ def main() -> None:
                         "--out", str(out / f"run{i + 1}")]
                        + (["--join-only"] if args.join_only else [])
                        + (["--overlap-only"] if args.overlap_only else [])
-                       + (["--agg-only"] if args.agg_only else []), cwd=root, check=True)
-    only = args.join_only or args.overlap_only or args.agg_only
+                       + (["--agg-only"] if args.agg_only else [])
+                       + (["--fold-only"] if args.fold_only else [])
+                       + (["--track-only"] if args.track_only else []), cwd=root, check=True)
+    only = (args.join_only or args.overlap_only or args.agg_only or args.fold_only
+            or args.track_only)
     for stem in () if only else SAME_SASS:
         first = sass_instructions(out / "run1" / f"{stem}.sass")
         for i in range(2, len(args.roots) + 1):

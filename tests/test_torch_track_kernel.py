@@ -7,7 +7,12 @@ against their plain versions on a card (``cuda`` marker). No jax.
   one-row entities, an entity holding half the rows, a row count that is
   not a multiple of 32, empty entities in the offsets, and no row at all;
 - on the card: ``track_stats`` against ``track_stats_plain`` at those
-  shapes and at 1,000,003 rows with one entity holding half of them, and
+  shapes, at 1,000,003 rows with one entity holding half of them and on
+  the layouts of ``tests/test_torch_track_tiles.py`` built around the
+  kernel's tiles of ``TRACK_TILE`` rows (an entity over many tiles, empty
+  entities on and between tile edges, entities starting on a tile's first
+  row, a zero-length step and a turn across tile edges, E = 1, fewer rows
+  than a tile, a ragged row count), two calls equal bit for bit, and
   ``grouped_agg_overlap`` against ``grouped_agg_overlap_plain`` on
   config-5 bboxes with dead and inverted slots, an all-dead query and
   ``true_n`` inside the last chunk, in both fold modes.
@@ -126,6 +131,41 @@ def test_track_stats_kernel_matches_plain_on_card(kind):
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == torch.float32
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+TILE_KINDS = ("span", "edge_empties", "aligned", "edge_steps", "one", "small", "ragged")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TILE_KINDS)
+def test_track_stats_kernel_on_tile_edges_on_card(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    # beside this file (pytest puts tests/ on the path; `tests.` may name another package)
+    from test_torch_track_tiles import tile_layout
+
+    layout = tile_layout(kind, kernels.TRACK_TILE, TILE_KINDS.index(kind) + 11)
+    args = _tensors(layout, "cuda")
+    got = track_stats(*args, EPS)
+    want = track_stats_plain(*args, EPS)
+    torch.cuda.synchronize()
+    empty = np.diff(layout[0]) == 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=RTOL, atol=ATOL)
+        assert (g.cpu().numpy()[empty] == 0).all()
+
+
+@pytest.mark.cuda
+def test_track_stats_kernel_repeats_bit_for_bit_on_card():
+    """Each sum is added in an order the layout fixes: two calls agree to
+    the bit, with an entity over hundreds of tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    args = _tensors(_layout("giant", 9, 1_000_003), "cuda")
+    first = track_stats(*args, EPS)
+    for _ in range(3):
+        again = track_stats(*args, EPS)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def _bbox_inputs(n: int, q: int, nb: int, nt: int, seed: int):
