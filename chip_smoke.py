@@ -124,7 +124,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    (xlo == xhi) as grid bounds, with and without a base/true_n tail; and
    ``batched_knn`` against ``batched_knn_plain``, distances bit-equal and
    rows equal, at k in {1, 10, 64}, Q in {1, 64, 65}, over the z3 rows,
-   grid rows with points on them (ties) and 5 rows (N < k). 7b, config 3 at
+   grid rows with points on them (ties) and 5 rows (N < k), and at k in
+   {10, 64} where the tile skip decides: a NaN query and a far one among
+   the z3 rows' points, and grid rows ordered by small cells with ties at
+   the k-th distance across tile edges (each logs the (tile, query) pairs
+   its answer keeps). 7b, config 3 at
    full size: 100M GDELT-shaped points (seed 42) written through
    ``DataStore`` (both Morton kernels), the 16 city-box queries (seed 7)
    through ``batched_density_step`` at 256 x 256 with each query's own box
@@ -136,13 +140,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    10 (4 inside the bench's f64 band, all 64 equal to ``batched_knn_plain``
    on the card); then ``density_many`` p50 per query and ``knn_many`` p50
    per point with their host split, and each kernel's time beside its
-   plain version's, its bound and, for KNN, a library call (eager
-   distances and ``torch.topk`` per query), timed only; no one torch call
+   plain version's, its bound and, for KNN, a library call (the (Q, N) d2
+   expression and one ``torch.topk`` over dim 1, in query slices; the
+   earlier per-query form beside it), timed only, its device time behind
+   a spin, its bound counted from the answer (``knn_work``: a test a (tile,
+   query) pair, the distances of the rows of each tile whose bound is at
+   most the query's final k-th d2, the cap's sample pairs; the all-pairs
+   bound beside it) and its split by kernel (``knn_split``); no one torch call
    computes the density grids, so a ``torch.bincount`` of the matches'
    cells, gathered beforehand, is logged as a part of the work
    (``bincount_part_ms``); and one ``density_many`` and one ``knn_many`` under
    ``torch.profiler`` (the KNN kernels' device times in launch order: the
-   sample's select and merge, then the full select and merge).
+   sample's gather, select and merge, then the full select and merge).
 8. bench config 4 (``bench.py:629``, ``bench_join``) at full size over phase
    7's 100M points: 10,000 polygons (``workload.join_polygons``, seed 5),
    the points z2-sorted on the card (``z2_encode`` and a sort) and held as
@@ -340,6 +349,7 @@ CONFIG3_ROWS = 100_000_000  # bench config 3 (bench.py:510), nothing cut
 CONFIG3_DENSITY_QUERIES = 16  # min(Q, 16) city-box 2-7 day queries, 256 x 256 grids
 CONFIG3_POINTS = 64  # knn_batch_points
 CONFIG3_K = 10  # GEOMESA_BENCH_K's default
+KNN_LIBRARY_SLICE = 8  # queries a slice of the library call's (Q, N) d2
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Integer instruction rates by pipe. The data sheet's 67 TFLOP/s float32
 # (non-tensor) counts an FMA as 2 ops on 128 lanes per SM. An SM issues 4
@@ -2077,10 +2087,13 @@ DENSITY_GRIDS = ((256, 256), (37, 100))  # bench config 3's grid, and one not sq
 # float clamps, the truncation and two integer clamps; then the flat index
 # (a multiply-add) and the atomic: ~10 per axis, as (ALU-only, all)
 DENSITY_CELL_OPS = (8, 20)
-# the KNN select per (valid row, query): two subtracts, two multiplies, an
-# add (the FMA pipe) and the running minimum (ALU), as (ALU-only, all); and
-# per row the decode, two conversions, two multiplies and two subtracts
+# the KNN select per (row, query) of a tile it cannot skip: two subtracts,
+# two multiplies, an add (the FMA pipe) and the running minimum (ALU), as
+# (ALU-only, all); per (tile, query) pair the skip's test: four subtracts,
+# two maxima and two clamps (ALU), two multiplies, an add and the compare;
+# and per row the decode, two conversions, two multiplies and two subtracts
 KNN_PAIR_OPS = (1, 6)
+KNN_TILE_OPS = (5, 12)
 KNN_ROW_OPS = 6
 # phase 7b's shared density_many viewport: London, Paris, Moscow,
 # Johannesburg, Delhi and Cairo inside, New York, Mexico City, Beijing and
@@ -2150,12 +2163,28 @@ def check_density_kernel(dev, store, seed: int) -> int:
     return worst
 
 
+def knn_cell_rows(n: int, seed: int, values: int = 300):
+    """``workload.grid_columns`` rows (``values`` coordinates per axis, many
+    rows on each) ordered by 64 x 64 cells and then by x, so that a 256-row
+    tile lies in one small cell and the tile skip decides: (x, y) int32."""
+    from geomesa_tpu_torch.workload import grid_columns
+
+    x, y, _, _ = grid_columns(n, seed, values=values)
+    order = np.lexsort((y, x, (x >> 25) * 64 + (y >> 25)))
+    return np.ascontiguousarray(x[order]), np.ascontiguousarray(y[order])
+
+
 def check_knn_kernel(dev, store, seed: int) -> int:
     """Phase 7a, KNN: ``batched_knn`` against ``batched_knn_plain`` on the
     card, distances bit-equal and rows equal, at k in {1, 10, 64} and Q in
     {1, 64, 65}, over the GDELT-shaped rows in z3 order with a true_n
     tail (bench config 3's points), grid rows with points on them (full of
-    ties), and 5 rows (N < k: the inf slots). Returns 0 or raises."""
+    ties), and 5 rows (N < k: the inf slots); then, at k in {10, 64} and Q =
+    64, cases where the tile skip decides: the z3 rows with a NaN query and
+    a query far from every row among bench config 3's points, and grid rows
+    ordered by small cells (``knn_cell_rows``) under points on them, whose
+    k-th distance ties with rows across tile edges; each logs the (tile,
+    query) pairs its answer keeps (``knn_work``). Returns 0 or raises."""
     import torch
 
     from geomesa_tpu_torch.ops.kernels import batched_knn, batched_knn_plain, knn_degrees
@@ -2168,22 +2197,36 @@ def check_knn_kernel(dev, store, seed: int) -> int:
     pts = torch.from_numpy(knn_points(65).astype(np.float32)).to(dev)
     gxf, gyf = knn_degrees(gx, gy)
     on_rows = torch.randint(0, n, (65,), generator=torch.Generator().manual_seed(seed)).to(dev)
-    cases = [("z3 rows", x, y, n - 777, pts[:, 0], pts[:, 1]),
-             ("grid rows", gx, gy, n, gxf[on_rows], gyf[on_rows]),
-             ("5 rows", x[:5].contiguous(), y[:5].contiguous(), 5, pts[:, 0], pts[:, 1])]
-    for name, cx, cy, true_n, qx, qy in cases:
-        for k in (1, 10, 64):
-            for q in (1, 64, 65):
-                args = (cx, cy, 0, true_n, qx[:q].contiguous(), qy[:q].contiguous(), k)
+    cx, cy = (torch.from_numpy(c).to(dev) for c in knn_cell_rows(n, seed))
+    cxf, cyf = knn_degrees(cx, cy)
+    odd = pts[:64].clone()
+    odd[0] = float("nan")
+    odd[1] = torch.tensor([400.0, -300.0])  # far outside every row
+    cases = [("z3 rows", x, y, n - 777, pts[:, 0], pts[:, 1], (1, 10, 64), (1, 64, 65)),
+             ("grid rows", gx, gy, n, gxf[on_rows], gyf[on_rows], (1, 10, 64), (1, 64, 65)),
+             ("5 rows", x[:5].contiguous(), y[:5].contiguous(), 5, pts[:, 0], pts[:, 1],
+              (1, 10, 64), (1, 64, 65)),
+             ("z3 rows, a NaN and a far query", x, y, n - 777, odd[:, 0], odd[:, 1], (10, 64),
+              (64,)),
+             ("cell rows", cx, cy, n, cxf[on_rows], cyf[on_rows], (10, 64), (64,))]
+    for name, rx, ry, true_n, qx, qy, ks, qs in cases:
+        for k in ks:
+            for q in qs:
+                args = (rx, ry, 0, true_n, qx[:q].contiguous(), qy[:q].contiguous(), k)
                 got_d, got_r = batched_knn(*args)
                 want_d, want_r = batched_knn_plain(*args)
                 torch.cuda.synchronize()
                 same = (torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
                         and torch.equal(got_r, want_r))
                 ties = int((want_d[:, 1:] == want_d[:, :-1]).sum())
-                log(f"  batched_knn {name} N={cx.shape[0]} true_n={true_n} Q={q} k={k}: "
+                kept = ""
+                if len(qs) == 1:  # the skip's cases: the pairs their answer keeps
+                    w = knn_work(rx, ry, true_n, args[4], args[5],
+                                 knn_kth_d2(rx, ry, args[4], args[5], want_d, want_r))
+                    kept = f", kept (tile, query) pairs {w['kept_pairs']} of {w['tile_pairs']}"
+                log(f"  batched_knn {name} N={rx.shape[0]} true_n={true_n} Q={q} k={k}: "
                     f"{'bit-equal' if same else 'DIFFERENT'} (tied neighbours {ties}, inf slots "
-                    f"{int(torch.isinf(want_d).sum())})")
+                    f"{int(torch.isinf(want_d).sum())}{kept})")
                 if not same:
                     raise AssertionError(f"batched_knn disagrees with plain at {name} Q={q} k={k}")
     return 0
@@ -2253,14 +2296,96 @@ def density_floor(cols, n: int, loaded: int, boxes, times, gb, width: int, heigh
             nbytes)
 
 
-def knn_floor(n: int, q: int, k: int):
-    """The least work of ``batched_knn`` at ``n`` valid rows and ``q``
-    queries (:data:`KNN_PAIR_OPS`, :data:`KNN_ROW_OPS`); bytes are x and y
-    read once for all queries (8 B a row), the points read and (dist, row)
-    written once. Returns ((alu, all), bytes)."""
+def knn_kth_d2(x, y, qx, qy, dist, rows):
+    """Each query's final k-th d2 from ``batched_knn``'s answer: the d2 of
+    the row in its last slot, each step rounded as the kernel rounds it;
+    +inf where that slot is empty (fewer than k eligible rows)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import knn_degrees
+
+    last = rows[:, -1].long()
+    xf, yf = knn_degrees(x[last], y[last])
+    dx, dy = xf - qx, yf - qy
+    d2 = dx * dx + dy * dy
+    return torch.where(torch.isinf(dist[:, -1]), torch.full_like(d2, float("inf")), d2)
+
+
+def knn_work(x, y, true_n: int, qx, qy, kth_d2) -> dict:
+    """What any exact select that skips 256-row tiles must do to answer
+    ``q`` queries over the valid rows of ``x, y``, counted with torch ops
+    on the columns' device: ``tile_pairs``, the (tile, query) pairs of the
+    tiles that hold a valid row, each tested once; ``kept_rows``, the valid
+    rows of each tile whose lower bound is at most that query's final k-th
+    d2 ``kth_d2`` (their d2 must be computed: such a tile may hold a row of
+    the answer); ``sample_pairs``, the cap pass's (sampled row, query)
+    pairs (``kernels.knn_sample_rows``)."""
+    import torch
+
+    from geomesa_tpu_torch.ops.kernels import (
+        KNN_TILE_ROWS, knn_sample_rows, knn_tile_extents_plain, knn_tile_keep_plain)
+
+    n, q = x.shape[0], qx.shape[0]
+    limit = max(0, min(n, int(true_n)))
+    ext = knn_tile_extents_plain(x, y, 0, true_n)
+    keep = knn_tile_keep_plain(ext, qx, qy, kth_d2)
+    starts = torch.arange(ext.shape[0], device=x.device) * KNN_TILE_ROWS
+    valid_rows = (limit - starts).clamp(0, KNN_TILE_ROWS)
+    return {"tile_pairs": int((valid_rows > 0).sum()) * q,
+            "kept_pairs": int(keep.sum()),
+            "kept_rows": int((keep.long() * valid_rows[:, None]).sum()),
+            "sample_pairs": knn_sample_rows(n, 0, true_n)[1] * q}
+
+
+def knn_floor(n: int, q: int, k: int, work: dict):
+    """The least work of an exact tile-skipping ``batched_knn`` at ``n``
+    valid rows and ``q`` queries, from :func:`knn_work`'s counts of this
+    answer (:data:`KNN_PAIR_OPS` a kept row and sampled pair,
+    :data:`KNN_TILE_OPS` a tile pair, :data:`KNN_ROW_OPS` a row); bytes are
+    x and y read once for all queries (8 B a row), the points read and
+    (dist, row) written once. Returns ((alu, all), bytes)."""
+    pairs = work["kept_rows"] + work["sample_pairs"]
+    tiles = work["tile_pairs"]
+    return ((KNN_PAIR_OPS[0] * pairs + KNN_TILE_OPS[0] * tiles,
+             KNN_PAIR_OPS[1] * pairs + KNN_TILE_OPS[1] * tiles + KNN_ROW_OPS * n),
+            8 * n + 8 * q + 8 * q * k)
+
+
+def knn_floor_all_pairs(n: int, q: int, k: int):
+    """The earlier bound, of a select that computes every (row, query) d2:
+    ((alu, all), bytes)."""
     pairs = n * q
     return ((KNN_PAIR_OPS[0] * pairs, KNN_PAIR_OPS[1] * pairs + KNN_ROW_OPS * n),
             8 * n + 8 * q + 8 * q * k)
+
+
+KNN_OPS = ("sample gather", "sample select", "sample merge", "full select", "full merge")
+
+
+def knn_split(fn, calls: int = 10) -> dict | None:
+    """Device ms of each kernel of one ``batched_knn`` call by
+    ``torch.profiler``, by its place in the call (:data:`KNN_OPS`: the cap's
+    sample pass, a gather of the sampled rows, a select and a merge, then
+    the select over every row and its merge; a call with no sample pass has
+    the last two), mean of ``calls`` calls. None where the trace holds no
+    whole calls' kernel records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "knn_" in e.name), key=lambda e: e.time_range.start)
+    if not ev or len(ev) % calls or len(ev) // calls not in (2, len(KNN_OPS)):
+        return None
+    names = KNN_OPS[-(len(ev) // calls):]
+    out = dict.fromkeys(names, 0.0)
+    for i, e in enumerate(ev):
+        out[names[i % len(names)]] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
 
 
 def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: int,
@@ -2488,27 +2613,51 @@ def config3_path(dev, n_rows: int, n_density: int, n_knn: int, k: int, iters: in
         del flat, lib, got, want, kept
         kargs = (cols[0], cols[1], 0, state.n, qx, qy, k)
         k_ms = cuda_ms(lambda: batched_knn(*kargs), 5)
+        k_dev_ms = device_ms(lambda: batched_knn(*kargs))
         k_plain_ms = cuda_ms(lambda: batched_knn_plain(*kargs), 1)
         xf, yf = knn_degrees(cols[0][: state.n], cols[1][: state.n])
 
-        def library():  # the eager distance expression and torch.topk, per query
+        def library():  # one batched call: the (Q, N) d2 expression and one topk over dim 1
+            for s in range(0, n_knn, KNN_LIBRARY_SLICE):  # (8, 100M) f32 is 3.2 GB a term
+                dx = xf[None, :] - qx[s:s + KNN_LIBRARY_SLICE, None]
+                dy = yf[None, :] - qy[s:s + KNN_LIBRARY_SLICE, None]
+                torch.topk(dx * dx + dy * dy, k, dim=1, largest=False)
+
+        def per_query():  # the earlier yardstick: the eager expression and topk, per query
             for qi in range(n_knn):
                 dx, dy = xf - qx[qi], yf - qy[qi]
                 torch.topk(dx * dx + dy * dy, k, largest=False)
 
         lib_k_ms = cuda_ms(library, 1)
-        ops, nbytes = knn_floor(state.n, n_knn, k)
+        per_query_ms = cuda_ms(per_query, 1)
+        del xf, yf
+        got_d, got_r = batched_knn(*kargs)
+        work = knn_work(cols[0], cols[1], state.n, qx, qy,
+                        knn_kth_d2(cols[0], cols[1], qx, qy, got_d, got_r))
+        ops, nbytes = knn_floor(state.n, n_knn, k, work)
+        all_ops, _ = knn_floor_all_pairs(state.n, n_knn, k)
+        all_pairs_ms = bound_fields(all_ops, nbytes)["bound_ms"]
         k_record.update(max_abs_err=max_err["batched_knn"], ms=k_ms, plain_ms=k_plain_ms,
-                        library_ms=lib_k_ms, **bound_fields(ops, nbytes))
+                        library_ms=lib_k_ms, device_ms=k_dev_ms, per_query_library_ms=per_query_ms,
+                        all_pairs_bound_ms=all_pairs_ms, **bound_fields(ops, nbytes))
         share = k_record["bound_ms"] / k_ms
-        log(f"phase batched_knn timing: {k_ms:.4f} ms (CUDA events, 5 launches: select and "
-            f"merge) at N={state.n} Q={n_knn} k={k}; plain {k_plain_ms:.4f} ms; eager distances "
-            f"and torch.topk per query {lib_k_ms:.4f} ms; bound {k_record['bound_ms']:.4f} ms "
-            f"({k_record['bound_by']}: {ops[0]} ALU-only of {ops[1]} ops; {nbytes} bytes), "
-            f"{share:.4f} of it")
+        log(f"phase batched_knn timing: {k_ms:.4f} ms (CUDA events, 5 launches: sample and full "
+            f"selects and merges), device {fmt_ms(k_dev_ms)} (10 calls behind a spin) at "
+            f"N={state.n} Q={n_knn} k={k}; plain {k_plain_ms:.4f} ms; library call (the (Q, N) "
+            f"d2 expression and one torch.topk over dim 1, {KNN_LIBRARY_SLICE} queries a slice) "
+            f"{lib_k_ms:.4f} ms [per query {per_query_ms:.4f} ms]; bound "
+            f"{k_record['bound_ms']:.4f} ms ({k_record['bound_by']}: {ops[0]} ALU-only of "
+            f"{ops[1]} ops over {work['tile_pairs']} (tile, query) tests, {work['kept_pairs']} "
+            f"kept pairs of {work['kept_rows']} rows against the answer's k-th d2 and "
+            f"{work['sample_pairs']} sample pairs; {nbytes} bytes), {share:.4f} of it "
+            f"[all-pairs bound {all_pairs_ms:.4f} ms, {all_pairs_ms / k_ms:.4f} of it]")
         if share > 1:
             raise AssertionError(f"batched_knn reads {share:.4f} of its bound: the bound's "
                                  "count is wrong")
+        split = knn_split(lambda: batched_knn(*kargs))
+        log("phase batched_knn split (torch.profiler, mean of 10 calls): " + (
+            "not measured (no kernel records)" if split is None else
+            "; ".join(f"{name} {t:.4f} ms" for name, t in split.items())))
         profile_window("density_many", lambda: ds.density_many(
             "cfg3", cqls, DENSITY_VIEWPORT, width, height), "batched_density_kernel")
         profile_window("knn_many", lambda: knn_many(ds, "cfg3", points, k=k), "knn_select_kernel",

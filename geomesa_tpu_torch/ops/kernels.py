@@ -86,12 +86,14 @@ is the reference's scatter form in torch.
 XLA (``geomesa_tpu/parallel/query.py:1125``, ``make_batched_knn_step``, and
 the ring merge of ``make_ring_knn_step`` :1295, which on one card has no
 hop). Per query point, the k rows nearest in f32 degrees, ties to the lower
-row. Its source is ``csrc/batched_knn.cu``: blocks over row segments keep
-per-query sorted lists in shared memory behind a bound that rejects nearly
-every row with one compare, capped from the start by the k-th distance of a
-strided sample of the rows, and a merge launch joins the segments' lists;
-its plain version (:func:`batched_knn_plain`) is the reference's ``map``
-form, one query at a time.
+row. Its source is ``csrc/batched_knn.cu``: blocks over grid-strided
+chunks of rows keep per-query sorted lists in shared memory behind a bound,
+capped from the start by the k-th distance of a strided sample of the rows,
+and skip each (256-row tile, query) pair whose least distance over the
+tile's extent exceeds it (:func:`knn_tile_keep_plain` models the rule); a
+merge launch joins the blocks' lists. Its plain version
+(:func:`batched_knn_plain`) is the reference's ``map`` form, one query at a
+time.
 
 ``polygon_join`` replaces no TPU kernel either: the reference computes it
 in XLA (``geomesa_tpu/ops/join.py:357``, ``make_block_join_step``, over the
@@ -284,9 +286,9 @@ _ENTRY_POINTS = {
     # (n, q, k, sms, host out: 1 x int) → the row segments of a launch
     "geomesa_batched_knn_segments": ("batched_knn", [_LL, _I, _I, _I, _P]),
     # (x, y, n, base, true_n, qx, qy, q, k, segments, scratch d, scratch rows, scratch cap,
-    #  dist, rows, stream)
+    #  scratch sample, its rows a column, dist, rows, stream)
     "geomesa_batched_knn": ("batched_knn", [_P, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I]
-                            + [_P] * 6),
+                            + [_P] * 4 + [_LL] + [_P] * 3),
     # (x, y, n, true_n, pair_poly, pair_blk, pairs, verts, V, nverts, bbox, K, block,
     #  counts, stream)
     "geomesa_polygon_join": ("polygon_join", [_P, _P, _LL, _LL, _P, _P, _LL, _P, _I, _P, _P, _I,
@@ -2322,6 +2324,10 @@ def batched_density_plain(x, y, bins, offs, base: int, true_n: int, boxes, times
 # ---------------------------------------------------------------------------
 
 KNN_MAX_K = 256  # neighbours a query the card's kernel keeps at most (csrc MAX_K)
+KNN_TILE_ROWS = 256  # rows under one extent in the card's select (csrc TILE)
+KNN_CHUNK_ROWS = 2048  # rows a block of the select decodes at once (csrc CH)
+KNN_SAMPLE_ROWS = 1 << 18  # rows the cap's sample pass aims at (csrc SAMPLE_ROWS)
+KNN_MIN_STRIDE = 16  # the sample takes at most every 16th row (csrc MIN_STRIDE)
 _KNN_SX = 360.0 / 2**31  # the decode's scales (parallel/query.py:971-972), exact in f32
 _KNN_SY = 180.0 / 2**31
 
@@ -2366,8 +2372,10 @@ def batched_knn(x, y, base: int, true_n: int, qx, qy, k: int):
 
     On the card (``csrc/batched_knn.cu``; ``k`` at most ``KNN_MAX_K``) a
     select and a merge over a strided sample of the rows (from 32,768
-    valid rows up), whose k-th distance caps the lists of a select and a
-    merge over every row; on the CPU :func:`batched_knn_plain`."""
+    valid rows up, :func:`knn_sample_rows`), whose k-th distance caps the
+    lists of a select and a merge over every row; each select skips the
+    (tile, query) pairs :func:`knn_tile_keep_plain` rules out. On the CPU
+    :func:`batched_knn_plain`."""
     _check_knn_args(x, y, qx, qy, k)
     n = x.shape[0]
     if int(base) + n > _I32_MAX:
@@ -2392,10 +2400,12 @@ def batched_knn(x, y, base: int, true_n: int, qx, qy, k: int):
         cand_d = torch.empty((q, segs.value, k), dtype=torch.float32, device=dev)
         cand_r = torch.empty((q, segs.value, k), dtype=torch.int32, device=dev)
         cap = torch.empty(q, dtype=torch.float32, device=dev)
+        sample_cap = -(-knn_sample_rows(n, base, true_n)[1] // 4) * 4
+        sample = torch.empty(max(2 * sample_cap, 1), dtype=torch.int32, device=dev)
         rc = _fn("geomesa_batched_knn")(
             x.data_ptr(), y.data_ptr(), n, int(base), int(true_n), qx.data_ptr(), qy.data_ptr(),
             q, int(k), segs.value, cand_d.data_ptr(), cand_r.data_ptr(), cap.data_ptr(),
-            dist.data_ptr(), rows.data_ptr(), _stream_of(x))
+            sample.data_ptr(), sample_cap, dist.data_ptr(), rows.data_ptr(), _stream_of(x))
     if rc != 0:
         raise RuntimeError(f"batched_knn launch failed: cudaError {rc}")
     launches["batched_knn"] += 1
@@ -2433,6 +2443,63 @@ def batched_knn_plain(x, y, base: int, true_n: int, qx, qy, k: int):
         dist[qi, :kk] = torch.sqrt(d2[idx].double()).float()
         rows[qi, :kk] = (int(base) + idx).to(torch.int32)
     return dist, rows
+
+
+def knn_sample_rows(n: int, base: int, true_n: int) -> tuple[int, int]:
+    """The card's cap pass over ``n`` rows of which ``limit = min(n, true_n
+    - base)`` are valid: ``(stride, sampled rows)``, every stride-th valid
+    row from the first; ``(0, 0)`` where there is no sample pass (fewer
+    than :data:`KNN_CHUNK_ROWS` sampled rows)."""
+    limit = max(0, min(n, int(true_n) - int(base)))
+    stride = max(limit // KNN_SAMPLE_ROWS, KNN_MIN_STRIDE)
+    if limit // stride < KNN_CHUNK_ROWS:
+        return 0, 0
+    return stride, -(-limit // stride)
+
+
+def knn_tile_extents_plain(x, y, base: int, true_n: int) -> torch.Tensor:
+    """The decoded extent of each tile of :data:`KNN_TILE_ROWS` rows in the
+    card's order (rows ``[t * 256, (t + 1) * 256)`` of ``x, y``), over its
+    valid rows: ``(T, 4)`` float32 ``(xlo, xhi, ylo, yhi)`` in degrees
+    (:func:`knn_degrees`); a tile with no valid row holds ``(+inf, -inf,
+    +inf, -inf)``, an empty extent."""
+    n = x.shape[0]
+    limit = max(0, min(n, int(true_n) - int(base)))
+    tiles = -(-n // KNN_TILE_ROWS)
+    pad = tiles * KNN_TILE_ROWS - n
+    xf, yf = (torch.nn.functional.pad(v, (0, pad)).view(tiles, KNN_TILE_ROWS)
+              for v in knn_degrees(x, y))
+    valid = (torch.arange(tiles * KNN_TILE_ROWS, device=x.device) < limit).view(xf.shape)
+    inf = torch.tensor(float("inf"), device=x.device)
+    return torch.stack([torch.where(valid, xf, inf).amin(1), torch.where(valid, xf, -inf).amax(1),
+                        torch.where(valid, yf, inf).amin(1), torch.where(valid, yf, -inf).amax(1)],
+                       dim=1)
+
+
+def knn_tile_bound_plain(ext, qx, qy) -> torch.Tensor:
+    """The least d2 of each query over each tile's extent, ``(T, Q)``
+    float32, as the card's select takes it: ``dx = max(0, xlo - qx, qx -
+    xhi)``, the same for ``dy``, then ``dx^2 + dy^2``, each operation
+    rounded alone as the distances are, so it is at most the d2 of every
+    row of the tile, bit for bit. A NaN query gives NaN."""
+    xlo, xhi, ylo, yhi = (ext[:, i, None] for i in range(4))
+    zero = torch.zeros((), dtype=torch.float32, device=ext.device)
+
+    def gap(lo, hi, v):
+        d = torch.maximum(lo - v, v - hi)  # maximum propagates NaN
+        return torch.where(d < 0, zero, d)
+    dx, dy = gap(xlo, xhi, qx[None, :]), gap(ylo, yhi, qy[None, :])
+    return dx * dx + dy * dy
+
+
+def knn_tile_keep_plain(ext, qx, qy, bound) -> torch.Tensor:
+    """The (tile, query) pairs the card's select keeps: ``(T, Q)`` bool,
+    true where the tile's extent ``ext`` (:func:`knn_tile_extents_plain`)
+    is not empty and its lower bound (:func:`knn_tile_bound_plain`) is not
+    above the query's ``bound`` (Q,) f32 d2, inclusive. Every other pair
+    holds no row whose d2 is at most the bound."""
+    lb = knn_tile_bound_plain(ext, qx, qy)
+    return (ext[:, :1] <= ext[:, 1:2]) & ~(lb > bound[None, :])
 
 
 # ---------------------------------------------------------------------------

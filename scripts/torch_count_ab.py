@@ -3,7 +3,8 @@ grouped aggregation and its spatial join of several checkouts against each
 other in one run on a CUDA card.
 
     python3 scripts/torch_count_ab.py ROOT [ROOT ...] [--out DIR]
-        [--join-only | --overlap-only | --agg-only | --fold-only | --track-only]
+        [--join-only | --overlap-only | --agg-only | --fold-only | --track-only |
+         --knn-only]
 
 Each ROOT is a checkout of this repo: ``.``, or another commit unpacked with
 ``git archive`` into an ignored directory. The roots run one after another
@@ -133,6 +134,18 @@ atol 1e-3) and two of its calls to each other (bit for bit or not), then
 times it by CUDA events (20 launches), behind a spin, and by device op
 (``torch.profiler``, mean of 10 calls: the kernel and any memset). The
 two flags may be given together, and run in that order.
+
+``--knn-only`` runs ``batched_knn`` at bench config 3's shape
+(``chip_smoke.py``'s phase 7): 100M GDELT-shaped points (seed 42) through
+``DataStore`` (z3 order), bench config 3's 64 points (``knn_points``) at k
+= 10. It prints ``nvcc -Xptxas -v`` of ``batched_knn.cu``, holds the kernel
+to its plain version (distances bit-equal, rows equal), then times it by
+CUDA events (5 launches) and behind a spin (device and host work of a
+call), splits a call's device time by kernel in launch order
+(``torch.profiler``, mean of 10 calls: the cap's sample select and merge,
+then the full select and merge), and times ``knn_many`` of the 64 points
+and its step (``batched_knn_step`` with its uploads and copies), p50 of 10
+on the host clock. Nothing else runs.
 
 Each kernel's resource usage (``cuobjdump -res-usage``: registers, and
 stack and local memory, where spills would show) is printed, and its SASS
@@ -1141,13 +1154,89 @@ def track_timed(label: str, kernels, dev) -> None:
         f"(torch.profiler, mean of 10 calls): {ops_line(ops)}")
 
 
+KNN_ROWS, KNN_POINTS, KNN_K = 100_000_000, 64, 10  # bench config 3 (bench.py:510)
+KNN_OPS = ("sample gather", "sample select", "sample merge", "full select", "full merge")
+
+
+def knn_in_order(fn, calls: int = 10) -> str:
+    """Device ms of each kernel of one ``batched_knn`` call by its place in
+    the call (:data:`KNN_OPS`; a call with no sample pass has the last
+    two, a root whose sample pass reads the rows in place the last four),
+    ``torch.profiler``, mean of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "knn_" in e.name), key=lambda e: e.time_range.start)
+    if not ev or len(ev) % calls or len(ev) // calls not in (2, 4, 5):
+        return f"not measured ({len(ev)} kernel records for {calls} calls)"
+    names = KNN_OPS[-(len(ev) // calls):]  # a root with no sample gather: the last four
+    out = dict.fromkeys(names, 0.0)
+    for i, e in enumerate(ev):
+        out[names[i % len(names)]] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return "; ".join(f"{name} {t:.4f} ms" for name, t in out.items())
+
+
+def knn_timed(label: str, kernels, dev) -> None:
+    """``batched_knn`` and ``knn_many`` at bench config 3 (see the module
+    docstring)."""
+    from geomesa_tpu_torch.parallel.query import batched_knn_step
+    from geomesa_tpu_torch.process.knn import knn_many
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, Point, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import SPEC, knn_points, synth_gdelt
+
+    lon, lat, t = synth_gdelt(KNN_ROWS, seed=42)
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("cfg3", SPEC)
+    ds.write("cfg3", FeatureTable.from_columns(sft, np.arange(KNN_ROWS).astype("U9"), {
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)}))
+    ds.compact("cfg3")
+    del lon, lat, t
+    state = ds._state("cfg3").backend_state["z3"]
+    cols = state.spatial_cols()
+    pts = knn_points(KNN_POINTS)
+    qx, qy = (torch.from_numpy(pts[:, i].astype(np.float32)).to(dev) for i in (0, 1))
+    args = (cols[0], cols[1], 0, state.n, qx, qy, KNN_K)
+    got_d, got_r = kernels.batched_knn(*args)
+    want_d, want_r = kernels.batched_knn_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+            and torch.equal(got_r, want_r)):
+        raise SystemExit(f"{label} config 3: batched_knn disagrees with its plain version")
+    ms = cuda_ms(lambda: kernels.batched_knn(*args))
+    dev_ms, host_ms = spin_ms(lambda: kernels.batched_knn(*args))
+    log(f"{label} config 3 batched_knn: {ms:.4f} ms (CUDA events, 5 launches), device "
+        f"{fmt(dev_ms)} and host {fmt(host_ms)} a call (10 calls behind a spin) at "
+        f"N={state.n} Q={KNN_POINTS} k={KNN_K}; equal to plain; by kernel (torch.profiler, mean "
+        f"of 10 calls): {knn_in_order(lambda: kernels.batched_knn(*args))}")
+    points = [Point(*p) for p in pts]
+    step = host_p50(lambda: [v.cpu() for v in batched_knn_step(cols, state.n, pts[:, 0],
+                                                                  pts[:, 1], KNN_K)], 10)
+    call = host_p50(lambda: knn_many(ds, "cfg3", points, k=KNN_K), 10)
+    log(f"{label} config 3 knn_many: p50 {call[0]:.3f} ms a call of {KNN_POINTS} (min "
+        f"{call[1]:.3f}, max {call[2]:.3f}), {call[0] / KNN_POINTS:.4f} ms a point; its step "
+        f"(batched_knn_step with its uploads and copies) p50 {step[0]:.3f} ms (min "
+        f"{step[1]:.3f}, max {step[2]:.3f}); host clock, 10 calls each")
+
+
 def worker(label: str, out: Path, join_only: bool = False, overlap_only: bool = False,
-           agg_only: bool = False, fold_only: bool = False, track_only: bool = False) -> None:
+           agg_only: bool = False, fold_only: bool = False, track_only: bool = False,
+           knn_only: bool = False) -> None:
     sys.path.insert(0, os.getcwd())
     os.environ.setdefault("TEARDOWN_CUPTI", "0")  # several profiler windows in one process
     from geomesa_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
+    if knn_only:
+        ptxas_usage(kernels, label, ("batched_knn",), None)
+        knn_timed(label, kernels, dev)
+        return
     if fold_only or track_only:
         if fold_only:
             ptxas_usage(kernels, label, ("grouped_agg",), None)
@@ -1206,6 +1295,8 @@ def main() -> None:
                     help="time grouped_agg_overlap at a phase-9c line store, and nothing else")
     ap.add_argument("--track-only", action="store_true",
                     help="time track_stats at bench config 10, and nothing else")
+    ap.add_argument("--knn-only", action="store_true",
+                    help="time batched_knn and knn_many at bench config 3, and nothing else")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1213,7 +1304,7 @@ def main() -> None:
     out = Path(args.out).resolve()
     if args.worker:
         return worker(args.worker, out, args.join_only, args.overlap_only, args.agg_only,
-                      args.fold_only, args.track_only)
+                      args.fold_only, args.track_only, args.knn_only)
     if not args.roots:
         ap.error("give at least one ROOT")
     log("card: " + subprocess.run(
@@ -1227,9 +1318,10 @@ def main() -> None:
                        + (["--overlap-only"] if args.overlap_only else [])
                        + (["--agg-only"] if args.agg_only else [])
                        + (["--fold-only"] if args.fold_only else [])
-                       + (["--track-only"] if args.track_only else []), cwd=root, check=True)
+                       + (["--track-only"] if args.track_only else [])
+                       + (["--knn-only"] if args.knn_only else []), cwd=root, check=True)
     only = (args.join_only or args.overlap_only or args.agg_only or args.fold_only
-            or args.track_only)
+            or args.track_only or args.knn_only)
     for stem in () if only else SAME_SASS:
         first = sass_instructions(out / "run1" / f"{stem}.sass")
         for i in range(2, len(args.roots) + 1):

@@ -8,7 +8,10 @@ the reference's indexes on config-2-shaped points.
 Tolerance: none — every range and interval compares exactly.
 """
 
+import ctypes
 import importlib
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +38,29 @@ ref_zranges_mod = importlib.import_module("geomesa_tpu.curve.zranges")
 # (index/z3.py:176), Z2SFC/Z3SFC.ranges over the boxes
 BUDGETS = sorted({2000 // k for k in range(1, 9)} | {2000, 666, 285})
 PRECISION = {2: 31, 3: 21}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native(tmp_path_factory):
+    """The reference's native BFS, built for this module from the
+    reference's own source with its own flags into a directory of this
+    module's, and handed to the reference's loader. The reference builds
+    ``libzranges.so`` beside its source at first use; under several test
+    workers a process that loads it while another's ``g++`` is still
+    writing it keeps ``None`` (no native BFS) for the rest of its run, and
+    every comparison with ``zranges_native`` then fails."""
+    lib = tmp_path_factory.mktemp("ref_zranges") / "libzranges.so"
+    subprocess.run([zr._cxx(), "-O2", "-shared", "-fPIC", "-o", str(lib),
+                    str(Path(ref_native.__file__).parent / "zranges.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    missing = object()
+    saved = ref_native._libs.get("zranges", missing)
+    ref_native._libs["zranges"] = ctypes.CDLL(str(lib))
+    yield
+    if saved is missing:
+        ref_native._libs.pop("zranges", None)
+    else:
+        ref_native._libs["zranges"] = saved
 
 
 def _boxes(dims: int, seed: int, k: int = 6):
