@@ -1,10 +1,11 @@
 """Chip smoke: build the port's kernels, hold each against its plain version,
 and drive the point write + bbox(+time) query path (z3 and z2 indexes), the
-standing-query stream, a date-less point schema, the grouped aggregation,
-density and KNN, the spatial join, bench config 5 with a line store on the
-xz3 and xz2 indexes (with its grouped aggregation and density), bench
-config 7's resident count steps and bench config 10's corridor engine,
-interlink and track statistics end to end on one CUDA card.
+standing-query stream, a date-less point schema, the grouped aggregation
+(fused, and config 9's GeoBlocks pyramid and query cache), density and KNN,
+the spatial join, bench config 5 with a line store on the xz3 and xz2
+indexes (with its grouped aggregation, density and KNN), bench config 7's
+resident count steps and bench config 10's corridor engine, interlink and
+track statistics end to end on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -96,7 +97,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    referee, then 8 of the boxes through ``count_many(loose=False)`` (the
    edge gather kernel; the unconstrained window's endpoints match no row)
    and ``query()`` against an f64 brute force.
-6. bench config 9 (``bench.py:1588``) at full size: 50M GDELT-shaped points
+6. bench config 9 (``bench.py:1588``) at full size, on the fused path
+   (the default route; the query cache emptied before each call, so that
+   none is a hit): 50M GDELT-shaped points
    (seed 42) with config 9's group ids (G = 1024) and values, schema
    ``cat:Integer,val:Double,dtg:Date,*geom:Point``, ``write`` → ``compact``,
    then ``aggregate_many(group_by=["cat"], value_cols=["val"])`` over the 64
@@ -104,7 +107,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    (the product path's), first call and p50 of 5 each: no lane may be
    ``None``; every answer of seed 7 and 16 of seed 301 equal an f64 numpy
    fold over the original lon/lat/time (groups in order; counts, value
-   counts, min and max exact; sums within a relative 1e-12); then
+   counts, min and max exact; sums within a relative 1e-12); one call with
+   the pyramid switched on (``GEOMESA_TPU_PYRAMID=1``), timed beside the
+   fused p50: the 50M rows' O(N) share is past the pyramid's byte cap, so
+   it must refuse before it prepares any input and the fused path answer;
+   then
    ``grouped_agg`` against ``grouped_agg_plain`` on the same payloads, on
    grid rows whose boundary rows overflow some lanes, and on config 9's
    rows with group ids over G = 8192 (the fold's global mode), its time
@@ -115,6 +122,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    same ctypes path, ``kernels.launch_floor_ms``); and one
    ``aggregate_many`` under ``torch.profiler``, with every device op of
    the call by name and count.
+6b. config 9's product path (``bench.py:1695-1811``) with the pyramid
+   switched on (``GEOMESA_TPU_PYRAMID=1``), over the first 10M of phase 6's
+   rows: ``write`` → ``compact``, seed 301's
+   64 queries cold (the GeoBlocks pyramid built on the host, every query
+   served by it), the pyramid's p50 a query over fresh sets (seeds 400 +
+   round, ``max(3, ITERS // 2)`` rounds), the warm p50 over repeats of seed
+   301 (the query cache; the first repeat refills what the LRU evicted);
+   none of these calls launches a kernel; every cold answer equals the
+   fused path's on the same store (the default route, cache emptied) and
+   an f64 numpy fold, and every warm answer is byte for byte the cold one;
+   logs the pyramid's build ms, levels, time bins and host bytes, the
+   queries by tier, the boundary rows re-tested a query, and the cold,
+   pyramid, warm and fused ms a query.
 7. bench config 3 (``bench.py:510``), density heatmaps and batched KNN:
    7a, ``batched_density`` against ``batched_density_plain`` on the card,
    exact, at N = 1,000,003 over GDELT-shaped rows in z3 order (city boxes;
@@ -226,7 +246,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``grouped_agg_overlap`` against ``grouped_agg_overlap_plain`` at the
    store's payloads, with dead and inverted slots, an all-dead query and
    ``true_n`` inside the last chunk, and at G = 8192 (the global mode), its
-   time beside the plain version's and its bound (``agg_overlap_floor``).
+   time beside the plain version's and its bound (``agg_overlap_floor``);
+   then ``knn`` of 8 points around the cities at k = 10 (the window loop
+   over ``query()`` and the exact f64 distance; ms a point and windows a
+   point) and ``knn_many`` of the same 8 (per point: no point state), held
+   by an envelope referee (``xz_knn_leg``).
    Each overlap kernel's record carries ``device_ms`` beside ``ms``: the
    device work of a call, CUDA events around 10 calls enqueued behind a
    spin of the card (``device_ms``), so the host's share does not count.
@@ -282,9 +306,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    corridors: two gather launches, each corridor == ``route_search``); a
    line leg (100,000 two-vertex line strings: the row form, one launch,
    fid sets == the host route); the interlink leg (L 1,500 points, seed 31;
-   R 3,000, seed 32): 2D and time-lifted ``dwithin 0.4`` and the forced
-   block route (``planned_gather``), each == ``interlink_referee``, with
-   ``interlink_ms``; after the main path's launches are read, the row
+   R 3,000, seed 32): 2D ``dwithin 0.4`` by the default route (the block
+   route: ``planned_gather``, timed as ``interlink_ms``), time-lifted (the
+   XZ3 pairing) and by the forced XZ pairing, each == ``interlink_referee``;
+   after the main path's launches are read, the row
    form's route over the same store ("phase 11 table route", the route
    every store took before the gather form), the candidates of both
    routes; then both forms alone beside their plain versions and their
@@ -317,6 +342,7 @@ limit as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1880,12 +1906,32 @@ def work_list_floor(extents, boxes, times, kept, runs: int):
     return (ops, ops), nbytes
 
 
-def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
-    """Phase 6: bench config 9 at full size; returns the grouped_agg and
-    agg_work_list records."""
+@contextlib.contextmanager
+def pyramid_switch(value: str):
+    """``GEOMESA_TPU_PYRAMID`` set to ``value`` for the block, restored
+    after."""
+    from geomesa_tpu_torch.ops.geoblocks import PYRAMID_ENV
+
+    before = os.environ.get(PYRAMID_ENV)
+    os.environ[PYRAMID_ENV] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[PYRAMID_ENV]
+        else:
+            os.environ[PYRAMID_ENV] = before
+
+
+def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict, tuple]:
+    """Phase 6: bench config 9 at full size, on the fused path (the default
+    route, the query cache emptied before each call); returns the
+    grouped_agg and agg_work_list records and phase 6b's inputs (the rows'
+    lon, lat, time, group ids and values)."""
     import torch
 
     from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.geoblocks import DEFAULT_PYRAMID_BYTES, base_bytes, base_over_cap
     from geomesa_tpu_torch.ops.kernels import EDGE_CAPACITY, grouped_agg
     from geomesa_tpu_torch.planning.planner import Query
     from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
@@ -1919,12 +1965,17 @@ def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
     write_s = time.perf_counter() - t0
     answers, timed = {}, {}
     for seed in AGG_SEEDS:
+        ds.agg_cache.invalidate("gagg")  # each call below folds on the card, none is a hit
         s = time.perf_counter()
         answers[seed] = ds.aggregate_many("gagg", cqls[seed], group_by=["cat"],
                                           value_cols=["val"])
         first_ms = (time.perf_counter() - s) * 1e3
+        if ds.last_aggregate_many["fused"] != n_queries:
+            raise AssertionError(f"the default route's queries by tier: "
+                                 f"{ds.last_aggregate_many}")
         ms = []
         for _ in range(5):
+            ds.agg_cache.invalidate("gagg")
             s = time.perf_counter()
             ds.aggregate_many("gagg", cqls[seed], group_by=["cat"], value_cols=["val"])
             ms.append((time.perf_counter() - s) * 1e3)
@@ -1939,6 +1990,29 @@ def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
         raise AssertionError("the write did not launch z3_encode and z2_encode once each")
     log(f"phase 6 write: {write_s:.3f} s (write + compact of {n_rows} rows)")
     log_rebuild(ds.last_rebuild("gagg"))
+    # the pyramid switched on: at 50M rows its byte cap refuses before any
+    # input is prepared, and the fused path answers
+    seed = AGG_SEEDS[-1]
+    over = base_over_cap(n_rows, 1)
+    with pyramid_switch("1"):
+        ds.agg_cache.invalidate("gagg")
+        s = time.perf_counter()
+        forced = ds.aggregate_many("gagg", cqls[seed], group_by=["cat"], value_cols=["val"])
+        forced_ms = (time.perf_counter() - s) * 1e3
+    tally = ds.last_aggregate_many
+    remembered = list(ds._state("gagg").pyramids.values())
+    if over and ((tally["pyramid"], tally["fused"]) != (0, n_queries)
+                 or remembered != [(None, ds._state("gagg").epoch)]):
+        raise AssertionError(f"the pyramid switched on at {n_rows} rows: {tally}")
+    if not over and tally["pyramid"] != n_queries:
+        raise AssertionError(f"the pyramid switched on at {n_rows} rows: {tally}")
+    for i, (a, b) in enumerate(zip(forced, answers[seed])):
+        check_agg_answer(a, as_fold(b), f"phase 6 query {i} with the pyramid switched on")
+    verdict = "refused by its byte cap" if over else "served by the pyramid, under its byte cap"
+    log(f"phase 6 pyramid switched on: {verdict} at {n_rows} rows (their O(N) "
+        f"share alone {base_bytes(n_rows, 1)} bytes of a {DEFAULT_PYRAMID_BYTES}-byte cap); "
+        f"the call {forced_ms:.3f} ms, the fused p50 {p50(timed[seed][1]):.3f} ms for the same "
+        f"{n_queries} queries of seed {seed}; answers equal the default route's")
     for seed in AGG_SEEDS:
         first_ms, ms = timed[seed]
         declined = sum(a is None for a in answers[seed])
@@ -2073,11 +2147,160 @@ def agg_path(dev, n_rows: int, n_queries: int) -> tuple[dict, dict]:
         if share > 1:
             raise AssertionError(f"grouped_agg reads {share:.4f} of its bound: the bound's "
                                  "count is wrong")
-        profile_window("aggregate_many", lambda: ds.aggregate_many(
-            "gagg", cqls[AGG_SEEDS[0]], group_by=["cat"], value_cols=["val"]),
-            "grouped_agg_kernel", all_ops=True)
+        def fused_call():
+            ds.agg_cache.invalidate("gagg")
+            ds.aggregate_many("gagg", cqls[AGG_SEEDS[0]], group_by=["cat"], value_cols=["val"])
+
+        profile_window("aggregate_many", fused_call, "grouped_agg_kernel", all_ops=True)
         log(f"phase 6 memory: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    return record, wl_record
+    return record, wl_record, (lon, lat, t, gid, vals)
+
+
+# -- phase 6b: bench config 9's product path, the GeoBlocks pyramid and query cache ----
+
+PYRAMID_ROWS = 10_000_000  # the bench's n2 = min(N, 10M) (bench.py:1697)
+PYRAMID_SEED = 301  # the product path's cold and warm set
+PYRAMID_FRESH_SEED = 400  # + round: the pyramid's fresh sets (never a cache hit)
+
+
+def same_bytes(a: dict, b: dict) -> bool:
+    """Two ``aggregate_many`` answers byte for byte: groups, and every array's
+    dtype and bytes."""
+    arrays = [(a["count"], b["count"])] + [(a["cols"][c][k], b["cols"][c][k])
+                                          for c in a["cols"] for k in a["cols"][c]]
+    return a["groups"] == b["groups"] and a["cols"].keys() == b["cols"].keys() and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in arrays)
+
+
+def as_fold(res) -> tuple:
+    """An ``aggregate_many`` answer in :func:`agg_referee`'s form, so that
+    :func:`check_agg_answer` holds one answer to another."""
+    col = res["cols"]["val"]
+    return (np.array([int(k[0]) for k in res["groups"]]), res["count"], col["count"],
+            col["sum"], col["min"], col["max"])
+
+
+def pyramid_path(dev, arrays: tuple, n_queries: int, iters: int) -> None:
+    """Phase 6b: bench config 9's product path (``bench.py:1695-1811``) over
+    the first ``PYRAMID_ROWS`` of phase 6's rows, with the pyramid switched
+    on (``GEOMESA_TPU_PYRAMID=1``): write and compact, seed 301's queries
+    cold (the pyramid built, every query served by it), the pyramid's p50
+    over fresh sets of seeds 400 + round, and the warm p50 over repeats of
+    seed 301 (every query a cache hit, byte for byte the cold answer). Held: every cold answer equals the fused
+    path's on the same store (the default route, the cache emptied) and an f64
+    numpy fold over the original columns; none of the pyramid's or the
+    cache's calls launches a kernel."""
+    from geomesa_tpu_torch.schema.columnar import Column, FeatureTable, point_column
+    from geomesa_tpu_torch.schema.sft import AttributeType
+    from geomesa_tpu_torch.store.datastore import DataStore
+    from geomesa_tpu_torch.workload import AGG_SPEC, bbox_time_cql, make_queries
+
+    lon, lat, t, gid, vals = (a[:PYRAMID_ROWS] for a in arrays)
+    n = len(lon)
+    rounds = max(3, iters // 2)
+    sets = {seed: make_queries(n_queries, seed=seed)
+            for seed in (PYRAMID_SEED, *range(PYRAMID_FRESH_SEED, PYRAMID_FRESH_SEED + rounds))}
+    cqls = {seed: [bbox_time_cql(b, w) for b, w in zip(*q)] for seed, q in sets.items()}
+    ds = DataStore(device=dev)
+    sft = ds.create_schema("gagg", AGG_SPEC)
+    table = FeatureTable.from_columns(sft, np.arange(n).astype("U9"), {
+        "cat": Column(AttributeType.INT, gid.copy()), "val": Column(AttributeType.DOUBLE, vals),
+        "dtg": Column(AttributeType.DATE, t), "geom": point_column(lon, lat)})
+    t0 = time.perf_counter()
+    ds.write("gagg", table)
+    ds.compact("gagg")
+    log(f"phase 6b write: {time.perf_counter() - t0:.3f} s (write + compact of {n} rows)")
+
+    def call(seed):
+        s = time.perf_counter()
+        out = ds.aggregate_many("gagg", cqls[seed], group_by=["cat"], value_cols=["val"])
+        return out, (time.perf_counter() - s) * 1e3 / n_queries, dict(ds.last_aggregate_many)
+
+    with pyramid_switch("1"):
+        cold, cold_ms, cold_tally, pyr_ms, pyr_tallies, warm_ms, warm_hits = _pyramid_calls(
+            call, n_queries, rounds)
+    ds.agg_cache.invalidate("gagg")
+    s = time.perf_counter()
+    fused, _, fused_tally = call(PYRAMID_SEED)
+    fused_first_ms = (time.perf_counter() - s) * 1e3
+    fused_ms = []
+    for _ in range(rounds):
+        ds.agg_cache.invalidate("gagg")
+        fused_ms.append(call(PYRAMID_SEED)[1])
+    if fused_tally["fused"] != n_queries:
+        raise AssertionError(f"the fused call's queries by tier: {fused_tally}")
+    t0 = time.perf_counter()
+    slabs = day_slabs(t // DAY_MS, lon, lat, t)
+    for i in range(n_queries):
+        check_agg_answer(cold[i], as_fold(fused[i]), f"phase 6b query {i} against the fused path")
+        box, window = sets[PYRAMID_SEED][0][i], sets[PYRAMID_SEED][1][i]
+        check_agg_answer(cold[i], agg_referee(f64_referee(lon, lat, t, box, window, slabs), gid,
+                                              vals, AGG_GROUPS), f"phase 6b query {i}")
+    check_s = time.perf_counter() - t0
+    pyr = ds._state("gagg").pyramids[(("cat",), ("val",))][0]
+    brows = cold_tally["pyramid_boundary_rows"] + [
+        b for tally in pyr_tallies for b in tally["pyramid_boundary_rows"]]
+    log(f"phase 6b pyramid: built in {pyr.build_ms:.3f} ms at the cold call over {n} rows; "
+        f"levels k {[lv.k for lv in pyr.levels]} (finest {pyr.levels[-1].k}: "
+        f"{pyr.levels[-1].nx} x {pyr.levels[-1].nx} cells), {len(pyr.bins_present)} time bins, "
+        f"{pyr.nbytes} host bytes")
+    log(f"phase 6b served: cold {cold_tally['pyramid']} by the pyramid, {cold_tally['cache']} "
+        f"by the cache, {cold_tally['declined']} declined; fresh sets "
+        f"{sum(t_['pyramid'] for t_ in pyr_tallies)} by the pyramid over {rounds} calls; warm "
+        f"calls' cache hits {warm_hits} of {n_queries} a call (any other by the pyramid, once "
+        f"the LRU of {ds.agg_cache.max_entries} entries evicted it; cache "
+        f"{ds.agg_cache.snapshot()});"
+        f" boundary rows re-tested a query p50 {p50(brows):.1f}, "
+        f"max {max(brows)} over {len(brows)} queries; launches of the pyramid's and the cache's "
+        f"calls: none")
+    log(f"phase 6b grouped_agg_p50_latency (mode geoblocks-pyramid): pyramid {p50(pyr_ms):.4f} "
+        f"ms a query (p50 of {rounds} calls of {n_queries} fresh queries, seeds "
+        f"{PYRAMID_FRESH_SEED}..{PYRAMID_FRESH_SEED + rounds - 1}); cold {cold_ms:.4f} ms a query "
+        f"(the pyramid's build included); warm {p50(warm_ms):.4f} ms a query (p50 of {rounds} "
+        f"calls: {[round(m, 4) for m in warm_ms]}); the fused path (the default route) on the "
+        f"same store {p50(fused_ms):.4f} "
+        f"ms a query (p50 of {rounds} calls, the cache emptied before each; its first call "
+        f"{fused_first_ms:.3f} ms with the group-id, row-id and value staging)")
+    log(f"phase 6b checks: ok in {check_s:.3f} s (all {n_queries} cold answers equal the fused "
+        f"path's and the f64 numpy fold: groups in order; counts, value counts, min, max exact; "
+        f"sums within {AGG_RTOL}; the warm answers byte for byte the cold ones)")
+
+
+def _pyramid_calls(call, n_queries: int, rounds: int) -> tuple:
+    """Phase 6b's calls with the pyramid switched on: seed 301 cold, the
+    fresh sets, and the warm repeats; none may launch a kernel."""
+    from geomesa_tpu_torch.ops import kernels
+
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+    cold, cold_ms, cold_tally = call(PYRAMID_SEED)
+    if cold_tally["pyramid"] != n_queries:
+        raise AssertionError(f"the cold call's queries by tier: {cold_tally}")
+    pyr_ms, pyr_tallies = [], []
+    for r in range(rounds):
+        _, ms, tally = call(PYRAMID_FRESH_SEED + r)
+        pyr_ms.append(ms)
+        pyr_tallies.append(tally)
+    # the fresh sets' answers fill the cache past its 256 entries, so the LRU
+    # has evicted seed 301's by now: the first warm call fills it again (as
+    # the bench's warm loop does), the later ones are hits
+    warm_ms, warm_hits = [], []
+    for _ in range(rounds):
+        warm, ms, warm_tally = call(PYRAMID_SEED)
+        warm_ms.append(ms)
+        warm_hits.append(warm_tally["cache"])
+        if warm_tally["cache"] + warm_tally["pyramid"] != n_queries:
+            raise AssertionError(f"a warm call's queries by tier: {warm_tally}")
+        if not all(same_bytes(a, b) for a, b in zip(cold, warm)):
+            raise AssertionError("a warm answer differs from its cold answer")
+    launched = {k: v for k, v in kernels.launches.items() if v}
+    if any(tally["pyramid"] != n_queries for tally in pyr_tallies) or warm_hits[-1] != n_queries:
+        raise AssertionError(f"the fresh sets' queries by tier: {pyr_tallies}; warm cache hits "
+                             f"{warm_hits}")
+    if launched:
+        raise AssertionError(f"the pyramid's and the cache's calls launched {launched}")
+    return cold, cold_ms, cold_tally, pyr_ms, pyr_tallies, warm_ms, warm_hits
 
 
 # -- phase 7: bench config 3, density heatmaps and batched KNN ---------------------
@@ -3891,6 +4114,7 @@ def xz_agg_leg(dev, ds, cqls, rows, gid, vals, exact) -> dict:
     first_ms = (time.perf_counter() - s) * 1e3
     ms = []
     for _ in range(5):
+        ds.agg_cache.invalidate("xz")  # each call folds on the card, none is a cache hit
         s = time.perf_counter()
         ds.aggregate_many("xz", cqls, group_by=["cat"], value_cols=["val"])
         ms.append((time.perf_counter() - s) * 1e3)
@@ -3993,6 +4217,74 @@ def xz_agg_leg(dev, ds, cqls, rows, gid, vals, exact) -> dict:
     if record["bound_ms"] / kernel_ms > 1:
         raise AssertionError("grouped_agg_overlap beats its bound: the bound's count is wrong")
     return record
+
+
+XZ_KNN_POINTS = 8  # phase 9c's KNN points, drawn around the cities of the line store
+XZ_KNN_K = 10
+
+
+def xz_knn_leg(ds, b, coords, offsets) -> None:
+    """Phase 9c's KNN leg on the line store ``ds`` (type ``xz``, fid = row):
+    ``knn`` of ``XZ_KNN_POINTS`` points at k = ``XZ_KNN_K`` (the window loop
+    over ``query()``, counting its windows), then ``knn_many`` of the same
+    points, held by a referee that cannot miss a nearer line: each row's f64
+    envelope distance (``b``: the rows' bboxes) over the whole store, then
+    the exact ``distance`` of the rows whose envelope distance is at most
+    the answer's k-th distance (an exact distance is never below the
+    envelope's); the k smallest of those must equal the answer's distances,
+    and each answered row's exact distance its own."""
+    from geomesa_tpu_torch.geometry import predicates as P
+    from geomesa_tpu_torch.geometry.types import LineString, Point
+    from geomesa_tpu_torch.process.knn import knn, knn_many
+    from geomesa_tpu_torch.workload import CITIES
+
+    rng = np.random.default_rng(53)
+    pts = [Point(float(cx + rng.normal(0, 4.5)), float(cy + rng.normal(0, 3.0)))
+           for cx, cy in CITIES[:XZ_KNN_POINTS]]
+    windows = []
+    query = ds.query
+
+    def counted(*a, **k):
+        windows[-1] += 1
+        return query(*a, **k)
+
+    ds.query = counted
+    one_ms, answers = [], []
+    for p in pts:
+        windows.append(0)
+        s = time.perf_counter()
+        answers.append(knn(ds, "xz", p, k=XZ_KNN_K))
+        one_ms.append((time.perf_counter() - s) * 1e3)
+    many_windows = len(windows)
+    windows.append(0)
+    s = time.perf_counter()
+    many = knn_many(ds, "xz", pts, k=XZ_KNN_K)
+    many_ms = (time.perf_counter() - s) * 1e3
+    del ds.query
+    t0 = time.perf_counter()
+    xmin, ymin, xmax, ymax = b
+    refined = []
+    for i, p in enumerate(pts):
+        table, dist = answers[i]
+        if len(dist) != XZ_KNN_K or not np.array_equal(many[i][1], dist) \
+                or many[i][0].fids.tolist() != table.fids.tolist():
+            raise AssertionError(f"knn point {i}: {len(dist)} answers, or knn_many differs")
+        dx = np.maximum(np.maximum(xmin - p.x, p.x - xmax), 0.0)
+        dy = np.maximum(np.maximum(ymin - p.y, p.y - ymax), 0.0)
+        cand = np.nonzero(np.sqrt(dx * dx + dy * dy) <= dist[-1])[0]
+        exact = {int(r): P.distance(p, LineString(coords[offsets[r]:offsets[r + 1]]))
+                 for r in cand}
+        refined.append(len(cand))
+        want = np.sort(np.fromiter(exact.values(), dtype=np.float64))[:XZ_KNN_K]
+        rows = [int(f) for f in table.fids.tolist()]
+        if not np.array_equal(dist, want) or any(exact.get(r) != d for r, d in zip(rows, dist)):
+            raise AssertionError(f"knn point {i}: the answer differs from the envelope referee")
+    log(f"phase 9c knn: {p50(one_ms):.3f} ms a point (p50 over {len(pts)} points; "
+        f"{[round(v, 1) for v in one_ms]}), windows a point {windows[:many_windows]}; knn_many "
+        f"of the same {len(pts)}: {many_ms / len(pts):.3f} ms a point (per point through knn: no "
+        f"point state on a line store), {windows[-1]} windows in all; k = {XZ_KNN_K}, every answer "
+        f"== the envelope referee (rows refined exactly a point {refined}) in "
+        f"{time.perf_counter() - t0:.3f} s; knn_many == knn")
 
 
 def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict, dict, dict]:
@@ -4124,6 +4416,9 @@ def xz_store_path(dev, m: int, iters: int) -> tuple[dict, dict, dict, dict]:
     t0 = time.perf_counter()
     agg = xz_agg_leg(dev, ds, cqls, rows, gid, np.where(valid, vals, np.nan), exact)
     log(f"phase 9c aggregation and density: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    xz_knn_leg(ds, b, coords, offsets)
+    log(f"phase 9c knn leg: {time.perf_counter() - t0:.3f} s")
 
     # -- the kernels alone at the store's shapes ----------------------------------
     if dev.type != "cuda":
@@ -5277,29 +5572,28 @@ def trajectory_path(dev, n_rows: int) -> tuple[dict, dict, dict, dict]:
     lds = link_store(dev, "L", LINK_ROWS[0], LINK_SEEDS[0])
     rds = link_store(dev, "R", LINK_ROWS[1], LINK_SEEDS[1])
     lt, rt = lds.query("L", Query()).table, rds.query("R", Query()).table
+    before = kernels.launches["planned_gather"]
     s = time.perf_counter()
     link2d = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE)
     link_ms = (time.perf_counter() - s) * 1e3
+    block_launches = kernels.launches["planned_gather"] - before
     s = time.perf_counter()
     link3d = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE,
                        time_buffer_ms=LINK_TIME_BUFFER_MS)
     link3d_ms = (time.perf_counter() - s) * 1e3
-    before = kernels.launches["planned_gather"]
     s = time.perf_counter()
-    link_block = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE,
-                           route="block")
-    block_ms = (time.perf_counter() - s) * 1e3
-    block_launches = kernels.launches["planned_gather"] - before
+    link_xz = interlink(lds, "L", rds, "R", pred="dwithin", distance=LINK_DISTANCE, route="xz")
+    xz_ms = (time.perf_counter() - s) * 1e3
     want2d = interlink_referee(lt, rt, "dwithin", LINK_DISTANCE)
     want3d = interlink_referee(lt, rt, "dwithin", LINK_DISTANCE, LINK_TIME_BUFFER_MS)
-    if link2d != want2d or link_block != want2d or link3d != want3d:
+    if link2d != want2d or link_xz != want2d or link3d != want3d:
         raise AssertionError("an interlink leg differs from interlink_referee")
     if on_card and block_launches == 0:
-        raise AssertionError("the block route launched no planned_gather")
-    log(f"phase 11 interlink: interlink_ms {link_ms:.2f} (2D dwithin {LINK_DISTANCE}, "
-        f"{len(link2d)} pairs), time-lifted {link3d_ms:.2f} ms ({len(link3d)} pairs), block "
-        f"route {block_ms:.2f} ms ({len(link_block)} pairs, {block_launches} planned_gather "
-        "launches); all == interlink_referee")
+        raise AssertionError("the default interlink (the block route) launched no planned_gather")
+    log(f"phase 11 interlink: interlink_ms {link_ms:.2f} (the default route, block: 2D dwithin "
+        f"{LINK_DISTANCE}, {len(link2d)} pairs, {block_launches} planned_gather launches), "
+        f"time-lifted {link3d_ms:.2f} ms (the XZ3 pairing: {len(link3d)} pairs), forced XZ "
+        f"pairing {xz_ms:.2f} ms (2D, {len(link_xz)} pairs); all == interlink_referee")
     launched = dict(kernels.launches)
     log(f"phase 11 launches: {launched}")
     if on_card and any(launched[k] == 0 for k in ("z3_encode", "z2_encode", "corridor_masks",
@@ -5481,9 +5775,14 @@ def main(device=None, n_rows: int = N_ROWS, n_queries: int = N_QUERIES,
     free_card()
     log(f"phase date-less: {time.perf_counter() - t0:.3f} s in all")
     t0 = time.perf_counter()
-    agg_record, work_list_record = agg_path(dev, n_rows, n_queries)
+    agg_record, work_list_record, agg_rows = agg_path(dev, n_rows, n_queries)
     free_card()
     log(f"phase grouped aggregation: {time.perf_counter() - t0:.3f} s in all")
+    t0 = time.perf_counter()
+    pyramid_path(dev, agg_rows, n_queries, iters)
+    del agg_rows
+    free_card()
+    log(f"phase 6b: {time.perf_counter() - t0:.3f} s in all")
 
     # -- phase 7: bench config 3, density heatmaps and batched KNN ---------------
     t0 = time.perf_counter()

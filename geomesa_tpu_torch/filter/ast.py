@@ -231,6 +231,51 @@ class In(Filter):
 _PROP_LEAVES = (BBox, During, TempOp, Compare, Between, In)
 
 
+def _cql_literal(v) -> str:
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    if isinstance(v, bool):
+        return "TRUE" if v else "FALSE"
+    return str(v)
+
+
+def _cql_millis(ms: int) -> str:
+    import datetime
+
+    return (datetime.datetime.fromtimestamp(ms / 1000, datetime.timezone.utc)
+            .strftime("%Y-%m-%dT%H:%M:%S.%f")[:-3] + "Z")
+
+
+def to_cql(f: Filter) -> str:
+    """Render an AST back to CQL text, as the reference's ``to_cql``
+    (``ast.py:557``) renders the node types this port has; any other node
+    raises ``ValueError`` (the aggregation cache then takes the query as
+    uncacheable, as the reference's ``_plan_cache_key`` does)."""
+    if isinstance(f, Include):
+        return "INCLUDE"
+    if isinstance(f, Exclude):
+        return "EXCLUDE"
+    if isinstance(f, And):
+        return " AND ".join(f"({to_cql(c)})" for c in f.children)
+    if isinstance(f, Or):
+        return " OR ".join(f"({to_cql(c)})" for c in f.children)
+    if isinstance(f, Not):
+        return f"NOT ({to_cql(f.child)})"
+    if isinstance(f, BBox):
+        return f"BBOX({f.prop}, {f.xmin}, {f.ymin}, {f.xmax}, {f.ymax})"
+    if isinstance(f, During):
+        return f"{f.prop} DURING {_cql_millis(f.lo_millis)}/{_cql_millis(f.hi_millis)}"
+    if isinstance(f, TempOp):
+        return f"{f.prop} {f.op.upper()} {_cql_millis(f.millis)}"
+    if isinstance(f, Compare):
+        return f"{f.prop} {f.op} {_cql_literal(f.literal)}"
+    if isinstance(f, Between):
+        return f"{f.prop} BETWEEN {_cql_literal(f.lo)} AND {_cql_literal(f.hi)}"
+    if isinstance(f, In):
+        return f"{f.prop} IN ({', '.join(_cql_literal(v) for v in f.literals)})"
+    raise ValueError(f"cannot render {type(f).__name__} to CQL")
+
+
 def column_refs(f: Filter) -> set:
     """The attribute columns ``f.mask()`` reads."""
     props: set = set()

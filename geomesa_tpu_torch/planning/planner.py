@@ -12,7 +12,9 @@ is always the full filter, so every plan is sound; the strategy only sizes
 the candidate set.
 
 :func:`standing_query_payload` decomposes a standing query into one row of
-the subscription matrix (``planner.py:572`` of the reference).
+the subscription matrix (``planner.py:572`` of the reference);
+:func:`choose_agg_path` routes the eligible grouped aggregations to the
+fused device path or the GeoBlocks pyramid by a fixed rule.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from geomesa_tpu_torch.filter.cql import parse as parse_cql
 from geomesa_tpu_torch.index.api import DEFAULT_MAX_RANGES, IndexPlan
 from geomesa_tpu_torch.index.z2 import XZ2Index, Z2Index
 from geomesa_tpu_torch.index.z3 import XZ3Index, Z3Index, refuse_legacy
+from geomesa_tpu_torch.ops import geoblocks
 from geomesa_tpu_torch.ops.refine import pack_boxes, pack_times, unsat_rows
 from geomesa_tpu_torch.schema.sft import FeatureType
 from geomesa_tpu_torch.store.backends import (
@@ -73,6 +76,24 @@ class QueryPlanInfo:
 
 
 INDEX_TYPES = (Z3Index, XZ3Index, Z2Index, XZ2Index)  # in RESIDENT_INDEXES' order
+
+
+def choose_agg_path() -> str:
+    """Route the eligible grouped aggregations of an ``aggregate_many``
+    call: the fused device path (``"scan"``) or the GeoBlocks pyramid
+    (``"pyramid"``).
+
+    It stands in for the reference's cost model (``planner.py:630``) until
+    the port has one (ROADMAP.md A.8.3), and departs from that model's
+    seeded default, the pyramid. The reference's model routes by the
+    observed p50 of both paths; on an H100 it would take the fused path:
+    ``chip_smoke.py``'s phase 6b (NVIDIA H100 80GB HBM3, 700 W power limit)
+    timed it at 0.4403 ms a query against the pyramid's 65.2381 on bench
+    config 9's queries over 10M rows, whose 2-7 day windows leave nearly
+    every matching row a boundary row the pyramid re-tests on the host.
+    ``GEOMESA_TPU_PYRAMID=1`` (:func:`~geomesa_tpu_torch.ops.geoblocks.enabled`)
+    routes to the pyramid; unset or ``0``, the fused path answers."""
+    return "pyramid" if geoblocks.enabled() else "scan"
 
 
 def build_indices(sft: FeatureType) -> dict:

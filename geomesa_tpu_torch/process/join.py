@@ -28,7 +28,7 @@ from geomesa_tpu_torch.ops.join import (
     pack_polygons, planned_candidate_rows, points_in_polygons_count, polygon_block_plan)
 from geomesa_tpu_torch.ops.kernels import JOIN_BLOCK
 from geomesa_tpu_torch.parallel.query import block_bbox_gather_step
-from geomesa_tpu_torch.store.backends import DeviceBackend, int_boxes, refuse_extended
+from geomesa_tpu_torch.store.backends import DeviceBackend, int_boxes
 
 # pair density below which join_counts_auto takes the block route: the
 # untrained cost model's seed rule (geomesa_tpu/planning/costmodel.py:259)
@@ -77,16 +77,15 @@ def join_rows_device(ds, type_name: str, geoms, pred: str = "within",
     refer to and, per geometry ``i`` in order, its matching row indices
     (int64, in z2 order, as the reference gives them; a ``None`` geometry
     matches nothing). Raises ``ValueError`` when the store cannot take the
-    device path (no device backend or no z2 residency) and
-    ``NotImplementedError`` for a schema with TTL age-off or a line or
-    polygon schema (ROADMAP.md A.2.3).
+    device path (no device backend, or no z2 residency: a line or polygon
+    store has none) and ``NotImplementedError`` for a schema with TTL
+    age-off.
 
     ``chunk_budget``: at most this many candidate rows (pairs x
     ``JOIN_BLOCK``) per gather launch; more pairs run in several launches
     (it bounds the card's scratch: 512 B of mask and up to 16 KB of
     positions a pair).
     """
-    refuse_extended(ds.get_schema(type_name), "device join", "A.2.3")
     if pred not in ("within", "intersects"):
         raise ValueError(f"device join: unsupported predicate {pred!r}")
     res = _z2_residency(ds, type_name)
@@ -132,9 +131,9 @@ def join_within_device(ds, type_name: str, polygons, max_vertices: int = 64):
     Runs the f32 crossing number over the main tier's points on the store's
     device (:func:`~geomesa_tpu_torch.ops.join.points_in_polygons_count`,
     the ``polygon_join`` kernel with every block a candidate). The points
-    are staged as f32 degrees for the call, padded to whole blocks. A line
-    or polygon store raises ``NotImplementedError`` (ROADMAP.md A.2.3)."""
-    refuse_extended(ds.get_schema(type_name), "device join", "A.2.3")
+    are staged as f32 degrees for the call, padded to whole blocks. A
+    non-empty line or polygon store raises ``ValueError``, as the
+    reference's does."""
     ds.compact(type_name)  # the bulk path scans the main tier only
     st = ds._state(type_name)
     if st.table is None or len(st.table) == 0:
@@ -183,9 +182,9 @@ def join_counts_auto(ds, type_name: str, polygons, max_vertices: int = 64):
     ``geomesa_tpu/planning/costmodel.py:252-264``): ``"block"`` when the
     density is below :data:`BLOCK_ROUTE_DENSITY`, else ``"dense"``; no
     measurement trains it. A store the block route cannot take (no z2
-    residency: the density is None) takes ``"dense"``. A line or polygon
-    store raises ``NotImplementedError`` (ROADMAP.md A.2.3)."""
-    refuse_extended(ds.get_schema(type_name), "device join", "A.2.3")
+    residency: the density is None) takes ``"dense"``, so a non-empty line
+    or polygon store raises :func:`join_within_device`'s ``ValueError``, as
+    the reference's does."""
     density = measured_pair_density(ds, type_name, polygons)
     route = "block" if density is not None and density < BLOCK_ROUTE_DENSITY else "dense"
     if route == "block":

@@ -5,11 +5,14 @@ Port of :mod:`geomesa_tpu.process.knn` (``KNearestNeighborSearchProcess``):
 - :func:`knn` is the per-point iterative-deepening window search through
   :meth:`DataStore.query` (query a window around the point; with fewer than
   k candidates, or a k-th distance outside the window's inscribed circle,
-  double the window and retry). It serves the ``oracle`` backend and an
-  empty store.
+  double the window and retry). It serves the ``oracle`` backend, an empty
+  store and a line or polygon store, whose windows go through the XZ
+  indexes and whose features rank by the exact f64
+  :func:`~geomesa_tpu_torch.geometry.predicates.distance` (``knn.py:250``).
 - :func:`knn_many` answers every point in one ``batched_knn_step`` over the
-  store's preferred point state. It has no TTL and no hot-tier merge: the
-  port has neither age-off nor a delta tier.
+  store's preferred point state; a store with none (a line or polygon
+  store) answers per point with :func:`knn`. It has no TTL and no hot-tier
+  merge: the port has neither age-off nor a delta tier.
 """
 
 from __future__ import annotations
@@ -17,10 +20,11 @@ from __future__ import annotations
 import numpy as np
 
 from geomesa_tpu_torch.filter import ast
+from geomesa_tpu_torch.geometry import predicates as P
 from geomesa_tpu_torch.parallel.query import batched_knn_step, check_knn_impl
 from geomesa_tpu_torch.planning.planner import Query
 from geomesa_tpu_torch.schema.columnar import Point
-from geomesa_tpu_torch.store.backends import DeviceBackend, refuse_extended
+from geomesa_tpu_torch.store.backends import DeviceBackend
 
 
 def knn(ds, type_name: str, point: Point, k: int = 10, filter=None,
@@ -29,9 +33,8 @@ def knn(ds, type_name: str, point: Point, k: int = 10, filter=None,
     ``point`` (``knn.py:20``), f64 distances ascending, ties in row order.
 
     ``filter``: an optional extra CQL/AST predicate AND'ed with the window.
-    A line or polygon store raises ``NotImplementedError`` (ROADMAP.md
-    A.2.3)."""
-    refuse_extended(ds.get_schema(type_name), "knn", "A.2.3")
+    On a line or polygon store a feature's distance is the exact f64
+    distance from the point to its geometry."""
     base = None
     if filter is not None:
         from geomesa_tpu_torch.filter.cql import parse
@@ -67,7 +70,9 @@ def knn_many(ds, type_name: str, points, k: int = 10, topology: str = "gather",
     point state (f32 distances over the decoded int32 coordinates, ties to
     the lower sorted-order row) gives each point's ``min(k, rows)`` nearest
     positions; they map to table rows through the index's permutation.
-    Other backends and an empty store answer per point with :func:`knn`.
+    Other backends, an empty store and a store with no point state (a line
+    or polygon store, ``knn.py:116-121``) answer per point with
+    :func:`knn`.
 
     ``topology``: ``"gather"`` or ``"ring"``, the reference's heap-merge
     collective. On one card the ring has no hop and equals the gather
@@ -76,18 +81,18 @@ def knn_many(ds, type_name: str, points, k: int = 10, topology: str = "gather",
     unused (see ``batched_knn_step``).
 
     Returns a list of ``(table, distances_deg)`` pairs, one per point, each
-    holding that point's k nearest features in distance order. A line or
-    polygon store raises ``NotImplementedError`` (ROADMAP.md A.2.3)."""
-    refuse_extended(ds.get_schema(type_name), "knn_many", "A.2.3")
+    holding that point's k nearest features in distance order."""
     if topology not in ("gather", "ring"):
         raise ValueError(f"topology must be gather|ring: {topology!r}")
     check_knn_impl(impl)  # loud even when the per-point path serves
     st = ds._state(type_name)
     main = st.table
     main_n = 0 if main is None else len(main)
-    if not isinstance(ds.backend, DeviceBackend) or main_n == 0:
+    dev = name = None
+    if isinstance(ds.backend, DeviceBackend):
+        dev, name = DeviceBackend.point_state(st.backend_state)
+    if dev is None or main_n == 0:
         return [knn(ds, type_name, p, k) for p in points]
-    dev, name = DeviceBackend.point_state(st.backend_state)
     kk = min(k, main_n)
     qx = np.array([p.x for p in points], dtype=np.float32)
     qy = np.array([p.y for p in points], dtype=np.float32)
@@ -114,6 +119,12 @@ def _f32_dists(x: np.ndarray, y: np.ndarray, point: Point) -> np.ndarray:
 
 
 def _distances(r, point: Point) -> np.ndarray:
-    """f64 distances of a result's points to ``point`` (``knn.py:250``)."""
+    """f64 distances of a result's features to ``point`` (``knn.py:250``):
+    points by their coordinates, other geometries by
+    :func:`~geomesa_tpu_torch.geometry.predicates.distance`, a null one
+    ``inf``."""
     col = r.table.geom_column()
-    return np.sqrt((col.x - point.x) ** 2 + (col.y - point.y) ** 2)
+    if col.x is not None:
+        return np.sqrt((col.x - point.x) ** 2 + (col.y - point.y) ** 2)
+    return np.array([P.distance(point, g) if g is not None else np.inf
+                     for g in col.geometries()])

@@ -196,15 +196,6 @@ def bbox_columns(sft: FeatureType, table: FeatureTable):
     return {**out, **_time_columns(sft, table)}
 
 
-def refuse_extended(sft: FeatureType, surface: str, item: str) -> None:
-    """Raise ``NotImplementedError`` for ``surface`` on a line or polygon
-    schema: it is queued as ROADMAP.md ``item`` and must not run point code
-    on bbox columns."""
-    if sft.geom_field is not None and not sft.geom_is_points:
-        raise NotImplementedError(
-            f"{surface} on a line or polygon schema is not ported yet (ROADMAP.md {item})")
-
-
 def residual_rows(index, positions: np.ndarray, residual, table: FeatureTable) -> np.ndarray:
     """Table row ids of an index's sorted-order ``positions`` that pass the
     exact host ``residual``, in position order: the tail of every device

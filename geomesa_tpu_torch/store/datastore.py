@@ -25,39 +25,47 @@ deliberate:
   branch: points snap to their cell, lines and polygons rasterize their
   footprint); any other hint but the ``tenant`` metadata raises
   ``NotImplementedError``.
-- ``aggregate_many`` is the reference's fused path (its pyramid and query
-  cache off): see its docstring for what it leaves out.
+- ``aggregate_many`` has the reference's query cache, GeoBlocks pyramid
+  and fused path; the route is a fixed rule until the port has a cost
+  model (``planning.choose_agg_path``): the fused path, and the pyramid
+  only where ``GEOMESA_TPU_PYRAMID=1`` asks for it. See its docstring for
+  what it leaves out.
 - ``density_many`` has no circuit breaker, failover or audit, as above.
 - On a line or polygon store, ``aggregate_many`` folds over the bbox
   state with the overlap form of the grouped fold, and ``density_many``
   and the ``density`` hint take the exact per-query path (the host
-  rasterization), as the reference's do; ``process.knn`` and
-  ``process.join`` raise ``NotImplementedError`` there (ROADMAP.md A.2.3):
-  neither runs point code on bbox columns.
+  rasterization), as the reference's do; ``process.knn`` answers there
+  through ``query()`` windows and the exact f64 distance, and the device
+  joins of ``process.join`` raise the reference's ``ValueError`` (no z2
+  residency; the bulk join needs points).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import numpy as np
 import torch
 
+from geomesa_tpu_torch.curve.binned_time import BinnedTime
+from geomesa_tpu_torch.curve.normalize import lat as norm_lat, lon as norm_lon
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.bounds import extract
+from geomesa_tpu_torch.ops import geoblocks
 from geomesa_tpu_torch.ops.kernels import (
     EDGE_CAPACITY, batched_count, batched_edge_gather, batched_edge_gather_overlap)
 from geomesa_tpu_torch.ops.refine import MAX_BOXES, MAX_TIMES
 from geomesa_tpu_torch.parallel.query import (
     batched_density_step, batched_overlap_step, grouped_agg_step)
-from geomesa_tpu_torch.planning.planner import Query, QueryPlanner, build_indices
+from geomesa_tpu_torch.planning.planner import (
+    Query, QueryPlanner, build_indices, choose_agg_path)
 from geomesa_tpu_torch.schema.columnar import FeatureTable, GeometryColumn
 from geomesa_tpu_torch.schema.sft import FeatureType, parse_spec
 from geomesa_tpu_torch.store.backends import (
-    DeviceBackend, OracleBackend, int_boxes, residual_rows)
+    REFINE_PRECISION, DeviceBackend, OracleBackend, int_boxes, residual_rows, time_quads)
 from geomesa_tpu_torch.store.reduce import density_grid
 
 # hints that are execution metadata, never semantics (datastore.py:51): the
@@ -165,6 +173,9 @@ class _TypeState:
     backend_state: Any = None
     rebuild_s: dict | None = None  # last rebuild's phase seconds
     epoch: int = 0  # rebuild epoch: every write and compact advances it
+    # (group_by, value_cols) -> (AggPyramid or None for a remembered
+    # failure, the rebuild epoch it was built at)
+    pyramids: dict = field(default_factory=dict)
 
     def data_epoch(self) -> tuple:
         """The (rebuild epoch, delta version) pair every mutation advances
@@ -199,6 +210,10 @@ class DataStore:
         # DeviceBackend.select_many_positions) and tail_ms (residual, sort
         # and take of every query's rows)
         self.last_select_many: dict = {}
+        # the last aggregate_many's queries by tier (see its docstring)
+        self.last_aggregate_many: dict = {}
+        # exact-repeat aggregate_many answers, stamped with the data epoch
+        self.agg_cache = geoblocks.QueryCache()
 
     # -- schema ---------------------------------------------------------------
     def create_schema(self, sft: FeatureType | str, spec: str | None = None) -> FeatureType:
@@ -570,89 +585,269 @@ class DataStore:
     _AGG_MAX_GROUPS = 65536  # beyond this the host fold is the better engine
 
     def aggregate_many(self, type_name: str, queries, group_by=None, value_cols=()) -> list:
-        """Batched grouped aggregation in ONE device pass: per query,
-        COUNT(*) plus per value column count/sum/min/max for every GROUP BY
-        key (``datastore.py:2500``, ``_aggregate_many_impl`` :2528, its
-        fused section :2672-2794).
+        """Batched grouped aggregation: per query, COUNT(*) plus per value
+        column count/sum/min/max for every GROUP BY key
+        (``datastore.py:2500``, ``_aggregate_many_impl`` :2528).
 
-        Returns one entry per query: ``None`` when the query cannot ride
-        the device path, for the reference's own reasons (a filter beyond
-        a bbox+time conjunction on the default fields, a widened payload, a
-        column that is missing, truncated boundary lanes (``hits >
-        capacity``), NaN or geometry GROUP BY keys, non-numeric value
-        columns, more than ``_AGG_MAX_GROUPS`` groups, an empty store or
-        the Oracle backend), else ``{"groups": [key tuples], "count": (G,)
-        int64, "cols": {col: {"count": (G,) int64, "sum"/"min"/"max": (G,)
-        f64 (NaN = empty)}}}`` with groups ordered by their first matching
-        row and only groups with a matching row (``group_by=None``: one
-        group, ``()``). A provably disjoint filter gives the empty result.
+        Three tiers answer, in the reference's order (``:2612-2794``):
 
-        Exactness: the ``grouped_agg`` kernel folds every matching row but
-        the boundary rows (in an edge bucket of a box or at a quantized
-        window endpoint, the only rows where the int-domain predicate and
-        the f64 filter can differ); the host re-tests those against the
-        full filter and ADDS the ones that pass. Sums ride f64, folded with
-        atomics in no fixed order on the card. A line or polygon store
-        folds over its bbox state (xz3, then xz2) with the overlap form
-        (``datastore.py:2666-2675``): a feature matches when its int bbox
-        overlaps a query box, exact for the envelope semantics of BBOX away
-        from the boundary rows, which are a bbox sharing an opposing edge
-        bucket with a box or a row at a window's endpoint.
+        1. the query cache (:class:`~geomesa_tpu_torch.ops.geoblocks.QueryCache`,
+           ``self.agg_cache``): an exact repeat (the same filter text, GROUP
+           BY and value columns) on an unchanged store, stamped with the
+           type's ``data_epoch()``; every write and compact makes it stale.
+           A filter :func:`~geomesa_tpu_torch.filter.ast.to_cql` cannot
+           render, or a query with a hint, is not cached;
+        2. the GeoBlocks pyramid (:meth:`_pyramid`, built on the host once
+           per rebuild epoch for each (GROUP BY, value columns)), when
+           :func:`~geomesa_tpu_torch.planning.planner.choose_agg_path`
+           routes there (``GEOMESA_TPU_PYRAMID=1``; off by default), for a
+           point store and a filter that is one bbox and one time window on
+           the default fields: interior partials from the pyramid, boundary
+           rows re-tested against the full f64 filter;
+        3. the fused device pass over the rest: the ``grouped_agg`` kernel
+           folds every matching row but the boundary rows (in an edge bucket
+           of a box or at a quantized window endpoint, the only rows where
+           the int-domain predicate and the f64 filter can differ); the host
+           re-tests those against the full filter and ADDS the ones that
+           pass. Sums ride f64, folded with atomics in no fixed order on the
+           card. A line or polygon store folds over its bbox state (xz3,
+           then xz2) with the overlap form (``datastore.py:2666-2675``): a
+           feature matches when its int bbox overlaps a query box, exact for
+           the envelope semantics of BBOX away from the boundary rows, which
+           are a bbox sharing an opposing edge bucket with a box or a row at
+           a window's endpoint.
+
+        Pyramid and fused answers go into the cache. Returns one entry per
+        query: ``None`` when the query cannot ride the device path, for the
+        reference's own reasons (a filter beyond a bbox+time conjunction on
+        the default fields, a widened payload, a column that is missing,
+        truncated boundary lanes (``hits > capacity``), NaN or geometry
+        GROUP BY keys, non-numeric value columns, more than
+        ``_AGG_MAX_GROUPS`` groups, an empty store or the Oracle backend),
+        else ``{"groups": [key tuples], "count": (G,) int64, "cols": {col:
+        {"count": (G,) int64, "sum"/"min"/"max": (G,) f64 (NaN = empty)}}}``
+        with groups ordered by their first matching row and only groups with
+        a matching row (``group_by=None``: one group, ``()``). A provably
+        disjoint filter gives the empty result. ``last_aggregate_many``
+        holds the call's queries by tier (``cache``, ``pyramid``, ``fused``,
+        ``declined``) and the boundary rows each pyramid answer re-tested
+        (``pyramid_boundary_rows``).
 
         Left out, as the port carries none of them yet: query interceptors,
-        the audit hook, the GeoBlocks pyramid and its query cache (the
-        reference's route when ``GEOMESA_TPU_PYRAMID`` is on and the cost
-        table says so), TTL age-off and the delta tier. A device error
-        propagates."""
+        the audit hook, the cost model's observations (the route is a fixed
+        rule, A.8.3), the pyramid's count mirror on the device with its
+        devmon ledger and buffer pool (A.9), TTL age-off and the delta tier.
+        A device error propagates."""
         st = self._state(type_name)
         qs = [q if isinstance(q, Query) else Query(filter=q) for q in queries]
         out: list = [None] * len(qs)
         group_by = list(group_by) if group_by else None
         value_cols = list(value_cols)
+        tally = {"cache": 0, "pyramid": 0, "fused": 0, "declined": 0,
+                 "pyramid_boundary_rows": []}
+        self.last_aggregate_many = tally
+        epoch = st.data_epoch()
         main = st.table
         if main is None or len(main) == 0 or not isinstance(self.backend, DeviceBackend):
+            tally["declined"] = len(qs)
             return out
         if any(c not in main.columns for c in (group_by or []) + value_cols):
+            tally["declined"] = len(qs)
             return out
+
+        # -- the query cache and the GeoBlocks pyramid (datastore.py:2612-2663) --------
+        keys_of = {}
+        for i, q in enumerate(qs):
+            key = self._agg_cache_key(q, group_by, value_cols)
+            if key is None:
+                continue
+            keys_of[i] = key
+            hit = self.agg_cache.get(type_name, key, epoch)
+            if hit is not None:
+                out[i] = hit
+                tally["cache"] += 1
+        if choose_agg_path() == "pyramid":
+            pyr = None
+            for i, q in enumerate(qs):
+                if out[i] is not None:
+                    continue
+                e = self._pyramid_extraction(st, q)
+                if e is None:
+                    continue
+                if e.disjoint:
+                    out[i] = self._assemble_agg_empty(value_cols)
+                    continue
+                if pyr is None:
+                    pyr = self._pyramid(st, main, group_by, value_cols, epoch[0])
+                    if pyr is None:
+                        break  # the shape cannot ride: the fused path
+                out[i] = self._pyramid_answer(q, st, main, pyr, e, value_cols, group_by)
+                tally["pyramid"] += 1
+                if i in keys_of:
+                    self.agg_cache.put(type_name, keys_of[i], epoch, out[i])
+        todo = [i for i in range(len(qs)) if out[i] is None]
+        if not todo:
+            return out
+
+        # -- the fused device pass over the rest ------------------------------------------
         dev, name = DeviceBackend.point_state(st.backend_state)
         overlap = dev is None  # a line or polygon store: its bbox state (datastore.py:2666)
         if overlap:
             dev, name = DeviceBackend.bbox_state(st.backend_state)
         if dev is None:
+            tally["declined"] = len(todo)
             return out
         perm = st.indices[name].perm
         try:
             (dev_gid, gid_orig, keys), dev_rowid, dev_vals, host_vals = self._agg_residency(
                 dev, main, perm, group_by, value_cols)
         except (TypeError, ValueError):
+            tally["declined"] = len(todo)
             return out
-        pending = self._batch_payloads(st, qs)
+        pending = [(todo[j], p, ok) for j, p, ok in
+                   self._batch_payloads(st, [qs[i] for i in todo])]
         live = [(i, p) for i, p, ok in pending if p is not None and ok]
         for i, p, _ in pending:
             if p is None:  # provably disjoint: zero rows, no groups
                 out[i] = self._assemble_agg_empty(value_cols)
-        if not live:
-            return out
-        n_groups = len(keys)
-        g_pad = 1 << max(0, (n_groups - 1).bit_length())
-        cap = EDGE_CAPACITY  # boundary lanes a query, as the reference's (datastore.py:2713)
-        boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
-        times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
-        res = grouped_agg_step(dev.spatial_cols(), dev_gid, dev_rowid, dev_vals, dev.n,
-                               boxes, times, g_pad, cap, extents=dev.extents, overlap=overlap)
-        cnt, first, vcnt, vsum, vmin, vmax, epos, ehits = (t.cpu().numpy() for t in res)
-        for k, (i, _) in enumerate(live):
-            h = int(ehits[k, 0])
-            if h > cap:
-                continue  # truncated boundary lanes: the caller's host fold
-            cand = epos[k, 0, :h].astype(np.int64)
-            out[i] = self._assemble_agg(
-                qs[i], main, keys, value_cols,
-                cnt[k, :n_groups].astype(np.int64), first[k, :n_groups].astype(np.int64),
-                vcnt[k, :, :n_groups].astype(np.int64), vsum[k, :, :n_groups].copy(),
-                vmin[k, :, :n_groups].copy(), vmax[k, :, :n_groups].copy(),
-                perm[cand], gid_orig, host_vals, group_by)
+        if live:
+            n_groups = len(keys)
+            g_pad = 1 << max(0, (n_groups - 1).bit_length())
+            cap = EDGE_CAPACITY  # boundary lanes a query, as the reference's (:2713)
+            boxes = torch.from_numpy(np.stack([p[0] for _, p in live])).to(self.device)
+            times = torch.from_numpy(np.stack([p[1] for _, p in live])).to(self.device)
+            res = grouped_agg_step(dev.spatial_cols(), dev_gid, dev_rowid, dev_vals, dev.n,
+                                   boxes, times, g_pad, cap, extents=dev.extents,
+                                   overlap=overlap)
+            cnt, first, vcnt, vsum, vmin, vmax, epos, ehits = (t.cpu().numpy() for t in res)
+            for k, (i, _) in enumerate(live):
+                h = int(ehits[k, 0])
+                if h > cap:
+                    continue  # truncated boundary lanes: the caller's host fold
+                cand = epos[k, 0, :h].astype(np.int64)
+                out[i] = self._assemble_agg(
+                    qs[i], main, keys, value_cols,
+                    cnt[k, :n_groups].astype(np.int64), first[k, :n_groups].astype(np.int64),
+                    vcnt[k, :, :n_groups].astype(np.int64), vsum[k, :, :n_groups].copy(),
+                    vmin[k, :, :n_groups].copy(), vmax[k, :, :n_groups].copy(),
+                    perm[cand], gid_orig, host_vals, group_by)
+                tally["fused"] += 1
+                if i in keys_of:
+                    self.agg_cache.put(type_name, keys_of[i], epoch, out[i])
+        tally["declined"] = sum(out[i] is None for i in todo)
         return out
+
+    # -- GeoBlocks (ops/geoblocks.py) -----------------------------------------------
+
+    @staticmethod
+    def _agg_cache_key(q: Query, group_by, value_cols):
+        """The exact-repeat cache key (``datastore.py:2317``): the filter's
+        CQL text (``INCLUDE`` for none, a string as given, an AST through
+        :func:`~geomesa_tpu_torch.filter.ast.to_cql`) with the GROUP BY and
+        value columns. None (uncacheable) for a query with a hint or a
+        filter ``to_cql`` cannot render (``_plan_cache_key``, :1532)."""
+        if _semantic_hints(q):
+            return None
+        f = q.filter
+        if f is None:
+            text = "INCLUDE"
+        elif isinstance(f, str):
+            text = f
+        else:
+            try:
+                text = ast.to_cql(f)
+            except ValueError:
+                return None
+        return (text, tuple(group_by or ()), tuple(value_cols or ()))
+
+    @staticmethod
+    def _pyramid_extraction(st: _TypeState, q: Query):
+        """The query's Extraction when it can ride the pyramid
+        (``datastore.py:2330``): a bbox+time conjunction on the default
+        fields with at most one box and one interval (the interior and
+        boundary split is per rectangle), no hint. None: the fused path."""
+        f = q.resolved_filter()
+        if not _pure_bbox_time(f, st.sft) or _semantic_hints(q):
+            return None
+        e = extract(f, st.sft.geom_field, st.sft.dtg_field)
+        if e.boxes is not None and len(e.boxes) != 1:
+            return None
+        if e.intervals is not None and len(e.intervals) != 1:
+            return None
+        return e
+
+    def _pyramid(self, st: _TypeState, main: FeatureTable, group_by, value_cols,
+                 main_epoch: int):
+        """The (group_by, value_cols) pyramid of the current main tier
+        (``datastore.py:2354``), built on the host once per rebuild epoch
+        (one stable sort), with ``build_ms`` set on it. None when the shape
+        cannot ride: a line or polygon store, geometry or non-numeric value
+        columns, NaN or geometry keys, more than ``_AGG_MAX_GROUPS`` groups,
+        or the byte cap (``GEOMESA_TPU_PYRAMID_BYTES``; the rows' O(N) share
+        is checked before any input is prepared); the failure is remembered
+        for the epoch. The reference's device mirror of the finest level's
+        counts (``_pyramid_mirror`` :2430), which no kernel reads, is left
+        out (ROADMAP.md A.9)."""
+        pkey = (tuple(group_by or ()), tuple(value_cols))
+        cached = st.pyramids.get(pkey)
+        if cached is not None and cached[1] == main_epoch:
+            return cached[0]  # may be None: the remembered failure
+        t0 = time.perf_counter()
+        try:
+            if geoblocks.base_over_cap(len(main), len(value_cols)):
+                raise ValueError("pyramid exceeds the byte cap for this shape")
+            col = main.geom_column() if st.sft.geom_field else None
+            if col is None or col.x is None:
+                raise ValueError("pyramid needs point geometries")
+            gid, keys = self._agg_group_ids(main, group_by)
+            if len(keys) > self._AGG_MAX_GROUPS:
+                raise ValueError("group cardinality beyond the pyramid")
+            xi = norm_lon(REFINE_PRECISION).normalize(col.x).astype(np.int64)
+            yi = norm_lat(REFINE_PRECISION).normalize(col.y).astype(np.int64)
+            if st.sft.dtg_field:
+                bins, _ = BinnedTime(st.sft.z3_interval).to_bin_and_offset(main.dtg_millis())
+            else:
+                bins = np.zeros(len(main), dtype=np.int64)
+            vals = []
+            for c in value_cols:
+                cv = main.columns[c]
+                v = np.asarray(cv.values, dtype=np.float64).copy()
+                if cv.valid is not None:
+                    v[~cv.valid] = np.nan
+                vals.append(v)
+            vmat = np.stack(vals) if vals else np.zeros((0, len(main)), dtype=np.float64)
+            pyr = geoblocks.AggPyramid(xi, yi, bins, gid, keys, vmat, epoch=main_epoch)
+        except (TypeError, ValueError):
+            pyr = None
+        if pyr is not None:
+            pyr.build_ms = (time.perf_counter() - t0) * 1e3
+        st.pyramids[pkey] = (pyr, main_epoch)
+        return pyr
+
+    def _pyramid_answer(self, q: Query, st: _TypeState, main: FeatureTable, pyr, e,
+                        value_cols, group_by):
+        """One exact grouped aggregate from the pyramid (``datastore.py:2467``):
+        its interior partials, and the boundary rows re-tested against the
+        full f64 filter and added (:meth:`_assemble_agg`)."""
+        box = None
+        if e.boxes is not None:
+            (x1, y1, x2, y2), = e.boxes
+            box = (int(norm_lon(REFINE_PRECISION).normalize(x1)),
+                   int(norm_lon(REFINE_PRECISION).normalize(x2)),
+                   int(norm_lat(REFINE_PRECISION).normalize(y1)),
+                   int(norm_lat(REFINE_PRECISION).normalize(y2)))
+        window = None
+        quads = time_quads(st.sft, e.intervals)
+        if quads is not None:
+            blo, olo, bhi, ohi = (int(v) for v in quads[0])
+            if (blo, olo) > (bhi, ohi):  # clamped to unsatisfiable
+                self.last_aggregate_many["pyramid_boundary_rows"].append(0)
+                return self._assemble_agg_empty(value_cols)
+            window = (blo, olo, bhi, ohi)
+        cnt, first, vcnt, vsum, vmin, vmax, brows = pyr.answer(box, window)
+        self.last_aggregate_many["pyramid_boundary_rows"].append(len(brows))
+        return self._assemble_agg(q, main, pyr.keys, value_cols, cnt, first, vcnt, vsum,
+                                  vmin, vmax, np.sort(brows), pyr.gid, pyr.host_vals, group_by)
 
     def _agg_group_ids(self, main: FeatureTable, group_by):
         """Factorize the GROUP BY key columns over ``main`` (``datastore.py
@@ -781,21 +976,21 @@ class DataStore:
         device partials (added, never subtracted, so min and max stay
         sound), then order the groups by their first matching row and keep
         those with a row (``datastore.py:2808``, without the delta tier and
-        TTL)."""
+        TTL). It serves the fused path and the pyramid."""
         f = q.resolved_filter()
         if len(cand_rows):
             rows = cand_rows[ast.residual_mask(f, main, cand_rows)]
-            for r in rows:
-                g = int(gid_orig[r])
-                cnt[g] += 1
-                first[g] = min(first[g], int(r))
-                for v in range(len(value_cols)):
-                    x = host_vals[v][r]
-                    if not np.isnan(x):
-                        vcnt[v][g] += 1
-                        vsum[v][g] += x
-                        vmin[v][g] = min(vmin[v][g], x)
-                        vmax[v][g] = max(vmax[v][g], x)
+            # unbuffered ufunc.at folds in row order, as the reference's loop
+            g = gid_orig[rows].astype(np.int64)
+            np.add.at(cnt, g, 1)
+            np.minimum.at(first, g, rows)
+            for v in range(len(value_cols)):
+                x = host_vals[v][rows]
+                ok = ~np.isnan(x)
+                np.add.at(vcnt[v], g[ok], 1)
+                np.add.at(vsum[v], g[ok], x[ok])
+                np.minimum.at(vmin[v], g[ok], x[ok])
+                np.maximum.at(vmax[v], g[ok], x[ok])
         if group_by:
             alive = np.nonzero(cnt > 0)[0]
             alive = alive[np.argsort(first[alive], kind="stable")]

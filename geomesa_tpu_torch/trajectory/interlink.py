@@ -21,10 +21,12 @@ z2 residency on the card, the candidates may come from the blocked device
 join instead (``route="block"``: ``process.join.join_rows_device``, the
 ``planned_gather`` kernel).
 
-What the port changes: the pairing is a fixed rule, ``"xz"``
-(``DEFAULT_PAIRING``); a forced ``"block"`` route on a right store
-without point z2 residency on a device backend falls back to ``"xz"``, a
-test made before anything is launched, and the module logs which route ran.
+What the port changes: the pairing is a fixed rule (``DEFAULT_PAIRING``,
+see its note): the block route where the right store can take it and the
+call has no ``rfilter`` and no ``time_buffer_ms``, else the XZ pairing; a
+``"block"`` route (forced or by default) on a right store without point z2
+residency on a device backend falls back to ``"xz"``, a test made before
+anything is launched, and the module logs which route ran.
 ``link_members`` (the federated view's members) waits for the merged view
 (ROADMAP.md A.12), the cost-model observation and the audit shadow for A.9,
 and ``auths`` raises ``NotImplementedError`` (A.8.6).
@@ -47,13 +49,18 @@ __all__ = ["envelopes", "interlink", "interlink_referee"]
 log = logging.getLogger(__name__)
 
 PREDICATES = ("intersects", "dwithin")
-# The pairing when the caller names none and the query can take either. The
-# reference asks the cost model (traj:link-xz / traj:link-block), whose
-# untrained seed picks the XZ pairing; the port has no cost model yet
-# (ROADMAP.md A.8.3), so the seed's winner is a fixed rule here. The card
-# contradicts the seed: chip_smoke.py's phase 11 on an H100 times the block
-# route several times faster on bench config 10's point stores (PERF.md).
-DEFAULT_PAIRING = "xz"
+# The pairing when the caller names none and the query can take either. It
+# stands in for the reference's cost-model choice (``_choose_pairing``,
+# geomesa_tpu/trajectory/interlink.py:188) until the port has a cost model
+# (ROADMAP.md A.8.3), and departs from that model's untrained seed, which
+# picks the XZ pairing (seed 1.0 ms against the block route's 2.0). The
+# reference's model learns from observed times; on an H100 it would pick
+# the block route: chip_smoke.py's phase 11 (NVIDIA H100 80GB HBM3, 700 W
+# power limit) timed it at 447.75 ms against
+# the XZ pairing's 2069.17 in one run and 540.12 against 2685.82 in another
+# on bench config 10's point stores (PERF.md section 5), the XZ pairing's
+# time being its Python range planning. The two routes' answers are equal.
+DEFAULT_PAIRING = "block"
 XZ_G = 12  # curve precision (the reference default)
 MAX_RANGES_PER_LEFT = 64  # range budget per left window (coarse = superset)
 
@@ -190,9 +197,12 @@ def interlink(lds, ltype: str, rds, rtype: str, pred: str = "intersects", distan
     the same tables.
 
     ``pred``: ``intersects`` or ``dwithin``; ``time_buffer_ms`` lifts it to
-    3D (XZ3 pairing). ``route`` forces the pairing, ``"xz"`` or ``"block"``
-    (by default ``"xz"``); a forced ``"block"`` cannot apply ``rfilter`` or
-    the time lift and raises ``ValueError`` with either."""
+    3D (XZ3 pairing). ``route`` forces the pairing, ``"xz"`` or ``"block"``;
+    by default the block route where the right store holds point z2
+    residency on a device and the call has neither ``rfilter`` nor
+    ``time_buffer_ms``, else the XZ pairing (:data:`DEFAULT_PAIRING`). A
+    forced ``"block"`` cannot apply ``rfilter`` or the time lift and raises
+    ``ValueError`` with either."""
     if auths is not None:
         raise NotImplementedError("interlink: record-level visibility (auths) is not ported yet "
                                   "(ROADMAP.md A.8.6)")

@@ -14,13 +14,17 @@ date, and line strings without one (xz2 alone). For each:
 - the port's own build gives the reference's resident bbox columns, and
   ``load_reference_state`` reproduces them from the reference's
   permutations and geometry coordinates;
-- every surface the port does not carry on such a store yet (KNN and the
-  joins) raises ``NotImplementedError`` naming its ROADMAP item;
+- ``knn`` and ``knn_many`` (the window loop over ``query()``, distances by
+  the exact f64 ``predicates.distance``): the same fids in the same order
+  as the reference's, distances within 1e-12 degrees;
+- the device joins raise the reference's ``ValueError`` with its message
+  (no z2 residency; the bulk join needs points), and
+  ``measured_pair_density`` answers None as the reference's does;
   ``aggregate_many`` and density there are held to the reference in
   ``tests/test_torch_extended_agg.py``.
 
-Tolerance: none — counts, fid sets, permutations and int32 columns compare
-exactly.
+Tolerance: none but the KNN distances' — counts, fid sets, permutations and
+int32 columns compare exactly.
 """
 
 import numpy as np
@@ -29,6 +33,7 @@ import torch
 
 import geomesa_tpu  # noqa: F401  (x64 on)
 from geomesa_tpu.filter.bounds import extract as ref_extract
+from geomesa_tpu.process import join as ref_join, knn as ref_knn
 from geomesa_tpu.filter.cql import parse as ref_parse
 from geomesa_tpu.geometry import types as ref_types
 from geomesa_tpu.planning.planner import StrategyDecider
@@ -232,13 +237,42 @@ def test_residency_and_load_reference_state(stores):
         "x", queries, loose=False)
 
 
+KNN_POINTS = [(0.0, 0.0), (2.3, 48.9), (-74.0, 40.7), (179.5, 0.0), (120.0, 30.0),
+              (-150.0, -70.0)]
+KNN_ATOL = 1e-12  # degrees: the same f64 formulas, held nearly bit for bit
+
+
+def test_knn_equals_reference(stores):
+    """``knn`` and ``knn_many`` on a line or polygon store: the window loop
+    over ``query()`` with the exact f64 distance, as the reference's."""
+    _, port, ref, _, _ = stores
+    got = knn.knn_many(port, "x", [Point(*p) for p in KNN_POINTS], k=5)
+    want = ref_knn.knn_many(ref, "x", [ref_types.Point(*p) for p in KNN_POINTS], k=5)
+    for (gt, gd), (wt, wd) in zip(got, want):
+        assert gt.fids.tolist() == wt.fids.tolist()
+        np.testing.assert_allclose(gd, wd, rtol=0, atol=KNN_ATOL)
+    for p, (gt, gd) in zip(KNN_POINTS[:2], got):
+        one, d = knn.knn(port, "x", Point(*p), k=5)
+        assert one.fids.tolist() == gt.fids.tolist() and np.array_equal(d, gd)
+    wt, wd = ref_knn.knn(ref, "x", ref_types.Point(1.0, 45.0), k=7, filter="name = 'n1'")
+    gt, gd = knn.knn(port, "x", Point(1.0, 45.0), k=7, filter="name = 'n1'")
+    assert gt.fids.tolist() == wt.fids.tolist() and len(gt) == 7
+    np.testing.assert_allclose(gd, wd, rtol=0, atol=KNN_ATOL)
+
+
 def test_unported_surfaces_raise(stores):
-    name, port, _, _, queries = stores
-    with pytest.raises(NotImplementedError, match="A.2.3"):
-        knn.knn_many(port, "x", [Point(0.0, 0.0)], k=3)
-    with pytest.raises(NotImplementedError, match="A.2.3"):
-        knn.knn(port, "x", Point(0.0, 0.0), k=3)
+    """The device joins on a line or polygon store: the reference's
+    ``ValueError`` and message (no z2 residency for the block join, the bulk
+    join needs points, ``join_counts_auto`` falls to the bulk join), and
+    ``measured_pair_density`` None."""
+    _, port, ref, _, _ = stores
     poly = box(-10.0, 40.0, 5.0, 55.0)
-    for fn in (join.join_rows_device, join.join_within_device, join.join_counts_auto):
-        with pytest.raises(NotImplementedError, match="A.2.3"):
-            fn(port, "x", [poly])
+    ref_poly = ref_types.Polygon(np.array(poly.shell))
+    for fn in ("join_rows_device", "join_within_device", "join_counts_auto"):
+        with pytest.raises(ValueError) as want:
+            getattr(ref_join, fn)(ref, "x", [ref_poly])
+        with pytest.raises(ValueError) as got:
+            getattr(join, fn)(port, "x", [poly])
+        assert str(got.value) == str(want.value), fn
+    assert join.measured_pair_density(port, "x", [poly]) is None
+    assert ref_join.measured_pair_density(ref, "x", [ref_poly]) is None
